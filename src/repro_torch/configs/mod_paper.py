@@ -1,0 +1,37 @@
+"""The paper's own model family for isoFLOP analysis (§3.6, Fig. 3/4).
+
+The JAX package's ``configs/mod_paper.py``, copied: 2048 seq, model sizes
+60M–3B varied via layers/heads/width. Each size has a MoD variant (12.5%
+capacity, every other block routed) and a vanilla baseline.
+"""
+from repro_torch.config import AttentionConfig, MoDConfig, ModelConfig, register
+
+_SIZES = {
+    # name: (layers, d_model, heads, d_ff)
+    "60m": (8, 512, 8, 2048),
+    "220m": (16, 896, 14, 3584),
+    "430m": (20, 1152, 18, 4608),
+    "1b": (24, 1792, 14, 7168),
+    "3b": (28, 2816, 22, 11264),
+}
+
+
+def build(size: str, mod: bool, capacity: float = 0.125, every: int = 2) -> ModelConfig:
+    L, D, H, F = _SIZES[size]
+    return ModelConfig(
+        name=f"mod-paper-{size}" + ("" if mod else "-vanilla"),
+        family="dense",
+        n_layers=L,
+        d_model=D,
+        d_ff=F,
+        vocab=32768,
+        max_seq_len=2048,
+        attn=AttentionConfig(n_heads=H, n_kv_heads=H, head_dim=D // H),
+        mod=MoDConfig(enabled=mod, capacity_ratio=capacity, every=every),
+        dtype="bfloat16",
+    )
+
+
+for _size in _SIZES:
+    register(f"mod-paper-{_size}")(lambda s=_size: build(s, mod=True))
+    register(f"mod-paper-{_size}-vanilla")(lambda s=_size: build(s, mod=False))
