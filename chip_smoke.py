@@ -10,17 +10,26 @@ failure raises and exits non-zero):
 1. the device line: ``nvidia-smi`` name and power limit, torch and CUDA
    versions, kernel build time;
 2. every kernel against its plain PyTorch version on the card, at the
-   shapes the ``mod-paper-1b`` serving path gives it, with timings (CUDA
-   events, median after warm-up) of the kernel, the plain version and one
-   PyTorch library call as a yardstick (never called by the port);
-3. the port against itself across devices: ``mod-paper-60m`` at full width
-   and depth in f32, backend ``pallas``, the same weights on the CPU (plain
-   versions) and on the card (kernels): a 256-token prefill and 16
-   teacher-forced decode steps;
-4. the main path: ``mod-paper-1b`` in bf16 through the port's
+   shapes the ``mod-paper-1b`` serving and training paths give it, with
+   timings (device time from torch.profiler) of the kernel, the plain
+   version and, where one exists, one PyTorch library call as a yardstick
+   (never called by the port); then the gradients of all five kernel
+   wrappers (their ``autograd.Function``) against autograd through the
+   plain versions;
+3. the port against itself across devices, ``mod-paper-60m`` at full width
+   and depth in f32, the same weights on the CPU (plain versions) and on
+   the card (kernels): with backend ``pallas`` a 256-token prefill and 16
+   teacher-forced decode steps; with backend ``pallas_fused`` one train
+   step (B=2, S=256): loss, gradient norm, post-AdamW parameters and the
+   routed masks of every MoD layer;
+4. the serving path: ``mod-paper-1b`` in bf16 through the port's
    ``ServingEngine`` (8 slots, 16 greedy requests, prompts of 128-1024
    tokens, 32 new tokens each), with every kernel's launch count read
-   from this phase alone.
+   from this phase alone;
+5. the training path: ``mod-paper-1b`` in bf16, backend ``pallas_fused``,
+   B=4 at S=2048, 5 steps through the port's ``Trainer``: per-step loss,
+   wall time, device-busy time and idle share, and every kernel's launch
+   count read from this phase alone.
 
 It prints a ``{"kernels": [...]}`` line, then the card's ``nvidia-smi`` line,
 then as the last line ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -28,11 +37,13 @@ device it prints no result and exits 2.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -49,7 +60,13 @@ SOURCES = {
                          "src/repro/kernels/routing.py:118"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:146"),
+    "routed_attention": ("src/repro_torch/kernels/csrc/routed_attention.cu",
+                         "src/repro/kernels/flash_attention.py:348"),
+    "routed_mlp_scatter": ("src/repro_torch/kernels/csrc/routed_mlp.cu",
+                           "src/repro/kernels/swiglu.py:195"),
 }
+SERVE_KERNELS = ("gather_rows", "scatter_add_rows", "flash_attention")
+TRAIN_KERNELS = ("routed_attention", "routed_mlp_scatter", "flash_attention")
 # f32: the kernel's online softmax sums in another order than the plain
 # version's dense softmax. bf16: both round p to bf16 before p@V, but
 # against different running maxima, and round the output to bf16, so the
@@ -57,6 +74,12 @@ SOURCES = {
 # hence rtol 8e-3) plus the p rounding on small outputs (atol 8e-3, twice
 # the largest difference seen on an H100, 2^-8)
 TOL = {torch.float32: dict(atol=2e-5, rtol=0.0), torch.bfloat16: dict(atol=8e-3, rtol=8e-3)}
+# the fused routed kernels round where their plain versions round but sum
+# their products in another order than cuBLAS: f32 within 1e-4; in bf16 a
+# sum on the other side of a rounding boundary moves a value by one bf16
+# ulp (2^-8 relative), which the following products carry
+ROUTED_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+              torch.bfloat16: dict(atol=3e-2, rtol=3e-2)}
 
 
 def log(msg: str) -> None:
@@ -248,6 +271,169 @@ def check_flash(cfg, dev, results):
             results.setdefault("flash_attention", {})[(label, dtype)] = r
 
 
+def _w(g, dev, dtype, *shape):
+    return (torch.randn(*shape, generator=g, device=dev) / shape[0] ** 0.5).to(dtype)
+
+
+def _causal_pairs(pos):
+    """(query, key) pairs of the routed rows that the causal make_mask keeps."""
+    return int(((pos[:, None, :] >= 0) & (pos[:, None, :] <= pos[:, :, None])).sum().item())
+
+
+def check_fused(cfg, dev, results):
+    """routed_attention and routed_mlp_scatter at the mod-paper-1b training
+    shape: B=4, S=2048, k = capacity(2048) = 256 routed rows per sequence."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import swiglu as SW
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    B, S, D, F = 4, 2048, cfg.d_model, cfg.d_ff
+    k = cfg.mod.capacity(S)
+    nq, nkv, hd = cfg.attn.n_heads, cfg.attn.n_kv_heads, cfg.head_dim
+    spec = FA.RoutedAttnSpec(nq, nkv, hd, hd ** -0.5, True, 0, cfg.attn.rope_theta, "rope",
+                             cfg.norm_eps)
+    mspec = SW.RoutedMlpSpec(cfg.act, cfg.norm_eps)
+    for dtype in (torch.bfloat16, torch.float32):
+        es = 2 if dtype == torch.bfloat16 else 4
+        x = torch.randn(B, S, D, generator=g, device=dev).to(dtype)
+        idx = torch.stack([torch.sort(torch.randperm(S, generator=g, device=dev)[:k]).values
+                           for _ in range(B)])
+        pos = idx.to(torch.int32)
+        ap = {"ln": (1 + 0.1 * torch.randn(D, generator=g, device=dev)).to(dtype),
+              "wq": _w(g, dev, dtype, D, nq * hd), "wk": _w(g, dev, dtype, D, nkv * hd),
+              "wv": _w(g, dev, dtype, D, nkv * hd), "wo": _w(g, dev, dtype, nq * hd, D)}
+        a, h = FA.routed_attention(x, idx, pos, ap, spec)
+        wa, wh = FA.routed_attention_plain(x, idx, pos, ap, spec)
+        for got, want in ((a, wa), (h, wh)):
+            torch.testing.assert_close(got.float(), want.float(), **ROUTED_TOL[dtype])
+        err_a = max((a.float() - wa.float()).abs().max().item(),
+                    (h.float() - wh.float()).abs().max().item())
+        M = B * k
+        attn_flops = 2.0 * M * D * (nq + 2 * nkv) * hd + 2.0 * M * nq * hd * D \
+            + 4.0 * hd * nq * _causal_pairs(pos)
+        attn_bytes = (M * D + 2 * M * D + (2 * nq + 2 * nkv) * hd * D + D) * es + 12 * M
+        mp = {"ln": (1 + 0.1 * torch.randn(D, generator=g, device=dev)).to(dtype),
+              "w_up": _w(g, dev, dtype, D, F), "w_down": _w(g, dev, dtype, F, D)}
+        if cfg.glu:
+            mp["w_gate"] = _w(g, dev, dtype, D, F)
+        gate = torch.randn(B, k, generator=g, device=dev)
+        out = SW.routed_mlp_scatter(x, h, a, idx, gate, mp, mspec)
+        want = SW.routed_mlp_scatter_plain(x, h, a, idx, gate, mp, mspec)
+        torch.testing.assert_close(out.float(), want.float(), **ROUTED_TOL[dtype])
+        err_m = (out.float() - want.float()).abs().max().item()
+        n_w = 3 if cfg.glu else 2
+        mlp_flops = 2.0 * M * D * F * n_w
+        mlp_bytes = (2 * B * S * D + 2 * M * D + n_w * D * F + D) * es + 12 * M
+        shape = f"B={B} S={S} k={k} D={D} {str(dtype)[6:]}"
+        rows = {
+            "routed_attention": dict(
+                ms=time_ms(lambda: FA.routed_attention(x, idx, pos, ap, spec), iters=5),
+                plain_ms=time_ms(lambda: FA.routed_attention_plain(x, idx, pos, ap, spec),
+                                 iters=5),
+                library_ms=None, bound=bound_ms(attn_bytes, attn_flops, dtype),
+                max_abs_err=err_a, shape=f"{shape} {nq}x{hd}"),
+            "routed_mlp_scatter": dict(
+                ms=time_ms(lambda: SW.routed_mlp_scatter(x, h, a, idx, gate, mp, mspec), iters=5),
+                plain_ms=time_ms(lambda: SW.routed_mlp_scatter_plain(x, h, a, idx, gate, mp, mspec),
+                                 iters=5),
+                library_ms=None, bound=bound_ms(mlp_bytes, mlp_flops, dtype),
+                max_abs_err=err_m, shape=f"{shape} F={F}"),
+        }
+        for name, r in rows.items():
+            r["tflops"] = (attn_flops if name == "routed_attention" else mlp_flops) / r["ms"] / 1e9
+            log(f"[kernels] {name:18s} {r['shape']:44s} max_abs_err={r['max_abs_err']:.3g} "
+                f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms=none "
+                f"bound_ms={r['bound'][0]:.4f} ({r['bound'][1]}) achieved {r['tflops']:.2f} TFLOP/s")
+            results.setdefault(name, {})[dtype] = r
+
+
+def _grads(fn, inputs, seed):
+    """Gradients, by autograd, of a loss linear in fn's outputs (fixed random
+    weights, so the cotangents do not depend on the forward values)."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    g = torch.Generator(device=outs[0].device).manual_seed(seed)
+    loss = sum((o.float() * torch.randn(o.shape, generator=g, device=o.device)).sum() for o in outs)
+    loss.backward()
+    for t in leaves:
+        if t.grad is None:
+            raise AssertionError("a kernel wrapper returned no gradient")
+    return [t.grad for t in leaves]
+
+
+def check_grads(cfg, dev):
+    """Autograd through each kernel's autograd.Function (kernel forward)
+    against autograd through its plain version, bf16 and f32. Tolerances:
+    gather/scatter backwards are the same two copy/update kernels (exact;
+    dgate sums in another order, 1e-5); the fused kernels' backwards
+    recompute the plain version (equal up to cuBLAS's own order, 1e-5);
+    the flash backward (torch ops from the kernel's lse) against the
+    dense plain version's autograd: f32 1e-4, bf16 3e-2 (the plain
+    version's autograd rounds at its bf16 casts)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import routing as KR
+    from repro_torch.kernels import swiglu as SW
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    B, S, D, nq, hd, F = 2, 512, 512, 4, 128, 1024
+    k = 64
+    for dtype in (torch.bfloat16, torch.float32):
+        loose = 1e-4 if dtype == torch.float32 else 3e-2
+        x = torch.randn(B, S, D, generator=g, device=dev).to(dtype)
+        idx = torch.stack([torch.sort(torch.randperm(S, generator=g, device=dev)[:k]).values
+                           for _ in range(B)])
+        pos = idx.to(torch.int32)
+        delta = torch.randn(B, k, D, generator=g, device=dev).to(dtype)
+        gate = torch.randn(B, k, generator=g, device=dev)
+        q, kk, vv = (torch.randn(B, S, nq, hd, generator=g, device=dev).to(dtype)
+                     for _ in range(3))
+        spos = torch.arange(S, dtype=torch.int32, device=dev)[None].repeat(B, 1)
+        ap = {"ln": (1 + 0.1 * torch.randn(D, generator=g, device=dev)).to(dtype),
+              "wq": _w(g, dev, dtype, D, nq * hd), "wk": _w(g, dev, dtype, D, nq * hd),
+              "wv": _w(g, dev, dtype, D, nq * hd), "wo": _w(g, dev, dtype, nq * hd, D)}
+        spec = FA.RoutedAttnSpec(nq, nq, hd, hd ** -0.5, True, 0, 10000.0, "rope", 1e-5)
+        mp = {"ln": (1 + 0.1 * torch.randn(D, generator=g, device=dev)).to(dtype),
+              "w_up": _w(g, dev, dtype, D, F), "w_down": _w(g, dev, dtype, F, D),
+              "w_gate": _w(g, dev, dtype, D, F)}
+        mspec = SW.RoutedMlpSpec("silu", 1e-5)
+        ak, mk = list(ap), list(mp)
+        cases = {
+            "gather_rows": (lambda x_: KR.gather_rows(x_, idx),
+                            lambda x_: KR.gather_rows_plain(x_, idx), [x], 1e-5),
+            "scatter_add_rows": (lambda *t: KR.scatter_add_rows(t[0], idx, t[1], t[2]),
+                                 lambda *t: KR.scatter_add_rows_plain(t[0], idx, t[1], t[2]),
+                                 [x, delta, gate], 1e-5),
+            "flash_attention": (lambda *t: FA.flash_attention(*t, spos, spos),
+                                lambda *t: FA.flash_attention_plain(*t, spos, spos),
+                                [q, kk, vv], loose),
+            "routed_attention": (
+                lambda x_, *ps: FA.routed_attention(x_, idx, pos, dict(zip(ak, ps)), spec),
+                lambda x_, *ps: FA.routed_attention_plain(x_, idx, pos, dict(zip(ak, ps)), spec),
+                [x, *ap.values()], 1e-5),
+            "routed_mlp_scatter": (
+                lambda x_, h_, a_, g_, *ps: SW.routed_mlp_scatter(
+                    x_, h_, a_, idx, g_, dict(zip(mk, ps)), mspec),
+                lambda x_, h_, a_, g_, *ps: SW.routed_mlp_scatter_plain(
+                    x_, h_, a_, idx, g_, dict(zip(mk, ps)), mspec),
+                [x, delta, delta, gate, *mp.values()], 1e-5),
+        }
+        for name, (fn, plain, inputs, tol) in cases.items():
+            build.reset_counters()
+            got = _grads(fn, inputs, 5)
+            launched = build.launch_counts()[name]
+            want = _grads(plain, inputs, 5)
+            errs = []
+            for a, b in zip(got, want):
+                torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)
+                errs.append((a.float() - b.float()).abs().max().item())
+            if launched < 1:
+                raise AssertionError(f"{name}: the gradient check launched no kernel")
+            log(f"[grads] {name:18s} {str(dtype)[6:]:9s} {len(got)} input gradients, max |diff| "
+                f"{max(errs):.3g} (tolerance {tol:g}), {launched} launches")
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the port on the CPU against the port on the card
 # ---------------------------------------------------------------------------
@@ -312,8 +498,86 @@ def cross_device_parity(dev):
     rings("after decode", cc, cg)
 
 
+@contextlib.contextmanager
+def recorded_masks():
+    """Record the routed mask of every token_topk decision made inside."""
+    from repro_torch.core import routing as ROUT
+
+    real, masks = ROUT.decide_tokens, []
+
+    def record(*args, **kwargs):
+        decision = real(*args, **kwargs)
+        masks.append(decision.mask.detach().cpu())
+        return decision
+
+    ROUT.decide_tokens = record
+    try:
+        yield masks
+    finally:
+        ROUT.decide_tokens = real
+
+
+def train_step_parity(dev):
+    """One train step of mod-paper-60m (f32, pallas_fused, B=2, S=256) on the
+    CPU and on the card from the same state. The state starts at step 1 so
+    the warmup leaves a nonzero learning rate. Limits: loss within 1e-5 and
+    gradient norm within 1e-4 relative (f32 sums in another order);
+    routed masks equal. AdamW's first step moves each weight by about
+    lr·sign(g), so a weight whose gradient is within the f32 noise of 0 may
+    move differently: at most 1e-4 of all weights may differ by more than
+    lr/100."""
+    from repro_torch.config import OptimConfig, TrainConfig, get_config, with_mod_backend
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models import api
+    from repro_torch.train.loop import make_train_state, make_train_step
+    from repro_torch.utils import tree_leaves, tree_map
+
+    cfg = with_mod_backend(dataclasses.replace(get_config("mod-paper-60m"), dtype="float32"),
+                           "pallas_fused")
+    lr = 1e-3
+    tcfg = TrainConfig(global_batch=2, seq_len=256,
+                       optim=OptimConfig(lr=lr, warmup_steps=1, total_steps=10))
+    p_cpu = api.init_model(cfg, device="cpu", seed=5)
+    p_gpu = tree_map(lambda t: t.detach().to(dev, copy=True), p_cpu)
+    batch = {k: torch.as_tensor(v).long()
+             for k, v in SyntheticLM(cfg.vocab, 256, seed=13).batch(0, 2).items()}
+    step_fn = make_train_step(cfg, tcfg)
+    out = {}
+    for name, params, d in (("cpu", p_cpu, torch.device("cpu")), ("gpu", p_gpu, dev)):
+        state = make_train_state(cfg, d, params=params)
+        state["step"] = torch.ones((), dtype=torch.int32)
+        with recorded_masks() as masks:
+            state, metrics = step_fn(state, {k: v.to(d) for k, v in batch.items()})
+        out[name] = (state, {k: float(v) for k, v in metrics.items()}, masks)
+    (s_c, m_c, mask_c), (s_g, m_g, mask_g) = out["cpu"], out["gpu"]
+    dl = abs(m_c["loss"] - m_g["loss"]) / abs(m_c["loss"])
+    dn = abs(m_c["grad_norm"] - m_g["grad_norm"]) / m_c["grad_norm"]
+    log(f"[parity] train step: loss cpu={m_c['loss']:.7f} gpu={m_g['loss']:.7f} (rel {dl:.3g}); "
+        f"grad norm cpu={m_c['grad_norm']:.6f} gpu={m_g['grad_norm']:.6f} (rel {dn:.3g}); "
+        f"lr {m_c['lr']:.3g}")
+    if not (dl <= 1e-5 and dn <= 1e-4):
+        raise AssertionError("train step: loss or gradient norm differ beyond the limits")
+    if len(mask_c) != len(mask_g) or not mask_c:
+        raise AssertionError("train step: different numbers of routing decisions")
+    for i, (a, b) in enumerate(zip(mask_c, mask_g)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"train step: routed mask of MoD layer {i} differs")
+    n_total = n_far = 0
+    worst = 0.0
+    for a, b in zip(tree_leaves(s_c["params"]), tree_leaves(s_g["params"])):
+        d = (a.detach() - b.detach().cpu()).abs()
+        n_total += d.numel()
+        n_far += int((d > lr / 100).sum())
+        worst = max(worst, d.max().item())
+    log(f"[parity] train step: routed masks identical in all {len(mask_c)} MoD layers; "
+        f"post-AdamW weights: max |diff| {worst:.3g} = {worst / lr:.3g} lr, "
+        f"{n_far} of {n_total} differ by more than lr/100")
+    if n_far > 1e-4 * n_total:
+        raise AssertionError("train step: post-AdamW weights differ beyond the limit")
+
+
 # ---------------------------------------------------------------------------
-# Phase 4: the main path — mod-paper-1b serving at full width
+# Phase 4: the serving path — mod-paper-1b at full width
 # ---------------------------------------------------------------------------
 
 
@@ -355,9 +619,9 @@ def serve_1b(dev):
     kb = batch_capacity_k(cfg, B)
     if abs(s["mean_routed_frac"] - kb / B) > 1e-9:
         raise AssertionError(f"decode routed fraction {s['mean_routed_frac']} != kb/B = {kb / B}")
-    for name in SOURCES:
+    for name in SERVE_KERNELS:
         if counts.get(name, 0) <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
+            raise AssertionError(f"kernel {name} was not launched on the serving path")
     log(f"[serve] {n_req} requests (prompts {lens.min()}-{lens.max()} tokens, {gen} new each), "
         f"{B} slots: {s['generated_tokens']:.0f} tokens in {s['wall_s']:.2f}s = "
         f"{s['tokens_per_s']:.1f} tok/s; prefill {1e3 * s['prefill_s'] / s['prefills']:.1f} ms "
@@ -381,6 +645,97 @@ def serve_1b(dev):
     log(f"[serve] launches on the main path: {json.dumps(counts)} "
         f"(per prefill of one prompt: gather/scatter {cfg.n_layers // 2}, flash {cfg.n_layers}; "
         f"per decode step: flash {cfg.n_layers})")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: the training path — mod-paper-1b at full width and depth
+# ---------------------------------------------------------------------------
+
+
+def _kernel_group(name: str) -> str:
+    """The port kernel a CUDA kernel name belongs to (the fused kernels are
+    several __global__ functions each), else the kind of library kernel."""
+    if "flash_fwd_kernel" in name:
+        return "flash_attention"
+    if any(t in name for t in ("routed_attn_kernel", "rope_kernel", "EpiStore", "EpiResid")):
+        return "routed_attention"
+    if any(t in name for t in ("EpiGlu", "EpiAct", "EpiScatter")):
+        return "routed_mlp_scatter"
+    if "rmsnorm_rows" in name:
+        return "routed_* rmsnorm"
+    if "gather_rows" in name or "scatter_update" in name or "copy_bytes" in name:
+        return "gather/scatter"
+    if any(t in name for t in ("gemm", "nvjet", "xmma", "cutlass", "Kernel2")):
+        return "library GEMM (cuBLAS)"
+    if "Memcpy" in name or "Memset" in name:
+        return "copies"
+    return "other PyTorch kernels"
+
+
+def train_1b(dev):
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.config import OptimConfig, TrainConfig, get_config, with_mod_backend
+    from repro_torch.data.loader import SyntheticLoader
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import build
+    from repro_torch.train import Trainer
+
+    cfg = with_mod_backend(get_config("mod-paper-1b"), "pallas_fused")
+    B, S, steps = 4, 2048, 5
+    tcfg = TrainConfig(global_batch=B, seq_len=S,
+                       optim=OptimConfig(lr=1e-4, warmup_steps=2, total_steps=steps),
+                       log_every=1, ckpt_every=10**9)
+    loader = SyntheticLoader(SyntheticLM(cfg.vocab, S, seed=0), B, dev)
+    with tempfile.TemporaryDirectory() as ckdir:
+        trainer = Trainer(cfg, tcfg, loader, ckpt=CheckpointManager(ckdir), device=dev,
+                          log_fn=lambda m: None)
+        t0 = time.perf_counter()
+        state = trainer.init_or_resume()
+        torch.cuda.synchronize()
+        log(f"[train] {cfg.name}: {cfg.n_params() / 1e9:.2f}B params in {cfg.dtype}, backend "
+            f"{cfg.mod.backend}, B={B} S={S} (k={cfg.mod.capacity(S)} routed rows per sequence), "
+            f"init {time.perf_counter() - t0:.1f}s")
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_counters()
+        losses = []
+        for i in range(steps):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                state, m = trainer.run(state, 1)
+            by_name: dict = {}
+            for e in prof.events():
+                if e.device_type == DeviceType.CUDA:
+                    by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            busy = sum(by_name.values())
+            wall = 1e3 * trainer.heartbeats[-1][1]
+            groups: dict = {}
+            for n, t in by_name.items():
+                groups[_kernel_group(n)] = groups.get(_kernel_group(n), 0.0) + t
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+            losses.append(m["loss"])
+            log(f"[train] step {i + 1}: loss {m['loss']:.4f} ce {m['ce']:.4f} grad norm "
+                f"{m['grad_norm']:.3f} lr {m['lr']:.3g}; wall {wall:.1f} ms, device busy "
+                f"{busy:.1f} ms, idle share {1 - busy / wall:.3f}")
+            log("[train]   device ms by group: " + "; ".join(
+                f"{g} {t:.1f}" for g, t in sorted(groups.items(), key=lambda kv: -kv[1])))
+            log("[train]   top kernels: " + "; ".join(f"{n[:60]} {t:.1f} ms" for n, t in top))
+        counts = build.launch_counts()
+    log(f"[train] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    per_step = {name: counts[name] / steps for name in counts}
+    log(f"[train] launches in {steps} steps: {json.dumps(counts)} (per step: routed_attention "
+        f"{per_step['routed_attention']:g}, routed_mlp_scatter {per_step['routed_mlp_scatter']:g}, "
+        f"flash_attention {per_step['flash_attention']:g}; {cfg.n_layers // 2} of each per forward)")
+    for name in TRAIN_KERNELS:
+        if counts.get(name, 0) <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the training path")
+    for name in ("gather_rows", "scatter_add_rows"):
+        if counts.get(name, 0) != 0:
+            raise AssertionError(f"{name} ran under pallas_fused: the fused kernels were bypassed")
     return counts
 
 
@@ -411,22 +766,35 @@ def main() -> int:
     results: dict = {}
     check_routing(cfg1b, dev, results)
     check_flash(cfg1b, dev, results)
+    check_fused(cfg1b, dev, results)
+    check_grads(cfg1b, dev)
     cross_device_parity(dev)
-    counts = serve_1b(dev)
+    train_step_parity(dev)
+    serve_counts = serve_1b(dev)
+    train_counts = train_1b(dev)
 
-    picks = {  # the entry of each kernel at a main-path shape (bf16, prompt of 1000)
+    picks = {  # the entry of each kernel at a main-path shape (bf16)
         "gather_rows": results["gather_rows"][(1000, torch.bfloat16)],
         "scatter_add_rows": results["scatter_add_rows"][(1000, torch.bfloat16)],
         "flash_attention": results["flash_attention"][("prefill S=1000", torch.bfloat16)],
+        "routed_attention": results["routed_attention"][torch.bfloat16],
+        "routed_mlp_scatter": results["routed_mlp_scatter"][torch.bfloat16],
     }
     kernels = []
     for name, r in picks.items():
         src, replaces = SOURCES[name]
+        # launches from the path the kernel's timed shape belongs to: the
+        # serving run for gather/scatter/flash, the training run for the
+        # fused kernels; both runs' counts ride along
+        path_counts = train_counts if name in ("routed_attention", "routed_mlp_scatter") \
+            else serve_counts
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": counts[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "launches": path_counts[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"], "shape": r["shape"],
+            "launches_by_path": {"serve": serve_counts.get(name, 0),
+                                 "train": train_counts.get(name, 0)},
         })
     print(json.dumps({"kernels": kernels}))
     print(smi_line())

@@ -3,13 +3,16 @@
 The frozen dataclasses and registry of the JAX package's
 ``repro/config.py``, kept as this package's own copy so that the port
 imports nothing of ``repro``, and cut to the fields the dense family reads
-(the MoE/SSM/enc-dec sub-configs come with their slices). Every entry
-point resolves ``--arch <id>`` through :func:`get_config`. The serving
-engine's settings are :class:`repro_torch.serve.config.EngineConfig`.
+(the MoE/SSM/enc-dec sub-configs come with their slices), plus the
+optimizer and training configs. Every entry point resolves ``--arch <id>``
+through :func:`get_config`. The serving engine's settings are
+:class:`repro_torch.serve.config.EngineConfig`.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+import tempfile
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict
 
@@ -34,15 +37,18 @@ class MoDConfig:
     # Causal-sampling scheme that drives decode-time decisions:
     # "aux_loss" (router sigmoid) or "predictor" (small stop-grad MLP).
     sampling: str = "predictor"
+    aux_loss_weight: float = 0.01
     predictor_hidden: int = 128
     # Round capacities to a multiple of this.
     round_to: int = 128
     # "learned" | "stochastic" (Gaussian control from the paper's Fig. 3)
     router_type: str = "learned"
-    # Dispatch backend of the JAX package's routed-execution engine: "xla" |
-    # "pallas" | "pallas_fused". They compute the same values, so the port
-    # validates the name and runs one path for all three: the hand-written
-    # CUDA gather and gated scatter-add kernels of kernels/routing.py.
+    # Dispatch backend of the routed-execution engine: "xla" | "pallas" |
+    # "pallas_fused". "xla" and "pallas" run one path, the hand-written
+    # gather and gated scatter-add kernels of kernels/routing.py;
+    # "pallas_fused" runs the training forward's routed blocks through the
+    # fused routed-attention and routed-MLP kernels instead (prefill and
+    # decode keep gather/scatter, as in the JAX package).
     backend: str = "xla"
 
     def capacity(self, seq_len: int) -> int:
@@ -83,6 +89,7 @@ class ModelConfig:
     attn: AttentionConfig = field(default_factory=AttentionConfig)
     mod: MoDConfig = field(default_factory=MoDConfig)
     dtype: str = "bfloat16"
+    remat: str = "none"  # "none" | "full" (torch.utils.checkpoint per layer group)
 
     @property
     def head_dim(self) -> int:
@@ -97,6 +104,40 @@ class ModelConfig:
         attn = D * nq * hd + 2 * D * nkv * hd + nq * hd * D
         mlp = (3 if self.glu else 2) * D * F
         return emb + L * (attn + mlp + 2 * D) + D
+
+
+# ---------------------------------------------------------------------------
+# Train configs
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class OptimConfig:
+    lr: float = 3e-4
+    min_lr_ratio: float = 0.1
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    global_batch: int = 128
+    seq_len: int = 2048
+    microbatches: int = 1  # gradient accumulation factor
+    optim: OptimConfig = field(default_factory=OptimConfig)
+    seed: int = 0
+    log_every: int = 10
+    ckpt_every: int = 200
+    # under the temporary directory (TMPDIR), as the JAX package's /tmp default
+    ckpt_dir: str = field(
+        default_factory=lambda: os.path.join(tempfile.gettempdir(), "repro_torch_ckpt"))
+    keep_ckpts: int = 3
+    async_ckpt: bool = True
 
 
 # ---------------------------------------------------------------------------

@@ -6,19 +6,29 @@ Port of ``repro/core/routing.py``, single-device paths only:
     x_{l+1}[i] = x_l[i]                    otherwise
 
 1. a :class:`RouteDecision` — which rows run the block and with what gate.
-   ``token_topk`` (prefill): per-sequence expert-choice top-k over time,
-   ``idx`` (B, k). ``batch_capacity`` (decode): the causal score ranks
-   sequences and the top ``round(ratio·B)`` run the block, ``idx`` (kb,).
-2. :func:`execute_routed` — gather the routed rows, run the block's
-   residual on them, gated scatter-add the result back. ``token_topk``
-   always dispatches through the gather and gated scatter-add wrappers of
-   kernels/routing.py: the CUDA kernels on the card, their plain versions
-   on the CPU. ``MoDConfig.backend`` (``"xla"``, ``"pallas"``,
-   ``"pallas_fused"``) is validated and kept so that one config means the
-   same model in both packages; the three JAX backends compute the same
-   values bit for bit, so on the card they share one path.
+   ``token_topk`` (train / prefill): per-sequence expert-choice top-k over
+   time, ``idx`` (B, k). ``batch_capacity`` (decode): the causal score
+   ranks sequences and the top ``round(ratio·B)`` run the block, ``idx``
+   (kb,).
+2. :func:`execute_routed` — run the block's residual on the routed rows
+   and gated scatter-add the result back, by ``MoDConfig.backend``:
+
+   - ``"xla"`` and ``"pallas"``: gather -> block -> gated scatter-add,
+     through the wrappers of kernels/routing.py (the CUDA kernels on the
+     card, their plain versions on the CPU). The two JAX backends compute
+     the same values, so here they share one path.
+   - ``"pallas_fused"`` with a ``fused_block_fn`` (the training forward's
+     routed blocks): no dispatch passes. The block gets the full stream and
+     the decision and returns the full updated stream; the gather rides the
+     routed-attention kernel and the gated combine the routed-MLP kernel
+     (kernels/flash_attention.py, kernels/swiglu.py). Without a fused fn
+     (prefill, chunked prefill) it falls back to gather/scatter, as in the
+     JAX package.
+
    ``batch_capacity`` moves (kb, 1, D) rows and uses torch ops, as the JAX
    decode path uses no Pallas kernel.
+3. :func:`routing_aux` — the router BCE, predictor BCE/accuracy and routing
+   statistics that the training loss weights in (:func:`apply_mod`).
 
 Indices are int64 throughout (torch's index type); their values equal
 the JAX package's int32 indices. The JAX SPMD (``shard_map``) branches have
@@ -39,6 +49,8 @@ Aux = Dict[str, torch.Tensor]
 
 # block_delta_fn(x_sub, pos_sub) -> (delta_sub, aux)
 BlockDeltaFn = Callable[[torch.Tensor, Optional[torch.Tensor]], Tuple[torch.Tensor, Aux]]
+# fused_block_fn(x_full, decision, positions_full) -> (x_new_full, aux)
+FusedBlockFn = Callable[..., Tuple[torch.Tensor, Aux]]
 # block_fn(x_sub, pos_sub, caches_sub, decision) -> (delta, new_caches_sub, aux)
 DecodeBlockFn = Callable[..., Tuple[torch.Tensor, Params, Aux]]
 
@@ -49,12 +61,14 @@ class RouteDecision(NamedTuple):
     """strategy: "token_topk" (idx (B, k)) or "batch_capacity" (idx (kb,));
     idx: routed rows, sorted ascending, unique, int64; gate: f32 router
     weight per routed row; mask: (B, S) / (B,) bool routed membership;
+    logits: (B, S) f32 router logits (token_topk, for the aux losses);
     scores: (B,) causal ranking scores (batch_capacity)."""
 
     strategy: str
     idx: torch.Tensor
     gate: torch.Tensor
     mask: torch.Tensor
+    logits: Optional[torch.Tensor] = None
     scores: Optional[torch.Tensor] = None
 
 
@@ -70,15 +84,17 @@ def _no_spmd(spmd: Any) -> None:
 # ---------------------------------------------------------------------------
 
 
-def decide_tokens(params: Params, x: torch.Tensor, cfg: ModelConfig, spmd: Any = None
+def decide_tokens(params: Params, x: torch.Tensor, cfg: ModelConfig,
+                  generator: Optional[torch.Generator] = None, spmd: Any = None
                   ) -> RouteDecision:
-    """Prefill strategy: expert-choice top-k over the sequence axis."""
+    """Train/prefill strategy: expert-choice top-k over the sequence axis
+    (``generator`` drives the stochastic-router control only)."""
     _no_spmd(spmd)
     k = cfg.mod.capacity(x.shape[1])
     logits = R.router_logits(params["router"], x)  # (B, S) f32
-    idx, gate_logits, topk_mask = R.mod_select(logits, k, cfg.mod)
+    idx, gate_logits, topk_mask = R.mod_select(logits, k, cfg.mod, generator)
     gate = R.apply_gate(gate_logits, cfg.mod)
-    return RouteDecision("token_topk", idx, gate, topk_mask)
+    return RouteDecision("token_topk", idx, gate, topk_mask, logits)
 
 
 def batch_capacity_k(cfg: ModelConfig, batch: int) -> int:
@@ -142,13 +158,18 @@ def execute_routed(
     block_delta_fn: BlockDeltaFn,
     cfg: ModelConfig,
     positions: Optional[torch.Tensor] = None,
+    fused_block_fn: Optional[FusedBlockFn] = None,
     spmd: Any = None,
 ) -> Tuple[torch.Tensor, Aux]:
-    """Gather routed rows -> block residual -> gated scatter-add (Eq. 1)."""
+    """Gather routed rows -> block residual -> gated scatter-add (Eq. 1);
+    under ``pallas_fused`` with a ``fused_block_fn``, the block's fused
+    kernels do all three."""
     _no_spmd(spmd)
     if cfg.mod.backend not in BACKENDS:
         raise ValueError(f"unknown MoD backend {cfg.mod.backend!r} (want one of {BACKENDS})")
     if decision.strategy == "token_topk":
+        if cfg.mod.backend == "pallas_fused" and fused_block_fn is not None:
+            return fused_block_fn(x, decision, positions)
         x_sub = KR.gather_rows(x, decision.idx)
         pos_sub = None if positions is None else gather_positions(positions, decision.idx)
         delta, aux = block_delta_fn(x_sub, pos_sub)
@@ -160,6 +181,46 @@ def execute_routed(
     delta, aux = block_delta_fn(x_sub, pos_sub)
     update = (decision.gate[:, None, None] * delta.float()).to(x.dtype)
     return x.index_put((decision.idx,), update, accumulate=True), aux
+
+
+# ---------------------------------------------------------------------------
+# Aux losses / stats, and the train-time entry point
+# ---------------------------------------------------------------------------
+
+
+def routing_aux(decision: RouteDecision, params: Params, x: torch.Tensor, cfg: ModelConfig
+                ) -> Aux:
+    """Router BCE + stats (+ predictor BCE/acc) for a token_topk decision."""
+    aux: Aux = {
+        "mod/router_bce": R.router_aux_loss(decision.logits, decision.mask),
+        "mod/frac_above_half": (torch.sigmoid(decision.logits) > 0.5).float().mean(),
+        "mod/gate_mean": decision.gate.mean(),
+    }
+    if "predictor" in params:
+        plogits = R.predictor_logits(params["predictor"], x)
+        ploss, pacc = R.predictor_loss_and_acc(plogits, decision.mask)
+        aux["mod/predictor_bce"] = ploss
+        aux["mod/predictor_acc"] = pacc
+    return aux
+
+
+def apply_mod(
+    params: Params,  # {"router": ..., "predictor"?: ..., "block": ...}
+    x: torch.Tensor,  # (B, S, D)
+    positions: torch.Tensor,  # (B, S)
+    block_delta_fn: BlockDeltaFn,
+    cfg: ModelConfig,
+    generator: Optional[torch.Generator] = None,
+    fused_block_fn: Optional[FusedBlockFn] = None,
+    spmd: Any = None,
+) -> Tuple[torch.Tensor, Aux]:
+    """Train-time routed block: token top-k decision + routed execution,
+    with the routing aux losses."""
+    decision = decide_tokens(params, x, cfg, generator, spmd)
+    out, inner_aux = execute_routed(decision, x, block_delta_fn, cfg, positions, fused_block_fn)
+    aux: Aux = dict(inner_aux)
+    aux.update(routing_aux(decision, params, x, cfg))
+    return out, aux
 
 
 # ---------------------------------------------------------------------------

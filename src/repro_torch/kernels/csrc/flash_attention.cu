@@ -1,4 +1,7 @@
-// Position-masked GQA attention with an online softmax, forward only.
+// Position-masked GQA attention with an online softmax, forward. When
+// the caller passes an lse buffer, the kernel also writes each query row's
+// f32 log-sum-exp (B, nq, Sq), from which the backward (torch ops in
+// kernels/flash_attention.py) recomputes p.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py::
 // flash_attention (_flash_kernel). Same function: q (B,Sq,nq,hd) against
@@ -59,8 +62,8 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(NWARPS * 32)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const int* __restrict__ qpos, const int* __restrict__ kpos,
-                 T* __restrict__ out, int Sq, int Skv, int nq, int nkv, float scale,
-                 int causal, int window) {
+                 T* __restrict__ out, float* __restrict__ lse, int Sq, int Skv, int nq, int nkv,
+                 float scale, int causal, int window) {
   constexpr int DPL = HD / 32;  // output columns per lane
   extern __shared__ float smem[];
   float* sQ = smem;                 // BQ x HD
@@ -172,13 +175,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     T* orow = out + (((long long)b * Sq + s) * nq + h) * HD;
 #pragma unroll
     for (int i = 0; i < DPL; ++i) orow[lane + 32 * i] = from_f32<T>(acc[rr][i] / lf);
+    if (lse != nullptr && lane == 0)  // a row with no valid key: m is -inf or NEG_INF
+      lse[((long long)b * nq + h) * Sq + s] = (m[rr] > NEG_INF / 2 ? m[rr] : 0.f) + logf(lf);
   }
 }
 
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, const int* qpos, const int* kpos,
-           void* out, int B, int Sq, int Skv, int nq, int nkv, float scale, int causal,
-           int window, cudaStream_t stream) {
+           void* out, float* lse, int B, int Sq, int Skv, int nq, int nkv, float scale,
+           int causal, int window, cudaStream_t stream) {
   const size_t smem = (size_t)(BQ * HD + BKV * (HD + 1) + BKV * HD) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -188,23 +193,27 @@ int launch(const void* q, const void* k, const void* v, const int* qpos, const i
   dim3 grid((Sq + BQ - 1) / BQ, nq, B);
   flash_fwd_kernel<T, HD><<<grid, NWARPS * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), qpos,
-      kpos, static_cast<T*>(out), Sq, Skv, nq, nkv, scale, causal, window);
+      kpos, static_cast<T*>(out), lse, Sq, Skv, nq, nkv, scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch_hd(int hd, const void* q, const void* k, const void* v, const int* qpos,
-                const int* kpos, void* out, int B, int Sq, int Skv, int nq, int nkv,
+                const int* kpos, void* out, float* lse, int B, int Sq, int Skv, int nq, int nkv,
                 float scale, int causal, int window, cudaStream_t st) {
   switch (hd) {
     case 32:
-      return launch<T, 32>(q, k, v, qpos, kpos, out, B, Sq, Skv, nq, nkv, scale, causal, window, st);
+      return launch<T, 32>(q, k, v, qpos, kpos, out, lse, B, Sq, Skv, nq, nkv, scale, causal,
+                           window, st);
     case 64:
-      return launch<T, 64>(q, k, v, qpos, kpos, out, B, Sq, Skv, nq, nkv, scale, causal, window, st);
+      return launch<T, 64>(q, k, v, qpos, kpos, out, lse, B, Sq, Skv, nq, nkv, scale, causal,
+                           window, st);
     case 128:
-      return launch<T, 128>(q, k, v, qpos, kpos, out, B, Sq, Skv, nq, nkv, scale, causal, window, st);
+      return launch<T, 128>(q, k, v, qpos, kpos, out, lse, B, Sq, Skv, nq, nkv, scale, causal,
+                            window, st);
     case 256:
-      return launch<T, 256>(q, k, v, qpos, kpos, out, B, Sq, Skv, nq, nkv, scale, causal, window, st);
+      return launch<T, 256>(q, k, v, qpos, kpos, out, lse, B, Sq, Skv, nq, nkv, scale, causal,
+                            window, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -213,15 +222,16 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, const int* 
 }  // namespace
 
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v,
-                                     const void* qpos, const void* kpos, void* out, int B,
-                                     int Sq, int Skv, int nq, int nkv, int hd, int dtype,
+                                     const void* qpos, const void* kpos, void* out, void* lse,
+                                     int B, int Sq, int Skv, int nq, int nkv, int hd, int dtype,
                                      float scale, int causal, int window, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* qp = static_cast<const int*>(qpos);
   const int* kp = static_cast<const int*>(kpos);
+  float* ls = static_cast<float*>(lse);
   if (dtype == REPRO_BF16)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, qp, kp, out, B, Sq, Skv, nq, nkv, scale,
+    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, qp, kp, out, ls, B, Sq, Skv, nq, nkv, scale,
                                       causal, window, st);
-  return dispatch_hd<float>(hd, q, k, v, qp, kp, out, B, Sq, Skv, nq, nkv, scale, causal,
+  return dispatch_hd<float>(hd, q, k, v, qp, kp, out, ls, B, Sq, Skv, nq, nkv, scale, causal,
                             window, st);
 }

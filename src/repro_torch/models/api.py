@@ -1,4 +1,5 @@
-"""Family dispatcher: the entry points the serving engine calls.
+"""Family dispatcher: the entry points the trainer and the serving engine
+call.
 
 Port of ``repro/models/api.py`` for the ``dense`` family (the paper's
 ``mod-paper-*`` models). Other families raise ``NotImplementedError``
@@ -42,6 +43,27 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(seed)
     return T.init_lm(generator, cfg, dev)
+
+
+def model_forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+                  generator: Optional[torch.Generator] = None, last_only: bool = False
+                  ) -> Tuple[torch.Tensor, Aux]:
+    """Teacher-forced forward. Returns (logits, aux)."""
+    _check_family(cfg)
+    return T.forward(params, cfg, tokens=batch.get("tokens"), embeds=batch.get("embeds"),
+                     positions=batch.get("positions"), generator=generator,
+                     last_only=last_only)
+
+
+combine_losses = T.combine_losses
+
+
+def model_loss(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+               generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, Aux]:
+    """CE + weighted aux losses, and the aux dict with ``ce`` and ``loss``
+    (the dense family's ``lm_loss``)."""
+    _check_family(cfg)
+    return T.lm_loss(params, cfg, batch, generator)
 
 
 def make_caches(cfg: ModelConfig, batch: int, ctx: int, device: DeviceLike = None) -> Params:

@@ -8,11 +8,15 @@ KV caches are fixed-capacity rings with a per-sequence cursor; empty slots
 have pos = -1 and are masked out. MoD blocks size their rings at the block
 capacity ``ratio·ctx`` (the paper's KV-cache saving).
 
-Every attention core (prefill, chunked prefill, decode) goes through the
-flash kernel (:func:`repro_torch.kernels.flash_attention.flash_attention`),
-which runs its plain PyTorch version for CPU tensors. (The JAX package's
-dense ``attend`` is not ported: nothing here runs it, and the tests hold
-the kernel's function against the JAX ``attend`` itself.)
+Every attention core (training, prefill, chunked prefill, decode) goes
+through the flash kernel
+(:func:`repro_torch.kernels.flash_attention.flash_attention`), which runs
+its plain PyTorch version for CPU tensors and carries gradients through
+its ``autograd.Function``. (The JAX package's dense ``attend`` is not
+ported: nothing here runs it, and the tests hold the kernel's function
+against the JAX ``attend`` itself.) :func:`routed_self_attention` is the
+``pallas_fused`` backend's routed attention: gather, norm and attention of
+the routed rows in one kernel.
 
 Unlike the JAX functions, which return new caches, these functions write
 the caches in place and return them.
@@ -25,7 +29,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import torch_dtype
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import RoutedAttnSpec, flash_attention, routed_attention
 from repro_torch.models.layers import apply_rope, dense_init
 
 Params = Dict[str, torch.Tensor]
@@ -100,6 +104,30 @@ def self_attention(params: Params, x: torch.Tensor, positions: torch.Tensor,
     k, v = _project_kv(params, x, cfg)
     q, k = _rope_qk(q, k, positions, positions, cfg)
     return attend_auto(q, k, v, positions, positions, cfg) @ params["wo"]
+
+
+def routed_self_attention(
+    params: Params,
+    ln1: Params,  # the block's pre-attention RMSNorm params
+    x: torch.Tensor,  # (B, S, D) FULL residual stream (not a gathered sub-tensor)
+    idx: torch.Tensor,  # (B, k) routed rows, sorted unique
+    pos_sub: torch.Tensor,  # (B, k) original positions of the routed rows
+    cfg: ModelConfig,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused-dispatch routed attention ("pallas_fused" backend): the value
+    of ``self_attention(params, rmsnorm(ln1, x[idx]), pos_sub, cfg)`` with
+    the routed rows as both queries and keys, from the full stream. Returns
+    ``(a_sub, h_sub = x_sub + a_sub)``, both (B, k, D)."""
+    p = {"ln": ln1["scale"], "wq": params["wq"], "wk": params["wk"],
+         "wv": params["wv"], "wo": params["wo"]}
+    if "bq" in params:
+        p.update(bq=params["bq"], bk=params["bk"], bv=params["bv"])
+    spec = RoutedAttnSpec(
+        n_heads=cfg.attn.n_heads, n_kv_heads=cfg.attn.n_kv_heads, head_dim=cfg.head_dim,
+        scale=float(_scale(cfg)), causal=bool(cfg.attn.causal), window=int(cfg.attn.window),
+        rope_theta=float(cfg.attn.rope_theta), pos_emb=cfg.attn.pos_emb, eps=float(cfg.norm_eps),
+    )
+    return routed_attention(x, idx, pos_sub, p, spec)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Core layers: RMSNorm, rotary embeddings, (Swi/Ge)GLU MLP, embeddings.
+"""Core layers: RMSNorm, rotary embeddings, (Swi/Ge)GLU MLP, embeddings,
+cross-entropy.
 
 Port of ``repro/models/layers.py``. Parameters are plain dicts of tensors
 with the JAX package's names and layouts (``x @ w`` with ``w`` of shape
@@ -9,7 +10,7 @@ with the JAX package's names and layouts (``x @ w`` with ``w`` of shape
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -86,15 +87,21 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, device: torch.device) -> Pa
     return p
 
 
-def _act(cfg: ModelConfig):
-    if cfg.act == "silu":
+def _act(act: str):
+    if act == "silu":
         return F.silu
+    if act != "gelu":
+        raise ValueError(f"unknown activation {act!r}")
     # jax.nn.gelu defaults to the tanh approximation
     return lambda t: F.gelu(t, approximate="tanh")
 
 
 def mlp(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    act = _act(cfg)
+    return mlp_act(params, x, cfg.act)
+
+
+def mlp_act(params: Params, x: torch.Tensor, act_name: str) -> torch.Tensor:
+    act = _act(act_name)
     up = x @ params["w_up"]
     if "w_gate" in params:
         up = act(x @ params["w_gate"]) * up
@@ -124,3 +131,23 @@ def unembed(params: Params, x: torch.Tensor) -> torch.Tensor:
     if "unemb" in params:
         return x @ params["unemb"]
     return x @ params["tok"].T
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy(
+    logits: torch.Tensor, labels: torch.Tensor, mask: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Mean CE over valid positions; logits (..., V) in any float dtype,
+    computed in f32."""
+    logits32 = logits.float()
+    lse = torch.logsumexp(logits32, dim=-1)
+    gold = torch.take_along_dim(logits32, labels[..., None].long(), dim=-1)[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        m = mask.float()
+        return (nll * m).sum() / m.sum().clamp_min(1.0)
+    return nll.mean()

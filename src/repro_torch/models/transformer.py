@@ -1,5 +1,5 @@
-"""Decoder-only LM assembly with MoD routing: init, caches, prefill,
-chunked prefill and decode.
+"""Decoder-only LM assembly with MoD routing: init, the training forward
+and loss, caches, prefill, chunked prefill and decode.
 
 Port of ``repro/models/transformer.py``. The JAX package stacks layers
 into groups for ``lax.scan``; here parameters and caches are per layer and
@@ -15,9 +15,11 @@ routed entry is {"block", "router", "predictor"?}); an odd layer count adds
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.core import router as R
@@ -25,7 +27,14 @@ from repro_torch.core import routing as ROUT
 from repro_torch.device import torch_dtype
 from repro_torch.models import attention as A
 from repro_torch.models import blocks as BLK
-from repro_torch.models.layers import embed, init_embedding, init_rmsnorm, rmsnorm, unembed
+from repro_torch.models.layers import (
+    cross_entropy,
+    embed,
+    init_embedding,
+    init_rmsnorm,
+    rmsnorm,
+    unembed,
+)
 
 Params = Dict[str, Any]
 Aux = Dict[str, torch.Tensor]
@@ -73,6 +82,108 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig, device: torch.device) -> Par
     if n_tail:
         params["tail"] = BLK.init_block(gen, cfg, device)
     return params
+
+
+# ---------------------------------------------------------------------------
+# Training / teacher-forced forward
+# ---------------------------------------------------------------------------
+
+
+def _prefix(tag: str, aux: Aux) -> Aux:
+    return {f"{tag}/{k}": v for k, v in aux.items()}
+
+
+def _train_group(gp: Params, positions: torch.Tensor, cfg: ModelConfig, seed: Optional[int],
+                 h: torch.Tensor) -> Tuple[torch.Tensor, Aux]:
+    """One layer group of the training forward (the JAX scan body). The
+    stochastic router's generator is rebuilt here from ``seed``, so a
+    recomputation under ``remat="full"`` draws the same selection."""
+    aux: Aux = {}
+    if "full" in gp:
+        h, a = BLK.block_apply(gp["full"], h, positions, cfg)
+        aux.update(_prefix("full", a))
+    if "mod" in gp:
+        mp = gp["mod"]
+        gen = None if seed is None else torch.Generator(device=h.device).manual_seed(seed)
+
+        def delta_fn(xs, ps):
+            return BLK.block_delta(mp["block"], xs, ps, cfg)
+
+        fused_fn = None
+        if BLK.fused_dispatch_supported(cfg):
+            def fused_fn(xf, decision, pf):
+                return BLK.block_delta_fused(mp["block"], xf, pf, decision, cfg)
+
+        h, a = ROUT.apply_mod(mp, h, positions, delta_fn, cfg, gen, fused_block_fn=fused_fn)
+        aux.update(a)
+    return h, aux
+
+
+def forward(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: Optional[torch.Tensor] = None,
+    embeds: Optional[torch.Tensor] = None,
+    positions: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    last_only: bool = False,
+) -> Tuple[torch.Tensor, Aux]:
+    """Full-sequence forward. Returns (logits (B, S, V), aux); aux leaves are
+    means over the layer groups. ``generator`` (a CPU generator) seeds the
+    stochastic router's draws, one seed per group; ``cfg.remat="full"``
+    recomputes each group in the backward (``torch.utils.checkpoint``)."""
+    if cfg.remat not in ("none", "full"):
+        raise NotImplementedError(
+            f"remat {cfg.remat!r}: only 'none' and 'full' are ported (ROADMAP Queue 1)")
+    x = embed(params["embed"], tokens) if embeds is None else embeds
+    B, S = x.shape[0], x.shape[1]
+    if positions is None:
+        positions = _default_positions(B, S, x.device)
+    stochastic = cfg.mod.enabled and cfg.mod.router_type == "stochastic"
+    root = generator if generator is not None else torch.Generator().manual_seed(0)
+    aux_steps: List[Aux] = []
+    for gp in params["groups"]:
+        seed = int(torch.randint(0, 2**62, (1,), generator=root)) if stochastic else None
+        body = partial(_train_group, gp, positions, cfg, seed)
+        if cfg.remat == "full":
+            x, a = torch.utils.checkpoint.checkpoint(body, x, use_reentrant=False)
+        else:
+            x, a = body(x)
+        aux_steps.append(a)
+    aux: Aux = {}
+    if aux_steps and aux_steps[0]:
+        aux = {key: torch.stack([a[key] for a in aux_steps]).mean(dim=0) for key in aux_steps[0]}
+    if "tail" in params:
+        x, a = BLK.block_apply(params["tail"], x, positions, cfg)
+        aux.update(_prefix("tail", a))
+    if last_only:
+        x = x[:, -1:]
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return unembed(params["embed"], x), aux
+
+
+def combine_losses(ce: torch.Tensor, aux: Aux, cfg: ModelConfig) -> torch.Tensor:
+    """CE plus the router BCE (weighted) and the predictor BCE."""
+    loss = ce
+    if cfg.mod.enabled:
+        if "mod/router_bce" in aux:
+            loss = loss + cfg.mod.aux_loss_weight * aux["mod/router_bce"]
+        if "mod/predictor_bce" in aux:
+            loss = loss + aux["mod/predictor_bce"]  # detached inputs: trains the predictor only
+    return loss
+
+
+def lm_loss(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, Aux]:
+    """CE + the weighted MoD aux losses. batch: tokens, labels, optional
+    loss_mask / positions."""
+    logits, aux = forward(params, cfg, tokens=batch.get("tokens"), embeds=batch.get("embeds"),
+                          positions=batch.get("positions"), generator=generator)
+    ce = cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+    loss = combine_losses(ce, aux, cfg)
+    aux["ce"] = ce
+    aux["loss"] = loss
+    return loss, aux
 
 
 # ---------------------------------------------------------------------------

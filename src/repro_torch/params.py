@@ -4,8 +4,11 @@ The JAX tree (``repro.models.api.init_model``) stacks every group leaf on
 a leading axis (``jax.vmap`` over groups) so ``lax.scan`` can walk it. The
 port keeps one dict per group in a list (``repro_torch.models.transformer``).
 :func:`from_jax_params` takes the JAX tree as numpy arrays (for example
-``jax.tree.map(np.asarray, params)``) and unstacks it; :func:`to_numpy_tree`
-stacks the port's parameters back into the JAX layout.
+``jax.tree.map(np.asarray, params)``) or CPU tensors (a restored
+checkpoint) and unstacks it; :func:`stack_groups` stacks the port's
+parameters back into the JAX layout as CPU tensors, :func:`to_numpy_tree`
+as numpy arrays. Optimizer moments share the parameters' tree, so the same
+functions carry them.
 
 bfloat16 leaves arrive as numpy arrays of the ``ml_dtypes`` bfloat16 type,
 which ``torch.from_numpy`` rejects: they travel as their 16-bit
@@ -28,7 +31,9 @@ def _is_bf16(arr: np.ndarray) -> bool:
     return arr.dtype.name == "bfloat16"
 
 
-def _to_tensor(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+def _to_tensor(arr: Any, device: torch.device) -> torch.Tensor:
+    if isinstance(arr, torch.Tensor):
+        return arr.to(device, copy=True)
     arr = np.asarray(arr)
     if _is_bf16(arr):
         t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16).copy())
@@ -50,13 +55,13 @@ def from_jax_params(tree: Tree, device: DeviceLike = None) -> Tree:
     conv = lambda a: _to_tensor(a, dev)  # noqa: E731
     out: Tree = {k: _map(v, conv) for k, v in tree.items() if k != "groups"}
     stacked = tree["groups"]
-    n_groups = {np.asarray(leaf).shape[0] for leaf in _leaves(stacked)}
+    n_groups = {leaf.shape[0] for leaf in _leaves(stacked)}
     if len(n_groups) != 1:
         raise ValueError(f"group leaves disagree on the group count: {sorted(n_groups)}")
     (n,) = n_groups
     groups: List[Tree] = []
     for i in range(n):
-        groups.append({kind: _map(stacked[kind], lambda a, i=i: _to_tensor(np.asarray(a)[i], dev))
+        groups.append({kind: _map(stacked[kind], lambda a, i=i: _to_tensor(a[i], dev))
                        for kind in stacked})
     out["groups"] = groups
     return out
@@ -75,11 +80,11 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def to_numpy_tree(params: Tree) -> Tree:
-    """The port's parameters restacked into the JAX tree layout, as numpy
-    arrays. bfloat16 leaves come back as their ``uint16`` bit patterns
-    (``arr.view(ml_dtypes.bfloat16)`` restores the type)."""
-    out: Tree = {k: _map(v, _to_numpy) for k, v in params.items() if k != "groups"}
+def stack_groups(params: Tree) -> Tree:
+    """The port's parameters (or a tree of their shape) restacked into the
+    JAX tree layout, as detached CPU tensors of the same dtypes."""
+    out: Tree = {k: _map(v, lambda t: t.detach().cpu()) for k, v in params.items()
+                 if k != "groups"}
     groups = params["groups"]
     out["groups"] = {
         kind: _stack([g[kind] for g in groups]) for kind in groups[0]
@@ -87,7 +92,14 @@ def to_numpy_tree(params: Tree) -> Tree:
     return out
 
 
+def to_numpy_tree(params: Tree) -> Tree:
+    """:func:`stack_groups` as numpy arrays. bfloat16 leaves come back as
+    their ``uint16`` bit patterns (``arr.view(ml_dtypes.bfloat16)``
+    restores the type)."""
+    return _map(stack_groups(params), _to_numpy)
+
+
 def _stack(trees: List[Any]) -> Any:
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return np.stack([_to_numpy(t) for t in trees])
+    return torch.stack([t.detach().cpu() for t in trees])
