@@ -13,9 +13,11 @@ failure raises and exits non-zero):
    shapes the ``mod-paper-1b`` serving and training paths give it, with
    timings (device time from torch.profiler) of the kernel, the plain
    version and, where one exists, one PyTorch library call as a yardstick
-   (never called by the port); then the gradients of all five kernel
-   wrappers (their ``autograd.Function``) against autograd through the
-   plain versions;
+   (never called by the port); the three paged-pool kernels (page gather,
+   decode-row scatter, ragged write-back) at the shapes of phase 6c and odd
+   tails, bitwise, with the in-place scatters held to their target rows;
+   then the gradients of the five differentiable kernel wrappers (their
+   ``autograd.Function``) against autograd through the plain versions;
 3. the port against itself across devices, ``mod-paper-60m`` at full width
    and depth in f32, the same weights on the CPU (plain versions) and on
    the card (kernels): with backend ``pallas`` a 256-token prefill and 16
@@ -29,7 +31,14 @@ failure raises and exits non-zero):
 5. the training path: ``mod-paper-1b`` in bf16, backend ``pallas_fused``,
    B=4 at S=2048, 5 steps through the port's ``Trainer``: per-step loss,
    wall time, device-busy time and idle share, and every kernel's launch
-   count read from this phase alone.
+   count read from this phase alone;
+6. paged serving: ``mod-paper-60m`` f32 through the paged engine with the
+   prefix cache and through the ragged engine, CPU against the card
+   (identical greedy streams; run after phase 3), then ``mod-paper-1b``
+   bf16, 8 requests sharing a 512-token prefix, through the contiguous,
+   paged, prefix-cached and ragged engines: identical streams, the prefix
+   cache's saving, 36 paged gathers and scatters per decode step, the
+   ragged write-back's launches, and one profiled paged decode step.
 
 It prints a ``{"kernels": [...]}`` line, then the card's ``nvidia-smi`` line,
 then as the last line ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -64,7 +73,14 @@ SOURCES = {
                          "src/repro/kernels/flash_attention.py:348"),
     "routed_mlp_scatter": ("src/repro_torch/kernels/csrc/routed_mlp.cu",
                            "src/repro/kernels/swiglu.py:195"),
+    "paged_gather": ("src/repro_torch/kernels/csrc/paged.cu",
+                     "src/repro/kernels/paged.py:100"),
+    "paged_scatter_rows": ("src/repro_torch/kernels/csrc/paged.cu",
+                           "src/repro/kernels/paged.py:185"),
+    "ragged_paged_scatter_rows": ("src/repro_torch/kernels/csrc/paged.cu",
+                                  "src/repro/kernels/ragged.py:478"),
 }
+PAGED_KERNELS = ("paged_gather", "paged_scatter_rows", "ragged_paged_scatter_rows")
 SERVE_KERNELS = ("gather_rows", "scatter_add_rows", "flash_attention")
 TRAIN_KERNELS = ("routed_attention", "routed_mlp_scatter", "flash_attention")
 # f32: the kernel's online softmax sums in another order than the plain
@@ -112,40 +128,65 @@ def event_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def profile_call(fn, iters: int = 10, warmup: int = 2):
+class NoDeviceTime(RuntimeError):
+    """torch.profiler recorded no device activity for a profiled call."""
+
+
+def profile_call(fn, iters: int = 10, warmup: int = 2, tries: int = 3):
     """(wall ms per call, device-busy ms per call, top kernels) from
     torch.profiler's CUDA activity (CUPTI): device time is the sum of the
-    durations of every kernel and copy the calls ran on the card."""
+    durations of every kernel and copy the calls ran on the card. CUPTI
+    now and then hands back no device events for a whole profile; such a
+    profile is taken again, up to ``tries`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / iters
-    by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
-    busy = sum(by_name.values())
-    if busy <= 0.0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return wall, busy, top
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / iters
+        by_name: dict = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
+        busy = sum(by_name.values())
+        if busy > 0.0:
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+            return wall, busy, top
+    raise NoDeviceTime(f"torch.profiler recorded no device time in {tries} profiles")
 
 
 def time_ms(fn, iters: int = 20) -> float:
-    """Device time of one call (kernels and copies only, no host gaps)."""
-    return profile_call(fn, iters)[1]
+    """Device time of one call (kernels and copies only, no host gaps).
+    Where the profiler records nothing, the time between CUDA events
+    around ``iters`` back-to-back calls, divided by ``iters``: host gaps
+    between launches count there, so it is an upper bound, and the line
+    says so."""
+    try:
+        return profile_call(fn, iters)[1]
+    except NoDeviceTime:
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / iters
+        log(f"[timing] torch.profiler recorded no device time; CUDA events instead: "
+            f"{ms:.4f} ms per call (an upper bound)")
+        return ms
 
 
 def bound_ms(nbytes: float, flops: float, dtype: torch.dtype):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype] if flops else 0.0
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -345,6 +386,162 @@ def check_fused(cfg, dev, results):
                 f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms=none "
                 f"bound_ms={r['bound'][0]:.4f} ({r['bound'][1]}) achieved {r['tflops']:.2f} TFLOP/s")
             results.setdefault(name, {})[dtype] = r
+
+
+# phase 6c's workload (mod-paper-1b, bf16): 8 requests sharing a 512-token
+# prefix, suffixes of 64-448 tokens, 32 new tokens each, page 16, prefill
+# chunk 256. Phase 2 checks and times the paged kernels at the shapes this
+# workload gives them.
+PAGED_1B = dict(B=8, gen=32, prefix=512, max_suffix=448, page=16, chunk=256)
+
+
+def paged_1b_plan():
+    """(suffix lengths, ctx, prompt chunks) of phase 6c's workload."""
+    w = PAGED_1B
+    suffix = np.random.default_rng(1).integers(64, w["max_suffix"] + 1, w["B"])
+    ctx = w["prefix"] + w["max_suffix"] + w["gen"]
+    n_chunks = int(sum(-(-(w["prefix"] + int(n)) // w["chunk"]) for n in suffix))
+    return suffix, ctx, n_chunks
+
+
+def _changed_rows(pages, before):
+    """Flat (page, offset) row indices where two page tensors differ."""
+    N, p = pages.shape[:2]
+    return set((pages != before).reshape(N * p, -1).any(-1).nonzero().flatten().tolist())
+
+
+def _paged_inputs(g, dev, dtype, F, lens, gen, P, p, C):
+    """Inputs of the three paged kernels as an engine step over prompts of
+    ``lens`` tokens gives them: the engine's default pool of B·P + 2 pages,
+    each slot's table mapping the pages its sequence reaches (the rest
+    NULL), one decode position per slot, and the ragged write-backs of the
+    two kinds of step: the first (every prompt chunk as a segment, no slot
+    decoding) and a decode-only one (the B decode rows). Returns (pages,
+    table, rows, pos, {W: (pid, off, rows, valid rows)})."""
+    from repro_torch.kernels import ragged as KRG
+    from repro_torch.serve.cache import NULL_PAGE, SCRATCH_PAGE
+
+    B, N = len(lens), len(lens) * P + 2
+    pages = (torch.randn(N, p, F, generator=g, device=dev) * 8).to(dtype)
+    table = (torch.randperm(N - 2, generator=g, device=dev)[: B * P] + 2).to(torch.int32)
+    table = table.reshape(B, P)
+    mapped = torch.as_tensor([-(-(L + gen) // p) for L in lens], device=dev)
+    table[torch.arange(P, device=dev)[None] >= mapped[:, None]] = NULL_PAGE
+    pos_np = np.asarray([L + gen // 2 for L in lens])
+    pos = torch.as_tensor(pos_np, dtype=torch.int32, device=dev)
+    rows = (torch.randn(B, F, generator=g, device=dev) * 8).to(dtype)
+    segs = [(i, st, min(C, L - st)) for i, L in enumerate(lens) for st in range(0, L, C)]
+    ragged = {}
+    for seg_list, decoding in ((segs, False), ([], True)):
+        slot = np.concatenate([np.arange(B)] + [np.full(C, i) for i, _, _ in seg_list])
+        wpos = np.concatenate([pos_np] + [st + np.arange(C) for _, st, _ in seg_list])
+        valid = np.concatenate([np.full(B, decoding)]
+                               + [np.arange(C) < nv for _, _, nv in seg_list])
+        pid, off = KRG.ragged_page_targets(
+            table, torch.as_tensor(slot, device=dev),
+            torch.as_tensor(wpos.astype(np.int32), device=dev),
+            torch.as_tensor(valid, device=dev), p, SCRATCH_PAGE)
+        W = len(slot)
+        wrows = (torch.randn(W, F, generator=g, device=dev) * 8).to(dtype)
+        ragged[W] = (pid, off, wrows, int(valid.sum()))
+    return pages, table, rows, pos, ragged
+
+
+def check_paged(cfg, dev, results):
+    """The three paged-pool kernels at the shapes phase 6c's mod-paper-1b
+    workload gives them, and at odd tails. That workload (ctx 992, page 16:
+    P=62 logical pages per slot, the default pool of N=8·62+2=498 pages)
+    pages K/V leaves of F=n_kv·head_dim=1792 bf16 and position leaves of
+    F=1 int32; it gathers (8, P) tables in decode and ragged steps and
+    (1, P) in each chunked prefill, scatters 8 decode rows, and writes back
+    W=8+29·256 rows in the ragged run's first step and W=8 in each later
+    one. All three are copies: the kernel must equal its plain version
+    exactly, and the in-place scatters must leave every row outside their
+    targets untouched (checked against a saved copy of the pool). Timed
+    per leaf kind and shape; main() pairs each shape with its launches."""
+    from repro_torch.kernels import paged as KP
+    from repro_torch.kernels import ragged as KRG
+    from repro_torch.serve.cache import SCRATCH_PAGE
+
+    suffix, ctx, _ = paged_1b_plan()
+    w = PAGED_1B
+    p, C, gen = w["page"], w["chunk"], w["gen"]
+    lens = [w["prefix"] + int(n) for n in suffix]
+    F_kv = cfg.attn.n_kv_heads * cfg.head_dim
+    g = torch.Generator(device=dev).manual_seed(7)
+    cases = [("kv", torch.bfloat16, F_kv, lens, gen, ctx // p, p, C),
+             ("pos", torch.int32, 1, lens, gen, ctx // p, p, C),
+             ("kv f32", torch.float32, F_kv, lens, gen, ctx // p, p, C),
+             ("tail", torch.bfloat16, 13, [9, 20, 4], 3, 5, 7, 5),
+             ("tail", torch.int32, 13, [9, 20, 4], 3, 5, 7, 5)]
+    for label, dtype, F, lens_, gen_, P, p_, C_ in cases:
+        pages, table, rows, pos, ragged = _paged_inputs(g, dev, dtype, F, lens_, gen_, P, p_, C_)
+        N, B = pages.shape[0], table.shape[0]
+        es = pages.element_size()
+        for t in (table, table[:1]):
+            if not torch.equal(KP.paged_gather(pages, t), KP.paged_gather_plain(pages, t)):
+                raise AssertionError(f"paged_gather differs from its plain version ({label} "
+                                     f"B={t.shape[0]} {dtype})")
+        before = pages.clone()
+        want = KP.paged_scatter_rows_plain(before.clone(), table, rows, pos)
+        KP.paged_scatter_rows(pages, table, rows, pos)
+        tgt = table.long()[torch.arange(B, device=dev), pos.long() // p_] * p_ + pos.long() % p_
+        if not torch.equal(pages, want) or not _changed_rows(pages, before) <= set(tgt.tolist()):
+            raise AssertionError(f"paged_scatter_rows wrong or wrote outside its rows ({label})")
+        keep = torch.ones(N, dtype=torch.bool, device=dev)
+        keep[SCRATCH_PAGE] = False  # rows colliding on the scratch page are garbage by contract
+        for W, (pid, off, wrows, _) in ragged.items():
+            before = pages.clone()
+            want = KRG.ragged_paged_scatter_rows_plain(before.clone(), pid, off, wrows)
+            KRG.ragged_paged_scatter_rows(pages, pid, off, wrows)
+            hit = set((pid.long() * p_ + off.long()).tolist())
+            if not torch.equal(pages[keep], want[keep]) or not _changed_rows(pages, before) <= hit:
+                raise AssertionError(f"ragged_paged_scatter_rows wrong or wrote outside ({label} "
+                                     f"W={W})")
+        shape = f"N={N} p={p_} F={F} P={P} {str(dtype)[6:]}"
+        if label not in ("kv", "pos"):
+            log(f"[kernels] paged kernels {label} {shape} B={B} W={sorted(ragged)}: all three "
+                f"bitwise equal to their plain versions, no row outside the targets written")
+            continue
+        flat = pages.view(N * p_, F)
+        fi = tgt.contiguous()
+        timed = {}
+        for Bg in (B, 1):
+            t = table[:Bg].contiguous()
+            # the gather reads each distinct page it maps once and writes
+            # every logical page
+            reads = torch.unique(t).numel()
+            timed[("paged_gather", f"{label} B={Bg}")] = dict(
+                fn=lambda t=t: KP.paged_gather(pages, t),
+                plain=lambda t=t: KP.paged_gather_plain(pages, t),
+                library=lambda t=t.flatten().long(): torch.index_select(pages, 0, t),
+                nbytes=(Bg * P + reads) * p_ * F * es + 4 * Bg * P, shape=f"{shape} B={Bg}")
+        # the rows read and written, the B positions and the B table
+        # entries the kernel loads
+        timed[("paged_scatter_rows", f"{label} B={B}")] = dict(
+            fn=lambda: KP.paged_scatter_rows(pages, table, rows, pos),
+            plain=lambda: KP.paged_scatter_rows_plain(pages, table, rows, pos),
+            library=lambda: flat.index_copy_(0, fi, rows),
+            nbytes=2 * B * F * es + 4 * B + 4 * B, shape=f"{shape} B={B}")
+        for W, (pid, off, wrows, n_valid) in ragged.items():
+            wfi = (pid.long() * p_ + off.long()).contiguous()
+            # the valid rows read and written (rows routed to the scratch
+            # page are garbage by contract) and every row's target pair
+            timed[("ragged_paged_scatter_rows", f"{label} W={W}")] = dict(
+                fn=lambda pid=pid, off=off, wrows=wrows:
+                    KRG.ragged_paged_scatter_rows(pages, pid, off, wrows),
+                plain=lambda pid=pid, off=off, wrows=wrows:
+                    KRG.ragged_paged_scatter_rows_plain(pages, pid, off, wrows),
+                library=lambda wfi=wfi, wrows=wrows: flat.index_copy_(0, wfi, wrows),
+                nbytes=2 * n_valid * F * es + 8 * W, shape=f"{shape} W={W} ({n_valid} valid)")
+        for (name, key), c in timed.items():
+            r = dict(call_ms=event_ms(c["fn"]), ms=time_ms(c["fn"]), plain_ms=time_ms(c["plain"]),
+                     library_ms=time_ms(c["library"]), bound=bound_ms(c["nbytes"], 0, dtype),
+                     max_abs_err=0.0, shape=c["shape"])  # equality was checked above
+            log(f"[kernels] {name:26s} {r['shape']:44s} bitwise-equal ms={r['ms']:.4f} "
+                f"call_ms={r['call_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+                f"library_ms={r['library_ms']:.4f} bound_ms={r['bound'][0]:.6f} ({r['bound'][1]})")
+            results.setdefault(name, {})[key] = r
 
 
 def _grads(fn, inputs, seed):
@@ -739,6 +936,188 @@ def train_1b(dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: paged serving — the paged pool, prefix cache and ragged step
+# ---------------------------------------------------------------------------
+
+
+def _streams(outs):
+    return {o.uid: o.tokens.tolist() for o in outs}
+
+
+def paged_parity(dev):
+    """(b) mod-paper-60m in f32, the same weights and requests on the CPU
+    (plain versions) and on the card (kernels): the paged engine with the
+    prefix cache (page 16, chunk 64) and the ragged engine must give the
+    same greedy streams on both devices. 6 requests into 4 slots, a shared
+    128-token prefix, suffixes of 16-100 tokens, 16 new tokens each."""
+    from repro_torch.config import get_config, with_mod_backend
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models import api
+    from repro_torch.serve import EngineConfig, Request, ServingEngine
+
+    cfg = with_mod_backend(dataclasses.replace(get_config("mod-paper-60m"), dtype="float32"),
+                           "pallas")
+    p_cpu = api.init_model(cfg, device="cpu", seed=3)
+    p_gpu = _to(p_cpu, dev)
+    toks = SyntheticLM(cfg.vocab, 228, seed=17).batch(0, 6)["tokens"]
+    rng = np.random.default_rng(5)
+    prompts = [np.concatenate([toks[0, :128], toks[i, 128:128 + int(n)]])
+               for i, n in enumerate(rng.integers(16, 101, 6))]
+    engines = {"paged+prefix": dict(page_size=16, prefill_chunk=64, prefix_cache=True),
+               "ragged": dict(page_size=16, prefill_chunk=64, ragged=True, ragged_segments=4)}
+    for name, kw in engines.items():
+        got = {}
+        for label, d, params in (("cpu", "cpu", p_cpu), ("gpu", dev, p_gpu)):
+            eng = ServingEngine(params, cfg, EngineConfig(batch_size=4, ctx=256, **kw), device=d)
+            got[label] = (_streams(eng.run_stream([Request(tokens=p, max_new_tokens=16)
+                                               for p in prompts], 0)), eng.stats())
+        (sc, stc), (sg, stg) = got["cpu"], got["gpu"]
+        if sc != sg:
+            diff = [u for u in sc if sc[u] != sg[u]]
+            raise AssertionError(f"60m {name}: CPU and card streams differ for requests {diff}")
+        log(f"[paged] 60m f32 {name}: CPU and card greedy streams identical for all "
+            f"{len(sc)} requests ({sum(len(t) for t in sc.values())} tokens); prefix hit rate "
+            f"{stg['prefix_hit_rate']:.3f}, prefill tokens computed {stg['prefill_tokens_computed']:.0f}")
+
+
+def serve_paged_1b(dev):
+    """(c) mod-paper-1b in bf16 on the card: 8 requests submitted upfront
+    that share a 512-token prefix (a system prompt), each with its own
+    64-448-token suffix and 32 new tokens, page 16, prefill chunk 256,
+    through four engines: contiguous, paged, paged with the prefix cache,
+    and ragged (segments = every prompt chunk, so all prompts drain in the
+    first step). Streams must be identical; launches are counted per run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.config import get_config, with_mod_backend
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import build
+    from repro_torch.models import api
+    from repro_torch.serve import EngineConfig, Request, ServingEngine
+
+    cfg = with_mod_backend(get_config("mod-paper-1b"), "pallas")
+    params = api.init_model(cfg, device=dev, seed=0)
+    w = PAGED_1B
+    B, gen, pre, page, C = w["B"], w["gen"], w["prefix"], w["page"], w["chunk"]
+    suffix, ctx, n_chunks = paged_1b_plan()
+    toks = SyntheticLM(cfg.vocab, pre + w["max_suffix"], seed=9).batch(0, B)["tokens"]
+    prompts = [np.concatenate([toks[0, :pre], toks[i, pre:pre + int(n)]])
+               for i, n in enumerate(suffix)]
+    n_full = sum(1 for grp in params["groups"] if "full" in grp)
+    runs = {
+        "contiguous": dict(prefill_chunk=C),
+        "paged": dict(page_size=page, prefill_chunk=C),
+        "paged+prefix": dict(page_size=page, prefill_chunk=C, prefix_cache=True),
+        "ragged": dict(page_size=page, prefill_chunk=C, ragged=True, ragged_segments=n_chunks),
+    }
+    # warm-up (cuBLAS handles, allocator) off the count
+    warm = ServingEngine(params, cfg, EngineConfig(batch_size=B, ctx=ctx, **runs["ragged"]), device=dev)
+    warm.run_stream([Request(tokens=prompts[0][:300], max_new_tokens=2)], 0)
+    out, counts, stats, pools = {}, {}, {}, {}
+    prof_line = ""
+    for name, kw in runs.items():
+        eng = ServingEngine(params, cfg, EngineConfig(batch_size=B, ctx=ctx, **kw), device=dev)
+        for q in prompts:
+            eng.submit(Request(tokens=q, max_new_tokens=gen))
+        build.reset_counters()
+        torch.cuda.synchronize()
+        while eng.has_work:
+            if name == "paged" and 5 <= eng.step_count < 8 and not prof_line:
+                # one paged decode step, all 8 slots generating (the next
+                # one where CUPTI hands back no device events)
+                at = eng.step_count
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    eng.step()
+                    torch.cuda.synchronize()
+                    wall = 1e3 * (time.perf_counter() - t0)
+                by_name: dict = {}
+                for e in prof.events():
+                    if e.device_type == DeviceType.CUDA:
+                        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+                busy = sum(by_name.values())
+                if busy <= 0.0:
+                    continue
+                gat = sum(t for n, t in by_name.items() if "paged_gather_kernel" in n)
+                sca = sum(t for n, t in by_name.items() if "paged_scatter_rows_kernel" in n)
+                top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+                prof_line = (f"[profile] paged decode step B=8 (step {at}): wall {wall:.2f} ms, device "
+                             f"busy {busy:.2f} ms, idle share {1 - busy / wall:.3f}; paged_gather "
+                             f"{gat:.3f} ms ({gat / busy:.3f} of busy), paged_scatter_rows {sca:.3f} "
+                             f"ms ({sca / busy:.3f}); top: "
+                             + "; ".join(f"{n[:50]} {t:.3f} ms" for n, t in top))
+            else:
+                eng.step()
+                if name == "ragged" and eng.step_count == 1 and \
+                        eng.stats()["prefill_tokens_computed"] != sum(len(q) for q in prompts):
+                    raise AssertionError("the ragged run's first step did not carry every "
+                                         "prompt chunk")
+        torch.cuda.synchronize()
+        counts[name] = build.launch_counts()
+        stats[name] = eng.stats()
+        out[name] = _streams(eng.finished)
+        pools[name] = eng.pool.cache_bytes()["total"]
+        if len(out[name]) != B or any(not o.ok or len(o.tokens) != gen for o in eng.finished):
+            raise AssertionError(f"1b {name}: not every request finished with {gen} tokens")
+    for name in runs:
+        if out[name] != out["contiguous"]:
+            diff = [u for u in out[name] if out[name][u] != out["contiguous"][u]]
+            raise AssertionError(f"1b {name}: streams differ from the contiguous run for {diff}")
+    per_page = sum(p_.numel() * p_.element_size() for p_ in eng.pool.pages) / eng.pool.n_pages
+    for name in runs:
+        s = stats[name]
+        extra = ""
+        if name != "contiguous":
+            extra = (f"; pool {pools[name] / 2**20:.1f} MiB vs contiguous "
+                     f"{pools['contiguous'] / 2**20:.1f} MiB, peak pages in use "
+                     f"{s['peak_pages_in_use']:.0f} of {s['n_pages']:.0f} "
+                     f"({s['peak_pages_in_use'] * per_page / 2**20:.1f} MiB of pages), prefix "
+                     f"hit rate {s['prefix_hit_rate']:.3f}")
+        log(f"[paged] 1b {name}: {s['generated_tokens']:.0f} tokens in {s['wall_s']:.2f}s = "
+            f"{s['tokens_per_s']:.1f} tok/s; prefill {1e3 * s['prefill_s'] / max(1, s['prefills']):.1f}"
+            f" ms per prompt ({s['prefills']:.0f}), decode {1e3 * s['decode_s'] / max(1, s['decode_steps']):.2f}"
+            f" ms per step ({s['decode_steps']:.0f} steps, {s['steps']:.0f} engine steps); prefill "
+            f"tokens computed {s['prefill_tokens_computed']:.0f}{extra}")
+        log(f"[paged]   launches: {json.dumps(counts[name])}")
+    log(f"[paged] 1b: all four runs gave identical greedy streams ({B} requests x {gen} tokens)")
+    log(prof_line or "[profile] paged decode step: torch.profiler recorded no device time in "
+                     "three steps; not measured")
+    saved = stats["paged"]["prefill_tokens_computed"] - stats["paged+prefix"]["prefill_tokens_computed"]
+    if not (stats["paged+prefix"]["prefix_hit_rate"] > 0 and saved == (B - 1) * pre):
+        raise AssertionError(f"prefix cache saved {saved} prefill tokens, want {(B - 1) * pre}")
+    for name in ("paged", "paged+prefix"):
+        c, s = counts[name], stats[name]
+        per_step = 3 * n_full
+        if c["paged_scatter_rows"] != per_step * s["decode_steps"] or \
+                c["paged_gather"] != per_step * (s["decode_steps"] + s["prefills"]):
+            raise AssertionError(f"1b {name}: paged launches {c} are not {per_step} per decode "
+                                 f"step (+{per_step} per chunked prefill)")
+    if counts["ragged"]["ragged_paged_scatter_rows"] != 3 * n_full * stats["ragged"]["steps"]:
+        raise AssertionError(f"ragged_paged_scatter_rows launched {counts['ragged']} times, not "
+                             f"{3 * n_full} per ragged step")
+    log(f"[paged] prefix cache saved {saved} = 7 x {pre} prefill tokens; paged_gather and "
+        f"paged_scatter_rows launched {3 * n_full} times per decode step each (+{3 * n_full} "
+        f"gathers per chunked prefill); ragged_paged_scatter_rows "
+        f"{counts['ragged']['ragged_paged_scatter_rows']} times in {stats['ragged']['steps']:.0f} steps")
+    # launches per leaf kind (2 K/V and 1 position leaf per full layer) and
+    # shape, keyed as check_paged keys its timings: gathers of (8, P) tables
+    # per decode step and of (1, P) per chunked prefill; the ragged run's
+    # first step writes back every prompt chunk (checked above), the later
+    # ones the B decode rows
+    sp, sr = stats["paged"], stats["ragged"]
+    W0 = B + n_chunks * C
+    by_shape = {"paged_gather": {}, "paged_scatter_rows": {}, "ragged_paged_scatter_rows": {}}
+    for leaf, n in (("kv", 2 * n_full), ("pos", n_full)):
+        by_shape["paged_gather"][f"{leaf} B={B}"] = int(n * sp["decode_steps"])
+        by_shape["paged_gather"][f"{leaf} B=1"] = int(n * sp["prefills"])
+        by_shape["paged_scatter_rows"][f"{leaf} B={B}"] = int(n * sp["decode_steps"])
+        by_shape["ragged_paged_scatter_rows"][f"{leaf} W={W0}"] = n
+        by_shape["ragged_paged_scatter_rows"][f"{leaf} W={B}"] = int(n * (sr["steps"] - 1))
+    return counts, by_shape
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing to run", file=sys.stderr)
@@ -750,6 +1129,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     smi = smi_line()
     t0 = time.perf_counter()
     libs = build.build_all()
@@ -767,11 +1147,14 @@ def main() -> int:
     check_routing(cfg1b, dev, results)
     check_flash(cfg1b, dev, results)
     check_fused(cfg1b, dev, results)
+    check_paged(cfg1b, dev, results)
     check_grads(cfg1b, dev)
     cross_device_parity(dev)
     train_step_parity(dev)
+    paged_parity(dev)
     serve_counts = serve_1b(dev)
     train_counts = train_1b(dev)
+    paged_counts, paged_shapes = serve_paged_1b(dev)
 
     picks = {  # the entry of each kernel at a main-path shape (bf16)
         "gather_rows": results["gather_rows"][(1000, torch.bfloat16)],
@@ -780,22 +1163,40 @@ def main() -> int:
         "routed_attention": results["routed_attention"][torch.bfloat16],
         "routed_mlp_scatter": results["routed_mlp_scatter"][torch.bfloat16],
     }
+    shapes = {}
+    for name in PAGED_KERNELS:
+        # every shape phase 6c gives the kernel, with its launches there;
+        # the line's numbers are those of the shape that took the most of
+        # the kernel's device time on that path
+        shapes[name] = [dict(shape=r["shape"], launches=paged_shapes[name][key], ms=r["ms"],
+                             plain_ms=r["plain_ms"], library_ms=r["library_ms"],
+                             bound_ms=r["bound"][0])
+                        for key, r in results[name].items()]
+        key = max(results[name], key=lambda k: paged_shapes[name][k] * results[name][k]["ms"])
+        picks[name] = results[name][key]
     kernels = []
     for name, r in picks.items():
         src, replaces = SOURCES[name]
         # launches from the path the kernel's timed shape belongs to: the
         # serving run for gather/scatter/flash, the training run for the
-        # fused kernels; both runs' counts ride along
-        path_counts = train_counts if name in ("routed_attention", "routed_mlp_scatter") \
-            else serve_counts
+        # fused kernels, the paged and ragged runs for the paged kernels;
+        # every run's counts ride along
+        by_path = {"serve": serve_counts, "train": train_counts,
+                   "serve_paged": paged_counts["paged"],
+                   "serve_paged_prefix": paged_counts["paged+prefix"],
+                   "serve_ragged": paged_counts["ragged"]}
+        path = {"routed_attention": "train", "routed_mlp_scatter": "train",
+                "paged_gather": "serve_paged", "paged_scatter_rows": "serve_paged",
+                "ragged_paged_scatter_rows": "serve_ragged"}.get(name, "serve")
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": path_counts[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "launches": by_path[path][name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"], "shape": r["shape"],
-            "launches_by_path": {"serve": serve_counts.get(name, 0),
-                                 "train": train_counts.get(name, 0)},
+            "launches_by_path": {k: v.get(name, 0) for k, v in by_path.items()},
+            **({"shapes": shapes[name]} if name in shapes else {}),
         })
+    log(f"[done] all phases passed in {time.perf_counter() - t_start:.0f}s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,182 @@
+"""Block-paged KV pool kernels: the page gather and the decode-row scatter.
+
+Port of ``repro/kernels/paged.py`` (the Pallas ``paged_gather_pallas`` and
+``paged_scatter_rows_pallas``) and of their leaf-shape wrappers in
+``repro/kernels/ops.py``. A paged cache leaf stores its position axis as
+``(n_pages, page_size)`` physical blocks; a per-slot page table
+``(B, P = ctx // page_size)`` int32 maps logical pages to physical ones.
+
+- :func:`paged_gather`: ``out[b, i·p + r] = pages[table[b, i], r]``, a
+  fresh ``(B, P·p, F)`` tensor (the logical view the decode step reads).
+- :func:`paged_scatter_rows`: ``pages[table[b, pos[b]//p], pos[b]%p] =
+  rows[b]``, written **in place** into ``pages`` (the JAX version returns a
+  new pool; here only the B rows are written).
+
+Each wrapper launches the CUDA kernel of ``csrc/paged.cu`` for CUDA tensors
+and runs the plain PyTorch version beside it for CPU tensors; on a CUDA
+tensor it launches or raises. Both are copies, so kernel and plain version
+agree bit for bit, in any dtype (the kernels copy bytes). Indices are
+clamped into range in both. There is no autograd: serving never
+differentiates (the JAX ops have no VJP), and a wrapper given a tensor that
+requires grad raises.
+
+In the port every cache leaf has the slot on axis 0, so a paged leaf is
+``(N, p) + tail`` and canonicalising is a reshape to ``(N, p, F)``. The
+JAX backend names ``"xla"`` and ``"pallas"`` both launch the kernels on the
+card and both run the plain versions on the CPU, so the wrappers take no
+backend name (``EngineConfig`` checks it). The fused-dequant gather
+(``paged_gather_dequant_pallas``) comes with quantized KV.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+PAGED_GATHER = build.counter("paged_gather")
+PAGED_SCATTER_ROWS = build.counter("paged_scatter_rows")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+
+
+def check_no_grad(*tensors: torch.Tensor) -> None:
+    if any(t.requires_grad for t in tensors):
+        raise ValueError("the paged kernels have no gradient: serving never differentiates")
+
+
+def check_device(*tensors: torch.Tensor) -> str:
+    """The device type the tensors share ("cpu" or "cuda")."""
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError("all tensors of a paged kernel must be on one device")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev.type
+
+
+def _check_table(table: torch.Tensor, name: str = "table") -> None:
+    if table.dtype != torch.int32:
+        raise TypeError(f"{name} must be int32, got {table.dtype}")
+
+
+# ---------------------------------------------------------------------------
+# gather: out[b, i*p + r] = pages[table[b, i], r]
+# ---------------------------------------------------------------------------
+
+
+def paged_gather_plain(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Plain version: advanced indexing of the page axis."""
+    N, p, F = pages.shape
+    B, P = table.shape
+    return pages[table.long().clamp(0, N - 1)].reshape(B, P * p, F)
+
+
+def paged_gather(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """pages (N, p, F) any dtype, table (B, P) int32 -> (B, P*p, F)."""
+    if pages.dim() != 3 or table.dim() != 2:
+        raise ValueError(f"want pages (N,p,F), table (B,P); got {tuple(pages.shape)}, "
+                         f"{tuple(table.shape)}")
+    _check_table(table)
+    check_no_grad(pages)
+    if check_device(pages, table) == "cpu":
+        return paged_gather_plain(pages, table)
+    pages, table = pages.contiguous(), table.contiguous()
+    N, p, F = pages.shape
+    B, P = table.shape
+    out = torch.empty((B, P * p, F), dtype=pages.dtype, device=pages.device)
+    if out.numel() == 0:
+        return out
+    fn = build.bind("paged", "repro_paged_gather", (_P, _P, _P, _I, _I, _I, _L, _P))
+    stream = torch.cuda.current_stream(pages.device).cuda_stream
+    err = fn(pages.data_ptr(), table.data_ptr(), out.data_ptr(), N, B, P,
+             p * F * pages.element_size(), stream)
+    build.check("paged", "repro_paged_gather", err)
+    PAGED_GATHER.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# decode-row scatter, in place: pages[table[b, pos[b]//p], pos[b]%p] = rows[b]
+# ---------------------------------------------------------------------------
+
+
+def _check_scatter(pages: torch.Tensor, rows: torch.Tensor) -> None:
+    if not pages.is_contiguous():
+        raise ValueError("the page tensor is written in place and must be contiguous")
+    if rows.dtype != pages.dtype:
+        raise TypeError(f"rows must be {pages.dtype}, got {rows.dtype}")
+    check_no_grad(pages, rows)
+
+
+def paged_scatter_rows_plain(pages: torch.Tensor, table: torch.Tensor, rows: torch.Tensor,
+                             pos: torch.Tensor) -> torch.Tensor:
+    """Plain version: ``index_put_`` on the ``(N·p, F)`` view. Returns
+    ``pages``, updated in place."""
+    N, p, F = pages.shape
+    B, P = table.shape
+    t = pos.long().clamp(0, P * p - 1)
+    pid = table.long()[torch.arange(B, device=table.device), t // p].clamp(0, N - 1)
+    pages.view(N * p, F).index_put_((pid * p + t % p,), rows)
+    return pages
+
+
+def paged_scatter_rows(pages: torch.Tensor, table: torch.Tensor, rows: torch.Tensor,
+                       pos: torch.Tensor) -> torch.Tensor:
+    """pages (N, p, F), table (B, P) int32, rows (B, F), pos (B,) int32;
+    writes the B rows into ``pages`` in place and returns it."""
+    if pages.dim() != 3 or rows.dim() != 2 or rows.shape != (table.shape[0], pages.shape[2]) \
+            or pos.shape != (table.shape[0],):
+        raise ValueError(f"want pages (N,p,F), table (B,P), rows (B,F), pos (B,); got "
+                         f"{tuple(pages.shape)}, {tuple(table.shape)}, {tuple(rows.shape)}, "
+                         f"{tuple(pos.shape)}")
+    _check_table(table)
+    _check_table(pos, "pos")
+    _check_scatter(pages, rows)
+    if check_device(pages, table, rows, pos) == "cpu":
+        return paged_scatter_rows_plain(pages, table, rows, pos)
+    table, rows, pos = table.contiguous(), rows.contiguous(), pos.contiguous()
+    N, p, F = pages.shape
+    B, P = table.shape
+    if B == 0 or F == 0:
+        return pages
+    fn = build.bind("paged", "repro_paged_scatter_rows",
+                    (_P, _P, _P, _P, _I, _I, _I, _I, _L, _P))
+    stream = torch.cuda.current_stream(pages.device).cuda_stream
+    err = fn(pages.data_ptr(), table.data_ptr(), rows.data_ptr(), pos.data_ptr(), N, B, P, p,
+             F * pages.element_size(), stream)
+    build.check("paged", "repro_paged_scatter_rows", err)
+    PAGED_SCATTER_ROWS.launches += 1
+    return pages
+
+
+# ---------------------------------------------------------------------------
+# cache-leaf wrappers (repro/kernels/ops.py): the slot/page axis is axis 0
+# ---------------------------------------------------------------------------
+
+
+def canon_pages(pages: torch.Tensor) -> torch.Tensor:
+    """(N, p) + tail -> (N, p, F): a view of the contiguous page tensor."""
+    return pages.view(pages.shape[0], pages.shape[1], -1)
+
+
+def canon_rows(rows: torch.Tensor) -> torch.Tensor:
+    """(W,) + tail -> (W, F)."""
+    return rows.reshape(rows.shape[0], -1)
+
+
+def paged_gather_op(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Logical ``(B, P·p) + tail`` view of a paged leaf ``(N, p) + tail``."""
+    B, P = table.shape
+    out = paged_gather(canon_pages(pages), table)
+    return out.view((B, P * pages.shape[1]) + tuple(pages.shape[2:]))
+
+
+def paged_scatter_rows_op(pages: torch.Tensor, table: torch.Tensor, rows: torch.Tensor,
+                          pos: torch.Tensor) -> torch.Tensor:
+    """One decode row per slot (``(B,) + tail``) into its tail page, in place."""
+    paged_scatter_rows(canon_pages(pages), table, canon_rows(rows), pos)
+    return pages

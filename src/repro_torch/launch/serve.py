@@ -1,13 +1,15 @@
 """Serving driver of the port: continuous-batching MoD decode over a
 request stream, on the GPU unless ``--device cpu``.
 
-Mirrors ``repro/launch/serve.py`` for the flags of the padded engine, plus
-``--device``. Weights are random, drawn from ``--seed``. Prompt lengths
-are mixed uniformly over ``[--min-prompt-len, --prompt-len]``.
+Mirrors ``repro/launch/serve.py`` for the flags of the padded, paged
+(``--page-size``, ``--n-pages``, ``--prefix-cache``) and ragged
+(``--ragged``, ``--ragged-segments``) engines, plus ``--device``. Weights
+are random, drawn from ``--seed``. Prompt lengths are mixed uniformly over
+``[--min-prompt-len, --prompt-len]``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mod-paper-1b \\
       --dtype bfloat16 --batch 8 --requests 16 \\
-      --min-prompt-len 128 --prompt-len 1024 --gen 32
+      --min-prompt-len 128 --prompt-len 1024 --gen 32 --page-size 16 --prefix-cache
 """
 from __future__ import annotations
 
@@ -58,6 +60,8 @@ def main() -> None:
     data = SyntheticLM(cfg.vocab, args.prompt_len, seed=7)
     prompts = np.asarray(data.batch(0, n_requests)["tokens"])
     ctx = args.prompt_len + args.gen
+    if args.page_size:  # the paged pool needs whole pages
+        ctx = -(-ctx // args.page_size) * args.page_size
     engine = ServingEngine(params, cfg, EngineConfig.from_args(args, batch_size=args.batch,
                                                                ctx=ctx), device=args.device)
     outputs = engine.run_stream(
@@ -83,6 +87,14 @@ def main() -> None:
               f"(capacity_ratio={cfg.mod.capacity_ratio}); KV pool "
               f"{kv['total'] / 2**20:.1f} MiB (mod/full cache ratio "
               f"{kv['mod_vs_full_ratio']:.2f})")
+    if args.page_size:
+        print(f"[serve] paged pool: page_size={args.page_size} pages={s['n_pages']:.0f} "
+              f"peak_utilization={s['page_utilization_peak']:.2f} "
+              f"prefix_hit_rate={s['prefix_hit_rate']:.2f} preemptions={s['preemptions']:.0f} "
+              f"prefill_tokens_computed={s['prefill_tokens_computed']:.0f}")
+    if args.ragged:
+        print(f"[serve] ragged mixed step: segments={args.ragged_segments} "
+              f"padded_token_fraction={s['padded_token_fraction']:.3f}")
     print(f"[serve] kernel launches: {build.launch_counts()} (0 on the CPU: plain versions)")
     first = min(outputs, key=lambda o: o.uid)
     print(f"[serve] sample continuation: {first.tokens[-10:].tolist()}")

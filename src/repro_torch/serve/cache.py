@@ -1,36 +1,83 @@
-"""Contiguous KV-cache pool of the serving engine.
+"""KV-cache pools of the serving engine: contiguous and block-paged.
 
-Port of ``repro/serve/cache.py::CachePool``: one cache tree of fixed shape
-backs the whole engine, ``B`` slots by ``ctx`` positions
-(:func:`repro_torch.models.api.make_caches`). MoD-block caches inside it
-are capacity-sized (``ratio·ctx``), so the pool's footprint already holds
-the paper's KV saving; :meth:`CachePool.cache_bytes` reports it. Every
-leaf has the slot on axis 0, so the slot lifecycle is two in-place row
-copies: :meth:`reset` (back to the empty state: cursors 0, positions -1)
-and :meth:`write_slot` (a prefilled batch-1 cache enters the batch).
+Port of ``repro/serve/cache.py``. Every cache leaf of the port has the slot
+on axis 0 (:func:`repro_torch.models.api.make_caches`), so slot operations
+are row copies and a paged leaf is ``(N, p) + tail``.
+
+:class:`CachePool`: one cache tree of fixed shape, ``B`` slots by ``ctx``
+positions. MoD-block caches inside it are capacity-sized (``ratio·ctx``),
+so the pool's footprint already holds the paper's KV saving
+(:meth:`CachePool.cache_bytes`). :meth:`reset` returns a slot to the empty
+state (cursors 0, positions -1); :meth:`write_slot` copies a prefilled
+batch-1 cache into it.
+
+:class:`PagedCachePool`: the same logical pool with the full-attention KV
+rings (``k``/``v``/``pos`` leaves with a ``cursor`` sibling, at full ``ctx``
+capacity, not under ``mod``) stored as refcounted ``(n_pages, page_size)``
+blocks behind per-slot page tables, with lazy page growth, scrub on
+recycle, a sha1-chained prompt-prefix cache with LRU eviction, and
+per-leaf-kind accounting. MoD rings and cursors stay slot-contiguous in a
+*residual* pool. The decode step reads the logical ``(B, ctx)`` caches
+through the paged gather kernel (:func:`paged_materialize`) and writes its
+one new row per slot back with the paged scatter kernel
+(:func:`paged_writeback`); the ragged mixed step writes its token rows with
+the ragged scatter kernel (:func:`paged_writeback_tokens`).
+
+The JAX pool is immutable; this one is updated in place. Where JAX copies
+implicitly, the port copies explicitly: residual snapshots (prefix entries,
+ragged segments) and the residual rows of :meth:`PagedCachePool.read_slot`
+are clones, and restoring a snapshot copies it into the working cache, so
+no later write can reach a stored entry. ``truncate``, ``hold_pages`` /
+``release_held`` and quantized pages come with the speculative, overload and
+quantized-KV slices.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Tuple
+import dataclasses
+import hashlib
+from collections import OrderedDict, deque
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.kernels.paged import paged_gather_op, paged_scatter_rows_op
+from repro_torch.kernels.ragged import ragged_page_targets, ragged_paged_scatter_rows_op
 from repro_torch.models import api
 
 Params = Dict[str, Any]
+Keys = Tuple[Any, ...]
 
 
-def _leaves(tree: Params, prefix: str = "") -> Iterator[Tuple[str, torch.Tensor]]:
-    for name, v in tree.items():
-        path = f"{prefix}/{name}"
-        if isinstance(v, dict):
-            yield from _leaves(v, path)
-        elif isinstance(v, list):
-            for i, g in enumerate(v):
-                yield from _leaves(g, f"{path}/{i}")
-        else:
-            yield path, v
+def _leaves(tree: Any, keys: Keys = ()) -> Iterator[Tuple[Keys, torch.Tensor]]:
+    """(key path, tensor) of every leaf, in a fixed order."""
+    if isinstance(tree, dict):
+        for name, v in tree.items():
+            yield from _leaves(v, keys + (name,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, keys + (i,))
+    else:
+        yield keys, tree
+
+
+def flatten(tree: Any) -> List[torch.Tensor]:
+    return [leaf for _, leaf in _leaves(tree)]
+
+
+def unflatten(like: Any, leaves: List[torch.Tensor]) -> Any:
+    """A tree shaped like ``like`` holding ``leaves`` (in :func:`flatten` order)."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [build(v) for v in node]
+        return next(it)
+
+    return build(like)
 
 
 class CachePool:
@@ -54,15 +101,459 @@ class CachePool:
 
     def write_slot(self, slot: int, sub_caches: Params) -> None:
         """Copy a batch-1 cache tree (same structure) into a slot's rows."""
-        for (_, dst), (_, src) in zip(_leaves(self.caches), _leaves(sub_caches)):
+        for dst, src in zip(flatten(self.caches), flatten(sub_caches)):
             dst[slot].copy_(src[0])
 
     def cache_bytes(self) -> Dict[str, float]:
         """Pool footprint, split by routed ("mod") vs full-capacity leaves."""
         sizes = {"total": 0.0, "mod": 0.0, "full": 0.0}
-        for path, leaf in _leaves(self.caches):
+        for keys, leaf in _leaves(self.caches):
             b = float(leaf.numel() * leaf.element_size())
             sizes["total"] += b
-            sizes["mod" if "/mod/" in path else "full"] += b
+            sizes["mod" if "mod" in keys else "full"] += b
+        sizes["mod_vs_full_ratio"] = sizes["mod"] / sizes["full"] if sizes["full"] else 0.0
+        return sizes
+
+
+# ---------------------------------------------------------------------------
+# Block-paged pool
+# ---------------------------------------------------------------------------
+
+# Reserved physical pages. NULL backs every *unmapped* logical page of an
+# active slot: its content is the pristine template (positions -1, so
+# attention masks it out) and it is never written — active slots only write
+# at their own positions, which always land in mapped pages. SCRATCH backs
+# the page tables of FREE slots: the shared decode step still "writes"
+# their (inactive, pos=0) rows somewhere, and scratch absorbs that garbage
+# without ever being read by a live request.
+NULL_PAGE = 0
+SCRATCH_PAGE = 1
+_RESERVED = 2
+# each prefix entry pins a batch-1 residual snapshot in device memory, so
+# the registry is capacity-bounded, not only pressure-evicted
+PREFIX_MAX_ENTRIES = 64
+
+
+def paged_leaf_ids(template: Params, ctx: int) -> List[int]:
+    """Flat-leaf indices of the *pageable* leaves of a cache tree: the
+    position-addressed ring leaves ("k"/"v"/"pos" with a "cursor" sibling)
+    at full ``ctx`` capacity — the full-attention rings, whose write cursor
+    equals the absolute position. MoD routed rings (capacity-sized, under
+    "mod") and the cursors stay in the residual pool."""
+    entries = list(_leaves(template))
+    paths = {keys for keys, _ in entries}
+    ids = []
+    for i, (keys, leaf) in enumerate(entries):
+        if "mod" in keys or keys[-1] not in ("k", "v", "pos"):
+            continue
+        if keys[:-1] + ("cursor",) not in paths:
+            continue
+        if leaf.dim() < 2 or leaf.shape[1] != ctx:
+            continue
+        ids.append(i)
+    return ids
+
+
+@dataclasses.dataclass(frozen=True)
+class PoolSpec:
+    """Static leaf layout of a paged pool: which flat leaves are paged and
+    which residual, and the page size."""
+
+    paged_ids: Tuple[int, ...]
+    resid_ids: Tuple[int, ...]
+    page_size: int
+
+
+def paged_materialize(spec: PoolSpec, like: Params, pages: List[torch.Tensor],
+                      resid: List[torch.Tensor], table: torch.Tensor) -> Params:
+    """Logical (B, ctx) cache tree from paged + residual storage: paged
+    leaves are fresh gathers (paged gather kernel), residual leaves are the
+    pool's own tensors, so in-place cache writes update the residual pool."""
+    leaves: List[Any] = [None] * (len(spec.paged_ids) + len(spec.resid_ids))
+    for j, i in enumerate(spec.paged_ids):
+        leaves[i] = paged_gather_op(pages[j], table)
+    for j, i in enumerate(spec.resid_ids):
+        leaves[i] = resid[j]
+    return unflatten(like, leaves)
+
+
+def paged_writeback(spec: PoolSpec, caches: Params, pages: List[torch.Tensor],
+                    table: torch.Tensor, pos: torch.Tensor) -> None:
+    """Write the decode step's new rows into the pages, in place. The step
+    writes each paged leaf at exactly one logical position per slot, its
+    absolute ``pos`` (full-capacity rings write at their cursor, and
+    cursor == pos for them), so only that row is scattered (paged scatter
+    kernel). The residual leaves were updated in place already."""
+    leaves = flatten(caches)
+    rows_b = torch.arange(pos.shape[0], device=pos.device)
+    for j, i in enumerate(spec.paged_ids):
+        paged_scatter_rows_op(pages[j], table, leaves[i][rows_b, pos.long()], pos)
+
+
+def paged_writeback_tokens(spec: PoolSpec, caches: Params, pages: List[torch.Tensor],
+                           table: torch.Tensor, slot: torch.Tensor, pos: torch.Tensor,
+                           valid: torch.Tensor) -> None:
+    """Ragged-step write-back: an arbitrary flat list of (slot, pos) token
+    rows — the step's decode rows plus every prefill-segment token — goes
+    from the updated logical caches into the pages, one ragged scatter per
+    leaf at targets computed once. Invalid rows land on SCRATCH_PAGE."""
+    leaves = flatten(caches)
+    ctx = table.shape[1] * spec.page_size
+    pos_c = pos.long().clamp(0, ctx - 1)
+    slot_c = slot.long().clamp(0, table.shape[0] - 1)
+    pid, off = ragged_page_targets(table, slot, pos, valid, spec.page_size, SCRATCH_PAGE)
+    for j, i in enumerate(spec.paged_ids):
+        ragged_paged_scatter_rows_op(pages[j], pid, off, leaves[i][slot_c, pos_c])
+
+
+def slot_slice(caches: Params, slot: int) -> Params:
+    """Batch-1 view of one slot of a cache tree. The port's cache writes are
+    in place, so work on the view *is* the JAX ``slot_update`` of its
+    result: no copy either way."""
+    return unflatten(caches, [leaf[slot:slot + 1] for leaf in flatten(caches)])
+
+
+@dataclasses.dataclass
+class PrefixEntry:
+    """One memoized chunk-aligned prompt prefix: the shared physical pages
+    holding its full-attention KV, and a batch-1 clone of the residual
+    state at the boundary (MoD rings + cursors), so a restore reproduces the
+    exact chunked-prefill state — reuse is bit-identical to recomputing."""
+
+    n_tokens: int
+    pages: Tuple[int, ...]
+    resid: Dict[int, torch.Tensor]  # flat-leaf index -> batch-1 leaf value
+
+
+class PagedCachePool:
+    """Block-paged KV pool: page tables + free list + prefix cache.
+
+    Full-attention KV leaves are stored as ``(n_pages, page_size) + tail``
+    physical blocks shared by all slots; each slot owns a logical page-table
+    row of ``P = ctx // page_size`` entries, kept on the host (``table_np``)
+    and uploaded as int32 each step (:meth:`device_table`). Everything else
+    stays in the slot-contiguous residual pool."""
+
+    def __init__(self, cfg: ModelConfig, batch_size: int, ctx: int, page_size: int,
+                 device: torch.device, n_pages: Optional[int] = None,
+                 prefix_chunk: Optional[int] = None):
+        if page_size < 1 or ctx % page_size:
+            raise ValueError(f"page_size {page_size} must divide ctx {ctx}")
+        self.cfg = cfg
+        self.batch_size = batch_size
+        self.ctx = ctx
+        self.page_size = page_size
+        self.device = device
+        self.pages_per_slot = P = ctx // page_size
+        self.n_pages = int(n_pages) if n_pages else batch_size * P + _RESERVED
+        if self.n_pages < _RESERVED + 1:
+            raise ValueError(f"n_pages {self.n_pages} leaves no allocatable page")
+        # prefix-cache hashing granularity (the engine's prefill_chunk);
+        # page-aligned so cached boundaries cover only *full* pages
+        self.prefix_chunk = prefix_chunk
+        if prefix_chunk is not None and prefix_chunk % page_size:
+            raise ValueError(f"prefix_chunk {prefix_chunk} must be a multiple of "
+                             f"page_size {page_size}")
+
+        self._template = api.make_caches(cfg, 1, ctx, device)  # batch-1 initial values
+        tmpl = flatten(self._template)
+        self._paged_ids = paged_leaf_ids(self._template, ctx)
+        self._resid_ids = [i for i in range(len(tmpl)) if i not in self._paged_ids]
+        # the template is position-uniform (zeros, pos -1): one page of it
+        # per paged leaf, broadcast to every physical page
+        self._tmpl_pages = [tmpl[i][0, :page_size] for i in self._paged_ids]
+        self.pages: List[torch.Tensor] = [
+            t.expand((self.n_pages,) + tuple(t.shape)).clone() for t in self._tmpl_pages
+        ]
+        self._tmpl_resid = [tmpl[i] for i in self._resid_ids]
+        self.resid: List[torch.Tensor] = [
+            t.expand((batch_size,) + tuple(t.shape[1:])).clone() for t in self._tmpl_resid
+        ]
+        self.spec = PoolSpec(tuple(self._paged_ids), tuple(self._resid_ids), page_size)
+
+        # host-side page accounting
+        self.table_np = np.full((batch_size, P), SCRATCH_PAGE, np.int32)
+        self.n_mapped = np.zeros((batch_size,), np.int64)
+        self.ref = np.zeros((self.n_pages,), np.int64)
+        self.cache_cnt = np.zeros((self.n_pages,), np.int64)  # prefix entries per page
+        self.free: deque = deque(range(_RESERVED, self.n_pages))
+        self.prefix: "OrderedDict[bytes, PrefixEntry]" = OrderedDict()
+        # telemetry
+        self.prefix_hit_tokens = 0
+        self.prefix_lookup_tokens = 0
+        self.prefix_evictions = 0
+        self.peak_pages_in_use = 0
+
+    # -- cache movement -------------------------------------------------
+
+    def device_table(self) -> torch.Tensor:
+        return torch.as_tensor(self.table_np, device=self.device)
+
+    def materialize(self, table: torch.Tensor) -> Params:
+        return paged_materialize(self.spec, self._template, self.pages, self.resid, table)
+
+    def writeback(self, caches: Params, table: torch.Tensor, pos: torch.Tensor) -> None:
+        paged_writeback(self.spec, caches, self.pages, table, pos)
+
+    def writeback_tokens(self, caches: Params, table: torch.Tensor, slot: torch.Tensor,
+                         pos: torch.Tensor, valid: torch.Tensor) -> None:
+        paged_writeback_tokens(self.spec, caches, self.pages, table, slot, pos, valid)
+
+    def snapshot_resid(self, work: Params) -> Dict[int, torch.Tensor]:
+        """Clone of the residual leaves of a batch-1 (view of a) working
+        cache: the non-paged prefix-dependent state a PrefixEntry stores."""
+        leaves = flatten(work)
+        return {i: leaves[i].clone() for i in self._resid_ids}
+
+    def overlay_resid(self, work: Params, resid: Dict[int, torch.Tensor]) -> None:
+        """Copy a snapshot into a batch-1 working cache's residual leaves
+        (prefix restore); the snapshot itself is never aliased."""
+        leaves = flatten(work)
+        for i, v in resid.items():
+            leaves[i].copy_(v)
+
+    def overlay_resid_slot(self, slot: int, resid: Dict[int, torch.Tensor]) -> None:
+        """Copy a snapshot into one pool slot's residual rows (ragged-mode
+        prefix restore: the chunk resumes against the pool itself)."""
+        for j, i in enumerate(self._resid_ids):
+            if i in resid:
+                self.resid[j][slot].copy_(resid[i][0])
+
+    def read_slot(self, slot: int) -> Params:
+        """Batch-1 logical cache of one slot: its pages gathered, its
+        residual rows cloned (chunked prefill works on this copy, then
+        :meth:`write_slot` puts it back)."""
+        table_row = torch.as_tensor(self.table_np[slot:slot + 1], device=self.device)
+        leaves: List[Any] = [None] * (len(self._paged_ids) + len(self._resid_ids))
+        for j, i in enumerate(self._paged_ids):
+            leaves[i] = paged_gather_op(self.pages[j], table_row)
+        for j, i in enumerate(self._resid_ids):
+            leaves[i] = self.resid[j][slot:slot + 1].clone()
+        return unflatten(self._template, leaves)
+
+    def write_slot(self, slot: int, sub: Params, start_page: int = 0) -> None:
+        """Copy a batch-1 cache tree into the slot: residual rows wholesale,
+        paged leaves page by page into the slot's *owned* pages (logical
+        pages below ``start_page`` — a restored shared prefix — are skipped,
+        so shared pages are never rewritten)."""
+        n = int(self.n_mapped[slot])
+        ids = torch.as_tensor(self.table_np[slot, start_page:n].astype(np.int64),
+                              device=self.device)
+        P, p = self.pages_per_slot, self.page_size
+        leaves = flatten(sub)
+        for j, i in enumerate(self._paged_ids):
+            src = leaves[i][0].reshape((P, p) + tuple(self.pages[j].shape[2:]))
+            self.pages[j].index_copy_(0, ids, src[start_page:n].to(self.pages[j].dtype))
+        for j, i in enumerate(self._resid_ids):
+            self.resid[j][slot].copy_(leaves[i][0])
+
+    def _scrub(self, ids: List[int]) -> None:
+        """Rewrite physical pages ``ids`` to template content, so a recycled
+        page can't leak a previous request's KV (or stale valid-looking
+        positions) into a new slot."""
+        idx = torch.as_tensor(ids, dtype=torch.int64, device=self.device)
+        for pages, t in zip(self.pages, self._tmpl_pages):
+            pages.index_copy_(0, idx, t.expand((len(ids),) + tuple(t.shape)))
+
+    # -- slot lifecycle (host-side accounting) --------------------------
+
+    def acquire(self, slot: int) -> None:
+        """Claim a slot for a new request: residual rows back to template,
+        page table to all-NULL (pristine reads until pages are mapped)."""
+        self.release(slot)
+        self.table_np[slot, :] = NULL_PAGE
+        for r, t in zip(self.resid, self._tmpl_resid):
+            r[slot].copy_(t[0])
+
+    def release(self, slot: int) -> None:
+        """Drop the slot's page references; pages go back to the free list
+        unless a prefix-cache entry still pins them."""
+        for j in range(int(self.n_mapped[slot])):
+            pid = int(self.table_np[slot, j])
+            if pid < _RESERVED:
+                continue
+            self.ref[pid] -= 1
+            if self.ref[pid] == 0 and self.cache_cnt[pid] == 0:
+                self.free.append(pid)
+        self.table_np[slot, :] = SCRATCH_PAGE
+        self.n_mapped[slot] = 0
+
+    def _evict_entry(self, key: bytes) -> None:
+        entry = self.prefix.pop(key)
+        self.prefix_evictions += 1
+        for pid in entry.pages:
+            self.cache_cnt[pid] -= 1
+            if self.cache_cnt[pid] == 0 and self.ref[pid] == 0:
+                self.free.append(pid)
+
+    def _pop_free(self) -> Optional[int]:
+        """Pop a free page, evicting prefix entries under pressure: only an
+        entry whose eviction actually frees a page (a page no slot holds and
+        this entry is the last registry pin of), oldest first (LRU)."""
+        while not self.free:
+            victim = None
+            for h, e in self.prefix.items():
+                if any(self.ref[pid] == 0 and self.cache_cnt[pid] == 1 for pid in e.pages):
+                    victim = h
+                    break
+            if victim is None:
+                return None
+            self._evict_entry(victim)
+        return self.free.popleft()
+
+    @property
+    def allocatable_pages(self) -> int:
+        """Hard capacity: every page that can ever hold request KV."""
+        return self.n_pages - _RESERVED
+
+    def available_pages(self) -> int:
+        """Pages obtainable right now: free list + evictable prefix pages."""
+        evictable = int(np.sum((self.ref[_RESERVED:] == 0) & (self.cache_cnt[_RESERVED:] > 0)))
+        return len(self.free) + evictable
+
+    def pages_needed(self, n_tokens: int) -> int:
+        return -(-n_tokens // self.page_size)
+
+    def _note_peak(self) -> None:
+        self.peak_pages_in_use = max(self.peak_pages_in_use,
+                                     int(np.sum(self.ref[_RESERVED:] > 0)))
+
+    def alloc_pages(self, slot: int, upto_tokens: int) -> bool:
+        """Map (and scrub) owned pages so the slot covers ``upto_tokens``
+        logical positions. False = pool exhausted (the caller preempts)."""
+        need = self.pages_needed(upto_tokens)
+        new_ids: List[int] = []
+        ok = True
+        while int(self.n_mapped[slot]) < need:
+            pid = self._pop_free()
+            if pid is None:
+                ok = False
+                break
+            self.table_np[slot, int(self.n_mapped[slot])] = pid
+            self.ref[pid] += 1
+            self.n_mapped[slot] += 1
+            new_ids.append(pid)
+        if new_ids:
+            self._scrub(new_ids)
+        self._note_peak()  # partial maps raise pages in use too
+        return ok
+
+    # -- prefix cache ---------------------------------------------------
+
+    def _chain_hashes(self, tokens: np.ndarray) -> List[Tuple[int, bytes]]:
+        """(boundary n_tokens, chain hash) per full prefill chunk. Tokens
+        hash as int32 whatever integer array the caller passes, so one
+        prompt always has one chain."""
+        if self.prefix_chunk is None:
+            return []
+        c = self.prefix_chunk
+        toks = np.asarray(tokens).astype(np.int32)
+        out, h = [], b"paged-prefix"
+        for end in range(c, len(toks) + 1, c):
+            h = hashlib.sha1(h + np.ascontiguousarray(toks[end - c:end]).tobytes()).digest()
+            out.append((end, h))
+        return out
+
+    def prefix_probe_pages(self, tokens: np.ndarray) -> int:
+        """Pages a prefix hit would cover for this prompt — admission-gate
+        probe only: touches neither the LRU order nor the hit telemetry."""
+        best = 0
+        for end, h in self._chain_hashes(tokens):
+            if end >= len(tokens) or h not in self.prefix:
+                break
+            best = len(self.prefix[h].pages)
+        return best
+
+    def prefix_match(self, tokens: np.ndarray) -> Optional[Tuple[bytes, PrefixEntry]]:
+        """Longest cached chunk-aligned *proper* prefix of ``tokens``
+        (strictly shorter than the prompt: at least one token must still
+        run through prefill to produce first-token logits)."""
+        best = None
+        for end, h in self._chain_hashes(tokens):
+            if end >= len(tokens):
+                break
+            e = self.prefix.get(h)
+            if e is None:
+                break
+            best = (h, e)
+        self.prefix_lookup_tokens += len(tokens)
+        return best
+
+    def prefix_attach(self, slot: int, key: bytes) -> Dict[int, torch.Tensor]:
+        """Map a cached prefix's shared pages into the slot (incref) and
+        return the residual snapshot to resume prefill from."""
+        entry = self.prefix[key]
+        self.prefix.move_to_end(key)
+        for j, pid in enumerate(entry.pages):
+            self.table_np[slot, j] = pid
+            self.ref[pid] += 1
+        self.n_mapped[slot] = len(entry.pages)
+        self.prefix_hit_tokens += entry.n_tokens
+        self._note_peak()
+        return entry.resid
+
+    def prefix_register(self, slot: int, tokens: np.ndarray,
+                        boundary_resids: Dict[int, Dict[int, torch.Tensor]]) -> None:
+        """Insert entries for every chunk boundary prefilled this admission
+        (``boundary_resids``: n_tokens -> residual snapshot at boundary)."""
+        for end, h in self._chain_hashes(tokens):
+            if h in self.prefix:
+                self.prefix.move_to_end(h)
+                continue
+            if end not in boundary_resids:
+                continue
+            pages = tuple(int(x) for x in self.table_np[slot, :end // self.page_size])
+            for pid in pages:
+                self.cache_cnt[pid] += 1
+            self.prefix[h] = PrefixEntry(n_tokens=end, pages=pages, resid=boundary_resids[end])
+        # capacity bound on entries (their snapshots are device memory):
+        # evict the oldest regardless of page freeability
+        while len(self.prefix) > PREFIX_MAX_ENTRIES:
+            self._evict_entry(next(iter(self.prefix)))
+
+    # -- telemetry ------------------------------------------------------
+
+    def page_stats(self) -> Dict[str, float]:
+        alloc = self.n_pages - _RESERVED
+        in_use = int(np.sum(self.ref[_RESERVED:] > 0))
+        cached_only = int(np.sum((self.ref[_RESERVED:] == 0) & (self.cache_cnt[_RESERVED:] > 0)))
+        return {
+            "n_pages": float(alloc),
+            "pages_in_use": float(in_use),
+            "pages_cached_only": float(cached_only),
+            "pages_free": float(len(self.free)),
+            "page_utilization": in_use / alloc if alloc else 0.0,
+            "page_utilization_peak": self.peak_pages_in_use / alloc if alloc else 0.0,
+            "peak_pages_in_use": float(self.peak_pages_in_use),
+            "prefix_entries": float(len(self.prefix)),
+            "prefix_resid_bytes": self._prefix_resid_bytes(),
+            "prefix_hit_rate": (self.prefix_hit_tokens / self.prefix_lookup_tokens
+                                if self.prefix_lookup_tokens else 0.0),
+            "prefix_evictions": float(self.prefix_evictions),
+        }
+
+    def _prefix_resid_bytes(self) -> float:
+        """Device bytes pinned by the prefix entries' residual snapshots."""
+        return float(sum(t.numel() * t.element_size()
+                         for e in self.prefix.values() for t in e.resid.values()))
+
+    def cache_bytes(self) -> Dict[str, float]:
+        """Physical footprint (pages + residual + prefix snapshots), with the
+        contiguous pool's mod/full split: paged leaves are full-attention
+        rings ("full"); the residual pool carries the MoD rings ("mod")."""
+        sizes = {"total": 0.0, "mod": 0.0, "full": 0.0, "paged": 0.0, "resid": 0.0,
+                 "prefix_resid": self._prefix_resid_bytes()}
+        sizes["total"] += sizes["prefix_resid"]
+        for pages in self.pages:
+            b = float(pages.numel() * pages.element_size())
+            sizes["total"] += b
+            sizes["full"] += b
+            sizes["paged"] += b
+        keys = [k for k, _ in _leaves(self._template)]
+        for j, i in enumerate(self._resid_ids):
+            b = float(self.resid[j].numel() * self.resid[j].element_size())
+            sizes["total"] += b
+            sizes["mod" if "mod" in keys[i] else "full"] += b
+            sizes["resid"] += b
         sizes["mod_vs_full_ratio"] = sizes["mod"] / sizes["full"] if sizes["full"] else 0.0
         return sizes

@@ -1,10 +1,15 @@
 """Serving-engine configuration of the port.
 
-Port of ``repro/serve/config.py``'s :class:`EngineConfig`, restricted to the
-padded (contiguous-pool) engine: ``batch_size``/``ctx`` fix the decode
-batch's static shape, ``policy`` picks the admission policy, ``prefill``
-the prompt path ("auto" | "batch" | "step") and ``prefill_chunk`` cuts
-batched prefill into fixed-size chunks. The settings of the JAX engine's
+Port of ``repro/serve/config.py``'s :class:`EngineConfig`, with the padded
+and paged engines' settings: ``batch_size``/``ctx`` fix the decode batch's
+static shape, ``policy`` picks the admission policy, ``prefill`` the prompt
+path ("auto" | "batch" | "step") and ``prefill_chunk`` cuts batched
+prefill into fixed-size chunks. ``page_size`` switches to the block-paged
+KV pool (``n_pages`` physical pages, ``prefix_cache`` for shared prompt
+prefixes, ``paged_backend`` "xla" | "pallas", both of which run the CUDA
+paged kernels on the card), and ``ragged`` to the mixed prefill+decode
+step over that pool (``ragged_segments`` prefill chunks per step). Checks
+and messages are the JAX package's. The settings of the JAX engine's
 later paths are fields too, so that a caller who sets one learns at once
 that the port does not run it yet: each raises a ``ValueError`` naming it.
 """
@@ -17,14 +22,13 @@ __all__ = ["EngineConfig", "add_engine_args"]
 
 # setting -> the ROADMAP item that ports its engine path
 _LATER_PATHS = {
-    "page_size": "paged pool + prefix cache (ROADMAP Queue 1)",
-    "ragged": "ragged mixed step (ROADMAP Queue 1)",
     "speculate": "self-speculative decoding (ROADMAP Queue 1)",
     "quant": "quantized KV and weights (ROADMAP Queue 1)",
     "mesh": "multi-device serving (ROADMAP Queue 1)",
     "adaptive_capacity": "overload control (ROADMAP Queue 1)",
     "fault_injector": "overload control and fault injection (ROADMAP Queue 1)",
 }
+PAGED_BACKENDS = ("xla", "pallas")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,9 +38,13 @@ class EngineConfig:
     policy: str = "mod_aware"
     prefill: str = "auto"  # "auto" | "batch" | "step"
     prefill_chunk: Optional[int] = None  # chunked batched prefill
+    page_size: Optional[int] = None  # block-paged KV pool (None = contiguous)
+    n_pages: Optional[int] = None  # physical page count (default: B·ctx/page + 2)
+    prefix_cache: bool = False  # hash-chained prompt-prefix page reuse
+    paged_backend: str = "xla"  # paged gather/scatter: "xla" | "pallas"
+    ragged: bool = False  # mixed prefill+decode step over the paged pool
+    ragged_segments: int = 4  # prefill segments per ragged step
     # later engine paths: not ported yet, each raises when set
-    page_size: Optional[int] = None
-    ragged: bool = False
     speculate: Optional[int] = None
     quant: Any = None
     mesh: Any = None
@@ -54,20 +62,49 @@ class EngineConfig:
             raise ValueError(f"unknown prefill mode {self.prefill!r}")
         if self.prefill_chunk is not None and int(self.prefill_chunk) < 1:
             raise ValueError("prefill_chunk must be >= 1")
+        paged = self.page_size is not None
+        if not paged and (self.n_pages is not None or self.prefix_cache):
+            raise ValueError("n_pages/prefix_cache require page_size")
+        if self.ragged:
+            if not paged:
+                raise ValueError("ragged=True requires the paged pool (page_size)")
+            if int(self.ragged_segments) < 1:
+                raise ValueError("ragged_segments must be >= 1")
+        if self.paged_backend not in PAGED_BACKENDS:
+            raise ValueError(f"unknown paged backend {self.paged_backend!r}")
         for name, path in _LATER_PATHS.items():
             if getattr(self, name) not in (None, False):
                 raise ValueError(f"{name} selects the {path} path, which the port does not run yet")
 
     @classmethod
     def from_args(cls, ns, *, batch_size: int, ctx: int) -> "EngineConfig":
-        return cls(batch_size=batch_size, ctx=ctx, policy=ns.policy,
-                   prefill_chunk=ns.prefill_chunk or None)
+        return cls(
+            batch_size=batch_size, ctx=ctx, policy=ns.policy,
+            prefill_chunk=ns.prefill_chunk or None,
+            page_size=ns.page_size or None, n_pages=ns.n_pages or None,
+            prefix_cache=ns.prefix_cache, ragged=ns.ragged,
+            ragged_segments=ns.ragged_segments,
+        )
 
 
 def add_engine_args(parser) -> None:
-    """The engine flags of the port's serving CLI (the padded path's subset
-    of the JAX ``add_engine_args``)."""
+    """The engine flags of the port's serving CLI (the padded, paged and
+    ragged engines' subset of the JAX ``add_engine_args``, same names)."""
     g = parser.add_argument_group("serving engine")
     g.add_argument("--policy", default="mod_aware", choices=["fcfs", "mod_aware"])
+    g.add_argument("--page-size", type=int, default=0,
+                   help="block-paged KV pool with this page size (0 = contiguous pool); "
+                        "memory scales with live pages, admission is page-aware, OOM preempts")
+    g.add_argument("--n-pages", type=int, default=0,
+                   help="physical page count (default: batch*ctx/page-size + 2)")
+    g.add_argument("--prefix-cache", action="store_true",
+                   help="reuse chunk-aligned shared prompt prefixes across requests "
+                        "(requires --page-size)")
     g.add_argument("--prefill-chunk", type=int, default=0,
                    help="chunked batched prefill piece size (0 = whole prompt in one call)")
+    g.add_argument("--ragged", action="store_true",
+                   help="one mixed step carries decode rows and prefill segments over "
+                        "the paged pool (requires --page-size; admission is budgeted by "
+                        "free segments)")
+    g.add_argument("--ragged-segments", type=int, default=4,
+                   help="prefill segments per mixed step (--ragged)")

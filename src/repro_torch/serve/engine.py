@@ -1,8 +1,7 @@
 """Continuous-batching serving engine over the MoD routing engine.
 
-Port of ``repro/serve/engine.py::ServingEngine``, padded path: one
-``(B, 1)`` decode step against a pooled ``(B, ctx)`` cache
-(:class:`repro_torch.serve.cache.CachePool`), kept full by admitting queued
+Port of ``repro/serve/engine.py::ServingEngine``: one ``(B, 1)`` decode
+step against a pooled ``(B, ctx)`` cache, kept full by admitting queued
 requests into slots as others terminate (:mod:`repro_torch.serve.scheduler`).
 
 - **Batched prefill** (``prefill="auto"`` for the dense family): each
@@ -17,15 +16,33 @@ requests into slots as others terminate (:mod:`repro_torch.serve.scheduler`).
   ``batch_capacity`` routed rows, and reads back the per-sequence
   ``mod/decode_routed`` / ``mod/decode_scores`` telemetry.
 
+**Paged serving** (``EngineConfig.page_size``): the block-paged
+:class:`repro_torch.serve.cache.PagedCachePool` holds full-attention KV in
+refcounted pages mapped lazily as sequences grow. Admission is page-aware
+(worst-case availability, a gated request skipped, not a barrier), pool
+exhaustion preempts the youngest slot back to the queue front, and
+``prefix_cache`` reuses chunk-aligned shared prompt prefixes (pages plus a
+residual-state snapshot) bit-identically to a cold run. The decode step
+gathers the logical caches from the pages (paged gather kernel), decodes,
+and scatters each slot's new row into its tail page (paged scatter kernel).
+
+**Ragged mixed step** (``ragged=True``, paged): one step per engine step
+carries up to ``ragged_segments`` prefill segments (``prefill_chunk``
+tokens of some slot's prompt each, oldest slot first) and the decode rows
+together, and one ragged write-back kernel per paged leaf puts every KV row
+it produced into the pages. Admission is budgeted by free segments. The
+JAX step is one ``lax.scan`` over a fixed segment grid; here a Python loop
+runs the live segments only, and decode runs only when some slot decodes.
+
 Sampling runs on the host: greedy argmax, or one ``torch.Generator`` per
-request (see :mod:`repro_torch.serve.request`). The JAX engine's paged,
-ragged, speculative, quantized, SPMD and overload paths are later slices
+request (see :mod:`repro_torch.serve.request`). The speculative,
+quantized, SPMD and overload paths of the JAX engine are later slices
 (:class:`repro_torch.serve.config.EngineConfig` rejects their settings).
 """
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,7 +51,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.core.routing import batch_capacity_k
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import api
-from repro_torch.serve.cache import CachePool
+from repro_torch.serve.cache import CachePool, PagedCachePool, flatten, slot_slice
 from repro_torch.serve.config import EngineConfig
 from repro_torch.serve.request import (
     FINISH_EOS,
@@ -52,6 +69,12 @@ def routed_capacity(cfg: ModelConfig, batch_size: int) -> Optional[int]:
     if not cfg.mod.enabled:
         return None
     return batch_capacity_k(cfg, batch_size)
+
+
+class _PoolExhausted(RuntimeError):
+    """A gate-passed admission lost its pages (another admission of the same
+    wave evicted the prefix entry its page discount relied on); ``_admit``
+    unwinds it."""
 
 
 class ServingEngine:
@@ -72,10 +95,28 @@ class ServingEngine:
         self.batch_size = engine.batch_size
         self.ctx = engine.ctx
         self._batch_prefill = engine.prefill in ("auto", "batch")
-        if engine.prefill_chunk is not None and not self._batch_prefill:
+        prefill_chunk = engine.prefill_chunk
+        if prefill_chunk is not None and not self._batch_prefill:
             raise ValueError("prefill_chunk applies to batched prefill")
-        self._prefill_chunk = engine.prefill_chunk
-        self.pool = CachePool(cfg, self.batch_size, self.ctx, self.device)
+        self._paged = engine.page_size is not None
+        self._prefix_cache = engine.prefix_cache
+        self._ragged = engine.ragged
+        self._ragged_segments = int(engine.ragged_segments)
+        if self._prefix_cache or self._ragged:
+            if not self._batch_prefill:
+                raise ValueError("prefix_cache and ragged=True need batched prefill: prefill "
+                                 "segments replay model_prefill_chunk")
+            if prefill_chunk is None:
+                prefill_chunk = engine.page_size  # page-aligned boundaries by default
+        self._prefill_chunk = prefill_chunk
+        if self._paged:
+            self.pool: Any = PagedCachePool(
+                cfg, self.batch_size, self.ctx, engine.page_size, self.device,
+                n_pages=engine.n_pages,
+                prefix_chunk=prefill_chunk if self._prefix_cache else None,
+            )
+        else:
+            self.pool = CachePool(cfg, self.batch_size, self.ctx, self.device)
         self.scheduler = Scheduler(self.batch_size, engine.policy,
                                    routed_capacity(cfg, self.batch_size))
         self.slots = [Slot(i) for i in range(self.batch_size)]
@@ -83,6 +124,8 @@ class ServingEngine:
         self.step_count = 0
         self.generated_tokens = 0
         self.decode_steps = 0
+        self.preemptions = 0  # mid-generation evictions (pages exhausted)
+        self.admission_aborts = 0  # gate-passed admissions unwound pre-batch
         self._prefill_tokens_computed = 0
         self._positions_computed = 0
         self._positions_wasted = 0
@@ -104,6 +147,12 @@ class ServingEngine:
         """Queue a request; returns its uid."""
         if req.total_len > self.ctx:
             raise ValueError(f"request needs {req.total_len} positions but engine ctx is {self.ctx}")
+        if self._paged and self.pool.pages_needed(req.total_len) > self.pool.allocatable_pages:
+            # fail fast: the admission gate would block it forever
+            raise ValueError(
+                f"request needs {self.pool.pages_needed(req.total_len)} pages worst-case but "
+                f"the pool has {self.pool.allocatable_pages}"
+            )
         if req.uid is None:
             req.uid = self._uid
         elif req.uid in self._used_uids:
@@ -114,36 +163,74 @@ class ServingEngine:
         self.scheduler.submit(req)
         return req.uid
 
-    def _admit(self) -> None:
-        plans = self.scheduler.plan_admissions(self.slots, stepped_prefill=not self._batch_prefill)
-        for slot, req in plans:
+    def _page_gate(self):
+        """Admission gate of the paged pool: a request enters only if its
+        worst-case page count (less the pages a cached prefix covers) is
+        obtainable now, net of what the same wave already claimed.
+        Availability, not reservation: running slots still grow lazily, and
+        preemption is the backstop for overcommit."""
+        if not self._paged:
+            return None
+        claimed = [0]
+
+        def gate(req: Request) -> bool:
+            need = self.pool.pages_needed(req.total_len)
+            if self._prefix_cache:
+                need -= self.pool.prefix_probe_pages(req.tokens)
+            ok = need <= self.pool.available_pages() - claimed[0]
+            if ok:
+                claimed[0] += need
+            return ok
+
+        return gate
+
+    def _start(self, slot: Slot, req: Request) -> None:
+        """Bind an admitted request to its slot (pool rows back to empty)."""
+        if self._paged:
+            self.pool.acquire(slot.idx)
+        else:
             self.pool.reset(slot.idx)
-            slot.req = req
-            slot.generated = []
-            slot.admitted_step = self.step_count
-            slot.first_token_step = -1
-            slot.routed_sum, slot.routed_steps = 0.0, 0
-            slot.score, slot.score_sum, slot.score_steps = float("nan"), 0.0, 0
-            slot.sampler = None
-            if req.temperature > 0.0:
-                seed = req.seed if req.seed is not None else req.uid
-                slot.sampler = torch.Generator().manual_seed(int(seed))
+        slot.req = req
+        slot.generated = []
+        slot.admitted_step = self.step_count
+        slot.first_token_step = -1
+        slot.routed_sum, slot.routed_steps = 0.0, 0
+        slot.score, slot.score_sum, slot.score_steps = float("nan"), 0.0, 0
+        slot.sampler = None
+        if req.temperature > 0.0:
+            seed = req.seed if req.seed is not None else req.uid
+            slot.sampler = torch.Generator().manual_seed(int(seed))
+
+    def _admit(self) -> None:
+        plans = self.scheduler.plan_admissions(self.slots, stepped_prefill=not self._batch_prefill,
+                                               page_gate=self._page_gate())
+        for slot, req in plans:
+            self._start(slot, req)
             if not self._batch_prefill:
+                if self._paged and not self.pool.alloc_pages(slot.idx, 1):
+                    self._abort_admission(slot, req)
+                    continue
                 slot.state = PREFILL
                 slot.pos = 0
                 slot.prompt_idx = 0
                 slot.next_token = int(req.tokens[0])
                 continue
             t0 = time.perf_counter()
-            if self._prefill_chunk is not None:
-                logits_row = self._chunked_prefill(slot, req)
-            else:
-                toks = torch.as_tensor(req.tokens, device=self.device)[None]
-                logits, sub = api.model_prefill(self.params, self.cfg, {"tokens": toks}, self.ctx)
-                self.pool.write_slot(slot.idx, sub)
-                logits_row = logits[0, -1].float().cpu().numpy()
-                self._prefill_tokens_computed += req.prompt_len
-                self._positions_computed += req.prompt_len
+            try:
+                if self._prefill_chunk is not None:
+                    logits_row = self._chunked_prefill(slot, req)
+                else:
+                    toks = torch.as_tensor(req.tokens, device=self.device)[None]
+                    logits, sub = api.model_prefill(self.params, self.cfg, {"tokens": toks}, self.ctx)
+                    if self._paged and not self.pool.alloc_pages(slot.idx, req.prompt_len):
+                        raise _PoolExhausted
+                    self.pool.write_slot(slot.idx, sub)
+                    logits_row = logits[0, -1].float().cpu().numpy()
+                    self._prefill_tokens_computed += req.prompt_len
+                    self._positions_computed += req.prompt_len
+            except _PoolExhausted:
+                self._abort_admission(slot, req)
+                continue
             self._prefill_s += time.perf_counter() - t0
             self._n_prefills += 1
             if not np.isfinite(logits_row).all():
@@ -157,14 +244,72 @@ class ServingEngine:
                 slot.state = GENERATE
                 slot.next_token = tok
 
+    def _admit_ragged(self) -> None:
+        """Token-budget admission of the mixed step: a request enters only
+        while the step has free prefill segments left after the slots
+        already mid-prompt. Admitted slots enter PREFILL with no compute;
+        their prompts drain through the mixed step."""
+        n_prefilling = sum(1 for s in self.slots if s.state == PREFILL)
+        plans = self.scheduler.plan_admissions(
+            self.slots, stepped_prefill=False, page_gate=self._page_gate(),
+            max_admissions=max(0, self._ragged_segments - n_prefilling),
+        )
+        for slot, req in plans:
+            self._start(slot, req)
+            slot.state = PREFILL
+            slot.pos = 0
+            slot.prompt_idx = 0
+            slot.next_token = 0
+            if self._prefix_cache:
+                m = self.pool.prefix_match(req.tokens)
+                if m is not None:
+                    key, entry = m
+                    self.pool.overlay_resid_slot(slot.idx, self.pool.prefix_attach(slot.idx, key))
+                    slot.prompt_idx = entry.n_tokens
+                    slot.pos = entry.n_tokens
+
+    def _abort_admission(self, slot: Slot, req: Request) -> None:
+        """A gate-passed admission lost its pages before entering the batch:
+        unwind it (pages released, request back to the queue front) instead
+        of crashing; a later step's gate decides again."""
+        self.pool.release(slot.idx)
+        slot.req = None
+        slot.state = FREE
+        slot.generated = []
+        slot.sampler = None
+        self.scheduler.requeue(req)
+        self.admission_aborts += 1
+
     def _chunked_prefill(self, slot: Slot, req: Request) -> np.ndarray:
-        """Ingest the prompt in fixed ``prefill_chunk`` pieces against a
-        fresh batch-1 cache; returns the last-position logits row."""
+        """Ingest the prompt in fixed ``prefill_chunk`` pieces against the
+        slot's working cache; returns the last-position logits row.
+
+        With the prefix cache, the longest chunk-aligned cached prefix is
+        restored first (shared pages attached, residual snapshot copied in)
+        and only the remainder is computed; every chunk boundary prefilled
+        here is registered for later requests."""
         tokens = req.tokens
         L, C = req.prompt_len, self._prefill_chunk
-        work = self.pool.fresh()
+        start_tok = 0
+        prefix = None
+        if self._prefix_cache:
+            m = self.pool.prefix_match(tokens)
+            if m is not None:
+                start_tok = m[1].n_tokens
+                # shared prefix pages map first (logical pages 0..n), then
+                # the suffix's own pages after them
+                prefix = self.pool.prefix_attach(slot.idx, m[0])
+        if self._paged:
+            if not self.pool.alloc_pages(slot.idx, L):
+                raise _PoolExhausted
+            work = self.pool.read_slot(slot.idx)
+            if prefix is not None:
+                self.pool.overlay_resid(work, prefix)
+        else:
+            work = self.pool.fresh()
+        boundary_resids: Dict[int, Any] = {}
         logits = None
-        off = 0
+        off = start_tok
         while off < L:
             nv = min(C, L - off)
             chunk = np.zeros((1, C), np.int64)
@@ -176,11 +321,18 @@ class ServingEngine:
             self._prefill_tokens_computed += nv
             self._positions_computed += C
             self._positions_wasted += C - nv
-        self.pool.write_slot(slot.idx, work)
+            if self._prefix_cache and off % C == 0:
+                boundary_resids[off] = self.pool.snapshot_resid(work)
+        if self._paged:
+            self.pool.write_slot(slot.idx, work, start_page=start_tok // self.pool.page_size)
+            if self._prefix_cache:
+                self.pool.prefix_register(slot.idx, tokens, boundary_resids)
+        else:
+            self.pool.write_slot(slot.idx, work)
         return logits[0].float().cpu().numpy()
 
     # ------------------------------------------------------------------
-    # Sampling / termination
+    # Sampling / termination / preemption
     # ------------------------------------------------------------------
 
     def _sample(self, slot: Slot, logits_row: np.ndarray) -> int:
@@ -223,6 +375,78 @@ class ServingEngine:
         slot.state = FREE
         slot.generated = []
         slot.sampler = None
+        if self._paged:
+            self.pool.release(slot.idx)
+
+    def _preempt(self, slot: Slot) -> None:
+        """Page-pool OOM backstop: the slot's request goes back to the
+        *front* of the queue with its pages released and restarts from
+        scratch on re-admission (a sampled request's generator is re-seeded
+        then, so its stream repeats; a ``stream`` callback sees the replay)."""
+        req = slot.req
+        self.pool.release(slot.idx)
+        # modlint: disable=counter-decrement -- not a monotone counter here:
+        # preemption restarts the request from scratch, so its tokens leave
+        # the book and are re-counted on replay; net totals stay exact
+        self.generated_tokens -= len(slot.generated)
+        slot.req = None
+        slot.state = FREE
+        slot.generated = []
+        slot.sampler = None
+        self.scheduler.requeue(req)
+        self.preemptions += 1
+
+    def _youngest_active(self) -> Slot:
+        return max((t for t in self.slots if t.active), key=lambda t: (t.admitted_step, t.idx))
+
+    def _grow_pages(self) -> None:
+        """Map each active slot's next write page before the step; on pool
+        exhaustion (free list empty, nothing evictable) preempt the
+        youngest-admitted active slot and retry, so the oldest request
+        always keeps making progress."""
+        while True:
+            needy = [s for s in self.slots if s.active
+                     and self.pool.pages_needed(s.pos + 1) > int(self.pool.n_mapped[s.idx])]
+            for s in needy:
+                if not self.pool.alloc_pages(s.idx, s.pos + 1):
+                    self._preempt(self._youngest_active())
+                    break  # re-scan: the victim may have been in `needy`
+            else:
+                return
+
+    def _plan_segments(self) -> List[Tuple[Slot, int, int]]:
+        """Greedy FCFS plan of the mixed step's prefill budget
+        (``ragged_segments`` segments of ``prefill_chunk`` tokens): oldest
+        mid-prompt slot first, several consecutive segments per slot allowed.
+        Also maps every page the step writes (the planned prefill extent and
+        each decoding slot's next row); on exhaustion the youngest active
+        slot, possibly mid-prefill, is preempted and planning restarts."""
+        C = self._prefill_chunk
+        while True:
+            segs: List[Tuple[Slot, int, int]] = []
+            planned_end: Dict[int, int] = {}
+            budget = self._ragged_segments
+            for s in sorted((t for t in self.slots if t.state == PREFILL),
+                            key=lambda t: (t.admitted_step, t.idx)):
+                off, L = s.prompt_idx, s.req.prompt_len
+                while budget > 0 and off < L:
+                    nv = min(C, L - off)
+                    segs.append((s, off, nv))
+                    off += nv
+                    budget -= 1
+                if off > s.prompt_idx:
+                    planned_end[s.idx] = off
+                if budget <= 0:
+                    break
+            ok = True
+            for s in self.slots:
+                need = s.pos + 1 if s.state == GENERATE else planned_end.get(s.idx)
+                if need is not None and not self.pool.alloc_pages(s.idx, need):
+                    ok = False
+                    break
+            if ok:
+                return segs
+            self._preempt(self._youngest_active())
 
     # ------------------------------------------------------------------
     # Stepping
@@ -233,49 +457,67 @@ class ServingEngine:
         return bool(self.scheduler.queue) or any(s.active for s in self.slots)
 
     def step(self) -> List[RequestOutput]:
-        """Admit + one decode step + per-slot host update. Returns the
-        requests that finished during this call."""
+        """Admit + one decode (or mixed) step + per-slot host update.
+        Returns the requests that finished during this call."""
         done_before = len(self.finished)
         t0 = time.perf_counter()
-        self._admit()
-        active_slots = [s for s in self.slots if s.active]
-        if active_slots:
-            self._decode(active_slots)
+        if self._ragged:
+            self._step_ragged()
+        else:
+            self._admit()
+            if self._paged:
+                self._grow_pages()  # may preempt; must precede the active scan
+            active_slots = [s for s in self.slots if s.active]
+            if active_slots:
+                self._decode(active_slots)
         self.step_count += 1
         self._wall_s += time.perf_counter() - t0
         self.scheduler.check_invariants(self.slots, len(self.finished))
         return self.finished[done_before:]
 
-    def _decode(self, active_slots: List[Slot]) -> None:
-        t0 = time.perf_counter()
+    def _decode_inputs(self, decode_slots: List[Slot]) -> Tuple[np.ndarray, ...]:
+        """(tokens (B, 1), pos (B,) int32, active (B,)) of one decode step."""
         B = self.batch_size
         tokens = np.zeros((B, 1), np.int64)
         pos = np.zeros((B,), np.int32)
         active = np.zeros((B,), bool)
-        for s in active_slots:
+        for s in decode_slots:
             tokens[s.idx, 0] = s.next_token
             pos[s.idx] = s.pos
             active[s.idx] = True
-        dev = self.device
-        logits, self.pool.caches, aux = api.model_decode(
-            self.params, self.pool.caches, self.cfg,
-            torch.as_tensor(tokens, device=dev), torch.as_tensor(pos, device=dev),
-            torch.as_tensor(active, device=dev),
-        )
+        return tokens, pos, active
+
+    def _decode(self, active_slots: List[Slot]) -> None:
+        t0 = time.perf_counter()
+        tokens, pos, active = (torch.as_tensor(a, device=self.device)
+                               for a in self._decode_inputs(active_slots))
+        if self._paged:
+            table = self.pool.device_table()
+            caches = self.pool.materialize(table)
+            logits, caches, aux = api.model_decode(self.params, caches, self.cfg, tokens, pos, active)
+            self.pool.writeback(caches, table, pos)
+        else:
+            logits, self.pool.caches, aux = api.model_decode(
+                self.params, self.pool.caches, self.cfg, tokens, pos, active)
         logits_np = logits.float().cpu().numpy()
         aux_np = {k: v.float().cpu().numpy() for k, v in aux.items()}
         self._decode_s += time.perf_counter() - t0
         self.decode_steps += 1
+        B = self.batch_size
         self._positions_computed += B
         self._positions_wasted += B - len(active_slots)
+        self._occupancy_sum += len(active_slots)
+        self._advance(active_slots, logits_np, aux_np)
+
+    def _advance(self, decode_slots: List[Slot], logits_np: np.ndarray,
+                 aux_np: Dict[str, np.ndarray]) -> None:
+        """Host update of the slots that decoded this step."""
         routed_np = aux_np.get("mod/decode_routed")
         scores_np = aux_np.get("mod/decode_scores")
         if "mod/decode_routed_frac" in aux_np:
             self._routed_frac_sum += float(aux_np["mod/decode_routed_frac"])
             self._routed_frac_steps += 1
-        self._occupancy_sum += len(active_slots)
-
-        for s in active_slots:
+        for s in decode_slots:
             if not np.isfinite(logits_np[s.idx]).all():
                 # a poisoned row fails only its own request: rows couple
                 # only through MoD *selection*, never through values
@@ -299,6 +541,106 @@ class ServingEngine:
             if s.req is not None:
                 s.state = GENERATE
                 s.next_token = tok
+
+    def _step_ragged(self) -> None:
+        """One mixed prefill+decode step. Each live segment replays the
+        exact ``prefill_chunk`` call the padded path makes (same
+        boundaries, same batch-1 cache state) on the slot's rows of the
+        materialized caches; then decode runs on the updated caches, and one
+        ragged write-back per paged leaf stores every produced row. Token
+        streams equal the padded engine's whenever the decode batches do."""
+        self._admit_ragged()
+        segs = self._plan_segments()  # maps pages; may preempt mid-prefill
+        active_slots = [s for s in self.slots if s.active]
+        if not active_slots:
+            return
+        B, C = self.batch_size, self._prefill_chunk
+        decode_slots = [s for s in self.slots if s.state == GENERATE]
+        dev = self.device
+        t0 = time.perf_counter()
+        table = self.pool.device_table()
+        caches = self.pool.materialize(table)
+        seg_logits, seg_resid = [], []
+        for s, start, nv in segs:
+            chunk = np.zeros((1, C), np.int64)
+            chunk[0, :nv] = s.req.tokens[start : start + nv]
+            sub = slot_slice(caches, s.idx)
+            lg, _ = api.model_prefill_chunk(self.params, self.cfg, sub,
+                                            torch.as_tensor(chunk, device=dev), start, nv)
+            seg_logits.append(lg[0])
+            # prefix boundaries land mid-step: later segments of the same
+            # slot advance its rows, so snapshot now
+            if self._prefix_cache and (start + nv) % C == 0:
+                seg_resid.append(self.pool.snapshot_resid(sub))
+            else:
+                seg_resid.append(None)
+        seg_logits_np = torch.stack(seg_logits).float().cpu().numpy() if segs else None
+        t1 = time.perf_counter()
+        self._prefill_s += t1 - t0
+
+        dec_tokens, dec_pos, dec_act = self._decode_inputs(decode_slots)
+        logits_np, aux_np = None, {}
+        if decode_slots:
+            # decode runs over every row and writes its caches in place; a
+            # slot mid-prefill must not absorb that row (its cursor, its
+            # ring entry, a MoD ring row if it won capacity), so its rows of
+            # every leaf are saved before and put back after
+            keep = [s.idx for s in self.slots if s.state == PREFILL]
+            leaves = flatten(caches)
+            idx = torch.as_tensor(keep, dtype=torch.int64, device=dev)
+            saved = [leaf.index_select(0, idx) for leaf in leaves] if keep else []
+            logits, caches, aux = api.model_decode(
+                self.params, caches, self.cfg, *(torch.as_tensor(a, device=dev)
+                                                 for a in (dec_tokens, dec_pos, dec_act)))
+            for leaf, rows in zip(leaves, saved):
+                leaf.index_copy_(0, idx, rows)
+            logits_np = logits.float().cpu().numpy()
+            aux_np = {k: v.float().cpu().numpy() for k, v in aux.items()}
+            self.decode_steps += 1
+
+        # write-back rows: the B decode rows (valid where a slot decoded),
+        # then every live segment's C positions (valid below its length)
+        w_slot = [np.arange(B)] + [np.full(C, s.idx) for s, _, _ in segs]
+        w_pos = [dec_pos] + [st + np.arange(C) for _, st, _ in segs]
+        w_valid = [dec_act] + [np.arange(C) < nv for _, _, nv in segs]
+        self.pool.writeback_tokens(
+            caches, table,
+            torch.as_tensor(np.concatenate(w_slot).astype(np.int64), device=dev),
+            torch.as_tensor(np.concatenate(w_pos).astype(np.int32), device=dev),
+            torch.as_tensor(np.concatenate(w_valid), device=dev),
+        )
+        n_pf = sum(nv for _, _, nv in segs)
+        self._prefill_tokens_computed += n_pf
+        self._positions_computed += len(segs) * C + B
+        self._positions_wasted += (len(segs) * C - n_pf) + (B - len(decode_slots))
+        self._occupancy_sum += len(active_slots)
+
+        # prefill slots: advance prompt progress, register every boundary a
+        # segment completed, sample first tokens where a prompt completed
+        # (from that slot's last segment's logits)
+        last_seg: Dict[int, int] = {}
+        for k, (s, start, nv) in enumerate(segs):
+            s.prompt_idx = s.pos = start + nv
+            last_seg[s.idx] = k
+            if seg_resid[k] is not None:
+                self.pool.prefix_register(s.idx, s.req.tokens, {start + nv: seg_resid[k]})
+        for s in [t for t in self.slots if t.state == PREFILL and t.idx in last_seg]:
+            if s.prompt_idx < s.req.prompt_len:
+                continue  # over budget this step; continues next step
+            self._n_prefills += 1
+            row = seg_logits_np[last_seg[s.idx]]
+            if not np.isfinite(row).all():
+                self._finish(s, FINISH_ERROR, error="non-finite prefill-segment logits at step "
+                                                    f"{self.step_count}")
+                continue
+            tok = self._sample(s, row)
+            self._push_token(s, tok)
+            if s.req is not None:
+                s.state = GENERATE
+                s.next_token = tok
+        if decode_slots:
+            self._advance(decode_slots, logits_np, aux_np)
+        self._decode_s += time.perf_counter() - t1
 
     def run(self, max_steps: Optional[int] = None) -> List[RequestOutput]:
         """Step until queue and slots drain; returns all finished outputs."""
@@ -357,7 +699,7 @@ class ServingEngine:
     def stats(self) -> Dict[str, Any]:
         steps = max(1, self.step_count)
         cb = self.pool.cache_bytes()
-        return {
+        out = {
             "steps": float(self.step_count),
             "decode_steps": float(self.decode_steps),
             "prefills": float(self._n_prefills),
@@ -380,3 +722,8 @@ class ServingEngine:
             ),
             "slot_scores": [s.score for s in self.slots],
         }
+        if self._paged:
+            out["preemptions"] = float(self.preemptions)
+            out["admission_aborts"] = float(self.admission_aborts)
+            out.update(self.pool.page_stats())
+        return out

@@ -1,8 +1,9 @@
 """Slot scheduler for the continuous-batching engine (pure host code).
 
-Port of ``repro/serve/scheduler.py`` for the padded engine. The engine owns
-``B`` slots (one per decode-batch row); at the start of each step the
-scheduler admits queued requests into free slots, oldest first (a
+Port of ``repro/serve/scheduler.py`` for the padded, paged and ragged
+engines (no priority classes yet: they come with overload control). The
+engine owns ``B`` slots (one per decode-batch row); at the start of each
+step the scheduler admits queued requests into free slots, oldest first (a
 monotone submission number breaks ties between equal arrivals). A slot
 frees the step its request terminates.
 
@@ -18,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 from collections import deque
-from typing import Deque, List, Optional, Tuple
+from typing import Callable, Deque, List, Optional, Tuple
 
 from repro_torch.serve.request import Request
 
@@ -73,9 +74,17 @@ class Scheduler:
         self.queue.append(req)
         self.submitted += 1
 
-    def plan_admissions(self, slots: List[Slot], stepped_prefill: bool
+    def plan_admissions(self, slots: List[Slot], stepped_prefill: bool,
+                        page_gate: Optional[Callable[[Request], bool]] = None,
+                        max_admissions: Optional[int] = None,
                         ) -> List[Tuple[Slot, Request]]:
-        """(slot, request) pairs to admit this step, in FCFS order."""
+        """(slot, request) pairs to admit this step, in FCFS order.
+
+        ``page_gate`` is the paged pool's admission check (worst-case pages
+        obtainable now). A gated request is *skipped, not a barrier*: it
+        keeps its place and seniority while smaller requests behind it may
+        admit. ``max_admissions`` caps the wave further (the ragged engine
+        budgets admissions by free prefill segments, not free slots)."""
         free = [s for s in slots if s.state == FREE]
         # a zero routed budget (kb == 0) blocks stepped admission; None
         # (MoD off) disables the cap
@@ -83,13 +92,29 @@ class Scheduler:
             budget = self.routed_capacity - sum(1 for s in slots if s.state == PREFILL)
         else:
             budget = len(free)
-        budget = max(0, min(budget, len(free), len(self.queue)))
-        order = sorted(self.queue, key=lambda r: r._seq)  # type: ignore[attr-defined]
-        plans = list(zip(free[:budget], order[:budget]))
+        if max_admissions is not None:
+            budget = min(budget, max_admissions)
+        budget = min(budget, len(free))
+        plans: List[Tuple[Slot, Request]] = []
+        for req in sorted(self.queue, key=lambda r: r._seq):  # type: ignore[attr-defined]
+            if len(plans) >= budget:
+                break
+            if page_gate is None or page_gate(req):
+                plans.append((free[len(plans)], req))
         taken = {id(r) for _, r in plans}
         self.queue = deque(r for r in self.queue if id(r) not in taken)
         self.admitted += len(plans)
         return plans
+
+    def requeue(self, req: Request) -> None:
+        """Preemption / aborted admission: the request goes back to the
+        queue front with its admission unwound, keeping its original
+        ``_seq`` (and so its place ahead of later arrivals)."""
+        self.queue.appendleft(req)
+        # modlint: disable=counter-decrement -- `admitted` is a gauge of
+        # currently-admitted requests (the invariant queue + admitted ==
+        # submitted depends on it unwinding here), not a lifetime counter
+        self.admitted -= 1
 
     def check_invariants(self, slots: List[Slot], finished: int) -> None:
         """Every submitted request is in exactly one place; no slot leaks."""

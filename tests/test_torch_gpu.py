@@ -34,6 +34,8 @@ torch = pytest.importorskip("torch")
 from repro_torch import config as TC  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
+from repro_torch.kernels import paged as KP  # noqa: E402
+from repro_torch.kernels import ragged as KRG  # noqa: E402
 from repro_torch.kernels import routing as KR  # noqa: E402
 from repro_torch.kernels import swiglu as SW  # noqa: E402
 
@@ -318,3 +320,121 @@ def test_training_step_launches_the_backends_kernels(dev, backend):
         # forward gather + scatter, and each one's backward launches the other
         assert counts["gather_rows"] == counts["scatter_add_rows"] == 2 * n
         assert counts["routed_attention"] == counts["routed_mlp_scatter"] == 0
+
+
+# ---------------------------------------------------------------------------
+# paged KV pool kernels: copies, so bitwise; the scatters write in place
+# ---------------------------------------------------------------------------
+
+PAGED_DTYPES = [torch.float32, torch.bfloat16, torch.int32]
+
+
+def _paged_inputs(dev, dtype, N, p, F, B, P, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pages = (torch.randn(N, p, F, generator=g, device=dev) * 8).to(dtype)
+    # distinct physical pages per slot (page 0/1 reserved), as the pool maps them
+    perm = torch.randperm(N - 2, generator=g, device=dev)[: B * P] + 2
+    table = perm.reshape(B, P).to(torch.int32)
+    return g, pages, table
+
+
+@pytest.mark.parametrize("dtype", PAGED_DTYPES)
+@pytest.mark.parametrize("N,p,F,B,P", [(530, 16, 1792, 8, 66), (530, 16, 1, 8, 66),
+                                       (11, 3, 5, 3, 3), (40, 7, 13, 2, 4)])
+def test_paged_gather_bitwise(dev, dtype, N, p, F, B, P):
+    _, pages, table = _paged_inputs(dev, dtype, N, p, F, B, P, 11)
+    table[0, -1] = 0  # an unmapped (NULL) logical page
+    build.reset_counters()
+    out = KP.paged_gather(pages, table)
+    torch.cuda.synchronize()
+    assert torch.equal(out, KP.paged_gather_plain(pages, table))
+    assert build.launch_counts()["paged_gather"] == 1
+
+
+@pytest.mark.parametrize("dtype", PAGED_DTYPES)
+@pytest.mark.parametrize("N,p,F,B,P", [(530, 16, 1792, 8, 66), (530, 16, 1, 8, 66),
+                                       (11, 3, 5, 3, 3)])
+def test_paged_scatter_rows_in_place_bitwise(dev, dtype, N, p, F, B, P):
+    g, pages, table = _paged_inputs(dev, dtype, N, p, F, B, P, 12)
+    rows = (torch.randn(B, F, generator=g, device=dev) * 8).to(dtype)
+    pos = torch.randint(0, P * p, (B,), generator=g, device=dev).to(torch.int32)
+    want = KP.paged_scatter_rows_plain(pages.clone(), table, rows, pos)
+    before = pages.clone()
+    ptr = pages.data_ptr()
+    build.reset_counters()
+    out = KP.paged_scatter_rows(pages, table, rows, pos)
+    torch.cuda.synchronize()
+    assert out.data_ptr() == ptr and torch.equal(pages, want)
+    assert build.launch_counts()["paged_scatter_rows"] == 1
+    # exactly the B target rows changed (rows equal to what was there excepted)
+    changed = (pages != before).reshape(N * p, -1).any(-1).nonzero().flatten().tolist()
+    pid = table.long()[torch.arange(B, device=dev), pos.long() // p]
+    targets = set((pid * p + pos.long() % p).tolist())
+    assert set(changed) <= targets
+
+
+@pytest.mark.parametrize("dtype", PAGED_DTYPES)
+@pytest.mark.parametrize("N,p,F,B,P,S,C", [(530, 16, 1792, 8, 66, 3, 256), (530, 16, 1, 8, 66, 3, 256),
+                                           (23, 4, 5, 3, 6, 2, 8)])
+def test_ragged_paged_scatter_rows_in_place_bitwise(dev, dtype, N, p, F, B, P, S, C):
+    g, pages, table = _paged_inputs(dev, dtype, N, p, F, B, P, 13)
+    W = B + S * C
+    rows = (torch.randn(W, F, generator=g, device=dev) * 8).to(dtype)
+    # decode rows at distinct positions, then S segments of C tokens of
+    # slot 0 after them; invalid rows (odd decode slots, segment tails) go
+    # to the scratch page
+    dec_pos = torch.full((B,), P * p - 1, dtype=torch.int32, device=dev)
+    slot = torch.cat([torch.arange(B, device=dev), torch.zeros(S * C, dtype=torch.long, device=dev)])
+    pos = torch.cat([dec_pos, torch.arange(S * C, dtype=torch.int32, device=dev)])
+    valid = torch.cat([torch.arange(B, device=dev) % 2 == 0,
+                       torch.arange(S * C, device=dev) < S * C - C // 2])
+    pid, off = KRG.ragged_page_targets(table, slot, pos, valid, p, 1)
+    want = KRG.ragged_paged_scatter_rows_plain(pages.clone(), pid, off, rows)
+    before = pages.clone()
+    build.reset_counters()
+    KRG.ragged_paged_scatter_rows(pages, pid, off, rows)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["ragged_paged_scatter_rows"] == 1
+    keep = torch.ones(N, dtype=torch.bool, device=dev)
+    keep[1] = False  # collisions on the scratch page are garbage by contract
+    assert torch.equal(pages[keep], want[keep])
+    hit = set((pid.long() * p + off.long()).tolist())
+    changed = (pages != before).reshape(N * p, -1).any(-1).nonzero().flatten().tolist()
+    assert set(changed) <= hit
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+def test_paged_and_ragged_engines_launch_the_paged_kernels(dev, backend):
+    """A paged decode step gathers and scatters every paged leaf once
+    (3 per full-attention layer); the ragged step writes back through the
+    ragged kernel; both give the contiguous engine's greedy streams."""
+    import numpy as np
+
+    from repro_torch.models import api
+    from repro_torch.serve import EngineConfig, Request, ServingEngine
+
+    cfg = TC.with_mod_backend(TC.smoke_config(TC.get_config("mod-paper-60m")), "pallas")
+    params = api.init_model(cfg, device=dev, seed=0)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=n) for n in (20, 33, 9, 41)]
+    n_full = len(params["groups"])  # one full-attention layer per group
+    streams = {}
+    for name, kw in (("contiguous", {}), ("paged", dict(page_size=16)),
+                     # every prompt chunk in the first step (2+3+1+3): the
+                     # decode batches, and so the streams, are the padded ones
+                     ("ragged", dict(page_size=16, ragged=True, ragged_segments=9))):
+        eng = ServingEngine(params, cfg, EngineConfig(batch_size=4, ctx=64, prefill_chunk=16,
+                                                      paged_backend=backend, **kw), device=dev)
+        build.reset_counters()
+        outs = eng.run_stream([Request(tokens=p, max_new_tokens=6) for p in prompts], 0)
+        torch.cuda.synchronize()
+        counts = build.launch_counts()
+        streams[name] = {o.uid: o.tokens.tolist() for o in outs}
+        steps = eng.stats()["decode_steps"]
+        if name == "paged":
+            assert counts["paged_scatter_rows"] == 3 * n_full * steps
+            assert counts["paged_gather"] == 3 * n_full * (steps + len(prompts))
+        if name == "ragged":
+            assert counts["ragged_paged_scatter_rows"] >= 3 * n_full
+            assert counts["paged_scatter_rows"] == 0
+    assert streams["paged"] == streams["contiguous"] == streams["ragged"]

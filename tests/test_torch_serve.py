@@ -6,7 +6,8 @@ identical, with whole-prompt and with chunked prefill. The JAX engine runs
 backend ``xla`` (its ``xla`` and ``pallas`` backends are bitwise equal,
 tests/test_routing_backends.py); the port runs ``pallas``, whose wrappers
 take their plain versions on the CPU. Also: the settings of the engine
-paths the port does not run yet raise.
+paths the port does not run yet (speculative, quantized, SPMD, overload)
+raise, with or without the paged pool they build on.
 """
 import dataclasses
 
@@ -87,11 +88,12 @@ def test_generate_and_sampling_are_per_request():
 
 @pytest.mark.parametrize(
     "setting",
-    [dict(page_size=16), dict(ragged=True), dict(speculate=2), dict(quant="int8"),
-     dict(mesh="data"), dict(adaptive_capacity=True), dict(fault_injector=object())],
+    [dict(speculate=2, page_size=16), dict(quant="int8", page_size=16), dict(speculate=2),
+     dict(quant="int8"), dict(mesh="data"), dict(adaptive_capacity=True),
+     dict(fault_injector=object())],
 )
 def test_later_engine_paths_raise(setting):
-    (name,) = setting
+    name = next(iter(setting))
     with pytest.raises(ValueError, match=name):
         EngineConfig(batch_size=2, ctx=16, **setting)
 
