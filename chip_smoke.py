@@ -16,8 +16,12 @@ failure raises and exits non-zero):
    (never called by the port); the three paged-pool kernels (page gather,
    decode-row scatter, ragged write-back) at the shapes of phase 6c and odd
    tails, bitwise, with the in-place scatters held to their target rows;
-   then the gradients of the five differentiable kernel wrappers (their
-   ``autograd.Function``) against autograd through the plain versions;
+   the dequantizing page gather (int8/page and fp8/head pages widened to
+   bf16 at phase 7b's shapes) and the ragged MoD gather/scatter (phase
+   8b's flat streams), bitwise, after the card's int8/e4m3 casts and pow2
+   scales are held to the CPU's; then the gradients of the five
+   differentiable kernel wrappers (their ``autograd.Function``) against
+   autograd through the plain versions;
 3. the port against itself across devices, ``mod-paper-60m`` at full width
    and depth in f32, the same weights on the CPU (plain versions) and on
    the card (kernels): with backend ``pallas`` a 256-token prefill and 16
@@ -38,7 +42,25 @@ failure raises and exits non-zero):
    bf16, 8 requests sharing a 512-token prefix, through the contiguous,
    paged, prefix-cached and ragged engines: identical streams, the prefix
    cache's saving, 36 paged gathers and scatters per decode step, the
-   ragged write-back's launches, and one profiled paged decode step.
+   ragged write-back's launches, and one profiled paged decode step;
+7. quantized paged-KV serving: ``mod-paper-60m`` f32 through the quantized
+   paged + prefix and ragged engines (int8/page, fp8/head) and with int8
+   weights, CPU against the card (identical streams and kv_bytes), then
+   ``mod-paper-1b`` bf16 on phase 6c's workload and weights through four
+   quantized engines: throughput, pool and KV bytes against phase 6c's
+   unquantized pool (at least 1.9x less), tokens equal to the unquantized
+   streams, each request's first-token top-1/top-2 gap beside the change
+   quantization made to those logits, launches, one profiled decode step
+   (24 dequantizing gathers and 12 plain ones) and the cost of widening
+   int8 weights;
+8. the flat ragged forward (``model_forward_ragged``): ``mod-paper-60m``
+   f32 on unequal segments, CPU against the card (equal routed masks,
+   logits within 1e-4), then ``mod-paper-1b`` on 4 equal segments of 1024
+   against the padded forward (f32 with the same weights, and bf16), the
+   bf16 flat forward routed as the f32 one against it (logits and router
+   scores within BF16_FLAT_LOGITS / BF16_FLAT_SCORES), and on 8 unequal
+   segments on T=4096, timed, with 12 ragged gathers and 12 ragged
+   scatters per forward.
 
 It prints a ``{"kernels": [...]}`` line, then the card's ``nvidia-smi`` line,
 then as the last line ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -79,8 +101,15 @@ SOURCES = {
                            "src/repro/kernels/paged.py:185"),
     "ragged_paged_scatter_rows": ("src/repro_torch/kernels/csrc/paged.cu",
                                   "src/repro/kernels/ragged.py:478"),
+    "paged_gather_dequant": ("src/repro_torch/kernels/csrc/paged.cu",
+                             "src/repro/kernels/paged.py:138"),
+    "ragged_gather_rows": ("src/repro_torch/kernels/csrc/routing.cu",
+                           "src/repro/kernels/ragged.py:344"),
+    "ragged_scatter_add_rows": ("src/repro_torch/kernels/csrc/routing.cu",
+                                "src/repro/kernels/ragged.py:395"),
 }
 PAGED_KERNELS = ("paged_gather", "paged_scatter_rows", "ragged_paged_scatter_rows")
+RAGGED_KERNELS = ("ragged_gather_rows", "ragged_scatter_add_rows")
 SERVE_KERNELS = ("gather_rows", "scatter_add_rows", "flash_attention")
 TRAIN_KERNELS = ("routed_attention", "routed_mlp_scatter", "flash_attention")
 # f32: the kernel's online softmax sums in another order than the plain
@@ -544,6 +573,192 @@ def check_paged(cfg, dev, results):
             results.setdefault(name, {})[key] = r
 
 
+# phase 7b's quantized engines: (name, engine settings, QuantConfig fields),
+# all on PAGED_1B's workload
+QUANT_1B = (
+    ("prefix int8/page", dict(prefix_cache=True), dict(kv="int8", granularity="page")),
+    ("prefix fp8/head", dict(prefix_cache=True), dict(kv="fp8", granularity="head")),
+    ("ragged int8/page", dict(ragged=True), dict(kv="int8", granularity="page")),
+    ("prefix int8/page + int8 weights", dict(prefix_cache=True),
+     dict(kv="int8", granularity="page", weights="int8")),
+)
+
+
+def check_quant_casts(dev):
+    """The card's int8 / e4m3 casts and pow2 scales against the CPU's, on
+    values that hit every rounding case: quantize_rows and pow2_scale on
+    the same inputs on both devices, bit for bit."""
+    from repro_torch.serve.quant import QuantConfig, pow2_scale, quantize_rows
+
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn(4096, 1792, generator=g) * torch.rand(4096, 1, generator=g) * 60
+    x[:64] = torch.round(x[:64] * 2) / 2  # int8 midpoints after a pow2 scale
+    x[64:128] = x[64:128] * 1e-30  # tiny rows
+    ratios = torch.cat([torch.tensor([0.0, 1e-42, 1e-40, 3e-38, float("inf"), 448.0, 127.0]),
+                        torch.rand(4096, generator=g) * 1e4])
+    for qmax in (127.0, 448.0):
+        a, b = pow2_scale(ratios, qmax), pow2_scale(ratios.to(dev), qmax).cpu()
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError(f"pow2_scale differs between the CPU and the card (qmax {qmax})")
+    for kv, gran, G in (("int8", "page", 1), ("fp8", "head", 14)):
+        qc = QuantConfig(kv=kv, granularity=gran)
+        qa, sa = quantize_rows(x, G, qc)
+        qb, sb = quantize_rows(x.to(dev), G, qc)
+        n = int((qa.view(torch.uint8) != qb.cpu().view(torch.uint8)).sum())
+        if n or not torch.equal(sa, sb.cpu()):
+            raise AssertionError(f"{kv}/{gran}: {n} narrow bytes or the scales differ between the "
+                                 "CPU and the card")
+    log(f"[kernels] quantize casts: int8/page and fp8/head bytes and scales of {x.numel()} values, "
+        f"and pow2_scale of {ratios.numel()} ratios (subnormal, inf), identical on the CPU and "
+        f"the card")
+
+
+def check_dequant(cfg, dev, results):
+    """The dequantizing gather at phase 7b's shapes: PAGED_1B's pool (N=498,
+    p=16, ctx 992: P=62) of int8 pages with one scale per page row (a
+    (N, p, 1) tensor all 12 full layers share) and of e4m3 pages with one
+    scale per kv head (layer 0's 14 columns of the (N, p, 12·14) tensor),
+    widened to bf16 through (8, 62) decode tables and (1, 62) prefill
+    tables, mapped up to each sequence's length and NULL after. Bitwise
+    against the plain version; timed per shape. No single PyTorch call
+    computes the function, so there is no library time. The bound counts
+    the narrow bytes and scales of each distinct page read, the table, and
+    the bf16 output."""
+    from repro_torch.kernels import paged as KP
+    from repro_torch.serve.quant import QuantConfig, quantize_rows
+
+    suffix, ctx, _ = paged_1b_plan()
+    w = PAGED_1B
+    p, gen = w["page"], w["gen"]
+    lens = [w["prefix"] + int(n) for n in suffix]
+    F, nkv = cfg.attn.n_kv_heads * cfg.head_dim, cfg.attn.n_kv_heads
+    n_full = cfg.n_layers // 2
+    g = torch.Generator(device=dev).manual_seed(9)
+    P = ctx // p
+    for label, kv, gran, G_all in (("int8/page", "int8", "page", 1),
+                                   ("fp8/head", "fp8", "head", n_full * nkv)):
+        pages_w, table, _, _, _ = _paged_inputs(g, dev, torch.bfloat16, F, lens, gen, P, p,
+                                                w["chunk"])
+        N = pages_w.shape[0]
+        q, _ = quantize_rows(pages_w, 1 if gran == "page" else nkv, QuantConfig(kv=kv))
+        scales = 2.0 ** torch.randint(-8, 4, (N, p, G_all), generator=g, device=dev).float()
+        sc = scales[:, :, :1] if gran == "page" else scales[:, :, :nkv]
+        for t in (table, table[:1]):
+            got = KP.paged_gather_dequant(q, sc, t, torch.bfloat16)
+            if not torch.equal(got, KP.paged_gather_dequant_plain(q, sc, t, torch.bfloat16)):
+                raise AssertionError(f"paged_gather_dequant differs from its plain version "
+                                     f"({label} B={t.shape[0]})")
+        for Bg in (len(lens), 1):
+            t = table[:Bg].contiguous()
+            reads = torch.unique(t).numel()
+            G = sc.shape[2]
+            nbytes = reads * p * (F + 4 * G) + 4 * Bg * P + Bg * P * p * F * 2
+            fn = (lambda t=t: KP.paged_gather_dequant(q, sc, t, torch.bfloat16))
+            r = dict(call_ms=event_ms(fn), ms=time_ms(fn),
+                     plain_ms=time_ms(lambda t=t: KP.paged_gather_dequant_plain(
+                         q, sc, t, torch.bfloat16)),
+                     library_ms=None, bound=bound_ms(nbytes, 0, torch.bfloat16), max_abs_err=0.0,
+                     shape=f"{label} N={N} p={p} F={F} G={G} B={Bg} P={P} -> bf16")
+            log(f"[kernels] paged_gather_dequant {r['shape']:52s} bitwise-equal ms={r['ms']:.4f} "
+                f"call_ms={r['call_ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms=none "
+                f"bound_ms={r['bound'][0]:.6f} ({r['bound'][1]})")
+            results.setdefault("paged_gather_dequant", {})[f"{label} B={Bg}"] = r
+    # odd widths and a scale block that is not a multiple of 16 elements
+    # (the kernel's element-wise path), both narrow types, f32 output
+    for narrow, F_, G_ in ((torch.int8, 13, 1), (torch.float8_e4m3fn, 24, 3)):
+        q = (torch.randn(9, 3, F_, generator=g, device=dev) * 50).clamp(-127, 127).round()
+        q = q.to(torch.int8) if narrow == torch.int8 else (q * 3).to(narrow)
+        sc = 2.0 ** torch.randint(-8, 4, (9, 3, G_), generator=g, device=dev).float()
+        t = torch.tensor([[2, 0, 5], [5, 8, 1]], dtype=torch.int32, device=dev)
+        for odt in (torch.float32, torch.bfloat16):
+            if not torch.equal(KP.paged_gather_dequant(q, sc, t, odt),
+                               KP.paged_gather_dequant_plain(q, sc, t, odt)):
+                raise AssertionError(f"paged_gather_dequant differs at F={F_} G={G_} {odt}")
+    log("[kernels] paged_gather_dequant odd widths (F=13 G=1 int8, F=24 G=3 e4m3; f32 and bf16 "
+        "out): bitwise equal")
+
+
+# phase 8b's flat streams (mod-paper-1b, bf16): 4 equal segments of 1024,
+# then 8 unequal ones packed on the same T=4096 stream (45 padded rows)
+# The bf16 flat forward of mod-paper-1b against the f32 one on the same
+# routed rows, as fractions of the largest f32 value: bf16 rounding alone,
+# carried through 24 layers. Twice the readings on an H100 (logits 0.060,
+# router scores 0.079; PERF.md); a dropped routed row or attention across
+# segments moves both by more than half their scale.
+BF16_FLAT_LOGITS = 0.12
+BF16_FLAT_SCORES = 0.16
+RAGGED_1B = dict(equal=(1024,) * 4, unequal=(142, 998, 310, 655, 420, 777, 230, 519),
+                 T=4096, seg_cap=1024)
+
+
+def _ragged_selection(g, dev, lens, k, T):
+    """(n_seg, k) int32 flat selections as decide_tokens_ragged makes them:
+    sorted within each segment, -1 past a segment shorter than k."""
+    offs = np.concatenate([[0], np.cumsum(lens)])
+    idx = torch.full((len(lens), k), -1, dtype=torch.int32, device=dev)
+    for s, L in enumerate(lens):
+        n = min(k, L)
+        sel = torch.sort(torch.randperm(L, generator=g, device=dev)[:n]).values
+        idx[s, :n] = (int(offs[s]) + sel).to(torch.int32)
+    return idx
+
+
+def check_ragged_dispatch(cfg, dev, results):
+    """The ragged MoD gather and scatter at phase 8b's shapes (T=4096,
+    D=1792, bf16, k = capacity(1024) routed rows per segment), and a short
+    segment with -1 selections. Bitwise against the plain versions; the
+    library times are index_select / index_add of the valid selections
+    (the latter of the precomputed gated update), as rows 1-2 use them."""
+    from repro_torch.kernels import ragged as KRG
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    D, T = cfg.d_model, RAGGED_1B["T"]
+    k = cfg.mod.capacity(RAGGED_1B["seg_cap"])
+    cases = [("equal", RAGGED_1B["equal"], k, torch.bfloat16),
+             ("unequal", RAGGED_1B["unequal"], k, torch.bfloat16),
+             ("short f32", (100, 3, 0, 700), k, torch.float32)]
+    for label, lens, kk, dtype in cases:
+        x = torch.randn(T, D, generator=g, device=dev).to(dtype)
+        idx = _ragged_selection(g, dev, lens, kk, T)
+        delta = torch.randn(len(lens), kk, D, generator=g, device=dev).to(dtype)
+        gate = torch.where(idx >= 0, torch.randn(idx.shape, generator=g, device=dev), 0.0)
+        before = x.clone()
+        got = KRG.ragged_gather_rows(x, idx)
+        out = KRG.ragged_scatter_add_rows(x, idx, delta, gate)
+        if not (torch.equal(got, KRG.ragged_gather_rows_plain(x, idx))
+                and torch.equal(out, KRG.ragged_scatter_add_rows_plain(x, idx, delta, gate))
+                and torch.equal(x, before)):
+            raise AssertionError(f"ragged dispatch differs from its plain versions ({label})")
+        if label.startswith("short"):
+            log(f"[kernels] ragged dispatch {label} (segments {lens}, -1 tails): bitwise equal")
+            continue
+        valid = idx[idx >= 0].long()
+        n_valid, es = valid.numel(), x.element_size()
+        upd = (gate[idx >= 0][:, None] * delta[idx >= 0].float()).to(dtype)
+        shape = f"{label} T={T} D={D} n_seg={len(lens)} k={kk} bf16"
+        timed = {
+            "ragged_gather_rows": dict(
+                fn=lambda: KRG.ragged_gather_rows(x, idx),
+                plain=lambda: KRG.ragged_gather_rows_plain(x, idx),
+                library=lambda: x.index_select(0, valid),
+                nbytes=2 * n_valid * D * es + 4 * idx.numel(), flops=0),
+            "ragged_scatter_add_rows": dict(
+                fn=lambda: KRG.ragged_scatter_add_rows(x, idx, delta, gate),
+                plain=lambda: KRG.ragged_scatter_add_rows_plain(x, idx, delta, gate),
+                library=lambda: x.index_add(0, valid, upd),
+                nbytes=2 * T * D * es + n_valid * D * es + 8 * idx.numel(),
+                flops=2 * n_valid * D),
+        }
+        for name, c in timed.items():
+            r = dict(call_ms=event_ms(c["fn"]), ms=time_ms(c["fn"]), plain_ms=time_ms(c["plain"]),
+                     library_ms=time_ms(c["library"]), bound=bound_ms(c["nbytes"], c["flops"], dtype),
+                     max_abs_err=0.0, shape=shape)
+            log(f"[kernels] {name:24s} {shape:46s} bitwise-equal ms={r['ms']:.4f} "
+                f"call_ms={r['call_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+                f"library_ms={r['library_ms']:.4f} bound_ms={r['bound'][0]:.6f} ({r['bound'][1]})")
+            results.setdefault(name, {})[label] = r
+
+
 def _grads(fn, inputs, seed):
     """Gradients, by autograd, of a loss linear in fn's outputs (fixed random
     weights, so the cotangents do not depend on the forward values)."""
@@ -696,22 +911,48 @@ def cross_device_parity(dev):
 
 
 @contextlib.contextmanager
-def recorded_masks():
-    """Record the routed mask of every token_topk decision made inside."""
+def recorded_decisions(name):
+    """Record every routing decision ``core.routing.<name>`` makes inside."""
     from repro_torch.core import routing as ROUT
 
-    real, masks = ROUT.decide_tokens, []
+    real, seen = getattr(ROUT, name), []
 
     def record(*args, **kwargs):
         decision = real(*args, **kwargs)
-        masks.append(decision.mask.detach().cpu())
+        seen.append(decision)
         return decision
 
-    ROUT.decide_tokens = record
+    setattr(ROUT, name, record)
     try:
-        yield masks
+        yield seen
     finally:
-        ROUT.decide_tokens = real
+        setattr(ROUT, name, real)
+
+
+@contextlib.contextmanager
+def forced_ragged_decisions(decisions):
+    """Route each MoD layer of the flat forwards inside as ``decisions``
+    (one per layer, in order) routed it: its rows and mask, with gates from
+    this forward's own router logits at those rows. Yields the decisions
+    this forward would have made itself."""
+    from repro_torch.core import router as R
+    from repro_torch.core import routing as ROUT
+
+    real, own = ROUT.decide_tokens_ragged, []
+
+    def force(params, x, row_offsets, cfg, seg_cap, generator=None):
+        mine = real(params, x, row_offsets, cfg, seg_cap, generator)
+        want = decisions[len(own)]
+        own.append(mine)
+        gate = R.apply_gate(mine.logits[0][want.idx.clamp(min=0).long()], cfg.mod)
+        return mine._replace(idx=want.idx, mask=want.mask,
+                             gate=torch.where(want.idx >= 0, gate, torch.zeros_like(gate)))
+
+    ROUT.decide_tokens_ragged = force
+    try:
+        yield own
+    finally:
+        ROUT.decide_tokens_ragged = real
 
 
 def train_step_parity(dev):
@@ -743,9 +984,10 @@ def train_step_parity(dev):
     for name, params, d in (("cpu", p_cpu, torch.device("cpu")), ("gpu", p_gpu, dev)):
         state = make_train_state(cfg, d, params=params)
         state["step"] = torch.ones((), dtype=torch.int32)
-        with recorded_masks() as masks:
+        with recorded_decisions("decide_tokens") as decisions:
             state, metrics = step_fn(state, {k: v.to(d) for k, v in batch.items()})
-        out[name] = (state, {k: float(v) for k, v in metrics.items()}, masks)
+        out[name] = (state, {k: float(v) for k, v in metrics.items()},
+                     [x.mask.detach().cpu() for x in decisions])
     (s_c, m_c, mask_c), (s_g, m_g, mask_g) = out["cpu"], out["gpu"]
     dl = abs(m_c["loss"] - m_g["loss"]) / abs(m_c["loss"])
     dn = abs(m_c["grad_norm"] - m_g["grad_norm"]) / m_c["grad_norm"]
@@ -945,6 +1187,20 @@ def _streams(outs):
     return {o.uid: o.tokens.tolist() for o in outs}
 
 
+def first_token_logits(eng):
+    """{uid: the logits row each request's first generated token is sampled
+    from}, filled as ``eng`` runs."""
+    rows, real = {}, eng._sample
+
+    def sample(slot, row):
+        if not slot.generated:
+            rows[slot.req.uid] = np.array(row, dtype=np.float32)
+        return real(slot, row)
+
+    eng._sample = sample
+    return rows
+
+
 def paged_parity(dev):
     """(b) mod-paper-60m in f32, the same weights and requests on the CPU
     (plain versions) and on the card (kernels): the paged engine with the
@@ -981,7 +1237,7 @@ def paged_parity(dev):
             f"{stg['prefix_hit_rate']:.3f}, prefill tokens computed {stg['prefill_tokens_computed']:.0f}")
 
 
-def serve_paged_1b(dev):
+def serve_paged_1b(dev, params):
     """(c) mod-paper-1b in bf16 on the card: 8 requests submitted upfront
     that share a 512-token prefix (a system prompt), each with its own
     64-448-token suffix and 32 new tokens, page 16, prefill chunk 256,
@@ -994,11 +1250,9 @@ def serve_paged_1b(dev):
     from repro_torch.config import get_config, with_mod_backend
     from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.kernels import build
-    from repro_torch.models import api
     from repro_torch.serve import EngineConfig, Request, ServingEngine
 
     cfg = with_mod_backend(get_config("mod-paper-1b"), "pallas")
-    params = api.init_model(cfg, device=dev, seed=0)
     w = PAGED_1B
     B, gen, pre, page, C = w["B"], w["gen"], w["prefix"], w["page"], w["chunk"]
     suffix, ctx, n_chunks = paged_1b_plan()
@@ -1019,6 +1273,8 @@ def serve_paged_1b(dev):
     prof_line = ""
     for name, kw in runs.items():
         eng = ServingEngine(params, cfg, EngineConfig(batch_size=B, ctx=ctx, **kw), device=dev)
+        if name == "paged":
+            first_rows = first_token_logits(eng)
         for q in prompts:
             eng.submit(Request(tokens=q, max_new_tokens=gen))
         build.reset_counters()
@@ -1115,7 +1371,449 @@ def serve_paged_1b(dev):
         by_shape["paged_scatter_rows"][f"{leaf} B={B}"] = int(n * sp["decode_steps"])
         by_shape["ragged_paged_scatter_rows"][f"{leaf} W={W0}"] = n
         by_shape["ragged_paged_scatter_rows"][f"{leaf} W={B}"] = int(n * (sr["steps"] - 1))
+    return counts, by_shape, out["paged"], stats["paged"], first_rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: quantized paged-KV serving
+# ---------------------------------------------------------------------------
+
+
+def quant_parity(dev):
+    """(a) mod-paper-60m in f32, phase 6b's requests and engine shapes, the
+    same weights on the CPU (plain versions) and the card (kernels): the
+    quantized paged + prefix and ragged engines with int8/page and fp8/head
+    KV, and the paged + prefix engine serving int8 weights. Streams and
+    kv_bytes must be identical on the two devices: the card's int8/e4m3
+    casts, pow2 scales and dequantizing gather against the CPU's."""
+    from repro_torch.config import get_config, with_mod_backend
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models import api
+    from repro_torch.serve import EngineConfig, Request, ServingEngine
+    from repro_torch.serve.quant import QuantConfig
+
+    cfg = with_mod_backend(dataclasses.replace(get_config("mod-paper-60m"), dtype="float32"),
+                           "pallas")
+    p_cpu = api.init_model(cfg, device="cpu", seed=3)
+    p_gpu = _to(p_cpu, dev)
+    toks = SyntheticLM(cfg.vocab, 228, seed=17).batch(0, 6)["tokens"]
+    rng = np.random.default_rng(5)
+    prompts = [np.concatenate([toks[0, :128], toks[i, 128:128 + int(n)]])
+               for i, n in enumerate(rng.integers(16, 101, 6))]
+    base = dict(page_size=16, prefill_chunk=64)
+    runs = [("paged+prefix int8/page", dict(prefix_cache=True), dict(kv="int8")),
+            ("ragged int8/page", dict(ragged=True, ragged_segments=4), dict(kv="int8")),
+            ("paged+prefix fp8/head", dict(prefix_cache=True), dict(kv="fp8", granularity="head")),
+            ("ragged fp8/head", dict(ragged=True, ragged_segments=4),
+             dict(kv="fp8", granularity="head")),
+            ("paged+prefix int8/page + int8 weights", dict(prefix_cache=True),
+             dict(kv="int8", weights="int8"))]
+    for name, kw, q in runs:
+        got = {}
+        for label, d, params in (("cpu", "cpu", p_cpu), ("gpu", dev, p_gpu)):
+            ecfg = EngineConfig(batch_size=4, ctx=256, quant=QuantConfig(**q), **base, **kw)
+            eng = ServingEngine(params, cfg, ecfg, device=d)
+            got[label] = (_streams(eng.run_stream([Request(tokens=p, max_new_tokens=16)
+                                                   for p in prompts], 0)), eng.stats())
+        (sc, stc), (sg, stg) = got["cpu"], got["gpu"]
+        if sc != sg:
+            diff = [u for u in sc if sc[u] != sg[u]]
+            raise AssertionError(f"60m {name}: CPU and card streams differ for requests {diff}")
+        if stc["kv_bytes"] != stg["kv_bytes"]:
+            raise AssertionError(f"60m {name}: kv_bytes {stc['kv_bytes']} vs {stg['kv_bytes']}")
+        log(f"[quant] 60m f32 {name}: CPU and card greedy streams identical for all {len(sc)} "
+            f"requests ({sum(len(t) for t in sc.values())} tokens), kv_bytes "
+            f"{stg['kv_bytes']:.0f} on both; prefix hit rate {stg['prefix_hit_rate']:.3f}")
+
+
+def serve_quant_1b(dev, params, base_streams, base_stats, base_first):
+    """(b) mod-paper-1b in bf16, phase 6c's workload and weights, through the
+    quantized engines of QUANT_1B: throughput, pool and KV bytes against
+    phase 6c's unquantized paged pool, the share of generated tokens equal
+    to phase 6c's streams (reported, not a pass mark), launches per run, one
+    profiled decode step, and the per-call cost of widening int8 weights.
+    For the first generated token of each request it prints the unquantized
+    logits' top-1/top-2 gap (``base_first``: phase 6c's paged run) beside
+    the largest change that quantization made to those logits: a token
+    flips only where the change reaches half the gap."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.config import get_config, with_mod_backend
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import build
+    from repro_torch.serve import EngineConfig, Request, ServingEngine
+    from repro_torch.serve.quant import QuantConfig, dequantize_params
+    from repro_torch.utils import tree_leaves
+
+    cfg = with_mod_backend(get_config("mod-paper-1b"), "pallas")
+    w = PAGED_1B
+    B, gen, pre, page, C = w["B"], w["gen"], w["prefix"], w["page"], w["chunk"]
+    suffix, ctx, n_chunks = paged_1b_plan()
+    toks = SyntheticLM(cfg.vocab, pre + w["max_suffix"], seed=9).batch(0, B)["tokens"]
+    prompts = [np.concatenate([toks[0, :pre], toks[i, pre:pre + int(n)]])
+               for i, n in enumerate(suffix)]
+    n_full = sum(1 for grp in params["groups"] if "full" in grp)
+    base_kv = base_stats["kv_bytes"]
+    counts, stats, prof_line, deq_line = {}, {}, "", ""
+    for name, kw, q in QUANT_1B:
+        if "ragged" in kw:
+            kw = dict(kw, ragged_segments=n_chunks)
+        ecfg = EngineConfig(batch_size=B, ctx=ctx, page_size=page, prefill_chunk=C,
+                            quant=QuantConfig(**q), **kw)
+        eng = ServingEngine(params, cfg, ecfg, device=dev)
+        first_rows = first_token_logits(eng)
+        for pr in prompts:
+            eng.submit(Request(tokens=pr, max_new_tokens=gen))
+        build.reset_counters()
+        torch.cuda.synchronize()
+        while eng.has_work:
+            if name == "prefix int8/page" and 5 <= eng.step_count < 8 and not prof_line:
+                at, before = eng.step_count, build.launch_counts()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    eng.step()
+                    torch.cuda.synchronize()
+                    wall = 1e3 * (time.perf_counter() - t0)
+                after = build.launch_counts()
+                by_name: dict = {}
+                for e in prof.events():
+                    if e.device_type == DeviceType.CUDA:
+                        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+                busy = sum(by_name.values())
+                if busy <= 0.0:
+                    continue
+                n_dq = after["paged_gather_dequant"] - before["paged_gather_dequant"]
+                n_pg = after["paged_gather"] - before["paged_gather"]
+                if (n_dq, n_pg) != (2 * n_full, n_full):
+                    raise AssertionError(f"quantized decode step launched {n_dq} dequant and {n_pg} "
+                                         f"plain gathers, not {2 * n_full} and {n_full}")
+                dq = sum(t for n, t in by_name.items() if "paged_gather_dequant_kernel" in n)
+                pg = sum(t for n, t in by_name.items() if "paged_gather_kernel" in n)
+                top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+                prof_line = (f"[profile] quantized paged decode step B=8 (int8/page, step {at}): wall "
+                             f"{wall:.2f} ms, device busy {busy:.2f} ms, idle share "
+                             f"{1 - busy / wall:.3f}; {n_dq} paged_gather_dequant {dq:.3f} ms "
+                             f"({dq / busy:.3f} of busy), {n_pg} paged_gather (pos) {pg:.3f} ms "
+                             f"({pg / busy:.3f}); top: "
+                             + "; ".join(f"{n[:50]} {t:.3f} ms" for n, t in top))
+            else:
+                eng.step()
+        torch.cuda.synchronize()
+        counts[name] = build.launch_counts()
+        s = stats[name] = eng.stats()
+        outs = _streams(eng.finished)
+        if len(outs) != B or any(not o.ok or len(o.tokens) != gen for o in eng.finished):
+            raise AssertionError(f"1b {name}: not every request finished with {gen} tokens")
+        same = sum(sum(a == b for a, b in zip(outs[u], base_streams[u])) for u in outs)
+        first = min((next((i for i, (a, b) in enumerate(zip(outs[u], base_streams[u])) if a != b),
+                          gen), u) for u in outs)
+        first = ("none" if first[0] == gen
+                 else f"generated token {first[0]} of request {first[1]}")
+        ratio = base_kv / s["kv_bytes"]
+        cb = eng.pool.cache_bytes()
+        log(f"[quant] 1b {name}: {s['generated_tokens']:.0f} tokens in {s['wall_s']:.2f}s = "
+            f"{s['tokens_per_s']:.1f} tok/s; prefill {1e3 * s['prefill_s'] / max(1, s['prefills']):.1f}"
+            f" ms per prompt ({s['prefills']:.0f}), decode "
+            f"{1e3 * s['decode_s'] / max(1, s['decode_steps']):.2f} ms per step "
+            f"({s['decode_steps']:.0f} steps, {s['steps']:.0f} engine steps); pool "
+            f"{cb['total'] / 2**20:.1f} MiB (scales {sum(t.numel() * 4 for t in eng.pool.scales) / 2**20:.2f}"
+            f" MiB of it), kv_bytes {s['kv_bytes']:.0f} = {s['kv_bytes'] / 2**20:.1f} MiB vs "
+            f"{base_kv / 2**20:.1f} MiB unquantized ({ratio:.4f}x less), peak pages "
+            f"{s['peak_pages_in_use']:.0f} of {s['n_pages']:.0f}, prefix hit rate "
+            f"{s['prefix_hit_rate']:.3f}; {same} of {B * gen} generated tokens equal the "
+            f"unquantized streams (first divergence: {first})")
+        log(f"[quant]   launches: {json.dumps(counts[name])}")
+        notes = []
+        for u in sorted(base_first):
+            top2 = np.sort(base_first[u])[-2:]
+            change = np.abs(first_rows[u] - base_first[u]).max()
+            flip = int(first_rows[u].argmax()) != int(base_first[u].argmax())
+            notes.append(f"{u}: gap {top2[1] - top2[0]:.4g}, change {change:.4g}"
+                         + (" (flipped)" if flip else ""))
+        log(f"[quant]   first generated token, unquantized top-1/top-2 logit gap and the largest "
+            f"|dlogit| of the quantized run, per request (logits up to "
+            f"{max(np.abs(r).max() for r in base_first.values()):.4g}): " + "; ".join(notes))
+        if ratio < 1.9:
+            raise AssertionError(f"1b {name}: kv_bytes only {ratio:.3f}x below the unquantized pool")
+        c = counts[name]
+        if "ragged" in name:
+            want = {"ragged_paged_scatter_rows": (3 * n_full + 2) * s["steps"],
+                    "paged_gather_dequant": 2 * n_full * s["steps"]}
+        else:
+            want = {"paged_gather_dequant": 2 * n_full * (s["decode_steps"] + s["prefills"]),
+                    "paged_gather": n_full * (s["decode_steps"] + s["prefills"]),
+                    "paged_scatter_rows": (3 * n_full + 2) * s["decode_steps"]}
+        for k, v in want.items():
+            if c[k] != v:
+                raise AssertionError(f"1b {name}: {k} launched {c[k]} times, want {v}")
+        if q.get("weights") == "int8":
+            wall_ms = event_ms(lambda: dequantize_params(eng.params), iters=5, warmup=1)
+            dev_ms = time_ms(lambda: dequantize_params(eng.params), iters=5)
+            narrow = sum(t.numel() for t in tree_leaves(eng.params)
+                         if isinstance(t, torch.Tensor) and t.dtype == torch.int8)
+            calls = s["decode_steps"] + s["prefills"]
+            deq_line = (f"[quant] int8 weights: dequantize_params (widen {narrow / 1e6:.1f}M int8 "
+                        f"weights to bf16, at each of the run's {calls:.0f} model calls) takes "
+                        f"{dev_ms:.2f} ms of device time ({wall_ms:.2f} ms between CUDA events), "
+                        f"bound {bound_ms(narrow * 3, 0, torch.bfloat16)[0]:.3f} ms (bytes)")
+    log(prof_line or "[profile] quantized paged decode step: torch.profiler recorded no device "
+                     "time in three steps; not measured")
+    log(deq_line)
+    # launches of the dequant gather per shape, keyed as check_dequant keys
+    # its timings: (8, P) tables per decode step, (1, P) per chunked prefill
+    by_shape = {}
+    for name, _, q in QUANT_1B:
+        s = stats[name]
+        label = f"{q['kv']}/{q.get('granularity', 'page')}"
+        if "ragged" in name:
+            by_shape[name] = {f"{label} B={B}": int(2 * n_full * s["steps"])}
+        else:
+            by_shape[name] = {f"{label} B={B}": int(2 * n_full * s["decode_steps"]),
+                              f"{label} B=1": int(2 * n_full * s["prefills"])}
     return counts, by_shape
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the flat ragged forward
+# ---------------------------------------------------------------------------
+
+
+def ragged_forward_parity(dev):
+    """(a) mod-paper-60m in f32, the same weights on the CPU and the card:
+    model_forward_ragged on 5 unequal segments (and a padded tail). Routed
+    masks equal in every MoD layer; logits within 1e-4."""
+    from repro_torch.config import get_config, with_mod_backend
+    from repro_torch.models import api
+
+    cfg = with_mod_backend(dataclasses.replace(get_config("mod-paper-60m"), dtype="float32"),
+                           "pallas")
+    p_cpu = api.init_model(cfg, device="cpu", seed=4)
+    p_gpu = _to(p_cpu, dev)
+    lens = (97, 256, 13, 180, 64)
+    offs = torch.tensor(np.concatenate([[0], np.cumsum(lens)]), dtype=torch.int32)
+    toks = torch.as_tensor(np.random.default_rng(6).integers(0, cfg.vocab, int(offs[-1]) + 11))
+    got = {}
+    for label, d, params in (("cpu", torch.device("cpu"), p_cpu), ("gpu", dev, p_gpu)):
+        with torch.no_grad(), recorded_decisions("decide_tokens_ragged") as dec:
+            logits, _ = api.model_forward_ragged(params, cfg, toks.to(d), offs.to(d), max(lens))
+        got[label] = (logits.float().cpu(), [x.mask.cpu() for x in dec])
+    (lc, mc), (lg, mg) = got["cpu"], got["gpu"]
+    if len(mc) != len(mg) or not all(torch.equal(a, b) for a, b in zip(mc, mg)):
+        raise AssertionError("ragged forward: routed masks differ between the CPU and the card")
+    diff = (lc - lg).abs().max().item()
+    torch.testing.assert_close(lg, lc, atol=1e-4, rtol=1e-4)
+    log(f"[ragged] 60m f32 model_forward_ragged, segments {lens} + 11 padded rows: routed masks "
+        f"identical in all {len(mc)} MoD layers on the CPU and the card; max |dlogit| {diff:.3g} "
+        f"(limit 1e-4)")
+
+
+def _mask_differences(dr, dp, n_seg):
+    """Compare the flat (dr) and the padded (dp) routing decisions of each
+    MoD layer. Returns (segments whose routed tokens differ in some layer,
+    the layers with a difference, the largest relative router-score
+    difference in segments routed alike in every earlier layer). Top-k of
+    two score vectors that differ by at most d can disagree only on tokens
+    within 2d of the capacity boundary: each difference is printed with the
+    boundary gap and d of its segment, one line per layer."""
+    bad_segs, bad_layers, worst = set(), set(), 0.0
+    for layer, (a, b) in enumerate(zip(dr, dp)):
+        ma, mb = a.mask.view(n_seg, -1), b.mask
+        la, lb = a.logits.view(n_seg, -1).float(), b.logits.float()
+        clean = [s for s in range(n_seg) if s not in bad_segs]
+        if clean:
+            d = (la[clean] - lb[clean]).abs().max().item()
+            worst = max(worst, d / max(lb[clean].abs().max().item(), 1e-30))
+        notes = []
+        for s in range(n_seg):
+            if torch.equal(ma[s], mb[s]):
+                continue
+            bad_segs.add(s)
+            bad_layers.add(layer)
+            ranked = torch.sort(lb[s], descending=True).values
+            k = int(mb[s].sum())
+            notes.append(f"segment {s}: {int((ma[s] != mb[s]).sum())} of {ma.shape[1]} tokens, "
+                         f"boundary gap {(ranked[k - 1] - ranked[k]).item():.3g}, score "
+                         f"difference {(la[s] - lb[s]).abs().max().item():.3g}")
+        if notes:
+            log(f"[ragged]   layer {layer} routed tokens differ: " + "; ".join(notes))
+    return bad_segs, bad_layers, worst
+
+
+def _selections_consistent(own, forced, offs):
+    """Hold the selection each MoD layer of a forward would have made
+    itself (``own``) to the one it was routed by (``forced``), segment by
+    segment. With d the largest |own - forced| router score of a segment,
+    a token only its own scores select must score (forced) at most 2d below
+    the lowest selected forced score, and a token only the forced scores
+    select at most 2d above the highest one left out: top-k selections of
+    two score vectors within d of each other can differ only there.
+    Returns (the largest d over the largest |forced score| of its layer,
+    selections that differ, selections); raises on a token outside those
+    bounds."""
+    worst, n_diff, n_sel = 0.0, 0, 0
+    bounds = list(zip(offs[:-1].tolist(), offs[1:].tolist()))
+    for layer, (mine, want) in enumerate(zip(own, forced)):
+        s_own, s_ref = mine.logits[0].float(), want.logits[0].float()
+        m_own, m_ref = mine.mask[0], want.mask[0]
+        scale = s_ref[: bounds[-1][1]].abs().max().item()
+        for a, b in bounds:
+            d = (s_own[a:b] - s_ref[a:b]).abs().max().item()
+            worst = max(worst, d / scale)
+            sel, sc = m_ref[a:b], s_ref[a:b]
+            only_own, only_ref = m_own[a:b] & ~sel, sel & ~m_own[a:b]
+            n_diff += int(only_own.sum())
+            n_sel += int(sel.sum())
+            if bool(only_own.any()) and \
+                    sc[only_own].min().item() < sc[sel].min().item() - 2 * d:
+                raise AssertionError(f"layer {layer}, rows {a}:{b}: a token its own scores "
+                                     f"select lies more than 2 x {d:.3g} below the threshold")
+            if bool(only_ref.any()) and \
+                    sc[only_ref].max().item() > sc[~sel].max().item() + 2 * d:
+                raise AssertionError(f"layer {layer}, rows {a}:{b}: a token its own scores "
+                                     f"drop lies more than 2 x {d:.3g} above the threshold")
+    return worst, n_diff, n_sel
+
+
+def flat_bf16_vs_f32(params, cfg, toks, offs, cap, dec32, logits32):
+    """The bf16 flat forward routed as the f32 flat forward of the same
+    weights routed (``dec32``, its logits ``logits32``): both compute the
+    same function on the same routed rows, so they differ by bf16 rounding
+    alone. Returns (max |dlogit| over the largest |f32 logit|, the share
+    of rows with the same argmax, and :func:`_selections_consistent`'s
+    readings of the bf16 router against the f32 one)."""
+    from repro_torch.models import api
+
+    with torch.no_grad(), forced_ragged_decisions(dec32) as own:
+        logits, _ = api.model_forward_ragged(params, cfg, toks, offs, cap)
+    if len(own) != len(dec32):
+        raise AssertionError(f"bf16 flat forward made {len(own)} routing decisions, "
+                             f"not {len(dec32)}")
+    n = int(offs[-1])
+    a, b = logits[:n].float(), logits32[:n].float()
+    if not bool(torch.isfinite(a).all()):
+        raise AssertionError("bf16 flat forward: non-finite logits")
+    rel = (a - b).abs().max().item() / b.abs().max().item()
+    agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+    return (rel, agree) + _selections_consistent(own, dec32, offs)
+
+
+def forward_ragged_1b(dev, params):
+    """(b) mod-paper-1b: model_forward_ragged on 4 equal segments of 1024
+    against the padded model_forward on (4, 1024), with the same weights in
+    f32 and in bf16 (the serving dtype); then the bf16 flat forward routed
+    as the f32 one routed, against it; then the bf16 forward of 8 unequal
+    segments on T=4096, timed and profiled, with its launches.
+
+    The padded path's full blocks run the flash kernel, the flat path the
+    dense masked attention, so the two round at different points. The f32
+    run holds the function: in every MoD layer the router scores of the
+    segments routed alike so far agree within 1e-3 of their largest, and so
+    do the final logits of the segments routed alike in every layer, phase
+    3's CPU-vs-card criterion; a routing difference (a near-tie the two
+    roundings break apart, printed by :func:`_mask_differences`) takes its
+    segment out of the comparison, and at least one segment must remain. In
+    bf16 the two paths route boundary tokens apart in every layer, so their
+    bf16 comparison is reported without a limit, and the bf16 flat path is
+    held instead to the f32 flat path on the same routed rows
+    (:func:`flat_bf16_vs_f32`): logits within BF16_FLAT_LOGITS and router
+    scores within BF16_FLAT_SCORES of their largest, and each layer's own
+    bf16 selection within its score difference of the f32 one."""
+    from repro_torch.config import get_config, with_mod_backend
+    from repro_torch.kernels import build
+    from repro_torch.models import api
+    from repro_torch.utils import tree_map
+
+    cfg = with_mod_backend(get_config("mod-paper-1b"), "pallas")
+    T, cap = RAGGED_1B["T"], RAGGED_1B["seg_cap"]
+    n_mod = sum(1 for grp in params["groups"] if "mod" in grp)
+    g = torch.Generator(device=dev).manual_seed(11)
+    toks = torch.randint(0, cfg.vocab, (T,), generator=g, device=dev)
+    lens = RAGGED_1B["equal"]
+    offs = torch.tensor(np.concatenate([[0], np.cumsum(lens)]), dtype=torch.int32, device=dev)
+    for label in ("f32", "bf16"):
+        if label == "bf16":
+            p_, c_ = params, cfg
+        else:
+            p_ = tree_map(lambda t: t.float(), params)
+            c_ = dataclasses.replace(cfg, dtype="float32")
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            with recorded_decisions("decide_tokens_ragged") as dr:
+                flat, _ = api.model_forward_ragged(p_, c_, toks, offs, cap)
+            with recorded_decisions("decide_tokens") as dp:
+                padded, _ = api.model_forward(p_, c_, {"tokens": toks.view(len(lens), -1)})
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if len(dr) != n_mod or len(dp) != n_mod:
+            raise AssertionError(f"1b: {len(dr)} / {len(dp)} routing decisions, want {n_mod} each")
+        bad_segs, bad_layers, score_rel = _mask_differences(dr, dp, len(lens))
+        keep = torch.ones(T, dtype=torch.bool, device=dev)
+        for s in bad_segs:
+            keep[int(offs[s]):int(offs[s + 1])] = False
+        rows = "the segments routed alike"
+        if not bool(keep.any()):  # no such segment: the numbers over every row
+            keep[:] = True
+            rows = "all rows (no segment routed alike in every layer)"
+        a, b = flat.float()[keep], padded.reshape(T, -1).float()[keep]
+        diff, scale = (a - b).abs().max().item(), b.abs().max().item()
+        agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+        log(f"[ragged] 1b {label} model_forward_ragged on 4 x 1024 vs model_forward on (4, 1024): "
+            f"routed masks identical in {n_mod - len(bad_layers)} of {n_mod} MoD layers "
+            f"(segments with a difference: {sorted(bad_segs)}); router scores of segments routed "
+            f"alike so far within {score_rel:.3g} of their largest; over {rows}: max |dlogit| "
+            f"{diff:.4g} at |logit| up to {scale:.4g} ({diff / max(scale, 1e-30):.3g} of it), "
+            f"argmax equal in {agree:.4f} of the rows; peak memory {peak:.1f} GiB")
+        if label == "f32" and (len(bad_segs) == len(lens) or not score_rel <= 1e-3
+                               or not diff <= 1e-3 * scale):
+            raise AssertionError(f"1b f32 ragged forward: no segment routed alike, router scores "
+                                 f"{score_rel} or logits {diff / scale} apart (limit 1e-3)")
+        if not bool(torch.isfinite(flat[: int(offs[-1])]).all()):
+            raise AssertionError(f"1b {label} ragged forward: non-finite logits")
+        if label == "f32":
+            dec32, flat32 = dr, flat
+        del flat, padded, a, b, p_
+    rel, agree, score_rel, n_diff, n_sel = flat_bf16_vs_f32(params, cfg, toks, offs, cap,
+                                                            dec32, flat32)
+    log(f"[ragged] 1b bf16 model_forward_ragged routed as the f32 one on 4 x 1024, against it: "
+        f"max |dlogit| {rel:.4g} of the largest f32 logit (limit {BF16_FLAT_LOGITS}), argmax equal "
+        f"in {agree:.4f} of the rows; router scores within {score_rel:.4g} of their largest "
+        f"(limit {BF16_FLAT_SCORES}); the bf16 scores' own selections differ in {n_diff} of "
+        f"{n_sel}, each within twice its score difference of the threshold")
+    if not (rel <= BF16_FLAT_LOGITS and score_rel <= BF16_FLAT_SCORES):
+        raise AssertionError(f"1b bf16 flat forward: logits {rel} or router scores {score_rel} "
+                             f"of their scale from the f32 one on the same routed rows")
+    del dec32, flat32
+    # the unequal segments: wall, device busy and launches of one forward
+    lens = RAGGED_1B["unequal"]
+    offs = torch.tensor(np.concatenate([[0], np.cumsum(lens)]), dtype=torch.int32, device=dev)
+
+    def fwd():
+        with torch.no_grad():
+            return api.model_forward_ragged(params, cfg, toks, offs, cap)
+
+    fwd()  # warm-up, off the count
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_counters()
+    t0 = time.perf_counter()
+    logits, _ = fwd()
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    counts = build.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not bool(torch.isfinite(logits[: int(offs[-1])]).all()):
+        raise AssertionError("1b ragged forward: non-finite logits")
+    for name in RAGGED_KERNELS:
+        if counts[name] != n_mod:
+            raise AssertionError(f"1b ragged forward launched {name} {counts[name]} times, "
+                                 f"not {n_mod}")
+    pwall, busy, top = profile_call(fwd, iters=3, warmup=0)
+    log(f"[ragged] 1b bf16 model_forward_ragged, segments {lens} on T={T}: wall {wall:.1f} ms "
+        f"(profiled: wall {pwall:.1f} ms, device busy {busy:.1f} ms, idle share "
+        f"{1 - busy / pwall:.3f}); peak memory {peak:.1f} GiB; launches {json.dumps(counts)}; "
+        f"top kernels: " + "; ".join(f"{n[:50]} {t:.2f} ms" for n, t in top))
+    return counts
 
 
 def main() -> int:
@@ -1148,13 +1846,25 @@ def main() -> int:
     check_flash(cfg1b, dev, results)
     check_fused(cfg1b, dev, results)
     check_paged(cfg1b, dev, results)
+    check_quant_casts(dev)
+    check_dequant(cfg1b, dev, results)
+    check_ragged_dispatch(cfg1b, dev, results)
     check_grads(cfg1b, dev)
     cross_device_parity(dev)
     train_step_parity(dev)
     paged_parity(dev)
+    quant_parity(dev)
+    ragged_forward_parity(dev)
     serve_counts = serve_1b(dev)
     train_counts = train_1b(dev)
-    paged_counts, paged_shapes = serve_paged_1b(dev)
+    from repro_torch.config import with_mod_backend
+    from repro_torch.models import api
+
+    params = api.init_model(with_mod_backend(cfg1b, "pallas"), device=dev, seed=0)
+    paged_counts, paged_shapes, base_streams, base_stats, base_first = serve_paged_1b(dev, params)
+    quant_counts, quant_shapes = serve_quant_1b(dev, params, base_streams, base_stats, base_first)
+    ragged_counts = forward_ragged_1b(dev, params)
+    del params
 
     picks = {  # the entry of each kernel at a main-path shape (bf16)
         "gather_rows": results["gather_rows"][(1000, torch.bfloat16)],
@@ -1174,6 +1884,24 @@ def main() -> int:
                         for key, r in results[name].items()]
         key = max(results[name], key=lambda k: paged_shapes[name][k] * results[name][k]["ms"])
         picks[name] = results[name][key]
+    # the dequant gather: every shape phase 7b gives it, with its launches
+    # on the int8/page prefix run (fp8/head shapes: on the fp8/head run);
+    # the line's numbers are the int8/page prefix run's costliest shape
+    quant_path = {f"{q['kv']}/{q.get('granularity', 'page')}": name
+                  for name, kw, q in QUANT_1B if "weights" not in q and "ragged" not in kw}
+    dq = results["paged_gather_dequant"]
+    dq_launch = {key: quant_shapes[quant_path[key.split()[0]]].get(key, 0) for key in dq}
+    shapes["paged_gather_dequant"] = [
+        dict(shape=r["shape"], launches=dq_launch[key], ms=r["ms"], plain_ms=r["plain_ms"],
+             library_ms=None, bound_ms=r["bound"][0]) for key, r in dq.items()]
+    picks["paged_gather_dequant"] = dq[max((k for k in dq if k.startswith("int8/page")),
+                                          key=lambda k: dq_launch[k] * dq[k]["ms"])]
+    for name in RAGGED_KERNELS:  # phase 8b's unequal-segment forward
+        shapes[name] = [dict(shape=r["shape"], launches=ragged_counts[name] if key == "unequal"
+                             else 0, ms=r["ms"], plain_ms=r["plain_ms"],
+                             library_ms=r["library_ms"], bound_ms=r["bound"][0])
+                        for key, r in results[name].items()]
+        picks[name] = results[name]["unequal"]
     kernels = []
     for name, r in picks.items():
         src, replaces = SOURCES[name]
@@ -1184,10 +1912,19 @@ def main() -> int:
         by_path = {"serve": serve_counts, "train": train_counts,
                    "serve_paged": paged_counts["paged"],
                    "serve_paged_prefix": paged_counts["paged+prefix"],
-                   "serve_ragged": paged_counts["ragged"]}
+                   "serve_ragged": paged_counts["ragged"],
+                   "serve_quant_prefix_int8_page": quant_counts["prefix int8/page"],
+                   "serve_quant_prefix_fp8_head": quant_counts["prefix fp8/head"],
+                   "serve_quant_ragged_int8_page": quant_counts["ragged int8/page"],
+                   "serve_quant_prefix_int8_weights":
+                       quant_counts["prefix int8/page + int8 weights"],
+                   "forward_ragged": ragged_counts}
         path = {"routed_attention": "train", "routed_mlp_scatter": "train",
                 "paged_gather": "serve_paged", "paged_scatter_rows": "serve_paged",
-                "ragged_paged_scatter_rows": "serve_ragged"}.get(name, "serve")
+                "ragged_paged_scatter_rows": "serve_ragged",
+                "paged_gather_dequant": "serve_quant_prefix_int8_page",
+                "ragged_gather_rows": "forward_ragged",
+                "ragged_scatter_add_rows": "forward_ragged"}.get(name, "serve")
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": by_path[path][name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -27,6 +27,12 @@ Port of ``repro/core/routing.py``, single-device paths only:
 
    ``batch_capacity`` moves (kb, 1, D) rows and uses torch ops, as the JAX
    decode path uses no Pallas kernel.
+   :func:`execute_routed_ragged` is the flat-token forward's dispatch
+   (:func:`decide_tokens_ragged`: per-segment top-k over a packed
+   ``(1, T, D)`` stream, flat ``idx`` with ``-1`` tails): every backend
+   name goes through the ragged gather/scatter wrappers of
+   kernels/ragged.py (the JAX ``pallas_fused`` has no ragged fused block
+   and falls back to them too).
 3. :func:`routing_aux` — the router BCE, predictor BCE/accuracy and routing
    statistics that the training loss weights in (:func:`apply_mod`).
 
@@ -42,6 +48,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.core import router as R
+from repro_torch.kernels import ragged as KRG
 from repro_torch.kernels import routing as KR
 
 Params = Dict[str, Any]
@@ -58,9 +65,11 @@ BACKENDS = ("xla", "pallas", "pallas_fused")
 
 
 class RouteDecision(NamedTuple):
-    """strategy: "token_topk" (idx (B, k)) or "batch_capacity" (idx (kb,));
-    idx: routed rows, sorted ascending, unique, int64; gate: f32 router
-    weight per routed row; mask: (B, S) / (B,) bool routed membership;
+    """strategy: "token_topk" (idx (B, k)), "batch_capacity" (idx (kb,)) or
+    "token_topk_ragged" (idx (n_seg, k) flat int32 rows, -1 past a short
+    segment's end); idx: routed rows, sorted ascending, unique, int64
+    (ragged: int32); gate: f32 router weight per routed row (0 at -1);
+    mask: (B, S) / (B,) / flat (1, T) bool routed membership;
     logits: (B, S) f32 router logits (token_topk, for the aux losses);
     scores: (B,) causal ranking scores (batch_capacity)."""
 
@@ -95,6 +104,43 @@ def decide_tokens(params: Params, x: torch.Tensor, cfg: ModelConfig,
     idx, gate_logits, topk_mask = R.mod_select(logits, k, cfg.mod, generator)
     gate = R.apply_gate(gate_logits, cfg.mod)
     return RouteDecision("token_topk", idx, gate, topk_mask, logits)
+
+
+def decide_tokens_ragged(params: Params, x: torch.Tensor, row_offsets: torch.Tensor,
+                         cfg: ModelConfig, seg_cap: int,
+                         generator: Optional[torch.Generator] = None) -> RouteDecision:
+    """Segment-aware ``token_topk`` over a flat ``(1, T, D)`` stream.
+
+    Each segment (one request's tokens between consecutive row offsets)
+    gets the padded path's per-sequence selection: its router logits are
+    windowed into a ``(n_seg, seg_cap)`` view with tails at ``-inf`` and
+    :func:`~repro_torch.core.router.mod_select` runs on that (its stable
+    sort ranks the ``-inf`` tails last, lower index first), so for
+    equal-length segments the decision is the padded one. ``idx`` comes
+    back as flat rows ``(n_seg, k)`` int32 with masked tail selections at
+    ``-1`` (never a pointer into the next segment) and ``gate`` 0 there;
+    ``mask`` and ``logits`` keep the flat ``(1, T)`` layout, so
+    :func:`routing_aux` works unchanged."""
+    T = x.shape[1]
+    C = int(seg_cap)
+    k_cap = cfg.mod.capacity(C)
+    offs = row_offsets.to(device=x.device, dtype=torch.int64)
+    lens = offs[1:] - offs[:-1]  # (n_seg,)
+    logits_flat = R.router_logits(params["router"], x)  # (1, T) f32
+    ar = torch.arange(C, device=x.device)
+    win = (offs[:-1, None] + ar[None]).clamp(0, T - 1)
+    valid = ar[None] < lens[:, None]
+    wlogits = torch.where(valid, logits_flat[0][win], torch.full_like(win, float("-inf"),
+                                                                      dtype=torch.float32))
+    idx_l, gate_logits, _ = R.mod_select(wlogits, k_cap, cfg.mod, generator)
+    gate = R.apply_gate(gate_logits, cfg.mod)
+    sel_valid = torch.take_along_dim(valid, idx_l, dim=1)
+    gate = torch.where(sel_valid, gate, torch.zeros_like(gate))
+    idx = torch.where(sel_valid, offs[:-1, None] + idx_l, torch.full_like(idx_l, -1))
+    mask = torch.zeros((T + 1,), dtype=torch.bool, device=x.device)
+    mask[torch.where(idx >= 0, idx, T).flatten()] = True
+    return RouteDecision("token_topk_ragged", idx.to(torch.int32), gate, mask[:T][None],
+                         logits_flat)
 
 
 def batch_capacity_k(cfg: ModelConfig, batch: int) -> int:
@@ -181,6 +227,35 @@ def execute_routed(
     delta, aux = block_delta_fn(x_sub, pos_sub)
     update = (decision.gate[:, None, None] * delta.float()).to(x.dtype)
     return x.index_put((decision.idx,), update, accumulate=True), aux
+
+
+def execute_routed_ragged(
+    decision: RouteDecision,
+    x: torch.Tensor,  # (1, T, D) flat token stream
+    block_delta_fn: BlockDeltaFn,
+    cfg: ModelConfig,
+    positions: Optional[torch.Tensor] = None,  # (1, T) int32
+) -> Tuple[torch.Tensor, Aux]:
+    """Eq. 1 over the flat stream: gather every segment's routed rows into
+    one ``(n_seg, k, D)`` sub-tensor (zeros at ``-1``), run the block delta
+    on it (segments as batch rows, the padded path's shapes; ``-1`` rows
+    at position -1), and gated-scatter-add the result onto a fresh copy of
+    the stream (``-1`` dropped). Every backend name runs the ragged
+    dispatch kernels on the card and their plain versions on the CPU."""
+    if decision.strategy != "token_topk_ragged":
+        raise ValueError(f"execute_routed_ragged needs a token_topk_ragged decision, got "
+                         f"{decision.strategy!r}")
+    if cfg.mod.backend not in BACKENDS:
+        raise ValueError(f"unknown MoD backend {cfg.mod.backend!r} (want one of {BACKENDS})")
+    T = x.shape[1]
+    idx = decision.idx
+    pos_sub = None
+    if positions is not None:
+        pos_sub = torch.where(idx >= 0, positions[0][idx.long().clamp(0, T - 1)],
+                              torch.full_like(idx, -1)).to(torch.int32)
+    x_sub = KRG.ragged_gather_rows(x[0], idx)
+    delta, aux = block_delta_fn(x_sub, pos_sub)
+    return KRG.ragged_scatter_add_rows(x[0], idx, delta, decision.gate)[None], aux
 
 
 # ---------------------------------------------------------------------------

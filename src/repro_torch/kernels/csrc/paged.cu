@@ -23,6 +23,23 @@
 // Indices are clamped into range (page ids to [0, N), positions to
 // [0, P*p), offsets to [0, p)), as the plain PyTorch versions beside the
 // wrappers do, so no input can address memory outside the tensors.
+//
+// The quantized pool's gather (paged_gather_dequant, replacing
+// src/repro/kernels/paged.py paged_gather_dequant_pallas /
+// _gather_dequant_kernel) widens narrow pages on the way out:
+//   out[b, i*p + r, f] = float(pages[t, r, f]) * scales[t, r, f / (F/G)],
+//   t = clamp(table[b, i]),
+// an f32 product rounded once to the output type (f32 or bf16). Bound:
+// bytes, 1 narrow byte + 1 scale per F/G elements in, 2 or 4 bytes out.
+// Each thread owns one 16-byte vector of narrow bytes (16 elements, one
+// scale when a scale block is a multiple of 16 elements, as a head_dim is),
+// so a (1, 62)-table gather of 1792-wide rows still spreads over ~430
+// blocks instead of the one-block-per-logical-page of paged_gather.
+// Widening int8 and e4m3 to f32 is exact; the multiply by a power-of-two
+// scale is exact unless it leaves the normal range, and is the same IEEE
+// product as the plain version's.
+#include <cuda_fp8.h>
+
 #include "common.cuh"
 
 REPRO_ERROR_STRING
@@ -91,6 +108,89 @@ __global__ void ragged_paged_scatter_rows_kernel(char* __restrict__ pages,
              pages + ((long long)pg * p + o) * row_bytes, row_bytes);
 }
 
+// narrow byte -> f32, exact for both types
+template <typename Q>
+__device__ __forceinline__ float widen(unsigned char byte);
+template <>
+__device__ __forceinline__ float widen<int8_t>(unsigned char byte) {
+  return static_cast<float>(static_cast<signed char>(byte));
+}
+template <>
+__device__ __forceinline__ float widen<__nv_fp8_e4m3>(unsigned char byte) {
+  __nv_fp8_e4m3 q;
+  q.__x = byte;
+  return static_cast<float>(q);
+}
+
+// 16 f32 values to 16 consecutive outputs (16-byte aligned)
+__device__ __forceinline__ void store16(float* o, const float* v) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    reinterpret_cast<float4*>(o)[j] = make_float4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
+}
+__device__ __forceinline__ void store16(__nv_bfloat16* o, const float* v) {
+  uint32_t w[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    w[j] = (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * j])) |
+           ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * j + 1])) << 16);
+  reinterpret_cast<uint4*>(o)[0] = make_uint4(w[0], w[1], w[2], w[3]);
+  reinterpret_cast<uint4*>(o)[1] = make_uint4(w[4], w[5], w[6], w[7]);
+}
+
+// One thread per 16 narrow elements of an output row, grid-stride. ``vec``:
+// F and F/G multiples of 16 and both bases 16-byte aligned; otherwise each
+// thread takes single elements (odd widths).
+template <typename Q, typename O>
+__global__ void paged_gather_dequant_kernel(const unsigned char* __restrict__ pages,
+                                            const float* __restrict__ scales,
+                                            const int* __restrict__ table,
+                                            O* __restrict__ out, int N, int p, int F, int G,
+                                            long long sstride, long long n_rows, bool vec) {
+  const int gs = F / G;  // elements per scale
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long t0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (vec) {
+    const int nv = F / 16;
+    for (long long v = t0; v < n_rows * nv; v += stride) {
+      const long long row = v / nv;  // (b*P + i)*p + r
+      const int c = (int)(v % nv) * 16;
+      const long long src = (long long)clampi(table[row / p], 0, N - 1) * p + (int)(row % p);
+      const float sc = scales[src * sstride + c / gs];
+      const uint4 raw = *reinterpret_cast<const uint4*>(pages + src * F + c);
+      const unsigned char* bytes = reinterpret_cast<const unsigned char*>(&raw);
+      float vals[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) vals[j] = __fmul_rn(widen<Q>(bytes[j]), sc);
+      store16(out + row * F + c, vals);
+    }
+  } else {
+    for (long long e = t0; e < n_rows * F; e += stride) {
+      const long long row = e / F;
+      const int f = (int)(e % F);
+      const long long src = (long long)clampi(table[row / p], 0, N - 1) * p + (int)(row % p);
+      const float v = __fmul_rn(widen<Q>(pages[src * F + f]), scales[src * sstride + f / gs]);
+      out[e] = from_f32<O>(v);
+    }
+  }
+}
+
+template <typename Q, typename O>
+int launch_dequant(const void* pages, const void* scales, const void* table, void* out, int N,
+                   int B, int P, int p, int F, int G, long long sstride, cudaStream_t st) {
+  const long long n_rows = (long long)B * P * p;
+  const bool vec = F % 16 == 0 && (F / G) % 16 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(pages) | reinterpret_cast<uintptr_t>(out)) % 16) == 0;
+  const long long work = vec ? n_rows * (F / 16) : n_rows * F;
+  long long blocks = (work + 255) / 256;
+  if (blocks < 1) blocks = 1;
+  if (blocks > 132 * 32) blocks = 132 * 32;
+  paged_gather_dequant_kernel<Q, O><<<(int)blocks, 256, 0, st>>>(
+      static_cast<const unsigned char*>(pages), static_cast<const float*>(scales),
+      static_cast<const int*>(table), static_cast<O*>(out), N, p, F, G, sstride, n_rows, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 int threads_for(long long bytes) {
   // one 16-byte vector per thread and pass, at least one warp
   long long t = (bytes / 16 + 31) / 32 * 32;
@@ -125,4 +225,26 @@ extern "C" int repro_ragged_paged_scatter_rows(void* pages, const void* pid, con
       static_cast<char*>(pages), static_cast<const int*>(pid), static_cast<const int*>(off),
       static_cast<const char*>(rows), N, p, row_bytes);
   return static_cast<int>(cudaGetLastError());
+}
+
+// narrow: 0 int8, 1 e4m3; out_dtype: REPRO_F32 / REPRO_BF16. The G scales
+// of page row n*p + r start at scales[(n*p + r) * sstride] (sstride >= G:
+// a layer's columns of a scale tensor shared by several layers).
+extern "C" int repro_paged_gather_dequant(const void* pages, const void* scales,
+                                          const void* table, void* out, int N, int B, int P,
+                                          int p, int F, int G, long long sstride, int narrow,
+                                          int out_dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (narrow == 0) {
+    return out_dtype == REPRO_BF16
+               ? launch_dequant<int8_t, __nv_bfloat16>(pages, scales, table, out, N, B, P, p, F,
+                                                       G, sstride, st)
+               : launch_dequant<int8_t, float>(pages, scales, table, out, N, B, P, p, F, G,
+                                               sstride, st);
+  }
+  return out_dtype == REPRO_BF16
+             ? launch_dequant<__nv_fp8_e4m3, __nv_bfloat16>(pages, scales, table, out, N, B, P,
+                                                            p, F, G, sstride, st)
+             : launch_dequant<__nv_fp8_e4m3, float>(pages, scales, table, out, N, B, P, p, F, G,
+                                                    sstride, st);
 }

@@ -4,6 +4,13 @@
 // Replaces the Pallas TPU kernels of src/repro/kernels/routing.py:
 //   gather_rows      (_gather_call / _gather_kernel)
 //   scatter_add_rows (_scatter_call / _scatter_kernel)
+// and, called with B = 1 on a flat (T, D) token stream, those of
+// src/repro/kernels/ragged.py:
+//   ragged_gather_rows      (_ragged_gather_kernel)
+//   ragged_scatter_add_rows (_ragged_scatter_kernel)
+// whose -1 selections (segments shorter than their capacity) are the
+// out-of-range indices below: a zero row in the gather, dropped in the
+// scatter. Indices are int64 (padded dispatch) or int32 (flat stream).
 // The TPU versions express the row permutation as a one-hot f32 matmul per
 // S-block so the inner loop is MXU work. With unique indices each output
 // row receives exactly one term, so that matmul is a copy; here it is
@@ -24,8 +31,9 @@ namespace {
 // One block per output row (b, i): out[b, i, :] = x[b, idx[b, i], :].
 // An index outside [0, S) yields a zero row, as the one-hot formulation
 // does (it matches no row of x).
+template <typename Idx>
 __global__ void gather_rows_kernel(const char* __restrict__ x,
-                                   const long long* __restrict__ idx,
+                                   const Idx* __restrict__ idx,
                                    char* __restrict__ out, int S, int k,
                                    long long row_bytes) {
   const int i = blockIdx.x, b = blockIdx.y;
@@ -70,9 +78,9 @@ __global__ void copy_bytes_kernel(const char* __restrict__ x, char* __restrict__
 //   out[b, s, :] = x[b, s, :] + cast(gate[b, i] * f32(delta[b, i, :])),
 // s = idx[b, i]. The gate multiply is f32 and the cast to x's type comes
 // before the add, exactly as the TPU kernel and the XLA formulation do.
-template <typename T>
+template <typename T, typename Idx>
 __global__ void scatter_update_kernel(const T* __restrict__ x,
-                                      const long long* __restrict__ idx,
+                                      const Idx* __restrict__ idx,
                                       const T* __restrict__ delta,
                                       const float* __restrict__ gate,
                                       T* __restrict__ out, int S, int k, int D) {
@@ -91,21 +99,41 @@ __global__ void scatter_update_kernel(const T* __restrict__ x,
   }
 }
 
+template <typename Idx>
+void launch_gather(const void* x, const void* idx, void* out, int B, int S, int k,
+                   long long row_bytes, cudaStream_t st) {
+  gather_rows_kernel<Idx><<<dim3(k, B), 128, 0, st>>>(
+      static_cast<const char*>(x), static_cast<const Idx*>(idx), static_cast<char*>(out), S, k,
+      row_bytes);
+}
+
+template <typename T, typename Idx>
+void launch_scatter_update(const void* x, const void* idx, const void* delta, const void* gate,
+                           void* out, int B, int S, int k, int D, cudaStream_t st) {
+  const int threads = D >= 256 ? 256 : 128;
+  scatter_update_kernel<T, Idx><<<dim3(k, B), threads, 0, st>>>(
+      static_cast<const T*>(x), static_cast<const Idx*>(idx), static_cast<const T*>(delta),
+      static_cast<const float*>(gate), static_cast<T*>(out), S, k, D);
+}
+
 }  // namespace
 
+// idx_bytes: 8 (int64 indices) or 4 (int32).
 extern "C" int repro_gather_rows(const void* x, const void* idx, void* out, int B, int S,
-                                 int k, int D, int elem_bytes, void* stream) {
+                                 int k, int D, int elem_bytes, int idx_bytes, void* stream) {
   const long long row_bytes = (long long)D * elem_bytes;
-  dim3 grid(k, B);
-  gather_rows_kernel<<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const char*>(x), static_cast<const long long*>(idx),
-      static_cast<char*>(out), S, k, row_bytes);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (idx_bytes == 4) {
+    launch_gather<int>(x, idx, out, B, S, k, row_bytes, st);
+  } else {
+    launch_gather<long long>(x, idx, out, B, S, k, row_bytes, st);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int repro_scatter_add_rows(const void* x, const void* idx, const void* delta,
                                       const void* gate, void* out, int B, int S, int k,
-                                      int D, int dtype, void* stream) {
+                                      int D, int dtype, int idx_bytes, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int elem_bytes = dtype == REPRO_BF16 ? 2 : 4;
   const long long n = (long long)B * S * D * elem_bytes;
@@ -114,18 +142,14 @@ extern "C" int repro_scatter_add_rows(const void* x, const void* idx, const void
   if (blocks > 4096) blocks = 4096;
   copy_bytes_kernel<<<(int)blocks, 256, 0, st>>>(static_cast<const char*>(x),
                                                   static_cast<char*>(out), n);
-  dim3 grid(k, B);
-  const int threads = D >= 256 ? 256 : 128;
-  if (dtype == REPRO_BF16) {
-    scatter_update_kernel<__nv_bfloat16><<<grid, threads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const long long*>(idx),
-        static_cast<const __nv_bfloat16*>(delta), static_cast<const float*>(gate),
-        static_cast<__nv_bfloat16*>(out), S, k, D);
+  if (dtype == REPRO_BF16 && idx_bytes == 4) {
+    launch_scatter_update<__nv_bfloat16, int>(x, idx, delta, gate, out, B, S, k, D, st);
+  } else if (dtype == REPRO_BF16) {
+    launch_scatter_update<__nv_bfloat16, long long>(x, idx, delta, gate, out, B, S, k, D, st);
+  } else if (idx_bytes == 4) {
+    launch_scatter_update<float, int>(x, idx, delta, gate, out, B, S, k, D, st);
   } else {
-    scatter_update_kernel<float><<<grid, threads, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const long long*>(idx),
-        static_cast<const float*>(delta), static_cast<const float*>(gate),
-        static_cast<float*>(out), S, k, D);
+    launch_scatter_update<float, long long>(x, idx, delta, gate, out, B, S, k, D, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

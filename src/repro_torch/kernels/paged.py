@@ -1,22 +1,32 @@
-"""Block-paged KV pool kernels: the page gather and the decode-row scatter.
+"""Block-paged KV pool kernels: the page gather (plain and dequantizing)
+and the decode-row scatter.
 
-Port of ``repro/kernels/paged.py`` (the Pallas ``paged_gather_pallas`` and
-``paged_scatter_rows_pallas``) and of their leaf-shape wrappers in
-``repro/kernels/ops.py``. A paged cache leaf stores its position axis as
-``(n_pages, page_size)`` physical blocks; a per-slot page table
-``(B, P = ctx // page_size)`` int32 maps logical pages to physical ones.
+Port of ``repro/kernels/paged.py`` (the Pallas ``paged_gather_pallas``,
+``paged_gather_dequant_pallas`` and ``paged_scatter_rows_pallas``) and of
+their leaf-shape wrappers in ``repro/kernels/ops.py``. A paged cache leaf
+stores its position axis as ``(n_pages, page_size)`` physical blocks; a
+per-slot page table ``(B, P = ctx // page_size)`` int32 maps logical pages
+to physical ones.
 
 - :func:`paged_gather`: ``out[b, i·p + r] = pages[table[b, i], r]``, a
   fresh ``(B, P·p, F)`` tensor (the logical view the decode step reads).
+- :func:`paged_gather_dequant`: the same gather of narrow (int8 / e4m3)
+  pages, widened on the way out: ``f32(q) · scale`` with the row's
+  ``(N, p, G)`` scale of each ``F/G``-element block, rounded once to the
+  output dtype (the JAX f32 result followed by ``astype``).
 - :func:`paged_scatter_rows`: ``pages[table[b, pos[b]//p], pos[b]%p] =
   rows[b]``, written **in place** into ``pages`` (the JAX version returns a
-  new pool; here only the B rows are written).
+  new pool; here only the B rows are written). The quantizing variant of
+  :func:`paged_scatter_rows_op` quantizes the rows in torch ops and
+  scatters the narrow rows and their scales with this same byte copy.
 
 Each wrapper launches the CUDA kernel of ``csrc/paged.cu`` for CUDA tensors
 and runs the plain PyTorch version beside it for CPU tensors; on a CUDA
 tensor it launches or raises. Both are copies, so kernel and plain version
 agree bit for bit, in any dtype (the kernels copy bytes). Indices are
-clamped into range in both. There is no autograd: serving never
+clamped into range in both. The dequantizing gather is a widen and one
+multiply, the same IEEE product in kernel and plain version, so they agree
+bit for bit too. There is no autograd: serving never
 differentiates (the JAX ops have no VJP), and a wrapper given a tensor that
 requires grad raises.
 
@@ -24,8 +34,7 @@ In the port every cache leaf has the slot on axis 0, so a paged leaf is
 ``(N, p) + tail`` and canonicalising is a reshape to ``(N, p, F)``. The
 JAX backend names ``"xla"`` and ``"pallas"`` both launch the kernels on the
 card and both run the plain versions on the CPU, so the wrappers take no
-backend name (``EngineConfig`` checks it). The fused-dequant gather
-(``paged_gather_dequant_pallas``) comes with quantized KV.
+backend name (``EngineConfig`` checks it).
 """
 from __future__ import annotations
 
@@ -36,6 +45,7 @@ import torch
 from repro_torch.kernels import build
 
 PAGED_GATHER = build.counter("paged_gather")
+PAGED_GATHER_DEQUANT = build.counter("paged_gather_dequant")
 PAGED_SCATTER_ROWS = build.counter("paged_scatter_rows")
 
 _P = ctypes.c_void_p
@@ -96,6 +106,63 @@ def paged_gather(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
              p * F * pages.element_size(), stream)
     build.check("paged", "repro_paged_gather", err)
     PAGED_GATHER.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# dequantizing gather: out[b, i*p + r, f] = f32(pages[t, r, f]) * scales[t, r, f // (F/G)]
+# ---------------------------------------------------------------------------
+
+NARROW = {torch.int8: 0, torch.float8_e4m3fn: 1}
+_OUT = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def paged_gather_dequant_plain(pages: torch.Tensor, scales: torch.Tensor, table: torch.Tensor,
+                               out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain version: gather the narrow pages and their scales, widen with
+    :func:`repro_torch.serve.quant.dequant_rows`, cast once."""
+    from repro_torch.serve.quant import dequant_rows  # serve imports this module
+
+    return dequant_rows(paged_gather_plain(pages, table),
+                        paged_gather_plain(scales, table)).to(out_dtype)
+
+
+def paged_gather_dequant(pages: torch.Tensor, scales: torch.Tensor, table: torch.Tensor,
+                         out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """pages (N, p, F) int8 | float8_e4m3fn, scales (N, p, G) f32, table
+    (B, P) int32 -> (B, P*p, F) ``out_dtype`` (f32 or bf16). ``scales`` may
+    be a column slice of a wider scale tensor (one layer's heads of a scale
+    tensor several layers share): the kernel reads it with its row stride."""
+    if pages.dim() != 3 or scales.dim() != 3 or table.dim() != 2 \
+            or scales.shape[:2] != pages.shape[:2] or pages.shape[2] % scales.shape[2]:
+        raise ValueError(f"want pages (N,p,F), scales (N,p,G) with G | F, table (B,P); got "
+                         f"{tuple(pages.shape)}, {tuple(scales.shape)}, {tuple(table.shape)}")
+    if pages.dtype not in NARROW:
+        raise TypeError(f"pages must be int8 or float8_e4m3fn, got {pages.dtype}")
+    if scales.dtype != torch.float32:
+        raise TypeError(f"scales must be float32, got {scales.dtype}")
+    if out_dtype not in _OUT:
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
+    _check_table(table)
+    check_no_grad(pages, scales)
+    if check_device(pages, scales, table) == "cpu":
+        return paged_gather_dequant_plain(pages, scales, table, out_dtype)
+    pages, table = pages.contiguous(), table.contiguous()
+    N, p, F = pages.shape
+    G = scales.shape[2]
+    if scales.stride(2) != 1 or scales.stride(0) != p * scales.stride(1):
+        scales = scales.contiguous()
+    B, P = table.shape
+    out = torch.empty((B, P * p, F), dtype=out_dtype, device=pages.device)
+    if out.numel() == 0:
+        return out
+    fn = build.bind("paged", "repro_paged_gather_dequant",
+                    (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _I, _I, _P))
+    stream = torch.cuda.current_stream(pages.device).cuda_stream
+    err = fn(pages.data_ptr(), scales.data_ptr(), table.data_ptr(), out.data_ptr(), N, B, P, p,
+             F, G, scales.stride(1), NARROW[pages.dtype], _OUT[out_dtype], stream)
+    build.check("paged", "repro_paged_gather_dequant", err)
+    PAGED_GATHER_DEQUANT.launches += 1
     return out
 
 
@@ -168,15 +235,44 @@ def canon_rows(rows: torch.Tensor) -> torch.Tensor:
     return rows.reshape(rows.shape[0], -1)
 
 
-def paged_gather_op(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """Logical ``(B, P·p) + tail`` view of a paged leaf ``(N, p) + tail``."""
+def paged_gather_op(pages: torch.Tensor, table: torch.Tensor, scales: torch.Tensor = None,
+                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Logical ``(B, P·p) + tail`` view of a paged leaf ``(N, p) + tail``;
+    with ``scales`` (canonical ``(N, p, G)`` f32, a quantized leaf) the
+    narrow pages are widened to ``out_dtype`` by the dequantizing gather."""
     B, P = table.shape
-    out = paged_gather(canon_pages(pages), table)
+    if scales is None:
+        out = paged_gather(canon_pages(pages), table)
+    else:
+        out = paged_gather_dequant(canon_pages(pages), scales, table, out_dtype)
     return out.view((B, P * pages.shape[1]) + tuple(pages.shape[2:]))
 
 
-def paged_scatter_rows_op(pages: torch.Tensor, table: torch.Tensor, rows: torch.Tensor,
-                          pos: torch.Tensor) -> torch.Tensor:
-    """One decode row per slot (``(B,) + tail``) into its tail page, in place."""
-    paged_scatter_rows(canon_pages(pages), table, canon_rows(rows), pos)
+def quant_fold(rows, scales, quant):
+    """Quantize the canonical rows of one leaf, or of the layers of one
+    stacked leaf (a list, folded layer-major into one row as the JAX
+    package folds a leaf's lead dims), against fresh per-row pow2 scales.
+    Returns (narrow rows per layer, (W, G) scales)."""
+    from repro_torch.serve.quant import quantize_rows  # serve imports this module
+
+    rows = [canon_rows(r) for r in rows]
+    q, s = quantize_rows(torch.cat(rows, dim=-1), scales.shape[-1], quant)
+    return list(q.split([r.shape[-1] for r in rows], dim=-1)), s
+
+
+def paged_scatter_rows_op(pages, table: torch.Tensor, rows, pos: torch.Tensor,
+                          scales: torch.Tensor = None, quant=None):
+    """One decode row per slot (``(B,) + tail``) into its tail page, in
+    place. With ``scales``/``quant``, ``pages`` and ``rows`` are lists: the
+    layers of one stacked leaf, sharing ``scales``. Their rows are quantized
+    against fresh per-row pow2 scales, and the narrow rows and their
+    ``(B, G)`` scales go to the same targets (the scales tensor is one more
+    canonical page tensor, with F = G), both in place."""
+    if scales is None:
+        paged_scatter_rows(canon_pages(pages), table, canon_rows(rows), pos)
+        return pages
+    qrows, rscales = quant_fold(rows, scales, quant)
+    paged_scatter_rows(scales, table, rscales, pos)
+    for pg, q in zip(pages, qrows):
+        paged_scatter_rows(canon_pages(pg), table, q.contiguous(), pos)
     return pages

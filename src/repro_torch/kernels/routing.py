@@ -63,9 +63,10 @@ def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     out = torch.empty((B, k, D), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    fn = build.bind("routing", "repro_gather_rows", (_P, _P, _P, _I, _I, _I, _I, _I, _P))
+    fn = build.bind("routing", "repro_gather_rows", (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P))
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x.data_ptr(), idx.data_ptr(), out.data_ptr(), B, S, k, D, x.element_size(), stream)
+    err = fn(x.data_ptr(), idx.data_ptr(), out.data_ptr(), B, S, k, D, x.element_size(),
+             idx.element_size(), stream)
     build.check("routing", "repro_gather_rows", err)
     GATHER_ROWS.launches += 1
     return out
@@ -103,12 +104,12 @@ def _scatter(x, idx, delta, gate) -> torch.Tensor:
         return x.clone()
     out = torch.empty_like(x)
     fn = build.bind(
-        "routing", "repro_scatter_add_rows", (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
+        "routing", "repro_scatter_add_rows", (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
     )
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(
         x.data_ptr(), idx.data_ptr(), delta.data_ptr(), gate.data_ptr(), out.data_ptr(),
-        B, S, k, D, _DTYPES[x.dtype], stream,
+        B, S, k, D, _DTYPES[x.dtype], idx.element_size(), stream,
     )
     build.check("routing", "repro_scatter_add_rows", err)
     SCATTER_ADD_ROWS.launches += 1

@@ -2,8 +2,9 @@
 request stream, on the GPU unless ``--device cpu``.
 
 Mirrors ``repro/launch/serve.py`` for the flags of the padded, paged
-(``--page-size``, ``--n-pages``, ``--prefix-cache``) and ragged
-(``--ragged``, ``--ragged-segments``) engines, plus ``--device``. Weights
+(``--page-size``, ``--n-pages``, ``--prefix-cache``), ragged
+(``--ragged``, ``--ragged-segments``) and quantized (``--quant-kv``,
+``--quant-scale``) engines, plus ``--device``. Weights
 are random, drawn from ``--seed``. Prompt lengths are mixed uniformly over
 ``[--min-prompt-len, --prompt-len]``.
 
@@ -92,6 +93,11 @@ def main() -> None:
               f"peak_utilization={s['page_utilization_peak']:.2f} "
               f"prefix_hit_rate={s['prefix_hit_rate']:.2f} preemptions={s['preemptions']:.0f} "
               f"prefill_tokens_computed={s['prefill_tokens_computed']:.0f}")
+    if engine.quant is not None:
+        wide = engine.pool.unquantized_kv_bytes()
+        print(f"[serve] quantized KV: {engine.quant.kv}/{engine.quant.granularity} scales, "
+              f"kv {s['kv_bytes'] / 2**20:.2f} MiB, {wide / s['kv_bytes']:.3f}x less than the "
+              f"unquantized pool of the same shape ({wide / 2**20:.2f} MiB)")
     if args.ragged:
         print(f"[serve] ragged mixed step: segments={args.ragged_segments} "
               f"padded_token_fraction={s['padded_token_fraction']:.3f}")

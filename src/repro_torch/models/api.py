@@ -66,6 +66,17 @@ def model_loss(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     return T.lm_loss(params, cfg, batch, generator)
 
 
+def model_forward_ragged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                         row_offsets: torch.Tensor, seg_cap: int,
+                         generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, Aux]:
+    """Flat-token ("ragged") forward: segments packed on one (T,) stream,
+    delimited by ``row_offsets``, no per-sequence padding rows. For
+    equal-length segments the logits match :func:`model_forward`'s.
+    Returns (logits (T, V), aux)."""
+    _check_family(cfg)
+    return T.forward_ragged(params, cfg, tokens, row_offsets, seg_cap, generator=generator)
+
+
 def make_caches(cfg: ModelConfig, batch: int, ctx: int, device: DeviceLike = None) -> Params:
     _check_family(cfg)
     return T.make_cache(cfg, batch, ctx, resolve_device(device))

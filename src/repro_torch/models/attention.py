@@ -8,15 +8,16 @@ KV caches are fixed-capacity rings with a per-sequence cursor; empty slots
 have pos = -1 and are masked out. MoD blocks size their rings at the block
 capacity ``ratio·ctx`` (the paper's KV-cache saving).
 
-Every attention core (training, prefill, chunked prefill, decode) goes
-through the flash kernel
+Every attention core of the padded layout (training, prefill, chunked
+prefill, decode) goes through the flash kernel
 (:func:`repro_torch.kernels.flash_attention.flash_attention`), which runs
 its plain PyTorch version for CPU tensors and carries gradients through
-its ``autograd.Function``. (The JAX package's dense ``attend`` is not
-ported: nothing here runs it, and the tests hold the kernel's function
-against the JAX ``attend`` itself.) :func:`routed_self_attention` is the
+its ``autograd.Function``. :func:`routed_self_attention` is the
 ``pallas_fused`` backend's routed attention: gather, norm and attention of
-the routed rows in one kernel.
+the routed rows in one kernel. :func:`ragged_self_attention` (the
+flat-token forward) is the JAX package's dense masked :func:`attend` in
+torch ops on both devices: the JAX package runs it without a Pallas
+kernel too.
 
 Unlike the JAX functions, which return new caches, these functions write
 the caches in place and return them.
@@ -29,7 +30,12 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import torch_dtype
-from repro_torch.kernels.flash_attention import RoutedAttnSpec, flash_attention, routed_attention
+from repro_torch.kernels.flash_attention import (
+    NEG_INF,
+    RoutedAttnSpec,
+    flash_attention,
+    routed_attention,
+)
 from repro_torch.models.layers import apply_rope, dense_init
 
 Params = Dict[str, torch.Tensor]
@@ -104,6 +110,50 @@ def self_attention(params: Params, x: torch.Tensor, positions: torch.Tensor,
     k, v = _project_kv(params, x, cfg)
     q, k = _rope_qk(q, k, positions, positions, cfg)
     return attend_auto(q, k, v, positions, positions, cfg) @ params["wo"]
+
+
+def make_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, causal: bool, window: int = 0
+              ) -> torch.Tensor:
+    """(B, Sq, Skv) bool, True = attend (JAX ``make_mask``): keys at
+    position < 0 are empty; causal keeps ``kv_pos <= q_pos``, a window
+    ``q_pos - kv_pos < window``."""
+    valid = kv_pos[:, None, :] >= 0
+    if causal:
+        valid = valid & (kv_pos[:, None, :] <= q_pos[:, :, None])
+    if window > 0:
+        valid = valid & (q_pos[:, :, None] - kv_pos[:, None, :] < window)
+    return valid
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+           cfg: ModelConfig) -> torch.Tensor:
+    """Dense grouped-query attention over a (B, Sq, Skv) bool mask (JAX
+    ``attend``): f32 scores, masked entries at ``NEG_INF`` (a row with no
+    valid key comes out as the mean of V, as there), probabilities cast
+    to V's dtype before the value product. (B, Sq, nq*hd)."""
+    B, Sq, nq, hd = q.shape
+    nkv = k.shape[2]
+    qg = q.reshape(B, Sq, nkv, nq // nkv, hd)
+    scores = torch.einsum("bsngh,btnh->bngst", qg, k).float() * _scale(cfg)
+    scores = torch.where(mask[:, None, None], scores, torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bngst,btnh->bsngh", probs, v).reshape(B, Sq, nq * hd)
+
+
+def ragged_self_attention(params: Params, x: torch.Tensor, positions: torch.Tensor,
+                          seg_id: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Self-attention over a flat ragged ``(1, T, D)`` stream (segments
+    packed back to back). Causality is segment-block-diagonal: a query
+    attends within its own segment at ``kv_pos <= q_pos`` on within-segment
+    positions (``-1`` = padded tail). The cross-segment entries add exact
+    zero softmax terms, so each segment's rows equal the dense attention
+    of that sequence alone."""
+    q = _project_q(params, x, cfg)
+    k, v = _project_kv(params, x, cfg)
+    q, k = _rope_qk(q, k, positions, positions, cfg)
+    mask = make_mask(positions, positions, bool(cfg.attn.causal), int(cfg.attn.window))
+    mask &= (seg_id[:, None] == seg_id[None, :])[None]
+    return attend(q, k, v, mask, cfg) @ params["wo"]
 
 
 def routed_self_attention(

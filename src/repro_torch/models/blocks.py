@@ -1,7 +1,8 @@
 """Pre-norm transformer block (dense MLP).
 
 Port of ``repro/models/blocks.py``: ``block_apply`` (the full residual
-block of the training forward), ``block_delta`` (the residual contribution
+block of the training forward), ``block_apply_ragged`` (the same block
+over a flat ragged stream), ``block_delta``  (the residual contribution
 f(X̃) of paper Eq. 1), ``block_delta_fused`` (Eq. 1 end to end through the
 fused routed-attention and routed-MLP kernels, the ``pallas_fused``
 backend), ``block_prefill``, ``block_chunk`` and ``block_decode`` (against
@@ -42,6 +43,16 @@ def block_apply(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelC
                 ) -> Tuple[torch.Tensor, Aux]:
     """The full residual block on a sequence without a cache."""
     a = A.self_attention(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps), positions, cfg)
+    h = x + a
+    return h + _ffn(p, h, cfg), {}
+
+
+def block_apply_ragged(p: Params, x: torch.Tensor, positions: torch.Tensor,
+                       seg_id: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, Aux]:
+    """The full residual block over a flat ragged ``(1, T, D)`` stream:
+    attention is segment-block-diagonal, the MLP pointwise."""
+    a = A.ragged_self_attention(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps), positions,
+                                seg_id, cfg)
     h = x + a
     return h + _ffn(p, h, cfg), {}
 

@@ -1,5 +1,6 @@
 """Decoder-only LM assembly with MoD routing: init, the training forward
-and loss, caches, prefill, chunked prefill and decode.
+and loss, the flat ragged forward, caches, prefill, chunked prefill and
+decode.
 
 Port of ``repro/models/transformer.py``. The JAX package stacks layers
 into groups for ``lax.scan``; here parameters and caches are per layer and
@@ -25,6 +26,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.core import router as R
 from repro_torch.core import routing as ROUT
 from repro_torch.device import torch_dtype
+from repro_torch.kernels.ragged import flat_segment_ids
 from repro_torch.models import attention as A
 from repro_torch.models import blocks as BLK
 from repro_torch.models.layers import (
@@ -160,6 +162,62 @@ def forward(
         x = x[:, -1:]
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return unembed(params["embed"], x), aux
+
+
+def forward_ragged(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # (T,) flat token stream
+    row_offsets: torch.Tensor,  # (n_seg+1,) int32; row_offsets[-1] <= T
+    seg_cap: int,  # every segment has <= seg_cap tokens
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[torch.Tensor, Aux]:
+    """Flat-token forward (the ``input_row_offsets`` layout): segments are
+    packed back to back on one ``(T,)`` stream instead of padded ``(B, S)``
+    rows. Attention is segment-block-diagonal
+    (:func:`~repro_torch.models.blocks.block_apply_ragged`), MoD selection
+    per segment (:func:`~repro_torch.core.routing.decide_tokens_ragged`),
+    and the routed block sees segments as batch rows, so for equal-length
+    segments every layer computes the padded path's function. Rows behind
+    ``row_offsets[-1]`` are a masked padded tail (positions -1). The
+    router aux losses read the stream as it was before the scatter.
+    Returns (logits (T, V), aux)."""
+    T = tokens.shape[0]
+    x = embed(params["embed"], tokens[None])  # (1, T, D)
+    offs = row_offsets.to(device=x.device, dtype=torch.int32)
+    seg_id = flat_segment_ids(offs, T)
+    t = torch.arange(T, dtype=torch.int32, device=x.device)
+    positions = torch.where(t < offs[-1], t - offs[seg_id.long()], -1)[None].to(torch.int32)
+    stochastic = cfg.mod.enabled and cfg.mod.router_type == "stochastic"
+    root = generator if generator is not None else torch.Generator().manual_seed(0)
+    aux_steps: List[Aux] = []
+    for gp in params["groups"]:
+        seed = int(torch.randint(0, 2**62, (1,), generator=root)) if stochastic else None
+        aux: Aux = {}
+        if "full" in gp:
+            x, a = BLK.block_apply_ragged(gp["full"], x, positions, seg_id, cfg)
+            aux.update(_prefix("full", a))
+        if "mod" in gp:
+            mp = gp["mod"]
+            gen = None if seed is None else torch.Generator(device=x.device).manual_seed(seed)
+            decision = ROUT.decide_tokens_ragged(mp, x, offs, cfg, seg_cap, gen)
+
+            def delta_fn(xs, ps, mp=mp):
+                return BLK.block_delta(mp["block"], xs, ps, cfg)
+
+            h_in = x
+            x, a = ROUT.execute_routed_ragged(decision, x, delta_fn, cfg, positions)
+            aux.update(a)
+            aux.update(ROUT.routing_aux(decision, mp, h_in, cfg))
+        aux_steps.append(aux)
+    aux = {}
+    if aux_steps and aux_steps[0]:
+        aux = {key: torch.stack([a[key] for a in aux_steps]).mean(dim=0) for key in aux_steps[0]}
+    if "tail" in params:
+        x, a = BLK.block_apply_ragged(params["tail"], x, positions, seg_id, cfg)
+        aux.update(_prefix("tail", a))
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return unembed(params["embed"], x)[0], aux
 
 
 def combine_losses(ce: torch.Tensor, aux: Aux, cfg: ModelConfig) -> torch.Tensor:

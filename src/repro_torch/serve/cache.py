@@ -23,13 +23,28 @@ one new row per slot back with the paged scatter kernel
 (:func:`paged_writeback`); the ragged mixed step writes its token rows with
 the ragged scatter kernel (:func:`paged_writeback_tokens`).
 
+**Quantized KV** (``quant``, :mod:`repro_torch.serve.quant`): the float
+``k``/``v`` page tensors are int8 or e4m3, with f32 scales indexed by
+physical page beside them, so prefix sharing and refcounts carry the
+scales; positions stay int32 and the MoD rings stay full precision. The
+JAX package stacks each leaf over the layer groups and quantizes the
+stacked leaf: one scale per page row across all of its layers (``page``)
+or one per layer and kv head (``head``). The port keeps a page tensor per
+layer but one ``(N, p, G)`` scale tensor per stacked leaf
+(:class:`QuantLeaf`), folds the layers' rows into one canonical row in the
+same layer-major order before it quantizes, and hands each layer its
+columns of the scales to widen with, so pages, scales and streams are the
+JAX package's. Reads widen through the dequantizing gather kernel; writes
+quantize in torch ops and copy the narrow rows and scales with the
+scatter kernels; :func:`quant_roundtrip` puts rows written outside the
+pool (chunked-prefill chunks) through the same round trip.
+
 The JAX pool is immutable; this one is updated in place. Where JAX copies
 implicitly, the port copies explicitly: residual snapshots (prefix entries,
 ragged segments) and the residual rows of :meth:`PagedCachePool.read_slot`
 are clones, and restoring a snapshot copies it into the working cache, so
-no later write can reach a stored entry. ``truncate``, ``hold_pages`` /
-``release_held`` and quantized pages come with the speculative, overload and
-quantized-KV slices.
+no later write can reach a stored entry. ``truncate`` and ``hold_pages`` /
+``release_held`` come with the speculative and overload slices.
 """
 from __future__ import annotations
 
@@ -42,9 +57,10 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.kernels.paged import paged_gather_op, paged_scatter_rows_op
+from repro_torch.kernels.paged import canon_pages, paged_gather_op, paged_scatter_rows_op
 from repro_torch.kernels.ragged import ragged_page_targets, ragged_paged_scatter_rows_op
 from repro_torch.models import api
+from repro_torch.serve.quant import QuantConfig, leaf_groups, quantize_rows, roundtrip_leaf
 
 Params = Dict[str, Any]
 Keys = Tuple[Any, ...]
@@ -80,6 +96,12 @@ def unflatten(like: Any, leaves: List[torch.Tensor]) -> Any:
     return build(like)
 
 
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    """A 1-byte tensor as uint8 (PyTorch's index_copy_ has no float8
+    kernel; a copy of the bytes is the same copy)."""
+    return t.view(torch.uint8) if t.element_size() == 1 else t
+
+
 class CachePool:
     """Fixed-shape (B, ctx) cache pool with per-slot reset/write."""
 
@@ -105,12 +127,16 @@ class CachePool:
             dst[slot].copy_(src[0])
 
     def cache_bytes(self) -> Dict[str, float]:
-        """Pool footprint, split by routed ("mod") vs full-capacity leaves."""
-        sizes = {"total": 0.0, "mod": 0.0, "full": 0.0}
-        for keys, leaf in _leaves(self.caches):
+        """Pool footprint, split by routed ("mod") vs full-capacity leaves,
+        and into ``kv_bytes`` (the leaves a paged pool would page) and
+        ``resid_bytes`` (the rest), as the paged pool reports them."""
+        sizes = {"total": 0.0, "mod": 0.0, "full": 0.0, "kv_bytes": 0.0, "resid_bytes": 0.0}
+        pageable = set(paged_leaf_ids(self._template, self.ctx))
+        for i, (keys, leaf) in enumerate(_leaves(self.caches)):
             b = float(leaf.numel() * leaf.element_size())
             sizes["total"] += b
             sizes["mod" if "mod" in keys else "full"] += b
+            sizes["kv_bytes" if i in pageable else "resid_bytes"] += b
         sizes["mod_vs_full_ratio"] = sizes["mod"] / sizes["full"] if sizes["full"] else 0.0
         return sizes
 
@@ -155,55 +181,160 @@ def paged_leaf_ids(template: Params, ctx: int) -> List[int]:
 
 
 @dataclasses.dataclass(frozen=True)
+class QuantLeaf:
+    """One leaf of the JAX package's cache tree stored narrow: the
+    positions (in paged-leaf order, layer-major) of its per-layer leaves in
+    the port, the scale groups ``G`` of its scale tensor, and the wide
+    dtype it widens back to."""
+
+    js: Tuple[int, ...]
+    groups: int
+    dtype: torch.dtype
+
+    def columns(self, layer: int, granularity: str) -> slice:
+        """The scale columns of one of its layers: the one shared column
+        (``page``), or that layer's kv heads (``head``)."""
+        if granularity == "page":
+            return slice(0, self.groups)
+        per = self.groups // len(self.js)
+        return slice(layer * per, (layer + 1) * per)
+
+
+def quant_leaf_plan(template: Params, paged_ids: List[int], quant: Optional[QuantConfig]
+                    ) -> Tuple[QuantLeaf, ...]:
+    """The pool's narrow leaves (JAX ``_quant_leaf_plan``): only the float
+    ``k``/``v`` rings quantize; ``pos`` is int32 and stays exact (the
+    attention mask reads it), and the MoD rings are not paged. Per-layer
+    leaves that are one JAX leaf (the same path in every layer group) form
+    one :class:`QuantLeaf`; ``G`` is the JAX leaf's, folded over its layer
+    lead dim."""
+    if quant is None or not quant.enabled:
+        return ()
+    entries = list(_leaves(template))
+    stacks: "OrderedDict[Keys, List[int]]" = OrderedDict()
+    for j, i in enumerate(paged_ids):
+        keys, leaf = entries[i]
+        if keys[-1] not in ("k", "v") or not leaf.is_floating_point():
+            continue
+        stacks.setdefault(tuple(k for k in keys if not isinstance(k, int)), []).append(j)
+    plan = []
+    for js in stacks.values():
+        shape = tuple(entries[paged_ids[js[0]]][1].shape)  # (1, ctx) + tail
+        stacked = (len(js),) + shape  # the JAX leaf: lead + (B, ctx) + tail
+        plan.append(QuantLeaf(tuple(js), leaf_groups(stacked, quant, 1),
+                              entries[paged_ids[js[0]]][1].dtype))
+    return tuple(plan)
+
+
+@dataclasses.dataclass(frozen=True)
 class PoolSpec:
     """Static leaf layout of a paged pool: which flat leaves are paged and
-    which residual, and the page size."""
+    which residual, the page size, and the narrow leaves of a quantized
+    pool (one scale tensor per :class:`QuantLeaf`, in order)."""
 
     paged_ids: Tuple[int, ...]
     resid_ids: Tuple[int, ...]
     page_size: int
+    quant: Optional[QuantConfig] = None
+    qleaves: Tuple[QuantLeaf, ...] = ()
+
+    def scale_views(self, scales: List[torch.Tensor]) -> Dict[int, Tuple[torch.Tensor, Any]]:
+        """{paged position j -> (its columns of its scale tensor, wide dtype)}."""
+        out = {}
+        for m, ql in enumerate(self.qleaves):
+            for layer, j in enumerate(ql.js):
+                out[j] = (scales[m][:, :, ql.columns(layer, self.quant.granularity)], ql.dtype)
+        return out
+
+    def plain_ids(self) -> List[int]:
+        """Paged positions stored in their own dtype."""
+        q = {j for ql in self.qleaves for j in ql.js}
+        return [j for j in range(len(self.paged_ids)) if j not in q]
 
 
 def paged_materialize(spec: PoolSpec, like: Params, pages: List[torch.Tensor],
-                      resid: List[torch.Tensor], table: torch.Tensor) -> Params:
+                      scales: List[torch.Tensor], resid: List[torch.Tensor],
+                      table: torch.Tensor) -> Params:
     """Logical (B, ctx) cache tree from paged + residual storage: paged
-    leaves are fresh gathers (paged gather kernel), residual leaves are the
-    pool's own tensors, so in-place cache writes update the residual pool."""
+    leaves are fresh gathers (paged gather kernel; narrow leaves widen
+    through the dequantizing gather), residual leaves are the pool's own
+    tensors, so in-place cache writes update the residual pool."""
+    views = spec.scale_views(scales)
     leaves: List[Any] = [None] * (len(spec.paged_ids) + len(spec.resid_ids))
     for j, i in enumerate(spec.paged_ids):
-        leaves[i] = paged_gather_op(pages[j], table)
+        if j in views:
+            sc, dt = views[j]
+            leaves[i] = paged_gather_op(pages[j], table, scales=sc, out_dtype=dt)
+        else:
+            leaves[i] = paged_gather_op(pages[j], table)
     for j, i in enumerate(spec.resid_ids):
         leaves[i] = resid[j]
     return unflatten(like, leaves)
 
 
 def paged_writeback(spec: PoolSpec, caches: Params, pages: List[torch.Tensor],
-                    table: torch.Tensor, pos: torch.Tensor) -> None:
+                    scales: List[torch.Tensor], table: torch.Tensor, pos: torch.Tensor) -> None:
     """Write the decode step's new rows into the pages, in place. The step
     writes each paged leaf at exactly one logical position per slot, its
     absolute ``pos`` (full-capacity rings write at their cursor, and
     cursor == pos for them), so only that row is scattered (paged scatter
-    kernel). The residual leaves were updated in place already."""
+    kernel); narrow leaves scatter quantized rows and their fresh scales.
+    The residual leaves were updated in place already."""
     leaves = flatten(caches)
     rows_b = torch.arange(pos.shape[0], device=pos.device)
-    for j, i in enumerate(spec.paged_ids):
-        paged_scatter_rows_op(pages[j], table, leaves[i][rows_b, pos.long()], pos)
+
+    def rows(j):
+        return leaves[spec.paged_ids[j]][rows_b, pos.long()]
+
+    for j in spec.plain_ids():
+        paged_scatter_rows_op(pages[j], table, rows(j), pos)
+    for m, ql in enumerate(spec.qleaves):
+        paged_scatter_rows_op([pages[j] for j in ql.js], table, [rows(j) for j in ql.js], pos,
+                              scales=scales[m], quant=spec.quant)
 
 
 def paged_writeback_tokens(spec: PoolSpec, caches: Params, pages: List[torch.Tensor],
-                           table: torch.Tensor, slot: torch.Tensor, pos: torch.Tensor,
-                           valid: torch.Tensor) -> None:
+                           scales: List[torch.Tensor], table: torch.Tensor, slot: torch.Tensor,
+                           pos: torch.Tensor, valid: torch.Tensor) -> None:
     """Ragged-step write-back: an arbitrary flat list of (slot, pos) token
     rows — the step's decode rows plus every prefill-segment token — goes
     from the updated logical caches into the pages, one ragged scatter per
-    leaf at targets computed once. Invalid rows land on SCRATCH_PAGE."""
+    leaf at targets computed once (narrow leaves: quantized rows, and
+    their scales once per scale tensor). Invalid rows land on SCRATCH_PAGE."""
     leaves = flatten(caches)
     ctx = table.shape[1] * spec.page_size
     pos_c = pos.long().clamp(0, ctx - 1)
     slot_c = slot.long().clamp(0, table.shape[0] - 1)
     pid, off = ragged_page_targets(table, slot, pos, valid, spec.page_size, SCRATCH_PAGE)
-    for j, i in enumerate(spec.paged_ids):
-        ragged_paged_scatter_rows_op(pages[j], pid, off, leaves[i][slot_c, pos_c])
+
+    def rows(j):
+        return leaves[spec.paged_ids[j]][slot_c, pos_c]
+
+    for j in spec.plain_ids():
+        ragged_paged_scatter_rows_op(pages[j], pid, off, rows(j))
+    for m, ql in enumerate(spec.qleaves):
+        ragged_paged_scatter_rows_op([pages[j] for j in ql.js], pid, off,
+                                     [rows(j) for j in ql.js], scales=scales[m],
+                                     quant=spec.quant)
+
+
+def quant_roundtrip(spec: PoolSpec, caches: Params, mask: torch.Tensor) -> None:
+    """Round-trip the narrow leaves of a logical cache tree through the
+    pool's narrow dtype, in place, limited to the ``mask`` (B, ctx)
+    positions; nothing to do on an unquantized pool. The engine calls it at
+    every quantization boundary that is not a pool write (the end of each
+    chunked-prefill chunk), so the working cache holds exactly what a
+    write and a read of those rows would give; pow2 idempotency then makes
+    the eventual write reproduce these values. Each stacked leaf's layers
+    go through together (the JAX leaf's round trip, batch axis 1)."""
+    if not spec.qleaves:
+        return
+    leaves = flatten(caches)
+    for ql in spec.qleaves:
+        layers = [leaves[spec.paged_ids[j]] for j in ql.js]
+        rt = roundtrip_leaf(torch.stack(layers), 1, spec.quant, mask=mask)
+        for leaf, new in zip(layers, rt):
+            leaf.copy_(new)
 
 
 def slot_slice(caches: Params, slot: int) -> Params:
@@ -236,7 +367,7 @@ class PagedCachePool:
 
     def __init__(self, cfg: ModelConfig, batch_size: int, ctx: int, page_size: int,
                  device: torch.device, n_pages: Optional[int] = None,
-                 prefix_chunk: Optional[int] = None):
+                 prefix_chunk: Optional[int] = None, quant: Optional[QuantConfig] = None):
         if page_size < 1 or ctx % page_size:
             raise ValueError(f"page_size {page_size} must divide ctx {ctx}")
         self.cfg = cfg
@@ -259,17 +390,33 @@ class PagedCachePool:
         tmpl = flatten(self._template)
         self._paged_ids = paged_leaf_ids(self._template, ctx)
         self._resid_ids = [i for i in range(len(tmpl)) if i not in self._paged_ids]
+        # KV quantization: which paged leaves are stored narrow
+        self.quant = quant if (quant is not None and quant.enabled) else None
+        qleaves = quant_leaf_plan(self._template, self._paged_ids, self.quant)
+        narrow = {j for ql in qleaves for j in ql.js}
         # the template is position-uniform (zeros, pos -1): one page of it
-        # per paged leaf, broadcast to every physical page
-        self._tmpl_pages = [tmpl[i][0, :page_size] for i in self._paged_ids]
+        # per paged leaf, broadcast to every physical page. Narrow leaves
+        # hold narrow zeros with scale 1.0 (template zeros quantize exactly),
+        # so NULL and scrubbed pages widen back to the pristine template.
+        self._tmpl_pages = [
+            tmpl[i][0, :page_size].to(self.quant.kv_dtype() if j in narrow else tmpl[i].dtype)
+            for j, i in enumerate(self._paged_ids)
+        ]
         self.pages: List[torch.Tensor] = [
             t.expand((self.n_pages,) + tuple(t.shape)).clone() for t in self._tmpl_pages
+        ]
+        # one canonical (n_pages, page_size, G) f32 scale tensor per narrow
+        # JAX leaf, indexed by physical page id
+        self.scales: List[torch.Tensor] = [
+            torch.ones((self.n_pages, page_size, ql.groups), dtype=torch.float32, device=device)
+            for ql in qleaves
         ]
         self._tmpl_resid = [tmpl[i] for i in self._resid_ids]
         self.resid: List[torch.Tensor] = [
             t.expand((batch_size,) + tuple(t.shape[1:])).clone() for t in self._tmpl_resid
         ]
-        self.spec = PoolSpec(tuple(self._paged_ids), tuple(self._resid_ids), page_size)
+        self.spec = PoolSpec(tuple(self._paged_ids), tuple(self._resid_ids), page_size,
+                             self.quant, qleaves)
 
         # host-side page accounting
         self.table_np = np.full((batch_size, P), SCRATCH_PAGE, np.int32)
@@ -290,14 +437,19 @@ class PagedCachePool:
         return torch.as_tensor(self.table_np, device=self.device)
 
     def materialize(self, table: torch.Tensor) -> Params:
-        return paged_materialize(self.spec, self._template, self.pages, self.resid, table)
+        return paged_materialize(self.spec, self._template, self.pages, self.scales, self.resid,
+                                 table)
 
     def writeback(self, caches: Params, table: torch.Tensor, pos: torch.Tensor) -> None:
-        paged_writeback(self.spec, caches, self.pages, table, pos)
+        paged_writeback(self.spec, caches, self.pages, self.scales, table, pos)
 
     def writeback_tokens(self, caches: Params, table: torch.Tensor, slot: torch.Tensor,
                          pos: torch.Tensor, valid: torch.Tensor) -> None:
-        paged_writeback_tokens(self.spec, caches, self.pages, table, slot, pos, valid)
+        paged_writeback_tokens(self.spec, caches, self.pages, self.scales, table, slot, pos,
+                               valid)
+
+    def quant_roundtrip(self, work: Params, mask: torch.Tensor) -> None:
+        quant_roundtrip(self.spec, work, mask)
 
     def snapshot_resid(self, work: Params) -> Dict[int, torch.Tensor]:
         """Clone of the residual leaves of a batch-1 (view of a) working
@@ -324,36 +476,49 @@ class PagedCachePool:
         residual rows cloned (chunked prefill works on this copy, then
         :meth:`write_slot` puts it back)."""
         table_row = torch.as_tensor(self.table_np[slot:slot + 1], device=self.device)
-        leaves: List[Any] = [None] * (len(self._paged_ids) + len(self._resid_ids))
-        for j, i in enumerate(self._paged_ids):
-            leaves[i] = paged_gather_op(self.pages[j], table_row)
-        for j, i in enumerate(self._resid_ids):
-            leaves[i] = self.resid[j][slot:slot + 1].clone()
-        return unflatten(self._template, leaves)
+        resid = [r[slot:slot + 1].clone() for r in self.resid]
+        return paged_materialize(self.spec, self._template, self.pages, self.scales, resid,
+                                 table_row)
 
     def write_slot(self, slot: int, sub: Params, start_page: int = 0) -> None:
         """Copy a batch-1 cache tree into the slot: residual rows wholesale,
         paged leaves page by page into the slot's *owned* pages (logical
         pages below ``start_page`` — a restored shared prefix — are skipped,
-        so shared pages are never rewritten)."""
+        so shared pages are never rewritten). Narrow leaves quantize each
+        written page's rows with fresh pow2 scales, exact on rows already
+        round-tripped at a chunk boundary (quantization is idempotent), and
+        write the narrow pages and their scales to the same pages."""
         n = int(self.n_mapped[slot])
         ids = torch.as_tensor(self.table_np[slot, start_page:n].astype(np.int64),
                               device=self.device)
         P, p = self.pages_per_slot, self.page_size
         leaves = flatten(sub)
-        for j, i in enumerate(self._paged_ids):
-            src = leaves[i][0].reshape((P, p) + tuple(self.pages[j].shape[2:]))
-            self.pages[j].index_copy_(0, ids, src[start_page:n].to(self.pages[j].dtype))
+
+        def written(j):  # the slot's owned logical pages of paged leaf j
+            i = self._paged_ids[j]
+            return leaves[i][0].reshape((P, p) + tuple(self.pages[j].shape[2:]))[start_page:n]
+
+        for j in self.spec.plain_ids():
+            self.pages[j].index_copy_(0, ids, written(j).to(self.pages[j].dtype))
+        for m, ql in enumerate(self.spec.qleaves):
+            src = [canon_pages(written(j)) for j in ql.js]  # (n', p, F) each
+            q, sc = quantize_rows(torch.cat(src, dim=-1), ql.groups, self.quant)
+            for j, qj in zip(ql.js, q.split([t.shape[-1] for t in src], dim=-1)):
+                _bytes(self.pages[j]).index_copy_(
+                    0, ids, _bytes(qj.reshape((-1, p) + tuple(self.pages[j].shape[2:]))))
+            self.scales[m].index_copy_(0, ids, sc)
         for j, i in enumerate(self._resid_ids):
             self.resid[j][slot].copy_(leaves[i][0])
 
     def _scrub(self, ids: List[int]) -> None:
-        """Rewrite physical pages ``ids`` to template content, so a recycled
-        page can't leak a previous request's KV (or stale valid-looking
-        positions) into a new slot."""
+        """Rewrite physical pages ``ids`` to template content (and their
+        scales to 1.0), so a recycled page can't leak a previous request's
+        KV (or stale valid-looking positions) into a new slot."""
         idx = torch.as_tensor(ids, dtype=torch.int64, device=self.device)
         for pages, t in zip(self.pages, self._tmpl_pages):
-            pages.index_copy_(0, idx, t.expand((len(ids),) + tuple(t.shape)))
+            _bytes(pages).index_copy_(0, idx, _bytes(t).expand((len(ids),) + tuple(t.shape)))
+        for s in self.scales:
+            s.index_fill_(0, idx, 1.0)
 
     # -- slot lifecycle (host-side accounting) --------------------------
 
@@ -537,14 +702,26 @@ class PagedCachePool:
         return float(sum(t.numel() * t.element_size()
                          for e in self.prefix.values() for t in e.resid.values()))
 
+    def unquantized_kv_bytes(self) -> float:
+        """``kv_bytes`` of the same pool without quantization: every page
+        tensor in its wide dtype, no scales."""
+        wide = {j: ql.dtype for ql in self.spec.qleaves for j in ql.js}
+        return float(sum(
+            pages.numel() * (torch.empty((), dtype=wide[j]).element_size() if j in wide
+                             else pages.element_size())
+            for j, pages in enumerate(self.pages)))
+
     def cache_bytes(self) -> Dict[str, float]:
-        """Physical footprint (pages + residual + prefix snapshots), with the
-        contiguous pool's mod/full split: paged leaves are full-attention
-        rings ("full"); the residual pool carries the MoD rings ("mod")."""
+        """Physical footprint (pages + scales + residual + prefix snapshots),
+        with the contiguous pool's mod/full split: paged leaves and their
+        scales are full-attention rings ("full"); the residual pool carries
+        the MoD rings ("mod"). ``kv_bytes`` is everything page-addressed
+        (narrow pages, scales, the int32 position pages), ``resid_bytes``
+        the slot-contiguous rest."""
         sizes = {"total": 0.0, "mod": 0.0, "full": 0.0, "paged": 0.0, "resid": 0.0,
                  "prefix_resid": self._prefix_resid_bytes()}
         sizes["total"] += sizes["prefix_resid"]
-        for pages in self.pages:
+        for pages in self.pages + self.scales:
             b = float(pages.numel() * pages.element_size())
             sizes["total"] += b
             sizes["full"] += b
@@ -555,5 +732,7 @@ class PagedCachePool:
             sizes["total"] += b
             sizes["mod" if "mod" in keys[i] else "full"] += b
             sizes["resid"] += b
+        sizes["kv_bytes"] = sizes["paged"]
+        sizes["resid_bytes"] = sizes["resid"]
         sizes["mod_vs_full_ratio"] = sizes["mod"] / sizes["full"] if sizes["full"] else 0.0
         return sizes

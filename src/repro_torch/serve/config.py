@@ -8,7 +8,9 @@ prefill into fixed-size chunks. ``page_size`` switches to the block-paged
 KV pool (``n_pages`` physical pages, ``prefix_cache`` for shared prompt
 prefixes, ``paged_backend`` "xla" | "pallas", both of which run the CUDA
 paged kernels on the card), and ``ragged`` to the mixed prefill+decode
-step over that pool (``ragged_segments`` prefill chunks per step). Checks
+step over that pool (``ragged_segments`` prefill chunks per step).
+``quant`` (a :class:`repro_torch.serve.quant.QuantConfig`) stores the paged
+pool's K/V pages in int8 or fp8 and can serve from int8 weights. Checks
 and messages are the JAX package's. The settings of the JAX engine's
 later paths are fields too, so that a caller who sets one learns at once
 that the port does not run it yet: each raises a ``ValueError`` naming it.
@@ -18,12 +20,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional
 
+from repro_torch.serve.quant import GRANULARITIES, KV_MODES, QuantConfig
+
 __all__ = ["EngineConfig", "add_engine_args"]
 
 # setting -> the ROADMAP item that ports its engine path
 _LATER_PATHS = {
     "speculate": "self-speculative decoding (ROADMAP Queue 1)",
-    "quant": "quantized KV and weights (ROADMAP Queue 1)",
     "mesh": "multi-device serving (ROADMAP Queue 1)",
     "adaptive_capacity": "overload control (ROADMAP Queue 1)",
     "fault_injector": "overload control and fault injection (ROADMAP Queue 1)",
@@ -44,9 +47,9 @@ class EngineConfig:
     paged_backend: str = "xla"  # paged gather/scatter: "xla" | "pallas"
     ragged: bool = False  # mixed prefill+decode step over the paged pool
     ragged_segments: int = 4  # prefill segments per ragged step
+    quant: QuantConfig = QuantConfig()  # KV/weight quantization policy
     # later engine paths: not ported yet, each raises when set
     speculate: Optional[int] = None
-    quant: Any = None
     mesh: Any = None
     adaptive_capacity: bool = False
     fault_injector: Any = None
@@ -72,6 +75,11 @@ class EngineConfig:
                 raise ValueError("ragged_segments must be >= 1")
         if self.paged_backend not in PAGED_BACKENDS:
             raise ValueError(f"unknown paged backend {self.paged_backend!r}")
+        if not isinstance(self.quant, QuantConfig):
+            raise ValueError(f"quant must be a QuantConfig, got {type(self.quant).__name__}")
+        if self.quant.enabled and not paged:
+            raise ValueError("quantized KV requires the paged pool (page_size): narrow pages "
+                             "and their scales live behind the page tables")
         for name, path in _LATER_PATHS.items():
             if getattr(self, name) not in (None, False):
                 raise ValueError(f"{name} selects the {path} path, which the port does not run yet")
@@ -84,12 +92,14 @@ class EngineConfig:
             page_size=ns.page_size or None, n_pages=ns.n_pages or None,
             prefix_cache=ns.prefix_cache, ragged=ns.ragged,
             ragged_segments=ns.ragged_segments,
+            quant=QuantConfig(kv=ns.quant_kv, granularity=ns.quant_scale),
         )
 
 
 def add_engine_args(parser) -> None:
-    """The engine flags of the port's serving CLI (the padded, paged and
-    ragged engines' subset of the JAX ``add_engine_args``, same names)."""
+    """The engine flags of the port's serving CLI (the padded, paged,
+    ragged and quantized engines' subset of the JAX ``add_engine_args``,
+    same names)."""
     g = parser.add_argument_group("serving engine")
     g.add_argument("--policy", default="mod_aware", choices=["fcfs", "mod_aware"])
     g.add_argument("--page-size", type=int, default=0,
@@ -108,3 +118,10 @@ def add_engine_args(parser) -> None:
                         "free segments)")
     g.add_argument("--ragged-segments", type=int, default=4,
                    help="prefill segments per mixed step (--ragged)")
+    g.add_argument("--quant-kv", default="none", choices=list(KV_MODES),
+                   help="paged KV page storage dtype: int8 / fp8 (e4m3) with per-page-row "
+                        "pow2 scales, widened by the dequantizing gather kernel (requires "
+                        "--page-size)")
+    g.add_argument("--quant-scale", default="page", choices=list(GRANULARITIES),
+                   help="quantization scale granularity: one scale per page row, or one per "
+                        "row per kv head")

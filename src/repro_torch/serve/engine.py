@@ -34,9 +34,17 @@ it produced into the pages. Admission is budgeted by free segments. The
 JAX step is one ``lax.scan`` over a fixed segment grid; here a Python loop
 runs the live segments only, and decode runs only when some slot decodes.
 
+**Quantized serving** (``EngineConfig.quant``): with ``kv`` set, the paged
+pool stores its K/V pages in int8 or fp8 with pow2 scales; every chunk of
+a chunked prefill (padded or a ragged segment) round-trips the rows it
+wrote through the narrow dtype, so the next chunk, a prefix-cache warm
+restore and the ragged step all see what the pool stores. With ``weights
+= "int8"`` the engine keeps only the narrow parameter tree and widens it
+at each model call.
+
 Sampling runs on the host: greedy argmax, or one ``torch.Generator`` per
-request (see :mod:`repro_torch.serve.request`). The speculative,
-quantized, SPMD and overload paths of the JAX engine are later slices
+request (see :mod:`repro_torch.serve.request`). The speculative, SPMD and
+overload paths of the JAX engine are later slices
 (:class:`repro_torch.serve.config.EngineConfig` rejects their settings).
 """
 from __future__ import annotations
@@ -53,6 +61,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import api
 from repro_torch.serve.cache import CachePool, PagedCachePool, flatten, slot_slice
 from repro_torch.serve.config import EngineConfig
+from repro_torch.serve.quant import dequantize_params, quantize_params
 from repro_torch.serve.request import (
     FINISH_EOS,
     FINISH_ERROR,
@@ -81,7 +90,8 @@ class ServingEngine:
     """Continuous-batching decode over a fixed (batch_size, ctx) pool.
 
     ``params`` must live on ``device`` (CUDA unless the caller passes
-    ``device="cpu"``)."""
+    ``device="cpu"``). Under ``quant.weights="int8"`` the engine holds
+    their int8 quantization instead, not a wide copy."""
 
     def __init__(self, params: Any, cfg: ModelConfig, engine: EngineConfig,
                  device: DeviceLike = None):
@@ -90,7 +100,11 @@ class ServingEngine:
             raise ValueError(
                 f"params live on {params['embed']['tok'].device}, the engine runs on {self.device}"
             )
-        self.params = params
+        self.quant = engine.quant if engine.quant.enabled else None
+        self._narrow_weights = engine.quant.weights == "int8"
+        # serve from int8 weights: only the narrow tree stays resident, and
+        # each model call widens it (dequantize_params)
+        self.params = quantize_params(params) if self._narrow_weights else params
         self.cfg = cfg
         self.batch_size = engine.batch_size
         self.ctx = engine.ctx
@@ -114,6 +128,7 @@ class ServingEngine:
                 cfg, self.batch_size, self.ctx, engine.page_size, self.device,
                 n_pages=engine.n_pages,
                 prefix_chunk=prefill_chunk if self._prefix_cache else None,
+                quant=self.quant,
             )
         else:
             self.pool = CachePool(cfg, self.batch_size, self.ctx, self.device)
@@ -138,6 +153,22 @@ class ServingEngine:
         self._prefill_s = 0.0
         self._decode_s = 0.0
         self._n_prefills = 0
+
+    def _model_params(self) -> Any:
+        """The parameters of one model call: widened from the int8 tree when
+        the engine serves narrow weights (a transient wide copy)."""
+        return dequantize_params(self.params) if self._narrow_weights else self.params
+
+    def _chunk(self, params: Any, work: Any, tokens: np.ndarray, start: int, nv: int):
+        """One prefill chunk against a batch-1 working cache (in place);
+        on a quantized pool the rows it wrote then go through the narrow
+        dtype (the chunk boundary is a quantization boundary)."""
+        logits, work = api.model_prefill_chunk(
+            params, self.cfg, work, torch.as_tensor(tokens, device=self.device), start, nv)
+        if self.quant is not None:
+            j = torch.arange(self.ctx, device=self.device)
+            self.pool.quant_roundtrip(work, ((j >= start) & (j < start + nv))[None])
+        return logits, work
 
     # ------------------------------------------------------------------
     # Submission and admission
@@ -221,7 +252,8 @@ class ServingEngine:
                     logits_row = self._chunked_prefill(slot, req)
                 else:
                     toks = torch.as_tensor(req.tokens, device=self.device)[None]
-                    logits, sub = api.model_prefill(self.params, self.cfg, {"tokens": toks}, self.ctx)
+                    logits, sub = api.model_prefill(self._model_params(), self.cfg,
+                                                    {"tokens": toks}, self.ctx)
                     if self._paged and not self.pool.alloc_pages(slot.idx, req.prompt_len):
                         raise _PoolExhausted
                     self.pool.write_slot(slot.idx, sub)
@@ -310,13 +342,12 @@ class ServingEngine:
         boundary_resids: Dict[int, Any] = {}
         logits = None
         off = start_tok
+        params = self._model_params()
         while off < L:
             nv = min(C, L - off)
             chunk = np.zeros((1, C), np.int64)
             chunk[0, :nv] = tokens[off : off + nv]
-            logits, work = api.model_prefill_chunk(
-                self.params, self.cfg, work, torch.as_tensor(chunk, device=self.device), off, nv
-            )
+            logits, work = self._chunk(params, work, chunk, off, nv)
             off += nv
             self._prefill_tokens_computed += nv
             self._positions_computed += C
@@ -491,14 +522,15 @@ class ServingEngine:
         t0 = time.perf_counter()
         tokens, pos, active = (torch.as_tensor(a, device=self.device)
                                for a in self._decode_inputs(active_slots))
+        params = self._model_params()
         if self._paged:
             table = self.pool.device_table()
             caches = self.pool.materialize(table)
-            logits, caches, aux = api.model_decode(self.params, caches, self.cfg, tokens, pos, active)
+            logits, caches, aux = api.model_decode(params, caches, self.cfg, tokens, pos, active)
             self.pool.writeback(caches, table, pos)
         else:
             logits, self.pool.caches, aux = api.model_decode(
-                self.params, self.pool.caches, self.cfg, tokens, pos, active)
+                params, self.pool.caches, self.cfg, tokens, pos, active)
         logits_np = logits.float().cpu().numpy()
         aux_np = {k: v.float().cpu().numpy() for k, v in aux.items()}
         self._decode_s += time.perf_counter() - t0
@@ -558,6 +590,7 @@ class ServingEngine:
         decode_slots = [s for s in self.slots if s.state == GENERATE]
         dev = self.device
         t0 = time.perf_counter()
+        params = self._model_params()
         table = self.pool.device_table()
         caches = self.pool.materialize(table)
         seg_logits, seg_resid = [], []
@@ -565,8 +598,7 @@ class ServingEngine:
             chunk = np.zeros((1, C), np.int64)
             chunk[0, :nv] = s.req.tokens[start : start + nv]
             sub = slot_slice(caches, s.idx)
-            lg, _ = api.model_prefill_chunk(self.params, self.cfg, sub,
-                                            torch.as_tensor(chunk, device=dev), start, nv)
+            lg, _ = self._chunk(params, sub, chunk, start, nv)
             seg_logits.append(lg[0])
             # prefix boundaries land mid-step: later segments of the same
             # slot advance its rows, so snapshot now
@@ -584,14 +616,15 @@ class ServingEngine:
             # decode runs over every row and writes its caches in place; a
             # slot mid-prefill must not absorb that row (its cursor, its
             # ring entry, a MoD ring row if it won capacity), so its rows of
-            # every leaf are saved before and put back after
+            # every leaf are saved before and put back after, before the
+            # (quantizing) write-back reads them
             keep = [s.idx for s in self.slots if s.state == PREFILL]
             leaves = flatten(caches)
             idx = torch.as_tensor(keep, dtype=torch.int64, device=dev)
             saved = [leaf.index_select(0, idx) for leaf in leaves] if keep else []
             logits, caches, aux = api.model_decode(
-                self.params, caches, self.cfg, *(torch.as_tensor(a, device=dev)
-                                                 for a in (dec_tokens, dec_pos, dec_act)))
+                params, caches, self.cfg, *(torch.as_tensor(a, device=dev)
+                                            for a in (dec_tokens, dec_pos, dec_act)))
             for leaf, rows in zip(leaves, saved):
                 leaf.index_copy_(0, idx, rows)
             logits_np = logits.float().cpu().numpy()
@@ -714,7 +747,12 @@ class ServingEngine:
                 self._routed_frac_sum / self._routed_frac_steps
                 if self._routed_frac_steps else float("nan")
             ),
+            # per-leaf-kind byte split: kv_bytes shrinks under quantized KV
+            # (narrow pages + f32 scales), resid_bytes never does
             "kv_cache_bytes": cb["total"],
+            "kv_bytes": cb["kv_bytes"],
+            "resid_bytes": cb["resid_bytes"],
+            "quant_kv": self.quant.kv if self.quant is not None else "none",
             "prefill_tokens_computed": float(self._prefill_tokens_computed),
             "padded_token_fraction": (
                 self._positions_wasted / self._positions_computed

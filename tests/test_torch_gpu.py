@@ -438,3 +438,156 @@ def test_paged_and_ragged_engines_launch_the_paged_kernels(dev, backend):
             assert counts["ragged_paged_scatter_rows"] >= 3 * n_full
             assert counts["paged_scatter_rows"] == 0
     assert streams["paged"] == streams["contiguous"] == streams["ragged"]
+
+
+# ---------------------------------------------------------------------------
+# quantized pages: the dequantizing gather; the ragged MoD dispatch kernels
+# ---------------------------------------------------------------------------
+
+NARROW = [torch.int8, torch.float8_e4m3fn]
+
+
+def _narrow_pages(dev, narrow, N, p, F, G, seed):
+    """Narrow pages and pow2 scales as the quantized pool writes them."""
+    from repro_torch.serve.quant import QuantConfig, quantize_rows
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(N, p, F, generator=g, device=dev) * torch.rand(N, p, 1, generator=g,
+                                                                    device=dev) * 40
+    kv = "int8" if narrow == torch.int8 else "fp8"
+    return quantize_rows(x, G, QuantConfig(kv=kv))
+
+
+@pytest.mark.parametrize("out_dtype", DTYPES)
+@pytest.mark.parametrize("narrow", NARROW)
+@pytest.mark.parametrize("N,p,F,G,B,P", [(498, 16, 1792, 1, 8, 62), (498, 16, 1792, 14, 1, 62),
+                                         (11, 3, 5, 1, 3, 3), (40, 7, 48, 3, 2, 4)])
+def test_paged_gather_dequant_bitwise(dev, narrow, out_dtype, N, p, F, G, B, P):
+    pages, scales = _narrow_pages(dev, narrow, N, p, F, G, 21)
+    _, _, table = _paged_inputs(dev, torch.float32, N, 1, 1, B, P, 22)
+    table[0, -1] = 0  # an unmapped (NULL) logical page
+    table[-1, 0] = table[0, 0]  # a page two slots share (a cached prefix)
+    build.reset_counters()
+    out = KP.paged_gather_dequant(pages, scales, table, out_dtype)
+    torch.cuda.synchronize()
+    assert out.dtype == out_dtype and out.shape == (B, P * p, F)
+    assert torch.equal(out, KP.paged_gather_dequant_plain(pages, scales, table, out_dtype))
+    assert build.launch_counts()["paged_gather_dequant"] == 1
+
+
+def test_paged_gather_dequant_reads_a_layers_scale_columns(dev):
+    """One scale tensor shared by the layers of a stacked leaf: a layer's
+    gather reads its column slice (strided) like the plain version."""
+    pages, _ = _narrow_pages(dev, torch.int8, 40, 4, 64, 2, 23)
+    g = torch.Generator(device=dev).manual_seed(24)
+    wide = 2.0 ** torch.randint(-6, 6, (40, 4, 6), generator=g, device=dev).float()
+    _, _, table = _paged_inputs(dev, torch.float32, 40, 1, 1, 3, 5, 25)
+    for cols in (slice(0, 2), slice(2, 4), slice(4, 6)):
+        got = KP.paged_gather_dequant(pages, wide[:, :, cols], table, torch.bfloat16)
+        assert torch.equal(got, KP.paged_gather_dequant_plain(pages, wide[:, :, cols], table,
+                                                              torch.bfloat16))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("lens,cap,D", [((1024,) * 4, 128, 1792),
+                                        ((142, 998, 500, 300, 700, 256, 611, 400), 125, 1792),
+                                        ((3, 1, 0, 5), 4, 13)])
+def test_ragged_dispatch_bitwise(dev, dtype, lens, cap, D):
+    g = torch.Generator(device=dev).manual_seed(26)
+    offs = [0]
+    for L in lens:
+        offs.append(offs[-1] + L)
+    T = offs[-1] + 7  # a padded tail
+    x = torch.randn(T, D, generator=g, device=dev).to(dtype)
+    idx = torch.full((len(lens), cap), -1, dtype=torch.int32, device=dev)
+    for s, L in enumerate(lens):
+        k = min(cap, L)
+        sel = torch.sort(torch.randperm(L, generator=g, device=dev)[:k]).values
+        idx[s, :k] = (offs[s] + sel).to(torch.int32)
+    delta = torch.randn(len(lens), cap, D, generator=g, device=dev).to(dtype)
+    gate = torch.where(idx >= 0, torch.randn(idx.shape, generator=g, device=dev), 0.0)
+    before = x.clone()
+    build.reset_counters()
+    got = KRG.ragged_gather_rows(x, idx)
+    out = KRG.ragged_scatter_add_rows(x, idx, delta, gate)
+    torch.cuda.synchronize()
+    counts = build.launch_counts()
+    assert counts["ragged_gather_rows"] == 1 and counts["ragged_scatter_add_rows"] == 1
+    assert torch.equal(got, KRG.ragged_gather_rows_plain(x, idx))
+    assert bool((got[idx < 0] == 0).all())
+    assert torch.equal(out, KRG.ragged_scatter_add_rows_plain(x, idx, delta, gate))
+    assert torch.equal(x, before)  # a fresh output: the stream is read again later
+
+
+def test_new_wrappers_refuse_grads_and_bad_input(dev):
+    pages, scales = _narrow_pages(dev, torch.int8, 6, 2, 16, 1, 27)
+    table = torch.zeros(1, 2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="gradient"):
+        KP.paged_gather_dequant(pages, scales.clone().requires_grad_(True), table)
+    with pytest.raises(TypeError, match="int8 or float8"):
+        KP.paged_gather_dequant(pages.float(), scales, table)
+    x = torch.zeros(4, 8, device=dev, requires_grad=True)
+    idx = torch.zeros(1, 1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="gradient"):
+        KRG.ragged_gather_rows(x, idx)
+    with pytest.raises(ValueError, match="gradient"):
+        KRG.ragged_scatter_add_rows(x, idx, torch.zeros(1, 1, 8, device=dev),
+                                    torch.zeros(1, 1, device=dev))
+
+
+@pytest.mark.parametrize("kv,gran", [("int8", "page"), ("fp8", "head")])
+def test_quantized_engines_launch_the_dequant_gather(dev, kv, gran):
+    """A quantized paged decode step widens every K/V leaf through the
+    dequantizing gather (2 per full layer) and gathers positions plainly
+    (1 per full layer); the ragged engine's streams equal the paged one's."""
+    import numpy as np
+
+    from repro_torch.models import api
+    from repro_torch.serve import EngineConfig, Request, ServingEngine
+    from repro_torch.serve.quant import QuantConfig
+
+    cfg = TC.with_mod_backend(TC.smoke_config(TC.get_config("mod-paper-60m")), "pallas")
+    params = api.init_model(cfg, device=dev, seed=0)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=n) for n in (20, 33, 9, 41)]
+    n_full = len(params["groups"])
+    q = QuantConfig(kv=kv, granularity=gran)
+    streams = {}
+    for name, kw in (("paged", dict(page_size=16)),
+                     ("ragged", dict(page_size=16, ragged=True, ragged_segments=9))):
+        eng = ServingEngine(params, cfg, EngineConfig(batch_size=4, ctx=64, prefill_chunk=16,
+                                                      quant=q, **kw), device=dev)
+        build.reset_counters()
+        outs = eng.run_stream([Request(tokens=p, max_new_tokens=6) for p in prompts], 0)
+        torch.cuda.synchronize()
+        counts = build.launch_counts()
+        streams[name] = {o.uid: o.tokens.tolist() for o in outs}
+        if name == "paged":
+            steps = eng.stats()["decode_steps"]
+            assert counts["paged_gather_dequant"] == 2 * n_full * (steps + len(prompts))
+            assert counts["paged_gather"] == n_full * (steps + len(prompts))
+    assert streams["paged"] == streams["ragged"]
+
+
+def test_forward_ragged_launches_the_dispatch_kernels(dev):
+    """One ragged gather and one ragged scatter per MoD layer; equal
+    segments give the padded forward's logits (dense ragged attention vs
+    the flash kernel: f32 sums in other orders)."""
+    import dataclasses
+
+    from repro_torch.models import api
+
+    cfg = TC.with_mod_backend(dataclasses.replace(
+        TC.smoke_config(TC.get_config("mod-paper-60m")), dtype="float32"), "pallas")
+    params = api.init_model(cfg, device=dev, seed=0)
+    g = torch.Generator(device=dev).manual_seed(28)
+    toks = torch.randint(0, cfg.vocab, (3, 32), generator=g, device=dev)
+    offs = torch.arange(4, dtype=torch.int32, device=dev) * 32
+    build.reset_counters()
+    flat, _ = api.model_forward_ragged(params, cfg, toks.reshape(-1), offs, 32)
+    torch.cuda.synchronize()
+    counts = build.launch_counts()
+    n_mod = sum(1 for grp in params["groups"] if "mod" in grp)
+    assert counts["ragged_gather_rows"] == n_mod and counts["ragged_scatter_add_rows"] == n_mod
+    padded, _ = api.model_forward(params, cfg, {"tokens": toks})
+    torch.testing.assert_close(flat, padded.reshape(96, -1), atol=1e-4, rtol=1e-4)

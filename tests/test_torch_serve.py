@@ -6,8 +6,9 @@ identical, with whole-prompt and with chunked prefill. The JAX engine runs
 backend ``xla`` (its ``xla`` and ``pallas`` backends are bitwise equal,
 tests/test_routing_backends.py); the port runs ``pallas``, whose wrappers
 take their plain versions on the CPU. Also: the settings of the engine
-paths the port does not run yet (speculative, quantized, SPMD, overload)
-raise, with or without the paged pool they build on.
+paths the port does not run yet (speculative, SPMD, overload) raise, with
+or without the paged pool they build on (the quantized path's checks are
+in tests/test_torch_quant.py).
 """
 import dataclasses
 
@@ -88,9 +89,8 @@ def test_generate_and_sampling_are_per_request():
 
 @pytest.mark.parametrize(
     "setting",
-    [dict(speculate=2, page_size=16), dict(quant="int8", page_size=16), dict(speculate=2),
-     dict(quant="int8"), dict(mesh="data"), dict(adaptive_capacity=True),
-     dict(fault_injector=object())],
+    [dict(speculate=2, page_size=16), dict(speculate=2), dict(mesh="data"),
+     dict(adaptive_capacity=True), dict(fault_injector=object())],
 )
 def test_later_engine_paths_raise(setting):
     name = next(iter(setting))
