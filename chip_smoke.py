@@ -60,7 +60,21 @@ failure raises and exits non-zero):
    bf16 flat forward routed as the f32 one against it (logits and router
    scores within BF16_FLAT_LOGITS / BF16_FLAT_SCORES), and on 8 unequal
    segments on T=4096, timed, with 12 ragged gathers and 12 ragged
-   scatters per forward.
+   scatters per forward;
+9. the Mamba2 family (``mamba2-1.3b``): (a) the SSD intra-chunk kernel
+   against its plain version at the training forward's shapes (full
+   blocks NC=16, routed blocks NC=2, in the model's strided layout) and an
+   odd small one, f32 and bf16 inputs, mamba2's A and dt (the decay's
+   overflow region present), with times and bound, and its gradient at the
+   routed shape; (b) the port against itself across devices at full width
+   and 4 layers in f32: forward (B=2, S=256), one Trainer step, 16 decode
+   steps and the stepped engine's streams; (c) training at full width and
+   depth, bf16, B=4, S=2048, remat "full", 5 Trainer steps, profiled, with
+   the SSD, gather and scatter launches of this phase alone; (d) stepped
+   serving, 8 slots, 16 greedy requests, prompts of 32-128 tokens, 16 new
+   tokens each.
+
+Each phase's wall time is printed on a ``[time]`` line.
 
 It prints a ``{"kernels": [...]}`` line, then the card's ``nvidia-smi`` line,
 then as the last line ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -107,6 +121,7 @@ SOURCES = {
                            "src/repro/kernels/ragged.py:344"),
     "ragged_scatter_add_rows": ("src/repro_torch/kernels/csrc/routing.cu",
                                 "src/repro/kernels/ragged.py:395"),
+    "ssd_intra_chunk": ("src/repro_torch/kernels/csrc/ssd.cu", "src/repro/kernels/ssd.py:67"),
 }
 PAGED_KERNELS = ("paged_gather", "paged_scatter_rows", "ragged_paged_scatter_rows")
 RAGGED_KERNELS = ("ragged_gather_rows", "ragged_scatter_add_rows")
@@ -136,6 +151,14 @@ def smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     )
+    return out.stdout.strip().splitlines()[0]
+
+
+def smi_clocks() -> str:
+    """The card's SM clock, its maximum, temperature and power draw now."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,temperature.gpu,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
 
 
@@ -1097,6 +1120,8 @@ def _kernel_group(name: str) -> str:
     several __global__ functions each), else the kind of library kernel."""
     if "flash_fwd_kernel" in name:
         return "flash_attention"
+    if "ssd_intra_kernel" in name:
+        return "ssd_intra_chunk"
     if any(t in name for t in ("routed_attn_kernel", "rope_kernel", "EpiStore", "EpiResid")):
         return "routed_attention"
     if any(t in name for t in ("EpiGlu", "EpiAct", "EpiScatter")):
@@ -1816,6 +1841,356 @@ def forward_ragged_1b(dev, params):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the Mamba2 (ssm) family — mamba2-1.3b
+# ---------------------------------------------------------------------------
+
+# 9a's shapes: (B, H, NC, Q, hd, ds) of mamba2-1.3b's training forward (full
+# blocks at S=2048, routed blocks at k=256) in the model's strided layout,
+# and an odd small one in the JAX layout
+# timings of the kernel at the full training shape, within one process
+SSD_REPS = 5
+SSD_SHAPES = {"train full": (4, 64, 16, 128, 64, 128), "train routed": (4, 64, 2, 128, 64, 128),
+              "odd": (1, 3, 2, 16, 32, 16)}
+# kernel vs plain version, relative to the largest |value|: both compute in
+# f32 from the same widened inputs, but take the cumsum of loglam in
+# different orders, and each decay exp(l_i - l_j) carries that rounding
+# (up to |l|·2^-24 relative, |l| reaches ~190 inside a 128-chunk at
+# mamba2's A and dt), plus the sums' order (1e-5)
+SSD_TOL = 1e-5
+
+
+def _ssd_inputs(dev, dtype, B, H, NC, Q, hd, ds, seed, model_layout):
+    """A = -(1..H) and dt drawn as mamba2's init draws dt_bias, so the
+    decay's upper triangle overflows; model_layout: x, loglam and dt are
+    (B, H, NC, Q, ·) views of (B, S, H, ·) tensors, as ssd_chunked passes
+    them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u = torch.rand(B, NC, Q, H, generator=g, device=dev)
+    dt = torch.exp(u * (np.log(0.1) - np.log(1e-3)) + np.log(1e-3))
+    A = -torch.arange(1, H + 1, dtype=torch.float32, device=dev)
+    x = torch.randn(B, NC, Q, H, hd, generator=g, device=dev).to(dtype)
+    Bm = torch.randn(B, NC, Q, ds, generator=g, device=dev).to(dtype)
+    Cm = torch.randn(B, NC, Q, ds, generator=g, device=dev).to(dtype)
+    x, dt = x.permute(0, 3, 1, 2, 4), dt.permute(0, 3, 1, 2)
+    if not model_layout:
+        x, dt = x.contiguous(), dt.contiguous()
+    return x, dt * A[None, :, None, None], dt, Bm, Cm
+
+
+def ssd_work(B, H, NC, Q, hd, ds, x_bytes):
+    """(bytes, f32 operations) the function needs: every input read once,
+    both f32 outputs written once; C.B^T and y over the lower triangle,
+    once per (b, c) and per head respectively, inc in full."""
+    tri = Q * (Q + 1) // 2
+    nbytes = (B * H * NC * Q * hd * x_bytes + 2 * B * H * NC * Q * 4 + 2 * B * NC * Q * ds * x_bytes
+              + B * H * NC * Q * hd * 4 + B * H * NC * hd * ds * 4)
+    flops = 2 * B * NC * tri * ds + 2 * B * H * NC * tri * hd + 2 * B * H * NC * Q * hd * ds
+    return nbytes, flops
+
+
+def check_ssd(dev, results):
+    """9a: the SSD intra-chunk kernel against its plain version at the
+    shapes of mamba2-1.3b's training forward, f32 and bf16 inputs, with its
+    times and bound (the full training shape timed five times: median and
+    spread); the wiring of its autograd Function at the routed shape (the
+    backward recomputes through the plain version, so this holds that each
+    input gets its own finite gradient, not the kernel)."""
+    from repro_torch.kernels import ssd as KSSD
+
+    results["ssd_intra_chunk"] = {}
+    for name, shape in SSD_SHAPES.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            x, loglam, dt, Bm, Cm = _ssd_inputs(dev, dtype, *shape, 21, name != "odd")
+            y, inc = KSSD.ssd_intra_chunk(x, loglam, dt, Bm, Cm)
+            torch.cuda.synchronize()
+            wy, winc = KSSD.ssd_intra_chunk_plain(x, loglam, dt, Bm, Cm)
+            lmax = torch.cumsum(loglam, -1).abs().max().item()
+            tol = SSD_TOL + 2 * lmax * 2.0**-24
+            errs = [((a - b).abs().max() / b.abs().max()).item() for a, b in ((y, wy), (inc, winc))]
+            finite = bool(torch.isfinite(y).all() and torch.isfinite(inc).all())
+            log(f"[kernels] ssd_intra_chunk {name} {tuple(x.shape)} ds={shape[5]} {dtype}: "
+                f"y / inc within {errs[0]:.3g} / {errs[1]:.3g} of their largest (limit {tol:.3g}, "
+                f"max|l| {lmax:.1f}); finite {finite}")
+            if not finite or max(errs) > tol:
+                raise AssertionError(f"ssd_intra_chunk {name} {dtype} differs from its plain version")
+            nbytes, flops = ssd_work(*shape, x.element_size())
+            reps = sorted(time_ms(lambda: KSSD.ssd_intra_chunk(x, loglam, dt, Bm, Cm))
+                          for _ in range(SSD_REPS if name == "train full" else 1))
+            if len(reps) > 1:
+                G = KSSD.head_group(*shape[:3], torch.cuda.get_device_properties(dev)
+                                    .multi_processor_count)
+                log(f"[kernels] ssd_intra_chunk {name} {str(dtype)[6:]}: {len(reps)} timings "
+                    f"{', '.join(f'{t:.4f}' for t in reps)} ms: median {reps[len(reps) // 2]:.4f}, "
+                    f"spread {reps[-1] - reps[0]:.4f} ms; heads per block G={G}; sm clock, max, "
+                    f"temperature, power: {smi_clocks()}")
+            r = dict(ms=reps[len(reps) // 2],
+                     plain_ms=time_ms(lambda: KSSD.ssd_intra_chunk_plain(x, loglam, dt, Bm, Cm)),
+                     library_ms=None, bound=bound_ms(nbytes, flops, torch.float32),
+                     max_abs_err=max((y - wy).abs().max().item(), (inc - winc).abs().max().item()),
+                     shape=f"{name} x{tuple(x.shape)} ds={shape[5]} {str(dtype)[6:]}")
+            log(f"[kernels] ssd_intra_chunk {name} {str(dtype)[6:]}: {r['ms']:.4f} ms (plain "
+                f"{r['plain_ms']:.4f}, bound {r['bound'][0]:.4f} by {r['bound'][1]}: "
+                f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+            results["ssd_intra_chunk"][(name, dtype)] = r
+            del y, inc, wy, winc
+    x, loglam, dt, Bm, Cm = _ssd_inputs(dev, torch.bfloat16, *SSD_SHAPES["train routed"], 22, True)
+    got = _grads(KSSD.ssd_intra_chunk, [x, loglam, dt, Bm, Cm], 23)
+    want = _grads(KSSD.ssd_intra_chunk_plain, [x, loglam, dt, Bm, Cm], 23)
+    for a, b in zip(got, want):
+        if not torch.isfinite(a).all():
+            raise AssertionError("ssd_intra_chunk: non-finite gradient")
+        torch.testing.assert_close(a.float(), b.float(), atol=1e-6, rtol=1e-6)
+    log("[grads] ssd_intra_chunk (routed shape, bf16 x/B/C): the Function's backward (a "
+        "recompute through the plain version: its wiring, not the kernel) gives each of the five "
+        "inputs autograd's gradient through the plain version, all finite")
+
+
+def ssm_parity(dev):
+    """9b: mamba2-1.3b at full width and 4 layers (2 groups), f32, the same
+    weights on the CPU (plain versions) and the card (kernels): a forward
+    on B=2, S=256 (logits within 1e-3 of their largest, phase 3's limit;
+    loss within 1e-5; routed masks equal), one Trainer step (phase 3's
+    limits), 16 teacher-forced decode steps and the stepped engine's
+    greedy streams (4 slots, 6 requests, prompts 16-48, 8 new tokens)."""
+    from repro_torch.config import OptimConfig, TrainConfig, get_config
+    from repro_torch.data.loader import SyntheticLoader
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models import api
+    from repro_torch.serve import EngineConfig, Request, ServingEngine
+    from repro_torch.train import Trainer, make_train_state
+    from repro_torch.utils import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_config("mamba2-1.3b"), dtype="float32", n_layers=4)
+    cpu = torch.device("cpu")
+    p_cpu = api.init_model(cfg, device=cpu, seed=3)
+    p_gpu = tree_map(lambda t: t.to(dev, copy=True), p_cpu)
+    B, S = 2, 256
+    batch = {k: torch.as_tensor(v).long()
+             for k, v in SyntheticLM(cfg.vocab, S, seed=31).batch(0, B).items()}
+    out = {}
+    for name, params, d in (("cpu", p_cpu, cpu), ("gpu", p_gpu, dev)):
+        with torch.no_grad(), recorded_decisions("decide_tokens") as decisions:
+            logits, _ = api.model_forward(params, cfg, {"tokens": batch["tokens"].to(d)})
+            loss, _ = api.model_loss(params, cfg, {k: v.to(d) for k, v in batch.items()})
+        out[name] = (logits.cpu(), float(loss), [x.mask.cpu() for x in decisions])
+    (lc, loss_c, mc), (lg, loss_g, mg) = out["cpu"], out["gpu"]
+    diff, lim = (lc - lg).abs().max().item(), 1e-3 * lc.abs().max().item()
+    dl = abs(loss_c - loss_g) / abs(loss_c)
+    same = len(mc) == len(mg) == 2 * len(p_cpu["groups"]) and all(
+        torch.equal(a, b) for a, b in zip(mc, mg))
+    log(f"[ssm] 4-layer full-width f32 forward B={B} S={S}: max|dlogit| {diff:.3g} (limit "
+        f"{lim:.3g}), loss cpu {loss_c:.7f} gpu {loss_g:.7f} (rel {dl:.3g}); routed masks "
+        f"identical in {len(mc)} decisions: {same}")
+    if not (diff <= lim and dl <= 1e-5 and same):
+        raise AssertionError("ssm forward: CPU and card differ")
+
+    lr = 1e-3
+    tcfg = TrainConfig(global_batch=B, seq_len=S, log_every=10**6, ckpt_every=10**9,
+                       optim=OptimConfig(lr=lr, warmup_steps=1, total_steps=10))
+    res = {}
+    with tempfile.TemporaryDirectory() as ckdir:
+        from repro_torch.checkpoint import CheckpointManager
+
+        for name, params, d in (("cpu", p_cpu, cpu), ("gpu", p_gpu, dev)):
+            loader = SyntheticLoader(SyntheticLM(cfg.vocab, S, seed=37), B, d)
+            trainer = Trainer(cfg, tcfg, loader, ckpt=CheckpointManager(ckdir), device=d,
+                              log_fn=lambda m: None)
+            state = make_train_state(cfg, d, params=tree_map(lambda t: t.detach().clone(), params))
+            state["step"] = torch.ones((), dtype=torch.int32)  # past the warmup's lr = 0
+            state, m = trainer.run(state, 1)
+            res[name] = (state, m)
+    (s_c, m_c), (s_g, m_g) = res["cpu"], res["gpu"]
+    dl = abs(m_c["loss"] - m_g["loss"]) / abs(m_c["loss"])
+    dn = abs(m_c["grad_norm"] - m_g["grad_norm"]) / m_c["grad_norm"]
+    n_total = n_far = 0
+    worst, finite = 0.0, True
+    for a, b in zip(tree_leaves(s_c["params"]), tree_leaves(s_g["params"])):
+        finite = finite and bool(torch.isfinite(b).all())
+        dd = (a.detach() - b.detach().cpu()).abs()
+        n_total += dd.numel()
+        n_far += int((dd > lr / 100).sum())
+        worst = max(worst, dd.max().item())
+    log(f"[ssm] Trainer step: loss cpu {m_c['loss']:.7f} gpu {m_g['loss']:.7f} (rel {dl:.3g}); "
+        f"grad norm cpu {m_c['grad_norm']:.6f} gpu {m_g['grad_norm']:.6f} (rel {dn:.3g}); "
+        f"post-AdamW weights max |diff| {worst:.3g}, {n_far} of {n_total} beyond lr/100; "
+        f"all finite {finite}")
+    if not (dl <= 1e-5 and dn <= 1e-4 and n_far <= 1e-4 * n_total and finite):
+        raise AssertionError("ssm Trainer step: CPU and card differ")
+
+    caches = {"cpu": api.make_caches(cfg, B, 0, cpu), "gpu": api.make_caches(cfg, B, 0, dev)}
+    active = torch.tensor([True, False])
+    worst = 0.0
+    for step in range(16):
+        tok = batch["tokens"][:, step:step + 1]
+        act = active if step % 4 == 3 else torch.ones(B, dtype=torch.bool)
+        with torch.no_grad():
+            lc, _, ac = api.model_decode(p_cpu, caches["cpu"], cfg, tok, torch.full((B,), step),
+                                         act)
+            lg, _, ag = api.model_decode(p_gpu, caches["gpu"], cfg, tok.to(dev),
+                                         torch.full((B,), step, device=dev), act.to(dev))
+        if not torch.equal(ac["mod/decode_routed"], ag["mod/decode_routed"].cpu()):
+            raise AssertionError(f"ssm decode step {step}: routed rows differ")
+        d_, lim = (lc - lg.cpu()).abs().max().item(), 1e-3 * lc.abs().max().item()
+        worst = max(worst, d_ / lc.abs().max().item())
+        if not d_ <= lim:
+            raise AssertionError(f"ssm decode step {step}: logits differ by {d_} > {lim}")
+    log(f"[ssm] 16 teacher-forced decode steps: routed rows identical, logits within "
+        f"{worst:.3g} of their largest (limit 1e-3)")
+
+    toks = SyntheticLM(cfg.vocab, 48, seed=41).batch(0, 6)["tokens"]
+    lens = np.random.default_rng(9).integers(16, 49, 6)
+    got = {}
+    for name, params, d in (("cpu", p_cpu, "cpu"), ("gpu", p_gpu, dev)):
+        eng = ServingEngine(params, cfg, EngineConfig(batch_size=4, ctx=56), device=d)
+        got[name] = (_streams(eng.run_stream([Request(tokens=toks[i, :n], max_new_tokens=8)
+                                              for i, n in enumerate(lens)], 0)), eng.stats())
+    (sc, stc), (sg, stg) = got["cpu"], got["gpu"]
+    if sc != sg or stc["steps"] != stg["steps"]:
+        raise AssertionError(f"ssm stepped engine: CPU and card streams differ: {sc} vs {sg}")
+    log(f"[ssm] stepped engine (prefill mode {eng.prefill_mode}), prompts {lens.min()}-"
+        f"{lens.max()}: CPU and card greedy streams identical for all {len(sc)} requests "
+        f"({sum(len(t) for t in sc.values())} tokens, {stg['steps']:.0f} steps)")
+
+
+@contextlib.contextmanager
+def ssd_launch_shapes():
+    """Count the SSD kernel's launches by chunk count (NC) inside."""
+    from repro_torch.kernels import ssd as KSSD
+
+    real, seen = KSSD._launch, {}
+
+    def record(x, *args):
+        seen[x.shape[2]] = seen.get(x.shape[2], 0) + 1
+        return real(x, *args)
+
+    KSSD._launch = record
+    try:
+        yield seen
+    finally:
+        KSSD._launch = real
+
+
+def train_ssm(dev):
+    """9c: mamba2-1.3b in bf16, random weights from seed 0, B=4, S=2048,
+    the config's remat="full", 5 Trainer steps, each profiled."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.config import OptimConfig, TrainConfig, get_config
+    from repro_torch.data.loader import SyntheticLoader
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import build
+    from repro_torch.train import Trainer
+
+    cfg = get_config("mamba2-1.3b")
+    B, S, steps = 4, 2048, 5
+    tcfg = TrainConfig(global_batch=B, seq_len=S,
+                       optim=OptimConfig(lr=1e-4, warmup_steps=2, total_steps=steps),
+                       log_every=1, ckpt_every=10**9)
+    loader = SyntheticLoader(SyntheticLM(cfg.vocab, S, seed=0), B, dev)
+    with tempfile.TemporaryDirectory() as ckdir:
+        trainer = Trainer(cfg, tcfg, loader, ckpt=CheckpointManager(ckdir), device=dev,
+                          log_fn=lambda m: None)
+        t0 = time.perf_counter()
+        state = trainer.init_or_resume()
+        torch.cuda.synchronize()
+        log(f"[ssm-train] {cfg.name}: {cfg.n_params() / 1e9:.2f}B params in {cfg.dtype}, "
+            f"backend {cfg.mod.backend}, remat {cfg.remat}, B={B} S={S} (k={cfg.mod.capacity(S)} "
+            f"routed rows per sequence, chunk {cfg.ssm.chunk}), init {time.perf_counter() - t0:.1f}s")
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_counters()
+        losses = []
+        with ssd_launch_shapes() as by_nc:
+            for i in range(steps):
+                # device activity only: a step issues ~10^5 host ops, whose
+                # recording would stretch the wall it is compared with
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    state, m = trainer.run(state, 1)
+                by_name: dict = {}
+                for e in prof.events():
+                    if e.device_type == DeviceType.CUDA:
+                        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+                busy = sum(by_name.values())
+                wall = 1e3 * trainer.heartbeats[-1][1]
+                groups: dict = {}
+                for n, t in by_name.items():
+                    groups[_kernel_group(n)] = groups.get(_kernel_group(n), 0.0) + t
+                losses.append(m["loss"])
+                log(f"[ssm-train] step {i + 1}: loss {m['loss']:.4f} ce {m['ce']:.4f} grad norm "
+                    f"{m['grad_norm']:.3f} lr {m['lr']:.3g}; wall {wall:.1f} ms, device busy "
+                    f"{busy:.1f} ms, idle share {1 - busy / wall:.3f}")
+                log("[ssm-train]   device ms by group: " + "; ".join(
+                    f"{g} {t:.1f}" for g, t in sorted(groups.items(), key=lambda kv: -kv[1])))
+                top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+                log("[ssm-train]   top kernels: " + "; ".join(f"{n[:60]} {t:.1f} ms"
+                                                              for n, t in top))
+        counts = build.launch_counts()
+    log(f"[ssm-train] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    n_grp = cfg.n_layers // 2
+    log(f"[ssm-train] launches in {steps} steps: ssd_intra_chunk {counts['ssd_intra_chunk']} "
+        f"(NC=16: {by_nc.get(16, 0)}, NC=2: {by_nc.get(2, 0)}; {2 * n_grp} per forward, "
+        f"recomputed under remat), gather_rows {counts['gather_rows']}, scatter_add_rows "
+        f"{counts['scatter_add_rows']}")
+    for name in ("ssd_intra_chunk", "gather_rows", "scatter_add_rows"):
+        if counts.get(name, 0) <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the ssm training path")
+    return counts, by_nc
+
+
+def serve_ssm(dev):
+    """9d: mamba2-1.3b in bf16 through the stepped engine: 8 slots, 16
+    greedy requests, prompts of 32-128 tokens, 16 new tokens each."""
+    from repro_torch.config import get_config
+    from repro_torch.core.routing import batch_capacity_k
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import build
+    from repro_torch.models import api
+    from repro_torch.serve import EngineConfig, Request, ServingEngine
+
+    cfg = get_config("mamba2-1.3b")
+    params = api.init_model(cfg, device=dev, seed=0)
+    B, n_req, gen, lo, hi = 8, 16, 16, 32, 128
+    ecfg = EngineConfig(batch_size=B, ctx=hi + gen)
+    lens = np.random.default_rng(1).integers(lo, hi + 1, n_req)
+    prompts = SyntheticLM(cfg.vocab, hi, seed=7).batch(0, n_req)["tokens"]
+    ServingEngine(params, cfg, ecfg, device=dev).run_stream(  # warm-up, off the count
+        [Request(tokens=prompts[i, :4], max_new_tokens=2) for i in range(2)], 0)
+    engine = ServingEngine(params, cfg, ecfg, device=dev)
+    build.reset_counters()
+    torch.cuda.synchronize()
+    outs = engine.run_stream([Request(tokens=prompts[i, :lens[i]], max_new_tokens=gen)
+                              for i in range(n_req)], 0)
+    torch.cuda.synchronize()
+    counts = build.launch_counts()
+    s = engine.stats()
+    if len(outs) != n_req or not all(o.ok and len(o.tokens) == gen for o in outs):
+        raise AssertionError("ssm serving: a request did not finish with all its tokens")
+    kb = batch_capacity_k(cfg, B)
+    log(f"[ssm-serve] {cfg.name} bf16, prefill mode {engine.prefill_mode}: {n_req} requests "
+        f"(prompts {lens.min()}-{lens.max()} tokens, {gen} new each), {B} slots: "
+        f"{s['generated_tokens']:.0f} tokens in {s['wall_s']:.2f}s = {s['tokens_per_s']:.1f} "
+        f"tok/s; {s['steps']:.0f} engine steps, decode {1e3 * s['decode_s'] / s['decode_steps']:.2f} "
+        f"ms per step; mean occupancy {s['mean_occupancy']:.2f}; routed fraction "
+        f"{s['mean_routed_frac']:.4f} (kb/B = {kb}/{B}); state pool "
+        f"{s['kv_cache_bytes'] / 2**20:.1f} MiB; launches {json.dumps(counts)}")
+    caches = api.make_caches(cfg, B, 0, dev)
+    tok = torch.zeros(B, 1, dtype=torch.long, device=dev)
+    pos = torch.zeros(B, dtype=torch.int32, device=dev)
+    act = torch.ones(B, dtype=torch.bool, device=dev)
+    with torch.no_grad():
+        wall, busy, top = profile_call(lambda: api.model_decode(params, caches, cfg, tok, pos, act),
+                                       iters=5)
+    log(f"[profile] ssm decode step B={B}: wall {wall:.2f} ms, device busy {busy:.2f} ms, idle "
+        f"share {1 - busy / wall:.3f}; top kernels: "
+        + "; ".join(f"{n[:60]} {t:.3f} ms" for n, t in top))
+    return counts
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing to run", file=sys.stderr)
@@ -1840,31 +2215,40 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[ptxas] {stem}: {line.strip()}")
 
+    def timed(label, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        log(f"[time] {label}: {time.perf_counter() - t:.1f}s")
+        return out
+
     cfg1b = get_config("mod-paper-1b")
     results: dict = {}
-    check_routing(cfg1b, dev, results)
-    check_flash(cfg1b, dev, results)
-    check_fused(cfg1b, dev, results)
-    check_paged(cfg1b, dev, results)
-    check_quant_casts(dev)
-    check_dequant(cfg1b, dev, results)
-    check_ragged_dispatch(cfg1b, dev, results)
-    check_grads(cfg1b, dev)
-    cross_device_parity(dev)
-    train_step_parity(dev)
-    paged_parity(dev)
-    quant_parity(dev)
-    ragged_forward_parity(dev)
-    serve_counts = serve_1b(dev)
-    train_counts = train_1b(dev)
+    timed("phase 2 kernels", lambda: (
+        check_routing(cfg1b, dev, results), check_flash(cfg1b, dev, results),
+        check_fused(cfg1b, dev, results), check_paged(cfg1b, dev, results),
+        check_quant_casts(dev), check_dequant(cfg1b, dev, results),
+        check_ragged_dispatch(cfg1b, dev, results), check_grads(cfg1b, dev)))
+    timed("phase 3 parity", lambda: (cross_device_parity(dev), train_step_parity(dev)))
+    timed("phase 6a-8a parity", lambda: (paged_parity(dev), quant_parity(dev),
+                                         ragged_forward_parity(dev)))
+    serve_counts = timed("phase 4 serve", serve_1b, dev)
+    train_counts = timed("phase 5 train", train_1b, dev)
     from repro_torch.config import with_mod_backend
     from repro_torch.models import api
 
     params = api.init_model(with_mod_backend(cfg1b, "pallas"), device=dev, seed=0)
-    paged_counts, paged_shapes, base_streams, base_stats, base_first = serve_paged_1b(dev, params)
-    quant_counts, quant_shapes = serve_quant_1b(dev, params, base_streams, base_stats, base_first)
-    ragged_counts = forward_ragged_1b(dev, params)
+    paged_counts, paged_shapes, base_streams, base_stats, base_first = timed(
+        "phase 6c paged serve", serve_paged_1b, dev, params)
+    quant_counts, quant_shapes = timed("phase 7b quantized serve", serve_quant_1b, dev, params,
+                                       base_streams, base_stats, base_first)
+    ragged_counts = timed("phase 8b flat forward", forward_ragged_1b, dev, params)
     del params
+    torch.cuda.empty_cache()
+    timed("phase 9a ssd kernel", check_ssd, dev, results)
+    timed("phase 9b ssm parity", ssm_parity, dev)
+    ssm_train_counts, ssd_by_nc = timed("phase 9c ssm train", train_ssm, dev)
+    torch.cuda.empty_cache()
+    ssm_serve_counts = timed("phase 9d ssm serve", serve_ssm, dev)
 
     picks = {  # the entry of each kernel at a main-path shape (bf16)
         "gather_rows": results["gather_rows"][(1000, torch.bfloat16)],
@@ -1896,6 +2280,16 @@ def main() -> int:
              library_ms=None, bound_ms=r["bound"][0]) for key, r in dq.items()]
     picks["paged_gather_dequant"] = dq[max((k for k in dq if k.startswith("int8/page")),
                                           key=lambda k: dq_launch[k] * dq[k]["ms"])]
+    # the SSD kernel: its shapes, with their launches on phase 9c's bf16 run
+    # (none at f32 inputs or the odd shape); the line's numbers are the
+    # full blocks' shape
+    ssd_nc = {"train full": 16, "train routed": 2}
+    shapes["ssd_intra_chunk"] = [
+        dict(shape=r["shape"], launches=ssd_by_nc.get(ssd_nc.get(key[0]), 0)
+             if key[1] == torch.bfloat16 else 0, ms=r["ms"],
+             plain_ms=r["plain_ms"], library_ms=None, bound_ms=r["bound"][0])
+        for key, r in results["ssd_intra_chunk"].items()]
+    picks["ssd_intra_chunk"] = results["ssd_intra_chunk"][("train full", torch.bfloat16)]
     for name in RAGGED_KERNELS:  # phase 8b's unequal-segment forward
         shapes[name] = [dict(shape=r["shape"], launches=ragged_counts[name] if key == "unequal"
                              else 0, ms=r["ms"], plain_ms=r["plain_ms"],
@@ -1918,13 +2312,15 @@ def main() -> int:
                    "serve_quant_ragged_int8_page": quant_counts["ragged int8/page"],
                    "serve_quant_prefix_int8_weights":
                        quant_counts["prefix int8/page + int8 weights"],
-                   "forward_ragged": ragged_counts}
+                   "forward_ragged": ragged_counts,
+                   "train_ssm": ssm_train_counts, "serve_ssm": ssm_serve_counts}
         path = {"routed_attention": "train", "routed_mlp_scatter": "train",
                 "paged_gather": "serve_paged", "paged_scatter_rows": "serve_paged",
                 "ragged_paged_scatter_rows": "serve_ragged",
                 "paged_gather_dequant": "serve_quant_prefix_int8_page",
                 "ragged_gather_rows": "forward_ragged",
-                "ragged_scatter_add_rows": "forward_ragged"}.get(name, "serve")
+                "ragged_scatter_add_rows": "forward_ragged",
+                "ssd_intra_chunk": "train_ssm"}.get(name, "serve")
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": by_path[path][name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -3,7 +3,7 @@
 The frozen dataclasses and registry of the JAX package's
 ``repro/config.py``, kept as this package's own copy so that the port
 imports nothing of ``repro``, and cut to the fields the dense family reads
-(the MoE/SSM/enc-dec sub-configs come with their slices), plus the
+(the MoE/enc-dec sub-configs come with their slices), plus the
 optimizer and training configs. Every entry point resolves ``--arch <id>``
 through :func:`get_config`. The serving engine's settings are
 :class:`repro_torch.serve.config.EngineConfig`.
@@ -59,6 +59,21 @@ class MoDConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 (SSD) block config."""
+
+    enabled: bool = False
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    chunk: int = 128  # SSD chunk length
+
+    def n_heads(self, d_model: int) -> int:
+        return (self.expand * d_model) // self.head_dim
+
+
+@dataclass(frozen=True)
 class AttentionConfig:
     n_heads: int = 8
     n_kv_heads: int = 8
@@ -74,8 +89,8 @@ class AttentionConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
-    # the port runs "dense"; the JAX package's other families
-    # ("moe" | "ssm" | "hybrid" | "encdec" | "vlm") are later slices
+    # the port runs "dense" and "ssm"; the JAX package's other families
+    # ("moe" | "hybrid" | "encdec" | "vlm") are later slices
     family: str = "dense"
     n_layers: int = 4
     d_model: int = 256
@@ -88,6 +103,7 @@ class ModelConfig:
     glu: bool = True
     attn: AttentionConfig = field(default_factory=AttentionConfig)
     mod: MoDConfig = field(default_factory=MoDConfig)
+    ssm: SSMConfig = field(default_factory=SSMConfig)
     dtype: str = "bfloat16"
     remat: str = "none"  # "none" | "full" (torch.utils.checkpoint per layer group)
 
@@ -96,14 +112,27 @@ class ModelConfig:
         return self.attn.head_dim or self.d_model // self.attn.n_heads
 
     def n_params(self) -> int:
-        """Analytic parameter count of a dense decoder (embeddings + blocks)."""
+        """Analytic parameter count (embeddings + blocks) of a dense decoder
+        or a Mamba2 LM."""
         D, F, V, L = self.d_model, self.d_ff, self.vocab, self.n_layers
         hd = self.head_dim
         nq, nkv = self.attn.n_heads, self.attn.n_kv_heads
         emb = V * D * (1 if self.tie_embeddings else 2)
+        if self.family == "ssm":
+            return emb + L * (self._ssm_block_params() + D)
         attn = D * nq * hd + 2 * D * nkv * hd + nq * hd * D
         mlp = (3 if self.glu else 2) * D * F
         return emb + L * (attn + mlp + 2 * D) + D
+
+    def _ssm_block_params(self) -> int:
+        D = self.d_model
+        d_inner = self.ssm.expand * D
+        nh = self.ssm.n_heads(D)
+        # in_proj (z, x, B, C, dt), conv, A, D, norm, out_proj
+        in_proj = D * (2 * d_inner + 2 * self.ssm.d_state + nh)
+        conv = self.ssm.d_conv * (d_inner + 2 * self.ssm.d_state)
+        out = d_inner * D + d_inner
+        return in_proj + conv + out + 2 * nh
 
 
 # ---------------------------------------------------------------------------
@@ -191,4 +220,6 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
     )
     if cfg.mod.enabled:
         replace["mod"] = dataclasses.replace(cfg.mod, round_to=8, predictor_hidden=32)
+    if cfg.ssm.enabled:
+        replace["ssm"] = dataclasses.replace(cfg.ssm, d_state=16, head_dim=32, chunk=16)
     return dataclasses.replace(cfg, **replace)

@@ -11,6 +11,11 @@ are random, drawn from ``--seed``. Prompt lengths are mixed uniformly over
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mod-paper-1b \\
       --dtype bfloat16 --batch 8 --requests 16 \\
       --min-prompt-len 128 --prompt-len 1024 --gen 32 --page-size 16 --prefix-cache
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \\
+      --dtype bfloat16 --batch 8 --requests 16 --min-prompt-len 32 --prompt-len 128 --gen 16
+
+The ssm family (``mamba2-*``) ingests prompts one token per decode step,
+as the JAX engine serves it; the run prints which path it took.
 """
 from __future__ import annotations
 
@@ -81,6 +86,9 @@ def main() -> None:
           f"{s['mean_occupancy']:.2f}/{args.batch}; prefill {s['prefill_s']:.2f}s over "
           f"{s['prefills']:.0f} prompts, decode {s['decode_s']:.2f}s over "
           f"{s['decode_steps']:.0f} steps")
+    print(f"[serve] prompt ingestion: " + (
+        "batched prefill (model_prefill)" if engine.prefill_mode == "batch"
+        else f"stepped, one prompt token per decode step ({cfg.family} family)"))
     print(f"[serve] latency (steps): p50={np.percentile(lat, 50):.0f} "
           f"p95={np.percentile(lat, 95):.0f}")
     if np.isfinite(s["mean_routed_frac"]):

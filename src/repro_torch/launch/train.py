@@ -13,6 +13,7 @@ multi-device support.
   PYTHONPATH=src python -m repro_torch.launch.train --arch mod-paper-1b \\
       --backend pallas_fused --batch 4 --seq 2048 --steps 5
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --smoke --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b --batch 4 --seq 2048 --steps 5
 """
 from __future__ import annotations
 

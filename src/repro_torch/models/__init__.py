@@ -1,1 +1,1 @@
-"""Model layers, blocks and the dense decoder of the port."""
+"""Model layers, blocks, the dense decoder and the Mamba2 LM of the port."""

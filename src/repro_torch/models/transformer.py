@@ -1,6 +1,5 @@
-"""Decoder-only LM assembly with MoD routing: init, the training forward
-and loss, the flat ragged forward, caches, prefill, chunked prefill and
-decode.
+"""Decoder-only LM assembly with MoD routing: init, the training forward,
+the flat ragged forward, caches, prefill, chunked prefill and decode.
 
 Port of ``repro/models/transformer.py``. The JAX package stacks layers
 into groups for ``lax.scan``; here parameters and caches are per layer and
@@ -30,7 +29,6 @@ from repro_torch.kernels.ragged import flat_segment_ids
 from repro_torch.models import attention as A
 from repro_torch.models import blocks as BLK
 from repro_torch.models.layers import (
-    cross_entropy,
     embed,
     init_embedding,
     init_rmsnorm,
@@ -121,6 +119,39 @@ def _train_group(gp: Params, positions: torch.Tensor, cfg: ModelConfig, seed: Op
     return h, aux
 
 
+def mean_aux(aux_steps: List[Aux]) -> Aux:
+    """Aux leaves averaged over the layer groups (axis 0 of the JAX scan's
+    stacked aux): scalars stay scalar, per-sequence (B,) entries keep B."""
+    if not aux_steps or not aux_steps[0]:
+        return {}
+    return {key: torch.stack([a[key] for a in aux_steps]).mean(dim=0) for key in aux_steps[0]}
+
+
+def run_groups(groups: List[Params], group_fn, x: torch.Tensor, positions: torch.Tensor,
+               cfg: ModelConfig, generator: Optional[torch.Generator]
+               ) -> Tuple[torch.Tensor, Aux]:
+    """The training forward's loop over layer groups (the JAX scan):
+    ``group_fn(gp, positions, cfg, seed, h) -> (h, aux)`` per group, with
+    one stochastic-router seed per group drawn from ``generator`` (a CPU
+    generator), recomputed in the backward (``torch.utils.checkpoint``)
+    under ``cfg.remat="full"``. Returns (h, aux means over the groups)."""
+    if cfg.remat not in ("none", "full"):
+        raise NotImplementedError(
+            f"remat {cfg.remat!r}: only 'none' and 'full' are ported (ROADMAP Queue 1)")
+    stochastic = cfg.mod.enabled and cfg.mod.router_type == "stochastic"
+    root = generator if generator is not None else torch.Generator().manual_seed(0)
+    aux_steps: List[Aux] = []
+    for gp in groups:
+        seed = int(torch.randint(0, 2**62, (1,), generator=root)) if stochastic else None
+        body = partial(group_fn, gp, positions, cfg, seed)
+        if cfg.remat == "full":
+            x, a = torch.utils.checkpoint.checkpoint(body, x, use_reentrant=False)
+        else:
+            x, a = body(x)
+        aux_steps.append(a)
+    return x, mean_aux(aux_steps)
+
+
 def forward(
     params: Params,
     cfg: ModelConfig,
@@ -134,27 +165,11 @@ def forward(
     means over the layer groups. ``generator`` (a CPU generator) seeds the
     stochastic router's draws, one seed per group; ``cfg.remat="full"``
     recomputes each group in the backward (``torch.utils.checkpoint``)."""
-    if cfg.remat not in ("none", "full"):
-        raise NotImplementedError(
-            f"remat {cfg.remat!r}: only 'none' and 'full' are ported (ROADMAP Queue 1)")
     x = embed(params["embed"], tokens) if embeds is None else embeds
     B, S = x.shape[0], x.shape[1]
     if positions is None:
         positions = _default_positions(B, S, x.device)
-    stochastic = cfg.mod.enabled and cfg.mod.router_type == "stochastic"
-    root = generator if generator is not None else torch.Generator().manual_seed(0)
-    aux_steps: List[Aux] = []
-    for gp in params["groups"]:
-        seed = int(torch.randint(0, 2**62, (1,), generator=root)) if stochastic else None
-        body = partial(_train_group, gp, positions, cfg, seed)
-        if cfg.remat == "full":
-            x, a = torch.utils.checkpoint.checkpoint(body, x, use_reentrant=False)
-        else:
-            x, a = body(x)
-        aux_steps.append(a)
-    aux: Aux = {}
-    if aux_steps and aux_steps[0]:
-        aux = {key: torch.stack([a[key] for a in aux_steps]).mean(dim=0) for key in aux_steps[0]}
+    x, aux = run_groups(params["groups"], _train_group, x, positions, cfg, generator)
     if "tail" in params:
         x, a = BLK.block_apply(params["tail"], x, positions, cfg)
         aux.update(_prefix("tail", a))
@@ -210,38 +225,12 @@ def forward_ragged(
             aux.update(a)
             aux.update(ROUT.routing_aux(decision, mp, h_in, cfg))
         aux_steps.append(aux)
-    aux = {}
-    if aux_steps and aux_steps[0]:
-        aux = {key: torch.stack([a[key] for a in aux_steps]).mean(dim=0) for key in aux_steps[0]}
+    aux = mean_aux(aux_steps)
     if "tail" in params:
         x, a = BLK.block_apply_ragged(params["tail"], x, positions, seg_id, cfg)
         aux.update(_prefix("tail", a))
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return unembed(params["embed"], x)[0], aux
-
-
-def combine_losses(ce: torch.Tensor, aux: Aux, cfg: ModelConfig) -> torch.Tensor:
-    """CE plus the router BCE (weighted) and the predictor BCE."""
-    loss = ce
-    if cfg.mod.enabled:
-        if "mod/router_bce" in aux:
-            loss = loss + cfg.mod.aux_loss_weight * aux["mod/router_bce"]
-        if "mod/predictor_bce" in aux:
-            loss = loss + aux["mod/predictor_bce"]  # detached inputs: trains the predictor only
-    return loss
-
-
-def lm_loss(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-            generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, Aux]:
-    """CE + the weighted MoD aux losses. batch: tokens, labels, optional
-    loss_mask / positions."""
-    logits, aux = forward(params, cfg, tokens=batch.get("tokens"), embeds=batch.get("embeds"),
-                          positions=batch.get("positions"), generator=generator)
-    ce = cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
-    loss = combine_losses(ce, aux, cfg)
-    aux["ce"] = ce
-    aux["loss"] = loss
-    return loss, aux
 
 
 # ---------------------------------------------------------------------------
@@ -390,9 +379,7 @@ def decode_step(params: Params, caches: Params, cfg: ModelConfig, token: torch.T
         if "mod" in gp:
             x, _, a = _mod_decode_group(gp["mod"], x, positions, gc["mod"], cfg, active)
             aux_steps.append(a)
-    aux: Aux = {}
-    if aux_steps:
-        aux = {key: torch.stack([a[key] for a in aux_steps]).mean(dim=0) for key in aux_steps[0]}
+    aux = mean_aux(aux_steps)
     if "tail" in params:
         x, _, _ = BLK.block_decode(params["tail"], x, positions, caches["tail"], cfg)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)

@@ -13,7 +13,10 @@ functions carry them.
 bfloat16 leaves arrive as numpy arrays of the ``ml_dtypes`` bfloat16 type,
 which ``torch.from_numpy`` rejects: they travel as their 16-bit
 patterns and are reinterpreted (never rounded through float32), so every
-bit survives both ways. The router and predictor are f32 on both sides.
+bit survives both ways. The router and predictor are f32 on both sides,
+as are the Mamba2 blocks' ``A_log``, ``skip_D`` and ``dt_bias`` in a bf16
+model; the ssm family's tree ({"full", "mod"} groups of {"ln", "ssm"}
+layers) carries the same way.
 """
 from __future__ import annotations
 

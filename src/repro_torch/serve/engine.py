@@ -4,14 +4,18 @@ Port of ``repro/serve/engine.py::ServingEngine``: one ``(B, 1)`` decode
 step against a pooled ``(B, ctx)`` cache, kept full by admitting queued
 requests into slots as others terminate (:mod:`repro_torch.serve.scheduler`).
 
-- **Batched prefill** (``prefill="auto"`` for the dense family): each
+- **Batched prefill** (``prefill="auto"`` for the dense family;
+  ``BATCH_PREFILL_FAMILIES``): each
   admitted prompt runs through ``model_prefill`` at batch 1 (token_topk
   MoD routing, capacity-sized cache writes) — or chunk by chunk through
   ``model_prefill_chunk`` with ``prefill_chunk`` — its cache is copied
   into the slot, and the first new token comes from the prefill's
   last-position logits (the last prompt token is not re-decoded).
-- **Stepped ingestion** (``prefill="step"``): the slot feeds one prompt
-  token per engine step through the shared decode step.
+- **Stepped ingestion** (``prefill="step"``, and ``"auto"`` for the ssm
+  family, whose ``prefill="batch"`` raises as in JAX): the slot feeds one
+  prompt token per engine step through the shared decode step. Prefix
+  cache, ragged step and chunked prefill need batched prefill and raise
+  otherwise; the paged pool serves ssm with every state leaf residual.
 - **Decode**: every step passes an ``active`` mask so padding rows never win
   ``batch_capacity`` routed rows, and reads back the per-sequence
   ``mod/decode_routed`` / ``mod/decode_scores`` telemetry.
@@ -73,6 +77,12 @@ from repro_torch.serve.request import (
 from repro_torch.serve.scheduler import FREE, GENERATE, PREFILL, Scheduler, Slot
 
 
+# Families whose prompts run through model_prefill in one shot (the JAX
+# engine's list; the port runs "dense"). The others ingest prompts one
+# token per engine step through the shared decode step.
+BATCH_PREFILL_FAMILIES = ("dense", "moe")
+
+
 def routed_capacity(cfg: ModelConfig, batch_size: int) -> Optional[int]:
     """kb of the batch_capacity router; None when MoD is off."""
     if not cfg.mod.enabled:
@@ -108,20 +118,29 @@ class ServingEngine:
         self.cfg = cfg
         self.batch_size = engine.batch_size
         self.ctx = engine.ctx
-        self._batch_prefill = engine.prefill in ("auto", "batch")
+        self._batch_prefill = engine.prefill == "batch" or (
+            engine.prefill == "auto" and cfg.family in BATCH_PREFILL_FAMILIES)
+        if self._batch_prefill and cfg.family not in BATCH_PREFILL_FAMILIES:
+            raise ValueError(f"family {cfg.family!r} has no batched prefill")
         prefill_chunk = engine.prefill_chunk
         if prefill_chunk is not None and not self._batch_prefill:
-            raise ValueError("prefill_chunk applies to batched prefill")
+            raise ValueError(
+                "prefill_chunk applies to batched prefill (dense/MoE families, prefill "
+                f"'auto' or 'batch'); this {cfg.family!r} engine ingests prompts through "
+                "decode steps")
         self._paged = engine.page_size is not None
         self._prefix_cache = engine.prefix_cache
         self._ragged = engine.ragged
         self._ragged_segments = int(engine.ragged_segments)
-        if self._prefix_cache or self._ragged:
-            if not self._batch_prefill:
-                raise ValueError("prefix_cache and ragged=True need batched prefill: prefill "
-                                 "segments replay model_prefill_chunk")
-            if prefill_chunk is None:
-                prefill_chunk = engine.page_size  # page-aligned boundaries by default
+        if self._prefix_cache and not self._batch_prefill:
+            raise ValueError("prefix_cache requires batched prefill (a dense/MoE family, "
+                             "prefill 'auto' or 'batch')")
+        if self._ragged and not self._batch_prefill:
+            raise ValueError("ragged=True needs batched prefill (a dense/MoE family, prefill "
+                             "'auto' or 'batch'): prefill segments replay model_prefill_chunk "
+                             "inside the step")
+        if (self._prefix_cache or self._ragged) and prefill_chunk is None:
+            prefill_chunk = engine.page_size  # page-aligned boundaries by default
         self._prefill_chunk = prefill_chunk
         if self._paged:
             self.pool: Any = PagedCachePool(
@@ -153,6 +172,12 @@ class ServingEngine:
         self._prefill_s = 0.0
         self._decode_s = 0.0
         self._n_prefills = 0
+
+    @property
+    def prefill_mode(self) -> str:
+        """How prompts enter: "batch" (model_prefill) or "step" (one prompt
+        token per decode step)."""
+        return "batch" if self._batch_prefill else "step"
 
     def _model_params(self) -> Any:
         """The parameters of one model call: widened from the int8 tree when

@@ -26,7 +26,16 @@ order; gather/scatter backwards are the same two kernels (exact); the
 flash backward is the blocked torch-op backward from the kernel's lse,
 against autograd through the dense plain version (f32 1e-4; bf16: the
 plain version's autograd rounds at its bf16 casts, the Function does not).
+
+SSD intra-chunk: both sides compute in f32 from the same (widened)
+inputs; the kernel takes the cumsum of loglam in order, torch's scan in
+another order, and each decay exp(l_i - l_j) carries that rounding (up to
+|l|·2^-24 relative), so the outputs agree within 1e-5 of their largest
+value plus 2·max|l|·2^-24; its backward is autograd through the plain
+version, so its gradients equal the plain version's.
 """
+import math
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -37,6 +46,7 @@ from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import paged as KP  # noqa: E402
 from repro_torch.kernels import ragged as KRG  # noqa: E402
 from repro_torch.kernels import routing as KR  # noqa: E402
+from repro_torch.kernels import ssd as KSSD  # noqa: E402
 from repro_torch.kernels import swiglu as SW  # noqa: E402
 
 TOL = {torch.float32: dict(atol=2e-5, rtol=0.0), torch.bfloat16: dict(atol=8e-3, rtol=8e-3)}
@@ -591,3 +601,104 @@ def test_forward_ragged_launches_the_dispatch_kernels(dev):
     assert counts["ragged_gather_rows"] == n_mod and counts["ragged_scatter_add_rows"] == n_mod
     padded, _ = api.model_forward(params, cfg, {"tokens": toks})
     torch.testing.assert_close(flat, padded.reshape(96, -1), atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# SSD intra-chunk kernel (Mamba2)
+# ---------------------------------------------------------------------------
+
+
+def _ssd_inputs(dev, dtype, B, H, NC, Q, hd, ds, seed, layout="jax"):
+    """mamba2's A = -(1..H) and dt drawn as its init draws dt_bias, so the
+    decay's upper triangle overflows. layout "model": x, loglam and dt are
+    (B, H, NC, Q, ·) views of (B, S, H, ·) tensors, as ssd_chunked passes."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u = torch.rand(B, NC, Q, H, generator=g, device=dev)
+    dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+    A = -torch.arange(1, H + 1, dtype=torch.float32, device=dev)
+    x = torch.randn(B, NC, Q, H, hd, generator=g, device=dev).to(dtype)
+    Bm = torch.randn(B, NC, Q, ds, generator=g, device=dev).to(dtype)
+    Cm = torch.randn(B, NC, Q, ds, generator=g, device=dev).to(dtype)
+    perm = lambda t: t.permute(0, 3, 1, 2, *range(4, t.dim()))  # noqa: E731
+    x, dt = perm(x), perm(dt)
+    if layout == "jax":
+        x, dt = x.contiguous(), dt.contiguous()
+    return x, dt * A[None, :, None, None], dt, Bm, Cm
+
+
+def _ssd_tol(loglam):
+    return 1e-5 + 2 * torch.cumsum(loglam, -1).abs().max().item() * 2.0**-24
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,H,NC,Q,hd,ds,layout", [
+    (4, 64, 2, 128, 64, 128, "model"),  # mamba2-1.3b's routed blocks (k = 256)
+    (1, 3, 2, 16, 32, 16, "jax"),  # odd heads, the smoke chunk
+    (2, 5, 3, 40, 8, 24, "jax"),  # widths that are not powers of two
+])
+def test_ssd_intra_chunk_matches_plain(dev, dtype, B, H, NC, Q, hd, ds, layout):
+    x, loglam, dt, Bm, Cm = _ssd_inputs(dev, dtype, B, H, NC, Q, hd, ds, 3, layout)
+    build.reset_counters()
+    y, inc = KSSD.ssd_intra_chunk(x, loglam, dt, Bm, Cm)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["ssd_intra_chunk"] == 1
+    wy, winc = KSSD.ssd_intra_chunk_plain(x, loglam, dt, Bm, Cm)
+    assert torch.isfinite(y).all() and torch.isfinite(inc).all()
+    tol = _ssd_tol(loglam)
+    for got, want in ((y, wy), (inc, winc)):
+        err = ((got - want).abs().max() / want.abs().max()).item()
+        assert err <= tol, (err, tol)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_intra_chunk_gradients_match_plain(dev, dtype):
+    """The Function's backward recomputes through the plain version, so
+    this holds its wiring (each input's gradient, in order, finite, and
+    none for an input that needs none), not the kernel: the test above
+    holds the kernel's forward."""
+    x, loglam, dt, Bm, Cm = _ssd_inputs(dev, dtype, 2, 8, 2, 64, 32, 32, 4, "model")
+    got = _grads(KSSD.ssd_intra_chunk, [x, loglam, dt, Bm, Cm], 11)
+    want = _grads(KSSD.ssd_intra_chunk_plain, [x, loglam, dt, Bm, Cm], 11)
+    for g_, w_ in zip(got, want):
+        assert torch.isfinite(g_).all()
+    _assert_grads(got, want, dict(atol=1e-6, rtol=1e-6))
+    xg = x.detach().clone().requires_grad_(True)
+    rest = [t.detach().clone() for t in (loglam, dt, Bm, Cm)]
+    y, _ = KSSD.ssd_intra_chunk(xg, *rest)
+    y.sum().backward()
+    assert xg.grad is not None and all(t.grad is None for t in rest)
+
+
+def test_ssm_training_step_launches_the_ssd_kernel(dev):
+    """The smoke mamba2-1.3b on the card: two SSD kernel launches per
+    group in the forward (the full and the routed block), gather/scatter
+    for the routed blocks, finite loss and gradients, and the CPU's loss."""
+    import dataclasses
+
+    from repro_torch.models import api
+    from repro_torch.params import to_numpy_tree
+    from repro_torch.utils import tree_leaves
+
+    cfg = dataclasses.replace(TC.smoke_config(TC.get_config("mamba2-1.3b")), dtype="float32")
+    params = api.init_model(cfg, device=dev, seed=0)
+    cpu = api.init_model(cfg, device="cpu", seed=0)  # same shapes, then the card's values
+    for a, b in zip(tree_leaves(cpu), tree_leaves(params)):
+        a.copy_(b.cpu())
+    g = torch.Generator(device=dev).manual_seed(0)
+    toks = torch.randint(0, cfg.vocab, (2, 65), generator=g, device=dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    build.reset_counters()
+    loss, _ = api.model_loss(params, cfg, batch)
+    torch.cuda.synchronize()
+    counts = build.launch_counts()
+    n = len(params["groups"])
+    assert counts["ssd_intra_chunk"] == 2 * n
+    assert counts["gather_rows"] == counts["scatter_add_rows"] == n
+    loss.backward()
+    assert torch.isfinite(loss)
+    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in tree_leaves(params))
+    cpu_loss, _ = api.model_loss(cpu, cfg, {k: v.cpu() for k, v in batch.items()})
+    assert abs(float(loss) - float(cpu_loss)) <= 1e-5 * abs(float(cpu_loss))
+    assert to_numpy_tree(params)["groups"]["mod"]["block"]["ssm"]["A_log"].shape == (n, 8)
