@@ -72,7 +72,24 @@ failure raises and exits non-zero):
    depth, bf16, B=4, S=2048, remat "full", 5 Trainer steps, profiled, with
    the SSD, gather and scatter launches of this phase alone; (d) stepped
    serving, 8 slots, 16 greedy requests, prompts of 32-128 tokens, 16 new
-   tokens each.
+   tokens each;
+10. the op entry point (``repro_torch.kernels.ops``; run after phase 8b,
+   while mod-paper-1b's weights are on the card): its counted run calls
+   ``ragged_attention_op`` on three live pools and ``swiglu_op`` at two
+   sizes, bf16, with launches read from that run alone (phases 4-9 must
+   launch neither kernel); then (a) ragged paged flash attention on layer
+   0's pages, positions and table of phase 6c's paged + prefix pool after
+   its prefills: a decode step (one row per slot, seg_cap 1) and a mixed
+   step (the decode rows, a 256-row prefill segment of slot 0 and a flat
+   tail, seg_cap 256), the kernel against its plain version in bf16 and
+   f32 and its rows against the gather + flash path, timed beside its
+   bound; (b) the same on phase 7b's int8/page and fp8/head pools (their
+   scales expanded to (N, p, nkv)) against the dequantizing gather +
+   flash; (c) SwiGLU at mod-paper-1b's MLP (layer 0's weights), M = 1024
+   and 8192, bf16 and f32, and two odd shapes: the kernel against its plain
+   version, the plain version against an f64 product rounded at JAX's
+   points, timed beside its bound and layers.mlp's bf16 products; (d) the
+   ragged kernel's edge cases at small shapes.
 
 Each phase's wall time is printed on a ``[time]`` line.
 
@@ -122,7 +139,11 @@ SOURCES = {
     "ragged_scatter_add_rows": ("src/repro_torch/kernels/csrc/routing.cu",
                                 "src/repro/kernels/ragged.py:395"),
     "ssd_intra_chunk": ("src/repro_torch/kernels/csrc/ssd.cu", "src/repro/kernels/ssd.py:67"),
+    "ragged_paged_flash_attention": ("src/repro_torch/kernels/csrc/ragged_attention.cu",
+                                     "src/repro/kernels/ragged.py:290"),
+    "swiglu": ("src/repro_torch/kernels/csrc/swiglu.cu", "src/repro/kernels/swiglu.py:72"),
 }
+OPS_KERNELS = ("ragged_paged_flash_attention", "swiglu")
 PAGED_KERNELS = ("paged_gather", "paged_scatter_rows", "ragged_paged_scatter_rows")
 RAGGED_KERNELS = ("ragged_gather_rows", "ragged_scatter_add_rows")
 SERVE_KERNELS = ("gather_rows", "scatter_add_rows", "flash_attention")
@@ -180,6 +201,33 @@ def event_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, reps: int = 20, iters: int = 5) -> float:
+    """Device time of one call from CUDA events around replays of a CUDA
+    graph holding ``reps`` back-to-back calls: no host gap counts, and no
+    profiler record can be lost (torch.profiler drops some of this port's
+    kernel records). Raises where the calls cannot be captured."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the default stream, as capture wants
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (iters * reps)
+
+
 class NoDeviceTime(RuntimeError):
     """torch.profiler recorded no device activity for a profiled call."""
 
@@ -212,6 +260,14 @@ def profile_call(fn, iters: int = 10, warmup: int = 2, tries: int = 3):
             top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
             return wall, busy, top
     raise NoDeviceTime(f"torch.profiler recorded no device time in {tries} profiles")
+
+
+def profiler_diagnostic(label: str, fn, ms: float) -> None:
+    """Logs torch.profiler's reading of ``fn`` beside its reported CUDA-graph
+    time ``ms``: a diagnostic only, since the profiler loses records of this
+    port's kernels (PERF.md §7)."""
+    log(f"[timing] {label}: torch.profiler reads {time_ms(fn, iters=5):.4f} ms, "
+        f"CUDA graph replay {ms:.4f} ms")
 
 
 def time_ms(fn, iters: int = 20) -> float:
@@ -1276,6 +1332,7 @@ def serve_paged_1b(dev, params):
     from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.kernels import build
     from repro_torch.serve import EngineConfig, Request, ServingEngine
+    from repro_torch.serve.scheduler import GENERATE
 
     cfg = with_mod_backend(get_config("mod-paper-1b"), "pallas")
     w = PAGED_1B
@@ -1295,7 +1352,7 @@ def serve_paged_1b(dev, params):
     warm = ServingEngine(params, cfg, EngineConfig(batch_size=B, ctx=ctx, **runs["ragged"]), device=dev)
     warm.run_stream([Request(tokens=prompts[0][:300], max_new_tokens=2)], 0)
     out, counts, stats, pools = {}, {}, {}, {}
-    prof_line = ""
+    prof_line, snap = "", None
     for name, kw in runs.items():
         eng = ServingEngine(params, cfg, EngineConfig(batch_size=B, ctx=ctx, **kw), device=dev)
         if name == "paged":
@@ -1305,6 +1362,8 @@ def serve_paged_1b(dev, params):
         build.reset_counters()
         torch.cuda.synchronize()
         while eng.has_work:
+            if name in SNAP_RUNS and snap is None and all(s.state == GENERATE for s in eng.slots):
+                snap = snapshot_pool(eng)
             if name == "paged" and 5 <= eng.step_count < 8 and not prof_line:
                 # one paged decode step, all 8 slots generating (the next
                 # one where CUPTI hands back no device events)
@@ -1396,7 +1455,9 @@ def serve_paged_1b(dev, params):
         by_shape["paged_scatter_rows"][f"{leaf} B={B}"] = int(n * sp["decode_steps"])
         by_shape["ragged_paged_scatter_rows"][f"{leaf} W={W0}"] = n
         by_shape["ragged_paged_scatter_rows"][f"{leaf} W={B}"] = int(n * (sr["steps"] - 1))
-    return counts, by_shape, out["paged"], stats["paged"], first_rows
+    if snap is None:
+        raise AssertionError("1b paged+prefix: no step found every slot generating")
+    return counts, by_shape, out["paged"], stats["paged"], first_rows, snap
 
 
 # ---------------------------------------------------------------------------
@@ -1469,6 +1530,7 @@ def serve_quant_1b(dev, params, base_streams, base_stats, base_first):
     from repro_torch.kernels import build
     from repro_torch.serve import EngineConfig, Request, ServingEngine
     from repro_torch.serve.quant import QuantConfig, dequantize_params
+    from repro_torch.serve.scheduler import GENERATE
     from repro_torch.utils import tree_leaves
 
     cfg = with_mod_backend(get_config("mod-paper-1b"), "pallas")
@@ -1480,7 +1542,7 @@ def serve_quant_1b(dev, params, base_streams, base_stats, base_first):
                for i, n in enumerate(suffix)]
     n_full = sum(1 for grp in params["groups"] if "full" in grp)
     base_kv = base_stats["kv_bytes"]
-    counts, stats, prof_line, deq_line = {}, {}, "", ""
+    counts, stats, prof_line, deq_line, snaps = {}, {}, "", "", {}
     for name, kw, q in QUANT_1B:
         if "ragged" in kw:
             kw = dict(kw, ragged_segments=n_chunks)
@@ -1493,6 +1555,9 @@ def serve_quant_1b(dev, params, base_streams, base_stats, base_first):
         build.reset_counters()
         torch.cuda.synchronize()
         while eng.has_work:
+            if name in SNAP_RUNS and name not in snaps and all(
+                    s.state == GENERATE for s in eng.slots):
+                snaps[name] = snapshot_pool(eng)
             if name == "prefix int8/page" and 5 <= eng.step_count < 8 and not prof_line:
                 at, before = eng.step_count, build.launch_counts()
                 with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1596,7 +1661,10 @@ def serve_quant_1b(dev, params, base_streams, base_stats, base_first):
         else:
             by_shape[name] = {f"{label} B={B}": int(2 * n_full * s["decode_steps"]),
                               f"{label} B=1": int(2 * n_full * s["prefills"])}
-    return counts, by_shape
+    if set(snaps) != set(SNAP_RUNS[1:]):
+        raise AssertionError(f"1b quantized runs: no step found every slot generating in "
+                             f"{set(SNAP_RUNS[1:]) - set(snaps)}")
+    return counts, by_shape, snaps
 
 
 # ---------------------------------------------------------------------------
@@ -2191,6 +2259,366 @@ def serve_ssm(dev):
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the op entry point — ragged paged attention and SwiGLU
+# ---------------------------------------------------------------------------
+
+# 10c's SwiGLU rows: one prefill chunk of 4 x 256 rows and the training
+# forward's B·S = 4 x 2048, at mod-paper-1b's MLP (D 1792, F 7168)
+SWIGLU_M = (1024, 8192)
+# SwiGLU kernel against its plain version, and the plain version against
+# an f64 product rounded where JAX rounds (h to x's dtype, y once), as
+# fractions of the largest |y|: f32, both sum in their own order (2e-5,
+# JAX's tolerance for its kernel against ref at |y| ~ 1); bf16, a sum on
+# the other side of a rounding boundary moves an element of h by one bf16
+# ulp, and y rounds once: one output ulp, 2^-8, and the h flips it carries
+SWIGLU_TOL = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -7}
+# what 10c's library figure (swiglu_library) calls, by dtype
+SWIGLU_LIBRARY = {torch.bfloat16: "torch.mm x3 (cuBLAS, bf16 operands, out_dtype=float32) + silu",
+                  torch.float32: "torch.mm x3 (cuBLAS, f32) + silu"}
+# the pools of phases 6c and 7b whose layer 0 phase 10 reads, taken after
+# the prefills (every slot generating)
+SNAP_RUNS = ("paged+prefix", "prefix int8/page", "prefix fp8/head")
+
+
+def snapshot_pool(eng) -> dict:
+    """Clones of layer 0's K, V and position pages of a paged engine's pool
+    (the first three paged leaves), its page table, each slot's next
+    position, and on a quantized pool layer 0's scale columns, (N, p, G),
+    and the same expanded to the (N, p, nkv) the ragged op takes."""
+    pool = eng.pool
+    k, v, pos = (pool.pages[j].clone() for j in range(3))
+    snap = dict(k=k, v=v, pos=pos, table=pool.device_table(),
+                n=torch.tensor([s.pos for s in eng.slots], dtype=torch.int32, device=k.device),
+                cols=None, scales=None)
+    if pool.spec.qleaves:
+        views = pool.spec.scale_views(pool.scales)
+        snap["cols"] = tuple(views[j][0].clone() for j in (0, 1))
+        snap["scales"] = tuple(c.expand(-1, -1, k.shape[2]).contiguous() for c in snap["cols"])
+    return snap
+
+
+def _ragged_steps(snap, g, nq, dtype, tail=8):
+    """10a's two steps on a pool snapshot: a decode step (one row per slot
+    at its last written position, seg_cap 1) and a mixed step (the same
+    decode rows, then a 256-row prefill segment re-reading slot 0's last
+    256 positions, then a flat tail of ``tail`` invalid rows, seg_cap 256)."""
+    dev, hd = snap["k"].device, snap["k"].shape[3]
+    n = snap["n"]
+    B, C = n.shape[0], PAGED_1B["chunk"]
+    i32 = dict(dtype=torch.int32, device=dev)
+    dec = (n - 1).to(torch.int32)
+    pre = torch.arange(int(n[0]) - C, int(n[0]), **i32)
+    steps = {
+        "decode": dict(q_pos=dec, offs=torch.arange(B + 1, **i32),
+                       slot=torch.arange(B, **i32), cap=1),
+        "mixed": dict(q_pos=torch.cat([dec, pre, torch.full((tail,), -1, **i32)]),
+                      offs=torch.cat([torch.arange(B + 1, **i32), torch.tensor([B + C], **i32)]),
+                      slot=torch.cat([torch.arange(B, **i32), torch.zeros(1, **i32)]), cap=C,
+                      prefill=(B, B + C)),
+    }
+    for st in steps.values():
+        st["q"] = torch.randn(st["q_pos"].shape[0], nq, hd, generator=g, device=dev).to(dtype)
+    return steps
+
+
+def _ragged_args(snap, st, dtype):
+    """(positional args, keywords) of ragged_attention_op for one step; the
+    wide pool's pages cast to ``dtype`` (f32 copies for the f32 check)."""
+    k, v = snap["k"], snap["v"]
+    kw = dict(seg_cap=st["cap"])
+    if snap["scales"] is None:
+        k, v = k.to(dtype), v.to(dtype)
+    else:
+        kw.update(k_scales=snap["scales"][0], v_scales=snap["scales"][1])
+    return (st["q"].to(dtype), k, v, snap["pos"], snap["table"], st["offs"], st["slot"],
+            st["q_pos"]), kw
+
+
+def _gather_flash(snap, st, dtype):
+    """The port's decode path today on the same rows: each segment's slot
+    context materialized by the page gather (the dequantizing gather on a
+    quantized pool) and flash attention with kv_pos. Returns the decode
+    rows' output and, in the mixed step, the prefill rows'."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged as KP
+
+    N, p, nkv, hd = snap["k"].shape
+    table = snap["table"]
+    B, P = table.shape
+
+    def ctx(t):  # (B', P) tables -> K, V (B', P·p, nkv, hd), kv_pos (B', P·p)
+        if snap["cols"] is None:
+            kk, vv = (KP.paged_gather(x.view(N, p, -1).to(dtype), t)
+                      for x in (snap["k"], snap["v"]))
+        else:
+            kk, vv = (KP.paged_gather_dequant(x.view(N, p, -1), c, t, dtype)
+                      for x, c in zip((snap["k"], snap["v"]), snap["cols"]))
+        kp = KP.paged_gather(snap["pos"].view(N, p, 1), t)[..., 0]
+        return kk.view(t.shape[0], P * p, nkv, hd), vv.view(t.shape[0], P * p, nkv, hd), kp
+
+    q, qp = st["q"].to(dtype), st["q_pos"]
+    kk, vv, kp = ctx(table)
+    outs = [FA.flash_attention(q[:B, None], kk, vv, qp[:B, None], kp)[:, 0]]
+    if "prefill" in st:  # host ints: this runs inside a CUDA graph capture
+        lo, hi = st["prefill"]
+        kk, vv, kp = ctx(table[:1].contiguous())
+        outs.append(FA.flash_attention(q[None, lo:hi], kk, vv, qp[None, lo:hi], kp)[0])
+    return outs
+
+
+def _ragged_cost(snap, st, es, kv_es):
+    """(bytes, operations) the step needs: q and the output, each distinct
+    page of the segments' slots that holds a position (K and V rows, their
+    scales on a narrow pool, the positions) and the table rows; 4·hd·nq
+    operations per valid (query, key) pair."""
+    N, p, nkv, hd = snap["k"].shape
+    T, nq, _ = st["q"].shape
+    rows = snap["table"][st["slot"].long()].long()  # (n_seg, P)
+    kp = snap["pos"][rows].flatten(1)  # (n_seg, P·p)
+    pages = torch.unique(rows)
+    pages = pages[(snap["pos"][pages] >= 0).any(-1)]
+    row_b = 2 * nkv * (hd * kv_es + (4 if snap["scales"] is not None else 0)) + 4
+    nbytes = 2 * T * nq * hd * es + pages.numel() * p * row_b + rows.numel() * 4
+    pairs = 0
+    offs = st["offs"].tolist()
+    for s in range(len(offs) - 1):
+        qp = st["q_pos"][offs[s]:offs[s + 1]]
+        ok = (kp[s][None] >= 0) & (qp[:, None] >= 0) & (kp[s][None] <= qp[:, None])
+        pairs += int(ok.sum())
+    return nbytes, 4.0 * hd * nq * pairs
+
+
+def check_ragged_attention(snaps, cfg, dev, results):
+    """10a/10b: the kernel against its plain version (bf16 and f32 queries
+    on every pool) and its bf16 rows against the gather + flash path, on
+    phase 6c's and 7b's live pools; each timed by CUDA graph replay."""
+    from repro_torch.kernels import ragged as KRG
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    nq = cfg.attn.n_heads
+    for pool, snap in snaps.items():
+        steps = _ragged_steps(snap, g, nq, torch.bfloat16)
+        for step, st in steps.items():
+            for dtype in (torch.bfloat16, torch.float32):
+                args, kw = _ragged_args(snap, st, dtype)
+                out = KRG.ragged_paged_flash_attention(*args, **kw)
+                want = KRG.ragged_paged_flash_attention_plain(*args, **kw)
+                torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+                if out[int(st["offs"][-1]):].any():
+                    raise AssertionError(f"ragged attention {pool} {step}: flat tail not zero")
+                err = (out.float() - want.float()).abs().max().item()
+                nbytes, flops = _ragged_cost(snap, st, args[0].element_size(),
+                                             args[1].element_size())
+                r = dict(ms=graph_ms(lambda: KRG.ragged_paged_flash_attention(*args, **kw)),
+                         plain_ms=graph_ms(
+                             lambda: KRG.ragged_paged_flash_attention_plain(*args, **kw), reps=5),
+                         library_ms=None, bound=bound_ms(nbytes, flops, dtype), max_abs_err=err,
+                         shape=f"{pool} {step} T={args[0].shape[0]} n_seg={st['slot'].numel()} "
+                               f"seg_cap={st['cap']} {nq}x{args[0].shape[2]} "
+                               f"{str(dtype)[6:]}")
+                extra = ""
+                if dtype == torch.bfloat16:
+                    B = snap["n"].shape[0]
+                    ref = _gather_flash(snap, st, dtype)
+                    got = [out[:B]] + ([out[slice(*st["prefill"])]] if "prefill" in st else [])
+                    for a, b in zip(got, ref):
+                        torch.testing.assert_close(a.float(), b.float(), **TOL[dtype])
+                    r["yardstick_err"] = max((a.float() - b.float()).abs().max().item()
+                                             for a, b in zip(got, ref))
+                    r["yardstick_ms"] = graph_ms(lambda: _gather_flash(snap, st, dtype))
+                    extra = (f" gather+flash_ms={r['yardstick_ms']:.4f} (not one call; its rows "
+                             f"within {r['yardstick_err']:.3g})")
+                if (pool, step, dtype) == ("bf16", "decode", torch.bfloat16):
+                    profiler_diagnostic(f"ragged attention {r['shape']}",
+                                        lambda: KRG.ragged_paged_flash_attention(*args, **kw),
+                                        r["ms"])
+                log(f"[ragged-attn] {r['shape']:58s} max_abs_err={err:.3g} ms={r['ms']:.4f} "
+                    f"plain_ms={r['plain_ms']:.4f}{extra} bound_ms={r['bound'][0]:.4f} "
+                    f"({r['bound'][1]}) (CUDA graph replay)")
+                results.setdefault("ragged_paged_flash_attention", {})[
+                    (pool, step, dtype)] = r
+
+
+# 10d's (causal, window) modes
+RAGGED_EDGE_MODES = ((True, 0), (True, 7), (False, 0))
+
+
+def ragged_edge_case(dev, dtype, narrow, seed, nq=8, nkv=2, hd=64, p=16, P=4, cap=24):
+    """10d's inputs: GQA 8:2, an empty segment, query rows at position -1,
+    a segment of exactly seg_cap rows and one longer (its rows past seg_cap
+    take row seg_cap-1's output), a flat tail, shuffled and shared pages;
+    ``narrow`` (int8 or e4m3) pages with pow2 scales, else ``dtype`` ones.
+    Returns (positional args, keywords) of ragged_paged_flash_attention."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lens = (5, 0, 1, cap, 9, cap + 3)
+    B = len(lens)
+    N = 2 + B * P
+    i32 = dict(dtype=torch.int32, device=dev)
+    table = (2 + torch.randperm(B * P, generator=g, device=dev)).view(B, P).to(torch.int32)
+    table[1, 0] = table[0, 0]
+    pos = torch.full((N, p), -1, **i32)
+    offs, q_pos = [0], []
+    for s, L in enumerate(lens):
+        n = int(torch.randint(max(L, 1) + p, P * p + 1, (1,), generator=g, device=dev))
+        ids = torch.arange(n, **i32)[p if s == 1 else 0:]  # slot 1 shares slot 0's page 0
+        pos[table[s, ids // p].long(), (ids % p).long()] = ids
+        q_pos.append(torch.arange(n - L, n, **i32))
+        offs.append(offs[-1] + L)
+    q_pos = torch.cat(q_pos + [torch.full((6,), -1, **i32)])
+    q_pos[[1, 7]] = -1
+    q = torch.randn(q_pos.shape[0], nq, hd, generator=g, device=dev).to(dtype)
+    kv = [torch.randn(N, p, nkv, hd, generator=g, device=dev) for _ in range(2)]
+    kw = dict(seg_cap=cap)
+    if narrow is None:
+        kv = [t.to(dtype) for t in kv]
+    else:
+        qmax = 127.0 if narrow == torch.int8 else 448.0
+        kv = [(t * qmax / 3).clamp(-qmax, qmax).round().to(narrow) for t in kv]
+        for name in ("k_scales", "v_scales"):
+            kw[name] = 2.0 ** torch.randint(-9, -5, (N, p, nkv), generator=g, device=dev).float()
+    return (q, *kv, pos, table, torch.tensor(offs, **i32), torch.arange(B, **i32), q_pos), kw
+
+
+def check_ragged_edge_case(dev, dtype, narrow, causal, window, seed=31):
+    """One 10d case: one launch, within TOL of the plain version (their
+    sums and p rounding differ in order), the flat tail and the rows at
+    position -1 exactly 0."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import ragged as KRG
+
+    args, kw = ragged_edge_case(dev, dtype, narrow, seed)
+    before = build.launch_counts()["ragged_paged_flash_attention"]
+    out = KRG.ragged_paged_flash_attention(*args, causal=causal, window=window, **kw)
+    if build.launch_counts()["ragged_paged_flash_attention"] != before + 1:
+        raise AssertionError("ragged attention: the wrapper did not launch its kernel once")
+    want = KRG.ragged_paged_flash_attention_plain(*args, causal=causal, window=window, **kw)
+    torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+    if out[int(args[5][-1]):].any() or out[[1, 7]].any():
+        raise AssertionError("ragged attention: a tail or position -1 row is not 0")
+
+
+def check_ragged_small(dev):
+    """10d: every edge case, f32 and bf16 queries on wide, int8 and e4m3
+    pages, in each of RAGGED_EDGE_MODES."""
+    cases = [(dtype, narrow, *mode) for dtype in (torch.float32, torch.bfloat16)
+             for narrow in (None, torch.int8, torch.float8_e4m3fn) for mode in RAGGED_EDGE_MODES]
+    for case in cases:
+        check_ragged_edge_case(dev, *case)
+    log(f"[ragged-attn] small shapes: {len(cases)} cases (GQA 8:2, hd 64, page 16, empty "
+        f"segment, rows at -1, a segment of seg_cap rows and one longer, shared pages, flat "
+        f"tail; f32/bf16 wide, int8/e4m3 narrow; causal, window 7, non-causal) within TOL of "
+        f"the plain version")
+
+
+def swiglu_library(x, w_gate, w_up, w_down):
+    """SwiGLU from one cuBLAS call per product, at the kernel's rounding
+    points: bf16 operands summed in f32 (torch.mm's ``out_dtype``), h
+    rounded to x's dtype, y cast once; f32 operands by torch.mm in f32."""
+    if x.dtype == torch.bfloat16:
+        def mm(a, b):
+            return torch.mm(a, b, out_dtype=torch.float32)
+    else:
+        mm = torch.mm
+    h = (torch.nn.functional.silu(mm(x, w_gate)) * mm(x, w_up)).to(x.dtype)
+    return mm(h, w_down).to(x.dtype)
+
+
+def check_swiglu(mlp, dev, results):
+    """10c: SwiGLU at mod-paper-1b's MLP (layer 0's weights), M = 1024 and
+    8192, bf16 and f32, and an odd small shape: the kernel against its
+    plain version, the plain version against an f64 product rounded at
+    JAX's points, and the library computation against the plain version;
+    times of the three (CUDA graph replay) and the bound."""
+    from repro_torch.kernels import swiglu as SW
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    D, F = mlp["w_gate"].shape
+    cases = [(M, D, F, dt) for M in SWIGLU_M for dt in (torch.bfloat16, torch.float32)]
+    # odd shapes: the tensor-core path (bf16, D and F multiples of 8) and
+    # the CUDA-core one (f32, or a D and F that are not)
+    cases += [(37, 40, 72, dt) for dt in (torch.float32, torch.bfloat16)]
+    cases += [(33, 44, 70, dt) for dt in (torch.float32, torch.bfloat16)]
+    for M, D_, F_, dtype in cases:
+        if D_ == D:
+            w = [mlp[k].to(dtype) for k in ("w_gate", "w_up", "w_down")]
+        else:
+            w = [(torch.randn(a, b, generator=g, device=dev) / a ** 0.5).to(dtype)
+                 for a, b in ((D_, F_), (D_, F_), (F_, D_))]
+        x = torch.randn(M, D_, generator=g, device=dev).to(dtype)
+        out = SW.swiglu(x, *w)
+        want = SW.swiglu_plain(x, *w)
+        scale = want.float().abs().max().item()
+        err = (out.float() - want.float()).abs().max().item()
+        if not err <= SWIGLU_TOL[dtype] * scale:
+            raise AssertionError(f"swiglu M={M} {dtype}: kernel differs from its plain version by "
+                                 f"{err:.3g} (max |y| {scale:.3g})")
+        # JAX's rounding points in f64: h = x-dtype(silu(g)·u), y = x-dtype(h @ Wd)
+        xd, wd = x.double(), [t.double() for t in w]
+        h = (torch.nn.functional.silu(xd @ wd[0]) * (xd @ wd[1])).to(dtype)
+        ref = (h.double() @ wd[2]).to(dtype)
+        err_ref = (want.float() - ref.float()).abs().max().item()
+        if not err_ref <= SWIGLU_TOL[dtype] * scale:
+            raise AssertionError(f"swiglu M={M} {dtype}: plain version {err_ref:.3g} from the f64 "
+                                 f"product at JAX's rounding points")
+        if M < 1024:
+            log(f"[swiglu] M={M} D={D_} F={F_} {str(dtype)[6:]}: kernel within {err:.3g} of the "
+                f"plain version, which is within {err_ref:.3g} of JAX's rounding points in f64")
+            continue
+        lib = swiglu_library(x, *w)
+        err_lib = (lib.float() - want.float()).abs().max().item()
+        if not err_lib <= SWIGLU_TOL[dtype] * scale:
+            raise AssertionError(f"swiglu M={M} {dtype}: the library computation is {err_lib:.3g} "
+                                 f"from the plain version")
+        es = x.element_size()
+        r = dict(ms=graph_ms(lambda: SW.swiglu(x, *w), reps=5, iters=2),
+                 plain_ms=graph_ms(lambda: SW.swiglu_plain(x, *w), reps=5, iters=2),
+                 library_ms=graph_ms(lambda: swiglu_library(x, *w), reps=5, iters=2),
+                 bound=bound_ms((2 * M * D_ + 3 * D_ * F_) * es, 6.0 * M * D_ * F_, dtype),
+                 max_abs_err=err, shape=f"M={M} D={D_} F={F_} {str(dtype)[6:]}")
+        r["tflops"] = 6.0 * M * D_ * F_ / r["ms"] / 1e9
+        if (M, dtype) == (max(SWIGLU_M), torch.bfloat16):
+            profiler_diagnostic(f"swiglu {r['shape']}", lambda: SW.swiglu(x, *w), r["ms"])
+        log(f"[swiglu] {r['shape']:32s} max_abs_err={err:.3g} (max |y| {scale:.3g}; plain vs "
+            f"JAX's rounding points {err_ref:.3g}, library vs plain {err_lib:.3g}) "
+            f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} (torch.matmul x3 in f32 + silu) "
+            f"library_ms={r['library_ms']:.4f} ({SWIGLU_LIBRARY[dtype]}) "
+            f"bound_ms={r['bound'][0]:.4f} ({r['bound'][1]}) achieved {r['tflops']:.2f} TFLOP/s "
+            f"(CUDA graph replay)")
+        results.setdefault("swiglu", {})[(M, dtype)] = r
+
+
+def ops_path(snaps, mlp, cfg, dev):
+    """Phase 10's counted run: the op entry point (repro_torch.kernels.ops)
+    as a user calls it, bf16: ragged_attention_op for the decode and the
+    mixed step on each of the three live pools, swiglu_op at M = 1024 and
+    8192. Counters are set to 0 just before and read just after."""
+    from repro_torch.kernels import build, ops
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    calls = []
+    for pool, snap in snaps.items():
+        for step, st in _ragged_steps(snap, g, cfg.attn.n_heads, torch.bfloat16).items():
+            calls.append((ops.ragged_attention_op, *_ragged_args(snap, st, torch.bfloat16)))
+    w = [mlp[k] for k in ("w_gate", "w_up", "w_down")]
+    for M in SWIGLU_M:
+        x = torch.randn(M, w[0].shape[0], generator=g, device=dev).to(torch.bfloat16)
+        calls.append((ops.swiglu_op, (x, *w), {}))
+    torch.cuda.synchronize()
+    build.reset_counters()
+    outs = [fn(*args, **kw) for fn, args, kw in calls]
+    torch.cuda.synchronize()
+    counts = build.launch_counts()
+    if not all(torch.isfinite(o).all() for o in outs):
+        raise AssertionError("the op entry point returned non-finite values")
+    want = {"ragged_paged_flash_attention": 2 * len(snaps), "swiglu": len(SWIGLU_M)}
+    if {k: v for k, v in counts.items() if v} != want:
+        raise AssertionError(f"phase 10's ops launched {counts}, want {want}")
+    log(f"[ops] {len(calls)} op calls through repro_torch.kernels.ops: launches "
+        f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing to run", file=sys.stderr)
@@ -2237,12 +2665,18 @@ def main() -> int:
     from repro_torch.models import api
 
     params = api.init_model(with_mod_backend(cfg1b, "pallas"), device=dev, seed=0)
-    paged_counts, paged_shapes, base_streams, base_stats, base_first = timed(
+    paged_counts, paged_shapes, base_streams, base_stats, base_first, snap = timed(
         "phase 6c paged serve", serve_paged_1b, dev, params)
-    quant_counts, quant_shapes = timed("phase 7b quantized serve", serve_quant_1b, dev, params,
-                                       base_streams, base_stats, base_first)
+    quant_counts, quant_shapes, snaps = timed("phase 7b quantized serve", serve_quant_1b, dev,
+                                              params, base_streams, base_stats, base_first)
+    snaps = {"bf16": snap, "int8/page": snaps["prefix int8/page"],
+             "fp8/head": snaps["prefix fp8/head"]}
     ragged_counts = timed("phase 8b flat forward", forward_ragged_1b, dev, params)
-    del params
+    mlp = {k: v.clone() for k, v in params["groups"][0]["full"]["mlp"].items()}
+    ops_counts = timed("phase 10 ops path", ops_path, snaps, mlp, cfg1b, dev)
+    timed("phase 10 kernels", lambda: (check_ragged_attention(snaps, cfg1b, dev, results),
+                                       check_ragged_small(dev), check_swiglu(mlp, dev, results)))
+    del params, snaps, mlp
     torch.cuda.empty_cache()
     timed("phase 9a ssd kernel", check_ssd, dev, results)
     timed("phase 9b ssm parity", ssm_parity, dev)
@@ -2290,6 +2724,27 @@ def main() -> int:
              plain_ms=r["plain_ms"], library_ms=None, bound_ms=r["bound"][0])
         for key, r in results["ssd_intra_chunk"].items()]
     picks["ssd_intra_chunk"] = results["ssd_intra_chunk"][("train full", torch.bfloat16)]
+    # the op entry point's kernels: every shape of 10a-c, launched once each
+    # by phase 10's counted run in bf16 (f32 shapes are checks only); the
+    # line's numbers are the costliest counted shape's
+    ra = results["ragged_paged_flash_attention"]
+    shapes["ragged_paged_flash_attention"] = [
+        dict(shape=r["shape"], launches=int(key[2] == torch.bfloat16), ms=r["ms"],
+             plain_ms=r["plain_ms"], library_ms=None, bound_ms=r["bound"][0],
+             yardstick_ms=r.get("yardstick_ms")) for key, r in ra.items()]
+    picks["ragged_paged_flash_attention"] = max(
+        (r for key, r in ra.items() if key[2] == torch.bfloat16), key=lambda r: r["ms"])
+    sw = results["swiglu"]
+    shapes["swiglu"] = [dict(shape=r["shape"], launches=int(key[1] == torch.bfloat16),
+                             ms=r["ms"], plain_ms=r["plain_ms"], library_ms=r["library_ms"],
+                             bound_ms=r["bound"][0]) for key, r in sw.items()]
+    picks["swiglu"] = sw[(max(SWIGLU_M), torch.bfloat16)]
+    model_runs = {"serve": serve_counts, "train": train_counts, **paged_counts, **quant_counts,
+                  "forward_ragged": ragged_counts, "train_ssm": ssm_train_counts,
+                  "serve_ssm": ssm_serve_counts}
+    for run, c in model_runs.items():
+        if any(c.get(k, 0) for k in OPS_KERNELS):
+            raise AssertionError(f"{run} launched an op-entry-point kernel: {c}")
     for name in RAGGED_KERNELS:  # phase 8b's unequal-segment forward
         shapes[name] = [dict(shape=r["shape"], launches=ragged_counts[name] if key == "unequal"
                              else 0, ms=r["ms"], plain_ms=r["plain_ms"],
@@ -2313,19 +2768,25 @@ def main() -> int:
                    "serve_quant_prefix_int8_weights":
                        quant_counts["prefix int8/page + int8 weights"],
                    "forward_ragged": ragged_counts,
-                   "train_ssm": ssm_train_counts, "serve_ssm": ssm_serve_counts}
+                   "train_ssm": ssm_train_counts, "serve_ssm": ssm_serve_counts,
+                   "ops": ops_counts}
         path = {"routed_attention": "train", "routed_mlp_scatter": "train",
                 "paged_gather": "serve_paged", "paged_scatter_rows": "serve_paged",
                 "ragged_paged_scatter_rows": "serve_ragged",
                 "paged_gather_dequant": "serve_quant_prefix_int8_page",
                 "ragged_gather_rows": "forward_ragged",
                 "ragged_scatter_add_rows": "forward_ragged",
-                "ssd_intra_chunk": "train_ssm"}.get(name, "serve")
+                "ssd_intra_chunk": "train_ssm",
+                "ragged_paged_flash_attention": "ops", "swiglu": "ops"}.get(name, "serve")
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": by_path[path][name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"], "shape": r["shape"],
+            **({"yardstick_ms": r["yardstick_ms"], "yardstick": "paged_gather x3 + "
+                "flash_attention (the port's decode path; not one call)"}
+               if "yardstick_ms" in r else {}),
+            **({"library": SWIGLU_LIBRARY[torch.bfloat16]} if name == "swiglu" else {}),
             "launches_by_path": {k: v.get(name, 0) for k, v in by_path.items()},
             **({"shapes": shapes[name]} if name in shapes else {}),
         })

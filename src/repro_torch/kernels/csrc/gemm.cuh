@@ -1,8 +1,8 @@
 // Building blocks shared by the fused routed-block kernels
-// (routed_attention.cu, routed_mlp.cu): a tiled GEMM with fused epilogues,
-// an RMSNorm over rows (optionally gathered by index), and the rounding and
-// activation helpers that put the working-type roundings where the JAX
-// mirrors put them.
+// (routed_attention.cu, routed_mlp.cu) and the SwiGLU MLP (swiglu.cu): a
+// tiled GEMM with fused epilogues, an RMSNorm over rows (optionally
+// gathered by index), and the rounding and activation helpers that put the
+// working-type roundings where the JAX mirrors put them.
 //
 // GEMM: C[M, N] = A[M, K] @ B[K, N], A and B row-major in the working type
 // T (f32 or bf16), the sum in f32 on CUDA cores. A block of 256 threads
@@ -115,6 +115,178 @@ cudaError_t gemm(const T* A, const T* B0, const T* B1, int M, int N, int K, Epi 
 }
 
 // ---------------------------------------------------------------------------
+// The same GEMM for bf16 on tensor cores (used by swiglu.cu): C = A @ B (and
+// A @ B1) with A (M, K) and B (K, N) row-major bf16, K and N multiples of 8,
+// both bases 16-byte aligned; the sums are f32 (mma.sync m16n8k16, bf16
+// products exact in f32). A block of 8 warps owns a 128 x 128 tile of C and
+// walks K in steps of 32 through a 3-stage cp.async ring in shared memory
+// (rows padded by 16 bytes so ldmatrix reads hit 32 distinct banks); each
+// warp owns 64 x 32 of the tile, 4 x 4 mma tiles (twice with two B
+// matrices). Out-of-range rows and columns load as zeros and are not
+// stored. Same epilogue interface as gemm_kernel. No wgmma or TMA: that is
+// later work.
+// ---------------------------------------------------------------------------
+
+constexpr int TC_BM = 128, TC_BN = 128, TC_BK = 32, TC_STAGES = 3, TC_THREADS = 256;
+constexpr int TC_ALD = TC_BK + 8;  // shared row strides, in elements
+constexpr int TC_BLD = TC_BN + 8;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zeros when !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d += a (16 x 16, row) @ b (16 x 8, col), f32 accumulators
+__device__ __forceinline__ void mma_bf16_16816(float* d, const unsigned* a, const unsigned* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+template <int NB>
+constexpr size_t tc_smem_bytes() {
+  return (size_t)TC_STAGES * (TC_BM * TC_ALD + NB * TC_BK * TC_BLD) * sizeof(__nv_bfloat16);
+}
+
+template <int NB, class Epi>
+__global__ void __launch_bounds__(TC_THREADS)
+gemm_bf16_tc_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ B0,
+                    const __nv_bfloat16* __restrict__ B1, int M, int N, int K, Epi epi) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(tc_smem);  // [stage][BM][ALD]
+  __nv_bfloat16* sB = sA + TC_STAGES * TC_BM * TC_ALD;             // [stage][NB][BK][BLD]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps of 64 x 32
+  const int m0 = blockIdx.y * TC_BM, n0 = blockIdx.x * TC_BN;
+  const int ktiles = (K + TC_BK - 1) / TC_BK;
+
+  auto load = [&](int stage, int kt) {
+    const int k0 = kt * TC_BK;
+    __nv_bfloat16* a = sA + stage * TC_BM * TC_ALD;
+    for (int c = tid; c < TC_BM * TC_BK / 8; c += TC_THREADS) {
+      const int r = c / (TC_BK / 8), kc = (c % (TC_BK / 8)) * 8;
+      const bool ok = m0 + r < M && k0 + kc < K;  // K % 8 == 0: a chunk is all in or all out
+      cp_async16(a + r * TC_ALD + kc, ok ? A + (long long)(m0 + r) * K + k0 + kc : A, ok);
+    }
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      const __nv_bfloat16* Bg = b == 0 ? B0 : B1;
+      __nv_bfloat16* bs = sB + (stage * NB + b) * TC_BK * TC_BLD;
+      for (int c = tid; c < TC_BK * TC_BN / 8; c += TC_THREADS) {
+        const int r = c / (TC_BN / 8), nc = (c % (TC_BN / 8)) * 8;
+        const bool ok = k0 + r < K && n0 + nc < N;
+        cp_async16(bs + r * TC_BLD + nc, ok ? Bg + (long long)(k0 + r) * N + n0 + nc : Bg, ok);
+      }
+    }
+  };
+
+  float acc[NB][4][4][4];
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[b][i][j][e] = 0.f;
+
+#pragma unroll
+  for (int st = 0; st < TC_STAGES - 1; ++st) {
+    if (st < ktiles) load(st, st);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait<TC_STAGES - 2>();  // tile kt has landed
+    __syncthreads();                 // and every warp is done with tile kt - 1
+    if (kt + TC_STAGES - 1 < ktiles) load((kt + TC_STAGES - 1) % TC_STAGES, kt + TC_STAGES - 1);
+    cp_async_commit();
+    const int stage = kt % TC_STAGES;
+    const __nv_bfloat16* a = sA + stage * TC_BM * TC_ALD;
+#pragma unroll
+    for (int kk = 0; kk < TC_BK; kk += 16) {
+      unsigned af[4][4];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+        ldmatrix_x4(af[mt], a + (wm * 64 + mt * 16 + (lane & 15)) * TC_ALD + kk + (lane >> 4) * 8);
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        const __nv_bfloat16* bs = sB + (stage * NB + b) * TC_BK * TC_BLD;
+        unsigned bf[4][2];
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {  // two n8 tiles per ldmatrix
+          unsigned t[4];
+          ldmatrix_x4_trans(t, bs + (kk + (lane & 15)) * TC_BLD + wn * 32 + np * 16 +
+                                   (lane >> 4) * 8);
+          bf[2 * np][0] = t[0];
+          bf[2 * np][1] = t[1];
+          bf[2 * np + 1][0] = t[2];
+          bf[2 * np + 1][1] = t[3];
+        }
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) mma_bf16_16816(acc[b][mt][nt], af[mt], bf[nt]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = m0 + wm * 64 + mt * 16 + (lane >> 2) + (e >> 1) * 8;
+        const int c = n0 + wn * 32 + nt * 8 + (lane & 3) * 2 + (e & 1);
+        if (r < M && c < N) epi(r, c, acc[0][mt][nt][e], acc[NB - 1][mt][nt][e]);
+      }
+}
+
+// whether gemm_bf16_tc takes these operands
+inline bool tc_ok(const void* A, const void* B0, const void* B1, int N, int K) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(A) | reinterpret_cast<uintptr_t>(B0) |
+                      reinterpret_cast<uintptr_t>(B1);
+  return N % 8 == 0 && K % 8 == 0 && a % 16 == 0;
+}
+
+template <int NB, class Epi>
+cudaError_t gemm_bf16_tc(const __nv_bfloat16* A, const __nv_bfloat16* B0,
+                         const __nv_bfloat16* B1, int M, int N, int K, Epi epi, cudaStream_t st) {
+  const cudaError_t err = cudaFuncSetAttribute(gemm_bf16_tc_kernel<NB, Epi>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)tc_smem_bytes<NB>());
+  if (err != cudaSuccess) return err;
+  dim3 grid((N + TC_BN - 1) / TC_BN, (M + TC_BM - 1) / TC_BM);
+  gemm_bf16_tc_kernel<NB, Epi><<<grid, TC_THREADS, tc_smem_bytes<NB>(), st>>>(A, B0, B1, M, N,
+                                                                               K, epi);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // Epilogues: called once per output element with the f32 sum(s)
 // ---------------------------------------------------------------------------
 
@@ -157,6 +329,18 @@ struct EpiGlu {
     const float g = rnd<T>(vg), u = rnd<T>(vu);
     const float a = rnd<T>(act_fn(g, act));
     C[(long long)r * ldc + c] = from_f32<T>(__fmul_rn(a, u));
+  }
+};
+
+// SwiGLU hidden of the unrouted MLP kernel (swiglu.cu): C = T(silu(g) * u)
+// from the f32 sums g = x @ w_gate, u = x @ w_up, rounded once (the Pallas
+// _swiglu_kernel's h, unlike the routed mirror's EpiGlu)
+template <typename T>
+struct EpiSwiglu {
+  T* C;
+  int ldc;
+  __device__ __forceinline__ void operator()(int r, int c, float vg, float vu) const {
+    C[(long long)r * ldc + c] = from_f32<T>(__fmul_rn(act_fn(vg, 0), vu));
   }
 };
 

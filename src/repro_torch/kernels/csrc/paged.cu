@@ -38,9 +38,8 @@
 // Widening int8 and e4m3 to f32 is exact; the multiply by a power-of-two
 // scale is exact unless it leaves the normal range, and is the same IEEE
 // product as the plain version's.
-#include <cuda_fp8.h>
-
 #include "common.cuh"
+#include "narrow.cuh"
 
 REPRO_ERROR_STRING
 
@@ -106,20 +105,6 @@ __global__ void ragged_paged_scatter_rows_kernel(char* __restrict__ pages,
   const int o = clampi(off[w], 0, p - 1);
   block_copy(rows + (long long)w * row_bytes,
              pages + ((long long)pg * p + o) * row_bytes, row_bytes);
-}
-
-// narrow byte -> f32, exact for both types
-template <typename Q>
-__device__ __forceinline__ float widen(unsigned char byte);
-template <>
-__device__ __forceinline__ float widen<int8_t>(unsigned char byte) {
-  return static_cast<float>(static_cast<signed char>(byte));
-}
-template <>
-__device__ __forceinline__ float widen<__nv_fp8_e4m3>(unsigned char byte) {
-  __nv_fp8_e4m3 q;
-  q.__x = byte;
-  return static_cast<float>(q);
 }
 
 // 16 f32 values to 16 consecutive outputs (16-byte aligned)

@@ -1,12 +1,15 @@
 """Ragged flat-token kernels: the MoD dispatch of the flat-token forward,
-and the paged write-back of the mixed prefill+decode step.
+the paged write-back of the mixed prefill+decode step, and flash attention
+of a flat query stream over the paged pool.
 
 Port of ``repro/kernels/ragged.py`` (``flat_segment_ids``,
 ``ragged_gather_rows``, ``ragged_scatter_add_rows``,
-``ragged_page_targets``, ``ragged_paged_scatter_rows_pallas``) and of the
-matching wrappers in ``repro/kernels/ops.py``. The flat-query paged
-attention of that module (``ragged_paged_flash_attention``) is not on any
-path of the JAX package's engine or models and is not ported yet.
+``ragged_page_targets``, ``ragged_paged_scatter_rows_pallas``,
+``ragged_paged_flash_attention``) and of the matching wrappers in
+``repro/kernels/ops.py``. The flat-query paged attention is on no path of
+the JAX package's engine or models (their steps gather each slot's context
+and run flash attention on it); the port, like JAX, reaches it through its
+op entry point (:mod:`repro_torch.kernels.ops`).
 
 **MoD dispatch over a flat stream** (``model_forward_ragged``): segments of
 several requests are packed on one ``(T, D)`` stream and each selects its
@@ -37,18 +40,33 @@ are garbage by contract). The quantizing form of
 :func:`ragged_paged_scatter_rows_op` quantizes the rows first and writes
 the narrow rows and their scales with the same kernel.
 
+**Ragged paged flash attention** (:func:`ragged_paged_flash_attention`):
+segment ``s`` owns flat rows ``[row_offsets[s], row_offsets[s+1])`` of the
+query stream ``q`` (T, nq, hd) and reads the K/V of slot ``seg_slot[s]``
+straight from the pages ``(N, p, nkv, hd)`` through its row of the page
+table: no per-slot context is materialized. Masks, GQA, the softmax guards
+and the rounding are the Pallas kernel's (``csrc/ragged_attention.cu``
+says them in full): wide pages round ``p`` to their dtype before ``p@V``;
+int8 / e4m3 pages with ``(N, p, nkv)`` f32 scales are widened and keep
+``p`` in f32; a row with no valid key, and every row outside
+``[row_offsets[0], row_offsets[-1])``, is 0. The CUDA kernel runs for CUDA
+tensors, the plain version (a dense masked softmax per segment) for CPU
+tensors; they agree up to f32 summation order and, in bf16, the rounding
+of ``p`` against another running maximum.
+
 None of these has autograd (the JAX kernels have no VJP): a tensor that
 requires grad raises.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.paged import (
+    NARROW,
     quant_fold,
     canon_pages,
     canon_rows,
@@ -56,6 +74,7 @@ from repro_torch.kernels.paged import (
     check_no_grad,
 )
 
+RAGGED_PAGED_FLASH_ATTENTION = build.counter("ragged_paged_flash_attention")
 RAGGED_PAGED_SCATTER_ROWS = build.counter("ragged_paged_scatter_rows")
 RAGGED_GATHER_ROWS = build.counter("ragged_gather_rows")
 RAGGED_SCATTER_ADD_ROWS = build.counter("ragged_scatter_add_rows")
@@ -64,6 +83,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
+NEG_INF = -1e30  # the Pallas kernel's masked score
+_KV_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.float8_e4m3fn: 3}
+_ATTN_HEAD_DIMS = (32, 64, 128, 256)
+_ATTN_ARGTYPES = (_P,) * 11 + (_I,) * 12 + (_F, _I, _I, _P)
 
 
 # ---------------------------------------------------------------------------
@@ -243,3 +267,168 @@ def ragged_paged_scatter_rows_op(pages, pid: torch.Tensor, off: torch.Tensor, ro
     for pg, q in zip(pages, qrows):
         ragged_paged_scatter_rows(canon_pages(pg), pid, off, q.contiguous())
     return pages
+
+
+# ---------------------------------------------------------------------------
+# ragged paged flash attention
+# ---------------------------------------------------------------------------
+
+
+def _check_attention(q, k_pages, v_pages, pos_pages, table, row_offsets, seg_slot, q_pos,
+                     seg_cap, k_scales, v_scales) -> None:
+    if q.dim() != 3 or k_pages.dim() != 4:
+        raise ValueError(f"want q (T,nq,hd) and k_pages (N,p,nkv,hd); got {tuple(q.shape)}, "
+                         f"{tuple(k_pages.shape)}")
+    T, nq, hd = q.shape
+    N, p, nkv, _ = k_pages.shape
+    if k_pages.shape[3] != hd or v_pages.shape != k_pages.shape:
+        raise ValueError(f"k_pages and v_pages must be {(N, p, nkv, hd)}, got "
+                         f"{tuple(k_pages.shape)}, {tuple(v_pages.shape)}")
+    if nkv == 0 or nq % nkv:
+        raise ValueError(f"n_heads {nq} is not a multiple of n_kv_heads {nkv}")
+    if pos_pages.shape != (N, p) or table.dim() != 2 or row_offsets.dim() != 1 \
+            or seg_slot.shape != (row_offsets.shape[0] - 1,) or q_pos.shape != (T,):
+        raise ValueError(f"want pos_pages {(N, p)}, table (B,P), row_offsets (n_seg+1,), "
+                         f"seg_slot (n_seg,), q_pos {(T,)}; got {tuple(pos_pages.shape)}, "
+                         f"{tuple(table.shape)}, {tuple(row_offsets.shape)}, "
+                         f"{tuple(seg_slot.shape)}, {tuple(q_pos.shape)}")
+    for name, t in (("pos_pages", pos_pages), ("table", table), ("row_offsets", row_offsets),
+                    ("seg_slot", seg_slot), ("q_pos", q_pos)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+    if seg_cap < 1:
+        raise ValueError(f"seg_cap must be >= 1, got {seg_cap}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("pass both k_scales and v_scales, or neither")
+    if k_scales is None:
+        if not k_pages.dtype == v_pages.dtype == q.dtype:
+            raise TypeError(f"wide pages must be q's dtype {q.dtype}, got {k_pages.dtype}, "
+                            f"{v_pages.dtype}")
+    else:
+        if k_pages.dtype not in NARROW or v_pages.dtype != k_pages.dtype:
+            raise TypeError(f"pages with scales must be int8 or float8_e4m3fn, got "
+                            f"{k_pages.dtype}, {v_pages.dtype}")
+        for name, t in (("k_scales", k_scales), ("v_scales", v_scales)):
+            if t.shape != (N, p, nkv) or t.dtype != torch.float32:
+                raise ValueError(f"{name} must be {(N, p, nkv)} float32, got {tuple(t.shape)} "
+                                 f"{t.dtype}")
+
+
+def ragged_paged_flash_attention_plain(q, k_pages, v_pages, pos_pages, table, row_offsets,
+                                       seg_slot, q_pos, *, seg_cap, causal=True, window=0,
+                                       scale=None, k_scales=None, v_scales=None):
+    """Plain version: each segment's ``seg_cap`` rows of the stream (the
+    Pallas kernel's slice of the zero-padded stream) against its slot's
+    whole context gathered through the table, one dense masked softmax
+    with the kernel's guards, then every row takes its segment's row (the
+    JAX wrapper's clipped gather) and rows outside the segments are 0."""
+    T, nq, hd = q.shape
+    N, p, nkv, _ = k_pages.shape
+    B, P = table.shape
+    n_seg, C, dev = seg_slot.shape[0], int(seg_cap), q.device
+    scale = float(scale if scale is not None else 1.0 / hd ** 0.5)
+    out = torch.zeros_like(q)
+    if n_seg == 0 or T == 0:
+        return out
+    offs = row_offsets.long().clamp(0, T)
+    start, seg_len = offs[:-1], offs[1:] - offs[:-1]
+    q_f = torch.cat([q.float(), q.new_zeros((C, nq, hd), dtype=torch.float32)])
+    qp_f = torch.cat([q_pos, q_pos.new_full((C,), -1)])
+    rows = start[:, None] + torch.arange(C, device=dev)  # (n_seg, C)
+    qs, qp = q_f[rows], qp_f[rows]  # (n_seg, C, nq, hd), (n_seg, C)
+    in_seg = torch.arange(C, device=dev)[None] < seg_len[:, None]
+    pid = table.long().clamp(0, N - 1)[seg_slot.long().clamp(0, B - 1)]  # (n_seg, P)
+    heads = torch.arange(nq, device=dev) * nkv // nq  # the kv head of each query head
+
+    def context(pages, scales):  # (n_seg, P*p, nq, hd) f32, and the dtype p rounds to
+        kv = pages[pid].reshape(n_seg, P * p, nkv, hd).float()
+        if scales is not None:
+            kv = kv * scales[pid].reshape(n_seg, P * p, nkv)[..., None]
+        return kv[:, :, heads]
+
+    k, v = context(k_pages, k_scales), context(v_pages, v_scales)
+    kp = pos_pages[pid].reshape(n_seg, P * p)
+    s = torch.einsum("schd,skhd->shck", qs, k) * scale  # (n_seg, nq, C, ctx)
+    qv, kv = qp[:, None, :, None], kp[:, None, None, :]
+    valid = in_seg[:, None, :, None] & (kv >= 0) & (qv >= 0)
+    if causal:
+        valid = valid & (kv <= qv)
+    if window > 0:
+        valid = valid & (qv - kv < window)
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    m_safe = torch.where(m > NEG_INF / 2, m, torch.zeros_like(m))
+    pr = torch.where(valid, torch.exp(s - m_safe), torch.zeros_like(s))
+    l = pr.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    if k_scales is None:  # wide pages: p in the page dtype before p@V
+        pr = pr.to(v_pages.dtype).float()
+    o = (torch.einsum("shck,skhd->shcd", pr, v) / l).to(q.dtype)  # (n_seg, nq, C, hd)
+    t = torch.arange(T, device=dev)
+    seg = flat_segment_ids(row_offsets, T).long()
+    local = (t - offs[seg]).clamp(0, C - 1)
+    live = (t >= offs[0]) & (t < offs[-1])
+    flat = o[seg, :, local]  # (T, nq, hd)
+    return torch.where(live[:, None, None], flat, out)
+
+
+def ragged_paged_flash_attention(
+    q: torch.Tensor,  # (T, nq, hd) flat query stream, f32 or bf16
+    k_pages: torch.Tensor,  # (N, p, nkv, hd)
+    v_pages: torch.Tensor,  # (N, p, nkv, hd)
+    pos_pages: torch.Tensor,  # (N, p) int32 absolute positions; -1 = empty
+    table: torch.Tensor,  # (B, P) int32 per-slot page table
+    row_offsets: torch.Tensor,  # (n_seg+1,) int32, non-decreasing, starts at 0
+    seg_slot: torch.Tensor,  # (n_seg,) int32: the slot whose pages segment s reads
+    q_pos: torch.Tensor,  # (T,) int32 absolute positions; -1 = invalid row
+    *,
+    seg_cap: int,  # every segment has <= seg_cap rows
+    causal: bool = True,
+    window: int = 0,
+    scale: Optional[float] = None,
+    k_scales: Optional[torch.Tensor] = None,  # (N, p, nkv) f32: narrow pages
+    v_scales: Optional[torch.Tensor] = None,
+) -> torch.Tensor:  # (T, nq, hd) in q's dtype
+    """Flash attention of the flat ragged stream over the paged pool. Wide
+    pages are q's dtype; with ``k_scales``/``v_scales`` they are int8 or
+    float8_e4m3fn and are widened in the kernel."""
+    _check_attention(q, k_pages, v_pages, pos_pages, table, row_offsets, seg_slot, q_pos,
+                     seg_cap, k_scales, v_scales)
+    scales = [t for t in (k_scales, v_scales) if t is not None]
+    tensors = (q, k_pages, v_pages, pos_pages, table, row_offsets, seg_slot, q_pos, *scales)
+    check_no_grad(*tensors)
+    kw = dict(seg_cap=seg_cap, causal=causal, window=window, scale=scale, k_scales=k_scales,
+              v_scales=v_scales)
+    if check_device(*tensors) == "cpu":
+        return ragged_paged_flash_attention_plain(q, k_pages, v_pages, pos_pages, table,
+                                                  row_offsets, seg_slot, q_pos, **kw)
+    T, nq, hd = q.shape
+    N, p, nkv, _ = k_pages.shape
+    B, P = table.shape
+    n_seg = seg_slot.shape[0]
+    if hd not in _ATTN_HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {_ATTN_HEAD_DIMS}")
+    if n_seg + 1 > 65535 or nq > 65535:
+        raise ValueError(f"{n_seg} segments x {nq} heads exceed the kernel's grid")
+    scale = float(scale if scale is not None else 1.0 / hd ** 0.5)
+    args = [t.contiguous() for t in (q, k_pages, v_pages, pos_pages, table, row_offsets,
+                                     seg_slot, q_pos)]
+    ks, vs = (None, None) if k_scales is None else (k_scales.contiguous(), v_scales.contiguous())
+    out = torch.empty_like(args[0])
+    if out.numel() == 0:
+        return out
+    if n_seg == 0 or B * P == 0:
+        return out.zero_()
+    # the kernel reads K/V rows in 8-element vectors from 16-byte-aligned bases
+    args[1:3] = [t if t.data_ptr() % 16 == 0 else t.clone() for t in args[1:3]]
+    fn = build.bind("ragged_attention", "repro_ragged_paged_attention", _ATTN_ARGTYPES)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(*(t.data_ptr() for t in args[:3]), None if ks is None else ks.data_ptr(),
+             None if vs is None else vs.data_ptr(), *(t.data_ptr() for t in args[3:]),
+             out.data_ptr(), T, nq, nkv, hd, N, p, B, P, n_seg, int(seg_cap),
+             _DTYPES[q.dtype], _KV_KINDS[k_pages.dtype], scale, int(bool(causal)), int(window),
+             stream)
+    build.check("ragged_attention", "repro_ragged_paged_attention", err)
+    RAGGED_PAGED_FLASH_ATTENTION.launches += 1
+    return out

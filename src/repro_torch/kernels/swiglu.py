@@ -1,10 +1,23 @@
-"""Routed (Swi/Ge)GLU MLP with the gated scatter-add of paper Eq. 1 as its
-epilogue: the MLP half of the ``pallas_fused`` MoD backend.
+"""The SwiGLU MLP, and the routed (Swi/Ge)GLU MLP with the gated
+scatter-add of paper Eq. 1 as its epilogue (the MLP half of the
+``pallas_fused`` MoD backend).
 
-Port of ``repro/kernels/swiglu.py::routed_mlp_scatter`` (the Pallas
+:func:`swiglu` is the port of ``repro/kernels/swiglu.py::swiglu`` (the
+Pallas ``_swiglu_kernel``): ``y = cast(Σ_F f32(cast(silu(f32(x·Wg)) ·
+f32(x·Wu)) · Wd))``, the hidden rounded once to x's dtype before the
+down projection and the sum over F cast once at the end (the model's
+``layers.mlp`` rounds each projection instead). The CUDA kernel of
+``csrc/swiglu.cu`` runs for CUDA tensors and takes any M and F (bf16 on
+tensor cores where D and F are multiples of 8); the plain version (three
+``torch.matmul`` in f32 and ``silu``) for CPU tensors. Like
+the JAX kernel, it is on no model path and has no VJP: a tensor that
+requires grad raises.
+
+:func:`routed_mlp_scatter` is the port of
+``repro/kernels/swiglu.py::routed_mlp_scatter`` (the Pallas
 ``_routed_mlp_kernel``): RMSNorm(ln2) of the routed rows' post-attention
-hidden ``h_sub`` -> (Swi/Ge)GLU MLP -> ``delta = a_sub + m`` ->
-``out = x + cast(gate·f32(delta))`` on the routed rows, ``x`` elsewhere.
+hidden ``h_sub`` -> (Swi/Ge)GLU MLP -> ``delta = a_sub + m`` -> ``out = x
++ cast(gate·f32(delta))`` on the routed rows, ``x`` elsewhere.
 The CUDA kernel of ``csrc/routed_mlp.cu`` runs for CUDA tensors and the
 plain PyTorch version beside it for CPU tensors, inside a
 ``torch.autograd.Function`` whose backward recomputes through the plain
@@ -12,8 +25,6 @@ version under autograd, as the JAX VJP differentiates its host mirror.
 Rounding points are the mirror's: the working type after each projection,
 after the activation and the GLU product, for ``m`` and for ``a + m``; the
 gate product is f32 and is cast before the add.
-
-The Pallas ``swiglu`` kernel (the unrouted MLP) is not ported yet.
 """
 from __future__ import annotations
 
@@ -27,6 +38,7 @@ from repro_torch.kernels.routing import scatter_add_rows_plain
 from repro_torch.models.layers import mlp_act, rmsnorm
 
 ROUTED_MLP_SCATTER = build.counter("routed_mlp_scatter")
+SWIGLU = build.counter("swiglu")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ACTS = {"silu": 0, "gelu": 1}
@@ -34,6 +46,54 @@ _KEYS = ("ln", "w_up", "w_down", "w_gate")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = (_P,) * 12 + (_I,) * 7 + (ctypes.c_float, _P)
+
+
+def swiglu_plain(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+                 w_down: torch.Tensor) -> torch.Tensor:
+    """Plain version: f32 products, the hidden rounded to x's dtype, the
+    down product in f32, cast once."""
+    g = torch.matmul(x.float(), w_gate.float())
+    u = torch.matmul(x.float(), w_up.float())
+    h = (torch.nn.functional.silu(g) * u).to(x.dtype)
+    return torch.matmul(h.float(), w_down.float()).to(x.dtype)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    """x (M, D), w_gate / w_up (D, F), w_down (F, D), one dtype (f32 or
+    bf16) and device -> (M, D)."""
+    if x.dim() != 2 or w_gate.dim() != 2:
+        raise ValueError(f"want x (M,D) and w_gate (D,F); got {tuple(x.shape)}, "
+                         f"{tuple(w_gate.shape)}")
+    M, D = x.shape
+    F = w_gate.shape[1]
+    if w_gate.shape != (D, F) or w_up.shape != (D, F) or w_down.shape != (F, D):
+        raise ValueError(f"want w_gate/w_up {(D, F)} and w_down {(F, D)}; got "
+                         f"{tuple(w_gate.shape)}, {tuple(w_up.shape)}, {tuple(w_down.shape)}")
+    if x.dtype not in _DTYPES or any(w.dtype != x.dtype for w in (w_gate, w_up, w_down)):
+        raise TypeError(f"x and the weights must share one dtype of {list(_DTYPES)}")
+    if any(t.requires_grad for t in (x, w_gate, w_up, w_down)):
+        raise ValueError("the swiglu kernel has no gradient (the JAX kernel has no VJP)")
+    if any(t.device != x.device for t in (w_gate, w_up, w_down)):
+        raise ValueError("x and the weights must be on one device")
+    if x.device.type == "cpu":
+        return swiglu_plain(x, w_gate, w_up, w_down)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    x, w_gate, w_up, w_down = (t.contiguous() for t in (x, w_gate, w_up, w_down))
+    y = torch.empty((M, D), dtype=x.dtype, device=x.device)
+    if M == 0 or D == 0:
+        return y
+    if F == 0:
+        return y.zero_()
+    h = torch.empty((M, F), dtype=x.dtype, device=x.device)
+    fn = build.bind("swiglu", "repro_swiglu", (_P,) * 6 + (_I,) * 4 + (_P,))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = fn(x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(), h.data_ptr(),
+             y.data_ptr(), M, D, F, _DTYPES[x.dtype], stream)
+    build.check("swiglu", "repro_swiglu", err)
+    SWIGLU.launches += 1
+    return y
 
 
 class RoutedMlpSpec(NamedTuple):

@@ -193,7 +193,7 @@ def init_kv_cache(batch: int, capacity: int, cfg: ModelConfig, device: torch.dev
         "k": torch.zeros((batch, capacity, nkv, hd), dtype=dt, device=device),
         "v": torch.zeros((batch, capacity, nkv, hd), dtype=dt, device=device),
         "pos": torch.full((batch, capacity), -1, dtype=torch.int32, device=device),
-        "cursor": torch.zeros((batch,), dtype=torch.int64, device=device),
+        "cursor": torch.zeros((batch,), dtype=torch.int32, device=device),  # as JAX's
     }
 
 
@@ -225,7 +225,7 @@ def cache_write(
     m = mask.long()
     rank = m.cumsum(dim=1) - 1
     n = m.sum(dim=1)
-    spare = (cache["cursor"] + n) % C  # (B,)
+    spare = (cache["cursor"] + n) % C  # (B,) int64: the cursor widens for indexing
     slot = torch.where(mask, (cache["cursor"][:, None] + rank) % C, spare[:, None])
     bidx = torch.arange(B, device=slot.device)[:, None].expand(B, S_new)
     rows = torch.arange(B, device=slot.device)
@@ -235,7 +235,7 @@ def cache_write(
         buf[bidx, slot] = torch.where(mask[..., None, None], new.to(buf.dtype), old)
     old_pos = cache["pos"][rows, spare][:, None]
     cache["pos"][bidx, slot] = torch.where(mask, pos_new.to(torch.int32), old_pos)
-    cache["cursor"] += n
+    cache["cursor"] += n.to(torch.int32)
     return cache
 
 

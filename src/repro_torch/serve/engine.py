@@ -46,9 +46,9 @@ restore and the ragged step all see what the pool stores. With ``weights
 = "int8"`` the engine keeps only the narrow parameter tree and widens it
 at each model call.
 
-Sampling runs on the host: greedy argmax, or one ``torch.Generator`` per
-request (see :mod:`repro_torch.serve.request`). The speculative, SPMD and
-overload paths of the JAX engine are later slices
+Sampling runs on the host: greedy argmax, or a draw keyed by the
+request's seed and the token's index (see :mod:`repro_torch.serve.request`).
+The speculative, SPMD and overload paths of the JAX engine are later slices
 (:class:`repro_torch.serve.config.EngineConfig` rejects their settings).
 """
 from __future__ import annotations
@@ -73,6 +73,7 @@ from repro_torch.serve.request import (
     Request,
     RequestOutput,
     pad_outputs,
+    token_generator,
 )
 from repro_torch.serve.scheduler import FREE, GENERATE, PREFILL, Scheduler, Slot
 
@@ -252,10 +253,6 @@ class ServingEngine:
         slot.first_token_step = -1
         slot.routed_sum, slot.routed_steps = 0.0, 0
         slot.score, slot.score_sum, slot.score_steps = float("nan"), 0.0, 0
-        slot.sampler = None
-        if req.temperature > 0.0:
-            seed = req.seed if req.seed is not None else req.uid
-            slot.sampler = torch.Generator().manual_seed(int(seed))
 
     def _admit(self) -> None:
         plans = self.scheduler.plan_admissions(self.slots, stepped_prefill=not self._batch_prefill,
@@ -333,7 +330,6 @@ class ServingEngine:
         slot.req = None
         slot.state = FREE
         slot.generated = []
-        slot.sampler = None
         self.scheduler.requeue(req)
         self.admission_aborts += 1
 
@@ -392,11 +388,15 @@ class ServingEngine:
     # ------------------------------------------------------------------
 
     def _sample(self, slot: Slot, logits_row: np.ndarray) -> int:
+        """The slot's next token: argmax, or a draw from the generator of
+        (seed, index of the token in the request's output)."""
         req = slot.req
         if req.temperature <= 0.0:
             return int(np.argmax(logits_row))
+        seed = req.seed if req.seed is not None else req.uid
         probs = torch.softmax(torch.as_tensor(logits_row, dtype=torch.float64) / req.temperature, -1)
-        return int(torch.multinomial(probs, 1, generator=slot.sampler))
+        gen = token_generator(seed, len(slot.generated))
+        return int(torch.multinomial(probs, 1, generator=gen))
 
     def _push_token(self, slot: Slot, tok: int) -> None:
         """Record a sampled token; finish and free the slot if terminal."""
@@ -430,15 +430,14 @@ class ServingEngine:
         slot.req = None
         slot.state = FREE
         slot.generated = []
-        slot.sampler = None
         if self._paged:
             self.pool.release(slot.idx)
 
     def _preempt(self, slot: Slot) -> None:
         """Page-pool OOM backstop: the slot's request goes back to the
         *front* of the queue with its pages released and restarts from
-        scratch on re-admission (a sampled request's generator is re-seeded
-        then, so its stream repeats; a ``stream`` callback sees the replay)."""
+        scratch on re-admission (a sampled request's draws are keyed by token
+        index, so its stream repeats; a ``stream`` callback sees the replay)."""
         req = slot.req
         self.pool.release(slot.idx)
         # modlint: disable=counter-decrement -- not a monotone counter here:
@@ -448,7 +447,6 @@ class ServingEngine:
         slot.req = None
         slot.state = FREE
         slot.generated = []
-        slot.sampler = None
         self.scheduler.requeue(req)
         self.preemptions += 1
 

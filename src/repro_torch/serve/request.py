@@ -7,11 +7,13 @@ with the generated tokens and scheduling telemetry (admission wait, first
 token step, residency).
 
 Sampling: temperature 0 is greedy argmax. A request with temperature > 0
-draws from its own ``torch.Generator`` seeded with ``seed`` (its uid when
-unset), one draw per generated token, so its stream does not depend on
-which other requests share the batch. The JAX engine keys its draws with
-``jax.random.fold_in``, which torch cannot reproduce: sampled streams are
-not comparable across the two packages, greedy streams are.
+draws token ``i`` from a generator seeded from ``(seed, i)``
+(:func:`token_generator`; ``seed`` is the request's uid when unset), as
+the JAX engine draws it from ``fold_in(key, i)``: the stream does not
+depend on which other requests share the batch, and the same logits at
+the same token index give the same token however often they are drawn.
+torch cannot reproduce JAX's random bits, so sampled streams are not
+comparable across the two packages; greedy streams are.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import dataclasses
 from typing import Callable, List, Optional
 
 import numpy as np
+import torch
 
 FINISH_EOS = "eos"  # sampled the request's eos_id
 FINISH_LENGTH = "length"  # hit max_new_tokens
@@ -54,6 +57,14 @@ class Request:
     @property
     def total_len(self) -> int:
         return self.prompt_len + self.max_new_tokens
+
+
+def token_generator(seed: int, index: int) -> torch.Generator:
+    """The generator token ``index`` of a request with sampling seed
+    ``seed`` is drawn from: a fresh one, seeded by mixing the pair through
+    numpy's ``SeedSequence``, so no draw depends on an earlier one."""
+    hi, lo = np.random.SeedSequence([int(seed) % (1 << 64), int(index)]).generate_state(2)
+    return torch.Generator().manual_seed((int(hi) << 32) | int(lo))
 
 
 @dataclasses.dataclass

@@ -46,7 +46,6 @@ class Slot:
     score: float = float("nan")  # latest MoD ranking score
     score_sum: float = 0.0
     score_steps: int = 0
-    sampler: object = None  # torch.Generator of a sampled request
 
     @property
     def active(self) -> bool:

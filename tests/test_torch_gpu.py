@@ -27,6 +27,15 @@ flash backward is the blocked torch-op backward from the kernel's lse,
 against autograd through the dense plain version (f32 1e-4; bf16: the
 plain version's autograd rounds at its bf16 casts, the Function does not).
 
+Ragged paged flash attention: the kernel sums its online softmax per
+32-key chunk and merges four warps' states, the plain version takes one
+dense softmax, and in bf16 they round p against different maxima: flash's
+TOL. Its edge cases are ``chip_smoke.py``'s phase 10(d), imported from
+there so that each case is kept in one place. SwiGLU: the kernel (tensor cores for bf16, CUDA cores for f32) and
+the plain version (cuBLAS in f32) sum in their own order; in bf16 a sum
+on the other side of a rounding boundary moves an element of h by one ulp
+and y rounds once, so they agree within 2^-7 of max|y| (f32: 2e-5 of it).
+
 SSD intra-chunk: both sides compute in f32 from the same (widened)
 inputs; the kernel takes the cumsum of loglam in order, torch's scan in
 another order, and each decay exp(l_i - l_j) carries that rounding (up to
@@ -35,10 +44,15 @@ value plus 2·max|l|·2^-24; its backward is autograd through the plain
 version, so its gradients equal the plain version's.
 """
 import math
+import sys
+from pathlib import Path
 
 import pytest
 
 torch = pytest.importorskip("torch")
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from chip_smoke import RAGGED_EDGE_MODES, check_ragged_edge_case, ragged_edge_case  # noqa: E402
 
 from repro_torch import config as TC  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
@@ -702,3 +716,71 @@ def test_ssm_training_step_launches_the_ssd_kernel(dev):
     cpu_loss, _ = api.model_loss(cpu, cfg, {k: v.cpu() for k, v in batch.items()})
     assert abs(float(loss) - float(cpu_loss)) <= 1e-5 * abs(float(cpu_loss))
     assert to_numpy_tree(params)["groups"]["mod"]["block"]["ssm"]["A_log"].shape == (n, 8)
+
+
+# ---------------------------------------------------------------------------
+# The op entry point's kernels: ragged paged flash attention and SwiGLU
+# ---------------------------------------------------------------------------
+
+SWIGLU_TOL = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -7}
+NARROW_KV = [None, torch.int8, torch.float8_e4m3fn]
+
+
+@pytest.mark.parametrize("causal,window", RAGGED_EDGE_MODES)
+@pytest.mark.parametrize("narrow", NARROW_KV, ids=["wide", "int8", "fp8"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ragged_paged_attention_matches_plain(dev, dtype, narrow, causal, window):
+    check_ragged_edge_case(dev, dtype, narrow, causal, window)
+
+
+@pytest.mark.parametrize("hd", [32, 128, 256])
+def test_ragged_paged_attention_head_dims_and_a_decode_step(dev, hd):
+    """Decode rows (seg_cap 1) over 62-page contexts of 16-row pages, MHA."""
+    g = torch.Generator(device=dev).manual_seed(hd)
+    B, P, p, nq = 8, 62, 16, 4
+    N = 2 + B * P
+    i32 = dict(dtype=torch.int32, device=dev)
+    table = (2 + torch.randperm(B * P, generator=g, device=dev)).view(B, P).to(torch.int32)
+    lens = torch.randint(1, P * p + 1, (B,), generator=g, device=dev)
+    pos = torch.full((N, p), -1, **i32)
+    for b in range(B):
+        ids = torch.arange(int(lens[b]), **i32)
+        pos[table[b, ids // p].long(), (ids % p).long()] = ids
+    args = (torch.randn(B, nq, hd, generator=g, device=dev).bfloat16(),
+            *(torch.randn(N, p, nq, hd, generator=g, device=dev).bfloat16() for _ in range(2)),
+            pos, table, torch.arange(B + 1, **i32), torch.arange(B, **i32),
+            (lens - 1).to(torch.int32))
+    out = KRG.ragged_paged_flash_attention(*args, seg_cap=1)
+    want = KRG.ragged_paged_flash_attention_plain(*args, seg_cap=1)
+    torch.testing.assert_close(out.float(), want.float(), **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M,D,F", [(37, 40, 72), (33, 44, 70), (1, 64, 64), (256, 1792, 7168)])
+def test_swiglu_matches_plain(dev, dtype, M, D, F):
+    """bf16 with D and F multiples of 8 runs the tensor-core GEMM, the rest
+    the CUDA-core one."""
+    g = torch.Generator(device=dev).manual_seed(M)
+    x = torch.randn(M, D, generator=g, device=dev).to(dtype)
+    w = [(torch.randn(a, b, generator=g, device=dev) / a ** 0.5).to(dtype)
+         for a, b in ((D, F), (D, F), (F, D))]
+    build.reset_counters()
+    out = SW.swiglu(x, *w)
+    assert build.launch_counts()["swiglu"] == 1
+    want = SW.swiglu_plain(x, *w)
+    scale = want.float().abs().max().item()
+    assert (out.float() - want.float()).abs().max().item() <= SWIGLU_TOL[dtype] * scale
+
+
+def test_op_kernels_refuse_grads_and_bad_input(dev):
+    args, kw = ragged_edge_case(dev, torch.float32, None, seed=3)
+    with pytest.raises(ValueError, match="gradient"):
+        KRG.ragged_paged_flash_attention(args[0].clone().requires_grad_(True), *args[1:], **kw)
+    with pytest.raises(ValueError, match="head_dim"):
+        KRG.ragged_paged_flash_attention(args[0][..., :48].contiguous(),
+                                         *(t[..., :48].contiguous() for t in args[1:3]),
+                                         *args[3:], **kw)
+    x = torch.zeros(4, 8, device=dev, requires_grad=True)
+    w = torch.zeros(8, 6, device=dev)
+    with pytest.raises(ValueError, match="gradient"):
+        SW.swiglu(x, w, w, w.T.contiguous())

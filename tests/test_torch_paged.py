@@ -304,7 +304,7 @@ def test_paged_streams_equal_jax_engine(prefix_cache):
     assert t == j
     ts, js = teng.stats(), jeng.stats()
     for key in ("steps", "prefill_tokens_computed", "prefix_hit_rate", "page_utilization_peak",
-                "prefix_entries", "preemptions"):
+                "prefix_entries", "preemptions", "kv_bytes", "resid_bytes"):
         assert ts[key] == js[key], key
     assert (ts["prefix_hit_rate"] > 0) == prefix_cache
 

@@ -366,10 +366,8 @@ def test_quantized_streams_equal_jax_engine(kind, mode):
     t, teng, j, jeng = _run_both(prompts, [5, 3, 6, 4, 5], 1, _qcs(*mode), **ENGINES[kind])
     assert t == j
     ts, js = teng.stats(), jeng.stats()
-    # (resid_bytes is reported but differs: the port's ring cursors are
-    # int64, the JAX package's int32)
-    for key in ("steps", "prefill_tokens_computed", "prefix_hit_rate", "kv_bytes", "quant_kv",
-                "page_utilization_peak", "preemptions"):
+    for key in ("steps", "prefill_tokens_computed", "prefix_hit_rate", "kv_bytes", "resid_bytes",
+                "quant_kv", "page_utilization_peak", "preemptions"):
         assert ts[key] == js[key], key
     assert (ts["prefix_hit_rate"] > 0) == (kind == "prefix")
     assert ts["pages_in_use"] == 0.0

@@ -8,7 +8,10 @@ tests/test_routing_backends.py); the port runs ``pallas``, whose wrappers
 take their plain versions on the CPU. Also: the settings of the engine
 paths the port does not run yet (speculative, SPMD, overload) raise, with
 or without the paged pool they build on (the quantized path's checks are
-in tests/test_torch_quant.py).
+in tests/test_torch_quant.py). Sampled tokens are keyed by (seed, token
+index), as JAX keys them by ``fold_in(key, i)``: a re-draw gives the same
+token. The pools' byte counts equal the JAX pools' at ``mod-paper-60m``
+(int32 ring cursors, as JAX's).
 """
 import dataclasses
 
@@ -21,12 +24,17 @@ import numpy as np  # noqa: E402
 
 from repro import config as JC  # noqa: E402
 from repro.models import api as JAPI  # noqa: E402
+from repro.serve import cache as JCACHE  # noqa: E402
+from repro.serve import quant as JQ  # noqa: E402
 from repro.serve import EngineConfig as JEngineConfig  # noqa: E402
 from repro.serve import Request as JRequest  # noqa: E402
 from repro.serve import ServingEngine as JServingEngine  # noqa: E402
 from repro_torch import config as TC  # noqa: E402
 from repro_torch.params import from_jax_params  # noqa: E402
 from repro_torch.serve import EngineConfig, Request, ServingEngine  # noqa: E402
+from repro_torch.serve import cache as TCACHE  # noqa: E402
+from repro_torch.serve import quant as TQ  # noqa: E402
+from repro_torch.serve.scheduler import Slot  # noqa: E402
 
 
 def _requests(vocab, n=8, seed=0):
@@ -105,3 +113,73 @@ def test_engine_config_validates():
         EngineConfig(batch_size=2, ctx=16, prefill="sideways")
     with pytest.raises(ValueError):
         Request(tokens=np.zeros(0, np.int64), max_new_tokens=3)
+
+
+def _sampling_engine():
+    tc = dataclasses.replace(TC.smoke_config(TC.get_config("mod-paper-60m-vanilla")),
+                             dtype="float32")
+    from repro_torch.models import api as TAPI
+
+    params = TAPI.init_model(tc, device="cpu", seed=1)
+    return ServingEngine(params, tc, EngineConfig(batch_size=2, ctx=16), device="cpu")
+
+
+def test_sampled_token_is_keyed_by_its_index():
+    """The same logits row at the same token index gives the same token, and
+    a draw of token i, then i+1, then i again repeats the first: the
+    property the JAX engine's speculative round relies on (tokens sampled
+    past the cap are re-sampled from the same logits the next round)."""
+    eng = _sampling_engine()
+    slot = Slot(idx=0)
+    slot.req = Request(tokens=np.arange(3), max_new_tokens=8, temperature=1.0, seed=11, uid=0)
+    row = np.zeros(512, np.float32)  # uniform over 512 tokens: any repeat by chance is rare
+    slot.generated = [7, 7, 7]
+    first = eng._sample(slot, row)
+    assert eng._sample(slot, row) == first
+    slot.generated.append(first)
+    nxt = eng._sample(slot, row)
+    slot.generated.pop()
+    assert eng._sample(slot, row) == first
+    slot.generated.append(first)
+    assert eng._sample(slot, row) == nxt
+
+    def draws(n):
+        slot.generated = []
+        out = []
+        for _ in range(n):
+            out.append(eng._sample(slot, row))
+            slot.generated.append(out[-1])
+        return out
+
+    seed11 = draws(20)
+    assert len(set(seed11)) > 10  # the index moves the draw
+    slot.req = Request(tokens=np.arange(3), max_new_tokens=8, temperature=1.0, seed=12, uid=0)
+    assert draws(20) != seed11
+    # greedy ignores the key
+    slot.req = Request(tokens=np.arange(3), max_new_tokens=8, uid=2)
+    row[5] = 1.0
+    assert eng._sample(slot, row) == 5
+
+
+POOLS = {"contiguous": None, "paged": dict(), "int8-page": dict(kv="int8", granularity="page"),
+         "fp8-head": dict(kv="fp8", granularity="head")}
+
+
+@pytest.mark.parametrize("pool", list(POOLS))
+def test_pool_bytes_equal_jax_pools_at_mod_paper_60m(pool):
+    """cache_bytes() of the port's pools (hence stats()' kv_bytes and
+    resid_bytes) equal the JAX pools' at mod-paper-60m's full width: the
+    ring cursors are int32 in both."""
+    jc, tc = JC.get_config("mod-paper-60m"), TC.get_config("mod-paper-60m")
+    B, ctx, page = 2, 64, 16
+    q = POOLS[pool]
+    if q is None:
+        jp, tp = JCACHE.CachePool(jc, B, ctx), TCACHE.CachePool(tc, B, ctx, torch.device("cpu"))
+    else:
+        jp = JCACHE.PagedCachePool(jc, B, ctx, page, quant=JQ.QuantConfig(**q))
+        tp = TCACHE.PagedCachePool(tc, B, ctx, page, torch.device("cpu"),
+                                   quant=TQ.QuantConfig(**q))
+    jb, tb = jp.cache_bytes(), tp.cache_bytes()
+    for key in ("total", "mod", "full", "kv_bytes", "resid_bytes"):
+        assert tb[key] == jb[key], (key, tb[key], jb[key])
+    assert tb["resid_bytes"] > 0
