@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --flash-timing [ROOT]   # flash alone, ROOT's port
 
 Imports nothing of JAX or of the JAX package. Builds the port's CUDA
 kernels from ``src/repro_torch/kernels/csrc`` and runs, in order (any
@@ -11,9 +12,12 @@ failure raises and exits non-zero):
    versions, kernel build time;
 2. every kernel against its plain PyTorch version on the card, at the
    shapes the ``mod-paper-1b`` serving and training paths give it, with
-   timings (device time from torch.profiler) of the kernel, the plain
-   version and, where one exists, one PyTorch library call as a yardstick
-   (never called by the port); the three paged-pool kernels (page gather,
+   timings (CUDA-graph replay; torch.profiler only for a plain version
+   named as not capturing, said on its line) of the kernel, the plain version and, where
+   one exists, one PyTorch library call as a yardstick (never called by
+   the port); flash attention at four bf16 shapes (prefill S=1000 and
+   2048, decode B=8 ctx 1056, the training call with its lse) against
+   SDPA, with HMMA asserted in its library's SASS; the three paged-pool kernels (page gather,
    decode-row scatter, ragged write-back) at the shapes of phase 6c and odd
    tails, bitwise, with the in-place scatters held to their target rows;
    the dequantizing page gather (int8/page and fp8/head pages widened to
@@ -92,6 +96,10 @@ failure raises and exits non-zero):
    ragged kernel's edge cases at small shapes.
 
 Each phase's wall time is printed on a ``[time]`` line.
+
+``--flash-timing [ROOT]`` only times the flash kernel of the port under
+ROOT (default: this checkout) at phase 2's four bf16 shapes beside SDPA:
+run it on a parent tree and this one in one call to compare two kernels.
 
 It prints a ``{"kernels": [...]}`` line, then the card's ``nvidia-smi`` line,
 then as the last line ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -228,6 +236,35 @@ def graph_ms(fn, reps: int = 20, iters: int = 5) -> float:
     return start.elapsed_time(end) / (iters * reps)
 
 
+def replay_ms(fn, how: dict, key: str, reps: int = 20, iters: int = 5,
+              uncapturable: str = "") -> float:
+    """Device time of one call by CUDA-graph replay (:func:`graph_ms`); a
+    call that does not capture raises. Only a plain or library call named
+    as not capturing (``uncapturable`` says why) falls back to
+    torch.profiler's device time; ``how[key]`` records the method ("graph"
+    or "profiler") so that every row says how it was timed."""
+    if uncapturable and key == "ms":
+        raise ValueError("a kernel's own time is always a graph replay")
+    try:
+        ms = graph_ms(fn, reps, iters)
+        how[key] = "graph"
+    except RuntimeError as err:
+        if not uncapturable:
+            raise
+        torch.cuda.synchronize()
+        ms = time_ms(fn, iters=5)
+        how[key] = "profiler"
+        log(f"[timing] {key}: the call does not capture ({uncapturable}: "
+            f"{str(err).splitlines()[0][:100]}); torch.profiler reads {ms:.4f} ms")
+    return ms
+
+
+def timed_note(how: dict) -> str:
+    """' (profiler: ...)' for a row with a time that is not a graph replay."""
+    prof = [k for k, v in how.items() if v != "graph"]
+    return f" (timed by torch.profiler: {', '.join(prof)})" if prof else ""
+
+
 class NoDeviceTime(RuntimeError):
     """torch.profiler recorded no device activity for a profiled call."""
 
@@ -326,23 +363,26 @@ def check_routing(cfg, dev, results):
                 raise AssertionError(f"scatter_add_rows differs from its plain version at S={S} {dtype}")
             flat = (idx[0]).contiguous()
             upd = (gate[..., None] * delta.float()).to(dtype)[0]
+            hg, hs = {}, {}
             rows = {
                 "gather_rows": dict(
                     call_ms=event_ms(lambda: routing.gather_rows(x, idx)),
-                    ms=time_ms(lambda: routing.gather_rows(x, idx)),
-                    plain_ms=time_ms(lambda: routing.gather_rows_plain(x, idx)),
-                    library_ms=time_ms(lambda: torch.take_along_dim(x, idx[..., None], dim=1)),
+                    ms=replay_ms(lambda: routing.gather_rows(x, idx), hg, "ms"),
+                    plain_ms=replay_ms(lambda: routing.gather_rows_plain(x, idx), hg, "plain_ms"),
+                    library_ms=replay_ms(lambda: torch.take_along_dim(x, idx[..., None], dim=1),
+                                         hg, "library_ms"),
                     bound=bound_ms(2 * k * D * es + 8 * k, 0, dtype),
-                    max_abs_err=(out.float() - want.float()).abs().max().item(),
+                    max_abs_err=(out.float() - want.float()).abs().max().item(), timed_by=hg,
                 ),
                 "scatter_add_rows": dict(
                     call_ms=event_ms(lambda: routing.scatter_add_rows(x, idx, delta, gate)),
-                    ms=time_ms(lambda: routing.scatter_add_rows(x, idx, delta, gate)),
-                    plain_ms=time_ms(lambda: routing.scatter_add_rows_plain(x, idx, delta, gate)),
+                    ms=replay_ms(lambda: routing.scatter_add_rows(x, idx, delta, gate), hs, "ms"),
+                    plain_ms=replay_ms(lambda: routing.scatter_add_rows_plain(x, idx, delta, gate),
+                                       hs, "plain_ms"),
                     # index_add of the precomputed gated update (one call)
-                    library_ms=time_ms(lambda: x[0].index_add(0, flat, upd)),
+                    library_ms=replay_ms(lambda: x[0].index_add(0, flat, upd), hs, "library_ms"),
                     bound=bound_ms(2 * S * D * es + k * D * es + 12 * k, 2 * k * D, dtype),
-                    max_abs_err=(out2.float() - want2.float()).abs().max().item(),
+                    max_abs_err=(out2.float() - want2.float()).abs().max().item(), timed_by=hs,
                 ),
             }
             for name, r in rows.items():
@@ -350,7 +390,7 @@ def check_routing(cfg, dev, results):
                 log(f"[kernels] {name:16s} {shape:32s} bitwise-equal ms={r['ms']:.4f} "
                     f"call_ms={r['call_ms']:.4f} "
                     f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
-                    f"bound_ms={r['bound'][0]:.4f} ({r['bound'][1]})")
+                    f"bound_ms={r['bound'][0]:.4f} ({r['bound'][1]}){timed_note(r['timed_by'])}")
                 results.setdefault(name, {})[(S, dtype)] = dict(r, shape=shape)
 
 
@@ -359,65 +399,182 @@ def _valid_pairs(q_pos, kv_pos):
     return int(v.sum().item())
 
 
-def _flash_bytes(q, k, q_pos, kv_pos, es):
+def _flash_bytes(q, k, q_pos, kv_pos, es, lse=False):
     """Bytes the function must move: q rows and k/v rows whose position is
-    valid (a padded row cannot change a valid output), the whole output and
-    both position arrays."""
+    valid (a padded row cannot change a valid output), the whole output,
+    both position arrays and, when asked for, the f32 row lse."""
     (B, Sq, nq, hd), nkv = q.shape, k.shape[2]
     n_q = int((q_pos >= 0).sum().item())
     n_kv = int((kv_pos >= 0).sum().item())
     return (n_q * nq * hd + 2 * n_kv * nkv * hd + B * Sq * nq * hd) * es \
-        + 4 * (q_pos.numel() + kv_pos.numel())
+        + 4 * (q_pos.numel() + kv_pos.numel()) + (4 * B * nq * Sq if lse else 0)
 
 
-def check_flash(cfg, dev, results):
-    from repro_torch.kernels import flash_attention as FA
+# the four bf16 shapes of the flash kernel that phase 2 times by CUDA-graph
+# replay against SDPA and the plain version (and `--flash-timing` times on
+# another source tree): a whole-prompt prefill at S=1000 and S=2048 (24
+# padded positions), a decode step of 8 slots against a 1056-slot cache,
+# and the training call (B=4, S=2048) with the lse its backward reads
+FLASH_TIMED = ("prefill S=1000", "prefill S=2048", "decode B=8 ctx=1056", "train B=4 S=2048 lse")
+
+
+def flash_cases(cfg, dev):
+    """(label, B, Sq, Skv, nkv, q_pos, kv_pos, dtypes, lse) of phase 2's flash
+    cases: FLASH_TIMED, the routed layers' prefill and decode calls and a
+    GQA prefill; the full layers' serving shapes in f32 too."""
+    from repro_torch.core.routing import batch_capacity_k
 
     g = torch.Generator(device=dev).manual_seed(1)
-    nq, hd = cfg.attn.n_heads, cfg.head_dim
+    nq = cfg.attn.n_heads
+    both = (torch.bfloat16, torch.float32)
     cases = []
-    for S in (2048, 1000):
+    for S in (1000, 2048):
         pos = torch.arange(S, dtype=torch.int32, device=dev)[None].clone()
         pos[:, S - 24:] = -1  # padded tail
-        cases.append((f"prefill S={S}", 1, S, S, nq, pos, pos))
+        cases.append((f"prefill S={S}", 1, S, S, nq, pos, pos, both, False))
     B, ctx = 8, 1056
     lens = torch.randint(128, ctx + 1, (B,), generator=g, device=dev)
     kv_pos = torch.arange(ctx, dtype=torch.int32, device=dev)[None].repeat(B, 1)
     kv_pos = torch.where(kv_pos < lens[:, None], kv_pos, torch.full_like(kv_pos, -1))
-    cases.append((f"decode B=8 ctx={ctx}", B, 1, ctx, nq, (lens - 1)[:, None].int(), kv_pos))
+    q_pos = (lens - 1)[:, None].int()
+    cases.append((f"decode B=8 ctx={ctx}", B, 1, ctx, nq, q_pos, kv_pos, both, False))
+    # the routed layers' calls: a prefill over the k = capacity(ctx) routed
+    # rows of a 1000-token prompt (positions with gaps), and a decode step
+    # of the kb routed slots against their routed caches of k slots (a
+    # ring: positions with gaps, wrapped, not monotone in the slot)
+    k = cfg.mod.capacity(ctx)
+    pos = torch.randperm(1000, generator=g, device=dev)[:k].sort().values.int()[None]
+    cases.append((f"prefill routed S={k}", 1, k, k, nq, pos, pos, (torch.bfloat16,), False))
+    kb = batch_capacity_k(cfg, B)
+    kv_pos = torch.stack([torch.randperm(1000, generator=g, device=dev)[:k].sort().values
+                          .roll(37 * i + 5) for i in range(kb)]).int()
+    cases.append((f"decode routed B={kb} ctx={k}", kb, 1, k, nq,
+                  torch.full((kb, 1), 1000, dtype=torch.int32, device=dev), kv_pos,
+                  (torch.bfloat16,), False))
+    pos = torch.arange(2048, dtype=torch.int32, device=dev)[None].repeat(4, 1)
+    cases.append(("train B=4 S=2048 lse", 4, 2048, 2048, nq, pos, pos, (torch.bfloat16,), True))
     pos = torch.arange(1000, dtype=torch.int32, device=dev)[None]
-    cases.append(("gqa S=1000 nkv=2", 1, 1000, 1000, 2, pos, pos))
-    for label, B, Sq, Skv, nkv, q_pos, kv_pos in cases:
-        for dtype in (torch.bfloat16, torch.float32):
+    cases.append(("gqa S=1000 nkv=2", 1, 1000, 1000, 2, pos, pos, both, False))
+    return cases, g
+
+
+def flash_call(FA, q, k, v, q_pos, kv_pos):
+    """(out, lse) through the port's public flash wrapper. Where the inputs
+    need a gradient (as in training), the wrapper's autograd Function has
+    the kernel write the f32 row lse its backward reads, and lse is read
+    from the Function's saved tensors; else lse is None."""
+    out = FA.flash_attention(q, k, v, q_pos, kv_pos)
+    return out, (out.grad_fn.saved_tensors[-1] if out.requires_grad else None)
+
+
+def flash_rows(FA, cfg, dev, labels=None):
+    """Phase 2's flash cases (or, with ``labels``, those cases in bf16) on
+    the port of module ``FA``: each held to the plain version within TOL
+    (its lse within 1e-4 where the call needs a gradient), then the kernel,
+    the plain version and SDPA timed by CUDA-graph replay. Yields (label,
+    dtype, row)."""
+    nq, hd = cfg.attn.n_heads, cfg.head_dim
+    scale = hd ** -0.5
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    cases, g = flash_cases(cfg, dev)
+    for label, B, Sq, Skv, nkv, q_pos, kv_pos, dtypes, want_lse in cases:
+        if labels is not None:
+            if label not in labels:
+                continue
+            dtypes = (torch.bfloat16,)
+        for dtype in dtypes:
             q = torch.randn(B, Sq, nq, hd, generator=g, device=dev).to(dtype)
             k = torch.randn(B, Skv, nkv, hd, generator=g, device=dev).to(dtype)
             v = torch.randn(B, Skv, nkv, hd, generator=g, device=dev).to(dtype)
-            out = FA.flash_attention(q, k, v, q_pos, kv_pos)
-            want = FA.flash_attention_plain(q, k, v, q_pos, kv_pos)
-            torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
-            err = (out.float() - want.float()).abs().max().item()
+            qg, kg, vg = (t.detach().requires_grad_(want_lse) for t in (q, k, v))
+            call = lambda qg=qg, kg=kg, vg=vg, qp=q_pos, kp=kv_pos: (  # noqa: E731
+                flash_call(FA, qg, kg, vg, qp, kp))
+            out, lse = call()
+            want, want_l = FA._flash_plain(q, k, v, q_pos, kv_pos, True, 0, scale)
+            torch.testing.assert_close(out.detach().float(), want.float(), **TOL[dtype])
+            lse_err = None
+            if want_lse:
+                torch.testing.assert_close(lse, want_l, atol=1e-4, rtol=0.0)
+                lse_err = (lse - want_l).abs().max().item()
             mask = FA.valid_mask(q_pos, kv_pos, True, 0)[:, None]  # (B, 1, Sq, Skv)
             qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
             if nkv != nq:
                 kh = kh.repeat_interleave(nq // nkv, dim=1)
                 vh = vh.repeat_interleave(nq // nkv, dim=1)
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            es = q.element_size()
-            nbytes = _flash_bytes(q, k, q_pos, kv_pos, es)
+            nbytes = _flash_bytes(q, k, q_pos, kv_pos, q.element_size(), want_lse)
             flops = 4.0 * hd * nq * _valid_pairs(q_pos, kv_pos)
+            how: dict = {}
             r = dict(
-                call_ms=event_ms(lambda: FA.flash_attention(q, k, v, q_pos, kv_pos)),
-                ms=time_ms(lambda: FA.flash_attention(q, k, v, q_pos, kv_pos)),
-                plain_ms=time_ms(lambda: FA.flash_attention_plain(q, k, v, q_pos, kv_pos), iters=5),
-                library_ms=time_ms(lambda: sdpa(qh, kh, vh, attn_mask=mask)),
+                call_ms=event_ms(call),
+                ms=replay_ms(call, how, "ms"),
+                plain_ms=replay_ms(lambda: FA._flash_plain(q, k, v, q_pos, kv_pos, True, 0, scale),
+                                   how, "plain_ms", reps=5),
+                library_ms=replay_ms(lambda: sdpa(qh, kh, vh, attn_mask=mask), how, "library_ms"),
                 bound=bound_ms(nbytes, flops, dtype),
-                max_abs_err=err,
+                max_abs_err=(out.detach().float() - want.float()).abs().max().item(),
+                lse_err=lse_err, timed_by=how, call=(B, Sq, Skv, nq, nkv, hd),
                 shape=f"{label} {nq}x{hd} {str(dtype)[6:]}",
             )
-            log(f"[kernels] flash_attention  {r['shape']:32s} max_abs_err={err:.3g} "
-                f"ms={r['ms']:.4f} call_ms={r['call_ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
-                f"bound_ms={r['bound'][0]:.4f} ({r['bound'][1]})")
-            results.setdefault("flash_attention", {})[(label, dtype)] = r
+            del out, want, lse, want_l, call
+            yield label, dtype, r
+
+
+def flash_hmma_counts() -> dict:
+    """HMMA (tensor-core mma) instructions per tensor-core flash kernel in
+    the built library's SASS (``cuobjdump -sass``)."""
+    import os
+    import shutil
+
+    from repro_torch.kernels import build
+
+    tool = shutil.which("cuobjdump") or str(
+        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(build.build_all()["flash_attention"]["path"])],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    counts: dict = {}
+    name = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+        elif name and "flash_fwd_tc_kernel" in name and "HMMA" in line:
+            counts[name] = counts.get(name, 0) + 1
+    return counts
+
+
+def check_flash(cfg, dev, results):
+    from repro_torch.kernels import flash_attention as FA
+
+    hmma = flash_hmma_counts()
+    if len(hmma) < 8 or min(hmma.values()) <= 0:  # tile and decode kernels at 4 head dims
+        raise AssertionError(f"the bf16 flash kernels' SASS holds no HMMA: {hmma}")
+    log(f"[kernels] flash_attention SASS: {len(hmma)} tensor-core kernels, "
+        f"{min(hmma.values())}-{max(hmma.values())} HMMA instructions each (cuobjdump -sass)")
+    for label, dtype, r in flash_rows(FA, cfg, dev):
+        r["path"] = FA.flash_plan(*r["call"], dtype).path
+        extra = "" if r["lse_err"] is None else f" lse_err={r['lse_err']:.3g}"
+        log(f"[kernels] flash_attention  {r['shape']:38s} {r['path']:6s} "
+            f"max_abs_err={r['max_abs_err']:.3g}{extra} ms={r['ms']:.4f} "
+            f"call_ms={r['call_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"library_ms={r['library_ms']:.4f} bound_ms={r['bound'][0]:.4f} ({r['bound'][1]})")
+        results.setdefault("flash_attention", {})[(label, dtype)] = r
+
+
+def flash_timing(root: Path) -> None:
+    """``--flash-timing [ROOT]``: phase 2's FLASH_TIMED rows (:func:`flash_rows`)
+    on the port under ``ROOT/src`` (default: this checkout). Run on a parent
+    tree and this one in one call, in turns, to compare two versions of the
+    kernel."""
+    sys.path.insert(0, str(root / "src"))
+    from repro_torch.config import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as FA
+
+    build.build_all()
+    for label, _, r in flash_rows(FA, get_config("mod-paper-1b"), torch.device("cuda", 0),
+                                  FLASH_TIMED):
+        log(f"[flash-timing] {root.name or root}: {r['shape']}: kernel {r['ms']:.4f} ms, "
+            f"SDPA {r['library_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms (CUDA graph replay; "
+            f"{smi_line()})")
 
 
 def _w(g, dev, dtype, *shape):
@@ -474,25 +631,29 @@ def check_fused(cfg, dev, results):
         mlp_flops = 2.0 * M * D * F * n_w
         mlp_bytes = (2 * B * S * D + 2 * M * D + n_w * D * F + D) * es + 12 * M
         shape = f"B={B} S={S} k={k} D={D} {str(dtype)[6:]}"
+        ha, hm = {}, {}
         rows = {
             "routed_attention": dict(
-                ms=time_ms(lambda: FA.routed_attention(x, idx, pos, ap, spec), iters=5),
-                plain_ms=time_ms(lambda: FA.routed_attention_plain(x, idx, pos, ap, spec),
-                                 iters=5),
+                ms=replay_ms(lambda: FA.routed_attention(x, idx, pos, ap, spec), ha, "ms", reps=5),
+                plain_ms=replay_ms(lambda: FA.routed_attention_plain(x, idx, pos, ap, spec), ha,
+                                   "plain_ms", reps=5),
                 library_ms=None, bound=bound_ms(attn_bytes, attn_flops, dtype),
-                max_abs_err=err_a, shape=f"{shape} {nq}x{hd}"),
+                max_abs_err=err_a, shape=f"{shape} {nq}x{hd}", timed_by=ha),
             "routed_mlp_scatter": dict(
-                ms=time_ms(lambda: SW.routed_mlp_scatter(x, h, a, idx, gate, mp, mspec), iters=5),
-                plain_ms=time_ms(lambda: SW.routed_mlp_scatter_plain(x, h, a, idx, gate, mp, mspec),
-                                 iters=5),
+                ms=replay_ms(lambda: SW.routed_mlp_scatter(x, h, a, idx, gate, mp, mspec), hm, "ms",
+                             reps=5),
+                plain_ms=replay_ms(lambda: SW.routed_mlp_scatter_plain(x, h, a, idx, gate, mp,
+                                                                     mspec), hm, "plain_ms",
+                                reps=5),
                 library_ms=None, bound=bound_ms(mlp_bytes, mlp_flops, dtype),
-                max_abs_err=err_m, shape=f"{shape} F={F}"),
+                max_abs_err=err_m, shape=f"{shape} F={F}", timed_by=hm),
         }
         for name, r in rows.items():
             r["tflops"] = (attn_flops if name == "routed_attention" else mlp_flops) / r["ms"] / 1e9
             log(f"[kernels] {name:18s} {r['shape']:44s} max_abs_err={r['max_abs_err']:.3g} "
                 f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms=none "
-                f"bound_ms={r['bound'][0]:.4f} ({r['bound'][1]}) achieved {r['tflops']:.2f} TFLOP/s")
+                f"bound_ms={r['bound'][0]:.4f} ({r['bound'][1]}) achieved {r['tflops']:.2f} TFLOP/s"
+                f"{timed_note(r['timed_by'])}")
             results.setdefault(name, {})[dtype] = r
 
 
@@ -643,12 +804,16 @@ def check_paged(cfg, dev, results):
                 library=lambda wfi=wfi, wrows=wrows: flat.index_copy_(0, wfi, wrows),
                 nbytes=2 * n_valid * F * es + 8 * W, shape=f"{shape} W={W} ({n_valid} valid)")
         for (name, key), c in timed.items():
-            r = dict(call_ms=event_ms(c["fn"]), ms=time_ms(c["fn"]), plain_ms=time_ms(c["plain"]),
-                     library_ms=time_ms(c["library"]), bound=bound_ms(c["nbytes"], 0, dtype),
+            how: dict = {}
+            r = dict(call_ms=event_ms(c["fn"]), ms=replay_ms(c["fn"], how, "ms"),
+                     plain_ms=replay_ms(c["plain"], how, "plain_ms"),
+                     library_ms=replay_ms(c["library"], how, "library_ms"),
+                     bound=bound_ms(c["nbytes"], 0, dtype), timed_by=how,
                      max_abs_err=0.0, shape=c["shape"])  # equality was checked above
             log(f"[kernels] {name:26s} {r['shape']:44s} bitwise-equal ms={r['ms']:.4f} "
                 f"call_ms={r['call_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-                f"library_ms={r['library_ms']:.4f} bound_ms={r['bound'][0]:.6f} ({r['bound'][1]})")
+                f"library_ms={r['library_ms']:.4f} bound_ms={r['bound'][0]:.6f} ({r['bound'][1]})"
+                f"{timed_note(how)}")
             results.setdefault(name, {})[key] = r
 
 
@@ -673,6 +838,11 @@ def check_quant_casts(dev):
     x = torch.randn(4096, 1792, generator=g) * torch.rand(4096, 1, generator=g) * 60
     x[:64] = torch.round(x[:64] * 2) / 2  # int8 midpoints after a pow2 scale
     x[64:128] = x[64:128] * 1e-30  # tiny rows
+    # scale 2^-126 with subnormal elements beside it: both devices flush
+    # them to a zero of their sign before dividing, as XLA does
+    x[128:130] = 0.0
+    x[128, 0], x[129, 0] = 127.0 * 2.0 ** -126, 448.0 * 2.0 ** -126
+    x[128:130, 1], x[128:130, 2], x[128:130, 3] = 1.1e-38, -6e-39, -1e-45
     ratios = torch.cat([torch.tensor([0.0, 1e-42, 1e-40, 3e-38, float("inf"), 448.0, 127.0]),
                         torch.rand(4096, generator=g) * 1e4])
     for qmax in (127.0, 448.0):
@@ -687,9 +857,11 @@ def check_quant_casts(dev):
         if n or not torch.equal(sa, sb.cpu()):
             raise AssertionError(f"{kv}/{gran}: {n} narrow bytes or the scales differ between the "
                                  "CPU and the card")
-    log(f"[kernels] quantize casts: int8/page and fp8/head bytes and scales of {x.numel()} values, "
-        f"and pow2_scale of {ratios.numel()} ratios (subnormal, inf), identical on the CPU and "
-        f"the card")
+        if qb[128:130, 1:4].float().any():
+            raise AssertionError(f"{kv}/{gran}: a subnormal element quantized to a nonzero value")
+    log(f"[kernels] quantize casts: int8/page and fp8/head bytes and scales of {x.numel()} values "
+        f"(subnormal elements flushed to 0), and pow2_scale of {ratios.numel()} ratios "
+        f"(subnormal, inf), identical on the CPU and the card")
 
 
 def check_dequant(cfg, dev, results):
@@ -733,14 +905,15 @@ def check_dequant(cfg, dev, results):
             G = sc.shape[2]
             nbytes = reads * p * (F + 4 * G) + 4 * Bg * P + Bg * P * p * F * 2
             fn = (lambda t=t: KP.paged_gather_dequant(q, sc, t, torch.bfloat16))
-            r = dict(call_ms=event_ms(fn), ms=time_ms(fn),
-                     plain_ms=time_ms(lambda t=t: KP.paged_gather_dequant_plain(
-                         q, sc, t, torch.bfloat16)),
+            how: dict = {}
+            r = dict(call_ms=event_ms(fn), ms=replay_ms(fn, how, "ms"),
+                     plain_ms=replay_ms(lambda t=t: KP.paged_gather_dequant_plain(
+                         q, sc, t, torch.bfloat16), how, "plain_ms"),
                      library_ms=None, bound=bound_ms(nbytes, 0, torch.bfloat16), max_abs_err=0.0,
-                     shape=f"{label} N={N} p={p} F={F} G={G} B={Bg} P={P} -> bf16")
+                     shape=f"{label} N={N} p={p} F={F} G={G} B={Bg} P={P} -> bf16", timed_by=how)
             log(f"[kernels] paged_gather_dequant {r['shape']:52s} bitwise-equal ms={r['ms']:.4f} "
                 f"call_ms={r['call_ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms=none "
-                f"bound_ms={r['bound'][0]:.6f} ({r['bound'][1]})")
+                f"bound_ms={r['bound'][0]:.6f} ({r['bound'][1]}){timed_note(how)}")
             results.setdefault("paged_gather_dequant", {})[f"{label} B={Bg}"] = r
     # odd widths and a scale block that is not a multiple of 16 elements
     # (the kernel's element-wise path), both narrow types, f32 output
@@ -824,17 +997,23 @@ def check_ragged_dispatch(cfg, dev, results):
             "ragged_scatter_add_rows": dict(
                 fn=lambda: KRG.ragged_scatter_add_rows(x, idx, delta, gate),
                 plain=lambda: KRG.ragged_scatter_add_rows_plain(x, idx, delta, gate),
+                uncapturable="the plain version selects rows by a boolean mask, a host sync",
                 library=lambda: x.index_add(0, valid, upd),
                 nbytes=2 * T * D * es + n_valid * D * es + 8 * idx.numel(),
                 flops=2 * n_valid * D),
         }
         for name, c in timed.items():
-            r = dict(call_ms=event_ms(c["fn"]), ms=time_ms(c["fn"]), plain_ms=time_ms(c["plain"]),
-                     library_ms=time_ms(c["library"]), bound=bound_ms(c["nbytes"], c["flops"], dtype),
+            how: dict = {}
+            r = dict(call_ms=event_ms(c["fn"]), ms=replay_ms(c["fn"], how, "ms"),
+                     plain_ms=replay_ms(c["plain"], how, "plain_ms",
+                                        uncapturable=c.get("uncapturable", "")),
+                     library_ms=replay_ms(c["library"], how, "library_ms"),
+                     bound=bound_ms(c["nbytes"], c["flops"], dtype), timed_by=how,
                      max_abs_err=0.0, shape=shape)
             log(f"[kernels] {name:24s} {shape:46s} bitwise-equal ms={r['ms']:.4f} "
                 f"call_ms={r['call_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-                f"library_ms={r['library_ms']:.4f} bound_ms={r['bound'][0]:.6f} ({r['bound'][1]})")
+                f"library_ms={r['library_ms']:.4f} bound_ms={r['bound'][0]:.6f} ({r['bound'][1]})"
+                f"{timed_note(how)}")
             results.setdefault(name, {})[label] = r
 
 
@@ -1099,6 +1278,29 @@ def train_step_parity(dev):
 # ---------------------------------------------------------------------------
 
 
+def flash_calls() -> dict:
+    """The flash launches since the last counter reset by call, as the
+    wrapper counts them where it launches: {(path, B, Sq, Skv, nq, nkv, hd):
+    launches}. Their sum must be the wrapper's launch count."""
+    from repro_torch.kernels import flash_attention as FA
+
+    calls = dict(FA.FLASH_ATTENTION.by_call)
+    if sum(calls.values()) != FA.FLASH_ATTENTION.launches:
+        raise AssertionError(f"flash launches by call sum to {sum(calls.values())}, "
+                             f"not the count {FA.FLASH_ATTENTION.launches}")
+    return calls
+
+
+def log_flash_calls(run: str, calls: dict) -> None:
+    by_path: dict = {}
+    for key, n in calls.items():
+        by_path[key[0]] = by_path.get(key[0], 0) + n
+    top = sorted(calls.items(), key=lambda kv: -kv[1])[:6]
+    log(f"[{run}] flash_attention launches by path (counted in the wrapper): "
+        f"{json.dumps(by_path)} over {len(calls)} call shapes; most launched "
+        "(path, B, Sq, Skv): " + "; ".join(f"{k[:4]} {n}" for k, n in top))
+
+
 def serve_1b(dev):
     from repro_torch.config import get_config, with_mod_backend
     from repro_torch.core.routing import batch_capacity_k
@@ -1128,6 +1330,7 @@ def serve_1b(dev):
     outs = engine.run_stream(reqs, 0)
     torch.cuda.synchronize()
     counts = build.launch_counts()
+    flash = flash_calls()
     s = engine.stats()
     if len(outs) != n_req:
         raise AssertionError(f"{len(outs)} of {n_req} requests finished")
@@ -1163,7 +1366,15 @@ def serve_1b(dev):
     log(f"[serve] launches on the main path: {json.dumps(counts)} "
         f"(per prefill of one prompt: gather/scatter {cfg.n_layers // 2}, flash {cfg.n_layers}; "
         f"per decode step: flash {cfg.n_layers})")
-    return counts
+    log_flash_calls("serve", flash)
+    # each layer attends once per prefill (the tile path) and once per
+    # decode step (the decode path), routed MoD layers on their kb slots
+    for path, want in (("tile", cfg.n_layers * s["prefills"]),
+                       ("decode", cfg.n_layers * s["decode_steps"])):
+        got = sum(n for key, n in flash.items() if key[0] == path)
+        if got != want:
+            raise AssertionError(f"{got} flash launches on the {path} path, not {want:.0f}")
+    return counts, flash
 
 
 # ---------------------------------------------------------------------------
@@ -1174,7 +1385,7 @@ def serve_1b(dev):
 def _kernel_group(name: str) -> str:
     """The port kernel a CUDA kernel name belongs to (the fused kernels are
     several __global__ functions each), else the kind of library kernel."""
-    if "flash_fwd_kernel" in name:
+    if "flash_fwd" in name:
         return "flash_attention"
     if "ssd_intra_kernel" in name:
         return "ssd_intra_chunk"
@@ -1243,6 +1454,7 @@ def train_1b(dev):
                 f"{g} {t:.1f}" for g, t in sorted(groups.items(), key=lambda kv: -kv[1])))
             log("[train]   top kernels: " + "; ".join(f"{n[:60]} {t:.1f} ms" for n, t in top))
         counts = build.launch_counts()
+        flash = flash_calls()
     log(f"[train] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite training loss: {losses}")
@@ -1256,7 +1468,8 @@ def train_1b(dev):
     for name in ("gather_rows", "scatter_add_rows"):
         if counts.get(name, 0) != 0:
             raise AssertionError(f"{name} ran under pallas_fused: the fused kernels were bypassed")
-    return counts
+    log_flash_calls("train", flash)
+    return counts, flash
 
 
 # ---------------------------------------------------------------------------
@@ -1983,7 +2196,8 @@ def check_ssd(dev, results):
             if not finite or max(errs) > tol:
                 raise AssertionError(f"ssd_intra_chunk {name} {dtype} differs from its plain version")
             nbytes, flops = ssd_work(*shape, x.element_size())
-            reps = sorted(time_ms(lambda: KSSD.ssd_intra_chunk(x, loglam, dt, Bm, Cm))
+            how: dict = {}
+            reps = sorted(replay_ms(lambda: KSSD.ssd_intra_chunk(x, loglam, dt, Bm, Cm), how, "ms")
                           for _ in range(SSD_REPS if name == "train full" else 1))
             if len(reps) > 1:
                 G = KSSD.head_group(*shape[:3], torch.cuda.get_device_properties(dev)
@@ -1993,13 +2207,14 @@ def check_ssd(dev, results):
                     f"spread {reps[-1] - reps[0]:.4f} ms; heads per block G={G}; sm clock, max, "
                     f"temperature, power: {smi_clocks()}")
             r = dict(ms=reps[len(reps) // 2],
-                     plain_ms=time_ms(lambda: KSSD.ssd_intra_chunk_plain(x, loglam, dt, Bm, Cm)),
-                     library_ms=None, bound=bound_ms(nbytes, flops, torch.float32),
+                     plain_ms=replay_ms(lambda: KSSD.ssd_intra_chunk_plain(x, loglam, dt, Bm, Cm),
+                                        how, "plain_ms", reps=5),
+                     library_ms=None, bound=bound_ms(nbytes, flops, torch.float32), timed_by=how,
                      max_abs_err=max((y - wy).abs().max().item(), (inc - winc).abs().max().item()),
                      shape=f"{name} x{tuple(x.shape)} ds={shape[5]} {str(dtype)[6:]}")
             log(f"[kernels] ssd_intra_chunk {name} {str(dtype)[6:]}: {r['ms']:.4f} ms (plain "
                 f"{r['plain_ms']:.4f}, bound {r['bound'][0]:.4f} by {r['bound'][1]}: "
-                f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+                f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP){timed_note(how)}")
             results["ssd_intra_chunk"][(name, dtype)] = r
             del y, inc, wy, winc
     x, loglam, dt, Bm, Cm = _ssd_inputs(dev, torch.bfloat16, *SSD_SHAPES["train routed"], 22, True)
@@ -2623,6 +2838,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing to run", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--flash-timing"]:
+        flash_timing(Path(sys.argv[2]).resolve() if len(sys.argv) > 2 else ROOT)
+        return 0
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.config import get_config
     from repro_torch.kernels import build
@@ -2659,8 +2877,8 @@ def main() -> int:
     timed("phase 3 parity", lambda: (cross_device_parity(dev), train_step_parity(dev)))
     timed("phase 6a-8a parity", lambda: (paged_parity(dev), quant_parity(dev),
                                          ragged_forward_parity(dev)))
-    serve_counts = timed("phase 4 serve", serve_1b, dev)
-    train_counts = timed("phase 5 train", train_1b, dev)
+    serve_counts, serve_flash = timed("phase 4 serve", serve_1b, dev)
+    train_counts, train_flash = timed("phase 5 train", train_1b, dev)
     from repro_torch.config import with_mod_backend
     from repro_torch.models import api
 
@@ -2684,6 +2902,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     ssm_serve_counts = timed("phase 9d ssm serve", serve_ssm, dev)
 
+    # flash: every shape of phase 2, each with the launches of exactly its
+    # call (path and shape) in phases 4 and 5, as the wrapper counted them
+    # (the serving prompts are 128-1024 tokens long, so a prefill row may
+    # count none); every call shape of those runs rides on the kernel's entry
+    fl_runs = {"serve": serve_flash, "train": train_flash}
+    shapes = {"flash_attention": [
+        dict(shape=r["shape"], path=r["path"], ms=r["ms"], plain_ms=r["plain_ms"],
+             library_ms=r["library_ms"], bound_ms=r["bound"][0], timed_by=r["timed_by"],
+             launches=sum(c.get((r["path"], *r["call"]), 0) for c in fl_runs.values()))
+        for r in results["flash_attention"].values()]}
+    flash_by_call = {run: [dict(path=k[0], B=k[1], Sq=k[2], Skv=k[3], nq=k[4], nkv=k[5],
+                                hd=k[6], launches=n) for k, n in sorted(c.items())]
+                     for run, c in fl_runs.items()}
     picks = {  # the entry of each kernel at a main-path shape (bf16)
         "gather_rows": results["gather_rows"][(1000, torch.bfloat16)],
         "scatter_add_rows": results["scatter_add_rows"][(1000, torch.bfloat16)],
@@ -2691,7 +2922,6 @@ def main() -> int:
         "routed_attention": results["routed_attention"][torch.bfloat16],
         "routed_mlp_scatter": results["routed_mlp_scatter"][torch.bfloat16],
     }
-    shapes = {}
     for name in PAGED_KERNELS:
         # every shape phase 6c gives the kernel, with its launches there;
         # the line's numbers are those of the shape that took the most of
@@ -2783,10 +3013,14 @@ def main() -> int:
             "launches": by_path[path][name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"], "shape": r["shape"],
+            # how each time was taken: CUDA-graph replay, or torch.profiler
+            # for a plain call named as not capturing
+            "timed_by": r.get("timed_by") or {"ms": "graph", "plain_ms": "graph"},
             **({"yardstick_ms": r["yardstick_ms"], "yardstick": "paged_gather x3 + "
                 "flash_attention (the port's decode path; not one call)"}
                if "yardstick_ms" in r else {}),
             **({"library": SWIGLU_LIBRARY[torch.bfloat16]} if name == "swiglu" else {}),
+            **({"launches_by_call": flash_by_call} if name == "flash_attention" else {}),
             "launches_by_path": {k: v.get(name, 0) for k, v in by_path.items()},
             **({"shapes": shapes[name]} if name in shapes else {}),
         })

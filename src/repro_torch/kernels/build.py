@@ -40,9 +40,18 @@ class LaunchCounter:
     def __init__(self, name: str):
         self.name = name
         self.launches = 0
+        # launches by a key the wrapper names beside its count (flash: the
+        # path and call shape), for runs that attribute launches to shapes
+        self.by_call: Dict[tuple, int] = {}
+
+    def add(self, key: tuple = ()) -> None:
+        self.launches += 1
+        if key:
+            self.by_call[key] = self.by_call.get(key, 0) + 1
 
     def reset(self) -> None:
         self.launches = 0
+        self.by_call = {}
 
 
 COUNTERS: Dict[str, LaunchCounter] = {}

@@ -22,7 +22,10 @@ log-sum-exp when a gradient is needed. Semantics are the Pallas kernel's:
   this, and neither value reaches a valid row or a logit.)
 
 The kernel takes any ``Sq``/``Skv`` (the ragged edges are masked), head
-dims 32/64/128/256, f32 and bf16.
+dims 32/64/128/256, f32 and bf16. :func:`flash_plan` picks its path from
+the dtype, ``Sq`` and ``nq/nkv`` alone: bf16 tiles of 64 query rows on
+tensor cores, bf16 split-KV decode when ``Sq·nq/nkv`` rows fit one
+16-row mma tile, or the f32 CUDA-core kernel.
 
 ``routed_attention`` (the Pallas ``_routed_attn_kernel``) is described at
 its section below.
@@ -48,7 +51,59 @@ _HEAD_DIMS = (32, 64, 128, 256)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_ARGTYPES = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P)
+_ARGTYPES = (_P,) * 10 + (_I,) * 10 + (_F, _I, _I, _P)
+# the kernel's path codes and tiling (csrc/flash_attention.cu checks that a
+# decode plan's chunk and split count are its own)
+_PATHS = {"f32": 0, "tile": 1, "decode": 2}
+DECODE_ROWS = 16  # one mma tile of (query position, head of the group) rows
+_GRID_YZ = 65535  # CUDA's limit on gridDim.y and gridDim.z (heads, batch rows)
+
+
+def key_tile(hd: int) -> int:
+    """Keys per K/V tile of the bf16 kernels."""
+    return 32 if hd == 256 else 64
+
+
+def decode_chunk(hd: int) -> int:
+    """Keys per split of the decode path: a fixed multiple of the key tile,
+    so split boundaries fall at the same key indices whatever ``Skv`` is."""
+    return 2 * key_tile(hd)
+
+
+class FlashPlan(NamedTuple):
+    """How the CUDA kernel runs one call."""
+
+    path: str  # "f32" | "tile" | "decode"
+    chunk: int  # keys per split (decode), else 0
+    n_splits: int  # ceil(Skv / chunk) (decode), else 0
+    scratch: Tuple[Tuple[int, ...], ...]  # f32 partial m, l and acc (decode), else ()
+
+
+def flash_plan(B: int, Sq: int, Skv: int, nq: int, nkv: int, hd: int,
+               dtype: torch.dtype) -> FlashPlan:
+    """The kernel's path, split plan and scratch shapes: a pure function of
+    the shapes. The path depends only on the dtype, ``Sq`` and ``nq/nkv``,
+    never on ``Skv`` or ``B``, so a row's result does not either. Raises for
+    what the kernel does not take, before anything is built."""
+    if hd not in _HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {_HEAD_DIMS}")
+    if nkv <= 0 or nq % nkv:
+        raise ValueError(f"n_heads {nq} is not a multiple of n_kv_heads {nkv}")
+    if dtype not in _DTYPES:
+        raise TypeError(f"unsupported dtype {dtype}; the kernel takes {list(_DTYPES)}")
+    if max(nq, B) > _GRID_YZ:
+        raise ValueError(f"n_heads {nq} and batch {B} must be at most {_GRID_YZ}")
+    if dtype == torch.float32:
+        return FlashPlan("f32", 0, 0, ())
+    rows = Sq * (nq // nkv)
+    if rows > DECODE_ROWS:
+        return FlashPlan("tile", 0, 0, ())
+    chunk = decode_chunk(hd)
+    n = -(-Skv // chunk)
+    part = (B, nkv, n, rows)
+    return FlashPlan("decode", chunk, n, (part, part, part + (hd,)))
+
+
 # the query block of the backward's loop (bounds its (B, nq, block, Skv) f32
 # score tiles, as the JAX blocked VJP's BLOCK_Q does)
 BWD_BLOCK_Q = 512
@@ -99,14 +154,20 @@ def flash_attention_plain(
     return _flash_plain(q, k, v, q_pos, kv_pos, causal, window, scale)[0]
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address (the kernels load rows
+    as 16-byte vectors)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _flash_launch(q, k, v, q_pos, kv_pos, causal, window, scale, want_lse):
     B, Sq, nq, hd = q.shape
     Skv, nkv = k.shape[1], k.shape[2]
-    if hd not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in {_HEAD_DIMS}")
+    plan = flash_plan(B, Sq, Skv, nq, nkv, hd, q.dtype)
     if len({t.device for t in (q, k, v, q_pos, kv_pos)}) != 1:
         raise ValueError("all inputs must be on one device")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     q_pos = q_pos.to(torch.int32).contiguous()
     kv_pos = kv_pos.to(torch.int32).contiguous()
     out = torch.empty_like(q)
@@ -117,16 +178,18 @@ def _flash_launch(q, k, v, q_pos, kv_pos, causal, window, scale, want_lse):
         if lse is not None:
             lse.fill_(math.log(1e-30))
         return out.zero_(), lse
+    part = [torch.empty(shape, dtype=torch.float32, device=q.device) for shape in plan.scratch]
     fn = build.bind("flash_attention", "repro_flash_attention", _ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
         out.data_ptr(), None if lse is None else lse.data_ptr(),
-        B, Sq, Skv, nq, nkv, hd, _DTYPES[q.dtype], scale,
-        int(bool(causal)), int(window), stream,
+        *([t.data_ptr() for t in part] or [None] * 3),
+        B, Sq, Skv, nq, nkv, hd, _DTYPES[q.dtype], _PATHS[plan.path], plan.chunk,
+        plan.n_splits, scale, int(bool(causal)), int(window), stream,
     )
     build.check("flash_attention", "repro_flash_attention", err)
-    FLASH_ATTENTION.launches += 1
+    FLASH_ATTENTION.add((plan.path, B, Sq, Skv, nq, nkv, hd))
     return out, lse
 
 

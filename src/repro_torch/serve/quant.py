@@ -98,6 +98,17 @@ def pow2_scale(absmax: torch.Tensor, qmax: float) -> torch.Tensor:
     return torch.where((r > 0) & (field > 0), s, torch.ones_like(s))
 
 
+_TINY = torch.finfo(torch.float32).tiny
+
+
+def _flush(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` with every subnormal element (|x| < the smallest normal) made
+    a zero of its sign. XLA flushes subnormals before it divides, so the JAX
+    package quantizes such an element to 0; every divide below that has a
+    JAX counterpart flushes its numerator first."""
+    return torch.where(x.abs() < _TINY, torch.copysign(torch.zeros_like(x), x), x)
+
+
 def _narrow(y: torch.Tensor, qc: QuantConfig) -> torch.Tensor:
     """f32 values already divided by their scale -> the narrow dtype."""
     if qc.kv == "int8":
@@ -114,7 +125,7 @@ def row_scales(x: torch.Tensor, n_groups: int, qc: QuantConfig) -> torch.Tensor:
 def quant_rows(x: torch.Tensor, scales: torch.Tensor, qc: QuantConfig) -> torch.Tensor:
     """Quantize canonical rows ``(..., F)`` against ``(..., G)`` scales."""
     g = scales.shape[-1]
-    y = x.float().reshape(x.shape[:-1] + (g, -1)) / scales[..., None]
+    y = _flush(x.float()).reshape(x.shape[:-1] + (g, -1)) / scales[..., None]
     return _narrow(y, qc).reshape(x.shape)
 
 
@@ -158,7 +169,7 @@ def roundtrip_leaf(x: torch.Tensor, batch_axis: int, qc: QuantConfig,
     else:
         red = tuple(a for a in range(x.dim()) if a not in (batch_axis, batch_axis + 1))
     s = pow2_scale(f32.abs().amax(dim=red, keepdim=True), qc.qmax)
-    rt = (_narrow(f32 / s, qc).float() * s).to(x.dtype)
+    rt = (_narrow(_flush(f32) / s, qc).float() * s).to(x.dtype)
     if mask is None:
         return rt
     mshape = [1] * x.dim()
@@ -177,7 +188,7 @@ def _is_qleaf(x: Any) -> bool:
 
 
 def _qleaf(p: torch.Tensor, s: torch.Tensor) -> Dict[str, Any]:
-    q = torch.round(p.float() / s).clamp(-127, 127).to(torch.int8)
+    q = torch.round(_flush(p.float()) / s).clamp(-127, 127).to(torch.int8)
     return {_QKEY: q, _SKEY: s, _DKEY: p.dtype}
 
 

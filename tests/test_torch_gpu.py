@@ -11,7 +11,12 @@ Tolerances: gather/scatter are copies and exact updates, so bitwise; the
 flash kernel sums its online softmax in another order than the dense plain
 version (f32 atol 2e-5), and rounds p to bf16 against another running max
 before p@V (bf16 atol and rtol 8e-3: one bf16 ulp of the output is at most
-2^-7 of its value). The fused routed kernels (routed_attention,
+2^-7 of its value). That holds on both bf16 paths (tensor-core tiles;
+split-KV decode, whose partials merge in f32) at every head dim, on
+wrapped rings and rows with no valid key; a row's bf16 bits do not depend
+on empty slots appended to K/V or on the batch around it; its f32 lse is
+the plain version's within 1e-4 (exact bf16 products summed in f32 in
+other orders). The fused routed kernels (routed_attention,
 routed_mlp_scatter) round where their plain versions round, but sum their
 products in another order than cuBLAS: f32 within 1e-4 (atol and rtol);
 in bf16 a sum that lands on the other side of a rounding boundary moves a
@@ -52,7 +57,8 @@ import pytest
 torch = pytest.importorskip("torch")
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from chip_smoke import RAGGED_EDGE_MODES, check_ragged_edge_case, ragged_edge_case  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    RAGGED_EDGE_MODES, check_ragged_edge_case, flash_call, ragged_edge_case)
 
 from repro_torch import config as TC  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
@@ -97,6 +103,35 @@ def test_routing_kernels_bitwise(dev, dtype, B, S, D, k):
     assert counts["gather_rows"] == 1 and counts["scatter_add_rows"] == 1
 
 
+def _flash_inputs(dev, dtype, B, Sq, Skv, nq, nkv, hd, layout, seed=1):
+    """q/k/v and positions for one flash case. ``layout``:
+    "tail": keys at positions 0.. with the last 3 slots empty (-1); queries
+    at the last Sq positions (Sq == Skv: the keys' own positions);
+    "ring": a ring of Skv slots after Skv + 37 writes, so kv_pos wraps and
+    is not monotone in the slot index; queries at the newest positions;
+    "late": keys start at position 5 and query row 0 sits at position 2, so
+    it has no valid key under causality (its output is 0)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, Sq, nq, hd, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, Skv, nkv, hd, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, Skv, nkv, hd, generator=g, device=dev).to(dtype)
+    idx = torch.arange(Skv, dtype=torch.int32, device=dev)
+    if layout == "ring":
+        n = Skv + 37
+        kv_pos = idx + Skv * ((n - 1 - idx) // Skv)
+        q_pos = torch.arange(n - Sq, n, dtype=torch.int32, device=dev)
+    elif layout == "late":
+        kv_pos = idx + 5
+        q_pos = torch.arange(Skv + 5 - Sq, Skv + 5, dtype=torch.int32, device=dev)
+        q_pos[0] = 2
+    else:
+        kv_pos = idx.clone()
+        kv_pos[-3:] = -1
+        q_pos = kv_pos.clone() if Sq == Skv else torch.arange(
+            Skv - 3 - Sq, Skv - 3, dtype=torch.int32, device=dev).clamp_min(0)
+    return q, k, v, q_pos[None].repeat(B, 1), kv_pos[None].repeat(B, 1)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize(
     "B,Sq,Skv,nq,nkv,hd,causal,window",
@@ -106,25 +141,136 @@ def test_routing_kernels_bitwise(dev, dtype, B, S, D, k):
         (8, 1, 1056, 14, 14, 128, True, 0),  # decode against a ring
         (2, 17, 70, 4, 4, 32, False, 0),
         (1, 64, 64, 2, 1, 256, True, 16),  # sliding window
+        # the bf16 decode path (Sq * nq/nkv <= 16 rows) and the tile path
+        # around it, at every head dim; Skv under one split chunk and over
+        # many chunks; GQA with g = 2 and 7
+        *[(2, Sq, Skv, 2, 2, hd, True, 0) for hd in (32, 64, 128, 256)
+          for Sq in (1, 15, 16, 17, 65, 300) for Skv in (50, 1000)],
+        (3, 1, 700, 8, 4, 128, True, 0),  # g = 2, decode
+        (2, 8, 700, 8, 4, 64, True, 0),  # g = 2, 16 rows: decode
+        (2, 9, 700, 8, 4, 64, True, 0),  # g = 2, 18 rows: tile
+        (2, 2, 900, 14, 2, 128, True, 0),  # g = 7, 14 rows: decode
+        (2, 3, 900, 14, 2, 128, True, 0),  # g = 7, 21 rows: tile
+        (2, 1, 600, 4, 4, 128, True, 100),  # window, decode
+        (2, 65, 600, 4, 4, 128, False, 0),  # non-causal, tile
+        (2, 1, 600, 4, 4, 256, False, 0),  # non-causal, decode
     ],
 )
 def test_flash_attention_matches_plain(dev, dtype, B, Sq, Skv, nq, nkv, hd, causal, window):
-    g = torch.Generator(device=dev).manual_seed(1)
-    q = torch.randn(B, Sq, nq, hd, generator=g, device=dev).to(dtype)
-    k = torch.randn(B, Skv, nkv, hd, generator=g, device=dev).to(dtype)
-    v = torch.randn(B, Skv, nkv, hd, generator=g, device=dev).to(dtype)
-    kv_pos = torch.arange(Skv, dtype=torch.int32, device=dev)[None].repeat(B, 1)
-    kv_pos[:, -3:] = -1  # empty slots / padded tail
-    if Sq == Skv:
-        q_pos = kv_pos.clone()
-    else:
+    q, k, v, q_pos, kv_pos = _flash_inputs(dev, dtype, B, Sq, Skv, nq, nkv, hd, "tail")
+    if Sq != Skv:  # queries anywhere in the context
+        g = torch.Generator(device=dev).manual_seed(2)
         q_pos = torch.randint(0, Skv, (B, Sq), generator=g, device=dev, dtype=torch.int32)
     build.reset_counters()
     got = FA.flash_attention(q, k, v, q_pos, kv_pos, causal=causal, window=window)
     want = FA.flash_attention_plain(q, k, v, q_pos, kv_pos, causal=causal, window=window)
     torch.cuda.synchronize()
     assert build.launch_counts()["flash_attention"] == 1
+    path = FA.flash_plan(B, Sq, Skv, nq, nkv, hd, dtype).path
+    assert FA.FLASH_ATTENTION.by_call == {(path, B, Sq, Skv, nq, nkv, hd): 1}
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("layout", ["ring", "late"])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("Sq,nq,nkv,window", [(1, 4, 4, 0), (16, 2, 2, 0), (2, 14, 2, 0),
+                                              (17, 4, 4, 0), (65, 4, 2, 0), (65, 4, 4, 300)])
+def test_flash_attention_bf16_paths_on_rings_and_empty_rows(dev, layout, hd, Sq, nq, nkv,
+                                                            window):
+    """A wrapped ring (kv_pos not monotone in the slot) and a query row with
+    no valid key, through the decode path (Sq * nq/nkv <= 16) and the tile
+    path, over Skv = 1000 (8-16 split chunks)."""
+    q, k, v, q_pos, kv_pos = _flash_inputs(dev, torch.bfloat16, 2, Sq, 1000, nq, nkv, hd,
+                                           layout, seed=3)
+    got = FA.flash_attention(q, k, v, q_pos, kv_pos, window=window)
+    want = FA.flash_attention_plain(q, k, v, q_pos, kv_pos, window=window)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[torch.bfloat16])
+    if layout == "late":
+        assert torch.equal(got[:, 0], torch.zeros_like(got[:, 0]))
+
+
+@pytest.mark.parametrize("layout", ["tail", "ring"])
+@pytest.mark.parametrize("Sq,nq,nkv", [(1, 14, 14), (2, 14, 2), (65, 4, 4)])
+def test_flash_attention_bf16_rows_do_not_depend_on_skv_or_batch(dev, layout, Sq, nq, nkv):
+    """Bitwise: a row's output is the same when empty (-1) slots are appended
+    to K/V (more split chunks on the decode path), and when its batch row is
+    computed alone (B = 1) or among 8."""
+    hd, Skv = 128, 700
+    q, k, v, q_pos, kv_pos = _flash_inputs(dev, torch.bfloat16, 8, Sq, Skv, nq, nkv, hd, layout,
+                                           seed=4)
+    base = FA.flash_attention(q, k, v, q_pos, kv_pos)
+    extra = 333
+    pad = lambda t, val: torch.cat(  # noqa: E731
+        [t, torch.full((8, extra) + t.shape[2:], val, dtype=t.dtype, device=dev)], dim=1)
+    longer = FA.flash_attention(q, pad(k, 0), pad(v, 0), q_pos, pad(kv_pos, -1))
+    assert torch.equal(longer, base)
+    for b in (0, 5):
+        alone = FA.flash_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1], q_pos[b:b + 1],
+                                   kv_pos[b:b + 1])
+        assert torch.equal(alone[0], base[b])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("Sq,nq,nkv,layout", [(1, 14, 14, "tail"), (2, 14, 2, "late"),
+                                              (300, 4, 2, "tail"), (65, 4, 4, "late")])
+def test_flash_attention_lse_matches_plain(dev, dtype, Sq, nq, nkv, layout):
+    """The f32 row log-sum-exp the backward reads, on every path (a row with
+    no valid key: log(1e-30)). Both sides sum exact bf16 products in f32 in
+    other orders, and l over another split of the keys: within 1e-4."""
+    q, k, v, q_pos, kv_pos = _flash_inputs(dev, dtype, 2, Sq, 1000, nq, nkv, 128, layout,
+                                           seed=5)
+    scale = 128 ** -0.5
+    _, lse = FA._flash_launch(q, k, v, q_pos, kv_pos, True, 0, scale, True)
+    _, want = FA._flash_plain(q, k, v, q_pos, kv_pos, True, 0, scale)
+    torch.testing.assert_close(lse, want, atol=1e-4, rtol=0.0)
+
+
+def _eager_and_replayed(fn):
+    """fn()'s tensors from an eager call and from one replay of a CUDA graph
+    that captured fn (after a warm-up on a side stream, as capture wants)."""
+    want = fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return want, got
+
+
+def test_flash_attention_decode_replays_in_a_cuda_graph(dev):
+    """The decode path's two kernels and its scratch allocation capture into
+    a CUDA graph, and a replay gives the eager call's bits."""
+    q, k, v, q_pos, kv_pos = _flash_inputs(dev, torch.bfloat16, 8, 1, 1056, 14, 14, 128, "ring")
+    want, got = _eager_and_replayed(lambda: FA.flash_attention(q, k, v, q_pos, kv_pos))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,hd,needs_grad", [(2, 65, 1000, 128, False),
+                                                     (2, 300, 300, 64, True),
+                                                     (4, 2048, 2048, 128, True)])
+def test_flash_attention_tile_path_replays_in_a_cuda_graph(dev, B, Sq, Skv, hd, needs_grad):
+    """The tile path captures into a CUDA graph through the public wrapper,
+    also as training calls it (inputs that need a gradient: the kernel
+    writes the lse the Function saves), and a replay gives the eager
+    call's bits, out and lse."""
+    q, k, v, q_pos, kv_pos = _flash_inputs(dev, torch.bfloat16, B, Sq, Skv, 4, 4, hd, "tail")
+    q, k, v = (t.requires_grad_(needs_grad) for t in (q, k, v))
+    assert FA.flash_plan(B, Sq, Skv, 4, 4, hd, torch.bfloat16).path == "tile"
+    (want, want_l), (got, got_l) = _eager_and_replayed(
+        lambda: flash_call(FA, q, k, v, q_pos, kv_pos))
+    assert torch.equal(got, want)
+    if needs_grad:
+        assert torch.equal(got_l, want_l)
+        _, plain_l = FA._flash_plain(q.detach(), k.detach(), v.detach(), q_pos, kv_pos, True, 0,
+                                     hd ** -0.5)
+        torch.testing.assert_close(got_l, plain_l, atol=1e-4, rtol=0.0)
+    else:
+        assert got_l is None and want_l is None
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):

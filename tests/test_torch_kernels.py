@@ -15,9 +15,15 @@ tests hold that version against the JAX function on the same inputs:
   neither reaches a valid row or a logit.
 
 The CUDA kernels themselves run only on a GPU: tests/test_torch_gpu.py
-holds each against its plain version there and skips elsewhere.
+holds each against its plain version there and skips elsewhere. What the
+flash wrapper decides before a launch is tested here: ``flash_plan``'s
+path (a function of the dtype, Sq and nq/nkv alone), its decode splits at
+fixed key indices and its scratch shapes, and that shapes the kernel does
+not take raise before anything is built.
 """
 import dataclasses
+import sys
+from pathlib import Path
 
 import pytest
 
@@ -152,3 +158,94 @@ def test_wrappers_count_no_launch_on_the_cpu():
     TKR.gather_rows(x, torch.zeros(1, 2, dtype=torch.long))
     assert build.launch_counts()["gather_rows"] == 0
 
+
+def test_launch_counter_counts_by_call():
+    """A wrapper may count its launches by a key beside the total (flash:
+    path and call shape); a reset clears both."""
+    c = build.LaunchCounter("probe")
+    c.add(("tile", 1, 65, 65))
+    c.add(("decode", 8, 1, 1056))
+    c.add(("decode", 8, 1, 1056))
+    c.add()
+    assert c.launches == 4
+    assert c.by_call == {("tile", 1, 65, 65): 1, ("decode", 8, 1, 1056): 2}
+    c.reset()
+    assert c.launches == 0 and c.by_call == {}
+
+
+def test_flash_call_reads_the_lse_the_function_saves():
+    """chip_smoke's training-call helper: through the public wrapper, lse is
+    the f32 row log-sum-exp the autograd Function saves for its backward
+    (here the plain version's), and None where no gradient is needed."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import flash_call
+
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(2, 9, 4, 32, generator=g) for _ in range(3))
+    pos = torch.arange(9, dtype=torch.int32)[None].repeat(2, 1)
+    want, want_l = TFA._flash_plain(q, k, v, pos, pos, True, 0, 32 ** -0.5)
+    out, lse = flash_call(TFA, q, k, v, pos, pos)
+    assert lse is None and torch.equal(out, want)
+    out, lse = flash_call(TFA, *(t.clone().requires_grad_() for t in (q, k, v)), pos, pos)
+    assert torch.equal(out.detach(), want) and torch.equal(lse, want_l)
+
+
+
+# ---------------------------------------------------------------------------
+# The CUDA wrapper's plan (a pure function of the shapes; the kernels
+# themselves run only on a GPU)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+def test_flash_decode_splits_fall_at_fixed_key_indices(hd):
+    """The decode path splits the keys into chunks of a fixed number of key
+    indices, a multiple of the key tile, whatever Skv is; one scratch row
+    of partial (m, l, acc) per (batch row, kv head, split, tile row)."""
+    chunk = TFA.decode_chunk(hd)
+    assert chunk % TFA.key_tile(hd) == 0
+    for Skv in (1, chunk - 1, chunk, chunk + 1, 1056, 4097):
+        plan = TFA.flash_plan(3, 2, Skv, 14, 2, hd, torch.bfloat16)
+        assert plan.path == "decode" and plan.chunk == chunk
+        bounds = [i * plan.chunk for i in range(plan.n_splits)]
+        assert bounds[-1] < Skv <= bounds[-1] + chunk  # the chunks cover the keys, none empty
+        assert plan.scratch == ((3, 2, plan.n_splits, 14),) * 2 + ((3, 2, plan.n_splits, 14, hd),)
+
+
+def test_flash_path_depends_only_on_sq_and_group():
+    """bf16: the decode path exactly when Sq * nq/nkv rows fit one 16-row mma
+    tile, else the tile path; f32: its own kernel. Never a function of Skv,
+    B or the head dim."""
+    for Sq in (1, 2, 3, 8, 9, 15, 16, 17, 65, 300):
+        for nq, nkv in ((14, 14), (8, 4), (14, 2), (4, 1)):
+            paths = {TFA.flash_plan(B, Sq, Skv, nq, nkv, hd, torch.bfloat16).path
+                     for B in (1, 8) for Skv in (1, 50, 1056, 5000) for hd in (32, 128, 256)}
+            assert paths == {"decode" if Sq * (nq // nkv) <= TFA.DECODE_ROWS else "tile"}
+            assert TFA.flash_plan(2, Sq, 99, nq, nkv, 64, torch.float32).path == "f32"
+    assert TFA.flash_plan(8, 1, 1056, 14, 14, 128, torch.bfloat16).path == "decode"
+    assert TFA.flash_plan(1, 1000, 1000, 14, 14, 128, torch.bfloat16).path == "tile"
+
+
+@pytest.mark.parametrize("shape,dtype,err", [
+    ((1, 4, 8, 2, 2, 48), torch.bfloat16, ValueError),  # head dim
+    ((1, 4, 8, 6, 4, 64), torch.bfloat16, ValueError),  # nq not a multiple of nkv
+    ((1, 4, 8, 2, 2, 64), torch.float16, TypeError),
+    ((70000, 1, 8, 2, 2, 64), torch.bfloat16, ValueError),  # beyond the grid's batch axis
+])
+def test_flash_launch_refuses_shapes_before_any_build(monkeypatch, shape, dtype, err):
+    B, Sq, Skv, nq, nkv, hd = shape
+    with pytest.raises(err):
+        TFA.flash_plan(B, Sq, Skv, nq, nkv, hd, dtype)
+
+    def no_build(*args):
+        raise AssertionError("the kernel was built for a shape it does not take")
+
+    monkeypatch.setattr(build, "bind", no_build)
+    monkeypatch.setattr(build, "build_all", no_build)
+    # a batch this large as stride-0 views: the plan sees only the shape
+    q = torch.zeros(1, Sq, nq, hd, dtype=dtype).expand(B, -1, -1, -1)
+    kv = torch.zeros(1, Skv, nkv, hd, dtype=dtype).expand(B, -1, -1, -1)
+    pos = torch.zeros(B, Sq, dtype=torch.int32)
+    kpos = torch.zeros(B, Skv, dtype=torch.int32)
+    with pytest.raises(err):
+        TFA._flash_launch(q, kv, kv, pos, kpos, True, 0, 1.0, False)

@@ -46,6 +46,7 @@ from repro_torch.utils import tree_leaves  # noqa: E402
 from tests.test_torch_paged import model_pair, shared_prefix_prompts  # noqa: E402
 
 KINDS = ["int8", "fp8"]
+QMAX_INT8 = 127.0
 GRANS = ["page", "head"]
 TDT = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
 JDT = {"int8": jnp.int8, "fp8": jnp.float8_e4m3fn}
@@ -137,6 +138,56 @@ def test_roundtrip_leaf_matches_jax(kind, gran, masked):
         again = TQ.roundtrip_leaf(got, ax, tq)
         _assert_bits(TQ.roundtrip_leaf(again, ax, tq), again)
     assert TQ.leaf_groups((2, 3, 8, 2, 4), tq, 1) == JQ.leaf_groups((2, 3, 8, 2, 4), jq, 1)
+
+
+def _subnormal_rows(qmax):
+    """Rows whose scale is the smallest normal power of two, 2^-126 (absmax
+    qmax·2^-126), with subnormal elements beside it: XLA flushes those to
+    zero before it divides, so the JAX package quantizes them to 0 (a
+    divide without the flush gives 1 / -1 in int8, 0.9375 / -0.5 in e4m3).
+    Columns 0-7 and 8-15 are the two head blocks of the per-head case."""
+    x = np.zeros((3, 16), np.float32)
+    x[:, 0] = x[:, 8] = np.float32(qmax * 2.0 ** -126)
+    x[:, 1], x[:, 2] = np.float32(1.1e-38), np.float32(-6e-39)
+    x[:, 9], x[:, 10], x[:, 11] = np.float32(5e-39), np.float32(-1e-45), np.float32(-1e-40)
+    x[1] *= np.float32(-1.0)
+    x[2, 4] = np.float32(2.0 ** -126)  # the smallest normal itself is kept
+    return x
+
+
+@pytest.mark.parametrize("gran", GRANS)
+@pytest.mark.parametrize("kind", KINDS)
+def test_subnormal_elements_quantize_as_jax_flushes_them(kind, gran):
+    """Bit for bit against the JAX functions on subnormal elements:
+    quant_rows at scale 2^-126, quantize_rows, dequant_rows and the leaf
+    round trip (page and head granularity)."""
+    tq, jq = _qcs(kind, gran)
+    x = _subnormal_rows(TQ.QMAX[kind])
+    s = np.full((3, 1), 2.0 ** -126, np.float32)
+    got = TQ.quant_rows(torch.from_numpy(x), torch.from_numpy(s), tq)
+    _assert_bits(got, JQ.quant_rows(jnp.asarray(x), jnp.asarray(s), jq))
+    assert not got[:, [1, 2, 9, 10, 11]].float().any()
+    G = 1 if gran == "page" else 2
+    q, sc = TQ.quantize_rows(torch.from_numpy(x), G, tq)
+    jqv, js = JQ.quantize_rows(jnp.asarray(x), G, jq)
+    _assert_bits(sc, js)
+    _assert_bits(q, jqv)
+    _assert_bits(TQ.dequant_rows(q, sc), JQ.dequant_rows(jqv, js))
+    leaf = x.reshape(1, 3, 2, 8)  # (B, ctx, nkv, hd)
+    _assert_bits(TQ.roundtrip_leaf(torch.from_numpy(leaf), 0, tq),
+                 JQ.roundtrip_leaf(jnp.asarray(leaf), 0, jq))
+
+
+def test_subnormal_weights_quantize_as_jax_flushes_them():
+    """int8 weights: a leaf whose scale is 2^-126 holds subnormal elements;
+    the narrow bytes, the scale and the widened leaf are JAX's."""
+    w = _subnormal_rows(QMAX_INT8)
+    tq = TQ.quantize_params({"w": torch.from_numpy(w)})
+    jqp = JQ.quantize_params({"w": jnp.asarray(w)})
+    _assert_bits(tq["w"]["__q8__"], jqp["w"]["__q8__"])
+    _assert_bits(tq["w"]["__scale__"], jqp["w"]["__scale__"])
+    _assert_bits(TQ.dequantize_params(tq)["w"], JQ.dequantize_params(jqp)["w"])
+    assert not tq["w"]["__q8__"][:, [1, 2, 9, 10, 11]].any()
 
 
 @pytest.mark.parametrize("mod", [True, False])
