@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --flash-timing [ROOT]   # flash alone, ROOT's port
+    python3 chip_smoke.py --mlp-losses            # phase 5's losses per routed-MLP path
 
 Imports nothing of JAX or of the JAX package. Builds the port's CUDA
 kernels from ``src/repro_torch/kernels/csrc`` and runs, in order (any
@@ -17,7 +18,10 @@ failure raises and exits non-zero):
    one exists, one PyTorch library call as a yardstick (never called by
    the port); flash attention at four bf16 shapes (prefill S=1000 and
    2048, decode B=8 ctx 1056, the training call with its lse) against
-   SDPA, with HMMA asserted in its library's SASS; the three paged-pool kernels (page gather,
+   SDPA, with HMMA asserted in its library's SASS; routed_mlp_scatter with
+   HGMMA (wgmma) asserted in its bf16 GEMM kernels' SASS, its GEMM path per
+   row and a library figure (rms_norm, three cuBLAS products and
+   index_copy_: not one call); the three paged-pool kernels (page gather,
    decode-row scatter, ragged write-back) at the shapes of phase 6c and odd
    tails, bitwise, with the in-place scatters held to their target rows;
    the dequantizing page gather (int8/page and fp8/head pages widened to
@@ -39,7 +43,8 @@ failure raises and exits non-zero):
 5. the training path: ``mod-paper-1b`` in bf16, backend ``pallas_fused``,
    B=4 at S=2048, 5 steps through the port's ``Trainer``: per-step loss,
    wall time, device-busy time and idle share, and every kernel's launch
-   count read from this phase alone;
+   count read from this phase alone (routed_mlp_scatter's by GEMM path,
+   every one on the wgmma GEMM);
 6. paged serving: ``mod-paper-60m`` f32 through the paged engine with the
    prefix cache and through the ragged engine, CPU against the card
    (identical greedy streams; run after phase 3), then ``mod-paper-1b``
@@ -92,14 +97,18 @@ failure raises and exits non-zero):
    flash; (c) SwiGLU at mod-paper-1b's MLP (layer 0's weights), M = 1024
    and 8192, bf16 and f32, and two odd shapes: the kernel against its plain
    version, the plain version against an f64 product rounded at JAX's
-   points, timed beside its bound and layers.mlp's bf16 products; (d) the
-   ragged kernel's edge cases at small shapes.
+   points, timed beside its bound and the library's products, with HGMMA
+   asserted in its bf16 GEMM kernels' SASS and the GEMM path per row; (d)
+   the ragged kernel's edge cases at small shapes.
 
 Each phase's wall time is printed on a ``[time]`` line.
 
 ``--flash-timing [ROOT]`` only times the flash kernel of the port under
 ROOT (default: this checkout) at phase 2's four bf16 shapes beside SDPA:
 run it on a parent tree and this one in one call to compare two kernels.
+``--mlp-losses`` only runs phase 5's training three times, with
+routed_mlp_scatter on the wgmma GEMM, on the CUDA-core GEMM and as its
+plain version, and prints the three loss trajectories.
 
 It prints a ``{"kernels": [...]}`` line, then the card's ``nvidia-smi`` line,
 then as the last line ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -519,9 +528,10 @@ def flash_rows(FA, cfg, dev, labels=None):
             yield label, dtype, r
 
 
-def flash_hmma_counts() -> dict:
-    """HMMA (tensor-core mma) instructions per tensor-core flash kernel in
-    the built library's SASS (``cuobjdump -sass``)."""
+def sass_counts(stem: str, kernel: str, opcode: str) -> dict:
+    """Instructions of one opcode (HMMA: mma.sync; HGMMA: wgmma) per kernel
+    whose name holds ``kernel``, in the SASS of the library built from
+    ``csrc/<stem>.cu`` (``cuobjdump -sass``)."""
     import os
     import shutil
 
@@ -529,26 +539,37 @@ def flash_hmma_counts() -> dict:
 
     tool = shutil.which("cuobjdump") or str(
         Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(build.build_all()["flash_attention"]["path"])],
+    sass = subprocess.run([tool, "-sass", str(build.build_all()[stem]["path"])],
                           capture_output=True, text=True, check=True, timeout=300).stdout
     counts: dict = {}
     name = None
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-        elif name and "flash_fwd_tc_kernel" in name and "HMMA" in line:
-            counts[name] = counts.get(name, 0) + 1
+            if kernel in name:
+                counts.setdefault(name, 0)
+        elif name and kernel in name and any(t.split(".")[0] == opcode for t in line.split()):
+            counts[name] += 1
+    return counts
+
+
+def check_sass(stem: str, kernel: str, opcode: str, want: int) -> dict:
+    """Asserts ``want`` kernels named ``kernel`` in ``stem``'s library, each
+    with ``opcode`` in its SASS; logs the counts."""
+    counts = sass_counts(stem, kernel, opcode)
+    if len(counts) < want or min(counts.values()) <= 0:
+        raise AssertionError(f"{stem}: want {want} kernels {kernel} with {opcode} in their SASS, "
+                             f"got {counts}")
+    log(f"[kernels] {stem} SASS: {len(counts)} {kernel} kernels, "
+        f"{min(counts.values())}-{max(counts.values())} {opcode} instructions each "
+        f"(cuobjdump -sass)")
     return counts
 
 
 def check_flash(cfg, dev, results):
     from repro_torch.kernels import flash_attention as FA
 
-    hmma = flash_hmma_counts()
-    if len(hmma) < 8 or min(hmma.values()) <= 0:  # tile and decode kernels at 4 head dims
-        raise AssertionError(f"the bf16 flash kernels' SASS holds no HMMA: {hmma}")
-    log(f"[kernels] flash_attention SASS: {len(hmma)} tensor-core kernels, "
-        f"{min(hmma.values())}-{max(hmma.values())} HMMA instructions each (cuobjdump -sass)")
+    check_sass("flash_attention", "flash_fwd_tc_kernel", "HMMA", 8)  # tile + decode at 4 head dims
     for label, dtype, r in flash_rows(FA, cfg, dev):
         r["path"] = FA.flash_plan(*r["call"], dtype).path
         extra = "" if r["lse_err"] is None else f" lse_err={r['lse_err']:.3g}"
@@ -586,12 +607,54 @@ def _causal_pairs(pos):
     return int(((pos[:, None, :] >= 0) & (pos[:, None, :] <= pos[:, :, None])).sum().item())
 
 
+def routed_mlp_library(x, h, a, idx, gate, mp, spec):
+    """The routed MLP and the Eq. 1 combine from library calls, at the
+    kernel's rounding points: torch's rms_norm of the routed rows, one
+    cuBLAS call per product (bf16 operands summed in f32 through
+    ``out_dtype``, each rounded to x's dtype; f32 by torch.mm), the
+    activation and the GLU product, ``a + m``, the f32 gate product, and
+    ``index_copy_`` into a copy of x. Not one call: a yardstick the port
+    never calls."""
+    B, S, D = x.shape
+    dt = x.dtype
+    if dt == torch.bfloat16:
+        def mm(p, q):
+            return torch.mm(p, q, out_dtype=torch.float32).to(dt)
+    else:
+        mm = torch.mm
+    act = (torch.nn.functional.silu if spec.act == "silu"
+           else lambda t: torch.nn.functional.gelu(t, approximate="tanh"))
+    hn = torch.nn.functional.rms_norm(h.reshape(-1, D), (D,), mp["ln"], spec.eps)
+    up = mm(hn, mp["w_up"])
+    hid = act(mm(hn, mp["w_gate"])) * up if "w_gate" in mp else act(up)
+    delta = a.reshape(-1, D) + mm(hid, mp["w_down"])
+    upd = (gate.reshape(-1, 1).float() * delta.float()).to(dt)
+    flat = (idx + S * torch.arange(B, device=x.device)[:, None]).reshape(-1)
+    out = x.reshape(B * S, D).clone()
+    out.index_copy_(0, flat, out.index_select(0, flat) + upd)
+    return out.view(B, S, D)
+
+
+# what the library figures of phase 2 (routed_mlp_library) and 10c
+# (swiglu_library) call, by dtype
+ROUTED_MLP_LIBRARY = {
+    torch.bfloat16: "rms_norm + torch.mm x3 (cuBLAS, bf16 operands, out_dtype=float32) + silu "
+                    "+ index_copy_; not one call",
+    torch.float32: "rms_norm + torch.mm x3 (cuBLAS, f32) + silu + index_copy_; not one call"}
+SWIGLU_LIBRARY = {torch.bfloat16: "torch.mm x3 (cuBLAS, bf16 operands, out_dtype=float32) + silu",
+                  torch.float32: "torch.mm x3 (cuBLAS, f32) + silu"}
+
+
 def check_fused(cfg, dev, results):
     """routed_attention and routed_mlp_scatter at the mod-paper-1b training
-    shape: B=4, S=2048, k = capacity(2048) = 256 routed rows per sequence."""
+    shape: B=4, S=2048, k = capacity(2048) = 256 routed rows per sequence.
+    routed_mlp_scatter's bf16 GEMMs are the wgmma GEMM: HGMMA in the SASS
+    of its three bf16 GEMM kernels, and the path its launches recorded."""
+    from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import swiglu as SW
 
+    check_sass("routed_mlp", "gemm_wgmma_kernel", "HGMMA", 3)  # EpiGlu, EpiAct, EpiScatter
     g = torch.Generator(device=dev).manual_seed(2)
     B, S, D, F = 4, 2048, cfg.d_model, cfg.d_ff
     k = cfg.mod.capacity(S)
@@ -623,10 +686,18 @@ def check_fused(cfg, dev, results):
         if cfg.glu:
             mp["w_gate"] = _w(g, dev, dtype, D, F)
         gate = torch.randn(B, k, generator=g, device=dev)
+        build.reset_counters()
         out = SW.routed_mlp_scatter(x, h, a, idx, gate, mp, mspec)
+        path = SW.gemm_path(dtype, B * k, F, D, True)
+        if build.COUNTERS["routed_mlp_scatter"].by_call != {(path, B, S, k, D, F): 1}:
+            raise AssertionError(f"routed_mlp_scatter {dtype} launched "
+                                 f"{build.COUNTERS['routed_mlp_scatter'].by_call}, want {path}")
         want = SW.routed_mlp_scatter_plain(x, h, a, idx, gate, mp, mspec)
         torch.testing.assert_close(out.float(), want.float(), **ROUTED_TOL[dtype])
         err_m = (out.float() - want.float()).abs().max().item()
+        lib = routed_mlp_library(x, h, a, idx, gate, mp, mspec)
+        torch.testing.assert_close(lib.float(), want.float(), **ROUTED_TOL[dtype])
+        err_lib = (lib.float() - want.float()).abs().max().item()
         n_w = 3 if cfg.glu else 2
         mlp_flops = 2.0 * M * D * F * n_w
         mlp_bytes = (2 * B * S * D + 2 * M * D + n_w * D * F + D) * es + 12 * M
@@ -645,13 +716,19 @@ def check_fused(cfg, dev, results):
                 plain_ms=replay_ms(lambda: SW.routed_mlp_scatter_plain(x, h, a, idx, gate, mp,
                                                                      mspec), hm, "plain_ms",
                                 reps=5),
-                library_ms=None, bound=bound_ms(mlp_bytes, mlp_flops, dtype),
-                max_abs_err=err_m, shape=f"{shape} F={F}", timed_by=hm),
+                library_ms=replay_ms(lambda: routed_mlp_library(x, h, a, idx, gate, mp, mspec),
+                                     hm, "library_ms", reps=5),
+                bound=bound_ms(mlp_bytes, mlp_flops, dtype), max_abs_err=err_m,
+                shape=f"{shape} F={F}", timed_by=hm, gemm_path=path),
         }
         for name, r in rows.items():
             r["tflops"] = (attn_flops if name == "routed_attention" else mlp_flops) / r["ms"] / 1e9
-            log(f"[kernels] {name:18s} {r['shape']:44s} max_abs_err={r['max_abs_err']:.3g} "
-                f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms=none "
+            lib = ("none" if r["library_ms"] is None else
+                   f"{r['library_ms']:.4f} ({ROUTED_MLP_LIBRARY[dtype]}; within {err_lib:.3g} of "
+                   f"the plain version)")
+            gemm = f" gemm={r['gemm_path']}" if "gemm_path" in r else ""
+            log(f"[kernels] {name:18s} {r['shape']:44s}{gemm} max_abs_err={r['max_abs_err']:.3g} "
+                f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms={lib} "
                 f"bound_ms={r['bound'][0]:.4f} ({r['bound'][1]}) achieved {r['tflops']:.2f} TFLOP/s"
                 f"{timed_note(r['timed_by'])}")
             results.setdefault(name, {})[dtype] = r
@@ -1404,23 +1481,35 @@ def _kernel_group(name: str) -> str:
     return "other PyTorch kernels"
 
 
-def train_1b(dev):
+TRAIN_1B = dict(B=4, S=2048, steps=5)  # phase 5's run
+
+
+def trainer_1b(dev, ckdir):
+    """Phase 5's trainer: mod-paper-1b, pallas_fused, AdamW with a cosine
+    schedule (lr 1e-4 after 2 warmup steps), synthetic data from seed 0."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.config import OptimConfig, TrainConfig, get_config, with_mod_backend
     from repro_torch.data.loader import SyntheticLoader
     from repro_torch.data.synthetic import SyntheticLM
-    from repro_torch.kernels import build
     from repro_torch.train import Trainer
 
     cfg = with_mod_backend(get_config("mod-paper-1b"), "pallas_fused")
-    B, S, steps = 4, 2048, 5
+    B, S, steps = TRAIN_1B["B"], TRAIN_1B["S"], TRAIN_1B["steps"]
     tcfg = TrainConfig(global_batch=B, seq_len=S,
                        optim=OptimConfig(lr=1e-4, warmup_steps=2, total_steps=steps),
                        log_every=1, ckpt_every=10**9)
     loader = SyntheticLoader(SyntheticLM(cfg.vocab, S, seed=0), B, dev)
+    return Trainer(cfg, tcfg, loader, ckpt=CheckpointManager(ckdir), device=dev,
+                   log_fn=lambda m: None)
+
+
+def train_1b(dev):
+    from repro_torch.kernels import build
+
+    B, S, steps = TRAIN_1B["B"], TRAIN_1B["S"], TRAIN_1B["steps"]
     with tempfile.TemporaryDirectory() as ckdir:
-        trainer = Trainer(cfg, tcfg, loader, ckpt=CheckpointManager(ckdir), device=dev,
-                          log_fn=lambda m: None)
+        trainer = trainer_1b(dev, ckdir)
+        cfg = trainer.cfg
         t0 = time.perf_counter()
         state = trainer.init_or_resume()
         torch.cuda.synchronize()
@@ -1455,6 +1544,7 @@ def train_1b(dev):
             log("[train]   top kernels: " + "; ".join(f"{n[:60]} {t:.1f} ms" for n, t in top))
         counts = build.launch_counts()
         flash = flash_calls()
+        mlp_calls = dict(build.COUNTERS["routed_mlp_scatter"].by_call)
     log(f"[train] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite training loss: {losses}")
@@ -1469,7 +1559,50 @@ def train_1b(dev):
         if counts.get(name, 0) != 0:
             raise AssertionError(f"{name} ran under pallas_fused: the fused kernels were bypassed")
     log_flash_calls("train", flash)
-    return counts, flash
+    if {key[0] for key in mlp_calls} != {"wgmma"}:
+        raise AssertionError(f"routed_mlp_scatter's training launches took {mlp_calls}: want "
+                             "every one on the wgmma GEMM")
+    log("[train] routed_mlp_scatter launches by GEMM path (counted in the wrapper): " + "; ".join(
+        f"{key[0]} at B={key[1]} S={key[2]} k={key[3]} D={key[4]} F={key[5]}: {n}"
+        for key, n in mlp_calls.items()))
+    return counts, flash, mlp_calls
+
+
+def mlp_path_losses() -> None:
+    """``--mlp-losses``: phase 5's training run (mod-paper-1b, bf16,
+    pallas_fused, B=4 S=2048, 5 steps, the same seed and data) three times,
+    with routed_mlp_scatter's forward on the wgmma GEMM (the port's path),
+    on the CUDA-core GEMM (forced; the kernel before the wgmma GEMM) and as
+    its plain version (cuBLAS bf16 products): the losses of three
+    computations of one function at the same rounding points, which differ
+    only in the order of their f32 sums. Shows how far 5 bf16 steps carry
+    such a difference."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import swiglu as SW
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as main() sets them for phase 5
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    gemm_path, launch = SW.gemm_path, SW._routed_mlp_launch
+    variants = {"wgmma": {}, "cuda_cores": {"gemm_path": lambda *a: "cuda_cores"},
+                "plain (cuBLAS)": {"_routed_mlp_launch": SW.routed_mlp_scatter_plain}}
+    for name, patch in variants.items():
+        for attr, fn in patch.items():
+            setattr(SW, attr, fn)
+        build.reset_counters()
+        with tempfile.TemporaryDirectory() as ckdir:
+            trainer = trainer_1b(dev, ckdir)
+            state = trainer.init_or_resume()
+            losses = []
+            for _ in range(TRAIN_1B["steps"]):
+                state, m = trainer.run(state, 1)
+                losses.append(m["loss"])
+        SW.gemm_path, SW._routed_mlp_launch = gemm_path, launch
+        calls = dict(build.COUNTERS["routed_mlp_scatter"].by_call)
+        log(f"[mlp-losses] routed_mlp_scatter {name}: losses "
+            f"{', '.join(f'{v:.4f}' for v in losses)}; kernel launches {calls} ({smi_line()})")
+        del trainer, state
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -2488,9 +2621,6 @@ SWIGLU_M = (1024, 8192)
 # the other side of a rounding boundary moves an element of h by one bf16
 # ulp, and y rounds once: one output ulp, 2^-8, and the h flips it carries
 SWIGLU_TOL = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -7}
-# what 10c's library figure (swiglu_library) calls, by dtype
-SWIGLU_LIBRARY = {torch.bfloat16: "torch.mm x3 (cuBLAS, bf16 operands, out_dtype=float32) + silu",
-                  torch.float32: "torch.mm x3 (cuBLAS, f32) + silu"}
 # the pools of phases 6c and 7b whose layer 0 phase 10 reads, taken after
 # the prefills (every slot generating)
 SNAP_RUNS = ("paged+prefix", "prefix int8/page", "prefix fp8/head")
@@ -2745,8 +2875,10 @@ def check_swiglu(mlp, dev, results):
     plain version, the plain version against an f64 product rounded at
     JAX's points, and the library computation against the plain version;
     times of the three (CUDA graph replay) and the bound."""
+    from repro_torch.kernels import build
     from repro_torch.kernels import swiglu as SW
 
+    check_sass("swiglu", "gemm_wgmma_kernel", "HGMMA", 2)  # EpiSwiglu, EpiStore
     g = torch.Generator(device=dev).manual_seed(12)
     D, F = mlp["w_gate"].shape
     cases = [(M, D, F, dt) for M in SWIGLU_M for dt in (torch.bfloat16, torch.float32)]
@@ -2761,7 +2893,12 @@ def check_swiglu(mlp, dev, results):
             w = [(torch.randn(a, b, generator=g, device=dev) / a ** 0.5).to(dtype)
                  for a, b in ((D_, F_), (D_, F_), (F_, D_))]
         x = torch.randn(M, D_, generator=g, device=dev).to(dtype)
+        build.reset_counters()
         out = SW.swiglu(x, *w)
+        path = SW.gemm_path(dtype, M, F_, D_, True)
+        if build.COUNTERS["swiglu"].by_call != {(path, M, D_, F_): 1}:
+            raise AssertionError(f"swiglu M={M} {dtype} launched {build.COUNTERS['swiglu'].by_call}"
+                                 f", want {path}")
         want = SW.swiglu_plain(x, *w)
         scale = want.float().abs().max().item()
         err = (out.float() - want.float()).abs().max().item()
@@ -2777,8 +2914,9 @@ def check_swiglu(mlp, dev, results):
             raise AssertionError(f"swiglu M={M} {dtype}: plain version {err_ref:.3g} from the f64 "
                                  f"product at JAX's rounding points")
         if M < 1024:
-            log(f"[swiglu] M={M} D={D_} F={F_} {str(dtype)[6:]}: kernel within {err:.3g} of the "
-                f"plain version, which is within {err_ref:.3g} of JAX's rounding points in f64")
+            log(f"[swiglu] M={M} D={D_} F={F_} {str(dtype)[6:]} gemm={path}: kernel within "
+                f"{err:.3g} of the plain version, which is within {err_ref:.3g} of JAX's rounding "
+                f"points in f64")
             continue
         lib = swiglu_library(x, *w)
         err_lib = (lib.float() - want.float()).abs().max().item()
@@ -2790,12 +2928,12 @@ def check_swiglu(mlp, dev, results):
                  plain_ms=graph_ms(lambda: SW.swiglu_plain(x, *w), reps=5, iters=2),
                  library_ms=graph_ms(lambda: swiglu_library(x, *w), reps=5, iters=2),
                  bound=bound_ms((2 * M * D_ + 3 * D_ * F_) * es, 6.0 * M * D_ * F_, dtype),
-                 max_abs_err=err, shape=f"M={M} D={D_} F={F_} {str(dtype)[6:]}")
+                 max_abs_err=err, shape=f"M={M} D={D_} F={F_} {str(dtype)[6:]}", gemm_path=path)
         r["tflops"] = 6.0 * M * D_ * F_ / r["ms"] / 1e9
         if (M, dtype) == (max(SWIGLU_M), torch.bfloat16):
             profiler_diagnostic(f"swiglu {r['shape']}", lambda: SW.swiglu(x, *w), r["ms"])
-        log(f"[swiglu] {r['shape']:32s} max_abs_err={err:.3g} (max |y| {scale:.3g}; plain vs "
-            f"JAX's rounding points {err_ref:.3g}, library vs plain {err_lib:.3g}) "
+        log(f"[swiglu] {r['shape']:32s} gemm={path} max_abs_err={err:.3g} (max |y| {scale:.3g}; "
+            f"plain vs JAX's rounding points {err_ref:.3g}, library vs plain {err_lib:.3g}) "
             f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} (torch.matmul x3 in f32 + silu) "
             f"library_ms={r['library_ms']:.4f} ({SWIGLU_LIBRARY[dtype]}) "
             f"bound_ms={r['bound'][0]:.4f} ({r['bound'][1]}) achieved {r['tflops']:.2f} TFLOP/s "
@@ -2838,6 +2976,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing to run", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--mlp-losses"]:
+        sys.path.insert(0, str(ROOT / "src"))
+        mlp_path_losses()
+        return 0
     if sys.argv[1:2] == ["--flash-timing"]:
         flash_timing(Path(sys.argv[2]).resolve() if len(sys.argv) > 2 else ROOT)
         return 0
@@ -2878,7 +3020,7 @@ def main() -> int:
     timed("phase 6a-8a parity", lambda: (paged_parity(dev), quant_parity(dev),
                                          ragged_forward_parity(dev)))
     serve_counts, serve_flash = timed("phase 4 serve", serve_1b, dev)
-    train_counts, train_flash = timed("phase 5 train", train_1b, dev)
+    train_counts, train_flash, train_mlp_calls = timed("phase 5 train", train_1b, dev)
     from repro_torch.config import with_mod_backend
     from repro_torch.models import api
 
@@ -2965,9 +3107,15 @@ def main() -> int:
     picks["ragged_paged_flash_attention"] = max(
         (r for key, r in ra.items() if key[2] == torch.bfloat16), key=lambda r: r["ms"])
     sw = results["swiglu"]
-    shapes["swiglu"] = [dict(shape=r["shape"], launches=int(key[1] == torch.bfloat16),
-                             ms=r["ms"], plain_ms=r["plain_ms"], library_ms=r["library_ms"],
+    shapes["swiglu"] = [dict(shape=r["shape"], gemm_path=r["gemm_path"],
+                             launches=int(key[1] == torch.bfloat16), ms=r["ms"],
+                             plain_ms=r["plain_ms"], library_ms=r["library_ms"],
                              bound_ms=r["bound"][0]) for key, r in sw.items()]
+    shapes["routed_mlp_scatter"] = [
+        dict(shape=r["shape"], gemm_path=r["gemm_path"], launches=train_counts.get(
+            "routed_mlp_scatter", 0) if dt == torch.bfloat16 else 0, ms=r["ms"],
+             plain_ms=r["plain_ms"], library_ms=r["library_ms"], bound_ms=r["bound"][0])
+        for dt, r in results["routed_mlp_scatter"].items()]
     picks["swiglu"] = sw[(max(SWIGLU_M), torch.bfloat16)]
     model_runs = {"serve": serve_counts, "train": train_counts, **paged_counts, **quant_counts,
                   "forward_ragged": ragged_counts, "train_ssm": ssm_train_counts,
@@ -3019,7 +3167,12 @@ def main() -> int:
             **({"yardstick_ms": r["yardstick_ms"], "yardstick": "paged_gather x3 + "
                 "flash_attention (the port's decode path; not one call)"}
                if "yardstick_ms" in r else {}),
+            **({"gemm_path": r["gemm_path"]} if "gemm_path" in r else {}),
             **({"library": SWIGLU_LIBRARY[torch.bfloat16]} if name == "swiglu" else {}),
+            **({"library": ROUTED_MLP_LIBRARY[torch.bfloat16],
+                "launches_by_call": [dict(gemm_path=k[0], B=k[1], S=k[2], k=k[3], D=k[4], F=k[5],
+                                          launches=n) for k, n in train_mlp_calls.items()]}
+               if name == "routed_mlp_scatter" else {}),
             **({"launches_by_call": flash_by_call} if name == "flash_attention" else {}),
             "launches_by_path": {k: v.get(name, 0) for k, v in by_path.items()},
             **({"shapes": shapes[name]} if name in shapes else {}),

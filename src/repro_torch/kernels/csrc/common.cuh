@@ -26,8 +26,8 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 
 // Tensor-core building blocks (sm_80+ instructions, used on sm_90a): async
 // 16-byte copies global -> shared, ldmatrix fragment loads and the bf16
-// m16n8k16 mma with f32 accumulators. Shared by the tensor-core GEMM of
-// gemm.cuh and the flash attention kernel.
+// m16n8k16 mma with f32 accumulators, used by the flash attention kernel
+// (the GEMM of gemm.cuh runs wgmma, which it defines itself).
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));

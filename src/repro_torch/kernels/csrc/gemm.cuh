@@ -1,24 +1,35 @@
 // Building blocks shared by the fused routed-block kernels
-// (routed_attention.cu, routed_mlp.cu) and the SwiGLU MLP (swiglu.cu): a
-// tiled GEMM with fused epilogues, an RMSNorm over rows (optionally
-// gathered by index), and the rounding and activation helpers that put the
+// (routed_attention.cu, routed_mlp.cu) and the SwiGLU MLP (swiglu.cu): two
+// GEMMs with fused epilogues, an RMSNorm over rows (optionally gathered by
+// index), and the rounding and activation helpers that put the
 // working-type roundings where the JAX mirrors put them.
 //
-// GEMM: C[M, N] = A[M, K] @ B[K, N], A and B row-major in the working type
-// T (f32 or bf16), the sum in f32 on CUDA cores. A block of 256 threads
-// owns a 64 x 64 tile of C and walks K in steps of 16, staging both tiles
-// in shared memory as f32 (A transposed, padded by one float against bank
-// conflicts); each thread accumulates a 4 x 4 sub-tile. With two B matrices
-// (the GLU case) the block keeps two accumulators and reads A once. Every
-// edge is masked, so M, N and K need not divide the tile. Products are
-// computed here, never by a library: this is the simple, correct first
-// version (no tensor cores, no TMA); it is bound by shared-memory traffic
-// and the FMA rate, far from the card's bf16 tensor-core peak.
+// GEMM on CUDA cores (gemm): C[M, N] = A[M, K] @ B[K, N], A and B row-major
+// in the working type T (f32 or bf16), the sum in f32. A block of 256
+// threads owns a 64 x 64 tile of C and walks K in steps of 16, staging both
+// tiles in shared memory as f32 (A transposed, padded by one float against
+// bank conflicts); each thread accumulates a 4 x 4 sub-tile. With two B
+// matrices (the GLU case) the block keeps two accumulators and reads A
+// once. Every edge is masked, so M, N and K need not divide the tile. It is
+// bound by shared-memory traffic and the FMA rate; f32 products, bf16 ones
+// whose shapes the tensor-core GEMM does not take, and routed_attention.cu
+// run on it.
+//
+// GEMM on Hopper's tensor cores (gemm_wgmma, bf16): see its note below.
+// Products are computed here, never by a library.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap, cuTensorMapEncodeTiled (kernels/build.py links -lcuda)
+#include <limits.h>
 #include <math.h>
 
+#include <type_traits>
+
 #include "common.cuh"
+
+// the GEMM a wrapper chose for a call (kernels/swiglu.py::GEMM_PATHS)
+#define REPRO_GEMM_CUDA_CORES 0
+#define REPRO_GEMM_WGMMA 1
 
 namespace fused {
 
@@ -115,140 +126,331 @@ cudaError_t gemm(const T* A, const T* B0, const T* B1, int M, int N, int K, Epi 
 }
 
 // ---------------------------------------------------------------------------
-// The same GEMM for bf16 on tensor cores (used by swiglu.cu): C = A @ B (and
-// A @ B1) with A (M, K) and B (K, N) row-major bf16, K and N multiples of 8,
-// both bases 16-byte aligned; the sums are f32 (mma.sync m16n8k16, bf16
-// products exact in f32). A block of 8 warps owns a 128 x 128 tile of C and
-// walks K in steps of 32 through a 3-stage cp.async ring in shared memory
-// (rows padded by 16 bytes so ldmatrix reads hit 32 distinct banks); each
-// warp owns 64 x 32 of the tile, 4 x 4 mma tiles (twice with two B
-// matrices). Out-of-range rows and columns load as zeros and are not
-// stored. Same epilogue interface as gemm_kernel. No wgmma or TMA: that is
-// later work.
+// The same GEMM for bf16 on Hopper's tensor cores (wgmma + TMA), used by
+// swiglu.cu and routed_mlp.cu: C = A @ B (and A @ B1, reading A once) with
+// A (M, K) and B (K, N) row-major bf16, the sums in f32, the epilogues
+// below called per element with those sums. N and K must be multiples of 8
+// (TMA's 16-byte global strides) and every base 16-byte aligned; M is any
+// count from 1 up. The wrapper chooses this path or the CUDA-core GEMM
+// above from the dtype and the shape before launch (kernels/swiglu.py::
+// gemm_path); gemm_wgmma refuses operands that do not fit it.
+//
+// Design (sm_90a), and why:
+// - Tiles of 128 x 128 outputs, K in steps of 64 (128 bytes of bf16: one
+//   row of the 128-byte swizzle that wgmma reads without bank conflicts).
+//   Two consumer warpgroups of 64 rows keep one 64 x 128 f32 accumulator
+//   per B matrix, 64 registers a thread (128 with the GLU's two), which
+//   fits their register budget with no spill; a 256-wide tile would not
+//   with two B matrices.
+// - 3 warpgroups. Warpgroup 0 is the producer: `setmaxnreg` drops it to 40
+//   registers and gives the consumers 232, and one of its threads keeps TMA
+//   loads in flight into a ring of as many stages as 192 KB of shared
+//   memory holds (4 of 48 KB with two B matrices, 6 of 32 KB with one),
+//   each with a "full" mbarrier (TMA's transaction bytes) and an "empty"
+//   one (one arrival per consumer warpgroup). A is loaded as a 64 x 128 box
+//   (K-major, 128-byte swizzle); B is MN-major (row-major (K, N)) and is
+//   loaded as two 64 x 64 boxes per stage, which wgmma reads with its
+//   transpose bit: no copy of B. Rows and columns outside M, N and K load
+//   as zeros (TMA's bounds) and are not stored.
+// - The consumers issue wgmma.mma_async m64n128k16 with both operands in
+//   shared memory and keep one group in flight: a stage is released once
+//   the next stage's products are issued and the group before them is done.
+// - Persistent blocks: min(tiles, SMs) blocks walk the tiles in a fixed
+//   grouped order (8 row tiles by every column tile), so the blocks that run
+//   together share A row panels and B column panels in L2, and a block's
+//   producer loads its next tile while the consumers run the epilogue.
+// - K is summed in one fixed order (no split-K), so two calls give the same
+//   bits and a CUDA-graph replay equals an eager call. The tensor maps are
+//   encoded on the host per call (cuTensorMapEncodeTiled) and passed as
+//   __grid_constant__ parameters, so a captured launch keeps its own.
+// - Wave quantization: at mod-paper-1b's M = 1024 the down product has
+//   8 x 14 = 112 tiles for 132 SMs and the gate/up product 448 (3.4 per
+//   SM), so about 15% of the SMs idle in the last round; at M = 8192 the
+//   rounds are 97% full. Smaller tiles do not help (224 half tiles take
+//   two rounds), and a split of K would need a second pass and another sum
+//   order, so the design accepts it; a 112-wide tile (1792 = 16 x 112) is
+//   the candidate fix.
+// Bound on the H100: operations (989 TFLOP/s bf16 dense) for every product
+// of the MoD path: 2·M·N·K FLOP against (M·K + K·N + M·N)·2 bytes.
 // ---------------------------------------------------------------------------
 
-constexpr int TC_BM = 128, TC_BN = 128, TC_BK = 32, TC_STAGES = 3, TC_THREADS = 256;
-constexpr int TC_ALD = TC_BK + 8;  // shared row strides, in elements
-constexpr int TC_BLD = TC_BN + 8;
+constexpr int WG_BM = 128, WG_BN = 128, WG_BK = 64;
+constexpr int WG_THREADS = 384;  // producer warpgroup + 2 consumer warpgroups
+constexpr int WG_GROUP_M = 8;    // row tiles per group of the tile order
+constexpr int WG_A_BYTES = WG_BM * WG_BK * 2;  // one A stage: 128 rows of 128 bytes
+constexpr int WG_B_BYTES = WG_BK * WG_BN * 2;  // one B stage: two 64-column boxes
+constexpr int WG_B_BOX = WG_B_BYTES / 2;       // of 64 K rows of 128 bytes
 
+// the ring of stages with NB B matrices
 template <int NB>
-constexpr size_t tc_smem_bytes() {
-  return (size_t)TC_STAGES * (TC_BM * TC_ALD + NB * TC_BK * TC_BLD) * sizeof(__nv_bfloat16);
+struct WgRing {
+  static constexpr int STAGES = NB == 2 ? 4 : 6;
+  static constexpr int STAGE = WG_A_BYTES + NB * WG_B_BYTES;  // bytes of one stage
+  // the stages, their barriers, and 1 KB to align the ring
+  static constexpr int SMEM = 1024 + STAGES * (STAGE + 2 * (int)sizeof(uint64_t));
+};
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// TMA: the box at (c0 innermost, c1) of the tensor map into shared memory,
+// completing `bar`'s transaction bytes
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 1 = B128
+__device__ __forceinline__ uint64_t wg_desc(const void* p, unsigned lbo, unsigned sbo) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// d (+)= A (64 x 16, K-major) @ B (16 x 128, MN-major: transpose bit set),
+// both from shared memory; scale_d = 0 starts the sum
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving reads or writes of the accumulators
+// across the asynchronous products that own them
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// tile t of the fixed order: groups of WG_GROUP_M row tiles, row tile
+// fastest within a group
+__device__ __forceinline__ void wg_tile(int t, int num_m, int num_n, int& m_blk, int& n_blk) {
+  const int span = WG_GROUP_M * num_n;
+  const int first = t / span * WG_GROUP_M;
+  const int rows = min(num_m - first, WG_GROUP_M);
+  const int rem = t % span;
+  m_blk = first + rem % rows;
+  n_blk = rem / rows;
 }
 
 template <int NB, class Epi>
-__global__ void __launch_bounds__(TC_THREADS)
-gemm_bf16_tc_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ B0,
-                    const __nv_bfloat16* __restrict__ B1, int M, int N, int K, Epi epi) {
-  extern __shared__ __align__(16) unsigned char tc_smem[];
-  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(tc_smem);  // [stage][BM][ALD]
-  __nv_bfloat16* sB = sA + TC_STAGES * TC_BM * TC_ALD;             // [stage][NB][BK][BLD]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps of 64 x 32
-  const int m0 = blockIdx.y * TC_BM, n0 = blockIdx.x * TC_BN;
-  const int ktiles = (K + TC_BK - 1) / TC_BK;
-
-  auto load = [&](int stage, int kt) {
-    const int k0 = kt * TC_BK;
-    __nv_bfloat16* a = sA + stage * TC_BM * TC_ALD;
-    for (int c = tid; c < TC_BM * TC_BK / 8; c += TC_THREADS) {
-      const int r = c / (TC_BK / 8), kc = (c % (TC_BK / 8)) * 8;
-      const bool ok = m0 + r < M && k0 + kc < K;  // K % 8 == 0: a chunk is all in or all out
-      cp_async16(a + r * TC_ALD + kc, ok ? A + (long long)(m0 + r) * K + k0 + kc : A, ok);
+__global__ void __launch_bounds__(WG_THREADS, 1)
+gemm_wgmma_kernel(__grid_constant__ const CUtensorMap tmA, __grid_constant__ const CUtensorMap tmB0,
+                  __grid_constant__ const CUtensorMap tmB1, int M, int N, int K, Epi epi) {
+  constexpr int STAGES = WgRing<NB>::STAGES, STAGE = WgRing<NB>::STAGE;
+  extern __shared__ unsigned char wg_smem_raw[];
+  // 128-byte swizzled TMA boxes want 1024-byte-aligned shared addresses
+  unsigned char* ring = wg_smem_raw + ((1024 - smem_addr(wg_smem_raw) % 1024) % 1024);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * STAGE);
+  uint64_t* empty = full + STAGES;
+  const int num_m = (M + WG_BM - 1) / WG_BM, num_n = (N + WG_BN - 1) / WG_BN;
+  const int tiles = num_m * num_n, ktiles = (K + WG_BK - 1) / WG_BK;
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], WG_THREADS / 128 - 1);
     }
-#pragma unroll
-    for (int b = 0; b < NB; ++b) {
-      const __nv_bfloat16* Bg = b == 0 ? B0 : B1;
-      __nv_bfloat16* bs = sB + (stage * NB + b) * TC_BK * TC_BLD;
-      for (int c = tid; c < TC_BK * TC_BN / 8; c += TC_THREADS) {
-        const int r = c / (TC_BN / 8), nc = (c % (TC_BN / 8)) * 8;
-        const bool ok = k0 + r < K && n0 + nc < N;
-        cp_async16(bs + r * TC_BLD + nc, ok ? Bg + (long long)(k0 + r) * N + n0 + nc : Bg, ok);
-      }
-    }
-  };
-
-  float acc[NB][4][4][4];
-#pragma unroll
-  for (int b = 0; b < NB; ++b)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[b][i][j][e] = 0.f;
-
-#pragma unroll
-  for (int st = 0; st < TC_STAGES - 1; ++st) {
-    if (st < ktiles) load(st, st);
-    cp_async_commit();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<TC_STAGES - 2>();  // tile kt has landed
-    __syncthreads();                 // and every warp is done with tile kt - 1
-    if (kt + TC_STAGES - 1 < ktiles) load((kt + TC_STAGES - 1) % TC_STAGES, kt + TC_STAGES - 1);
-    cp_async_commit();
-    const int stage = kt % TC_STAGES;
-    const __nv_bfloat16* a = sA + stage * TC_BM * TC_ALD;
+  __syncthreads();
+
+  if (wg == 0) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      int stage = 0;
+      unsigned phase = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        int m_blk, n_blk;
+        wg_tile(t, num_m, num_n, m_blk, n_blk);
+        for (int kt = 0; kt < ktiles; ++kt) {
+          mbar_wait(&empty[stage], phase ^ 1);  // the first pass finds every stage free
+          unsigned char* st = ring + stage * STAGE;
+          mbar_expect_tx(&full[stage], STAGE);  // out-of-range boxes count in full
+          tma_load_2d(st, &tmA, &full[stage], kt * WG_BK, m_blk * WG_BM);
 #pragma unroll
-    for (int kk = 0; kk < TC_BK; kk += 16) {
-      unsigned af[4][4];
+          for (int b = 0; b < NB; ++b)
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-        ldmatrix_x4(af[mt], a + (wm * 64 + mt * 16 + (lane & 15)) * TC_ALD + kk + (lane >> 4) * 8);
-#pragma unroll
-      for (int b = 0; b < NB; ++b) {
-        const __nv_bfloat16* bs = sB + (stage * NB + b) * TC_BK * TC_BLD;
-        unsigned bf[4][2];
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {  // two n8 tiles per ldmatrix
-          unsigned t[4];
-          ldmatrix_x4_trans(t, bs + (kk + (lane & 15)) * TC_BLD + wn * 32 + np * 16 +
-                                   (lane >> 4) * 8);
-          bf[2 * np][0] = t[0];
-          bf[2 * np][1] = t[1];
-          bf[2 * np + 1][0] = t[2];
-          bf[2 * np + 1][1] = t[3];
+            for (int j = 0; j < 2; ++j)
+              tma_load_2d(st + WG_A_BYTES + b * WG_B_BYTES + j * WG_B_BOX, b == 0 ? &tmB0 : &tmB1,
+                          &full[stage], n_blk * WG_BN + j * 64, kt * WG_BK);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
         }
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) mma_bf16_16816(acc[b][mt][nt], af[mt], bf[nt]);
       }
     }
-  }
-  cp_async_wait<0>();
-
+  } else {  // consumers: rows (wg - 1) * 64 .. + 64 of each tile
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int row0 = (wg - 1) * 64;
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    float acc[NB][64];
+    int stage = 0;
+    unsigned phase = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      int m_blk, n_blk;
+      wg_tile(t, num_m, num_n, m_blk, n_blk);
+      int prev = -1;
+      for (int kt = 0; kt < ktiles; ++kt) {
+        mbar_wait(&full[stage], phase);
+        const unsigned char* st = ring + stage * STAGE;
+        wgmma_fence();
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
+        for (int kk = 0; kk < WG_BK / 16; ++kk) {
+          // A: rows of 128 bytes, 8-row swizzle atoms 1024 bytes apart; a
+          // k16 step is 32 bytes along the row
+          const uint64_t da = wg_desc(st + row0 * 128 + kk * 32, 16, 1024);
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = m0 + wm * 64 + mt * 16 + (lane >> 2) + (e >> 1) * 8;
-        const int c = n0 + wn * 32 + nt * 8 + (lane & 3) * 2 + (e & 1);
-        if (r < M && c < N) epi(r, c, acc[0][mt][nt][e], acc[NB - 1][mt][nt][e]);
+          for (int b = 0; b < NB; ++b) {
+            // B: 16 K rows of 128 bytes per k16 step; the two 64-column
+            // boxes WG_B_BOX apart (leading), 8-row atoms 1024 apart (stride)
+            const uint64_t db = wg_desc(st + WG_A_BYTES + b * WG_B_BYTES + kk * 2048, WG_B_BOX,
+                                        1024);
+            wgmma_m64n128k16(acc[b], da, db, kt > 0 || kk > 0);
+          }
+        }
+        wgmma_commit();
+        if (prev >= 0) {
+          wgmma_wait<1>();  // the stage before this one has been read
+          if (tid == 0) mbar_arrive(&empty[prev]);
+        }
+        prev = stage;
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
       }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int b = 0; b < NB; ++b) fence_acc(acc[b]);
+      if (prev >= 0 && tid == 0) mbar_arrive(&empty[prev]);
+
+      // accumulator layout of m64nNk16: warp w holds rows 16w..16w+15; per
+      // 8 columns j, registers 4j+{0,1} are row lane/4, columns 2(lane%4)+{0,1},
+      // and 4j+{2,3} the same 8 rows below
+      const int r0 = m_blk * WG_BM + row0 + warp * 16 + lane / 4;
+      const int c0 = n_blk * WG_BN + (lane % 4) * 2;
+#pragma unroll
+      for (int j = 0; j < WG_BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = r0 + (e >> 1) * 8, c = c0 + j * 8 + (e & 1);
+          if (r < M && c < N) epi(r, c, acc[0][4 * j + e], acc[NB - 1][4 * j + e]);
+        }
+    }
+  }
 }
 
-// whether gemm_bf16_tc takes these operands
-inline bool tc_ok(const void* A, const void* B0, const void* B1, int N, int K) {
+// a row-major bf16 (rows, cols) matrix, loaded in boxes of box_rows x 64
+// columns (128 bytes) with the 128-byte swizzle; zeros outside
+inline cudaError_t encode_bf16(CUtensorMap* map, const void* base, int rows, int cols,
+                               int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = cuTensorMapEncodeTiled(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// whether gemm_wgmma takes these operands (kernels/swiglu.py::gemm_path
+// decides the same from the shapes before launch)
+inline bool wgmma_ok(const void* A, const void* B0, const void* B1, int M, int N, int K) {
   const uintptr_t a = reinterpret_cast<uintptr_t>(A) | reinterpret_cast<uintptr_t>(B0) |
                       reinterpret_cast<uintptr_t>(B1);
-  return N % 8 == 0 && K % 8 == 0 && a % 16 == 0;
+  return M >= 1 && N >= 8 && K >= 8 && N % 8 == 0 && K % 8 == 0 && a % 16 == 0;
 }
 
 template <int NB, class Epi>
-cudaError_t gemm_bf16_tc(const __nv_bfloat16* A, const __nv_bfloat16* B0,
-                         const __nv_bfloat16* B1, int M, int N, int K, Epi epi, cudaStream_t st) {
-  const cudaError_t err = cudaFuncSetAttribute(gemm_bf16_tc_kernel<NB, Epi>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               (int)tc_smem_bytes<NB>());
+cudaError_t gemm_wgmma(const __nv_bfloat16* A, const __nv_bfloat16* B0, const __nv_bfloat16* B1,
+                       int M, int N, int K, Epi epi, cudaStream_t st) {
+  if (NB == 1) B1 = B0;
+  if (!wgmma_ok(A, B0, B1, M, N, K)) return cudaErrorInvalidValue;
+  CUtensorMap ta, tb0, tb1;
+  cudaError_t err = encode_bf16(&ta, A, M, K, WG_BM);
+  if (err == cudaSuccess) err = encode_bf16(&tb0, B0, K, N, WG_BK);
+  if (err == cudaSuccess) err = encode_bf16(&tb1, B1, K, N, WG_BK);
+  int dev = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(gemm_wgmma_kernel<NB, Epi>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               WgRing<NB>::SMEM);
   if (err != cudaSuccess) return err;
-  dim3 grid((N + TC_BN - 1) / TC_BN, (M + TC_BM - 1) / TC_BM);
-  gemm_bf16_tc_kernel<NB, Epi><<<grid, TC_THREADS, tc_smem_bytes<NB>(), st>>>(A, B0, B1, M, N,
-                                                                               K, epi);
+  const long long tiles =
+      (long long)((M + WG_BM - 1) / WG_BM) * ((N + WG_BN - 1) / WG_BN);
+  if (tiles > INT_MAX) return cudaErrorInvalidValue;
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  gemm_wgmma_kernel<NB, Epi><<<grid, WG_THREADS, WgRing<NB>::SMEM, st>>>(ta, tb0, tb1, M, N, K,
+                                                                         epi);
   return cudaGetLastError();
+}
+
+// the product on the path the wrapper chose: REPRO_GEMM_WGMMA (bf16 only)
+// or REPRO_GEMM_CUDA_CORES
+template <typename T, int NB, class Epi>
+cudaError_t gemm_on(int path, const T* A, const T* B0, const T* B1, int M, int N, int K, Epi epi,
+                    cudaStream_t st) {
+  if (path == REPRO_GEMM_CUDA_CORES) return gemm<T, NB>(A, B0, B1, M, N, K, epi, st);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (path == REPRO_GEMM_WGMMA) return gemm_wgmma<NB>(A, B0, B1, M, N, K, epi, st);
+  }
+  return cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------

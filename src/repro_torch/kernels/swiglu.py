@@ -7,9 +7,8 @@ Pallas ``_swiglu_kernel``): ``y = cast(Σ_F f32(cast(silu(f32(x·Wg)) ·
 f32(x·Wu)) · Wd))``, the hidden rounded once to x's dtype before the
 down projection and the sum over F cast once at the end (the model's
 ``layers.mlp`` rounds each projection instead). The CUDA kernel of
-``csrc/swiglu.cu`` runs for CUDA tensors and takes any M and F (bf16 on
-tensor cores where D and F are multiples of 8); the plain version (three
-``torch.matmul`` in f32 and ``silu``) for CPU tensors. Like
+``csrc/swiglu.cu`` runs for CUDA tensors and takes any M and F; the plain
+version (three ``torch.matmul`` in f32 and ``silu``) for CPU tensors. Like
 the JAX kernel, it is on no model path and has no VJP: a tensor that
 requires grad raises.
 
@@ -25,6 +24,13 @@ version under autograd, as the JAX VJP differentiates its host mirror.
 Rounding points are the mirror's: the working type after each projection,
 after the activation and the GLU product, for ``m`` and for ``a + m``; the
 gate product is f32 and is cast before the add.
+
+Both kernels run their products on one of two GEMMs of ``csrc/gemm.cuh``,
+chosen per call before launch by :func:`gemm_path` from the dtype, the
+shape and the alignment of the bases: Hopper's TMA + wgmma GEMM for bf16
+whose N and K are multiples of 8, the CUDA-core GEMM for the rest. The
+wrapper passes the choice to the C entry point, which launches that GEMM
+or fails; nothing falls back.
 """
 from __future__ import annotations
 
@@ -45,7 +51,37 @@ _ACTS = {"silu": 0, "gelu": 1}
 _KEYS = ("ln", "w_up", "w_down", "w_gate")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = (_P,) * 12 + (_I,) * 7 + (ctypes.c_float, _P)
+_ARGTYPES = (_P,) * 12 + (_I,) * 8 + (ctypes.c_float, _P)
+# the GEMMs of csrc/gemm.cuh, by the code the C entry points take
+GEMM_PATHS = {"cuda_cores": 0, "wgmma": 1}
+_INT_MAX = 2 ** 31 - 1
+
+
+def gemm_path(dtype: torch.dtype, M: int, N: int, K: int, aligned: bool) -> str:
+    """The GEMM that computes C (M, N) = A (M, K) @ B (K, N) in these
+    kernels: ``"wgmma"`` (Hopper's TMA + wgmma GEMM) for bf16 whose N and K
+    are multiples of 8 (TMA's 16-byte global strides) with every base
+    16-byte aligned, else ``"cuda_cores"``. A pure function of its
+    arguments, decided before launch; the C side refuses a wgmma call that
+    does not fit. Raises for what neither GEMM takes (a dtype other than
+    f32 and bf16, a negative size or one beyond a C int), before anything
+    is built. A kernel's products (M, F, D) and (M, D, F) always share
+    one path."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"unsupported dtype {dtype}; the GEMMs take {list(_DTYPES)}")
+    if min(M, N, K) < 0 or max(M, N, K) > _INT_MAX:
+        raise ValueError(f"GEMM sizes M={M} N={N} K={K} must lie in [0, {_INT_MAX}]")
+    if (dtype == torch.bfloat16 and aligned and M >= 1 and N > 0 and K > 0
+            and N % 8 == 0 and K % 8 == 0):
+        return "wgmma"
+    return "cuda_cores"
+
+
+def _aligned(*tensors: torch.Tensor) -> bool:
+    """Whether every base a kernel reads is 16-byte aligned once the wrapper
+    makes it contiguous: a contiguous tensor keeps its base, any other is
+    copied to a new allocation (aligned)."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors if t.is_contiguous())
 
 
 def swiglu_plain(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
@@ -80,6 +116,13 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
         return swiglu_plain(x, w_gate, w_up, w_down)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    return _swiglu_launch(x, w_gate, w_up, w_down)
+
+
+def _swiglu_launch(x, w_gate, w_up, w_down):
+    M, D = x.shape
+    F = w_gate.shape[1]
+    path = gemm_path(x.dtype, M, F, D, _aligned(x, w_gate, w_up, w_down))
     x, w_gate, w_up, w_down = (t.contiguous() for t in (x, w_gate, w_up, w_down))
     y = torch.empty((M, D), dtype=x.dtype, device=x.device)
     if M == 0 or D == 0:
@@ -87,12 +130,12 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     if F == 0:
         return y.zero_()
     h = torch.empty((M, F), dtype=x.dtype, device=x.device)
-    fn = build.bind("swiglu", "repro_swiglu", (_P,) * 6 + (_I,) * 4 + (_P,))
+    fn = build.bind("swiglu", "repro_swiglu", (_P,) * 6 + (_I,) * 5 + (_P,))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(), h.data_ptr(),
-             y.data_ptr(), M, D, F, _DTYPES[x.dtype], stream)
+             y.data_ptr(), M, D, F, _DTYPES[x.dtype], GEMM_PATHS[path], stream)
     build.check("swiglu", "repro_swiglu", err)
-    SWIGLU.launches += 1
+    SWIGLU.add((path, M, D, F))
     return y
 
 
@@ -114,6 +157,9 @@ def _routed_mlp_launch(x, h_sub, a_sub, idx, gate, params, spec: RoutedMlpSpec):
     k = idx.shape[1]
     F = params["w_up"].shape[1]
     dev, dt = x.device, x.dtype
+    # the GEMMs read hn and hid (new buffers) and the weights
+    weights = [params[key] for key in _KEYS[1:] if key in params]
+    path = gemm_path(dt, B * k, F, D, _aligned(*weights))
     x, h_sub, a_sub, idx = x.contiguous(), h_sub.contiguous(), a_sub.contiguous(), idx.contiguous()
     gate = gate.to(torch.float32).contiguous()
     ps = {key: params[key].contiguous() for key in _KEYS if key in params}
@@ -129,10 +175,10 @@ def _routed_mlp_launch(x, h_sub, a_sub, idx, gate, params, spec: RoutedMlpSpec):
         x.data_ptr(), h_sub.data_ptr(), a_sub.data_ptr(), idx.data_ptr(), gate.data_ptr(),
         ps["ln"].data_ptr(), ps["w_up"].data_ptr(), ps["w_down"].data_ptr(),
         None if wg is None else wg.data_ptr(), hn.data_ptr(), hid.data_ptr(), out.data_ptr(),
-        B, S, k, D, F, _DTYPES[dt], _ACTS[spec.act], float(spec.eps), stream,
+        B, S, k, D, F, _DTYPES[dt], _ACTS[spec.act], GEMM_PATHS[path], float(spec.eps), stream,
     )
     build.check("routed_mlp", "repro_routed_mlp", err)
-    ROUTED_MLP_SCATTER.launches += 1
+    ROUTED_MLP_SCATTER.add((path, B, S, k, D, F))
     return out
 
 

@@ -41,6 +41,12 @@ the plain version (cuBLAS in f32) sum in their own order; in bf16 a sum
 on the other side of a rounding boundary moves an element of h by one ulp
 and y rounds once, so they agree within 2^-7 of max|y| (f32: 2e-5 of it).
 
+Both MLP kernels run their bf16 products on the wgmma GEMM where D and F
+are multiples of 8 and the bases aligned (``swiglu.gemm_path``; the launch
+counters record the path by call): the same tolerances hold there, at tile
+edges too, and the K order is fixed, so two calls and a CUDA-graph replay
+give the eager call's bits.
+
 SSD intra-chunk: both sides compute in f32 from the same (widened)
 inputs; the kernel takes the cumsum of loglam in order, torch's scan in
 another order, and each decay exp(l_i - l_j) carries that rounding (up to
@@ -344,6 +350,14 @@ MLP_CASES = [
     (1, 100, 30, 128, 200, "gelu", True),
     (2, 48, 17, 64, 130, "gelu", False),
     (4, 2048, 256, 1792, 7168, "silu", True),  # mod-paper-1b training shape
+    # the wgmma GEMM's edges in bf16: M = B*k of 1, 63, 65, 129 and 1000
+    # rows against 128-row tiles; D and F multiples of 8 but not of the
+    # 64-deep K step or the 128-wide tile
+    (1, 40, 1, 72, 200, "silu", True),
+    (1, 100, 63, 136, 328, "gelu", False),
+    (1, 100, 65, 40, 56, "silu", True),
+    (3, 64, 43, 200, 136, "gelu", True),
+    (4, 512, 250, 264, 392, "silu", True),
 ]
 
 
@@ -368,7 +382,8 @@ def test_routed_mlp_scatter_matches_plain(dev, dtype, B, S, k, D, F, act, glu):
     out = SW.routed_mlp_scatter(x, h, a, idx, gate, params, spec)
     want = SW.routed_mlp_scatter_plain(x, h, a, idx, gate, params, spec)
     torch.cuda.synchronize()
-    assert build.launch_counts()["routed_mlp_scatter"] == 1
+    path = "wgmma" if dtype == torch.bfloat16 and D % 8 == 0 and F % 8 == 0 else "cuda_cores"
+    assert build.COUNTERS["routed_mlp_scatter"].by_call == {(path, B, S, k, D, F): 1}
     routed = torch.zeros(B, S, dtype=torch.bool, device=dev)
     routed.scatter_(1, idx, True)
     assert torch.equal(out[~routed], x[~routed])  # rows that are not routed pass through
@@ -901,21 +916,89 @@ def test_ragged_paged_attention_head_dims_and_a_decode_step(dev, hd):
     torch.testing.assert_close(out.float(), want.float(), **TOL[torch.bfloat16])
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("M,D,F", [(37, 40, 72), (33, 44, 70), (1, 64, 64), (256, 1792, 7168)])
-def test_swiglu_matches_plain(dev, dtype, M, D, F):
-    """bf16 with D and F multiples of 8 runs the tensor-core GEMM, the rest
-    the CUDA-core one."""
+def _swiglu_inputs(dev, dtype, M, D, F):
     g = torch.Generator(device=dev).manual_seed(M)
     x = torch.randn(M, D, generator=g, device=dev).to(dtype)
     w = [(torch.randn(a, b, generator=g, device=dev) / a ** 0.5).to(dtype)
          for a, b in ((D, F), (D, F), (F, D))]
+    return x, w
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M,D,F", [
+    (37, 40, 72), (33, 44, 70), (1, 64, 64), (256, 1792, 7168),
+    # the wgmma GEMM's edges: M against 128-row tiles; D and F multiples of
+    # 8 but not of the 64-deep K step or the 128-wide tile
+    (1, 72, 200), (63, 136, 328), (65, 40, 56), (129, 200, 136), (1000, 264, 392),
+    (1000, 1792, 7168),  # mod-paper-1b's MLP
+])
+def test_swiglu_matches_plain(dev, dtype, M, D, F):
+    """bf16 with D and F multiples of 8 runs the wgmma GEMM, the rest the
+    CUDA-core one."""
+    x, w = _swiglu_inputs(dev, dtype, M, D, F)
     build.reset_counters()
     out = SW.swiglu(x, *w)
-    assert build.launch_counts()["swiglu"] == 1
+    path = "wgmma" if dtype == torch.bfloat16 and D % 8 == 0 and F % 8 == 0 else "cuda_cores"
+    assert build.COUNTERS["swiglu"].by_call == {(path, M, D, F): 1}
     want = SW.swiglu_plain(x, *w)
     scale = want.float().abs().max().item()
     assert (out.float() - want.float()).abs().max().item() <= SWIGLU_TOL[dtype] * scale
+
+
+def test_swiglu_takes_the_cuda_cores_for_an_unaligned_base(dev):
+    """A bf16 view whose base is not 16-byte aligned takes the CUDA-core
+    GEMM, chosen before launch, and agrees with the plain version."""
+    x, w = _swiglu_inputs(dev, torch.bfloat16, 65, 136, 328)
+    xs = torch.cat([x.new_zeros(1, 136), x])[1:]  # contiguous, base 272 bytes in
+    wg = torch.cat([w[0].new_zeros(1), w[0].flatten()])[1:].view(136, 328)  # 2 bytes in
+    assert xs.data_ptr() % 16 == 0 and wg.data_ptr() % 16 == 2
+    build.reset_counters()
+    out = SW.swiglu(xs, wg, w[1], w[2])
+    assert build.COUNTERS["swiglu"].by_call == {("cuda_cores", 65, 136, 328): 1}
+    want = SW.swiglu_plain(x, *w)
+    scale = want.float().abs().max().item()
+    assert (out.float() - want.float()).abs().max().item() <= SWIGLU_TOL[torch.bfloat16] * scale
+
+
+def _mlp_call(dev, dtype, B, S, k, D, F, act="silu", glu=True):
+    g, x, idx = _routed_inputs(dev, dtype, B, S, k, D, 3)
+    h = torch.randn(B, k, D, generator=g, device=dev).to(dtype)
+    a = torch.randn(B, k, D, generator=g, device=dev).to(dtype)
+    gate = torch.randn(B, k, generator=g, device=dev)
+    params = _mlp_params(g, dev, dtype, D, F, glu)
+    spec = SW.RoutedMlpSpec(act, 1e-5)
+    return lambda: SW.routed_mlp_scatter(x, h, a, idx, gate, params, spec)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kernel", ["swiglu", "routed_mlp_scatter"])
+def test_mlp_kernels_give_the_same_bits_twice(dev, dtype, kernel):
+    """No split of K and no atomics: two calls on the same inputs agree to
+    the bit, on either GEMM."""
+    if kernel == "swiglu":
+        x, w = _swiglu_inputs(dev, dtype, 1000, 264, 392)
+        fn = lambda: SW.swiglu(x, *w)  # noqa: E731
+    else:
+        fn = _mlp_call(dev, dtype, 4, 512, 250, 264, 392)
+    assert torch.equal(fn(), fn())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kernel,shape", [
+    ("swiglu", (129, 200, 136)), ("swiglu", (1024, 1792, 7168)),
+    ("routed_mlp_scatter", (3, 64, 43, 200, 136)),
+    ("routed_mlp_scatter", (4, 2048, 256, 1792, 7168)),
+])
+def test_mlp_kernels_replay_in_a_cuda_graph(dev, dtype, kernel, shape):
+    """Both GEMMs' launches (their tensor maps are kernel parameters)
+    capture into a CUDA graph, and a replay gives the eager call's bits."""
+    if kernel == "swiglu":
+        x, w = _swiglu_inputs(dev, dtype, *shape)
+        fn = lambda: SW.swiglu(x, *w)  # noqa: E731
+    else:
+        fn = _mlp_call(dev, dtype, *shape)
+    want, got = _eager_and_replayed(fn)
+    assert torch.equal(got, want)
 
 
 def test_op_kernels_refuse_grads_and_bad_input(dev):
