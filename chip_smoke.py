@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --flash-timing [ROOT]   # flash alone, ROOT's port
-    python3 chip_smoke.py --mlp-losses            # phase 5's losses per routed-MLP path
+    python3 chip_smoke.py --mlp-losses            # phase 5's losses per routed-kernel path
+    python3 chip_smoke.py --routed-paged-timing [ROOT]  # routed_attention, paged_gather alone
 
 Imports nothing of JAX or of the JAX package. Builds the port's CUDA
 kernels from ``src/repro_torch/kernels/csrc`` and runs, in order (any
@@ -18,12 +19,15 @@ failure raises and exits non-zero):
    one exists, one PyTorch library call as a yardstick (never called by
    the port); flash attention at four bf16 shapes (prefill S=1000 and
    2048, decode B=8 ctx 1056, the training call with its lse) against
-   SDPA, with HMMA asserted in its library's SASS; routed_mlp_scatter with
-   HGMMA (wgmma) asserted in its bf16 GEMM kernels' SASS, its GEMM path per
-   row and a library figure (rms_norm, three cuBLAS products and
-   index_copy_: not one call); the three paged-pool kernels (page gather,
-   decode-row scatter, ragged write-back) at the shapes of phase 6c and odd
-   tails, bitwise, with the in-place scatters held to their target rows;
+   SDPA, with HMMA asserted in its library's SASS; routed_attention and
+   routed_mlp_scatter with HGMMA (wgmma) asserted in their bf16 GEMM
+   kernels' SASS and HMMA in routed_attention's bf16 attention core, the
+   GEMM path each launch recorded per row, and for the MLP a library
+   figure (rms_norm, three cuBLAS products and index_copy_: not one call);
+   the three paged-pool kernels (page gather, decode-row scatter, ragged
+   write-back) at the shapes of phase 6c and odd tails, bitwise, with the
+   in-place scatters held to their target rows and the gather's plan
+   (vector width, blocks) on its lines;
    the dequantizing page gather (int8/page and fp8/head pages widened to
    bf16 at phase 7b's shapes) and the ragged MoD gather/scatter (phase
    8b's flat streams), bitwise, after the card's int8/e4m3 casts and pow2
@@ -43,8 +47,8 @@ failure raises and exits non-zero):
 5. the training path: ``mod-paper-1b`` in bf16, backend ``pallas_fused``,
    B=4 at S=2048, 5 steps through the port's ``Trainer``: per-step loss,
    wall time, device-busy time and idle share, and every kernel's launch
-   count read from this phase alone (routed_mlp_scatter's by GEMM path,
-   every one on the wgmma GEMM);
+   count read from this phase alone (routed_attention's and
+   routed_mlp_scatter's by GEMM path, every one on the wgmma GEMM);
 6. paged serving: ``mod-paper-60m`` f32 through the paged engine with the
    prefix cache and through the ragged engine, CPU against the card
    (identical greedy streams; run after phase 3), then ``mod-paper-1b``
@@ -106,9 +110,16 @@ Each phase's wall time is printed on a ``[time]`` line.
 ``--flash-timing [ROOT]`` only times the flash kernel of the port under
 ROOT (default: this checkout) at phase 2's four bf16 shapes beside SDPA:
 run it on a parent tree and this one in one call to compare two kernels.
-``--mlp-losses`` only runs phase 5's training three times, with
+``--routed-paged-timing [ROOT]`` only times routed_attention (bf16, the
+1b training shape; with torch.profiler's split of one call by kernel) and
+paged_gather (phase 2's four shapes on phase 6c's tables) of the port
+under ROOT beside their plain versions and index_select, three readings
+each in turns: run it on a parent tree and this one in one call to
+compare two versions of the kernels.
+``--mlp-losses`` only runs phase 5's training four times, with
 routed_mlp_scatter on the wgmma GEMM, on the CUDA-core GEMM and as its
-plain version, and prints the three loss trajectories.
+plain version, and with routed_attention as its plain version, and prints
+the four loss trajectories.
 
 It prints a ``{"kernels": [...]}`` line, then the card's ``nvidia-smi`` line,
 then as the last line ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -278,7 +289,7 @@ class NoDeviceTime(RuntimeError):
     """torch.profiler recorded no device activity for a profiled call."""
 
 
-def profile_call(fn, iters: int = 10, warmup: int = 2, tries: int = 3):
+def profile_call(fn, iters: int = 10, warmup: int = 2, tries: int = 3, top_n: int = 6):
     """(wall ms per call, device-busy ms per call, top kernels) from
     torch.profiler's CUDA activity (CUPTI): device time is the sum of the
     durations of every kernel and copy the calls ran on the card. CUPTI
@@ -303,7 +314,7 @@ def profile_call(fn, iters: int = 10, warmup: int = 2, tries: int = 3):
                 by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
         busy = sum(by_name.values())
         if busy > 0.0:
-            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top_n]
             return wall, busy, top
     raise NoDeviceTime(f"torch.profiler recorded no device time in {tries} profiles")
 
@@ -602,6 +613,75 @@ def _w(g, dev, dtype, *shape):
     return (torch.randn(*shape, generator=g, device=dev) / shape[0] ** 0.5).to(dtype)
 
 
+def routed_paged_timing(root: Path, reads: int = 3) -> None:
+    """``--routed-paged-timing [ROOT]``: routed_attention in bf16 at phase
+    2's mod-paper-1b training shape, and paged_gather at phase 2's four
+    shapes on phase 6c's tables (the same seeds as check_fused and
+    check_paged: K/V and int32 position pages, B=8 then B=1), of the port
+    under ``ROOT/src`` (default: this checkout), each beside its plain
+    version and, for the gather, ``index_select``: ``reads`` CUDA-graph
+    replays of each, in turns. Run on a parent tree and this one in one
+    call (parent, this, this, parent) to compare two versions of the
+    kernels on one card."""
+    sys.path.insert(0, str(root / "src"))
+    from repro_torch.config import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged as KP
+
+    build.build_all()
+    cfg, dev = get_config("mod-paper-1b"), torch.device("cuda", 0)
+    name = root.name or str(root)
+
+    def readings(fns, reps=20):
+        got = {key: [] for key in fns}
+        for _ in range(reads):
+            for key, fn in fns.items():
+                got[key].append(graph_ms(fn, reps))
+        return "; ".join(f"{key} {min(v):.5f} ({', '.join(f'{x:.5f}' for x in v)})"
+                         for key, v in got.items())
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    B, S, D = 4, 2048, cfg.d_model
+    k, nq, nkv, hd = cfg.mod.capacity(S), cfg.attn.n_heads, cfg.attn.n_kv_heads, cfg.head_dim
+    dtype = torch.bfloat16
+    spec = FA.RoutedAttnSpec(nq, nkv, hd, hd ** -0.5, True, 0, cfg.attn.rope_theta, "rope",
+                             cfg.norm_eps)
+    x = torch.randn(B, S, D, generator=g, device=dev).to(dtype)
+    idx = torch.stack([torch.sort(torch.randperm(S, generator=g, device=dev)[:k]).values
+                       for _ in range(B)])
+    pos = idx.to(torch.int32)
+    ap = {"ln": (1 + 0.1 * torch.randn(D, generator=g, device=dev)).to(dtype),
+          "wq": _w(g, dev, dtype, D, nq * hd), "wk": _w(g, dev, dtype, D, nkv * hd),
+          "wv": _w(g, dev, dtype, D, nkv * hd), "wo": _w(g, dev, dtype, nq * hd, D)}
+    log(f"[routed-paged-timing] {name}: routed_attention B={B} S={S} k={k} D={D} bf16: " + readings(
+        {"kernel": lambda: FA.routed_attention(x, idx, pos, ap, spec),
+         "plain": lambda: FA.routed_attention_plain(x, idx, pos, ap, spec)}, reps=5))
+    try:
+        _, busy, top = profile_call(lambda: FA.routed_attention(x, idx, pos, ap, spec), top_n=12)
+        split = f"busy {busy:.4f}): " + "; ".join(f"{n[:70]} {t:.4f}" for n, t in top)
+    except NoDeviceTime as err:
+        split = f"not measured: {err})"
+    log(f"[routed-paged-timing] {name}: routed_attention by kernel (torch.profiler, ms per call, "
+        f"a diagnostic; {split}")
+    suffix, ctx, _ = paged_1b_plan()
+    w = PAGED_1B
+    lens = [w["prefix"] + int(n) for n in suffix]
+    g = torch.Generator(device=dev).manual_seed(7)
+    for label, dt, F in (("kv", torch.bfloat16, cfg.attn.n_kv_heads * cfg.head_dim),
+                         ("pos", torch.int32, 1)):
+        pages, table, *_ = _paged_inputs(g, dev, dt, F, lens, w["gen"], ctx // w["page"],
+                                         w["page"], w["chunk"])
+        for Bg in (table.shape[0], 1):
+            t = table[:Bg].contiguous()
+            if not torch.equal(KP.paged_gather(pages, t), KP.paged_gather_plain(pages, t)):
+                raise AssertionError(f"paged_gather differs from its plain version ({label})")
+            log(f"[routed-paged-timing] {name}: paged_gather {label} B={Bg}: " + readings(
+                {"kernel": lambda: KP.paged_gather(pages, t),
+                 "index_select": lambda: torch.index_select(pages, 0, t.flatten().long())}))
+    log(f"[routed-paged-timing] {name}: {smi_line()}")
+
+
 def _causal_pairs(pos):
     """(query, key) pairs of the routed rows that the causal make_mask keeps."""
     return int(((pos[:, None, :] >= 0) & (pos[:, None, :] <= pos[:, :, None])).sum().item())
@@ -648,13 +728,17 @@ SWIGLU_LIBRARY = {torch.bfloat16: "torch.mm x3 (cuBLAS, bf16 operands, out_dtype
 def check_fused(cfg, dev, results):
     """routed_attention and routed_mlp_scatter at the mod-paper-1b training
     shape: B=4, S=2048, k = capacity(2048) = 256 routed rows per sequence.
-    routed_mlp_scatter's bf16 GEMMs are the wgmma GEMM: HGMMA in the SASS
-    of its three bf16 GEMM kernels, and the path its launches recorded."""
+    Both kernels' bf16 GEMMs are the wgmma GEMM: HGMMA in the SASS of their
+    bf16 GEMM kernels, and the path their launches recorded by call;
+    routed_attention's bf16 attention core is on tensor cores: HMMA in the
+    SASS of its kernel at every head dim."""
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import swiglu as SW
 
     check_sass("routed_mlp", "gemm_wgmma_kernel", "HGMMA", 3)  # EpiGlu, EpiAct, EpiScatter
+    check_sass("routed_attention", "gemm_wgmma_kernel", "HGMMA", 3)  # EpiAttnStore, KV, Out
+    check_sass("routed_attention", "routed_attn_tc_kernel", "HMMA", 4)  # head dims 32-256
     g = torch.Generator(device=dev).manual_seed(2)
     B, S, D, F = 4, 2048, cfg.d_model, cfg.d_ff
     k = cfg.mod.capacity(S)
@@ -671,7 +755,12 @@ def check_fused(cfg, dev, results):
         ap = {"ln": (1 + 0.1 * torch.randn(D, generator=g, device=dev)).to(dtype),
               "wq": _w(g, dev, dtype, D, nq * hd), "wk": _w(g, dev, dtype, D, nkv * hd),
               "wv": _w(g, dev, dtype, D, nkv * hd), "wo": _w(g, dev, dtype, nq * hd, D)}
+        build.reset_counters()
         a, h = FA.routed_attention(x, idx, pos, ap, spec)
+        attn_path = FA.routed_attention_path(dtype, B, k, D, nq, nkv, hd, True)
+        if build.COUNTERS["routed_attention"].by_call != {(attn_path, B, S, k, D, nq, nkv, hd): 1}:
+            raise AssertionError(f"routed_attention {dtype} launched "
+                                 f"{build.COUNTERS['routed_attention'].by_call}, want {attn_path}")
         wa, wh = FA.routed_attention_plain(x, idx, pos, ap, spec)
         for got, want in ((a, wa), (h, wh)):
             torch.testing.assert_close(got.float(), want.float(), **ROUTED_TOL[dtype])
@@ -709,7 +798,7 @@ def check_fused(cfg, dev, results):
                 plain_ms=replay_ms(lambda: FA.routed_attention_plain(x, idx, pos, ap, spec), ha,
                                    "plain_ms", reps=5),
                 library_ms=None, bound=bound_ms(attn_bytes, attn_flops, dtype),
-                max_abs_err=err_a, shape=f"{shape} {nq}x{hd}", timed_by=ha),
+                max_abs_err=err_a, shape=f"{shape} {nq}x{hd}", timed_by=ha, gemm_path=attn_path),
             "routed_mlp_scatter": dict(
                 ms=replay_ms(lambda: SW.routed_mlp_scatter(x, h, a, idx, gate, mp, mspec), hm, "ms",
                              reps=5),
@@ -805,6 +894,7 @@ def check_paged(cfg, dev, results):
     exactly, and the in-place scatters must leave every row outside their
     targets untouched (checked against a saved copy of the pool). Timed
     per leaf kind and shape; main() pairs each shape with its launches."""
+    from repro_torch.kernels import build
     from repro_torch.kernels import paged as KP
     from repro_torch.kernels import ragged as KRG
     from repro_torch.serve.cache import SCRATCH_PAGE
@@ -824,6 +914,7 @@ def check_paged(cfg, dev, results):
         pages, table, rows, pos, ragged = _paged_inputs(g, dev, dtype, F, lens_, gen_, P, p_, C_)
         N, B = pages.shape[0], table.shape[0]
         es = pages.element_size()
+        build.reset_counters()
         for t in (table, table[:1]):
             if not torch.equal(KP.paged_gather(pages, t), KP.paged_gather_plain(pages, t)):
                 raise AssertionError(f"paged_gather differs from its plain version ({label} "
@@ -846,8 +937,10 @@ def check_paged(cfg, dev, results):
                                      f"W={W})")
         shape = f"N={N} p={p_} F={F} P={P} {str(dtype)[6:]}"
         if label not in ("kv", "pos"):
+            vecs = sorted({key[0] for key in build.COUNTERS["paged_gather"].by_call})
             log(f"[kernels] paged kernels {label} {shape} B={B} W={sorted(ragged)}: all three "
-                f"bitwise equal to their plain versions, no row outside the targets written")
+                f"bitwise equal to their plain versions, no row outside the targets written "
+                f"(gather vectors of {vecs} bytes)")
             continue
         flat = pages.view(N * p_, F)
         fi = tgt.contiguous()
@@ -857,11 +950,16 @@ def check_paged(cfg, dev, results):
             # the gather reads each distinct page it maps once and writes
             # every logical page
             reads = torch.unique(t).numel()
+            gplan = KP.gather_plan(N, Bg, P, p_ * F * es, pages.data_ptr())
+            if (gplan.vec, Bg, P, p_ * F * es) not in build.COUNTERS["paged_gather"].by_call:
+                raise AssertionError(f"paged_gather {label} B={Bg} launched "
+                                     f"{build.COUNTERS['paged_gather'].by_call}, not {gplan}")
             timed[("paged_gather", f"{label} B={Bg}")] = dict(
                 fn=lambda t=t: KP.paged_gather(pages, t),
                 plain=lambda t=t: KP.paged_gather_plain(pages, t),
                 library=lambda t=t.flatten().long(): torch.index_select(pages, 0, t),
-                nbytes=(Bg * P + reads) * p_ * F * es + 4 * Bg * P, shape=f"{shape} B={Bg}")
+                nbytes=(Bg * P + reads) * p_ * F * es + 4 * Bg * P, shape=f"{shape} B={Bg}",
+                plan=gplan)
         # the rows read and written, the B positions and the B table
         # entries the kernel loads
         timed[("paged_scatter_rows", f"{label} B={B}")] = dict(
@@ -887,7 +985,12 @@ def check_paged(cfg, dev, results):
                      library_ms=replay_ms(c["library"], how, "library_ms"),
                      bound=bound_ms(c["nbytes"], 0, dtype), timed_by=how,
                      max_abs_err=0.0, shape=c["shape"])  # equality was checked above
-            log(f"[kernels] {name:26s} {r['shape']:44s} bitwise-equal ms={r['ms']:.4f} "
+            plan = ""
+            if "plan" in c:  # the gather's vector bytes, vectors a thread and blocks
+                r["plan"] = c["plan"]._asdict()
+                plan = (f" plan=vec{c['plan'].vec} unroll{c['plan'].unroll} x "
+                        f"{c['plan'].blocks} blocks")
+            log(f"[kernels] {name:26s} {r['shape']:44s}{plan} bitwise-equal ms={r['ms']:.4f} "
                 f"call_ms={r['call_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
                 f"library_ms={r['library_ms']:.4f} bound_ms={r['bound'][0]:.6f} ({r['bound'][1]})"
                 f"{timed_note(how)}")
@@ -1466,10 +1569,12 @@ def _kernel_group(name: str) -> str:
         return "flash_attention"
     if "ssd_intra_kernel" in name:
         return "ssd_intra_chunk"
-    if any(t in name for t in ("routed_attn_kernel", "rope_kernel", "EpiStore", "EpiResid")):
+    if any(t in name for t in ("routed_attn_", "rope_kernel", "EpiAttn")):
         return "routed_attention"
     if any(t in name for t in ("EpiGlu", "EpiAct", "EpiScatter")):
         return "routed_mlp_scatter"
+    if any(t in name for t in ("EpiSwiglu", "EpiStore")):
+        return "swiglu"
     if "rmsnorm_rows" in name:
         return "routed_* rmsnorm"
     if "gather_rows" in name or "scatter_update" in name or "copy_bytes" in name:
@@ -1545,6 +1650,7 @@ def train_1b(dev):
         counts = build.launch_counts()
         flash = flash_calls()
         mlp_calls = dict(build.COUNTERS["routed_mlp_scatter"].by_call)
+        attn_calls = dict(build.COUNTERS["routed_attention"].by_call)
     log(f"[train] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite training loss: {losses}")
@@ -1565,7 +1671,14 @@ def train_1b(dev):
     log("[train] routed_mlp_scatter launches by GEMM path (counted in the wrapper): " + "; ".join(
         f"{key[0]} at B={key[1]} S={key[2]} k={key[3]} D={key[4]} F={key[5]}: {n}"
         for key, n in mlp_calls.items()))
-    return counts, flash, mlp_calls
+    if {key[0] for key in attn_calls} != {"wgmma"}:
+        raise AssertionError(f"routed_attention's training launches took {attn_calls}: want "
+                             "every one on the wgmma GEMM")
+    log("[train] routed_attention launches by GEMM path (counted in the wrapper; the attention "
+        "core on tensor cores in bf16): " + "; ".join(
+            f"{key[0]} at B={key[1]} S={key[2]} k={key[3]} D={key[4]} {key[5]}x{key[7]} heads "
+            f"(kv {key[6]}): {n}" for key, n in attn_calls.items()))
+    return counts, flash, mlp_calls, attn_calls
 
 
 def mlp_path_losses() -> None:
@@ -1576,19 +1689,29 @@ def mlp_path_losses() -> None:
     its plain version (cuBLAS bf16 products): the losses of three
     computations of one function at the same rounding points, which differ
     only in the order of their f32 sums. Shows how far 5 bf16 steps carry
-    such a difference."""
+    such a difference. A fourth run takes routed_attention as its plain
+    version (cuBLAS and torch ops; the routed MLP on the wgmma GEMM), so
+    that a loss drift can be put down to one kernel's sum order."""
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import swiglu as SW
 
     torch.backends.cuda.matmul.allow_tf32 = False  # as main() sets them for phase 5
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    gemm_path, launch = SW.gemm_path, SW._routed_mlp_launch
-    variants = {"wgmma": {}, "cuda_cores": {"gemm_path": lambda *a: "cuda_cores"},
-                "plain (cuBLAS)": {"_routed_mlp_launch": SW.routed_mlp_scatter_plain}}
+    saved = {(SW, "gemm_path"): SW.gemm_path, (SW, "_routed_mlp_launch"): SW._routed_mlp_launch,
+             (FA, "_routed_attention_launch"): FA._routed_attention_launch}
+    variants = {
+        "routed_mlp_scatter wgmma": {},
+        "routed_mlp_scatter cuda_cores": {(SW, "gemm_path"): lambda *a: "cuda_cores"},
+        "routed_mlp_scatter plain (cuBLAS)": {
+            (SW, "_routed_mlp_launch"): SW.routed_mlp_scatter_plain},
+        "routed_attention plain (cuBLAS + torch ops)": {
+            (FA, "_routed_attention_launch"): FA.routed_attention_plain},
+    }
     for name, patch in variants.items():
-        for attr, fn in patch.items():
-            setattr(SW, attr, fn)
+        for (mod, attr), fn in patch.items():
+            setattr(mod, attr, fn)
         build.reset_counters()
         with tempfile.TemporaryDirectory() as ckdir:
             trainer = trainer_1b(dev, ckdir)
@@ -1597,10 +1720,12 @@ def mlp_path_losses() -> None:
             for _ in range(TRAIN_1B["steps"]):
                 state, m = trainer.run(state, 1)
                 losses.append(m["loss"])
-        SW.gemm_path, SW._routed_mlp_launch = gemm_path, launch
-        calls = dict(build.COUNTERS["routed_mlp_scatter"].by_call)
-        log(f"[mlp-losses] routed_mlp_scatter {name}: losses "
-            f"{', '.join(f'{v:.4f}' for v in losses)}; kernel launches {calls} ({smi_line()})")
+        for (mod, attr), fn in saved.items():
+            setattr(mod, attr, fn)
+        calls = {kern: dict(build.COUNTERS[kern].by_call)
+                 for kern in ("routed_mlp_scatter", "routed_attention")}
+        log(f"[mlp-losses] {name}: losses {', '.join(f'{v:.4f}' for v in losses)}; kernel "
+            f"launches {calls} ({smi_line()})")
         del trainer, state
         torch.cuda.empty_cache()
 
@@ -2983,6 +3108,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--flash-timing"]:
         flash_timing(Path(sys.argv[2]).resolve() if len(sys.argv) > 2 else ROOT)
         return 0
+    if sys.argv[1:2] == ["--routed-paged-timing"]:
+        routed_paged_timing(Path(sys.argv[2]).resolve() if len(sys.argv) > 2 else ROOT)
+        return 0
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.config import get_config
     from repro_torch.kernels import build
@@ -3020,7 +3148,8 @@ def main() -> int:
     timed("phase 6a-8a parity", lambda: (paged_parity(dev), quant_parity(dev),
                                          ragged_forward_parity(dev)))
     serve_counts, serve_flash = timed("phase 4 serve", serve_1b, dev)
-    train_counts, train_flash, train_mlp_calls = timed("phase 5 train", train_1b, dev)
+    train_counts, train_flash, train_mlp_calls, train_attn_calls = timed("phase 5 train",
+                                                                         train_1b, dev)
     from repro_torch.config import with_mod_backend
     from repro_torch.models import api
 
@@ -3070,7 +3199,7 @@ def main() -> int:
         # the kernel's device time on that path
         shapes[name] = [dict(shape=r["shape"], launches=paged_shapes[name][key], ms=r["ms"],
                              plain_ms=r["plain_ms"], library_ms=r["library_ms"],
-                             bound_ms=r["bound"][0])
+                             bound_ms=r["bound"][0], **({"plan": r["plan"]} if "plan" in r else {}))
                         for key, r in results[name].items()]
         key = max(results[name], key=lambda k: paged_shapes[name][k] * results[name][k]["ms"])
         picks[name] = results[name][key]
@@ -3111,11 +3240,12 @@ def main() -> int:
                              launches=int(key[1] == torch.bfloat16), ms=r["ms"],
                              plain_ms=r["plain_ms"], library_ms=r["library_ms"],
                              bound_ms=r["bound"][0]) for key, r in sw.items()]
-    shapes["routed_mlp_scatter"] = [
-        dict(shape=r["shape"], gemm_path=r["gemm_path"], launches=train_counts.get(
-            "routed_mlp_scatter", 0) if dt == torch.bfloat16 else 0, ms=r["ms"],
-             plain_ms=r["plain_ms"], library_ms=r["library_ms"], bound_ms=r["bound"][0])
-        for dt, r in results["routed_mlp_scatter"].items()]
+    for name in ("routed_mlp_scatter", "routed_attention"):
+        shapes[name] = [
+            dict(shape=r["shape"], gemm_path=r["gemm_path"], launches=train_counts.get(name, 0)
+                 if dt == torch.bfloat16 else 0, ms=r["ms"], plain_ms=r["plain_ms"],
+                 library_ms=r["library_ms"], bound_ms=r["bound"][0])
+            for dt, r in results[name].items()]
     picks["swiglu"] = sw[(max(SWIGLU_M), torch.bfloat16)]
     model_runs = {"serve": serve_counts, "train": train_counts, **paged_counts, **quant_counts,
                   "forward_ragged": ragged_counts, "train_ssm": ssm_train_counts,
@@ -3174,6 +3304,12 @@ def main() -> int:
                                           launches=n) for k, n in train_mlp_calls.items()]}
                if name == "routed_mlp_scatter" else {}),
             **({"launches_by_call": flash_by_call} if name == "flash_attention" else {}),
+            **({"launches_by_call": [dict(gemm_path=k[0], B=k[1], S=k[2], k=k[3], D=k[4],
+                                          nq=k[5], nkv=k[6], hd=k[7], launches=n)
+                                     for k, n in train_attn_calls.items()],
+                "attention_core": "mma.sync tensor cores (bf16)"}
+               if name == "routed_attention" else {}),
+            **({"plan": r["plan"]} if "plan" in r else {}),
             "launches_by_path": {k: v.get(name, 0) for k, v in by_path.items()},
             **({"shapes": shapes[name]} if name in shapes else {}),
         })

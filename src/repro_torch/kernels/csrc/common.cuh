@@ -25,9 +25,10 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 }
 
 // Tensor-core building blocks (sm_80+ instructions, used on sm_90a): async
-// 16-byte copies global -> shared, ldmatrix fragment loads and the bf16
-// m16n8k16 mma with f32 accumulators, used by the flash attention kernel
-// (the GEMM of gemm.cuh runs wgmma, which it defines itself).
+// copies global -> shared, ldmatrix fragment loads, the bf16 m16n8k16 mma
+// with f32 accumulators and the quad reductions over its fragments, used by
+// the flash and routed attention kernels (the GEMM of gemm.cuh runs wgmma,
+// which it defines itself).
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -62,6 +63,36 @@ __device__ __forceinline__ void mma_bf16_16816(float* d, const unsigned* a, cons
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// 4 bytes global -> shared, asynchronously; zeros when !valid
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// max and sum over the 4 lanes of a quad (the lanes holding one row of an
+// mma accumulator fragment)
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// whether a key at position kp can be valid for some query position in
+// [qmin, qmax] (causal: kp <= q; window: q - kp < window)
+__device__ __forceinline__ bool key_candidate(int kp, int qmin, int qmax, int causal,
+                                              int window) {
+  return kp >= 0 && (!causal || kp <= qmax) && (window <= 0 || kp > qmin - window);
 }
 
 #define REPRO_ERROR_STRING                                              \

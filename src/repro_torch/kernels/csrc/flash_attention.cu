@@ -252,34 +252,6 @@ __host__ __device__ constexpr int decode_chunk(int hd) { return 2 * key_tile(hd)
 // filled), which leaves room for 3 tile-path blocks per SM
 __host__ __device__ constexpr bool q_in_registers(int hd) { return hd <= 128; }
 
-// 4 bytes global -> shared, asynchronously; zeros when !valid
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// whether a key at position kp can be valid for some query position in
-// [qmin, qmax] (both >= 0)
-__device__ __forceinline__ bool key_candidate(int kp, int qmin, int qmax, int causal,
-                                              int window) {
-  return kp >= 0 && (!causal || kp <= qmax) && (window <= 0 || kp > qmin - window);
-}
-
 // One m16 row tile against one key tile: mask and scale the scores in the
 // accumulator fragments (e = 0, 1: row lane/4; e = 2, 3: row lane/4 + 8),
 // update the running max m and sum l of the two rows, rescale O and turn

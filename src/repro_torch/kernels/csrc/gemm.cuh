@@ -9,11 +9,11 @@
 // threads owns a 64 x 64 tile of C and walks K in steps of 16, staging both
 // tiles in shared memory as f32 (A transposed, padded by one float against
 // bank conflicts); each thread accumulates a 4 x 4 sub-tile. With two B
-// matrices (the GLU case) the block keeps two accumulators and reads A
-// once. Every edge is masked, so M, N and K need not divide the tile. It is
-// bound by shared-memory traffic and the FMA rate; f32 products, bf16 ones
-// whose shapes the tensor-core GEMM does not take, and routed_attention.cu
-// run on it.
+// matrices (a GLU, or routed attention's k and v) the block keeps two
+// accumulators and reads A once. Every edge is masked, so M, N and K need
+// not divide the tile. It is bound by shared-memory traffic and the FMA
+// rate; f32 products and bf16 ones whose shapes the tensor-core GEMM does
+// not take run on it.
 //
 // GEMM on Hopper's tensor cores (gemm_wgmma, bf16): see its note below.
 // Products are computed here, never by a library.
@@ -127,9 +127,9 @@ cudaError_t gemm(const T* A, const T* B0, const T* B1, int M, int N, int K, Epi 
 
 // ---------------------------------------------------------------------------
 // The same GEMM for bf16 on Hopper's tensor cores (wgmma + TMA), used by
-// swiglu.cu and routed_mlp.cu: C = A @ B (and A @ B1, reading A once) with
-// A (M, K) and B (K, N) row-major bf16, the sums in f32, the epilogues
-// below called per element with those sums. N and K must be multiples of 8
+// swiglu.cu, routed_mlp.cu and routed_attention.cu: C = A @ B (and A @ B1,
+// reading A once) with A (M, K) and B (K, N) row-major bf16, the sums in
+// f32, the epilogues below called per element with those sums. N and K must be multiples of 8
 // (TMA's 16-byte global strides) and every base 16-byte aligned; M is any
 // count from 1 up. The wrapper chooses this path or the CUDA-core GEMM
 // above from the dtype and the shape before launch (kernels/swiglu.py::

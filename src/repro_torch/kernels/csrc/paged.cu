@@ -13,6 +13,18 @@
 // ring. Bound on the H100: bytes (3.35 TB/s). The gather reads and writes
 // every mapped page once; the scatters touch only the rows they write.
 //
+// The gather runs one flat grid over the output's vectors of VEC bytes
+// (16, 4 or 1: the widest that divides the page bytes and the page
+// tensor's base; kernels/paged.py::gather_plan chooses it, the block shape,
+// the index width and the grid before launch, and this file refuses a plan
+// it cannot run). Block x covers 256 threads x unroll consecutive vectors, and
+// each thread looks up the page id of each of its vectors and issues all
+// their loads before its stores. So the work spreads evenly whatever the
+// table's shape: a chunked prefill's (1, 62) table of 57 KB pages is 868
+// blocks of one vector a thread (one block per logical page gave 62 blocks
+// for 132 SMs), a decode step's (8, 62) 1736 blocks of four, and a
+// position leaf's 64-byte pages share 8 blocks instead of taking one each.
+//
 // The TPU scatters stream every physical page through VMEM because a Pallas
 // output does not alias its input. The function the engine needs is "the
 // pool with these rows replaced", so here the scatters write the rows in
@@ -38,6 +50,8 @@
 // Widening int8 and e4m3 to f32 is exact; the multiply by a power-of-two
 // scale is exact unless it leaves the normal range, and is the same IEEE
 // product as the plain version's.
+#include <limits.h>
+
 #include "common.cuh"
 #include "narrow.cuh"
 
@@ -70,15 +84,78 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-// One block per logical page (i, b): out[b, i*p:(i+1)*p] = pages[table[b, i]].
-__global__ void paged_gather_kernel(const char* __restrict__ pages,
-                                    const int* __restrict__ table,
-                                    char* __restrict__ out, int N, int P,
-                                    long long page_bytes) {
-  const int i = blockIdx.x, b = blockIdx.y;
-  const int pid = clampi(table[(long long)b * P + i], 0, N - 1);
-  block_copy(pages + (long long)pid * page_bytes,
-             out + ((long long)b * P + i) * page_bytes, page_bytes);
+// the gather's block: GATHER_THREADS threads with 1 or GATHER_UNROLL vectors
+// each (kernels/paged.py: GATHER_THREADS, GATHER_UNROLL)
+constexpr int GATHER_THREADS = 256;
+constexpr int GATHER_UNROLL = 4;
+
+template <int VEC>
+struct Vec;
+template <>
+struct Vec<16> {
+  typedef uint4 type;
+};
+template <>
+struct Vec<4> {
+  typedef uint32_t type;
+};
+template <>
+struct Vec<1> {
+  typedef unsigned char type;
+};
+
+// out vector v (of n_vec, vpp per logical page) = vector v % vpp of page
+// table[v / vpp] (the table flattened (B*P)). Block x covers
+// GATHER_THREADS * U consecutive vectors; each thread loads its U (the page
+// id of each looked up) before it stores any. I: 32- or 64-bit indices.
+template <int VEC, typename I, int U>
+__global__ void __launch_bounds__(GATHER_THREADS)
+paged_gather_kernel(const char* __restrict__ pages, const int* __restrict__ table,
+                    char* __restrict__ out, int N, I vpp, I n_vec) {
+  typedef typename Vec<VEC>::type V;
+  const V* src = reinterpret_cast<const V*>(pages);
+  V* dst = reinterpret_cast<V*>(out);
+  const I v0 = (I)blockIdx.x * (GATHER_THREADS * U) + threadIdx.x;
+  V r[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const I v = v0 + (I)(u * GATHER_THREADS);
+    if (v < n_vec) {
+      const I lp = v / vpp;
+      const int pid = clampi(__ldg(table + lp), 0, N - 1);
+      r[u] = __ldg(src + (unsigned long long)pid * vpp + (v - lp * vpp));
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const I v = v0 + (I)(u * GATHER_THREADS);
+    if (v < n_vec) dst[v] = r[u];
+  }
+}
+
+template <int VEC, int U>
+cudaError_t launch_gather(const void* pages, const void* table, void* out, int N,
+                          long long vpp, long long n_vec, long long blocks, int wide,
+                          cudaStream_t st) {
+  const char* pg = static_cast<const char*>(pages);
+  const int* tb = static_cast<const int*>(table);
+  char* o = static_cast<char*>(out);
+  if (wide)
+    paged_gather_kernel<VEC, unsigned long long, U><<<(unsigned)blocks, GATHER_THREADS, 0, st>>>(
+        pg, tb, o, N, (unsigned long long)vpp, (unsigned long long)n_vec);
+  else
+    paged_gather_kernel<VEC, unsigned, U><<<(unsigned)blocks, GATHER_THREADS, 0, st>>>(
+        pg, tb, o, N, (unsigned)vpp, (unsigned)n_vec);
+  return cudaGetLastError();
+}
+
+template <int VEC>
+cudaError_t launch_gather_u(int unroll, const void* pages, const void* table, void* out, int N,
+                            long long vpp, long long n_vec, long long blocks, int wide,
+                            cudaStream_t st) {
+  if (unroll == GATHER_UNROLL)
+    return launch_gather<VEC, GATHER_UNROLL>(pages, table, out, N, vpp, n_vec, blocks, wide, st);
+  return launch_gather<VEC, 1>(pages, table, out, N, vpp, n_vec, blocks, wide, st);
 }
 
 // One block per slot b: pages[table[b, t / p], t % p] = rows[b], t = pos[b].
@@ -184,13 +261,33 @@ int threads_for(long long bytes) {
 
 }  // namespace
 
+// out (B, P, page_bytes) = pages[clamp(table)] by the plan of kernels/
+// paged.py::gather_plan: vec bytes per vector, blocks of GATHER_THREADS x
+// unroll vectors, 64-bit indices when wide. A plan this file would not run
+// (a width that does not divide the page or a base, an unroll it has no
+// kernel for, a grid that does not cover the output exactly, 32-bit
+// indices that overflow) is refused.
 extern "C" int repro_paged_gather(const void* pages, const void* table, void* out, int N,
-                                  int B, int P, long long page_bytes, void* stream) {
-  dim3 grid(P, B);
-  paged_gather_kernel<<<grid, threads_for(page_bytes), 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const char*>(pages), static_cast<const int*>(table),
-      static_cast<char*>(out), N, P, page_bytes);
-  return static_cast<int>(cudaGetLastError());
+                                  int B, int P, long long page_bytes, int vec, int unroll,
+                                  int wide, long long blocks, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(pages) | reinterpret_cast<uintptr_t>(out);
+  if ((vec != 16 && vec != 4 && vec != 1) || page_bytes <= 0 || page_bytes % vec ||
+      bases % vec || N < 1 || (unroll != 1 && unroll != GATHER_UNROLL))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long vpp = page_bytes / vec, n_vec = (long long)B * P * vpp;
+  const long long per_block = (long long)GATHER_THREADS * unroll;
+  if (blocks != (n_vec + per_block - 1) / per_block || blocks < 1 || blocks > INT_MAX ||
+      wide != (blocks * per_block > (long long)UINT_MAX))
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (vec) {
+    case 16: return static_cast<int>(launch_gather_u<16>(unroll, pages, table, out, N, vpp,
+                                                         n_vec, blocks, wide, st));
+    case 4: return static_cast<int>(launch_gather_u<4>(unroll, pages, table, out, N, vpp, n_vec,
+                                                       blocks, wide, st));
+    default: return static_cast<int>(launch_gather_u<1>(unroll, pages, table, out, N, vpp,
+                                                        n_vec, blocks, wide, st));
+  }
 }
 
 extern "C" int repro_paged_scatter_rows(void* pages, const void* table, const void* rows,

@@ -28,7 +28,8 @@ tensor cores, bf16 split-KV decode when ``Sq·nq/nkv`` rows fit one
 16-row mma tile, or the f32 CUDA-core kernel.
 
 ``routed_attention`` (the Pallas ``_routed_attn_kernel``) is described at
-its section below.
+its section below; :func:`routed_attention_path` picks the GEMM of its
+projections.
 """
 from __future__ import annotations
 
@@ -39,6 +40,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.swiglu import GEMM_PATHS, bases_aligned, gemm_path
 from repro_torch.models.layers import apply_rope, rmsnorm, rope_freqs
 
 NEG_INF = -1e30
@@ -292,6 +294,13 @@ def flash_attention(
 # ``make_mask`` (no q_pos >= 0 test) and the softmax is dense over the
 # capacity axis. The backward recomputes through the plain version under
 # autograd, as the JAX VJP differentiates its host mirror.
+#
+# Its four projections run on one of the two GEMMs of ``csrc/gemm.cuh``,
+# chosen per call before launch by :func:`routed_attention_path` (the MLP
+# kernels' ``gemm_path``): Hopper's TMA + wgmma GEMM for bf16, the
+# CUDA-core GEMM for f32. The attention core follows the dtype: bf16 on
+# tensor cores (``mma.sync``), f32 on CUDA cores. The launch counter
+# records the path by call, keyed (path, B, S, k, D, nq, nkv, hd).
 
 
 class RoutedAttnSpec(NamedTuple):
@@ -365,17 +374,37 @@ def routed_attention_plain(x, idx, pos_sub, params, spec: RoutedAttnSpec):
     return a, x_sub + a
 
 
-_RA_ARGTYPES = (_P,) * 20 + (_I,) * 8 + (_F, _F, _I, _I, _I, _P)
+_RA_ARGTYPES = (_P,) * 20 + (_I,) * 9 + (_F, _F, _I, _I, _I, _P)
+
+
+def routed_attention_path(dtype: torch.dtype, B: int, k: int, D: int, nq: int, nkv: int,
+                          hd: int, aligned: bool) -> str:
+    """The GEMM of the kernel's four projections, (B·k, D) @ (D, nq·hd),
+    (D, nkv·hd) twice and (B·k, nq·hd) @ (nq·hd, D): ``gemm_path`` of the
+    first, which all four share (every head dim is a multiple of 8, so
+    their N and K are multiples of 8 together or not at all). ``"wgmma"``
+    for bf16 with D a multiple of 8 and 16-byte aligned weights, else
+    ``"cuda_cores"``. A pure function of its arguments, decided before
+    launch. Raises for what the kernel does not take (a head dim, a head
+    count, a grid, a dtype or a size), before anything is built."""
+    if hd not in _HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {_HEAD_DIMS}")
+    if nkv <= 0 or nq % nkv:
+        raise ValueError(f"n_heads {nq} is not a multiple of n_kv_heads {nkv}")
+    if max(nq, B) > _GRID_YZ:
+        raise ValueError(f"n_heads {nq} and batch {B} must be at most {_GRID_YZ}")
+    return gemm_path(dtype, B * k, nq * hd, D, aligned)
 
 
 def _routed_attention_launch(x, idx, pos_sub, params, spec: RoutedAttnSpec):
     B, S, D = x.shape
     k = idx.shape[1]
     nq, nkv, hd = spec.n_heads, spec.n_kv_heads, spec.head_dim
-    if hd not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in {_HEAD_DIMS}")
     dev, dt = x.device, x.dtype
     M = B * k
+    # the GEMMs read hn, q and o (new buffers) and the weights
+    path = routed_attention_path(dt, B, k, D, nq, nkv, hd,
+                                 bases_aligned(*(params[key] for key in ("wq", "wk", "wv", "wo"))))
     x, idx = x.contiguous(), idx.contiguous()
     pos = pos_sub.to(torch.int32).contiguous()
     ps = {key: params[key].contiguous() for key in _ATTN_KEYS if key in params}
@@ -398,11 +427,12 @@ def _routed_attention_launch(x, idx, pos_sub, params, spec: RoutedAttnSpec):
         ptr(ps.get("bk")), ptr(ps.get("bv")), freqs.data_ptr(), buf["xs"].data_ptr(),
         buf["hn"].data_ptr(), buf["q"].data_ptr(), buf["k"].data_ptr(), buf["v"].data_ptr(),
         buf["o"].data_ptr(), a.data_ptr(), h.data_ptr(),
-        B, S, k, D, nq, nkv, hd, _DTYPES[dt], float(spec.eps), float(spec.scale),
-        int(bool(spec.causal)), int(spec.window), int(spec.pos_emb == "rope"), stream,
+        B, S, k, D, nq, nkv, hd, _DTYPES[dt], GEMM_PATHS[path], float(spec.eps),
+        float(spec.scale), int(bool(spec.causal)), int(spec.window), int(spec.pos_emb == "rope"),
+        stream,
     )
     build.check("routed_attention", "repro_routed_attention", err)
-    ROUTED_ATTENTION.launches += 1
+    ROUTED_ATTENTION.add((path, B, S, k, D, nq, nkv, hd))
     return a, h
 
 

@@ -10,6 +10,10 @@ to physical ones.
 
 - :func:`paged_gather`: ``out[b, i·p + r] = pages[table[b, i], r]``, a
   fresh ``(B, P·p, F)`` tensor (the logical view the decode step reads).
+  The kernel runs one flat grid over the output's vectors; the pure
+  :func:`gather_plan` picks their width (16, 4 or 1 bytes), the index width
+  and the grid before launch, and the launch counter records the plan by
+  call, keyed ``(vec, B, P, page_bytes)``.
 - :func:`paged_gather_dequant`: the same gather of narrow (int8 / e4m3)
   pages, widened on the way out: ``f32(q) · scale`` with the row's
   ``(N, p, G)`` scale of each ``F/G``-element block, rounded once to the
@@ -39,6 +43,7 @@ backend name (``EngineConfig`` checks it).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -85,6 +90,55 @@ def paged_gather_plain(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor
     return pages[table.long().clamp(0, N - 1)].reshape(B, P * p, F)
 
 
+# the gather kernel's block (csrc/paged.cu has the same constants and
+# refuses any other unroll): 256 threads, each with one vector, or with 4
+# (all loaded before any is stored) once the output has more vectors than
+# the card holds resident threads (H100: 132 SMs x 2048). On an H100 at the
+# 1b paged shapes, 4 a thread is fastest for a decode step's (8, 62) table
+# of 57 KB pages (1.78M vectors), 1 a thread for a chunked prefill's
+# (1, 62) (222K) and for the 64-byte position pages.
+GATHER_THREADS = 256
+GATHER_UNROLL = 4
+CARD_THREADS = 132 * 2048
+_INT_MAX = 2 ** 31 - 1
+_UINT_MAX = 2 ** 32 - 1
+
+
+class GatherPlan(NamedTuple):
+    """How the gather kernel runs one call."""
+
+    vec: int  # bytes per vector: 16, 4 or 1
+    unroll: int  # vectors per thread: 1 or GATHER_UNROLL
+    wide: bool  # 64-bit vector indices (the grid covers more than 2^32 - 1 vectors)
+    blocks: int  # blocks of GATHER_THREADS * unroll vectors
+
+
+def gather_plan(N: int, B: int, P: int, page_bytes: int, base: int) -> GatherPlan:
+    """The gather kernel's vector width, block shape, index width and grid
+    for ``B·P`` logical pages of ``page_bytes`` out of ``N`` physical ones
+    whose tensor starts at address ``base`` (the output is a new
+    allocation, 16-byte aligned): the widest of 16, 4 and 1 bytes that
+    divides both ``page_bytes`` and ``base``, one vector a thread, or
+    ``GATHER_UNROLL`` once the output has more vectors than
+    ``CARD_THREADS``, and one block per ``GATHER_THREADS · unroll`` vectors
+    of the output. A pure function of its arguments,
+    decided before launch. Raises for what the kernel does not take: no
+    page to gather from, an empty page, a negative count, a grid beyond
+    CUDA's."""
+    if min(B, P) < 0 or N < 1 or page_bytes < 1:
+        raise ValueError(f"gather of B={B} x P={P} pages of {page_bytes} bytes out of N={N}: "
+                         "want N >= 1, page_bytes >= 1 and no negative count")
+    vec = next(v for v in (16, 4, 1) if page_bytes % v == 0 and base % v == 0)
+    n_vec = B * P * (page_bytes // vec)
+    unroll = GATHER_UNROLL if n_vec > CARD_THREADS else 1
+    per_block = GATHER_THREADS * unroll
+    blocks = -(-n_vec // per_block)
+    if blocks > _INT_MAX:
+        raise ValueError(f"a gather of {B * P * page_bytes} bytes needs {blocks} blocks, more "
+                         f"than CUDA's {_INT_MAX}")
+    return GatherPlan(vec, unroll, blocks * per_block > _UINT_MAX, blocks)
+
+
 def paged_gather(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """pages (N, p, F) any dtype, table (B, P) int32 -> (B, P*p, F)."""
     if pages.dim() != 3 or table.dim() != 2:
@@ -94,18 +148,27 @@ def paged_gather(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     check_no_grad(pages)
     if check_device(pages, table) == "cpu":
         return paged_gather_plain(pages, table)
-    pages, table = pages.contiguous(), table.contiguous()
+    return _gather_launch(pages.contiguous(), table.contiguous())
+
+
+# (pages, table, out, N, B, P, page_bytes, vec, unroll, wide, blocks, stream)
+_GATHER_ARGTYPES = (_P, _P, _P, _I, _I, _I, _L, _I, _I, _I, _L, _P)
+
+
+def _gather_launch(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     N, p, F = pages.shape
     B, P = table.shape
     out = torch.empty((B, P * p, F), dtype=pages.dtype, device=pages.device)
     if out.numel() == 0:
         return out
-    fn = build.bind("paged", "repro_paged_gather", (_P, _P, _P, _I, _I, _I, _L, _P))
+    page_bytes = p * F * pages.element_size()
+    plan = gather_plan(N, B, P, page_bytes, pages.data_ptr())
+    fn = build.bind("paged", "repro_paged_gather", _GATHER_ARGTYPES)
     stream = torch.cuda.current_stream(pages.device).cuda_stream
-    err = fn(pages.data_ptr(), table.data_ptr(), out.data_ptr(), N, B, P,
-             p * F * pages.element_size(), stream)
+    err = fn(pages.data_ptr(), table.data_ptr(), out.data_ptr(), N, B, P, page_bytes, plan.vec,
+             plan.unroll, int(plan.wide), plan.blocks, stream)
     build.check("paged", "repro_paged_gather", err)
-    PAGED_GATHER.launches += 1
+    PAGED_GATHER.add((plan.vec, B, P, page_bytes))
     return out
 
 

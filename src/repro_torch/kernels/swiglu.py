@@ -77,7 +77,7 @@ def gemm_path(dtype: torch.dtype, M: int, N: int, K: int, aligned: bool) -> str:
     return "cuda_cores"
 
 
-def _aligned(*tensors: torch.Tensor) -> bool:
+def bases_aligned(*tensors: torch.Tensor) -> bool:
     """Whether every base a kernel reads is 16-byte aligned once the wrapper
     makes it contiguous: a contiguous tensor keeps its base, any other is
     copied to a new allocation (aligned)."""
@@ -122,7 +122,7 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
 def _swiglu_launch(x, w_gate, w_up, w_down):
     M, D = x.shape
     F = w_gate.shape[1]
-    path = gemm_path(x.dtype, M, F, D, _aligned(x, w_gate, w_up, w_down))
+    path = gemm_path(x.dtype, M, F, D, bases_aligned(x, w_gate, w_up, w_down))
     x, w_gate, w_up, w_down = (t.contiguous() for t in (x, w_gate, w_up, w_down))
     y = torch.empty((M, D), dtype=x.dtype, device=x.device)
     if M == 0 or D == 0:
@@ -159,7 +159,7 @@ def _routed_mlp_launch(x, h_sub, a_sub, idx, gate, params, spec: RoutedMlpSpec):
     dev, dt = x.device, x.dtype
     # the GEMMs read hn and hid (new buffers) and the weights
     weights = [params[key] for key in _KEYS[1:] if key in params]
-    path = gemm_path(dt, B * k, F, D, _aligned(*weights))
+    path = gemm_path(dt, B * k, F, D, bases_aligned(*weights))
     x, h_sub, a_sub, idx = x.contiguous(), h_sub.contiguous(), a_sub.contiguous(), idx.contiguous()
     gate = gate.to(torch.float32).contiguous()
     ps = {key: params[key].contiguous() for key in _KEYS if key in params}

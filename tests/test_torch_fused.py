@@ -17,7 +17,11 @@ versions and the backwards against JAX:
   dgate within 1e-6 (a sum over D in another order);
 - the flash backward (torch ops from the saved lse) against ``jax.grad``
   of the model's dense ``attend``, 1e-5;
-- ``cross_entropy``, the router BCE and the predictor BCE/accuracy, 1e-6.
+- ``cross_entropy``, the router BCE and the predictor BCE/accuracy, 1e-6;
+- ``routed_attention_path``, the pure planner of the kernel's projection
+  GEMM: wgmma for aligned bf16 with D a multiple of 8, the CUDA cores
+  otherwise, a raise for what the kernel does not take, and the path it
+  chose is what the C entry point receives and the launch counter records.
 """
 import dataclasses
 
@@ -258,3 +262,79 @@ def test_losses_match_jax():
     TR.router_aux_loss(tr, torch.as_tensor(topk)).backward()
     jgr = jax.grad(lambda r_: JR.router_aux_loss(r_, topk))(r)
     np.testing.assert_allclose(tr.grad.numpy(), jgr, rtol=1e-5, atol=1e-8)
+
+
+# ---------------------------------------------------------------------------
+# routed_attention_path: the GEMM of the kernel's projections, before launch
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,k,D,nq,nkv,hd", [
+    (4, 256, 1792, 14, 14, 128),  # mod-paper-1b training
+    (1, 1, 72, 3, 1, 32),  # M = 1; D and nq*hd multiples of 8, not of 64
+    (3, 43, 200, 3, 1, 32),
+    (2, 13, 64, 4, 2, 256),
+])
+def test_routed_attention_path_takes_wgmma_for_aligned_bf16(B, k, D, nq, nkv, hd):
+    assert TFA.routed_attention_path(torch.bfloat16, B, k, D, nq, nkv, hd, True) == "wgmma"
+
+
+@pytest.mark.parametrize("dtype,B,k,D,aligned", [
+    (torch.float32, 4, 256, 1792, True),  # f32 keeps the CUDA cores
+    (torch.bfloat16, 2, 21, 44, True),  # D not a multiple of 8
+    (torch.bfloat16, 4, 256, 1792, False),  # a weight's base off 16 bytes
+    (torch.bfloat16, 2, 0, 64, True),  # no routed row: TMA takes no empty tensor
+])
+def test_routed_attention_path_takes_the_cuda_cores_otherwise(dtype, B, k, D, aligned):
+    assert TFA.routed_attention_path(dtype, B, k, D, 2, 2, 64, aligned) == "cuda_cores"
+
+
+@pytest.mark.parametrize("dtype,B,k,nq,nkv,hd,err,match", [
+    (torch.float16, 1, 8, 2, 2, 64, TypeError, "dtype"),
+    (torch.bfloat16, 1, 8, 2, 2, 48, ValueError, "head_dim"),
+    (torch.bfloat16, 1, 8, 3, 2, 64, ValueError, "multiple"),
+    (torch.bfloat16, 1, 8, 70000, 1, 64, ValueError, "at most"),  # gridDim.y
+    (torch.bfloat16, 2 ** 15, 2 ** 16, 2, 2, 64, ValueError, "GEMM sizes"),  # B*k > C int
+])
+def test_routed_attention_path_raises_for_what_the_kernel_does_not_take(dtype, B, k, nq, nkv,
+                                                                        hd, err, match):
+    with pytest.raises(err, match=match):
+        TFA.routed_attention_path(dtype, B, k, 64, nq, nkv, hd, True)
+
+
+class _FakeEntry:
+    """Stands in for the C entry point: records its arguments, returns 0."""
+
+    def __init__(self):
+        self.args = None
+
+    def __call__(self, *args):
+        self.args = args
+        return 0
+
+
+@pytest.mark.parametrize("dtype,offset,want", [(torch.bfloat16, 0, "wgmma"),
+                                               (torch.bfloat16, 1, "cuda_cores"),
+                                               (torch.float32, 0, "cuda_cores")])
+def test_routed_attention_passes_the_path_to_the_entry_point(monkeypatch, dtype, offset, want):
+    """The path routed_attention_path chose is the argument the C entry
+    point gets, and the launch counter records it by call."""
+    entry = _FakeEntry()
+    monkeypatch.setattr(TFA.build, "bind", lambda *a: entry)
+    monkeypatch.setattr(TFA.build, "check", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: type("S", (), {"cuda_stream": 0}))
+    B, S, k, D, nq, nkv, hd = 2, 9, 4, 40, 3, 1, 32
+    buf = torch.zeros(offset + nq * hd * D, dtype=dtype)
+    params = {"ln": torch.ones(D, dtype=dtype), "wq": torch.zeros(D, nq * hd, dtype=dtype),
+              "wk": torch.zeros(D, nkv * hd, dtype=dtype),
+              "wv": torch.zeros(D, nkv * hd, dtype=dtype),
+              "wo": buf[offset:].view(nq * hd, D)}  # contiguous; 2 or 4 bytes in at offset 1
+    spec = TFA.RoutedAttnSpec(nq, nkv, hd, hd ** -0.5, True, 0, 10000.0, "rope", 1e-5)
+    idx = torch.tensor([[0, 2, 4, 6], [1, 3, 5, 7]])
+    TFA.build.reset_counters()
+    TFA._routed_attention_launch(torch.zeros(B, S, D, dtype=dtype), idx, idx.int(), params, spec)
+    # (20 pointers, B, S, k, D, nq, nkv, hd, dtype, path, eps, ...)
+    assert entry.args[20:27] == (B, S, k, D, nq, nkv, hd)
+    assert entry.args[28] == TFA.GEMM_PATHS[want]
+    assert TFA.ROUTED_ATTENTION.by_call == {(want, B, S, k, D, nq, nkv, hd): 1}
+    TFA.build.reset_counters()

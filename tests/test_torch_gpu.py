@@ -21,7 +21,14 @@ routed_mlp_scatter) round where their plain versions round, but sum their
 products in another order than cuBLAS: f32 within 1e-4 (atol and rtol);
 in bf16 a sum that lands on the other side of a rounding boundary moves a
 value by one bf16 ulp (2^-8 relative) and the following products carry it,
-hence ROUTED_TOL.
+hence ROUTED_TOL. routed_attention runs its bf16 projections on the wgmma
+GEMM where D is a multiple of 8 (``routed_attention_path``, recorded by
+call) and its bf16 attention core on tensor cores (three passes over the
+key tiles for the dense softmax's values, tiles skipped by position): the
+same tolerance holds at the GEMM's tile edges (M = B·k of 1 to 1000, D and
+nq·hd multiples of 8 but not of 64), with windows over several key tiles
+and a query row with no valid key (the mean of V); two calls and a
+CUDA-graph replay give the eager call's bits.
 
 Gradients: every wrapper is a ``torch.autograd.Function``; autograd
 through it must match autograd through the plain version. Routed
@@ -323,25 +330,58 @@ ATTN_CASES = [
     (2, 128, 37, 128, 2, 1, 128, False, 0, "none"),
     (1, 64, 20, 512, 2, 2, 256, False, 0, "rope"),  # head_dim 256: > 48 KB shared memory
     (4, 2048, 256, 1792, 14, 14, 128, False, 0, "rope"),  # mod-paper-1b training shape
+    (2, 1024, 200, 128, 4, 2, 64, False, 64, "rope"),  # a window across 4 key tiles
+    (1, 700, 130, 256, 2, 1, 256, True, 40, "rope"),  # head_dim 256's 32-key tiles, window
+    # the wgmma GEMM's edges in bf16: M = B*k of 1, 63, 65, 129 and 1000
+    # rows against 128-row tiles; D and nq*hd multiples of 8 but not of 64
+    (1, 40, 1, 72, 3, 1, 32, True, 0, "rope"),
+    (1, 100, 63, 136, 5, 5, 32, False, 0, "rope"),
+    (1, 100, 65, 40, 3, 3, 32, True, 8, "rope"),
+    (3, 64, 43, 200, 3, 1, 32, False, 0, "none"),
+    (4, 512, 250, 264, 9, 3, 32, True, 0, "rope"),
+    (2, 50, 21, 44, 2, 2, 32, True, 0, "rope"),  # D not a multiple of 8: the CUDA-core GEMM
 ]
+
+
+def _attn_call(dev, dtype, B, S, k, D, nq, nkv, hd, bias, window, pos_emb):
+    g, x, idx = _routed_inputs(dev, dtype, B, S, k, D, 2)
+    pos = idx.to(torch.int32)
+    pos[0, 0] = -1  # a key without a position is masked out
+    params = _attn_params(g, dev, dtype, D, nq, nkv, hd, bias)
+    spec = FA.RoutedAttnSpec(nq, nkv, hd, hd ** -0.5, True, window, 10000.0, pos_emb, 1e-5)
+    return (lambda: FA.routed_attention(x, idx, pos, params, spec),
+            lambda: FA.routed_attention_plain(x, idx, pos, params, spec))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B,S,k,D,nq,nkv,hd,bias,window,pos_emb", ATTN_CASES)
 def test_routed_attention_matches_plain(dev, dtype, B, S, k, D, nq, nkv, hd, bias, window,
                                         pos_emb):
-    g, x, idx = _routed_inputs(dev, dtype, B, S, k, D, 2)
-    pos = idx.to(torch.int32)
-    pos[0, 0] = -1  # a key without a position is masked out
-    params = _attn_params(g, dev, dtype, D, nq, nkv, hd, bias)
-    spec = FA.RoutedAttnSpec(nq, nkv, hd, hd ** -0.5, True, window, 10000.0, pos_emb, 1e-5)
+    """Query row 0 of batch row 0 sits at position -1 and has no valid key:
+    the dense softmax gives it the mean of V (p = 1/k), as the plain
+    version."""
+    fn, plain = _attn_call(dev, dtype, B, S, k, D, nq, nkv, hd, bias, window, pos_emb)
     build.reset_counters()
-    a, h = FA.routed_attention(x, idx, pos, params, spec)
-    wa, wh = FA.routed_attention_plain(x, idx, pos, params, spec)
+    a, h = fn()
+    wa, wh = plain()
     torch.cuda.synchronize()
-    assert build.launch_counts()["routed_attention"] == 1
+    path = "wgmma" if dtype == torch.bfloat16 and D % 8 == 0 else "cuda_cores"
+    assert build.COUNTERS["routed_attention"].by_call == {(path, B, S, k, D, nq, nkv, hd): 1}
     torch.testing.assert_close(a.float(), wa.float(), **ROUTED_TOL[dtype])
     torch.testing.assert_close(h.float(), wh.float(), **ROUTED_TOL[dtype])
+
+
+@pytest.mark.parametrize("case", [ATTN_CASES[4], ATTN_CASES[6], ATTN_CASES[11]],
+                         ids=["1b", "hd256-window", "M1000"])
+def test_routed_attention_bf16_gives_the_same_bits_twice_and_in_a_cuda_graph(dev, case):
+    """No split sums and no atomics in either the wgmma GEMM or the
+    attention core: two calls agree to the bit, and a CUDA-graph replay
+    (tensor maps are kernel parameters) gives the eager call's bits."""
+    fn, _ = _attn_call(dev, torch.bfloat16, *case)
+    first, second = fn(), fn()
+    want, got = _eager_and_replayed(fn)
+    for w, f, s_, g_ in zip(want, first, second, got):
+        assert torch.equal(f, s_) and torch.equal(g_, w) and torch.equal(w, f)
 
 
 MLP_CASES = [
@@ -525,15 +565,35 @@ def _paged_inputs(dev, dtype, N, p, F, B, P, seed):
 
 @pytest.mark.parametrize("dtype", PAGED_DTYPES)
 @pytest.mark.parametrize("N,p,F,B,P", [(530, 16, 1792, 8, 66), (530, 16, 1, 8, 66),
+                                       (530, 16, 1792, 1, 62),  # a chunked prefill's table
                                        (11, 3, 5, 3, 3), (40, 7, 13, 2, 4)])
-def test_paged_gather_bitwise(dev, dtype, N, p, F, B, P):
+@pytest.mark.parametrize("offset", [0, 1])
+def test_paged_gather_bitwise(dev, dtype, N, p, F, B, P, offset):
+    """Every vector width the plan takes: 16 bytes, 4 (pages of 60 or 364
+    bytes; f32 and int32 views one element off 16 bytes) and 1 (bf16 pages
+    of 30 or 182 bytes; bf16 views one element in). The launch counter
+    records the plan's width by call."""
     _, pages, table = _paged_inputs(dev, dtype, N, p, F, B, P, 11)
+    if offset:  # the same pages in a view one element past an aligned base
+        pages = torch.cat([pages.new_zeros(offset), pages.flatten()])[offset:].view(N, p, F)
     table[0, -1] = 0  # an unmapped (NULL) logical page
+    table[-1, 0] = N + 5  # out of range: clamped, as the plain version clamps
     build.reset_counters()
     out = KP.paged_gather(pages, table)
     torch.cuda.synchronize()
     assert torch.equal(out, KP.paged_gather_plain(pages, table))
-    assert build.launch_counts()["paged_gather"] == 1
+    page_bytes = p * F * pages.element_size()
+    vec = KP.gather_plan(N, B, P, page_bytes, pages.data_ptr()).vec
+    want_vec = next(v for v in (16, 4, 1) if page_bytes % v == 0 and
+                    (offset * pages.element_size()) % v == 0)
+    assert vec == want_vec
+    assert build.COUNTERS["paged_gather"].by_call == {(vec, B, P, page_bytes): 1}
+
+
+def test_paged_gather_replays_in_a_cuda_graph(dev):
+    _, pages, table = _paged_inputs(dev, torch.bfloat16, 530, 16, 1792, 1, 62, 12)
+    want, got = _eager_and_replayed(lambda: KP.paged_gather(pages, table))
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("dtype", PAGED_DTYPES)

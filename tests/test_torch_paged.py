@@ -15,6 +15,12 @@
 
 The JAX engine runs ``paged_backend="xla"`` (its ``pallas`` variant is held
 equal to it by ``tests/test_paged.py``); the port runs both names.
+
+The gather kernel's pure planner (``gather_plan``): the widest vector of
+16, 4 and 1 bytes that divides the page and the page tensor's base, whole
+blocks over the output, 64-bit indices past 2^32 vectors, a raise for what
+no grid takes, and the plan is what the C entry point receives and the
+launch counter records.
 """
 import dataclasses
 import functools
@@ -213,6 +219,96 @@ def test_wrappers_refuse_grads_and_bad_input():
         KP.paged_gather(pages.detach(), torch.zeros(1, 1, dtype=torch.int64))
     with pytest.raises(ValueError, match="paged backend"):
         EngineConfig(batch_size=2, ctx=16, page_size=4, paged_backend="mosaic")
+
+
+# ---------------------------------------------------------------------------
+# gather_plan: the gather kernel's vector width and grid, before launch
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("page_bytes,base,vec", [
+    (16 * 1792 * 2, 0, 16),  # mod-paper-1b's bf16 K/V pages
+    (16 * 4, 4096, 16),  # its int32 position pages
+    (3 * 5 * 4, 0, 4),  # a page of 60 bytes: not a multiple of 16
+    (16 * 1792 * 2, 4, 4),  # a page view 4 bytes off 16
+    (3 * 5 * 2, 0, 1),  # a page of 30 bytes: not a multiple of 4
+    (16 * 1792 * 2, 2, 1),  # a bf16 page view 2 bytes off 16
+    (7, 16, 1),
+])
+def test_gather_plan_takes_the_widest_vector_that_divides_page_and_base(page_bytes, base, vec):
+    assert KP.gather_plan(498, 8, 62, page_bytes, base).vec == vec
+
+
+@pytest.mark.parametrize("B,P,page_bytes,unroll,blocks", [
+    (1, 62, 16 * 1792 * 2, 1, 868),  # a chunked prefill's (1, 62) table: 868 blocks, not 62
+    (8, 62, 16 * 1792 * 2, 4, 1736),  # a decode step's (8, 62): more vectors than the card's
+    (8, 62, 64, 1, 8),  # position pages share blocks
+    (1, 62, 64, 1, 1),
+    (3, 3, 30, 1, 2),  # 270 vectors of 1 byte
+    (0, 5, 64, 1, 0),
+])
+def test_gather_plan_covers_the_output_with_whole_blocks(B, P, page_bytes, unroll, blocks):
+    plan = KP.gather_plan(498, B, P, page_bytes, 0)
+    per_block = KP.GATHER_THREADS * plan.unroll
+    assert (plan.unroll, plan.blocks) == (unroll, blocks)
+    assert (blocks - 1) * per_block < B * P * page_bytes // plan.vec <= blocks * per_block
+    assert not plan.wide
+
+
+def test_gather_plan_widens_indices_past_32_bits():
+    # pages of 2^12 vectors of 16 bytes: 2^20 - 1 of them stay under 2^32
+    # vectors, 2^20 reach it
+    assert not KP.gather_plan(1, 1, 2 ** 20 - 1, 2 ** 16, 0).wide
+    assert KP.gather_plan(1, 1, 2 ** 20, 2 ** 16, 0).wide
+
+
+def test_gather_plan_takes_more_vectors_a_thread_past_a_card_of_threads():
+    assert KP.gather_plan(1, 1, 1, 16 * KP.CARD_THREADS, 0).unroll == 1
+    assert KP.gather_plan(1, 1, 1, 16 * (KP.CARD_THREADS + 1), 0).unroll == KP.GATHER_UNROLL
+
+
+@pytest.mark.parametrize("N,B,P,page_bytes", [(0, 1, 1, 64), (4, 1, 1, 0), (4, -1, 1, 64),
+                                              (4, 2 ** 20, 2 ** 20, 2 ** 20 + 1)])
+def test_gather_plan_raises_for_what_the_kernel_does_not_take(N, B, P, page_bytes):
+    with pytest.raises(ValueError):
+        KP.gather_plan(N, B, P, page_bytes, 0)
+
+
+class _FakeEntry:
+    """Stands in for the C entry point: records its arguments, returns 0."""
+
+    def __init__(self):
+        self.args = None
+
+    def __call__(self, *args):
+        self.args = args
+        return 0
+
+
+@pytest.mark.parametrize("dtype,F,offset,vec", [(torch.bfloat16, 8, 0, 16),
+                                                (torch.bfloat16, 8, 1, 1),
+                                                (torch.float32, 8, 1, 4),
+                                                (torch.int32, 1, 0, 16)])
+def test_gather_passes_its_plan_to_the_entry_point(monkeypatch, dtype, F, offset, vec):
+    """The plan gather_plan made for the page tensor's own base (an offset
+    view keeps it) is what the C entry point gets, and the launch counter
+    records it by call."""
+    entry = _FakeEntry()
+    monkeypatch.setattr(KP.build, "bind", lambda *a: entry)
+    monkeypatch.setattr(KP.build, "check", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: type("S", (), {"cuda_stream": 0}))
+    N, p, B, P = 6, 4, 2, 3
+    pages = torch.zeros(offset + N * p * F, dtype=dtype)[offset:].view(N, p, F)
+    table = torch.zeros(B, P, dtype=torch.int32)
+    KP.build.reset_counters()
+    out = KP._gather_launch(pages, table)
+    page_bytes = p * F * pages.element_size()
+    plan = KP.gather_plan(N, B, P, page_bytes, pages.data_ptr())
+    assert plan.vec == vec and out.shape == (B, P * p, F)
+    # (pages, table, out, N, B, P, page_bytes, vec, unroll, wide, blocks, stream)
+    assert entry.args[3:11] == (N, B, P, page_bytes, vec, plan.unroll, 0, plan.blocks)
+    assert KP.PAGED_GATHER.by_call == {(vec, B, P, page_bytes): 1}
+    KP.build.reset_counters()
 
 
 # ---------------------------------------------------------------------------

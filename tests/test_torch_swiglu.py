@@ -144,9 +144,9 @@ def test_gemm_path_raises_for_what_no_gemm_takes(dtype, M, N, K, err):
 
 def test_aligned_reads_the_bases_the_kernel_is_given():
     base = torch.zeros(64, dtype=torch.bfloat16)
-    assert TSW._aligned(base, base[8:])  # 16 bytes in
-    assert not TSW._aligned(base[1:])  # 2 bytes in, and contiguous: passed as it is
-    assert TSW._aligned(base.view(8, 8)[:, 1:])  # not contiguous: copied to a new buffer
+    assert TSW.bases_aligned(base, base[8:])  # 16 bytes in
+    assert not TSW.bases_aligned(base[1:])  # 2 bytes in, and contiguous: passed as it is
+    assert TSW.bases_aligned(base.view(8, 8)[:, 1:])  # not contiguous: copied to a new buffer
 
 
 def _no_build(monkeypatch):
