@@ -17,17 +17,23 @@ failure raises and exits non-zero):
    timings (CUDA-graph replay; torch.profiler only for a plain version
    named as not capturing, said on its line) of the kernel, the plain version and, where
    one exists, one PyTorch library call as a yardstick (never called by
-   the port); flash attention at four bf16 shapes (prefill S=1000 and
-   2048, decode B=8 ctx 1056, the training call with its lse) against
-   SDPA, with HMMA asserted in its library's SASS; routed_attention and
+   the port); flash attention at six bf16 shapes (prefill S=1000 and
+   2048, decode B=8 ctx 1056, the training call with its lse, the routed
+   layers' prefill and one-launch decode) against SDPA, and at cases that
+   reach every plan (both wgmma key-split halves, a wrapped ring, a
+   window, rows with no valid key, head dims 64 and 256, decode in one
+   chunk and in many), with its lse within 1e-4, a row's bits equal
+   whatever Skv and B, HGMMA asserted in its wgmma tile kernels' SASS
+   and HMMA in its mma.sync tile and decode kernels; routed_attention and
    routed_mlp_scatter with HGMMA (wgmma) asserted in their bf16 GEMM
    kernels' SASS and HMMA in routed_attention's bf16 attention core, the
    GEMM path each launch recorded per row, and for the MLP a library
    figure (rms_norm, three cuBLAS products and index_copy_: not one call);
    the three paged-pool kernels (page gather, decode-row scatter, ragged
    write-back) at the shapes of phase 6c and odd tails, bitwise, with the
-   in-place scatters held to their target rows and the gather's plan
-   (vector width, blocks) on its lines;
+   in-place scatters held to their target rows and the flat grids' plans
+   (vector width, blocks) of the gather and the write-back on their lines
+   (the write-back also with rows 4 bytes off an aligned base);
    the dequantizing page gather (int8/page and fp8/head pages widened to
    bf16 at phase 7b's shapes) and the ragged MoD gather/scatter (phase
    8b's flat streams), bitwise, after the card's int8/e4m3 casts and pow2
@@ -108,8 +114,9 @@ failure raises and exits non-zero):
 Each phase's wall time is printed on a ``[time]`` line.
 
 ``--flash-timing [ROOT]`` only times the flash kernel of the port under
-ROOT (default: this checkout) at phase 2's four bf16 shapes beside SDPA:
-run it on a parent tree and this one in one call to compare two kernels.
+ROOT (default: this checkout) at phase 2's six FLASH_TIMED bf16 shapes
+beside SDPA, three readings each: run it on a parent tree and this one in
+turns (parent, this, this, parent) in one call to compare two kernels.
 ``--routed-paged-timing [ROOT]`` only times routed_attention (bf16, the
 1b training shape; with torch.profiler's split of one call by kernel) and
 paged_gather (phase 2's four shapes on phase 6c's tables) of the port
@@ -136,6 +143,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -414,11 +422,6 @@ def check_routing(cfg, dev, results):
                 results.setdefault(name, {})[(S, dtype)] = dict(r, shape=shape)
 
 
-def _valid_pairs(q_pos, kv_pos):
-    v = (kv_pos[:, None, :] >= 0) & (q_pos[:, :, None] >= 0) & (kv_pos[:, None, :] <= q_pos[:, :, None])
-    return int(v.sum().item())
-
-
 def _flash_bytes(q, k, q_pos, kv_pos, es, lse=False):
     """Bytes the function must move: q rows and k/v rows whose position is
     valid (a padded row cannot change a valid output), the whole output,
@@ -430,113 +433,165 @@ def _flash_bytes(q, k, q_pos, kv_pos, es, lse=False):
         + 4 * (q_pos.numel() + kv_pos.numel()) + (4 * B * nq * Sq if lse else 0)
 
 
-# the four bf16 shapes of the flash kernel that phase 2 times by CUDA-graph
-# replay against SDPA and the plain version (and `--flash-timing` times on
-# another source tree): a whole-prompt prefill at S=1000 and S=2048 (24
+# the bf16 shapes of the flash kernel that phase 2 times by CUDA-graph
+# replay against SDPA and the plain version, and `--flash-timing` times on
+# another source tree: a whole-prompt prefill at S=1000 and S=2048 (24
 # padded positions), a decode step of 8 slots against a 1056-slot cache,
-# and the training call (B=4, S=2048) with the lse its backward reads
-FLASH_TIMED = ("prefill S=1000", "prefill S=2048", "decode B=8 ctx=1056", "train B=4 S=2048 lse")
+# the training call (B=4, S=2048) with the lse its backward reads, and the
+# routed layers' prefill and decode calls
+FLASH_TIMED = ("prefill S=1000", "prefill S=2048", "decode B=8 ctx=1056", "train B=4 S=2048 lse",
+               "prefill routed S=128", "decode routed B=1 ctx=128")
+
+
+class FlashCase(NamedTuple):
+    label: str
+    B: int
+    Sq: int
+    Skv: int
+    nq: int
+    nkv: int
+    hd: int
+    q_pos: torch.Tensor
+    kv_pos: torch.Tensor
+    dtypes: tuple
+    lse: bool = False
+    window: int = 0
+
+
+def _ring_pos(Skv: int, n: int, dev) -> torch.Tensor:
+    """Key positions of a ring of Skv slots after n writes: slot i holds the
+    newest position congruent to i, so positions wrap (not monotone)."""
+    idx = torch.arange(Skv, dtype=torch.int32, device=dev)
+    return idx + Skv * ((n - 1 - idx) // Skv)
 
 
 def flash_cases(cfg, dev):
-    """(label, B, Sq, Skv, nkv, q_pos, kv_pos, dtypes, lse) of phase 2's flash
-    cases: FLASH_TIMED, the routed layers' prefill and decode calls and a
-    GQA prefill; the full layers' serving shapes in f32 too."""
+    """Phase 2's flash cases: FLASH_TIMED (the routed calls among them) and a
+    GQA prefill at mod-paper-1b's shapes, the full layers' serving shapes in
+    f32 too; then bf16 cases that reach every plan of the kernel: the
+    wgmma warpgroups' key split with the last valid key in an even and in
+    an odd key tile, a wrapped ring with Sq and Skv that divide no tile, a
+    sliding window, rows with no valid key, head dims 64 (wgmma) and 256
+    (mma.sync tiles), and the decode path at those head dims in one chunk
+    and over many."""
     from repro_torch.core.routing import batch_capacity_k
 
     g = torch.Generator(device=dev).manual_seed(1)
-    nq = cfg.attn.n_heads
-    both = (torch.bfloat16, torch.float32)
+    nq, hd = cfg.attn.n_heads, cfg.head_dim
+    both, bf = (torch.bfloat16, torch.float32), (torch.bfloat16,)
+    i32 = dict(dtype=torch.int32, device=dev)
     cases = []
     for S in (1000, 2048):
-        pos = torch.arange(S, dtype=torch.int32, device=dev)[None].clone()
+        pos = torch.arange(S, **i32)[None].clone()
         pos[:, S - 24:] = -1  # padded tail
-        cases.append((f"prefill S={S}", 1, S, S, nq, pos, pos, both, False))
+        cases.append(FlashCase(f"prefill S={S}", 1, S, S, nq, nq, hd, pos, pos, both))
     B, ctx = 8, 1056
     lens = torch.randint(128, ctx + 1, (B,), generator=g, device=dev)
-    kv_pos = torch.arange(ctx, dtype=torch.int32, device=dev)[None].repeat(B, 1)
+    kv_pos = torch.arange(ctx, **i32)[None].repeat(B, 1)
     kv_pos = torch.where(kv_pos < lens[:, None], kv_pos, torch.full_like(kv_pos, -1))
     q_pos = (lens - 1)[:, None].int()
-    cases.append((f"decode B=8 ctx={ctx}", B, 1, ctx, nq, q_pos, kv_pos, both, False))
+    cases.append(FlashCase(f"decode B=8 ctx={ctx}", B, 1, ctx, nq, nq, hd, q_pos, kv_pos, both))
     # the routed layers' calls: a prefill over the k = capacity(ctx) routed
     # rows of a 1000-token prompt (positions with gaps), and a decode step
     # of the kb routed slots against their routed caches of k slots (a
     # ring: positions with gaps, wrapped, not monotone in the slot)
     k = cfg.mod.capacity(ctx)
     pos = torch.randperm(1000, generator=g, device=dev)[:k].sort().values.int()[None]
-    cases.append((f"prefill routed S={k}", 1, k, k, nq, pos, pos, (torch.bfloat16,), False))
+    cases.append(FlashCase(f"prefill routed S={k}", 1, k, k, nq, nq, hd, pos, pos, bf))
     kb = batch_capacity_k(cfg, B)
     kv_pos = torch.stack([torch.randperm(1000, generator=g, device=dev)[:k].sort().values
                           .roll(37 * i + 5) for i in range(kb)]).int()
-    cases.append((f"decode routed B={kb} ctx={k}", kb, 1, k, nq,
-                  torch.full((kb, 1), 1000, dtype=torch.int32, device=dev), kv_pos,
-                  (torch.bfloat16,), False))
-    pos = torch.arange(2048, dtype=torch.int32, device=dev)[None].repeat(4, 1)
-    cases.append(("train B=4 S=2048 lse", 4, 2048, 2048, nq, pos, pos, (torch.bfloat16,), True))
-    pos = torch.arange(1000, dtype=torch.int32, device=dev)[None]
-    cases.append(("gqa S=1000 nkv=2", 1, 1000, 1000, 2, pos, pos, both, False))
+    cases.append(FlashCase(f"decode routed B={kb} ctx={k}", kb, 1, k, nq, nq, hd,
+                           torch.full((kb, 1), 1000, **i32), kv_pos, bf))
+    pos = torch.arange(2048, **i32)[None].repeat(4, 1)
+    cases.append(FlashCase("train B=4 S=2048 lse", 4, 2048, 2048, nq, nq, hd, pos, pos, bf, True))
+    pos = torch.arange(1000, **i32)[None]
+    cases.append(FlashCase("gqa S=1000 nkv=2", 1, 1000, 1000, nq, 2, hd, pos, pos, both))
+    # every plan: the last valid key in an even (S=300: tile 2) and an odd
+    # (S=200: tile 1) wgmma key tile, with their lse
+    for S in (300, 200):
+        pos = torch.arange(S, **i32)[None].repeat(2, 1)
+        cases.append(FlashCase(f"split S={S}", 2, S, S, nq, nq, hd, pos, pos, bf, True))
+    ring = _ring_pos(333, 333 + 150, dev)[None].repeat(2, 1)
+    qr = torch.arange(333 + 150 - 77, 333 + 150, **i32)[None].repeat(2, 1)
+    cases.append(FlashCase("ring Sq=77 Skv=333", 2, 77, 333, nq, nq, hd, qr, ring, bf, True))
+    pos = torch.arange(1000, **i32)[None]
+    cases.append(FlashCase("window=256 S=1000", 1, 1000, 1000, nq, nq, hd, pos, pos, bf,
+                           window=256))
+    kv = torch.arange(5, 305, **i32)[None].repeat(2, 1)
+    ql = torch.arange(305 - 77, 305, **i32)[None].repeat(2, 1)
+    ql[:, :3] = torch.tensor([2, 0, 4], **i32)  # rows before every key: no valid key
+    cases.append(FlashCase("masked rows Sq=77 Skv=300", 2, 77, 300, nq, nq, hd, ql, kv, bf, True))
+    for h in (64, 256):
+        pos = torch.arange(300, **i32)[None].repeat(2, 1)
+        cases.append(FlashCase(f"hd={h} S=300 gqa", 2, 300, 300, 8, 2, h, pos, pos, bf, True))
+        for ctx_ in (50, 700):
+            kvp = _ring_pos(ctx_, ctx_ + 21, dev)[None].repeat(3, 1)
+            cases.append(FlashCase(f"hd={h} decode ctx={ctx_}", 3, 1, ctx_, 8, 2, h,
+                                   torch.full((3, 1), ctx_ + 20, **i32), kvp, bf, True))
     return cases, g
 
 
-def flash_call(FA, q, k, v, q_pos, kv_pos):
+def flash_call(FA, q, k, v, q_pos, kv_pos, window=0):
     """(out, lse) through the port's public flash wrapper. Where the inputs
     need a gradient (as in training), the wrapper's autograd Function has
     the kernel write the f32 row lse its backward reads, and lse is read
     from the Function's saved tensors; else lse is None."""
-    out = FA.flash_attention(q, k, v, q_pos, kv_pos)
+    out = FA.flash_attention(q, k, v, q_pos, kv_pos, window=window)
     return out, (out.grad_fn.saved_tensors[-1] if out.requires_grad else None)
 
 
-def flash_rows(FA, cfg, dev, labels=None):
+def flash_rows(FA, cfg, dev, labels=None, reads=1):
     """Phase 2's flash cases (or, with ``labels``, those cases in bf16) on
     the port of module ``FA``: each held to the plain version within TOL
-    (its lse within 1e-4 where the call needs a gradient), then the kernel,
-    the plain version and SDPA timed by CUDA-graph replay. Yields (label,
-    dtype, row)."""
-    nq, hd = cfg.attn.n_heads, cfg.head_dim
-    scale = hd ** -0.5
+    (its lse within 1e-4 where the call needs a gradient), then the kernel
+    (``reads`` readings, the best kept), the plain version and SDPA timed
+    by CUDA-graph replay. Yields (label, dtype, row)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     cases, g = flash_cases(cfg, dev)
-    for label, B, Sq, Skv, nkv, q_pos, kv_pos, dtypes, want_lse in cases:
+    for c in cases:
+        dtypes = c.dtypes
         if labels is not None:
-            if label not in labels:
+            if c.label not in labels:
                 continue
             dtypes = (torch.bfloat16,)
+        scale = c.hd ** -0.5
         for dtype in dtypes:
-            q = torch.randn(B, Sq, nq, hd, generator=g, device=dev).to(dtype)
-            k = torch.randn(B, Skv, nkv, hd, generator=g, device=dev).to(dtype)
-            v = torch.randn(B, Skv, nkv, hd, generator=g, device=dev).to(dtype)
-            qg, kg, vg = (t.detach().requires_grad_(want_lse) for t in (q, k, v))
-            call = lambda qg=qg, kg=kg, vg=vg, qp=q_pos, kp=kv_pos: (  # noqa: E731
-                flash_call(FA, qg, kg, vg, qp, kp))
+            q = torch.randn(c.B, c.Sq, c.nq, c.hd, generator=g, device=dev).to(dtype)
+            k = torch.randn(c.B, c.Skv, c.nkv, c.hd, generator=g, device=dev).to(dtype)
+            v = torch.randn(c.B, c.Skv, c.nkv, c.hd, generator=g, device=dev).to(dtype)
+            qg, kg, vg = (t.detach().requires_grad_(c.lse) for t in (q, k, v))
+            call = lambda qg=qg, kg=kg, vg=vg, c=c: flash_call(  # noqa: E731
+                FA, qg, kg, vg, c.q_pos, c.kv_pos, c.window)
             out, lse = call()
-            want, want_l = FA._flash_plain(q, k, v, q_pos, kv_pos, True, 0, scale)
+            want, want_l = FA._flash_plain(q, k, v, c.q_pos, c.kv_pos, True, c.window, scale)
             torch.testing.assert_close(out.detach().float(), want.float(), **TOL[dtype])
             lse_err = None
-            if want_lse:
+            if c.lse:
                 torch.testing.assert_close(lse, want_l, atol=1e-4, rtol=0.0)
                 lse_err = (lse - want_l).abs().max().item()
-            mask = FA.valid_mask(q_pos, kv_pos, True, 0)[:, None]  # (B, 1, Sq, Skv)
+            mask = FA.valid_mask(c.q_pos, c.kv_pos, True, c.window)[:, None]  # (B, 1, Sq, Skv)
             qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-            if nkv != nq:
-                kh = kh.repeat_interleave(nq // nkv, dim=1)
-                vh = vh.repeat_interleave(nq // nkv, dim=1)
-            nbytes = _flash_bytes(q, k, q_pos, kv_pos, q.element_size(), want_lse)
-            flops = 4.0 * hd * nq * _valid_pairs(q_pos, kv_pos)
+            if c.nkv != c.nq:
+                kh = kh.repeat_interleave(c.nq // c.nkv, dim=1)
+                vh = vh.repeat_interleave(c.nq // c.nkv, dim=1)
+            nbytes = _flash_bytes(q, k, c.q_pos, c.kv_pos, q.element_size(), c.lse)
+            flops = 4.0 * c.hd * c.nq * int(mask.sum().item())
             how: dict = {}
+            readings = [replay_ms(call, how, "ms") for _ in range(reads)]
             r = dict(
-                call_ms=event_ms(call),
-                ms=replay_ms(call, how, "ms"),
-                plain_ms=replay_ms(lambda: FA._flash_plain(q, k, v, q_pos, kv_pos, True, 0, scale),
+                call_ms=event_ms(call), ms=min(readings), readings=readings,
+                plain_ms=replay_ms(lambda: FA._flash_plain(q, k, v, c.q_pos, c.kv_pos, True,
+                                                           c.window, scale),
                                    how, "plain_ms", reps=5),
                 library_ms=replay_ms(lambda: sdpa(qh, kh, vh, attn_mask=mask), how, "library_ms"),
                 bound=bound_ms(nbytes, flops, dtype),
                 max_abs_err=(out.detach().float() - want.float()).abs().max().item(),
-                lse_err=lse_err, timed_by=how, call=(B, Sq, Skv, nq, nkv, hd),
-                shape=f"{label} {nq}x{hd} {str(dtype)[6:]}",
+                lse_err=lse_err, timed_by=how, call=(c.B, c.Sq, c.Skv, c.nq, c.nkv, c.hd),
+                shape=f"{c.label} {c.nq}x{c.hd} {str(dtype)[6:]}",
             )
             del out, want, lse, want_l, call
-            yield label, dtype, r
+            yield c.label, dtype, r
 
 
 def sass_counts(stem: str, kernel: str, opcode: str) -> dict:
@@ -577,25 +632,71 @@ def check_sass(stem: str, kernel: str, opcode: str, want: int) -> dict:
     return counts
 
 
+def check_flash_invariance(FA, dev) -> None:
+    """A row's bf16 bits do not depend on Skv or B: each case's rows equal
+    their bits after 333 empty (-1) key slots are appended (more key tiles
+    for the wgmma warpgroups' parity split and the mma.sync tiles; more
+    chunks on the decode path, a one-launch call turning into chunks and the
+    merge launch, out and lse bitwise) and when a batch row runs alone."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    cases = (("wgmma", 2, 300, 300, 14, 14, 128), ("wgmma gqa hd=64", 2, 77, 333, 8, 2, 64),
+             ("mma_sync hd=256", 2, 77, 333, 8, 2, 256), ("decode 1 chunk", 3, 1, 128, 14, 14, 128),
+             ("decode 9 chunks", 3, 1, 1056, 14, 14, 128), ("decode gqa", 3, 2, 100, 14, 2, 128))
+    for label, B, Sq, Skv, nq, nkv, hd in cases:
+        q = torch.randn(B, Sq, nq, hd, generator=g, device=dev).to(torch.bfloat16)
+        k = torch.randn(B, Skv, nkv, hd, generator=g, device=dev).to(torch.bfloat16)
+        v = torch.randn(B, Skv, nkv, hd, generator=g, device=dev).to(torch.bfloat16)
+        kv_pos = _ring_pos(Skv, Skv + 37, dev)[None].repeat(B, 1)
+        q_pos = torch.arange(Skv + 37 - Sq, Skv + 37, dtype=torch.int32, device=dev)[None]
+        q_pos = q_pos.repeat(B, 1)
+        scale = hd ** -0.5
+        base, base_l = FA._flash_launch(q, k, v, q_pos, kv_pos, True, 0, scale, True)
+        pad = lambda t, val: torch.cat(  # noqa: E731
+            [t, torch.full((B, 333) + t.shape[2:], val, dtype=t.dtype, device=dev)], dim=1)
+        longer, longer_l = FA._flash_launch(q, pad(k, 0), pad(v, 0), q_pos, pad(kv_pos, -1), True,
+                                            0, scale, True)
+        if not (torch.equal(longer, base) and torch.equal(longer_l, base_l)):
+            raise AssertionError(f"flash {label}: a row's bits change with Skv")
+        for b in (0, B - 1):
+            alone, _ = FA._flash_launch(q[b:b + 1], k[b:b + 1], v[b:b + 1], q_pos[b:b + 1],
+                                        kv_pos[b:b + 1], True, 0, scale, True)
+            if not torch.equal(alone[0], base[b]):
+                raise AssertionError(f"flash {label}: a row's bits change with B")
+        plan = FA.flash_plan(B, Sq, Skv, nq, nkv, hd, torch.bfloat16)
+        padded = FA.flash_plan(B, Sq, Skv + 333, nq, nkv, hd, torch.bfloat16)
+        merged = ("; one launch == chunks + merge launch, out and lse bitwise"
+                  if plan.path == "decode" and not plan.merge and padded.merge else "")
+        log(f"[kernels] flash_attention  {label} ({plan.path}, B={B} Sq={Sq} Skv={Skv} "
+            f"{nq}x{hd} nkv={nkv}): bits equal with 333 empty key slots appended and per batch "
+            f"row alone{merged}")
+
+
 def check_flash(cfg, dev, results):
     from repro_torch.kernels import flash_attention as FA
 
-    check_sass("flash_attention", "flash_fwd_tc_kernel", "HMMA", 8)  # tile + decode at 4 head dims
+    check_sass("flash_attention", "flash_fwd_wg_kernel", "HGMMA", 2)  # head dims 64, 128
+    check_sass("flash_attention", "flash_fwd_tc_kernel", "HMMA", 2)  # head dims 32, 256
+    check_sass("flash_attention", "flash_fwd_decode_kernel", "HMMA", 4)  # every head dim
     for label, dtype, r in flash_rows(FA, cfg, dev):
-        r["path"] = FA.flash_plan(*r["call"], dtype).path
+        plan = FA.flash_plan(*r["call"], dtype)
+        r["path"], r["kernels"] = plan.path, plan.kernels
+        r["plan"] = dict(path=plan.path, key_tile=plan.key_tile, key_split=plan.key_split,
+                         chunk=plan.chunk, n_splits=plan.n_splits, merge=plan.merge)
         extra = "" if r["lse_err"] is None else f" lse_err={r['lse_err']:.3g}"
-        log(f"[kernels] flash_attention  {r['shape']:38s} {r['path']:6s} "
+        log(f"[kernels] flash_attention  {r['shape']:38s} {plan.path:8s} kernels={plan.kernels} "
             f"max_abs_err={r['max_abs_err']:.3g}{extra} ms={r['ms']:.4f} "
             f"call_ms={r['call_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
             f"library_ms={r['library_ms']:.4f} bound_ms={r['bound'][0]:.4f} ({r['bound'][1]})")
         results.setdefault("flash_attention", {})[(label, dtype)] = r
+    check_flash_invariance(FA, dev)
 
 
-def flash_timing(root: Path) -> None:
+def flash_timing(root: Path, reads: int = 3) -> None:
     """``--flash-timing [ROOT]``: phase 2's FLASH_TIMED rows (:func:`flash_rows`)
-    on the port under ``ROOT/src`` (default: this checkout). Run on a parent
-    tree and this one in one call, in turns, to compare two versions of the
-    kernel."""
+    on the port under ``ROOT/src`` (default: this checkout), the kernel
+    read ``reads`` times (the best and every reading printed). Run on a
+    parent tree and this one in one call, in turns (parent, this, this,
+    parent), to compare two versions of the kernel."""
     sys.path.insert(0, str(root / "src"))
     from repro_torch.config import get_config
     from repro_torch.kernels import build
@@ -603,9 +704,10 @@ def flash_timing(root: Path) -> None:
 
     build.build_all()
     for label, _, r in flash_rows(FA, get_config("mod-paper-1b"), torch.device("cuda", 0),
-                                  FLASH_TIMED):
-        log(f"[flash-timing] {root.name or root}: {r['shape']}: kernel {r['ms']:.4f} ms, "
-            f"SDPA {r['library_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms (CUDA graph replay; "
+                                  FLASH_TIMED, reads):
+        log(f"[flash-timing] {root.name or root}: {r['shape']}: kernel {r['ms']:.4f} ms "
+            f"({', '.join(f'{x:.4f}' for x in r['readings'])}), SDPA {r['library_ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms (CUDA graph replay; "
             f"{smi_line()})")
 
 
@@ -893,7 +995,10 @@ def check_paged(cfg, dev, results):
     one. All three are copies: the kernel must equal its plain version
     exactly, and the in-place scatters must leave every row outside their
     targets untouched (checked against a saved copy of the pool). Timed
-    per leaf kind and shape; main() pairs each shape with its launches."""
+    per leaf kind and shape, the write-back's K/V leaf at W=7432 also from
+    rows 4 bytes off a 16-byte base (4-byte vectors); the gather's and the
+    write-back's launches must carry the plan the pure planner gives for
+    the shape; main() pairs each shape with its launches."""
     from repro_torch.kernels import build
     from repro_torch.kernels import paged as KP
     from repro_torch.kernels import ragged as KRG
@@ -969,24 +1074,47 @@ def check_paged(cfg, dev, results):
             nbytes=2 * B * F * es + 4 * B + 4 * B, shape=f"{shape} B={B}")
         for W, (pid, off, wrows, n_valid) in ragged.items():
             wfi = (pid.long() * p_ + off.long()).contiguous()
-            # the valid rows read and written (rows routed to the scratch
-            # page are garbage by contract) and every row's target pair
-            timed[("ragged_paged_scatter_rows", f"{label} W={W}")] = dict(
-                fn=lambda pid=pid, off=off, wrows=wrows:
-                    KRG.ragged_paged_scatter_rows(pages, pid, off, wrows),
-                plain=lambda pid=pid, off=off, wrows=wrows:
-                    KRG.ragged_paged_scatter_rows_plain(pages, pid, off, wrows),
-                library=lambda wfi=wfi, wrows=wrows: flat.index_copy_(0, wfi, wrows),
-                nbytes=2 * n_valid * F * es + 8 * W, shape=f"{shape} W={W} ({n_valid} valid)")
+            variants = [("", wrows)]
+            if label == "kv" and W > B:  # the same rows 4 bytes off a 16-byte aligned base
+                shifted = torch.cat([wrows.new_zeros(2), wrows.flatten()])[2:].view(W, F)
+                variants.append((" rows 4 bytes off 16", shifted))
+            for suffix, rw in variants:
+                splan = KRG.scatter_plan(N, W, p_, F * es, pages.data_ptr(), rw.data_ptr())
+                if suffix:  # checked here; the aligned rows were checked above
+                    before = pages.clone()
+                    want = KRG.ragged_paged_scatter_rows_plain(before.clone(), pid, off, rw)
+                    KRG.ragged_paged_scatter_rows(pages, pid, off, rw)
+                    hit = set((pid.long() * p_ + off.long()).tolist())
+                    if not torch.equal(pages[keep], want[keep]) or \
+                            not _changed_rows(pages, before) <= hit:
+                        raise AssertionError(f"ragged_paged_scatter_rows wrong or wrote outside "
+                                             f"({label} W={W}{suffix})")
+                calls = build.COUNTERS["ragged_paged_scatter_rows"].by_call
+                if (splan.vec, W, F * es) not in calls:
+                    raise AssertionError(f"ragged_paged_scatter_rows {label} W={W}{suffix} "
+                                         f"launched {calls}, not {splan}")
+                # the valid rows read and written (rows routed to the
+                # scratch page are garbage by contract) and every row's
+                # target pair
+                timed[("ragged_paged_scatter_rows", f"{label} W={W}{suffix}")] = dict(
+                    fn=lambda pid=pid, off=off, rw=rw:
+                        KRG.ragged_paged_scatter_rows(pages, pid, off, rw),
+                    plain=lambda pid=pid, off=off, rw=rw:
+                        KRG.ragged_paged_scatter_rows_plain(pages, pid, off, rw),
+                    library=lambda wfi=wfi, rw=rw: flat.index_copy_(0, wfi, rw),
+                    nbytes=2 * n_valid * F * es + 8 * W,
+                    shape=f"{shape} W={W}{suffix} ({n_valid} valid)", plan=splan,
+                    off_path=bool(suffix))  # phase 6c never writes unaligned rows
         for (name, key), c in timed.items():
             how: dict = {}
             r = dict(call_ms=event_ms(c["fn"]), ms=replay_ms(c["fn"], how, "ms"),
                      plain_ms=replay_ms(c["plain"], how, "plain_ms"),
                      library_ms=replay_ms(c["library"], how, "library_ms"),
                      bound=bound_ms(c["nbytes"], 0, dtype), timed_by=how,
-                     max_abs_err=0.0, shape=c["shape"])  # equality was checked above
+                     max_abs_err=0.0, shape=c["shape"],  # equality was checked above
+                     off_path=c.get("off_path", False))
             plan = ""
-            if "plan" in c:  # the gather's vector bytes, vectors a thread and blocks
+            if "plan" in c:  # the flat grid's vector bytes, vectors a thread and blocks
                 r["plan"] = c["plan"]._asdict()
                 plan = (f" plan=vec{c['plan'].vec} unroll{c['plan'].unroll} x "
                         f"{c['plan'].blocks} blocks")
@@ -1460,8 +1588,9 @@ def train_step_parity(dev):
 
 def flash_calls() -> dict:
     """The flash launches since the last counter reset by call, as the
-    wrapper counts them where it launches: {(path, B, Sq, Skv, nq, nkv, hd):
-    launches}. Their sum must be the wrapper's launch count."""
+    wrapper counts them where it launches: {(path, B, Sq, Skv, nq, nkv, hd,
+    kernel launches per call): calls}. Their sum must be the wrapper's
+    launch count."""
     from repro_torch.kernels import flash_attention as FA
 
     calls = dict(FA.FLASH_ATTENTION.by_call)
@@ -1478,7 +1607,8 @@ def log_flash_calls(run: str, calls: dict) -> None:
     top = sorted(calls.items(), key=lambda kv: -kv[1])[:6]
     log(f"[{run}] flash_attention launches by path (counted in the wrapper): "
         f"{json.dumps(by_path)} over {len(calls)} call shapes; most launched "
-        "(path, B, Sq, Skv): " + "; ".join(f"{k[:4]} {n}" for k, n in top))
+        "(path, B, Sq, Skv; kernels per call): "
+        + "; ".join(f"{k[:4]}; {k[7]} {n}" for k, n in top))
 
 
 def serve_1b(dev):
@@ -1547,13 +1677,21 @@ def serve_1b(dev):
         f"(per prefill of one prompt: gather/scatter {cfg.n_layers // 2}, flash {cfg.n_layers}; "
         f"per decode step: flash {cfg.n_layers})")
     log_flash_calls("serve", flash)
-    # each layer attends once per prefill (the tile path) and once per
-    # decode step (the decode path), routed MoD layers on their kb slots
-    for path, want in (("tile", cfg.n_layers * s["prefills"]),
+    # each layer attends once per prefill (the wgmma tile path) and once per
+    # decode step (the decode path), routed MoD layers on their kb slots:
+    # against their routed caches of capacity(ctx) slots, one chunk, so one
+    # kernel launch per call (the wrapper records each call's launches)
+    for path, want in (("wgmma", cfg.n_layers * s["prefills"]),
                        ("decode", cfg.n_layers * s["decode_steps"])):
         got = sum(n for key, n in flash.items() if key[0] == path)
         if got != want:
             raise AssertionError(f"{got} flash launches on the {path} path, not {want:.0f}")
+    k_routed = cfg.mod.capacity(ecfg.ctx)
+    routed = {key: n for key, n in flash.items() if key[0] == "decode" and key[3] == k_routed}
+    if not routed or any(key[7] != 1 for key in routed):
+        raise AssertionError(f"routed decode calls {routed}: want one kernel launch each")
+    log(f"[serve] routed decode calls (B={kb}, {k_routed} keys): "
+        f"{sum(routed.values())} calls of one kernel launch each (no merge launch)")
     return counts, flash
 
 
@@ -3179,12 +3317,14 @@ def main() -> int:
     # count none); every call shape of those runs rides on the kernel's entry
     fl_runs = {"serve": serve_flash, "train": train_flash}
     shapes = {"flash_attention": [
-        dict(shape=r["shape"], path=r["path"], ms=r["ms"], plain_ms=r["plain_ms"],
-             library_ms=r["library_ms"], bound_ms=r["bound"][0], timed_by=r["timed_by"],
-             launches=sum(c.get((r["path"], *r["call"]), 0) for c in fl_runs.values()))
+        dict(shape=r["shape"], path=r["path"], plan=r["plan"], ms=r["ms"],
+             plain_ms=r["plain_ms"], library_ms=r["library_ms"], bound_ms=r["bound"][0],
+             timed_by=r["timed_by"],
+             launches=sum(c.get((r["path"], *r["call"], r["kernels"]), 0)
+                          for c in fl_runs.values()))
         for r in results["flash_attention"].values()]}
     flash_by_call = {run: [dict(path=k[0], B=k[1], Sq=k[2], Skv=k[3], nq=k[4], nkv=k[5],
-                                hd=k[6], launches=n) for k, n in sorted(c.items())]
+                                hd=k[6], kernels=k[7], launches=n) for k, n in sorted(c.items())]
                      for run, c in fl_runs.items()}
     picks = {  # the entry of each kernel at a main-path shape (bf16)
         "gather_rows": results["gather_rows"][(1000, torch.bfloat16)],
@@ -3197,11 +3337,14 @@ def main() -> int:
         # every shape phase 6c gives the kernel, with its launches there;
         # the line's numbers are those of the shape that took the most of
         # the kernel's device time on that path
-        shapes[name] = [dict(shape=r["shape"], launches=paged_shapes[name][key], ms=r["ms"],
+        # (a shape marked off the path, as the unaligned rows, has none)
+        on_path = {key: paged_shapes[name][key] for key, r in results[name].items()
+                   if not r["off_path"]}
+        shapes[name] = [dict(shape=r["shape"], launches=on_path.get(key, 0), ms=r["ms"],
                              plain_ms=r["plain_ms"], library_ms=r["library_ms"],
                              bound_ms=r["bound"][0], **({"plan": r["plan"]} if "plan" in r else {}))
                         for key, r in results[name].items()]
-        key = max(results[name], key=lambda k: paged_shapes[name][k] * results[name][k]["ms"])
+        key = max(on_path, key=lambda k: on_path[k] * results[name][k]["ms"])
         picks[name] = results[name][key]
     # the dequant gather: every shape phase 7b gives it, with its launches
     # on the int8/page prefix run (fp8/head shapes: on the fp8/head run);

@@ -222,6 +222,16 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
       : "memory");
 }
+// ... of a rank-4 tensor map (coordinates innermost first)
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
 
 // wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
 // address, leading and stride byte offsets (16-byte units), layout 1 = B128
@@ -230,31 +240,6 @@ __device__ __forceinline__ uint64_t wg_desc(const void* p, unsigned lbo, unsigne
          ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
 }
 
-// d (+)= A (64 x 16, K-major) @ B (16 x 128, MN-major: transpose bit set),
-// both from shared memory; scale_d = 0 starts the sum
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
-                                                 int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
-      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
-      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
-        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
-        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -267,9 +252,110 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 // keeps the compiler from moving reads or writes of the accumulators
 // across the asynchronous products that own them
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+template <int NJ>
+__device__ __forceinline__ void fence_acc(float (&d)[NJ][4]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
+}
+// the same for A fragments in registers: a product reads them
+// asynchronously, so they must stay where they are until it is waited on
+template <int NK>
+__device__ __forceinline__ void fence_frag(unsigned (&a)[NK][4]) {
+#pragma unroll
+  for (int k = 0; k < NK; ++k)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[k][i])::"memory");
+}
+
+// m64nNk16 products with the accumulator as [N/8][4] (per 8 columns j,
+// registers [j][0..1] are row lane/4 of the warp's 16, columns
+// 2(lane%4)+{0,1}; [j][2..3] the same 8 rows below: the m16n8 fragment of
+// mma.sync). ss: A and B from shared memory, A K-major; scale_d = 0 starts
+// the sum. rs: A from registers (each warp's m16n8k16 A fragment of its
+// 16 rows). TB = 1: B is MN-major (the descriptor's transpose), 0: K-major.
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4], const unsigned (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),
+        "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]),
+        "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+        "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[16][4], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),
+        "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]),
+        "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+        "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]),
+        "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]),
+        "+f"(d[11][2]), "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]),
+        "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]),
+        "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+}
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4], const unsigned (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),
+        "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]),
+        "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+        "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]),
+        "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]),
+        "+f"(d[11][2]), "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]),
+        "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]),
+        "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+template <int N, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 8][4], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  static_assert(N == 128, "m64n128k16 (the only width a caller takes from shared memory)");
+  wgmma_ss_n128<TB>(d, da, db, scale_d);
+}
+template <int N, int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4], const unsigned (&a)[4],
+                                         uint64_t db, int scale_d) {
+  static_assert(N == 64 || N == 128, "m64n64k16 or m64n128k16");
+  if constexpr (N == 64) wgmma_rs_n64<TB>(d, a, db, scale_d);
+  else wgmma_rs_n128<TB>(d, a, db, scale_d);
 }
 
 // tile t of the fixed order: groups of WG_GROUP_M row tiles, row tile
@@ -335,7 +421,7 @@ gemm_wgmma_kernel(__grid_constant__ const CUtensorMap tmA, __grid_constant__ con
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     const int row0 = (wg - 1) * 64;
     const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
-    float acc[NB][64];
+    float acc[NB][WG_BN / 8][4];
     int stage = 0;
     unsigned phase = 0;
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
@@ -357,7 +443,7 @@ gemm_wgmma_kernel(__grid_constant__ const CUtensorMap tmA, __grid_constant__ con
             // boxes WG_B_BOX apart (leading), 8-row atoms 1024 apart (stride)
             const uint64_t db = wg_desc(st + WG_A_BYTES + b * WG_B_BYTES + kk * 2048, WG_B_BOX,
                                         1024);
-            wgmma_m64n128k16(acc[b], da, db, kt > 0 || kk > 0);
+            wgmma_ss<WG_BN, 1>(acc[b], da, db, kt > 0 || kk > 0);
           }
         }
         wgmma_commit();
@@ -377,8 +463,8 @@ gemm_wgmma_kernel(__grid_constant__ const CUtensorMap tmA, __grid_constant__ con
       if (prev >= 0 && tid == 0) mbar_arrive(&empty[prev]);
 
       // accumulator layout of m64nNk16: warp w holds rows 16w..16w+15; per
-      // 8 columns j, registers 4j+{0,1} are row lane/4, columns 2(lane%4)+{0,1},
-      // and 4j+{2,3} the same 8 rows below
+      // 8 columns j, registers [j][0..1] are row lane/4, columns
+      // 2(lane%4)+{0,1}, and [j][2..3] the same 8 rows below
       const int r0 = m_blk * WG_BM + row0 + warp * 16 + lane / 4;
       const int c0 = n_blk * WG_BN + (lane % 4) * 2;
 #pragma unroll
@@ -386,10 +472,24 @@ gemm_wgmma_kernel(__grid_constant__ const CUtensorMap tmA, __grid_constant__ con
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int r = r0 + (e >> 1) * 8, c = c0 + j * 8 + (e & 1);
-          if (r < M && c < N) epi(r, c, acc[0][4 * j + e], acc[NB - 1][4 * j + e]);
+          if (r < M && c < N) epi(r, c, acc[0][j][e], acc[NB - 1][j][e]);
         }
     }
   }
+}
+
+// a tensor map of `rank` dimensions (innermost first; strides in bytes of
+// dimensions 1.. ), loaded in boxes of `box` elements; zeros outside
+inline cudaError_t encode_tiled(CUtensorMap* map, CUtensorMapDataType type, int rank,
+                                const void* base, const cuuint64_t* dims,
+                                const cuuint64_t* strides, const cuuint32_t* box,
+                                CUtensorMapSwizzle swizzle) {
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  const CUresult r = cuTensorMapEncodeTiled(
+      map, type, rank, const_cast<void*>(base), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // a row-major bf16 (rows, cols) matrix, loaded in boxes of box_rows x 64
@@ -399,12 +499,8 @@ inline cudaError_t encode_bf16(CUtensorMap* map, const void* base, int rows, int
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
   const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = cuTensorMapEncodeTiled(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box, elem,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, dims, strides, box,
+                      CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // whether gemm_wgmma takes these operands (kernels/swiglu.py::gemm_path

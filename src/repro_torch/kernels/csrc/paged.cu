@@ -25,6 +25,14 @@
 // for 132 SMs), a decode step's (8, 62) 1736 blocks of four, and a
 // position leaf's 64-byte pages share 8 blocks instead of taking one each.
 //
+// The ragged write-back runs the same kind of flat grid over its rows'
+// vectors (kernels/ragged.py::scatter_plan: width, unroll, index width and
+// grid, refused here if they do not fit): each thread looks up its row's
+// clamped page id and offset. A position leaf's W=7432 rows of 4 bytes are
+// then 30 blocks of 256 threads, not 7432 blocks of one busy thread each.
+// The decode-row scatter keeps one block per slot (B <= a few dozen rows);
+// scatter_rows_kernel takes any target functor, so it can move there too.
+//
 // The TPU scatters stream every physical page through VMEM because a Pallas
 // output does not alias its input. The function the engine needs is "the
 // pool with these rows replaced", so here the scatters write the rows in
@@ -171,17 +179,70 @@ __global__ void paged_scatter_rows_kernel(char* __restrict__ pages,
              pages + ((long long)pid * p + t % p) * row_bytes, row_bytes);
 }
 
-// One block per write row w: pages[pid[w], off[w]] = rows[w].
-__global__ void ragged_paged_scatter_rows_kernel(char* __restrict__ pages,
-                                                 const int* __restrict__ pid,
-                                                 const int* __restrict__ off,
-                                                 const char* __restrict__ rows, int N,
-                                                 int p, long long row_bytes) {
-  const int w = blockIdx.x;
-  const int pg = clampi(pid[w], 0, N - 1);
-  const int o = clampi(off[w], 0, p - 1);
-  block_copy(rows + (long long)w * row_bytes,
-             pages + ((long long)pg * p + o) * row_bytes, row_bytes);
+// The ragged write-back's target of write row w: page row
+// clamp(pid[w]) * p + clamp(off[w]).
+struct RaggedTarget {
+  const int* pid;
+  const int* off;
+  int N, p;
+  __device__ __forceinline__ long long operator()(long long w) const {
+    return (long long)clampi(__ldg(pid + w), 0, N - 1) * p + clampi(__ldg(off + w), 0, p - 1);
+  }
+};
+
+// Rows scattered into page rows over one flat grid of VEC-byte vectors:
+// vector v (of n_vec, vpr per row) of rows goes to vector v % vpr of page
+// row target(v / vpr). Block x covers GATHER_THREADS * U consecutive
+// vectors; each thread loads its U (with their targets) before it stores
+// any. I: 32- or 64-bit vector indices. The target functor is the only
+// part that knows the kind of scatter.
+template <int VEC, typename I, int U, class Target>
+__global__ void __launch_bounds__(GATHER_THREADS)
+scatter_rows_kernel(char* __restrict__ pages, const char* __restrict__ rows, Target target,
+                    I vpr, I n_vec) {
+  typedef typename Vec<VEC>::type V;
+  const V* src = reinterpret_cast<const V*>(rows);
+  V* dst = reinterpret_cast<V*>(pages);
+  const I v0 = (I)blockIdx.x * (GATHER_THREADS * U) + threadIdx.x;
+  V r[U];
+  unsigned long long d[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const I v = v0 + (I)(u * GATHER_THREADS);
+    if (v < n_vec) {
+      const I w = v / vpr;
+      d[u] = (unsigned long long)target(w) * vpr + (v - w * vpr);
+      r[u] = __ldg(src + v);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const I v = v0 + (I)(u * GATHER_THREADS);
+    if (v < n_vec) dst[d[u]] = r[u];
+  }
+}
+
+template <int VEC, int U, class Target>
+cudaError_t launch_scatter(void* pages, const void* rows, Target target, long long vpr,
+                           long long n_vec, long long blocks, int wide, cudaStream_t st) {
+  char* pg = static_cast<char*>(pages);
+  const char* rw = static_cast<const char*>(rows);
+  if (wide)
+    scatter_rows_kernel<VEC, unsigned long long, U><<<(unsigned)blocks, GATHER_THREADS, 0, st>>>(
+        pg, rw, target, (unsigned long long)vpr, (unsigned long long)n_vec);
+  else
+    scatter_rows_kernel<VEC, unsigned, U><<<(unsigned)blocks, GATHER_THREADS, 0, st>>>(
+        pg, rw, target, (unsigned)vpr, (unsigned)n_vec);
+  return cudaGetLastError();
+}
+
+template <int VEC, class Target>
+cudaError_t launch_scatter_u(int unroll, void* pages, const void* rows, Target target,
+                             long long vpr, long long n_vec, long long blocks, int wide,
+                             cudaStream_t st) {
+  if (unroll == GATHER_UNROLL)
+    return launch_scatter<VEC, GATHER_UNROLL>(pages, rows, target, vpr, n_vec, blocks, wide, st);
+  return launch_scatter<VEC, 1>(pages, rows, target, vpr, n_vec, blocks, wide, st);
 }
 
 // 16 f32 values to 16 consecutive outputs (16-byte aligned)
@@ -299,14 +360,33 @@ extern "C" int repro_paged_scatter_rows(void* pages, const void* table, const vo
   return static_cast<int>(cudaGetLastError());
 }
 
+// pages[clamp(pid[w]), clamp(off[w])] = rows[w] for W rows of row_bytes,
+// by the plan of kernels/ragged.py::scatter_plan: vec bytes per vector (it
+// divides the row and both bases), blocks of GATHER_THREADS x unroll
+// vectors, 64-bit indices when wide. Any other plan is refused.
 extern "C" int repro_ragged_paged_scatter_rows(void* pages, const void* pid, const void* off,
                                                const void* rows, int N, int W, int p,
-                                               long long row_bytes, void* stream) {
-  ragged_paged_scatter_rows_kernel<<<W, threads_for(row_bytes), 0,
-                                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<char*>(pages), static_cast<const int*>(pid), static_cast<const int*>(off),
-      static_cast<const char*>(rows), N, p, row_bytes);
-  return static_cast<int>(cudaGetLastError());
+                                               long long row_bytes, int vec, int unroll,
+                                               int wide, long long blocks, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(pages) | reinterpret_cast<uintptr_t>(rows);
+  if ((vec != 16 && vec != 4 && vec != 1) || row_bytes <= 0 || row_bytes % vec || bases % vec ||
+      N < 1 || p < 1 || W < 1 || (unroll != 1 && unroll != GATHER_UNROLL))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long vpr = row_bytes / vec, n_vec = (long long)W * vpr;
+  const long long per_block = (long long)GATHER_THREADS * unroll;
+  if (blocks != (n_vec + per_block - 1) / per_block || blocks > INT_MAX ||
+      wide != (blocks * per_block > (long long)UINT_MAX))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const RaggedTarget target{static_cast<const int*>(pid), static_cast<const int*>(off), N, p};
+  switch (vec) {
+    case 16: return static_cast<int>(launch_scatter_u<16>(unroll, pages, rows, target, vpr,
+                                                          n_vec, blocks, wide, st));
+    case 4: return static_cast<int>(launch_scatter_u<4>(unroll, pages, rows, target, vpr, n_vec,
+                                                        blocks, wide, st));
+    default: return static_cast<int>(launch_scatter_u<1>(unroll, pages, rows, target, vpr,
+                                                         n_vec, blocks, wide, st));
+  }
 }
 
 // narrow: 0 int8, 1 e4m3; out_dtype: REPRO_F32 / REPRO_BF16. The G scales

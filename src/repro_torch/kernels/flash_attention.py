@@ -23,9 +23,12 @@ log-sum-exp when a gradient is needed. Semantics are the Pallas kernel's:
 
 The kernel takes any ``Sq``/``Skv`` (the ragged edges are masked), head
 dims 32/64/128/256, f32 and bf16. :func:`flash_plan` picks its path from
-the dtype, ``Sq`` and ``nq/nkv`` alone: bf16 tiles of 64 query rows on
-tensor cores, bf16 split-KV decode when ``Sq·nq/nkv`` rows fit one
-16-row mma tile, or the f32 CUDA-core kernel.
+the dtype, ``Sq``, ``nq/nkv`` and the head dim alone: bf16 tiles of 64
+query rows on Hopper's wgmma + TMA (head dims 64 and 128; two warpgroups
+split a tile's keys by key-tile parity), on ``mma.sync`` tiles (head dims
+32 and 256), bf16 split-KV decode when ``Sq·nq/nkv`` rows fit one 16-row
+mma tile (one launch when the keys fit one chunk), or the f32 CUDA-core
+kernel.
 
 ``routed_attention`` (the Pallas ``_routed_attn_kernel``) is described at
 its section below; :func:`routed_attention_path` picks the GEMM of its
@@ -53,16 +56,22 @@ _HEAD_DIMS = (32, 64, 128, 256)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_ARGTYPES = (_P,) * 10 + (_I,) * 10 + (_F, _I, _I, _P)
-# the kernel's path codes and tiling (csrc/flash_attention.cu checks that a
-# decode plan's chunk and split count are its own)
-_PATHS = {"f32": 0, "tile": 1, "decode": 2}
+_ARGTYPES = (_P,) * 10 + (_I,) * 13 + (_F, _I, _I, _P)
+# the kernel's path codes and tiling (csrc/flash_attention.cu refuses a
+# plan whose path, key tile, split, chunk or merge is not its own)
+_PATHS = {"f32": 0, "mma_sync": 1, "decode": 2, "wgmma": 3}
 DECODE_ROWS = 16  # one mma tile of (query position, head of the group) rows
+DECODE_WARPS = 4  # warps of a decode chunk, each on a fixed quarter of it
+WGMMA_HEAD_DIMS = (64, 128)  # a row of 128 or 256 bytes: whole 128-byte swizzle atoms
+WGMMA_KEY_TILE = 128  # keys per K/V tile of the wgmma path
+WGMMA_ROWS = 64  # query rows per block of the tile paths
+WGMMA_SPLIT = 2  # consumer warpgroups of a wgmma block, one per key-tile parity
 _GRID_YZ = 65535  # CUDA's limit on gridDim.y and gridDim.z (heads, batch rows)
+_INT_MAX = 2 ** 31 - 1
 
 
 def key_tile(hd: int) -> int:
-    """Keys per K/V tile of the bf16 kernels."""
+    """Keys per K/V tile of the ``mma.sync`` kernels."""
     return 32 if hd == 256 else 64
 
 
@@ -75,18 +84,29 @@ def decode_chunk(hd: int) -> int:
 class FlashPlan(NamedTuple):
     """How the CUDA kernel runs one call."""
 
-    path: str  # "f32" | "tile" | "decode"
+    path: str  # "f32" | "mma_sync" | "wgmma" | "decode"
+    key_tile: int  # keys per K/V tile (per warp on the decode path); 0 for f32
+    key_split: int  # parts a block's keys split into, merged in a fixed order:
+    # 2 warpgroups by key-tile parity (wgmma), 4 warps by quarter of the chunk (decode), else 1
     chunk: int  # keys per split (decode), else 0
     n_splits: int  # ceil(Skv / chunk) (decode), else 0
-    scratch: Tuple[Tuple[int, ...], ...]  # f32 partial m, l and acc (decode), else ()
+    merge: bool  # a second launch merges the splits' partials (decode past one chunk)
+    scratch: Tuple[Tuple[int, ...], ...]  # f32 partial m, l and acc (when merging), else ()
+
+    @property
+    def kernels(self) -> int:
+        """Kernel launches of the call."""
+        return 2 if self.merge else 1
 
 
 def flash_plan(B: int, Sq: int, Skv: int, nq: int, nkv: int, hd: int,
                dtype: torch.dtype) -> FlashPlan:
-    """The kernel's path, split plan and scratch shapes: a pure function of
-    the shapes. The path depends only on the dtype, ``Sq`` and ``nq/nkv``,
-    never on ``Skv`` or ``B``, so a row's result does not either. Raises for
-    what the kernel does not take, before anything is built."""
+    """The kernel's path, key split, decode chunks and scratch shapes: a
+    pure function of the shapes. The path and the split rule depend only on
+    the dtype, ``Sq``, ``nq/nkv`` and the head dim, never on ``Skv`` or
+    ``B``, so a row's result does not either (the chunk count only adds
+    empty chunks, which merge exactly). Raises for what the kernel does not
+    take, before anything is built."""
     if hd not in _HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not in {_HEAD_DIMS}")
     if nkv <= 0 or nq % nkv:
@@ -96,14 +116,22 @@ def flash_plan(B: int, Sq: int, Skv: int, nq: int, nkv: int, hd: int,
     if max(nq, B) > _GRID_YZ:
         raise ValueError(f"n_heads {nq} and batch {B} must be at most {_GRID_YZ}")
     if dtype == torch.float32:
-        return FlashPlan("f32", 0, 0, ())
+        return FlashPlan("f32", 0, 1, 0, 0, False, ())
     rows = Sq * (nq // nkv)
     if rows > DECODE_ROWS:
-        return FlashPlan("tile", 0, 0, ())
+        if hd not in WGMMA_HEAD_DIMS:
+            return FlashPlan("mma_sync", key_tile(hd), 1, 0, 0, False, ())
+        blocks = -(-Sq // WGMMA_ROWS) * nq * B
+        if blocks > _INT_MAX:
+            raise ValueError(f"B={B} Sq={Sq} nq={nq}: {blocks} blocks, more than CUDA's "
+                             f"{_INT_MAX}")
+        return FlashPlan("wgmma", WGMMA_KEY_TILE, WGMMA_SPLIT, 0, 0, False, ())
     chunk = decode_chunk(hd)
     n = -(-Skv // chunk)
     part = (B, nkv, n, rows)
-    return FlashPlan("decode", chunk, n, (part, part, part + (hd,)))
+    merge = n > 1
+    return FlashPlan("decode", chunk // DECODE_WARPS, DECODE_WARPS, chunk, n, merge,
+                     (part, part, part + (hd,)) if merge else ())
 
 
 # the query block of the backward's loop (bounds its (B, nq, block, Skv) f32
@@ -164,6 +192,9 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def _flash_launch(q, k, v, q_pos, kv_pos, causal, window, scale, want_lse):
+    """(out, lse) from the kernel on :func:`flash_plan`'s plan, which C
+    refuses if it is not its own. The launch counter records each call
+    keyed (path, B, Sq, Skv, nq, nkv, hd, kernel launches of the call)."""
     B, Sq, nq, hd = q.shape
     Skv, nkv = k.shape[1], k.shape[2]
     plan = flash_plan(B, Sq, Skv, nq, nkv, hd, q.dtype)
@@ -187,11 +218,12 @@ def _flash_launch(q, k, v, q_pos, kv_pos, causal, window, scale, want_lse):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
         out.data_ptr(), None if lse is None else lse.data_ptr(),
         *([t.data_ptr() for t in part] or [None] * 3),
-        B, Sq, Skv, nq, nkv, hd, _DTYPES[q.dtype], _PATHS[plan.path], plan.chunk,
-        plan.n_splits, scale, int(bool(causal)), int(window), stream,
+        B, Sq, Skv, nq, nkv, hd, _DTYPES[q.dtype], _PATHS[plan.path], plan.key_tile,
+        plan.key_split, plan.chunk, plan.n_splits, int(plan.merge), scale, int(bool(causal)),
+        int(window), stream,
     )
     build.check("flash_attention", "repro_flash_attention", err)
-    FLASH_ATTENTION.add((plan.path, B, Sq, Skv, nq, nkv, hd))
+    FLASH_ATTENTION.add((plan.path, B, Sq, Skv, nq, nkv, hd, plan.kernels))
     return out, lse
 
 

@@ -43,7 +43,7 @@ backend name (``EngineConfig`` checks it).
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -104,8 +104,9 @@ _INT_MAX = 2 ** 31 - 1
 _UINT_MAX = 2 ** 32 - 1
 
 
-class GatherPlan(NamedTuple):
-    """How the gather kernel runs one call."""
+class FlatPlan(NamedTuple):
+    """How a flat-grid kernel (the page gather, the ragged write-back) runs
+    one call."""
 
     vec: int  # bytes per vector: 16, 4 or 1
     unroll: int  # vectors per thread: 1 or GATHER_UNROLL
@@ -113,7 +114,24 @@ class GatherPlan(NamedTuple):
     blocks: int  # blocks of GATHER_THREADS * unroll vectors
 
 
-def gather_plan(N: int, B: int, P: int, page_bytes: int, base: int) -> GatherPlan:
+def flat_plan(units: int, unit_bytes: int, bases: Tuple[int, ...], what: str) -> FlatPlan:
+    """One flat grid over ``units`` pages or rows of ``unit_bytes``: the
+    widest of 16, 4 and 1 bytes that divides ``unit_bytes`` and every
+    tensor base, one vector a thread or ``GATHER_UNROLL`` once there are
+    more vectors than ``CARD_THREADS``, one block per ``GATHER_THREADS ·
+    unroll`` vectors. Raises for a grid beyond CUDA's."""
+    vec = next(v for v in (16, 4, 1) if all(b % v == 0 for b in (unit_bytes, *bases)))
+    n_vec = units * (unit_bytes // vec)
+    unroll = GATHER_UNROLL if n_vec > CARD_THREADS else 1
+    per_block = GATHER_THREADS * unroll
+    blocks = -(-n_vec // per_block)
+    if blocks > _INT_MAX:
+        raise ValueError(f"{what} of {units * unit_bytes} bytes needs {blocks} blocks, more "
+                         f"than CUDA's {_INT_MAX}")
+    return FlatPlan(vec, unroll, blocks * per_block > _UINT_MAX, blocks)
+
+
+def gather_plan(N: int, B: int, P: int, page_bytes: int, base: int) -> FlatPlan:
     """The gather kernel's vector width, block shape, index width and grid
     for ``B·P`` logical pages of ``page_bytes`` out of ``N`` physical ones
     whose tensor starts at address ``base`` (the output is a new
@@ -128,15 +146,7 @@ def gather_plan(N: int, B: int, P: int, page_bytes: int, base: int) -> GatherPla
     if min(B, P) < 0 or N < 1 or page_bytes < 1:
         raise ValueError(f"gather of B={B} x P={P} pages of {page_bytes} bytes out of N={N}: "
                          "want N >= 1, page_bytes >= 1 and no negative count")
-    vec = next(v for v in (16, 4, 1) if page_bytes % v == 0 and base % v == 0)
-    n_vec = B * P * (page_bytes // vec)
-    unroll = GATHER_UNROLL if n_vec > CARD_THREADS else 1
-    per_block = GATHER_THREADS * unroll
-    blocks = -(-n_vec // per_block)
-    if blocks > _INT_MAX:
-        raise ValueError(f"a gather of {B * P * page_bytes} bytes needs {blocks} blocks, more "
-                         f"than CUDA's {_INT_MAX}")
-    return GatherPlan(vec, unroll, blocks * per_block > _UINT_MAX, blocks)
+    return flat_plan(B * P, page_bytes, (base,), "a gather")
 
 
 def paged_gather(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

@@ -34,7 +34,9 @@ per row into a (physical page, in-page offset) pair, in torch ops; invalid
 rows go to the dump (scratch) page at offset 0.
 :func:`ragged_paged_scatter_rows` then writes ``pages[pid[w], off[w]] =
 rows[w]`` **in place**: the CUDA kernel of ``csrc/paged.cu`` for CUDA
-tensors, the plain PyTorch version for CPU tensors, bit for bit the same
+tensors (one flat grid over the rows' vectors, planned by the pure
+:func:`scatter_plan`), the plain PyTorch version for CPU tensors, bit for
+bit the same
 (valid targets are unique by contract; rows that collide on the dump page
 are garbage by contract). The quantizing form of
 :func:`ragged_paged_scatter_rows_op` quantizes the rows first and writes
@@ -67,11 +69,13 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.paged import (
     NARROW,
+    FlatPlan,
     quant_fold,
     canon_pages,
     canon_rows,
     check_device,
     check_no_grad,
+    flat_plan,
 )
 
 RAGGED_PAGED_FLASH_ATTENTION = build.counter("ragged_paged_flash_attention")
@@ -219,9 +223,34 @@ def ragged_paged_scatter_rows_plain(pages: torch.Tensor, pid: torch.Tensor, off:
     return pages
 
 
+def scatter_plan(N: int, W: int, p: int, row_bytes: int, pages_base: int,
+                 rows_base: int) -> FlatPlan:
+    """The write-back kernel's vector width, block shape, index width and
+    grid for ``W`` rows of ``row_bytes`` into ``N`` pages of ``p`` rows,
+    the page tensor at address ``pages_base`` and the rows at
+    ``rows_base``: the widest of 16, 4 and 1 bytes that divides the row and
+    both bases, one vector a thread (``GATHER_UNROLL`` past a card of
+    threads), one block per ``GATHER_THREADS · unroll`` of the rows'
+    vectors: one flat grid, so a leaf of narrow rows (4-byte positions)
+    fills whole blocks instead of one block per row. A pure function of its
+    arguments, decided before launch. Raises for what the kernel does not
+    take: no page, an empty page or row, a negative count, a grid beyond
+    CUDA's."""
+    if N < 1 or p < 1 or row_bytes < 1 or W < 0:
+        raise ValueError(f"write-back of W={W} rows of {row_bytes} bytes into N={N} pages of "
+                         f"{p}: want N, p, row_bytes >= 1 and W >= 0")
+    return flat_plan(W, row_bytes, (pages_base, rows_base), "a write-back")
+
+
+# (pages, pid, off, rows, N, W, p, row_bytes, vec, unroll, wide, blocks, stream)
+_SCATTER_ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _L, _I, _I, _I, _L, _P)
+
+
 def ragged_paged_scatter_rows(pages: torch.Tensor, pid: torch.Tensor, off: torch.Tensor,
                               rows: torch.Tensor) -> torch.Tensor:
-    """pages (N, p, F), pid/off (W,) int32, rows (W, F); in place."""
+    """pages (N, p, F), pid/off (W,) int32, rows (W, F); in place. On the
+    card one flat grid over the rows' vectors (:func:`scatter_plan`); the
+    launch counter records the plan by call, keyed ``(vec, W, row_bytes)``."""
     W = pid.shape[0]
     if pages.dim() != 3 or rows.shape != (W, pages.shape[2]) or off.shape != (W,):
         raise ValueError(f"want pages (N,p,F), pid/off (W,), rows (W,F); got "
@@ -236,17 +265,23 @@ def ragged_paged_scatter_rows(pages: torch.Tensor, pid: torch.Tensor, off: torch
     check_no_grad(pages, rows)
     if check_device(pages, pid, off, rows) == "cpu":
         return ragged_paged_scatter_rows_plain(pages, pid, off, rows)
-    pid, off, rows = pid.contiguous(), off.contiguous(), rows.contiguous()
+    return _scatter_launch(pages, pid.contiguous(), off.contiguous(), rows.contiguous())
+
+
+def _scatter_launch(pages: torch.Tensor, pid: torch.Tensor, off: torch.Tensor,
+                    rows: torch.Tensor) -> torch.Tensor:
     N, p, F = pages.shape
+    W = pid.shape[0]
     if W == 0 or F == 0:
         return pages
-    fn = build.bind("paged", "repro_ragged_paged_scatter_rows",
-                    (_P, _P, _P, _P, _I, _I, _I, _L, _P))
+    row_bytes = F * pages.element_size()
+    plan = scatter_plan(N, W, p, row_bytes, pages.data_ptr(), rows.data_ptr())
+    fn = build.bind("paged", "repro_ragged_paged_scatter_rows", _SCATTER_ARGTYPES)
     stream = torch.cuda.current_stream(pages.device).cuda_stream
     err = fn(pages.data_ptr(), pid.data_ptr(), off.data_ptr(), rows.data_ptr(), N, W, p,
-             F * pages.element_size(), stream)
+             row_bytes, plan.vec, plan.unroll, int(plan.wide), plan.blocks, stream)
     build.check("paged", "repro_ragged_paged_scatter_rows", err)
-    RAGGED_PAGED_SCATTER_ROWS.launches += 1
+    RAGGED_PAGED_SCATTER_ROWS.add((plan.vec, W, row_bytes))
     return pages
 
 

@@ -11,12 +11,17 @@ Tolerances: gather/scatter are copies and exact updates, so bitwise; the
 flash kernel sums its online softmax in another order than the dense plain
 version (f32 atol 2e-5), and rounds p to bf16 against another running max
 before p@V (bf16 atol and rtol 8e-3: one bf16 ulp of the output is at most
-2^-7 of its value). That holds on both bf16 paths (tensor-core tiles;
-split-KV decode, whose partials merge in f32) at every head dim, on
-wrapped rings and rows with no valid key; a row's bf16 bits do not depend
-on empty slots appended to K/V or on the batch around it; its f32 lse is
+2^-7 of its value). That holds on every bf16 path (wgmma tiles at head
+dims 64 and 128, whose two warpgroups' even and odd key tiles merge in
+f32; mma.sync tiles at 32 and 256; split-KV decode, four warps a chunk,
+one launch in one chunk, partials merged in f32 past it), on wrapped
+rings and rows with no valid key; a row's bf16 bits do not depend on
+empty slots appended to K/V or on the batch around it; its f32 lse is
 the plain version's within 1e-4 (exact bf16 products summed in f32 in
-other orders). The fused routed kernels (routed_attention,
+other orders); a one-chunk decode call equals, bit for bit, the same
+chunk through the merge launch. The ragged write-back runs one flat grid
+of 16-, 4- or 1-byte vectors (``ragged.scatter_plan``) and is bitwise at
+each width, touching only its target rows. The fused routed kernels (routed_attention,
 routed_mlp_scatter) round where their plain versions round, but sum their
 products in another order than cuBLAS: f32 within 1e-4 (atol and rtol);
 in bf16 a sum that lands on the other side of a rounding boundary moves a
@@ -179,8 +184,8 @@ def test_flash_attention_matches_plain(dev, dtype, B, Sq, Skv, nq, nkv, hd, caus
     want = FA.flash_attention_plain(q, k, v, q_pos, kv_pos, causal=causal, window=window)
     torch.cuda.synchronize()
     assert build.launch_counts()["flash_attention"] == 1
-    path = FA.flash_plan(B, Sq, Skv, nq, nkv, hd, dtype).path
-    assert FA.FLASH_ATTENTION.by_call == {(path, B, Sq, Skv, nq, nkv, hd): 1}
+    plan = FA.flash_plan(B, Sq, Skv, nq, nkv, hd, dtype)
+    assert FA.FLASH_ATTENTION.by_call == {(plan.path, B, Sq, Skv, nq, nkv, hd, plan.kernels): 1}
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
@@ -204,11 +209,14 @@ def test_flash_attention_bf16_paths_on_rings_and_empty_rows(dev, layout, hd, Sq,
 
 @pytest.mark.parametrize("layout", ["tail", "ring"])
 @pytest.mark.parametrize("Sq,nq,nkv", [(1, 14, 14), (2, 14, 2), (65, 4, 4)])
-def test_flash_attention_bf16_rows_do_not_depend_on_skv_or_batch(dev, layout, Sq, nq, nkv):
+@pytest.mark.parametrize("hd,Skv", [(128, 700), (128, 100), (64, 300), (256, 700)])
+def test_flash_attention_bf16_rows_do_not_depend_on_skv_or_batch(dev, layout, Sq, nq, nkv, hd,
+                                                                 Skv):
     """Bitwise: a row's output is the same when empty (-1) slots are appended
-    to K/V (more split chunks on the decode path), and when its batch row is
-    computed alone (B = 1) or among 8."""
-    hd, Skv = 128, 700
+    to K/V (more key tiles for the wgmma warpgroups' parity split and the
+    mma.sync tiles; more split chunks on the decode path, where Skv = 100
+    turns a one-launch call into chunks and a merge), and when its batch
+    row is computed alone (B = 1) or among 8."""
     q, k, v, q_pos, kv_pos = _flash_inputs(dev, torch.bfloat16, 8, Sq, Skv, nq, nkv, hd, layout,
                                            seed=4)
     base = FA.flash_attention(q, k, v, q_pos, kv_pos)
@@ -221,6 +229,58 @@ def test_flash_attention_bf16_rows_do_not_depend_on_skv_or_batch(dev, layout, Sq
         alone = FA.flash_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1], q_pos[b:b + 1],
                                    kv_pos[b:b + 1])
         assert torch.equal(alone[0], base[b])
+
+
+@pytest.mark.parametrize("Skv", [64, 128, 129, 256, 300, 383, 511])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attention_wgmma_key_split_merges_both_halves(dev, Skv, hd):
+    """The wgmma path's two consumer warpgroups take the even and the odd key
+    tiles of 128 keys: with the last valid key in an even tile (only the
+    first warpgroup has keys at Skv <= 128), in an odd one, and in a tile
+    cut by Skv, their merged rows and lse equal the plain version's."""
+    Sq, nq, nkv = 70, 4, 2
+    q, k, v, q_pos, kv_pos = _flash_inputs(dev, torch.bfloat16, 2, Sq, Skv, nq, nkv, hd, "tail",
+                                           seed=6)
+    g = torch.Generator(device=dev).manual_seed(7)
+    q_pos = torch.randint(0, Skv, (2, Sq), generator=g, device=dev, dtype=torch.int32)
+    q_pos[:, 0] = Skv - 4  # a row that reads the last valid key
+    assert FA.flash_plan(2, Sq, Skv, nq, nkv, hd, torch.bfloat16).path == "wgmma"
+    scale = hd ** -0.5
+    out, lse = FA._flash_launch(q, k, v, q_pos, kv_pos, True, 0, scale, True)
+    want, want_l = FA._flash_plain(q, k, v, q_pos, kv_pos, True, 0, scale)
+    torch.testing.assert_close(out.float(), want.float(), **TOL[torch.bfloat16])
+    torch.testing.assert_close(lse, want_l, atol=1e-4, rtol=0.0)
+
+
+@pytest.mark.parametrize("Skv,window,layout", [(40, 0, "tail"), (128, 0, "ring"),
+                                               (100, 20, "tail"), (128, 0, "late")])
+def test_flash_attention_decode_chunk_warps_and_one_launch(dev, Skv, window, layout):
+    """One chunk: four warps on fixed quarters of its keys (some with no
+    valid key: Skv = 40 fills one and a part, a window of 20 leaves the
+    first quarters empty), merged in warp order and written by the chunk's
+    own launch. The counter records one kernel launch, and the bits (out
+    and lse) equal those of the same keys with 333 empty (-1) slots
+    appended, which run as chunks and the merge launch."""
+    hd, nq, nkv = 128, 14, 14
+    q, k, v, q_pos, kv_pos = _flash_inputs(dev, torch.bfloat16, 3, 1, Skv, nq, nkv, hd, layout,
+                                           seed=8)
+    scale = hd ** -0.5
+    plan = FA.flash_plan(3, 1, Skv, nq, nkv, hd, torch.bfloat16)
+    assert plan.path == "decode" and plan.n_splits == 1 and not plan.merge
+    build.reset_counters()
+    out, lse = FA._flash_launch(q, k, v, q_pos, kv_pos, True, window, scale, True)
+    torch.cuda.synchronize()
+    assert FA.FLASH_ATTENTION.by_call == {("decode", 3, 1, Skv, nq, nkv, hd, 1): 1}
+    want, want_l = FA._flash_plain(q, k, v, q_pos, kv_pos, True, window, scale)
+    torch.testing.assert_close(out.float(), want.float(), **TOL[torch.bfloat16])
+    torch.testing.assert_close(lse, want_l, atol=1e-4, rtol=0.0)
+    extra = 333
+    assert FA.flash_plan(3, 1, Skv + extra, nq, nkv, hd, torch.bfloat16).merge
+    pad = lambda t, val: torch.cat(  # noqa: E731
+        [t, torch.full((3, extra) + t.shape[2:], val, dtype=t.dtype, device=dev)], dim=1)
+    out2, lse2 = FA._flash_launch(q, pad(k, 0), pad(v, 0), q_pos, pad(kv_pos, -1), True, window,
+                                  scale, True)
+    assert torch.equal(out2, out) and torch.equal(lse2, lse)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -255,25 +315,30 @@ def _eager_and_replayed(fn):
     return want, got
 
 
-def test_flash_attention_decode_replays_in_a_cuda_graph(dev):
-    """The decode path's two kernels and its scratch allocation capture into
-    a CUDA graph, and a replay gives the eager call's bits."""
-    q, k, v, q_pos, kv_pos = _flash_inputs(dev, torch.bfloat16, 8, 1, 1056, 14, 14, 128, "ring")
+@pytest.mark.parametrize("B,Skv", [(8, 1056), (1, 128)])
+def test_flash_attention_decode_replays_in_a_cuda_graph(dev, B, Skv):
+    """The decode path captures into a CUDA graph (over many chunks its two
+    kernels and the scratch allocation; in one chunk its one kernel), and a
+    replay gives the eager call's bits."""
+    q, k, v, q_pos, kv_pos = _flash_inputs(dev, torch.bfloat16, B, 1, Skv, 14, 14, 128, "ring")
     want, got = _eager_and_replayed(lambda: FA.flash_attention(q, k, v, q_pos, kv_pos))
     assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("B,Sq,Skv,hd,needs_grad", [(2, 65, 1000, 128, False),
                                                      (2, 300, 300, 64, True),
-                                                     (4, 2048, 2048, 128, True)])
+                                                     (4, 2048, 2048, 128, True),
+                                                     (2, 65, 300, 256, True)])
 def test_flash_attention_tile_path_replays_in_a_cuda_graph(dev, B, Sq, Skv, hd, needs_grad):
-    """The tile path captures into a CUDA graph through the public wrapper,
-    also as training calls it (inputs that need a gradient: the kernel
-    writes the lse the Function saves), and a replay gives the eager
-    call's bits, out and lse."""
+    """Both tile paths (wgmma: its tensor maps are kernel parameters, so the
+    captured launch keeps its own; mma.sync at head dim 256) capture into
+    a CUDA graph through the public wrapper, also as training calls it
+    (inputs that need a gradient: the kernel writes the lse the Function
+    saves), and a replay gives the eager call's bits, out and lse."""
     q, k, v, q_pos, kv_pos = _flash_inputs(dev, torch.bfloat16, B, Sq, Skv, 4, 4, hd, "tail")
     q, k, v = (t.requires_grad_(needs_grad) for t in (q, k, v))
-    assert FA.flash_plan(B, Sq, Skv, 4, 4, hd, torch.bfloat16).path == "tile"
+    assert FA.flash_plan(B, Sq, Skv, 4, 4, hd, torch.bfloat16).path == (
+        "mma_sync" if hd == 256 else "wgmma")
     (want, want_l), (got, got_l) = _eager_and_replayed(
         lambda: flash_call(FA, q, k, v, q_pos, kv_pos))
     assert torch.equal(got, want)
@@ -620,11 +685,20 @@ def test_paged_scatter_rows_in_place_bitwise(dev, dtype, N, p, F, B, P):
 
 @pytest.mark.parametrize("dtype", PAGED_DTYPES)
 @pytest.mark.parametrize("N,p,F,B,P,S,C", [(530, 16, 1792, 8, 66, 3, 256), (530, 16, 1, 8, 66, 3, 256),
+                                           # W = 7432 narrow rows (slot 0's 7424 prefill rows
+                                           # need 464 of its pages)
+                                           (3800, 16, 1, 8, 470, 29, 256),
                                            (23, 4, 5, 3, 6, 2, 8)])
-def test_ragged_paged_scatter_rows_in_place_bitwise(dev, dtype, N, p, F, B, P, S, C):
+@pytest.mark.parametrize("offset", [0, 1])
+def test_ragged_paged_scatter_rows_in_place_bitwise(dev, dtype, N, p, F, B, P, S, C, offset):
+    """The flat grid at every vector width (rows one element off an aligned
+    base: 4-byte or 1-byte vectors), bitwise, writing no row outside its
+    targets; the launch counter records the plan's width by call."""
     g, pages, table = _paged_inputs(dev, dtype, N, p, F, B, P, 13)
     W = B + S * C
     rows = (torch.randn(W, F, generator=g, device=dev) * 8).to(dtype)
+    if offset:  # the same rows in a view one element past an aligned base
+        rows = torch.cat([rows.new_zeros(offset), rows.flatten()])[offset:].view(W, F)
     # decode rows at distinct positions, then S segments of C tokens of
     # slot 0 after them; invalid rows (odd decode slots, segment tails) go
     # to the scratch page
@@ -639,7 +713,9 @@ def test_ragged_paged_scatter_rows_in_place_bitwise(dev, dtype, N, p, F, B, P, S
     build.reset_counters()
     KRG.ragged_paged_scatter_rows(pages, pid, off, rows)
     torch.cuda.synchronize()
-    assert build.launch_counts()["ragged_paged_scatter_rows"] == 1
+    row_bytes = F * pages.element_size()
+    plan = KRG.scatter_plan(N, W, p, row_bytes, pages.data_ptr(), rows.data_ptr())
+    assert KRG.RAGGED_PAGED_SCATTER_ROWS.by_call == {(plan.vec, W, row_bytes): 1}
     keep = torch.ones(N, dtype=torch.bool, device=dev)
     keep[1] = False  # collisions on the scratch page are garbage by contract
     assert torch.equal(pages[keep], want[keep])

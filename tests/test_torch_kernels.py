@@ -17,8 +17,10 @@ tests hold that version against the JAX function on the same inputs:
 The CUDA kernels themselves run only on a GPU: tests/test_torch_gpu.py
 holds each against its plain version there and skips elsewhere. What the
 flash wrapper decides before a launch is tested here: ``flash_plan``'s
-path (a function of the dtype, Sq and nq/nkv alone), its decode splits at
-fixed key indices and its scratch shapes, and that shapes the kernel does
+path and key split (a function of the dtype, Sq, nq/nkv and the head dim
+alone), its decode splits at fixed key indices, the merge launch and its
+scratch only past one chunk, that the C entry point gets that plan and
+the launch counter records it by call, and that shapes the kernel does
 not take raise before anything is built.
 """
 import dataclasses
@@ -200,30 +202,106 @@ def test_flash_call_reads_the_lse_the_function_saves():
 @pytest.mark.parametrize("hd", [32, 64, 128, 256])
 def test_flash_decode_splits_fall_at_fixed_key_indices(hd):
     """The decode path splits the keys into chunks of a fixed number of key
-    indices, a multiple of the key tile, whatever Skv is; one scratch row
-    of partial (m, l, acc) per (batch row, kv head, split, tile row)."""
+    indices, a multiple of the key tile, whatever Skv is, and each chunk
+    into DECODE_WARPS fixed quarters, one per warp; past one chunk a second
+    launch merges one scratch row of partial (m, l, acc) per (batch row, kv
+    head, split, tile row), and a row whose keys fit one chunk is written
+    by the chunk's own launch (no merge, no scratch)."""
     chunk = TFA.decode_chunk(hd)
     assert chunk % TFA.key_tile(hd) == 0
     for Skv in (1, chunk - 1, chunk, chunk + 1, 1056, 4097):
         plan = TFA.flash_plan(3, 2, Skv, 14, 2, hd, torch.bfloat16)
         assert plan.path == "decode" and plan.chunk == chunk
+        assert (plan.key_split, plan.key_tile) == (TFA.DECODE_WARPS, chunk // TFA.DECODE_WARPS)
         bounds = [i * plan.chunk for i in range(plan.n_splits)]
         assert bounds[-1] < Skv <= bounds[-1] + chunk  # the chunks cover the keys, none empty
-        assert plan.scratch == ((3, 2, plan.n_splits, 14),) * 2 + ((3, 2, plan.n_splits, 14, hd),)
+        assert plan.merge == (plan.n_splits > 1) and plan.kernels == 1 + plan.merge
+        if plan.merge:
+            assert plan.scratch == ((3, 2, plan.n_splits, 14),) * 2 + (
+                (3, 2, plan.n_splits, 14, hd),)
+        else:
+            assert plan.n_splits == 1 and plan.scratch == ()
+
+
+def _tile_path(hd):
+    return "wgmma" if hd in TFA.WGMMA_HEAD_DIMS else "mma_sync"
 
 
 def test_flash_path_depends_only_on_sq_and_group():
     """bf16: the decode path exactly when Sq * nq/nkv rows fit one 16-row mma
-    tile, else the tile path; f32: its own kernel. Never a function of Skv,
-    B or the head dim."""
+    tile, else a tile path by head dim (wgmma for 64 and 128, mma.sync for
+    32 and 256); f32: its own kernel. The path and its key split are never
+    a function of Skv or B."""
     for Sq in (1, 2, 3, 8, 9, 15, 16, 17, 65, 300):
         for nq, nkv in ((14, 14), (8, 4), (14, 2), (4, 1)):
-            paths = {TFA.flash_plan(B, Sq, Skv, nq, nkv, hd, torch.bfloat16).path
-                     for B in (1, 8) for Skv in (1, 50, 1056, 5000) for hd in (32, 128, 256)}
-            assert paths == {"decode" if Sq * (nq // nkv) <= TFA.DECODE_ROWS else "tile"}
+            for hd in (32, 64, 128, 256):
+                plans = {TFA.flash_plan(B, Sq, Skv, nq, nkv, hd, torch.bfloat16)[:3]
+                         for B in (1, 8) for Skv in (1, 50, 1056, 5000)}
+                path = "decode" if Sq * (nq // nkv) <= TFA.DECODE_ROWS else _tile_path(hd)
+                assert {plan[0] for plan in plans} == {path} and len(plans) == 1
             assert TFA.flash_plan(2, Sq, 99, nq, nkv, 64, torch.float32).path == "f32"
     assert TFA.flash_plan(8, 1, 1056, 14, 14, 128, torch.bfloat16).path == "decode"
-    assert TFA.flash_plan(1, 1000, 1000, 14, 14, 128, torch.bfloat16).path == "tile"
+    assert TFA.flash_plan(1, 1000, 1000, 14, 14, 128, torch.bfloat16).path == "wgmma"
+
+
+@pytest.mark.parametrize("hd,path,key_tile,key_split", [
+    (32, "mma_sync", 64, 1),  # 64-byte rows: half a 128-byte swizzle atom
+    (64, "wgmma", 128, 2),
+    (128, "wgmma", 128, 2),  # mod-paper-1b
+    (256, "mma_sync", 32, 1),  # O and S do not fit a consumer's registers
+])
+def test_flash_tile_path_by_head_dim(hd, path, key_tile, key_split):
+    """The tile paths: wgmma takes head dims 64 and 128, with two consumer
+    warpgroups splitting a query tile's key tiles by parity; the others go
+    to the mma.sync tiles, unsplit. Neither merges through scratch."""
+    plan = TFA.flash_plan(4, 2048, 2048, 14, 14, hd, torch.bfloat16)
+    assert (plan.path, plan.key_tile, plan.key_split) == (path, key_tile, key_split)
+    assert (plan.chunk, plan.n_splits, plan.merge, plan.scratch, plan.kernels) == (0, 0, False,
+                                                                                   (), 1)
+
+
+class _FakeEntry:
+    """Stands in for the C entry point: records its arguments, returns 0."""
+
+    def __init__(self):
+        self.args = None
+
+    def __call__(self, *args):
+        self.args = args
+        return 0
+
+
+@pytest.mark.parametrize("B,Sq,Skv,nq,nkv,hd,dtype", [
+    (1, 1, 128, 14, 14, 128, torch.bfloat16),  # decode in one chunk: one launch
+    (8, 1, 1056, 14, 14, 128, torch.bfloat16),  # decode over 9 chunks: chunks + merge
+    (1, 1000, 1000, 14, 14, 128, torch.bfloat16),  # wgmma
+    (2, 65, 65, 4, 4, 256, torch.bfloat16),  # mma.sync
+    (2, 9, 9, 4, 4, 64, torch.float32),
+])
+def test_flash_passes_its_plan_to_the_entry_point(monkeypatch, B, Sq, Skv, nq, nkv, hd, dtype):
+    """The plan flash_plan made is what the C entry point gets (path code,
+    key tile, split, chunk, chunk count, merge, and scratch only when it
+    merges), and the launch counter records it by call with the call's
+    kernel launches."""
+    entry = _FakeEntry()
+    monkeypatch.setattr(build, "bind", lambda *a: entry)
+    monkeypatch.setattr(build, "check", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: type("S", (), {"cuda_stream": 0}))
+    q = torch.zeros(B, Sq, nq, hd, dtype=dtype)
+    kv = torch.zeros(B, Skv, nkv, hd, dtype=dtype)
+    pos = torch.zeros(B, Sq, dtype=torch.int32)
+    kpos = torch.zeros(B, Skv, dtype=torch.int32)
+    build.reset_counters()
+    TFA._flash_launch(q, kv, kv, pos, kpos, True, 0, 1.0, False)
+    plan = TFA.flash_plan(B, Sq, Skv, nq, nkv, hd, dtype)
+    # (q, k, v, q_pos, kv_pos, out, lse, part_m, part_l, part_acc, B, Sq, Skv, nq, nkv, hd,
+    #  dtype, path, key_tile, key_split, chunk, n_splits, merge, scale, causal, window, stream)
+    assert entry.args[10:23] == (B, Sq, Skv, nq, nkv, hd, TFA._DTYPES[dtype],
+                                 TFA._PATHS[plan.path], plan.key_tile, plan.key_split,
+                                 plan.chunk, plan.n_splits, int(plan.merge))
+    assert all(a is None for a in entry.args[7:10]) == (not plan.merge)
+    assert TFA.FLASH_ATTENTION.by_call == {(plan.path, B, Sq, Skv, nq, nkv, hd, plan.kernels): 1}
+    build.reset_counters()
 
 
 @pytest.mark.parametrize("shape,dtype,err", [

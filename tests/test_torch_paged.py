@@ -312,6 +312,83 @@ def test_gather_passes_its_plan_to_the_entry_point(monkeypatch, dtype, F, offset
 
 
 # ---------------------------------------------------------------------------
+# scatter_plan: the ragged write-back's flat grid, before launch
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("row_bytes,pages_base,rows_base,vec", [
+    (1792 * 2, 0, 0, 16),  # mod-paper-1b's bf16 K/V rows
+    (4, 0, 0, 4),  # its int32 position rows: 4 bytes
+    (1792 * 2, 0, 4, 4),  # rows 4 bytes off 16
+    (1792 * 2, 8, 0, 4),  # pages 8 bytes off 16
+    (13 * 2, 0, 0, 1),  # a bf16 row of 26 bytes: not a multiple of 4
+    (1792 * 2, 0, 2, 1),  # bf16 rows 2 bytes off 16
+    (7, 16, 16, 1),
+])
+def test_scatter_plan_takes_the_widest_vector_that_divides_row_and_bases(row_bytes, pages_base,
+                                                                         rows_base, vec):
+    assert KRG.scatter_plan(498, 7432, 16, row_bytes, pages_base, rows_base).vec == vec
+
+
+@pytest.mark.parametrize("W,row_bytes,unroll,blocks", [
+    (7432, 4, 1, 30),  # the ragged run's first step, position leaf: 30 blocks, not 7432
+    (7432, 1792 * 2, 4, 1626),  # its K/V leaf: more vectors than the card's threads
+    (8, 1792 * 2, 1, 7),  # a decode-only step's K/V leaf
+    (8, 4, 1, 1),
+    (3, 26, 1, 1),  # 78 vectors of 1 byte
+    (0, 4, 1, 0),
+])
+def test_scatter_plan_covers_the_rows_with_whole_blocks(W, row_bytes, unroll, blocks):
+    plan = KRG.scatter_plan(498, W, 16, row_bytes, 0, 0)
+    per_block = KP.GATHER_THREADS * plan.unroll
+    assert (plan.unroll, plan.blocks) == (unroll, blocks)
+    assert (blocks - 1) * per_block < W * row_bytes // plan.vec <= blocks * per_block
+    assert not plan.wide
+
+
+def test_scatter_plan_widens_indices_past_32_bits():
+    # rows of 2^12 vectors of 16 bytes: 2^20 - 1 of them stay under 2^32
+    # vectors, 2^20 reach it
+    assert not KRG.scatter_plan(1, 2 ** 20 - 1, 1, 2 ** 16, 0, 0).wide
+    assert KRG.scatter_plan(1, 2 ** 20, 1, 2 ** 16, 0, 0).wide
+
+
+@pytest.mark.parametrize("N,W,p,row_bytes", [(0, 1, 16, 4), (4, 1, 0, 4), (4, 1, 16, 0),
+                                             (4, -1, 16, 4), (4, 2 ** 30, 16, 2 ** 20 + 1)])
+def test_scatter_plan_raises_for_what_the_kernel_does_not_take(N, W, p, row_bytes):
+    with pytest.raises(ValueError):
+        KRG.scatter_plan(N, W, p, row_bytes, 0, 0)
+
+
+@pytest.mark.parametrize("dtype,F,offset,vec", [(torch.bfloat16, 8, 0, 16),
+                                                (torch.bfloat16, 8, 1, 1),
+                                                (torch.float32, 8, 1, 4),
+                                                (torch.int32, 1, 0, 4)])
+def test_ragged_scatter_passes_its_plan_to_the_entry_point(monkeypatch, dtype, F, offset, vec):
+    """The plan scatter_plan made for the page tensor's and the rows' own
+    bases (an offset view of the rows keeps its base) is what the C entry
+    point gets, and the launch counter records it by call."""
+    entry = _FakeEntry()
+    monkeypatch.setattr(KRG.build, "bind", lambda *a: entry)
+    monkeypatch.setattr(KRG.build, "check", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: type("S", (), {"cuda_stream": 0}))
+    N, p, W = 6, 4, 5
+    pages = torch.zeros(N, p, F, dtype=dtype)
+    rows = torch.zeros(offset + W * F, dtype=dtype)[offset:].view(W, F)
+    pid = torch.zeros(W, dtype=torch.int32)
+    off = torch.arange(W, dtype=torch.int32) % p
+    KP.build.reset_counters()
+    KRG._scatter_launch(pages, pid, off, rows)
+    row_bytes = F * pages.element_size()
+    plan = KRG.scatter_plan(N, W, p, row_bytes, pages.data_ptr(), rows.data_ptr())
+    assert plan.vec == vec
+    # (pages, pid, off, rows, N, W, p, row_bytes, vec, unroll, wide, blocks, stream)
+    assert entry.args[4:12] == (N, W, p, row_bytes, vec, plan.unroll, 0, plan.blocks)
+    assert KRG.RAGGED_PAGED_SCATTER_ROWS.by_call == {(vec, W, row_bytes): 1}
+    KP.build.reset_counters()
+
+
+# ---------------------------------------------------------------------------
 # Pool accounting (host-side, no model): mirrors tests/test_paged.py
 # ---------------------------------------------------------------------------
 
