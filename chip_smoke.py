@@ -5,6 +5,8 @@
     python3 chip_smoke.py --flash-timing [ROOT]   # flash alone, ROOT's port
     python3 chip_smoke.py --mlp-losses            # phase 5's losses per routed-kernel path
     python3 chip_smoke.py --routed-paged-timing [ROOT]  # routed_attention, paged_gather alone
+    python3 chip_smoke.py --train-runs [ROOT]     # phases 5 and 9c training alone, ROOT's port
+    python3 chip_smoke.py --ssm-losses            # phase 9c's losses per SSD path and SiLU
 
 Imports nothing of JAX or of the JAX package. Builds the port's CUDA
 kernels from ``src/repro_torch/kernels/csrc`` and runs, in order (any
@@ -32,8 +34,9 @@ failure raises and exits non-zero):
    the three paged-pool kernels (page gather, decode-row scatter, ragged
    write-back) at the shapes of phase 6c and odd tails, bitwise, with the
    in-place scatters held to their target rows and the flat grids' plans
-   (vector width, blocks) of the gather and the write-back on their lines
-   (the write-back also with rows 4 bytes off an aligned base);
+   (vector width, blocks) of all three on their lines (both scatters also
+   with rows 4 bytes off an aligned base; the decode-row scatter also with
+   positions and table entries out of range, which it clamps);
    the dequantizing page gather (int8/page and fp8/head pages widened to
    bf16 at phase 7b's shapes) and the ragged MoD gather/scatter (phase
    8b's flat streams), bitwise, after the card's int8/e4m3 casts and pow2
@@ -82,12 +85,16 @@ failure raises and exits non-zero):
    scatters per forward;
 9. the Mamba2 family (``mamba2-1.3b``): (a) the SSD intra-chunk kernel
    against its plain version at the training forward's shapes (full
-   blocks NC=16, routed blocks NC=2, in the model's strided layout) and an
-   odd small one, f32 and bf16 inputs, mamba2's A and dt (the decay's
-   overflow region present), with times and bound, and its gradient at the
-   routed shape; (b) the port against itself across devices at full width
-   and 4 layers in f32: forward (B=2, S=256), one Trainer step, 16 decode
-   steps and the stepped engine's streams; (c) training at full width and
+   blocks NC=16, routed blocks NC=2, in the model's strided layout) and two
+   odd small ones, f32 and bf16 inputs, mamba2's A and dt (the decay's
+   overflow region present), each on the path ``ssd_plan`` picks (bf16
+   with widths in multiples of 16 on tensor cores, HMMA asserted in its
+   SASS; the rest on CUDA cores), with times and bound, an A/B of the two
+   paths at the full shape in bf16, its gradient at the routed shape and
+   its backward's time at the full shape; (b) the port against itself
+   across devices at full width and 4 layers in f32: forward (B=2,
+   S=256), one Trainer step, 16 decode steps and the stepped engine's
+   streams; (c) training at full width and
    depth, bf16, B=4, S=2048, remat "full", 5 Trainer steps, profiled, with
    the SSD, gather and scatter launches of this phase alone; (d) stepped
    serving, 8 slots, 16 greedy requests, prompts of 32-128 tokens, 16 new
@@ -123,6 +130,14 @@ paged_gather (phase 2's four shapes on phase 6c's tables) of the port
 under ROOT beside their plain versions and index_select, three readings
 each in turns: run it on a parent tree and this one in one call to
 compare two versions of the kernels.
+``--train-runs [ROOT]`` only runs phase 5's and phase 9c's training on the
+port under ROOT (default: this checkout), with their losses, busy time and
+kernel groups per step: run it on a parent tree and this one in one call
+to compare them on one card.
+``--ssm-losses`` only runs phase 9c's training four times: as the port
+runs it, with the SSD kernel forced onto its CUDA-core path, as its plain
+version, and on the CUDA-core path with ``F.silu`` in the SSM blocks, and
+prints the four loss trajectories.
 ``--mlp-losses`` only runs phase 5's training four times, with
 routed_mlp_scatter on the wgmma GEMM, on the CUDA-core GEMM and as its
 plain version, and with routed_attention as its plain version, and prints
@@ -717,9 +732,10 @@ def _w(g, dev, dtype, *shape):
 
 def routed_paged_timing(root: Path, reads: int = 3) -> None:
     """``--routed-paged-timing [ROOT]``: routed_attention in bf16 at phase
-    2's mod-paper-1b training shape, and paged_gather at phase 2's four
-    shapes on phase 6c's tables (the same seeds as check_fused and
-    check_paged: K/V and int32 position pages, B=8 then B=1), of the port
+    2's mod-paper-1b training shape, and paged_scatter_rows (B=8) and
+    paged_gather (B=8, then B=1) at phase 2's shapes on phase 6c's tables
+    (the same seeds as check_fused and check_paged: K/V and int32 position
+    pages), of the port
     under ``ROOT/src`` (default: this checkout), each beside its plain
     version and, for the gather, ``index_select``: ``reads`` CUDA-graph
     replays of each, in turns. Run on a parent tree and this one in one
@@ -772,8 +788,15 @@ def routed_paged_timing(root: Path, reads: int = 3) -> None:
     g = torch.Generator(device=dev).manual_seed(7)
     for label, dt, F in (("kv", torch.bfloat16, cfg.attn.n_kv_heads * cfg.head_dim),
                          ("pos", torch.int32, 1)):
-        pages, table, *_ = _paged_inputs(g, dev, dt, F, lens, w["gen"], ctx // w["page"],
-                                         w["page"], w["chunk"])
+        pages, table, rows, pos, _ = _paged_inputs(g, dev, dt, F, lens, w["gen"],
+                                                   ctx // w["page"], w["page"], w["chunk"])
+        p_, N, B = w["page"], pages.shape[0], table.shape[0]
+        fi = (table.long()[torch.arange(B, device=dev), pos.long() // p_] * p_
+              + pos.long() % p_)
+        flat = pages.view(N * p_, F)
+        log(f"[routed-paged-timing] {name}: paged_scatter_rows {label} B={B}: " + readings(
+            {"kernel": lambda: KP.paged_scatter_rows(pages, table, rows, pos),
+             "index_copy_": lambda: flat.index_copy_(0, fi, rows)}))
         for Bg in (table.shape[0], 1):
             t = table[:Bg].contiguous()
             if not torch.equal(KP.paged_gather(pages, t), KP.paged_gather_plain(pages, t)):
@@ -1030,6 +1053,35 @@ def check_paged(cfg, dev, results):
         tgt = table.long()[torch.arange(B, device=dev), pos.long() // p_] * p_ + pos.long() % p_
         if not torch.equal(pages, want) or not _changed_rows(pages, before) <= set(tgt.tolist()):
             raise AssertionError(f"paged_scatter_rows wrong or wrote outside its rows ({label})")
+        # the clamps, at B and at one slot: positions below 0 and past P·p,
+        # table entries below 0 and past N (the clamped targets: page 0 at
+        # offset 0, page N-1 at offset p-1); rows 4 bytes off a 16-byte base
+        row_bytes = F * es
+        for Bc in (B, 1):
+            t, ps, rw = table[:Bc].clone(), pos[:Bc].clone(), rows[:Bc]
+            ps[0] = -5
+            t[0, 0] = -3
+            if Bc > 1:
+                ps[-1], t[-1, -1] = P * p_ + 7, N + 9
+                tt = ps.long().clamp(0, P * p_ - 1)
+                hit = (t.long()[torch.arange(Bc, device=dev), tt // p_].clamp(0, N - 1) * p_
+                       + tt % p_).tolist()
+                if len(set(hit)) < Bc:  # page N-1's last row is another slot's target:
+                    t[-1, -1] = -3  # page 0's last row instead, which no table maps
+            variants = [("", rw)]
+            if row_bytes % 16 == 0:
+                variants.append((" rows 4 bytes off 16", torch.cat(
+                    [rw.new_zeros(4 // es), rw.flatten()])[4 // es:].view(Bc, F)))
+            for suffix, r_ in variants:
+                want = KP.paged_scatter_rows_plain(pages.clone(), t, r_, ps)
+                KP.paged_scatter_rows(pages, t, r_, ps)
+                plan = KP.scatter_rows_plan(N, Bc, P, p_, row_bytes, pages.data_ptr(),
+                                            r_.data_ptr())
+                calls = build.COUNTERS["paged_scatter_rows"].by_call
+                if not torch.equal(pages, want) or (plan.vec, Bc, row_bytes) not in calls:
+                    raise AssertionError(f"paged_scatter_rows with out-of-range positions and "
+                                         f"table entries differs from its plain version or "
+                                         f"missed its plan {plan} ({label} B={Bc}{suffix})")
         keep = torch.ones(N, dtype=torch.bool, device=dev)
         keep[SCRATCH_PAGE] = False  # rows colliding on the scratch page are garbage by contract
         for W, (pid, off, wrows, _) in ragged.items():
@@ -1066,12 +1118,20 @@ def check_paged(cfg, dev, results):
                 nbytes=(Bg * P + reads) * p_ * F * es + 4 * Bg * P, shape=f"{shape} B={Bg}",
                 plan=gplan)
         # the rows read and written, the B positions and the B table
-        # entries the kernel loads
-        timed[("paged_scatter_rows", f"{label} B={B}")] = dict(
-            fn=lambda: KP.paged_scatter_rows(pages, table, rows, pos),
-            plain=lambda: KP.paged_scatter_rows_plain(pages, table, rows, pos),
-            library=lambda: flat.index_copy_(0, fi, rows),
-            nbytes=2 * B * F * es + 4 * B + 4 * B, shape=f"{shape} B={B}")
+        # entries the kernel loads; K/V also from rows 4 bytes off a 16-byte
+        # base (4-byte vectors; phase 6c's rows are aligned)
+        svariants = [("", rows)]
+        if label == "kv":
+            svariants.append((" rows 4 bytes off 16",
+                              torch.cat([rows.new_zeros(2), rows.flatten()])[2:].view(B, F)))
+        for suffix, rw in svariants:
+            timed[("paged_scatter_rows", f"{label} B={B}{suffix}")] = dict(
+                fn=lambda rw=rw: KP.paged_scatter_rows(pages, table, rw, pos),
+                plain=lambda rw=rw: KP.paged_scatter_rows_plain(pages, table, rw, pos),
+                library=lambda rw=rw: flat.index_copy_(0, fi, rw),
+                nbytes=2 * B * F * es + 4 * B + 4 * B, shape=f"{shape} B={B}{suffix}",
+                plan=KP.scatter_rows_plan(N, B, P, p_, F * es, pages.data_ptr(), rw.data_ptr()),
+                off_path=bool(suffix))
         for W, (pid, off, wrows, n_valid) in ragged.items():
             wfi = (pid.long() * p_ + off.long()).contiguous()
             variants = [("", wrows)]
@@ -1705,7 +1765,7 @@ def _kernel_group(name: str) -> str:
     several __global__ functions each), else the kind of library kernel."""
     if "flash_fwd" in name:
         return "flash_attention"
-    if "ssd_intra_kernel" in name:
+    if "ssd_intra" in name:  # ssd_intra_kernel (CUDA cores), ssd_intra_tc_kernel
         return "ssd_intra_chunk"
     if any(t in name for t in ("routed_attn_", "rope_kernel", "EpiAttn")):
         return "routed_attention"
@@ -1725,6 +1785,10 @@ def _kernel_group(name: str) -> str:
 
 
 TRAIN_1B = dict(B=4, S=2048, steps=5)  # phase 5's run
+# its losses at steps 1-2 on an H100 (PRs 18-20); three f32 sum orders of
+# one function spread 5 bf16 steps by 1.7% (--mlp-losses), so only steps
+# 1-2 are held, within 0.05%
+PHASE5_LOSSES = (11.7684, 11.7565)
 
 
 def trainer_1b(dev, ckdir):
@@ -1764,7 +1828,7 @@ def train_1b(dev):
 
         torch.cuda.reset_peak_memory_stats()
         build.reset_counters()
-        losses = []
+        losses, busies = [], []
         for i in range(steps):
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 state, m = trainer.run(state, 1)
@@ -1779,6 +1843,7 @@ def train_1b(dev):
                 groups[_kernel_group(n)] = groups.get(_kernel_group(n), 0.0) + t
             top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
             losses.append(m["loss"])
+            busies.append(busy)
             log(f"[train] step {i + 1}: loss {m['loss']:.4f} ce {m['ce']:.4f} grad norm "
                 f"{m['grad_norm']:.3f} lr {m['lr']:.3g}; wall {wall:.1f} ms, device busy "
                 f"{busy:.1f} ms, idle share {1 - busy / wall:.3f}")
@@ -1816,7 +1881,13 @@ def train_1b(dev):
         "core on tensor cores in bf16): " + "; ".join(
             f"{key[0]} at B={key[1]} S={key[2]} k={key[3]} D={key[4]} {key[5]}x{key[7]} heads "
             f"(kv {key[6]}): {n}" for key, n in attn_calls.items()))
-    return counts, flash, mlp_calls, attn_calls
+    log(f"[train] losses {', '.join(f'{x:.4f}' for x in losses)}; steps 1-2 against PR 20's "
+        f"{PHASE5_LOSSES[0]}, {PHASE5_LOSSES[1]}: "
+        f"{', '.join(f'{(x / w - 1) * 100:+.3f}%' for x, w in zip(losses, PHASE5_LOSSES))}; "
+        f"device busy {', '.join(f'{b:.1f}' for b in busies)} ms")
+    if any(abs(x / w - 1) > 5e-4 for x, w in zip(losses, PHASE5_LOSSES)):
+        raise AssertionError(f"phase 5 losses {losses[:2]} not within 0.05% of {PHASE5_LOSSES}")
+    return counts, flash, mlp_calls, attn_calls, dict(losses=losses, busy=busies)
 
 
 def mlp_path_losses() -> None:
@@ -1866,6 +1937,83 @@ def mlp_path_losses() -> None:
             f"launches {calls} ({smi_line()})")
         del trainer, state
         torch.cuda.empty_cache()
+
+
+def ssm_path_losses() -> None:
+    """``--ssm-losses``: phase 9c's training run (mamba2-1.3b, bf16, B=4
+    S=2048, 5 steps, the same seed and data) four times: as the port runs
+    it (the SSD kernel on tensor cores, the mirrored SiLU), with the SSD
+    kernel forced onto its CUDA-core path, with the SSD function as its
+    plain version (torch ops), and with the CUDA-core path and ``F.silu``
+    (one rounding) in the SSM blocks, as the port ran before either change:
+    the losses of each step, so that a change of 9c's loss can be put down
+    to SiLU's rounding or to the SSD sum order, and the spread of three
+    f32 sum orders of one function seen."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import ssd as KSSD
+    from repro_torch.models import ssm as SSM
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as main() sets them
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    launch, silu = KSSD._launch, SSM.silu
+    cuda = lambda *a: launch(*a[:5], "cuda")  # noqa: E731
+    plain = lambda *a: KSSD.ssd_intra_chunk_plain(*a[:5])  # noqa: E731
+    variants = {"port (SSD tensor cores, mirrored SiLU)": {},
+                "SSD forced to CUDA cores": {(KSSD, "_launch"): cuda},
+                "SSD as its plain version": {(KSSD, "_launch"): plain},
+                "SSD on CUDA cores and F.silu": {(KSSD, "_launch"): cuda,
+                                                 (SSM, "silu"): torch.nn.functional.silu}}
+    for name, patch in variants.items():
+        for (mod, attr), fn in patch.items():
+            setattr(mod, attr, fn)
+        build.reset_counters()
+        try:
+            with tempfile.TemporaryDirectory() as ckdir:
+                trainer = trainer_ssm(dev, ckdir)
+                state = trainer.init_or_resume()
+                losses = []
+                for _ in range(TRAIN_SSM["steps"]):
+                    state, m = trainer.run(state, 1)
+                    losses.append(m["loss"])
+        finally:
+            KSSD._launch, SSM.silu = launch, silu
+        calls = sorted({k[0] for k in build.COUNTERS["ssd_intra_chunk"].by_call})
+        log(f"[ssm-losses] {name}: losses {', '.join(f'{v:.4f}' for v in losses)}; SSD paths "
+            f"{calls} ({smi_line()})")
+        del trainer, state
+        torch.cuda.empty_cache()
+
+
+def train_runs(root: Path) -> int:
+    """``--train-runs [ROOT]``: phase 5 (mod-paper-1b, pallas_fused) and
+    phase 9c (mamba2-1.3b) training on the port under ``ROOT/src`` (default:
+    this checkout), each with its per-step losses, device busy time and
+    kernel groups. Run on a parent tree and this one in one call, in turns,
+    to compare losses and busy time of two versions on one card. Returns 1
+    if a run failed its checks (both runs are made)."""
+    sys.path.insert(0, str(root / "src"))
+    from repro_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as main() sets them
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    build.build_all()
+    name, failed = root.name or str(root), False
+    for label, fn in (("phase 5", train_1b), ("phase 9c", train_ssm)):
+        try:
+            info = fn(dev)[-1]
+        except AssertionError as err:
+            log(f"[train-runs] {name}: {label} failed: {err}")
+            failed = True
+            continue
+        finally:
+            torch.cuda.empty_cache()
+        log(f"[train-runs] {name}: {label} losses {', '.join(f'{x:.4f}' for x in info['losses'])}; "
+            f"busy {', '.join(f'{b:.1f}' for b in info['busy'])} ms"
+            + (f"; ssd_intra_chunk group {', '.join(f'{t:.1f}' for t in info['ssd_ms'])} ms"
+               if "ssd_ms" in info else "") + f" ({smi_line()})")
+    return int(failed)
 
 
 # ---------------------------------------------------------------------------
@@ -1990,7 +2138,8 @@ def serve_paged_1b(dev, params):
                 if busy <= 0.0:
                     continue
                 gat = sum(t for n, t in by_name.items() if "paged_gather_kernel" in n)
-                sca = sum(t for n, t in by_name.items() if "paged_scatter_rows_kernel" in n)
+                # the decode-row scatter: the flat scatter grid with its page-table target
+                sca = sum(t for n, t in by_name.items() if "PagedTarget" in n)
                 top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
                 prof_line = (f"[profile] paged decode step B=8 (step {at}): wall {wall:.2f} ms, device "
                              f"busy {busy:.2f} ms, idle share {1 - busy / wall:.3f}; paged_gather "
@@ -2524,11 +2673,12 @@ def forward_ragged_1b(dev, params):
 
 # 9a's shapes: (B, H, NC, Q, hd, ds) of mamba2-1.3b's training forward (full
 # blocks at S=2048, routed blocks at k=256) in the model's strided layout,
-# and an odd small one in the JAX layout
-# timings of the kernel at the full training shape, within one process
-SSD_REPS = 5
+# and two odd small ones in the JAX layout: the smoke chunk (bf16: tensor
+# cores) and widths that are not multiples of 16 (CUDA cores in bf16 too)
 SSD_SHAPES = {"train full": (4, 64, 16, 128, 64, 128), "train routed": (4, 64, 2, 128, 64, 128),
-              "odd": (1, 3, 2, 16, 32, 16)}
+              "odd": (1, 3, 2, 16, 32, 16), "odd widths": (2, 5, 3, 40, 8, 24)}
+# readings of each path in 9a's A/B at the full training shape (bf16)
+SSD_REPS = 3
 # kernel vs plain version, relative to the largest |value|: both compute in
 # f32 from the same widened inputs, but take the cumsum of loglam in
 # different orders, and each decay exp(l_i - l_j) carries that rounding
@@ -2568,46 +2718,75 @@ def ssd_work(B, H, NC, Q, hd, ds, x_bytes):
 
 def check_ssd(dev, results):
     """9a: the SSD intra-chunk kernel against its plain version at the
-    shapes of mamba2-1.3b's training forward, f32 and bf16 inputs, with its
-    times and bound (the full training shape timed five times: median and
-    spread); the wiring of its autograd Function at the routed shape (the
-    backward recomputes through the plain version, so this holds that each
-    input gets its own finite gradient, not the kernel)."""
+    shapes of mamba2-1.3b's training forward, bf16 and f32 inputs, each on
+    the path ssd_plan picks (bf16 with Q, hd, ds multiples of 16: tensor
+    cores; the rest: CUDA cores), recorded by call and held at SSD_TOL, with
+    its times and bound (bf16 inputs: the bf16 tensor rate; f32: the f32
+    CUDA-core rate); at the full training shape in bf16 an A/B of the two
+    paths (the CUDA-core path forced through the planner), three readings
+    each in turns; HMMA in the tensor-core kernel's SASS; the wiring of its
+    autograd Function at the routed shape (the backward recomputes through
+    the plain version, so this holds that each input gets its own finite
+    gradient, not the kernel), and the time of that backward at the full
+    shape."""
+    from repro_torch.kernels import build
     from repro_torch.kernels import ssd as KSSD
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    check_sass("ssd", "ssd_intra_tc_kernel", "HMMA", 1)
     results["ssd_intra_chunk"] = {}
     for name, shape in SSD_SHAPES.items():
         for dtype in (torch.bfloat16, torch.float32):
-            x, loglam, dt, Bm, Cm = _ssd_inputs(dev, dtype, *shape, 21, name != "odd")
+            x, loglam, dt, Bm, Cm = _ssd_inputs(dev, dtype, *shape, 21, name.startswith("train"))
+            plan = KSSD.ssd_plan(*shape, dtype, sms, KSSD.aligned_rows(x, Bm, Cm))
+            want_path = "tensor" if dtype == torch.bfloat16 and all(
+                n % 16 == 0 for n in shape[3:]) else "cuda"
+            build.reset_counters()
             y, inc = KSSD.ssd_intra_chunk(x, loglam, dt, Bm, Cm)
             torch.cuda.synchronize()
+            calls = dict(build.COUNTERS["ssd_intra_chunk"].by_call)
+            if plan.path != want_path or calls != {(plan.path, *shape): 1}:
+                raise AssertionError(f"ssd_intra_chunk {name} {dtype}: launched {calls} on plan "
+                                     f"{plan.path}, want the {want_path} path")
             wy, winc = KSSD.ssd_intra_chunk_plain(x, loglam, dt, Bm, Cm)
             lmax = torch.cumsum(loglam, -1).abs().max().item()
             tol = SSD_TOL + 2 * lmax * 2.0**-24
             errs = [((a - b).abs().max() / b.abs().max()).item() for a, b in ((y, wy), (inc, winc))]
             finite = bool(torch.isfinite(y).all() and torch.isfinite(inc).all())
             log(f"[kernels] ssd_intra_chunk {name} {tuple(x.shape)} ds={shape[5]} {dtype}: "
-                f"y / inc within {errs[0]:.3g} / {errs[1]:.3g} of their largest (limit {tol:.3g}, "
-                f"max|l| {lmax:.1f}); finite {finite}")
+                f"path {plan.path}, G={plan.G}, grid {plan.grid}, {plan.smem} bytes of shared "
+                f"memory: y / inc within {errs[0]:.3g} / {errs[1]:.3g} of their largest (limit "
+                f"{tol:.3g}, max|l| {lmax:.1f}); finite {finite}")
             if not finite or max(errs) > tol:
                 raise AssertionError(f"ssd_intra_chunk {name} {dtype} differs from its plain version")
             nbytes, flops = ssd_work(*shape, x.element_size())
             how: dict = {}
-            reps = sorted(replay_ms(lambda: KSSD.ssd_intra_chunk(x, loglam, dt, Bm, Cm), how, "ms")
-                          for _ in range(SSD_REPS if name == "train full" else 1))
-            if len(reps) > 1:
-                G = KSSD.head_group(*shape[:3], torch.cuda.get_device_properties(dev)
-                                    .multi_processor_count)
-                log(f"[kernels] ssd_intra_chunk {name} {str(dtype)[6:]}: {len(reps)} timings "
-                    f"{', '.join(f'{t:.4f}' for t in reps)} ms: median {reps[len(reps) // 2]:.4f}, "
-                    f"spread {reps[-1] - reps[0]:.4f} ms; heads per block G={G}; sm clock, max, "
-                    f"temperature, power: {smi_clocks()}")
-            r = dict(ms=reps[len(reps) // 2],
+            fn = lambda: KSSD.ssd_intra_chunk(x, loglam, dt, Bm, Cm)  # noqa: E731
+            if name == "train full" and dtype == torch.bfloat16:
+                # the A/B: the CUDA-core path forced through the planner
+                # against the tensor-core path, in turns
+                cuda = lambda: KSSD._launch(x, loglam, dt, Bm, Cm, "cuda")  # noqa: E731
+                ab = {"cuda": [], "tensor": []}
+                for _ in range(SSD_REPS):
+                    ab["cuda"].append(replay_ms(cuda, how, "ms"))
+                    ab["tensor"].append(replay_ms(fn, how, "ms"))
+                log(f"[kernels] ssd_intra_chunk {name} bf16 A/B (CUDA graph replay, in turns): "
+                    + "; ".join(f"{p} path {', '.join(f'{t:.4f}' for t in v)} ms: best "
+                                f"{min(v):.4f}, median {statistics.median(v):.4f}, spread "
+                                f"{max(v) - min(v):.4f}" for p, v in ab.items())
+                    + f"; sm clock, max, temperature, power: {smi_clocks()}")
+                reps = sorted(ab["tensor"])
+            else:
+                reps = [replay_ms(fn, how, "ms")]
+            r = dict(ms=statistics.median(reps),
                      plain_ms=replay_ms(lambda: KSSD.ssd_intra_chunk_plain(x, loglam, dt, Bm, Cm),
                                         how, "plain_ms", reps=5),
-                     library_ms=None, bound=bound_ms(nbytes, flops, torch.float32), timed_by=how,
+                     library_ms=None, bound=bound_ms(nbytes, flops, dtype), timed_by=how,
                      max_abs_err=max((y - wy).abs().max().item(), (inc - winc).abs().max().item()),
+                     plan=plan._asdict(),
                      shape=f"{name} x{tuple(x.shape)} ds={shape[5]} {str(dtype)[6:]}")
+            if name == "train full" and dtype == torch.bfloat16:
+                r["cuda_path_ms"] = statistics.median(ab["cuda"])
             log(f"[kernels] ssd_intra_chunk {name} {str(dtype)[6:]}: {r['ms']:.4f} ms (plain "
                 f"{r['plain_ms']:.4f}, bound {r['bound'][0]:.4f} by {r['bound'][1]}: "
                 f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP){timed_note(how)}")
@@ -2623,6 +2802,22 @@ def check_ssd(dev, results):
     log("[grads] ssd_intra_chunk (routed shape, bf16 x/B/C): the Function's backward (a "
         "recompute through the plain version: its wiring, not the kernel) gives each of the five "
         "inputs autograd's gradient through the plain version, all finite")
+    # the backward's cost where mamba2-1.3b's training pays it most: the full
+    # blocks' shape, all five inputs needing a gradient, as in 9c
+    leaves = [t.requires_grad_(True) for t in
+              _ssd_inputs(dev, torch.bfloat16, *SSD_SHAPES["train full"], 24, True)]
+    y, inc = KSSD.ssd_intra_chunk(*leaves)
+    gy, ginc = torch.randn_like(y), torch.randn_like(inc)
+    wall, busy, top = profile_call(
+        lambda: torch.autograd.grad([y, inc], leaves, [gy, ginc], retain_graph=True),
+        iters=3, warmup=1)
+    results["ssd_intra_chunk"]["backward_ms"] = busy
+    log(f"[kernels] ssd_intra_chunk backward (a recompute through the plain version under "
+        f"autograd) at the full training shape, bf16: device busy {busy:.3f} ms a call, wall "
+        f"{wall:.3f} ms (torch.profiler); top kernels: "
+        + "; ".join(f"{n[:50]} {t:.3f}" for n, t in top))
+    del y, inc, gy, ginc, leaves
+    torch.cuda.empty_cache()
 
 
 def ssm_parity(dev):
@@ -2750,28 +2945,41 @@ def ssd_launch_shapes():
         KSSD._launch = real
 
 
-def train_ssm(dev):
-    """9c: mamba2-1.3b in bf16, random weights from seed 0, B=4, S=2048,
-    the config's remat="full", 5 Trainer steps, each profiled."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+TRAIN_SSM = dict(B=4, S=2048, steps=5)  # phase 9c's run
 
+
+def trainer_ssm(dev, ckdir):
+    """Phase 9c's trainer: mamba2-1.3b in bf16, random weights from seed 0,
+    the config's remat="full", AdamW with a cosine schedule (lr 1e-4 after 2
+    warmup steps), synthetic data from seed 0."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.config import OptimConfig, TrainConfig, get_config
     from repro_torch.data.loader import SyntheticLoader
     from repro_torch.data.synthetic import SyntheticLM
-    from repro_torch.kernels import build
     from repro_torch.train import Trainer
 
     cfg = get_config("mamba2-1.3b")
-    B, S, steps = 4, 2048, 5
+    B, S, steps = TRAIN_SSM["B"], TRAIN_SSM["S"], TRAIN_SSM["steps"]
     tcfg = TrainConfig(global_batch=B, seq_len=S,
                        optim=OptimConfig(lr=1e-4, warmup_steps=2, total_steps=steps),
                        log_every=1, ckpt_every=10**9)
     loader = SyntheticLoader(SyntheticLM(cfg.vocab, S, seed=0), B, dev)
+    return Trainer(cfg, tcfg, loader, ckpt=CheckpointManager(ckdir), device=dev,
+                   log_fn=lambda m: None)
+
+
+def train_ssm(dev):
+    """9c: phase 9c's trainer (:func:`trainer_ssm`), B=4, S=2048, 5 Trainer
+    steps, each profiled."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import build
+
+    B, S, steps = TRAIN_SSM["B"], TRAIN_SSM["S"], TRAIN_SSM["steps"]
     with tempfile.TemporaryDirectory() as ckdir:
-        trainer = Trainer(cfg, tcfg, loader, ckpt=CheckpointManager(ckdir), device=dev,
-                          log_fn=lambda m: None)
+        trainer = trainer_ssm(dev, ckdir)
+        cfg = trainer.cfg
         t0 = time.perf_counter()
         state = trainer.init_or_resume()
         torch.cuda.synchronize()
@@ -2780,7 +2988,7 @@ def train_ssm(dev):
             f"routed rows per sequence, chunk {cfg.ssm.chunk}), init {time.perf_counter() - t0:.1f}s")
         torch.cuda.reset_peak_memory_stats()
         build.reset_counters()
-        losses = []
+        losses, busies, ssd_ms = [], [], []
         with ssd_launch_shapes() as by_nc:
             for i in range(steps):
                 # device activity only: a step issues ~10^5 host ops, whose
@@ -2797,6 +3005,8 @@ def train_ssm(dev):
                 for n, t in by_name.items():
                     groups[_kernel_group(n)] = groups.get(_kernel_group(n), 0.0) + t
                 losses.append(m["loss"])
+                busies.append(busy)
+                ssd_ms.append(groups.get("ssd_intra_chunk", 0.0))
                 log(f"[ssm-train] step {i + 1}: loss {m['loss']:.4f} ce {m['ce']:.4f} grad norm "
                     f"{m['grad_norm']:.3f} lr {m['lr']:.3g}; wall {wall:.1f} ms, device busy "
                     f"{busy:.1f} ms, idle share {1 - busy / wall:.3f}")
@@ -2806,6 +3016,7 @@ def train_ssm(dev):
                 log("[ssm-train]   top kernels: " + "; ".join(f"{n[:60]} {t:.1f} ms"
                                                               for n, t in top))
         counts = build.launch_counts()
+        ssd_calls = dict(build.COUNTERS["ssd_intra_chunk"].by_call)
     log(f"[ssm-train] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite training loss: {losses}")
@@ -2813,11 +3024,21 @@ def train_ssm(dev):
     log(f"[ssm-train] launches in {steps} steps: ssd_intra_chunk {counts['ssd_intra_chunk']} "
         f"(NC=16: {by_nc.get(16, 0)}, NC=2: {by_nc.get(2, 0)}; {2 * n_grp} per forward, "
         f"recomputed under remat), gather_rows {counts['gather_rows']}, scatter_add_rows "
-        f"{counts['scatter_add_rows']}")
+        f"{counts['scatter_add_rows']}; SSD by call (path, B, H, NC, Q, hd, ds): "
+        f"{sorted(ssd_calls.items())}")
+    log(f"[ssm-train] losses {', '.join(f'{x:.4f}' for x in losses)}; device busy "
+        f"{', '.join(f'{b:.1f}' for b in busies)} ms; ssd_intra_chunk group "
+        f"{', '.join(f'{t:.1f}' for t in ssd_ms)} ms a step")
     for name in ("ssd_intra_chunk", "gather_rows", "scatter_add_rows"):
         if counts.get(name, 0) <= 0:
             raise AssertionError(f"kernel {name} was not launched on the ssm training path")
-    return counts, by_nc
+    # 24 full SSD blocks (NC=16) and 24 routed ones (NC=2) per forward, each
+    # run twice a step under remat="full"
+    if by_nc != {16: 2 * n_grp * steps, 2: 2 * n_grp * steps}:
+        raise AssertionError(f"SSD launches by NC {by_nc}: want {2 * n_grp} a step at each")
+    if ssd_calls and {k[0] for k in ssd_calls} != {"tensor"}:  # (a parent port counts no path)
+        raise AssertionError(f"SSD training launches took {ssd_calls}: want tensor cores")
+    return counts, by_nc, dict(losses=losses, busy=busies, ssd_ms=ssd_ms)
 
 
 def serve_ssm(dev):
@@ -3246,6 +3467,12 @@ def main() -> int:
     if sys.argv[1:2] == ["--flash-timing"]:
         flash_timing(Path(sys.argv[2]).resolve() if len(sys.argv) > 2 else ROOT)
         return 0
+    if sys.argv[1:2] == ["--ssm-losses"]:
+        sys.path.insert(0, str(ROOT / "src"))
+        ssm_path_losses()
+        return 0
+    if sys.argv[1:2] == ["--train-runs"]:
+        return train_runs(Path(sys.argv[2]).resolve() if len(sys.argv) > 2 else ROOT)
     if sys.argv[1:2] == ["--routed-paged-timing"]:
         routed_paged_timing(Path(sys.argv[2]).resolve() if len(sys.argv) > 2 else ROOT)
         return 0
@@ -3286,8 +3513,8 @@ def main() -> int:
     timed("phase 6a-8a parity", lambda: (paged_parity(dev), quant_parity(dev),
                                          ragged_forward_parity(dev)))
     serve_counts, serve_flash = timed("phase 4 serve", serve_1b, dev)
-    train_counts, train_flash, train_mlp_calls, train_attn_calls = timed("phase 5 train",
-                                                                         train_1b, dev)
+    train_counts, train_flash, train_mlp_calls, train_attn_calls, _ = timed("phase 5 train",
+                                                                            train_1b, dev)
     from repro_torch.config import with_mod_backend
     from repro_torch.models import api
 
@@ -3307,7 +3534,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed("phase 9a ssd kernel", check_ssd, dev, results)
     timed("phase 9b ssm parity", ssm_parity, dev)
-    ssm_train_counts, ssd_by_nc = timed("phase 9c ssm train", train_ssm, dev)
+    ssm_train_counts, ssd_by_nc, _ = timed("phase 9c ssm train", train_ssm, dev)
     torch.cuda.empty_cache()
     ssm_serve_counts = timed("phase 9d ssm serve", serve_ssm, dev)
 
@@ -3362,11 +3589,14 @@ def main() -> int:
     # (none at f32 inputs or the odd shape); the line's numbers are the
     # full blocks' shape
     ssd_nc = {"train full": 16, "train routed": 2}
+    ssd = {k: r for k, r in results["ssd_intra_chunk"].items() if k != "backward_ms"}
     shapes["ssd_intra_chunk"] = [
         dict(shape=r["shape"], launches=ssd_by_nc.get(ssd_nc.get(key[0]), 0)
              if key[1] == torch.bfloat16 else 0, ms=r["ms"],
-             plain_ms=r["plain_ms"], library_ms=None, bound_ms=r["bound"][0])
-        for key, r in results["ssd_intra_chunk"].items()]
+             plain_ms=r["plain_ms"], library_ms=None, bound_ms=r["bound"][0],
+             bound_by=r["bound"][1], plan=r["plan"],
+             **({"cuda_path_ms": r["cuda_path_ms"]} if "cuda_path_ms" in r else {}))
+        for key, r in ssd.items()]
     picks["ssd_intra_chunk"] = results["ssd_intra_chunk"][("train full", torch.bfloat16)]
     # the op entry point's kernels: every shape of 10a-c, launched once each
     # by phase 10's counted run in bf16 (f32 shapes are checks only); the
@@ -3447,6 +3677,9 @@ def main() -> int:
                                           launches=n) for k, n in train_mlp_calls.items()]}
                if name == "routed_mlp_scatter" else {}),
             **({"launches_by_call": flash_by_call} if name == "flash_attention" else {}),
+            **({"backward_ms": results["ssd_intra_chunk"]["backward_ms"],
+                "backward": "recompute through the plain version under autograd (torch.profiler)"}
+               if name == "ssd_intra_chunk" else {}),
             **({"launches_by_call": [dict(gemm_path=k[0], B=k[1], S=k[2], k=k[3], D=k[4],
                                           nq=k[5], nkv=k[6], hd=k[7], launches=n)
                                      for k, n in train_attn_calls.items()],

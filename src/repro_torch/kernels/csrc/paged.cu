@@ -25,13 +25,17 @@
 // for 132 SMs), a decode step's (8, 62) 1736 blocks of four, and a
 // position leaf's 64-byte pages share 8 blocks instead of taking one each.
 //
-// The ragged write-back runs the same kind of flat grid over its rows'
-// vectors (kernels/ragged.py::scatter_plan: width, unroll, index width and
-// grid, refused here if they do not fit): each thread looks up its row's
-// clamped page id and offset. A position leaf's W=7432 rows of 4 bytes are
-// then 30 blocks of 256 threads, not 7432 blocks of one busy thread each.
-// The decode-row scatter keeps one block per slot (B <= a few dozen rows);
-// scatter_rows_kernel takes any target functor, so it can move there too.
+// Both scatters run the same kind of flat grid over their rows' vectors
+// (scatter_rows_kernel; kernels/ragged.py::scatter_plan and kernels/
+// paged.py::scatter_rows_plan: width, unroll, index width and grid, refused
+// here if they do not fit), and differ only in a target functor: each
+// thread looks up its row's clamped page row, from precomputed (page id,
+// offset) pairs for the ragged write-back, from the slot's position and
+// page table for the decode-row scatter. A position leaf's W=7432 rows of
+// 4 bytes are then 30 blocks of 256 threads, not 7432 blocks of one busy
+// thread each; a decode step's B=8 rows of 4 bytes are one block whose 8
+// busy threads each load pos, then the table entry, then store: a launch
+// and a chain of three dependent memory accesses, whatever the grid.
 //
 // The TPU scatters stream every physical page through VMEM because a Pallas
 // output does not alias its input. The function the engine needs is "the
@@ -66,27 +70,6 @@
 REPRO_ERROR_STRING
 
 namespace {
-
-// dst[0:n) = src[0:n) by the threads of one block: 16-byte vectors when
-// both ends are 16-byte aligned, else 4-byte words when 4-byte aligned,
-// and single bytes for the tail.
-__device__ __forceinline__ void block_copy(const char* __restrict__ src,
-                                           char* __restrict__ dst, long long n) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst);
-  long long done = 0;
-  if (a % 16 == 0) {
-    const long long nv = n / 16;
-    for (long long e = threadIdx.x; e < nv; e += blockDim.x)
-      reinterpret_cast<uint4*>(dst)[e] = reinterpret_cast<const uint4*>(src)[e];
-    done = nv * 16;
-  } else if (a % 4 == 0) {
-    const long long nw = n / 4;
-    for (long long e = threadIdx.x; e < nw; e += blockDim.x)
-      reinterpret_cast<uint32_t*>(dst)[e] = reinterpret_cast<const uint32_t*>(src)[e];
-    done = nw * 4;
-  }
-  for (long long e = done + threadIdx.x; e < n; e += blockDim.x) dst[e] = src[e];
-}
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
@@ -166,18 +149,17 @@ cudaError_t launch_gather_u(int unroll, const void* pages, const void* table, vo
   return launch_gather<VEC, 1>(pages, table, out, N, vpp, n_vec, blocks, wide, st);
 }
 
-// One block per slot b: pages[table[b, t / p], t % p] = rows[b], t = pos[b].
-__global__ void paged_scatter_rows_kernel(char* __restrict__ pages,
-                                          const int* __restrict__ table,
-                                          const char* __restrict__ rows,
-                                          const int* __restrict__ pos, int N, int P,
-                                          int p, long long row_bytes) {
-  const int b = blockIdx.x;
-  const int t = clampi(pos[b], 0, P * p - 1);
-  const int pid = clampi(table[(long long)b * P + t / p], 0, N - 1);
-  block_copy(rows + (long long)b * row_bytes,
-             pages + ((long long)pid * p + t % p) * row_bytes, row_bytes);
-}
+// The decode-row scatter's target of write row w (slot w): page row
+// clamp(table[w, t / p]) * p + t % p, t = clamp(pos[w], 0, P*p - 1).
+struct PagedTarget {
+  const int* table;
+  const int* pos;
+  int N, P, p;
+  __device__ __forceinline__ long long operator()(long long w) const {
+    const int t = clampi(__ldg(pos + w), 0, P * p - 1);
+    return (long long)clampi(__ldg(table + w * P + t / p), 0, N - 1) * p + t % p;
+  }
+};
 
 // The ragged write-back's target of write row w: page row
 // clamp(pid[w]) * p + clamp(off[w]).
@@ -314,12 +296,6 @@ int launch_dequant(const void* pages, const void* scales, const void* table, voi
   return static_cast<int>(cudaGetLastError());
 }
 
-int threads_for(long long bytes) {
-  // one 16-byte vector per thread and pass, at least one warp
-  long long t = (bytes / 16 + 31) / 32 * 32;
-  return t < 32 ? 32 : (t > 256 ? 256 : (int)t);
-}
-
 }  // namespace
 
 // out (B, P, page_bytes) = pages[clamp(table)] by the plan of kernels/
@@ -351,13 +327,32 @@ extern "C" int repro_paged_gather(const void* pages, const void* table, void* ou
   }
 }
 
+// pages[clamp(table[b, t / p]), t % p] = rows[b], t = clamp(pos[b]), for B
+// rows of row_bytes, by the plan of kernels/paged.py::scatter_rows_plan (the
+// write-back's flat grid with PagedTarget); any other plan is refused.
 extern "C" int repro_paged_scatter_rows(void* pages, const void* table, const void* rows,
                                         const void* pos, int N, int B, int P, int p,
-                                        long long row_bytes, void* stream) {
-  paged_scatter_rows_kernel<<<B, threads_for(row_bytes), 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<char*>(pages), static_cast<const int*>(table),
-      static_cast<const char*>(rows), static_cast<const int*>(pos), N, P, p, row_bytes);
-  return static_cast<int>(cudaGetLastError());
+                                        long long row_bytes, int vec, int unroll, int wide,
+                                        long long blocks, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(pages) | reinterpret_cast<uintptr_t>(rows);
+  if ((vec != 16 && vec != 4 && vec != 1) || row_bytes <= 0 || row_bytes % vec || bases % vec ||
+      N < 1 || P < 1 || p < 1 || B < 1 || (unroll != 1 && unroll != GATHER_UNROLL))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long vpr = row_bytes / vec, n_vec = (long long)B * vpr;
+  const long long per_block = (long long)GATHER_THREADS * unroll;
+  if (blocks != (n_vec + per_block - 1) / per_block || blocks > INT_MAX ||
+      wide != (blocks * per_block > (long long)UINT_MAX))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const PagedTarget target{static_cast<const int*>(table), static_cast<const int*>(pos), N, P, p};
+  switch (vec) {
+    case 16: return static_cast<int>(launch_scatter_u<16>(unroll, pages, rows, target, vpr,
+                                                          n_vec, blocks, wide, st));
+    case 4: return static_cast<int>(launch_scatter_u<4>(unroll, pages, rows, target, vpr, n_vec,
+                                                        blocks, wide, st));
+    default: return static_cast<int>(launch_scatter_u<1>(unroll, pages, rows, target, vpr,
+                                                         n_vec, blocks, wide, st));
+  }
 }
 
 // pages[clamp(pid[w]), clamp(off[w])] = rows[w] for W rows of row_bytes,

@@ -20,7 +20,10 @@ to physical ones.
   output dtype (the JAX f32 result followed by ``astype``).
 - :func:`paged_scatter_rows`: ``pages[table[b, pos[b]//p], pos[b]%p] =
   rows[b]``, written **in place** into ``pages`` (the JAX version returns a
-  new pool; here only the B rows are written). The quantizing variant of
+  new pool; here only the B rows are written). The kernel runs the ragged
+  write-back's flat grid over the rows' vectors, planned by the pure
+  :func:`scatter_rows_plan` and counted by call, keyed ``(vec, B,
+  row_bytes)``. The quantizing variant of
   :func:`paged_scatter_rows_op` quantizes the rows in torch ops and
   scatters the narrow rows and their scales with this same byte copy.
 
@@ -264,6 +267,27 @@ def paged_scatter_rows_plain(pages: torch.Tensor, table: torch.Tensor, rows: tor
     return pages
 
 
+def scatter_rows_plan(N: int, B: int, P: int, p: int, row_bytes: int, pages_base: int,
+                      rows_base: int) -> FlatPlan:
+    """The decode-row scatter's vector width, block shape, index width and
+    grid for ``B`` rows of ``row_bytes`` into ``N`` pages of ``p`` rows
+    through ``(B, P)`` page tables, the page tensor at address
+    ``pages_base`` and the rows at ``rows_base``: the widest of 16, 4 and 1
+    bytes that divides the row and both bases, one flat grid over the rows'
+    vectors (:func:`flat_plan`), as the ragged write-back's
+    (``kernels/ragged.py::scatter_plan``). A pure function of its
+    arguments, decided before launch. Raises for what the kernel does not
+    take: no page, an empty page, table or row, a negative count."""
+    if N < 1 or P < 1 or p < 1 or row_bytes < 1 or B < 0:
+        raise ValueError(f"scatter of B={B} rows of {row_bytes} bytes into N={N} pages of {p} "
+                         f"through tables of P={P}: want N, P, p, row_bytes >= 1 and B >= 0")
+    return flat_plan(B, row_bytes, (pages_base, rows_base), "a decode-row scatter")
+
+
+# (pages, table, rows, pos, N, B, P, p, row_bytes, vec, unroll, wide, blocks, stream)
+_SCATTER_ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _I, _L, _P)
+
+
 def paged_scatter_rows(pages: torch.Tensor, table: torch.Tensor, rows: torch.Tensor,
                        pos: torch.Tensor) -> torch.Tensor:
     """pages (N, p, F), table (B, P) int32, rows (B, F), pos (B,) int32;
@@ -278,18 +302,23 @@ def paged_scatter_rows(pages: torch.Tensor, table: torch.Tensor, rows: torch.Ten
     _check_scatter(pages, rows)
     if check_device(pages, table, rows, pos) == "cpu":
         return paged_scatter_rows_plain(pages, table, rows, pos)
-    table, rows, pos = table.contiguous(), rows.contiguous(), pos.contiguous()
+    return _scatter_rows_launch(pages, table.contiguous(), rows.contiguous(), pos.contiguous())
+
+
+def _scatter_rows_launch(pages: torch.Tensor, table: torch.Tensor, rows: torch.Tensor,
+                         pos: torch.Tensor) -> torch.Tensor:
     N, p, F = pages.shape
     B, P = table.shape
     if B == 0 or F == 0:
         return pages
-    fn = build.bind("paged", "repro_paged_scatter_rows",
-                    (_P, _P, _P, _P, _I, _I, _I, _I, _L, _P))
+    row_bytes = F * pages.element_size()
+    plan = scatter_rows_plan(N, B, P, p, row_bytes, pages.data_ptr(), rows.data_ptr())
+    fn = build.bind("paged", "repro_paged_scatter_rows", _SCATTER_ARGTYPES)
     stream = torch.cuda.current_stream(pages.device).cuda_stream
     err = fn(pages.data_ptr(), table.data_ptr(), rows.data_ptr(), pos.data_ptr(), N, B, P, p,
-             F * pages.element_size(), stream)
+             row_bytes, plan.vec, plan.unroll, int(plan.wide), plan.blocks, stream)
     build.check("paged", "repro_paged_scatter_rows", err)
-    PAGED_SCATTER_ROWS.launches += 1
+    PAGED_SCATTER_ROWS.add((plan.vec, B, row_bytes))
     return pages
 
 

@@ -146,9 +146,10 @@ class RoutedMlpSpec(NamedTuple):
 
 def routed_mlp_scatter_plain(x, h_sub, a_sub, idx, gate, params, spec: RoutedMlpSpec):
     """Plain version (the JAX ``_routed_mlp_host``): RMSNorm -> MLP ->
-    ``a + m`` -> gated scatter-add into x."""
+    ``a + m`` -> gated scatter-add into x; the activation in f32, rounded
+    once, as the kernel computes it."""
     hn = rmsnorm({"scale": params["ln"]}, h_sub, spec.eps)
-    delta = a_sub + mlp_act(params, hn, spec.act)
+    delta = a_sub + mlp_act(params, hn, spec.act, rounded_once=True)
     return scatter_add_rows_plain(x, idx, delta, gate)
 
 

@@ -87,12 +87,42 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, device: torch.device) -> Pa
     return p
 
 
-def _act(act: str):
+def _logistic(x: torch.Tensor) -> torch.Tensor:
+    return 1 / (1 + torch.exp(-x))
+
+
+class _Silu(torch.autograd.Function):
+    """``jax.nn.silu`` as XLA lowers it: negate, exp, add 1, divide and
+    multiply, each rounded to x's dtype (``F.silu`` rounds once, and at
+    bf16 differs from it in ~40% of elements). The gradient is JAX's,
+    ``g·s·(1 + x·(1 - s))`` from the saved logistic ``s``: finite where
+    autograd through ``exp(-x)`` would give 0·inf."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = _logistic(x)
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s = ctx.saved_tensors
+        return g * (s * (1 + x * (1 - s)))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """SiLU rounded at ``jax.nn.silu``'s points: bit-equal to it at bf16,
+    within a few ulps at f32."""
+    return _Silu.apply(x)
+
+
+def _act(act: str, rounded_once: bool = False):
     if act == "silu":
-        return F.silu
+        return F.silu if rounded_once else silu
     if act != "gelu":
         raise ValueError(f"unknown activation {act!r}")
-    # jax.nn.gelu defaults to the tanh approximation
+    # jax.nn.gelu defaults to the tanh approximation (its rounding points
+    # are not mirrored: no gelu config is ported)
     return lambda t: F.gelu(t, approximate="tanh")
 
 
@@ -100,8 +130,12 @@ def mlp(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return mlp_act(params, x, cfg.act)
 
 
-def mlp_act(params: Params, x: torch.Tensor, act_name: str) -> torch.Tensor:
-    act = _act(act_name)
+def mlp_act(params: Params, x: torch.Tensor, act_name: str,
+            rounded_once: bool = False) -> torch.Tensor:
+    """The (GLU) MLP. ``rounded_once``: the activation computed in f32 and
+    rounded once (``F.silu``), as the fused kernels compute it, in place of
+    the rounding points of ``jax.nn.silu``."""
+    act = _act(act_name, rounded_once)
     up = x @ params["w_up"]
     if "w_gate" in params:
         up = act(x @ params["w_gate"]) * up

@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from repro_torch.config import ModelConfig
 from repro_torch.device import torch_dtype
 from repro_torch.kernels.ssd import ssd_intra_chunk
-from repro_torch.models.layers import dense_init, rmsnorm
+from repro_torch.models.layers import dense_init, rmsnorm, silu
 
 Params = Dict[str, torch.Tensor]
 
@@ -160,7 +160,7 @@ def _project(params: Params, x: torch.Tensor):
 
 
 def _post(params: Params, y: torch.Tensor, z: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    g = y * F.silu(z)
+    g = y * silu(z)
     g = rmsnorm(params["norm"], g, cfg.norm_eps)
     return g @ params["out_proj"]
 
@@ -170,9 +170,9 @@ def ssm_block(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor
     B, S, _ = x.shape
     D, d_inner, H, ds = dims(cfg)
     z, xs, Bm, Cm, dt_raw = _project(params, x)
-    xs = F.silu(_causal_conv(xs, params["conv_x"], params["conv_bx"]))
-    Bm = F.silu(_causal_conv(Bm, params["conv_B"], params["conv_bB"]))
-    Cm = F.silu(_causal_conv(Cm, params["conv_C"], params["conv_bC"]))
+    xs = silu(_causal_conv(xs, params["conv_x"], params["conv_bx"]))
+    Bm = silu(_causal_conv(Bm, params["conv_B"], params["conv_bB"]))
+    Cm = silu(_causal_conv(Cm, params["conv_C"], params["conv_bC"]))
     dt = F.softplus(dt_raw.float() + params["dt_bias"])  # (B, S, H)
     A = -torch.exp(params["A_log"])
     xh = xs.reshape(B, S, H, cfg.ssm.head_dim)
@@ -207,9 +207,9 @@ def ssm_block_decode(params: Params, x: torch.Tensor, cache: Params, cfg: ModelC
     win_x = torch.cat([cache["conv_x"], xs], dim=1)
     win_B = torch.cat([cache["conv_B"], Bm], dim=1)
     win_C = torch.cat([cache["conv_C"], Cm], dim=1)
-    xs_t = F.silu(_conv_step(win_x, params["conv_x"], params["conv_bx"])).to(x.dtype)
-    Bm_t = F.silu(_conv_step(win_B, params["conv_B"], params["conv_bB"]))
-    Cm_t = F.silu(_conv_step(win_C, params["conv_C"], params["conv_bC"]))
+    xs_t = silu(_conv_step(win_x, params["conv_x"], params["conv_bx"])).to(x.dtype)
+    Bm_t = silu(_conv_step(win_B, params["conv_B"], params["conv_bB"]))
+    Cm_t = silu(_conv_step(win_C, params["conv_C"], params["conv_bC"]))
     dt = F.softplus(dt_raw[:, 0].float() + params["dt_bias"])  # (B, H)
     A = -torch.exp(params["A_log"])
     xh = xs_t.reshape(B, H, cfg.ssm.head_dim)

@@ -60,11 +60,13 @@ edges too, and the K order is fixed, so two calls and a CUDA-graph replay
 give the eager call's bits.
 
 SSD intra-chunk: both sides compute in f32 from the same (widened)
-inputs; the kernel takes the cumsum of loglam in order, torch's scan in
-another order, and each decay exp(l_i - l_j) carries that rounding (up to
-|l|·2^-24 relative), so the outputs agree within 1e-5 of their largest
-value plus 2·max|l|·2^-24; its backward is autograd through the plain
-version, so its gradients equal the plain version's.
+inputs (the tensor-core path splits each f32 operand into three bf16
+terms, so its products are exact too); the kernel takes the cumsum of
+loglam in its own order, torch's scan in another, and each decay
+exp(l_i - l_j) carries that rounding (up to |l|·2^-24 relative), so the
+outputs agree within 1e-5 of their largest value plus 2·max|l|·2^-24 on
+either path; its backward is autograd through the plain version, so its
+gradients equal the plain version's.
 """
 import math
 import sys
@@ -664,10 +666,22 @@ def test_paged_gather_replays_in_a_cuda_graph(dev):
 @pytest.mark.parametrize("dtype", PAGED_DTYPES)
 @pytest.mark.parametrize("N,p,F,B,P", [(530, 16, 1792, 8, 66), (530, 16, 1, 8, 66),
                                        (11, 3, 5, 3, 3)])
-def test_paged_scatter_rows_in_place_bitwise(dev, dtype, N, p, F, B, P):
+@pytest.mark.parametrize("clamp", [False, True])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_paged_scatter_rows_in_place_bitwise(dev, dtype, N, p, F, B, P, clamp, offset):
+    """The decode-row scatter on the flat grid at every vector width (rows
+    one element off an aligned base: 4-byte or 1-byte vectors), bitwise,
+    writing no row outside its (clamped) targets, with positions and table
+    entries out of range when ``clamp``; the launch counter records the
+    plan's width by call."""
     g, pages, table = _paged_inputs(dev, dtype, N, p, F, B, P, 12)
     rows = (torch.randn(B, F, generator=g, device=dev) * 8).to(dtype)
+    if offset:  # the same rows in a view one element past an aligned base
+        rows = torch.cat([rows.new_zeros(offset), rows.flatten()])[offset:].view(B, F)
     pos = torch.randint(0, P * p, (B,), generator=g, device=dev).to(torch.int32)
+    if clamp:  # positions below 0 and past P·p, table entries below 0 and past N
+        pos[0], pos[-1] = -5, P * p + 7
+        table[:, 0], table[:, -1] = -3, N + 9
     want = KP.paged_scatter_rows_plain(pages.clone(), table, rows, pos)
     before = pages.clone()
     ptr = pages.data_ptr()
@@ -675,11 +689,15 @@ def test_paged_scatter_rows_in_place_bitwise(dev, dtype, N, p, F, B, P):
     out = KP.paged_scatter_rows(pages, table, rows, pos)
     torch.cuda.synchronize()
     assert out.data_ptr() == ptr and torch.equal(pages, want)
-    assert build.launch_counts()["paged_scatter_rows"] == 1
+    plan = KP.scatter_rows_plan(N, B, P, p, F * pages.element_size(), pages.data_ptr(),
+                                rows.data_ptr())
+    assert build.COUNTERS["paged_scatter_rows"].by_call == {
+        (plan.vec, B, F * pages.element_size()): 1}
     # exactly the B target rows changed (rows equal to what was there excepted)
     changed = (pages != before).reshape(N * p, -1).any(-1).nonzero().flatten().tolist()
-    pid = table.long()[torch.arange(B, device=dev), pos.long() // p]
-    targets = set((pid * p + pos.long() % p).tolist())
+    t = pos.long().clamp(0, P * p - 1)
+    pid = table.long()[torch.arange(B, device=dev), t // p].clamp(0, N - 1)
+    targets = set((pid * p + t % p).tolist())
     assert set(changed) <= targets
 
 
@@ -943,22 +961,52 @@ def _ssd_tol(loglam):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B,H,NC,Q,hd,ds,layout", [
-    (4, 64, 2, 128, 64, 128, "model"),  # mamba2-1.3b's routed blocks (k = 256)
+    (4, 64, 16, 128, 64, 128, "model"),  # mamba2-1.3b's full blocks (S = 2048)
+    (4, 64, 2, 128, 64, 128, "model"),  # its routed blocks (k = 256)
+    (4, 5, 16, 64, 32, 32, "model"),  # bf16: G = 3 heads per block, 5 heads
     (1, 3, 2, 16, 32, 16, "jax"),  # odd heads, the smoke chunk
-    (2, 5, 3, 40, 8, 24, "jax"),  # widths that are not powers of two
+    (2, 5, 3, 40, 8, 24, "jax"),  # widths that are not multiples of 16
 ])
 def test_ssd_intra_chunk_matches_plain(dev, dtype, B, H, NC, Q, hd, ds, layout):
+    """Each path within SSD_TOL of the plain version: bf16 with Q, hd and
+    ds multiples of 16 on tensor cores, the rest on CUDA cores, as the
+    launch counter records by call."""
     x, loglam, dt, Bm, Cm = _ssd_inputs(dev, dtype, B, H, NC, Q, hd, ds, 3, layout)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = KSSD.ssd_plan(B, H, NC, Q, hd, ds, dtype, sms, KSSD.aligned_rows(x, Bm, Cm))
+    tensor = dtype == torch.bfloat16 and Q % 16 == hd % 16 == ds % 16 == 0
+    assert plan.path == ("tensor" if tensor else "cuda")
+    if tensor and H == 5:
+        assert H % plan.G != 0
     build.reset_counters()
     y, inc = KSSD.ssd_intra_chunk(x, loglam, dt, Bm, Cm)
     torch.cuda.synchronize()
-    assert build.launch_counts()["ssd_intra_chunk"] == 1
+    assert build.COUNTERS["ssd_intra_chunk"].by_call == {(plan.path, B, H, NC, Q, hd, ds): 1}
     wy, winc = KSSD.ssd_intra_chunk_plain(x, loglam, dt, Bm, Cm)
     assert torch.isfinite(y).all() and torch.isfinite(inc).all()
     tol = _ssd_tol(loglam)
     for got, want in ((y, wy), (inc, winc)):
         err = ((got - want).abs().max() / want.abs().max()).item()
         assert err <= tol, (err, tol)
+
+
+def test_ssd_intra_chunk_paths_agree_and_replay(dev):
+    """At mamba2's routed shape in bf16 the CUDA-core path, forced through
+    the planner, and the tensor-core path both hold SSD_TOL; the tensor-core
+    call gives the same bits twice and in a CUDA-graph replay."""
+    x, loglam, dt, Bm, Cm = _ssd_inputs(dev, torch.bfloat16, 4, 64, 2, 128, 64, 128, 5, "model")
+    wy, winc = KSSD.ssd_intra_chunk_plain(x, loglam, dt, Bm, Cm)
+    tol = _ssd_tol(loglam)
+    build.reset_counters()
+    outs = {path: KSSD._launch(x, loglam, dt, Bm, Cm, path) for path in ("cuda", "tensor")}
+    assert set(k[0] for k in build.COUNTERS["ssd_intra_chunk"].by_call) == {"cuda", "tensor"}
+    for y, inc in outs.values():
+        for got, want in ((y, wy), (inc, winc)):
+            assert ((got - want).abs().max() / want.abs().max()).item() <= tol
+    want, got = _eager_and_replayed(lambda: torch.cat(
+        [t.flatten() for t in KSSD.ssd_intra_chunk(x, loglam, dt, Bm, Cm)]))
+    assert torch.equal(got, want)
+    assert torch.equal(want, torch.cat([t.flatten() for t in outs["tensor"]]))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

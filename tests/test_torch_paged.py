@@ -20,7 +20,8 @@ The gather kernel's pure planner (``gather_plan``): the widest vector of
 16, 4 and 1 bytes that divides the page and the page tensor's base, whole
 blocks over the output, 64-bit indices past 2^32 vectors, a raise for what
 no grid takes, and the plan is what the C entry point receives and the
-launch counter records.
+launch counter records. The decode-row scatter's (``scatter_rows_plan``)
+and the ragged write-back's (``scatter_plan``) likewise.
 """
 import dataclasses
 import functools
@@ -385,6 +386,75 @@ def test_ragged_scatter_passes_its_plan_to_the_entry_point(monkeypatch, dtype, F
     # (pages, pid, off, rows, N, W, p, row_bytes, vec, unroll, wide, blocks, stream)
     assert entry.args[4:12] == (N, W, p, row_bytes, vec, plan.unroll, 0, plan.blocks)
     assert KRG.RAGGED_PAGED_SCATTER_ROWS.by_call == {(vec, W, row_bytes): 1}
+    KP.build.reset_counters()
+
+
+# ---------------------------------------------------------------------------
+# scatter_rows_plan: the decode-row scatter on the same flat grid
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("row_bytes,pages_base,rows_base,vec", [
+    (1792 * 2, 0, 0, 16),  # mod-paper-1b's bf16 K/V rows
+    (4, 0, 0, 4),  # its int32 position rows
+    (1792 * 2, 0, 4, 4),  # rows 4 bytes off 16
+    (1792 * 2, 8, 0, 4),  # pages 8 bytes off 16
+    (13 * 2, 0, 0, 1),  # a bf16 row of 26 bytes
+    (1792 * 2, 2, 0, 1),  # bf16 pages 2 bytes off 16
+])
+def test_scatter_rows_plan_takes_the_widest_vector_that_divides_row_and_bases(
+        row_bytes, pages_base, rows_base, vec):
+    assert KP.scatter_rows_plan(498, 8, 62, 16, row_bytes, pages_base, rows_base).vec == vec
+
+
+@pytest.mark.parametrize("B,row_bytes,unroll,blocks", [
+    (8, 4, 1, 1),  # a decode step's position leaf: 8 vectors, one block
+    (8, 1792 * 2, 1, 7),  # its K/V leaf: 1792 vectors of 16 bytes
+    (1, 1792 * 2, 1, 1),
+    (3, 26, 1, 1),  # 78 vectors of 1 byte
+    (0, 4, 1, 0),
+])
+def test_scatter_rows_plan_covers_the_rows_with_whole_blocks(B, row_bytes, unroll, blocks):
+    plan = KP.scatter_rows_plan(498, B, 62, 16, row_bytes, 0, 0)
+    per_block = KP.GATHER_THREADS * plan.unroll
+    assert (plan.unroll, plan.blocks) == (unroll, blocks)
+    assert (blocks - 1) * per_block < B * row_bytes // plan.vec <= blocks * per_block
+    assert not plan.wide
+
+
+@pytest.mark.parametrize("N,B,P,p,row_bytes", [(0, 1, 4, 16, 4), (4, 1, 0, 16, 4),
+                                               (4, 1, 4, 0, 4), (4, 1, 4, 16, 0),
+                                               (4, -1, 4, 16, 4)])
+def test_scatter_rows_plan_raises_for_what_the_kernel_does_not_take(N, B, P, p, row_bytes):
+    with pytest.raises(ValueError):
+        KP.scatter_rows_plan(N, B, P, p, row_bytes, 0, 0)
+
+
+@pytest.mark.parametrize("dtype,F,offset,vec", [(torch.bfloat16, 8, 0, 16),
+                                                (torch.bfloat16, 8, 1, 1),
+                                                (torch.float32, 8, 1, 4),
+                                                (torch.int32, 1, 0, 4)])
+def test_paged_scatter_passes_its_plan_to_the_entry_point(monkeypatch, dtype, F, offset, vec):
+    """The plan scatter_rows_plan made for the page tensor's and the rows'
+    own bases (an offset view of the rows keeps its base) is what the C
+    entry point gets, and the launch counter records it by call."""
+    entry = _FakeEntry()
+    monkeypatch.setattr(KP.build, "bind", lambda *a: entry)
+    monkeypatch.setattr(KP.build, "check", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: type("S", (), {"cuda_stream": 0}))
+    N, p, B, P = 6, 4, 5, 3
+    pages = torch.zeros(N, p, F, dtype=dtype)
+    rows = torch.zeros(offset + B * F, dtype=dtype)[offset:].view(B, F)
+    table = torch.zeros(B, P, dtype=torch.int32)
+    pos = torch.arange(B, dtype=torch.int32)
+    KP.build.reset_counters()
+    KP._scatter_rows_launch(pages, table, rows, pos)
+    row_bytes = F * pages.element_size()
+    plan = KP.scatter_rows_plan(N, B, P, p, row_bytes, pages.data_ptr(), rows.data_ptr())
+    assert plan.vec == vec
+    # (pages, table, rows, pos, N, B, P, p, row_bytes, vec, unroll, wide, blocks, stream)
+    assert entry.args[4:13] == (N, B, P, p, row_bytes, vec, plan.unroll, 0, plan.blocks)
+    assert KP.PAGED_SCATTER_ROWS.by_call == {(vec, B, row_bytes): 1}
     KP.build.reset_counters()
 
 

@@ -27,8 +27,13 @@ stated:
   with MoD off (``mamba2-1.3b-dense``) and with MoD every layer; the stepped serving engine's greedy
   streams and stats equal the JAX engine's, contiguous and paged;
   ``Trainer`` losses equal the JAX train loop's within 1e-5; the
-  checkpoint round-trips the ssm tree in the JAX format both ways.
+  checkpoint round-trips the ssm tree in the JAX format both ways;
+- the kernel's pure planner ``ssd_plan``: the path by dtype, shape and
+  alignment, a grid that covers every (b, h, c), shared memory within the
+  limit, a schedule that balances the warps, its refusals, and the plan is
+  what the C entry point receives and the launch counter records.
 """
+import ctypes
 import dataclasses
 import functools
 
@@ -172,6 +177,131 @@ def test_ssd_intra_chunk_validates_its_inputs():
     # the kernel's shared-memory plan: mamba2-1.3b's chunk fits one block
     assert KSSD.smem_bytes(128, 64, 128) == 230912 <= KSSD.SMEM_LIMIT
     assert KSSD.head_group(4, 64, 16, 132) == 8 and KSSD.head_group(1, 3, 2, 132) == 1
+
+
+# ---------------------------------------------------------------------------
+# ssd_plan: the kernel's path, heads per block, grid and schedule, before launch
+# ---------------------------------------------------------------------------
+
+SMS = 132  # an H100's SMs
+
+
+@pytest.mark.parametrize("dtype,shape,aligned,path", [
+    (torch.bfloat16, (4, 64, 16, 128, 64, 128), True, "tensor"),  # mamba2-1.3b's full blocks
+    (torch.bfloat16, (4, 64, 2, 128, 64, 128), True, "tensor"),  # its routed blocks
+    (torch.bfloat16, (1, 3, 2, 16, 32, 16), True, "tensor"),  # the smoke chunk
+    (torch.float32, (4, 64, 16, 128, 64, 128), True, "cuda"),  # f32 parity runs
+    (torch.bfloat16, (4, 64, 16, 128, 64, 128), False, "cuda"),  # rows off 16 bytes
+    (torch.bfloat16, (2, 5, 3, 40, 8, 24), True, "cuda"),  # widths not multiples of 16
+    (torch.bfloat16, (1, 2, 1, 144, 16, 16), True, "cuda"),  # a chunk over 128
+])
+def test_ssd_plan_picks_the_path_by_dtype_and_shape(dtype, shape, aligned, path):
+    plan = KSSD.ssd_plan(*shape, dtype, SMS, aligned)
+    assert plan.path == path
+    assert bool(plan.schedule) == (path == "tensor")
+
+
+@pytest.mark.parametrize("shape,G", [
+    ((4, 64, 16, 128, 64, 128), 32),  # 128 blocks of 32 heads: one per SM
+    ((4, 64, 2, 128, 64, 128), 4),  # 128 blocks of 4 heads
+    ((4, 5, 16, 64, 32, 32), 3),  # 128 blocks; G does not divide H
+    ((1, 3, 2, 16, 32, 16), 1),
+    ((40, 64, 16, 128, 64, 128), 64),  # more (b, c) than SMs: all heads in a block
+])
+def test_ssd_plan_grid_covers_every_head_chunk_and_batch(shape, G):
+    B, H, NC = shape[:3]
+    plan = KSSD.ssd_plan(*shape, torch.bfloat16, SMS)
+    assert plan.G == G and plan.grid == (B * NC, -(-H // G))
+    # every (b, h, c) in exactly one block: block (bc, hg) takes chunk bc % NC
+    # of batch bc // NC and heads hg·G .. min(H, hg·G + G) - 1
+    seen = [(bc // NC, h, bc % NC) for bc in range(plan.grid[0]) for hg in range(plan.grid[1])
+            for h in range(hg * G, min(H, hg * G + G))]
+    assert sorted(seen) == [(b, h, c) for b in range(B) for h in range(H) for c in range(NC)]
+    f32 = KSSD.ssd_plan(*shape, torch.float32, SMS)
+    assert f32.G == KSSD.head_group(B, H, NC, SMS) and f32.grid == (B * NC, -(-H // f32.G))
+
+
+def test_ssd_plan_shared_memory_within_the_limit():
+    # the tensor-core block at mamba2's chunk: B, C.B^T, x of two heads, x∘w
+    # in three bf16 terms, l/dt/w and the schedule; one block per SM
+    plan = KSSD.ssd_plan(4, 64, 16, 128, 64, 128, torch.bfloat16, SMS)
+    assert plan.smem == KSSD.tc_smem_bytes(128, 64, 128) == 165504 <= KSSD.SMEM_LIMIT
+    assert KSSD.ssd_plan(4, 64, 16, 128, 64, 128, torch.float32, SMS).smem == 230912
+    for shape in ((1, 1, 1, 16, 16, 16), (1, 1, 1, 128, 32, 64), (1, 1, 1, 64, 64, 128),
+                  (1, 1, 1, 64, 128, 128)):
+        assert KSSD.ssd_plan(*shape, torch.bfloat16, SMS).smem <= KSSD.SMEM_LIMIT
+    # head dim 128 at chunk 128 fits neither the tensor-core block (x∘w,
+    # two heads of x) nor the CUDA-core one
+    assert KSSD.tc_smem_bytes(128, 128, 128) > KSSD.SMEM_LIMIT
+    with pytest.raises(ValueError, match="shared memory"):
+        KSSD.ssd_plan(1, 1, 1, 128, 128, 128, torch.bfloat16, SMS)
+
+
+def test_ssd_plan_schedule_balances_the_warps():
+    """Longest task first, each to the least-loaded warp: at mamba2's chunk
+    the 24 tasks of a head (y's 8 row tiles x 2 column chunks cost 6..48 mma
+    triples with their M fragments, inc's 8 cost 64) land within 12% of the
+    mean load on each of the 16 warps."""
+    cost = KSSD.tc_tasks(128, 64, 128)
+    sched = KSSD.ssd_plan(4, 64, 16, 128, 64, 128, torch.bfloat16, SMS).schedule
+    assert len(cost) == len(sched) == 24 and sum(cost) == 944
+    load = [sum(c for c, w in zip(cost, sched) if w == warp) for warp in range(KSSD.TC_WARPS)]
+    assert max(load) <= 1.12 * sum(cost) / KSSD.TC_WARPS and min(load) > 0
+    for shape in ((16, 32, 16), (48, 16, 32), (128, 48, 80), (128, 80, 64)):
+        cost, sched = KSSD.tc_tasks(*shape), KSSD.tc_schedule(*shape)
+        load = [sum(c for c, w in zip(cost, sched) if w == warp) for warp in range(16)]
+        assert set(sched) <= set(range(16)) and max(load) - min(load) <= max(cost)
+
+
+def test_ssd_plan_refuses_what_no_path_takes():
+    with pytest.raises(TypeError):
+        KSSD.ssd_plan(1, 1, 1, 16, 16, 16, torch.float16, SMS)
+    with pytest.raises(ValueError, match="tensor-core path does not take"):
+        KSSD.ssd_plan(1, 1, 1, 16, 16, 16, torch.float32, SMS, path="tensor")
+    with pytest.raises(ValueError, match="tensor-core path does not take"):
+        KSSD.ssd_plan(1, 1, 1, 40, 16, 16, torch.bfloat16, SMS, path="tensor")
+    with pytest.raises(ValueError, match="unknown path"):
+        KSSD.ssd_plan(1, 1, 1, 16, 16, 16, torch.bfloat16, SMS, path="wgmma")
+    with pytest.raises(ValueError):
+        KSSD.ssd_plan(1, 0, 1, 16, 16, 16, torch.bfloat16, SMS)
+    # the CUDA-core path forced for a shape the tensor cores take
+    assert KSSD.ssd_plan(4, 64, 16, 128, 64, 128, torch.bfloat16, SMS, path="cuda").path == "cuda"
+
+
+class _FakeEntry:
+    def __call__(self, *args):
+        self.args = args
+        self.sched = ctypes.string_at(args[17], args[18]) if args[18] else b""
+        return 0
+
+
+@pytest.mark.parametrize("dtype,path", [(torch.bfloat16, None), (torch.bfloat16, "cuda"),
+                                        (torch.float32, None)])
+def test_ssd_launch_passes_its_plan_to_the_entry_point(monkeypatch, dtype, path):
+    """The plan ssd_plan made for the call (path, G, schedule, shared memory)
+    is what the C entry point gets, and the launch counter records the path
+    by call."""
+    entry = _FakeEntry()
+    monkeypatch.setattr(KSSD.build, "bind", lambda *a: entry)
+    monkeypatch.setattr(KSSD.build, "check", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: type("S", (), {"cuda_stream": 0}))
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda *a: type("P", (), {"multi_processor_count": SMS}))
+    B, H, NC, Q, hd, ds = 2, 5, 3, 32, 32, 16
+    x, loglam, dt, Bm, Cm = (_t(a) for a in _kernel_inputs(B, H, NC, Q, hd, ds, True))
+    x, Bm, Cm = x.to(dtype), Bm.to(dtype), Cm.to(dtype)
+    KSSD.build.reset_counters()
+    KSSD._launch(x, loglam, dt, Bm, Cm, path)
+    plan = KSSD.ssd_plan(B, H, NC, Q, hd, ds, dtype, SMS, KSSD.aligned_rows(x, Bm, Cm), path)
+    assert plan.path == ("tensor" if dtype == torch.bfloat16 and path is None else "cuda")
+    # (x, loglam, dt, Bm, Cm, y, inc, strides, B, H, NC, Q, hd, ds, G, dtype, path, sched,
+    #  n_tasks, smem, stream)
+    assert entry.args[8:17] == (B, H, NC, Q, hd, ds, plan.G, int(dtype == torch.bfloat16),
+                                int(plan.path == "tensor"))
+    assert entry.args[18:20] == (len(plan.schedule), plan.smem)
+    assert tuple(entry.sched) == plan.schedule
+    assert KSSD.SSD_INTRA_CHUNK.by_call == {(plan.path, B, H, NC, Q, hd, ds): 1}
+    KSSD.build.reset_counters()
 
 
 # ---------------------------------------------------------------------------
