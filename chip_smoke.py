@@ -4,7 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --flash-timing [ROOT]   # flash alone, ROOT's port
     python3 chip_smoke.py --mlp-losses            # phase 5's losses per routed-kernel path
-    python3 chip_smoke.py --routed-paged-timing [ROOT]  # routed_attention, paged_gather alone
+    python3 chip_smoke.py --routed-paged-timing [ROOT]  # routed_attention, paged, dispatch alone
     python3 chip_smoke.py --train-runs [ROOT]     # phases 5 and 9c training alone, ROOT's port
     python3 chip_smoke.py --ssm-losses            # phase 9c's losses per SSD path and SiLU
 
@@ -19,7 +19,12 @@ failure raises and exits non-zero):
    timings (CUDA-graph replay; torch.profiler only for a plain version
    named as not capturing, said on its line) of the kernel, the plain version and, where
    one exists, one PyTorch library call as a yardstick (never called by
-   the port); flash attention at six bf16 shapes (prefill S=1000 and
+   the port); the MoD dispatch (gather, gated scatter-add and gather's VJP,
+   the scatter's zero target) bitwise at a served prompt's shapes and at
+   the mod-paper-1b and mamba2-1.3b training shapes, f32 and bf16, with
+   each call's plan, and one scatter, one gather backward and one ragged
+   scatter listed by torch.profiler as one launch each (no memset, fill or
+   copy); flash attention at six bf16 shapes (prefill S=1000 and
    2048, decode B=8 ctx 1056, the training call with its lse, the routed
    layers' prefill and one-launch decode) against SDPA, and at cases that
    reach every plan (both wgmma key-split halves, a wrapped ring, a
@@ -125,11 +130,14 @@ ROOT (default: this checkout) at phase 2's six FLASH_TIMED bf16 shapes
 beside SDPA, three readings each: run it on a parent tree and this one in
 turns (parent, this, this, parent) in one call to compare two kernels.
 ``--routed-paged-timing [ROOT]`` only times routed_attention (bf16, the
-1b training shape; with torch.profiler's split of one call by kernel) and
-paged_gather (phase 2's four shapes on phase 6c's tables) of the port
-under ROOT beside their plain versions and index_select, three readings
-each in turns: run it on a parent tree and this one in one call to
-compare two versions of the kernels.
+1b training shape; with torch.profiler's split of one call by kernel),
+paged_scatter_rows and paged_gather (phase 2's shapes on phase 6c's
+tables) and the MoD dispatch (gather and scatter at a served prompt's and
+both training shapes, gather's VJP at the training shapes, phase 8b's
+ragged pair; ``dispatch_timing``) of the port under ROOT beside their
+plain versions or library calls, three readings each in turns: run it on
+a parent tree and this one in one call to compare two versions of the
+kernels.
 ``--train-runs [ROOT]`` only runs phase 5's and phase 9c's training on the
 port under ROOT (default: this checkout), with their losses, busy time and
 kernel groups per step: run it on a parent tree and this one in one call
@@ -383,29 +391,93 @@ def bound_ms(nbytes: float, flops: float, dtype: torch.dtype):
 # ---------------------------------------------------------------------------
 
 
+def dispatch_shapes():
+    """(label, B, S, D, k) of the padded dispatch kernels on the main paths:
+    a served mod-paper-1b prompt of 2048 and 1000 tokens (B=1, 12 calls of
+    each kernel a prefill), mod-paper-1b's training step under backend
+    ``pallas`` and mamba2-1.3b's (phase 9c: 72 calls of each a step)."""
+    from repro_torch.config import get_config
+
+    c1, cm = get_config("mod-paper-1b"), get_config("mamba2-1.3b")
+    return [(f"B={B} S={S} D={c.d_model}", B, S, c.d_model, c.mod.capacity(S))
+            for B, S, c in ((1, 2048, c1), (1, 1000, c1), (4, 2048, c1), (4, 2048, cm))]
+
+
+def dispatch_inputs(g, dev, dtype, B, S, D, k):
+    """x, sorted unique idx, delta, gate, and idx flattened over (B*S) rows."""
+    x = torch.randn(B, S, D, generator=g, device=dev).to(dtype)
+    idx = torch.stack([torch.sort(torch.randperm(S, generator=g, device=dev)[:k]).values
+                       for _ in range(B)])
+    delta = torch.randn(B, k, D, generator=g, device=dev).to(dtype)
+    gate = torch.randn(B, k, generator=g, device=dev)
+    return x, idx, delta, gate, (idx + S * torch.arange(B, device=dev)[:, None]).flatten()
+
+
+def device_kernels(fn, tries: int = 10) -> list:
+    """The device activities (kernels, memsets, copies) torch.profiler lists
+    for one call of ``fn`` after a warm-up. CUPTI now and then hands back no
+    device record for a whole profile (:func:`profile_call`); such a
+    profile is taken again, up to ``tries`` times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if names:
+            return names
+    raise NoDeviceTime(f"torch.profiler recorded no device activity in {tries} profiles")
+
+
+def check_one_launch(label: str, fn, kernel: str) -> None:
+    """Asserts that one call of ``fn`` is one launch of ``kernel`` on the
+    card and nothing else (no memset, fill or copy), by torch.profiler."""
+    names = device_kernels(fn)
+    if len(names) != 1 or kernel not in names[0]:
+        raise AssertionError(f"{label}: want one {kernel} launch, torch.profiler lists {names}")
+    log(f"[kernels] {label}: one launch, nothing else on the card (torch.profiler: "
+        f"{names[0][:90]})")
+
+
+def plan_note(plan: dict) -> str:
+    """A dispatch plan (``routing.DispatchPlan._asdict()``) as logged."""
+    grid = "x".join(str(n) for n in plan["grid"])
+    return f"plan=vec{plan['vec']} {plan['threads']} threads x{plan['unroll']} grid {grid}"
+
+
 def check_routing(cfg, dev, results):
+    """The padded dispatch kernels at :func:`dispatch_shapes`, bf16 and f32:
+    gather, gated scatter-add and, at the B=4 training shapes, gather's VJP
+    (the scatter's zero target), each bitwise against its plain version and
+    then timed beside it, one library call (``take_along_dim`` and, beside
+    it, ``index_select`` on the flattened rows for the gather; ``index_add``
+    of the precomputed gated update for the scatter; ``zeros`` +
+    ``index_add_`` for the zero target, two calls) and its byte bound; then
+    torch.profiler's device list of one scatter, one gather backward and
+    one scatter on phase 8b's flat stream: one kernel each, no memset, fill
+    or copy."""
     from repro_torch.kernels import routing
 
     g = torch.Generator(device=dev).manual_seed(0)
-    D = cfg.d_model
-    for S in (2048, 1000):
-        k = cfg.mod.capacity(S)
+    for label, B, S, D, k in dispatch_shapes():
         for dtype in (torch.bfloat16, torch.float32):
-            x = torch.randn(1, S, D, generator=g, device=dev).to(dtype)
-            idx = torch.sort(torch.randperm(S, generator=g, device=dev)[:k]).values[None]
-            delta = torch.randn(1, k, D, generator=g, device=dev).to(dtype)
-            gate = torch.randn(1, k, generator=g, device=dev)
+            x, idx, delta, gate, flat = dispatch_inputs(g, dev, dtype, B, S, D, k)
             es = x.element_size()
             out = routing.gather_rows(x, idx)
             want = routing.gather_rows_plain(x, idx)
             if not torch.equal(out, want):
-                raise AssertionError(f"gather_rows differs from its plain version at S={S} {dtype}")
+                raise AssertionError(f"gather_rows differs from its plain version at {label} {dtype}")
             out2 = routing.scatter_add_rows(x, idx, delta, gate)
             want2 = routing.scatter_add_rows_plain(x, idx, delta, gate)
             if not torch.equal(out2, want2):
-                raise AssertionError(f"scatter_add_rows differs from its plain version at S={S} {dtype}")
-            flat = (idx[0]).contiguous()
-            upd = (gate[..., None] * delta.float()).to(dtype)[0]
+                raise AssertionError(f"scatter_add_rows differs from its plain version at {label} "
+                                     f"{dtype}")
+            xf = x.view(B * S, D)
+            upd = (gate[..., None] * delta.float()).to(dtype).view(B * k, D)
             hg, hs = {}, {}
             rows = {
                 "gather_rows": dict(
@@ -414,7 +486,11 @@ def check_routing(cfg, dev, results):
                     plain_ms=replay_ms(lambda: routing.gather_rows_plain(x, idx), hg, "plain_ms"),
                     library_ms=replay_ms(lambda: torch.take_along_dim(x, idx[..., None], dim=1),
                                          hg, "library_ms"),
-                    bound=bound_ms(2 * k * D * es + 8 * k, 0, dtype),
+                    index_select_ms=replay_ms(lambda: xf.index_select(0, flat), hg,
+                                              "index_select_ms"),
+                    bound=bound_ms(2 * B * k * D * es + 8 * B * k, 0, dtype),
+                    plan=routing.dispatch_plan("gather", B, S, k, D * es, es, 8,
+                                               (x.data_ptr(), out.data_ptr()))._asdict(),
                     max_abs_err=(out.float() - want.float()).abs().max().item(), timed_by=hg,
                 ),
                 "scatter_add_rows": dict(
@@ -423,18 +499,80 @@ def check_routing(cfg, dev, results):
                     plain_ms=replay_ms(lambda: routing.scatter_add_rows_plain(x, idx, delta, gate),
                                        hs, "plain_ms"),
                     # index_add of the precomputed gated update (one call)
-                    library_ms=replay_ms(lambda: x[0].index_add(0, flat, upd), hs, "library_ms"),
-                    bound=bound_ms(2 * S * D * es + k * D * es + 12 * k, 2 * k * D, dtype),
+                    library_ms=replay_ms(lambda: xf.index_add(0, flat, upd), hs, "library_ms"),
+                    bound=bound_ms(2 * B * S * D * es + B * k * D * es + 12 * B * k,
+                                   2 * B * k * D, dtype),
+                    plan=routing.dispatch_plan(
+                        "scatter", B, S, k, D * es, es, 8,
+                        (x.data_ptr(), delta.data_ptr(), out2.data_ptr()))._asdict(),
                     max_abs_err=(out2.float() - want2.float()).abs().max().item(), timed_by=hs,
                 ),
             }
+            del out, want, out2, want2
+            if B > 1:  # the zero target (gather's VJP) at the training shapes
+                ones = torch.ones(B, k, device=dev)
+                z = routing.gather_rows_vjp(idx, delta, x.shape)
+                wz = routing.scatter_add_rows_plain(torch.zeros_like(x), idx, delta, ones)
+                if not torch.equal(z, wz):
+                    raise AssertionError(f"gather_rows_vjp (the zero target) differs from the "
+                                         f"plain scatter into zeros at {label} {dtype}")
+                hz: dict = {}
+                rows["scatter_add_rows zero"] = dict(
+                    call_ms=event_ms(lambda: routing.gather_rows_vjp(idx, delta, x.shape)),
+                    ms=replay_ms(lambda: routing.gather_rows_vjp(idx, delta, x.shape), hz, "ms"),
+                    plain_ms=replay_ms(lambda: routing.scatter_add_rows_plain(
+                        torch.zeros_like(x), idx, delta, ones), hz, "plain_ms"),
+                    library_ms=replay_ms(lambda: torch.zeros_like(xf).index_add_(
+                        0, flat, delta.view(B * k, D)), hz, "library_ms"),
+                    library="zeros + index_add_ (two calls)",
+                    bound=bound_ms(B * S * D * es + B * k * D * es + 8 * B * k, 2 * B * k * D,
+                                   dtype),
+                    plan=routing.dispatch_plan("scatter_zero", B, S, k, D * es, es, 8,
+                                               (delta.data_ptr(), z.data_ptr()))._asdict(),
+                    max_abs_err=(z.float() - wz.float()).abs().max().item(), timed_by=hz,
+                )
+                del z, wz
             for name, r in rows.items():
-                shape = f"B=1 S={S} D={D} k={k} {str(dtype)[6:]}"
-                log(f"[kernels] {name:16s} {shape:32s} bitwise-equal ms={r['ms']:.4f} "
-                    f"call_ms={r['call_ms']:.4f} "
-                    f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
-                    f"bound_ms={r['bound'][0]:.4f} ({r['bound'][1]}){timed_note(r['timed_by'])}")
-                results.setdefault(name, {})[(S, dtype)] = dict(r, shape=shape)
+                shape = f"{label} k={k} {str(dtype)[6:]}"
+                extra = (f" index_select_ms={r['index_select_ms']:.4f}"
+                         if "index_select_ms" in r else "")
+                log(f"[kernels] {name:22s} {shape:32s} bitwise-equal ms={r['ms']:.4f} "
+                    f"call_ms={r['call_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+                    f"library_ms={r['library_ms']:.4f}{extra} bound_ms={r['bound'][0]:.4f} "
+                    f"({r['bound'][1]}, {r['bound'][0] / r['ms']:.0%} of it) "
+                    f"{plan_note(r['plan'])}{timed_note(r['timed_by'])}")
+                kernel, _, zero = name.partition(" ")
+                kind = ("gather" if kernel == "gather_rows"
+                        else "scatter_zero" if zero else "scatter")
+                key = (f"{zero} {label}" if zero else label, dtype)
+                results.setdefault(kernel, {})[key] = dict(r, shape=f"{zero} {shape}".strip(),
+                                                           call=(kind, B, S, k, D * es))
+    # one launch a call, and nothing else: a scatter, gather's backward (the
+    # zero target: no zero tensor is made, filled or copied) and a scatter
+    # on phase 8b's flat stream (int32 indices). Here, first in phase 2:
+    # later in the run torch.profiler has been seen to record no device
+    # activity at all for such a call, ten profiles running
+    label, B, S, D, k = dispatch_shapes()[-1]
+    x, idx, delta, gate, _ = dispatch_inputs(g, dev, torch.bfloat16, B, S, D, k)
+    check_one_launch(f"scatter_add_rows {label} bf16",
+                     lambda: routing.scatter_add_rows(x, idx, delta, gate), "scatter_add_rows_kernel")
+    xr = x.detach().requires_grad_(True)
+    out = routing.gather_rows(xr, idx)
+    g_out = torch.randn(out.shape, generator=g, device=dev).to(out.dtype)
+    check_one_launch(f"gather_rows backward {label} bf16",
+                     lambda: torch.autograd.grad(out, xr, g_out, retain_graph=True),
+                     "scatter_add_rows_kernel")
+    from repro_torch.kernels import ragged as KRG
+
+    T, lens = RAGGED_1B["T"], RAGGED_1B["equal"]
+    k = cfg.mod.capacity(RAGGED_1B["seg_cap"])
+    xs = torch.randn(T, cfg.d_model, generator=g, device=dev).to(torch.bfloat16)
+    ridx = _ragged_selection(g, dev, lens, k, T)
+    rdelta = torch.randn(len(lens), k, cfg.d_model, generator=g, device=dev).to(torch.bfloat16)
+    rgate = torch.randn(ridx.shape, generator=g, device=dev)
+    check_one_launch(f"ragged_scatter_add_rows T={T} n_seg={len(lens)} k={k} bf16",
+                     lambda: KRG.ragged_scatter_add_rows(xs, ridx, rdelta, rgate),
+                     "scatter_add_rows_kernel")
 
 
 def _flash_bytes(q, k, q_pos, kv_pos, es, lse=False):
@@ -732,12 +870,12 @@ def _w(g, dev, dtype, *shape):
 
 def routed_paged_timing(root: Path, reads: int = 3) -> None:
     """``--routed-paged-timing [ROOT]``: routed_attention in bf16 at phase
-    2's mod-paper-1b training shape, and paged_scatter_rows (B=8) and
+    2's mod-paper-1b training shape, paged_scatter_rows (B=8) and
     paged_gather (B=8, then B=1) at phase 2's shapes on phase 6c's tables
     (the same seeds as check_fused and check_paged: K/V and int32 position
-    pages), of the port
-    under ``ROOT/src`` (default: this checkout), each beside its plain
-    version and, for the gather, ``index_select``: ``reads`` CUDA-graph
+    pages), and the MoD dispatch rows of :func:`dispatch_timing`, of the
+    port under ``ROOT/src`` (default: this checkout), each beside its plain
+    version or library calls: ``reads`` CUDA-graph
     replays of each, in turns. Run on a parent tree and this one in one
     call (parent, this, this, parent) to compare two versions of the
     kernels on one card."""
@@ -804,7 +942,75 @@ def routed_paged_timing(root: Path, reads: int = 3) -> None:
             log(f"[routed-paged-timing] {name}: paged_gather {label} B={Bg}: " + readings(
                 {"kernel": lambda: KP.paged_gather(pages, t),
                  "index_select": lambda: torch.index_select(pages, 0, t.flatten().long())}))
+    dispatch_timing(name, readings, dev)
     log(f"[routed-paged-timing] {name}: {smi_line()}")
+
+
+def dispatch_timing(name: str, readings, dev) -> None:
+    """``--routed-paged-timing``'s dispatch rows, through the public wrappers
+    of the port on ``sys.path`` (so a parent tree runs them unchanged), each
+    checked bitwise against its plain version first: gather_rows and
+    scatter_add_rows at :func:`dispatch_shapes` (bf16) beside
+    take_along_dim / index_select / index_add; gather's VJP at the B=4
+    training shapes (``routing.gather_rows_vjp``, the scatter's zero target,
+    where the port has it, else what its backward runs: ``new_zeros`` and
+    the scatter with a unit gate) beside zeros + index_add_; and phase 8b's
+    ragged pair (8 unequal segments on T=4096) beside index_select /
+    index_add of the valid rows."""
+    from repro_torch.config import get_config
+    from repro_torch.kernels import ragged as KRG
+    from repro_torch.kernels import routing as KR
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    dt = torch.bfloat16
+    for label, B, S, D, k in dispatch_shapes():
+        x, idx, delta, gate, flat = dispatch_inputs(g, dev, dt, B, S, D, k)
+        xf, upd = x.view(B * S, D), (gate[..., None] * delta.float()).to(dt).view(B * k, D)
+        if not (torch.equal(KR.gather_rows(x, idx), KR.gather_rows_plain(x, idx)) and torch.equal(
+                KR.scatter_add_rows(x, idx, delta, gate),
+                KR.scatter_add_rows_plain(x, idx, delta, gate))):
+            raise AssertionError(f"the dispatch differs from its plain versions at {label}")
+        log(f"[routed-paged-timing] {name}: gather_rows {label} k={k}: " + readings(
+            {"kernel": lambda: KR.gather_rows(x, idx),
+             "take_along_dim": lambda: torch.take_along_dim(x, idx[..., None], dim=1),
+             "index_select": lambda: xf.index_select(0, flat)}))
+        log(f"[routed-paged-timing] {name}: scatter_add_rows {label} k={k}: " + readings(
+            {"kernel": lambda: KR.scatter_add_rows(x, idx, delta, gate),
+             "index_add": lambda: xf.index_add(0, flat, upd)}))
+        if B == 1:
+            continue
+        ones = torch.ones(B, k, device=dev)
+        vjp = getattr(KR, "gather_rows_vjp", None)
+        zero = ((lambda: vjp(idx, delta, x.shape)) if vjp else
+                (lambda: KR.scatter_add_rows(delta.new_zeros(x.shape), idx, delta, ones)))
+        if not torch.equal(zero(), KR.scatter_add_rows_plain(torch.zeros_like(x), idx, delta,
+                                                              ones)):
+            raise AssertionError(f"gather's VJP differs from its plain version at {label}")
+        log(f"[routed-paged-timing] {name}: gather VJP {label} k={k} "
+            f"({'zero target' if vjp else 'new_zeros + scatter'}): " + readings(
+                {"kernel": zero,
+                 "zeros+index_add_": lambda: torch.zeros_like(xf).index_add_(
+                     0, flat, delta.view(B * k, D))}))
+    T, D = RAGGED_1B["T"], get_config("mod-paper-1b").d_model
+    lens = RAGGED_1B["unequal"]
+    k = get_config("mod-paper-1b").mod.capacity(RAGGED_1B["seg_cap"])
+    x = torch.randn(T, D, generator=g, device=dev).to(dt)
+    idx = _ragged_selection(g, dev, lens, k, T)
+    delta = torch.randn(len(lens), k, D, generator=g, device=dev).to(dt)
+    gate = torch.where(idx >= 0, torch.randn(idx.shape, generator=g, device=dev), 0.0)
+    valid = idx[idx >= 0].long()
+    upd = (gate[idx >= 0][:, None] * delta[idx >= 0].float()).to(dt)
+    if not (torch.equal(KRG.ragged_gather_rows(x, idx), KRG.ragged_gather_rows_plain(x, idx))
+            and torch.equal(KRG.ragged_scatter_add_rows(x, idx, delta, gate),
+                            KRG.ragged_scatter_add_rows_plain(x, idx, delta, gate))):
+        raise AssertionError("the ragged dispatch differs from its plain versions")
+    shape = f"T={T} D={D} n_seg={len(lens)} k={k}"
+    log(f"[routed-paged-timing] {name}: ragged_gather_rows {shape}: " + readings(
+        {"kernel": lambda: KRG.ragged_gather_rows(x, idx),
+         "index_select": lambda: x.index_select(0, valid)}))
+    log(f"[routed-paged-timing] {name}: ragged_scatter_add_rows {shape}: " + readings(
+        {"kernel": lambda: KRG.ragged_scatter_add_rows(x, idx, delta, gate),
+         "index_add": lambda: x.index_add(0, valid, upd)}))
 
 
 def _causal_pairs(pos):
@@ -1328,8 +1534,11 @@ def check_ragged_dispatch(cfg, dev, results):
     D=1792, bf16, k = capacity(1024) routed rows per segment), and a short
     segment with -1 selections. Bitwise against the plain versions; the
     library times are index_select / index_add of the valid selections
-    (the latter of the precomputed gated update), as rows 1-2 use them."""
+    (the latter of the precomputed gated update), as rows 1-2 use them;
+    the plans the wrappers make ride on the lines (:func:`check_routing`
+    checks that a ragged scatter is one launch)."""
     from repro_torch.kernels import ragged as KRG
+    from repro_torch.kernels import routing as KR
 
     g = torch.Generator(device=dev).manual_seed(10)
     D, T = cfg.d_model, RAGGED_1B["T"]
@@ -1361,14 +1570,18 @@ def check_ragged_dispatch(cfg, dev, results):
                 fn=lambda: KRG.ragged_gather_rows(x, idx),
                 plain=lambda: KRG.ragged_gather_rows_plain(x, idx),
                 library=lambda: x.index_select(0, valid),
-                nbytes=2 * n_valid * D * es + 4 * idx.numel(), flops=0),
+                nbytes=2 * n_valid * D * es + 4 * idx.numel(), flops=0,
+                plan=KR.dispatch_plan("gather", 1, T, idx.numel(), D * es, es, 4,
+                                      (x.data_ptr(), got.data_ptr()))._asdict()),
             "ragged_scatter_add_rows": dict(
                 fn=lambda: KRG.ragged_scatter_add_rows(x, idx, delta, gate),
                 plain=lambda: KRG.ragged_scatter_add_rows_plain(x, idx, delta, gate),
                 uncapturable="the plain version selects rows by a boolean mask, a host sync",
                 library=lambda: x.index_add(0, valid, upd),
                 nbytes=2 * T * D * es + n_valid * D * es + 8 * idx.numel(),
-                flops=2 * n_valid * D),
+                flops=2 * n_valid * D,
+                plan=KR.dispatch_plan("scatter", 1, T, idx.numel(), D * es, es, 4,
+                                      (x.data_ptr(), delta.data_ptr(), out.data_ptr()))._asdict()),
         }
         for name, c in timed.items():
             how: dict = {}
@@ -1380,9 +1593,9 @@ def check_ragged_dispatch(cfg, dev, results):
                      max_abs_err=0.0, shape=shape)
             log(f"[kernels] {name:24s} {shape:46s} bitwise-equal ms={r['ms']:.4f} "
                 f"call_ms={r['call_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-                f"library_ms={r['library_ms']:.4f} bound_ms={r['bound'][0]:.6f} ({r['bound'][1]})"
-                f"{timed_note(how)}")
-            results.setdefault(name, {})[label] = r
+                f"library_ms={r['library_ms']:.4f} bound_ms={r['bound'][0]:.6f} ({r['bound'][1]}, "
+                f"{r['bound'][0] / r['ms']:.0%} of it) {plan_note(c['plan'])}{timed_note(how)}")
+            results.setdefault(name, {})[label] = dict(r, plan=c["plan"])
 
 
 def _grads(fn, inputs, seed):
@@ -1701,6 +1914,7 @@ def serve_1b(dev):
     torch.cuda.synchronize()
     counts = build.launch_counts()
     flash = flash_calls()
+    dispatch = dispatch_by_call()
     s = engine.stats()
     if len(outs) != n_req:
         raise AssertionError(f"{len(outs)} of {n_req} requests finished")
@@ -1752,7 +1966,7 @@ def serve_1b(dev):
         raise AssertionError(f"routed decode calls {routed}: want one kernel launch each")
     log(f"[serve] routed decode calls (B={kb}, {k_routed} keys): "
         f"{sum(routed.values())} calls of one kernel launch each (no merge launch)")
-    return counts, flash
+    return counts, flash, dispatch
 
 
 # ---------------------------------------------------------------------------
@@ -1775,7 +1989,9 @@ def _kernel_group(name: str) -> str:
         return "swiglu"
     if "rmsnorm_rows" in name:
         return "routed_* rmsnorm"
-    if "gather_rows" in name or "scatter_update" in name or "copy_bytes" in name:
+    # the dispatch kernels: gather_rows_kernel, scatter_add_rows_kernel (and,
+    # in a tree before the one-pass scatter, its copy_bytes + scatter_update)
+    if any(t in name for t in ("gather_rows", "scatter_add_rows", "scatter_update", "copy_bytes")):
         return "gather/scatter"
     if any(t in name for t in ("gemm", "nvjet", "xmma", "cutlass", "Kernel2")):
         return "library GEMM (cuBLAS)"
@@ -2011,8 +2227,11 @@ def train_runs(root: Path) -> int:
             torch.cuda.empty_cache()
         log(f"[train-runs] {name}: {label} losses {', '.join(f'{x:.4f}' for x in info['losses'])}; "
             f"busy {', '.join(f'{b:.1f}' for b in info['busy'])} ms"
-            + (f"; ssd_intra_chunk group {', '.join(f'{t:.1f}' for t in info['ssd_ms'])} ms"
-               if "ssd_ms" in info else "") + f" ({smi_line()})")
+            + "".join(f"; {group} group {', '.join(f'{t:.2f}' for t in info[key])} ms"
+                      for key, group in (("ssd_ms", "ssd_intra_chunk"),
+                                         ("dispatch_ms", "gather/scatter"),
+                                         ("copies_ms", "copies")) if key in info)
+            + f" ({smi_line()})")
     return int(failed)
 
 
@@ -2988,7 +3207,7 @@ def train_ssm(dev):
             f"routed rows per sequence, chunk {cfg.ssm.chunk}), init {time.perf_counter() - t0:.1f}s")
         torch.cuda.reset_peak_memory_stats()
         build.reset_counters()
-        losses, busies, ssd_ms = [], [], []
+        losses, busies, ssd_ms, dispatch_ms, copies_ms = [], [], [], [], []
         with ssd_launch_shapes() as by_nc:
             for i in range(steps):
                 # device activity only: a step issues ~10^5 host ops, whose
@@ -3007,6 +3226,8 @@ def train_ssm(dev):
                 losses.append(m["loss"])
                 busies.append(busy)
                 ssd_ms.append(groups.get("ssd_intra_chunk", 0.0))
+                dispatch_ms.append(groups.get("gather/scatter", 0.0))
+                copies_ms.append(groups.get("copies", 0.0))
                 log(f"[ssm-train] step {i + 1}: loss {m['loss']:.4f} ce {m['ce']:.4f} grad norm "
                     f"{m['grad_norm']:.3f} lr {m['lr']:.3g}; wall {wall:.1f} ms, device busy "
                     f"{busy:.1f} ms, idle share {1 - busy / wall:.3f}")
@@ -3028,7 +3249,9 @@ def train_ssm(dev):
         f"{sorted(ssd_calls.items())}")
     log(f"[ssm-train] losses {', '.join(f'{x:.4f}' for x in losses)}; device busy "
         f"{', '.join(f'{b:.1f}' for b in busies)} ms; ssd_intra_chunk group "
-        f"{', '.join(f'{t:.1f}' for t in ssd_ms)} ms a step")
+        f"{', '.join(f'{t:.1f}' for t in ssd_ms)} ms a step; gather/scatter group "
+        f"{', '.join(f'{t:.2f}' for t in dispatch_ms)} ms a step (launches by call: "
+        f"{sorted((n, k, c) for n, calls in dispatch_by_call().items() for k, c in calls.items())})")
     for name in ("ssd_intra_chunk", "gather_rows", "scatter_add_rows"):
         if counts.get(name, 0) <= 0:
             raise AssertionError(f"kernel {name} was not launched on the ssm training path")
@@ -3038,7 +3261,8 @@ def train_ssm(dev):
         raise AssertionError(f"SSD launches by NC {by_nc}: want {2 * n_grp} a step at each")
     if ssd_calls and {k[0] for k in ssd_calls} != {"tensor"}:  # (a parent port counts no path)
         raise AssertionError(f"SSD training launches took {ssd_calls}: want tensor cores")
-    return counts, by_nc, dict(losses=losses, busy=busies, ssd_ms=ssd_ms)
+    return counts, by_nc, dict(losses=losses, busy=busies, ssd_ms=ssd_ms,
+                               dispatch_ms=dispatch_ms, copies_ms=copies_ms)
 
 
 def serve_ssm(dev):
@@ -3456,6 +3680,15 @@ def ops_path(snaps, mlp, cfg, dev):
     return counts
 
 
+def dispatch_by_call() -> dict:
+    """The padded dispatch kernels' launches by call since the last reset,
+    keyed as the wrappers count them: (kind, vec, unroll, B, S, k, row
+    bytes)."""
+    from repro_torch.kernels import build
+
+    return {name: dict(build.COUNTERS[name].by_call) for name in ("gather_rows", "scatter_add_rows")}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing to run", file=sys.stderr)
@@ -3512,7 +3745,8 @@ def main() -> int:
     timed("phase 3 parity", lambda: (cross_device_parity(dev), train_step_parity(dev)))
     timed("phase 6a-8a parity", lambda: (paged_parity(dev), quant_parity(dev),
                                          ragged_forward_parity(dev)))
-    serve_counts, serve_flash = timed("phase 4 serve", serve_1b, dev)
+    serve_counts, serve_flash, serve_dispatch = timed("phase 4 serve", serve_1b, dev)
+    dispatch_calls = {"serve": serve_dispatch}
     train_counts, train_flash, train_mlp_calls, train_attn_calls, _ = timed("phase 5 train",
                                                                             train_1b, dev)
     from repro_torch.config import with_mod_backend
@@ -3535,6 +3769,7 @@ def main() -> int:
     timed("phase 9a ssd kernel", check_ssd, dev, results)
     timed("phase 9b ssm parity", ssm_parity, dev)
     ssm_train_counts, ssd_by_nc, _ = timed("phase 9c ssm train", train_ssm, dev)
+    dispatch_calls["train_ssm"] = dispatch_by_call()
     torch.cuda.empty_cache()
     ssm_serve_counts = timed("phase 9d ssm serve", serve_ssm, dev)
 
@@ -3553,9 +3788,20 @@ def main() -> int:
     flash_by_call = {run: [dict(path=k[0], B=k[1], Sq=k[2], Skv=k[3], nq=k[4], nkv=k[5],
                                 hd=k[6], kernels=k[7], launches=n) for k, n in sorted(c.items())]
                      for run, c in fl_runs.items()}
+    # the padded dispatch: every shape of phase 2, each with the launches of
+    # exactly its call (kind, B, S, k, row bytes) in phases 4 and 9c
+    for name in ("gather_rows", "scatter_add_rows"):
+        shapes[name] = [
+            dict(shape=r["shape"], plan=r["plan"], ms=r["ms"], plain_ms=r["plain_ms"],
+                 library_ms=r["library_ms"], bound_ms=r["bound"][0], timed_by=r["timed_by"],
+                 **({"library": r["library"]} if "library" in r else {}),
+                 **({"index_select_ms": r["index_select_ms"]} if "index_select_ms" in r else {}),
+                 launches=sum(n for run in dispatch_calls.values()
+                              for key, n in run[name].items() if (key[0], *key[3:]) == r["call"]))
+            for r in results[name].values()]
     picks = {  # the entry of each kernel at a main-path shape (bf16)
-        "gather_rows": results["gather_rows"][(1000, torch.bfloat16)],
-        "scatter_add_rows": results["scatter_add_rows"][(1000, torch.bfloat16)],
+        "gather_rows": results["gather_rows"][("B=1 S=1000 D=1792", torch.bfloat16)],
+        "scatter_add_rows": results["scatter_add_rows"][("B=1 S=1000 D=1792", torch.bfloat16)],
         "flash_attention": results["flash_attention"][("prefill S=1000", torch.bfloat16)],
         "routed_attention": results["routed_attention"][torch.bfloat16],
         "routed_mlp_scatter": results["routed_mlp_scatter"][torch.bfloat16],

@@ -62,9 +62,9 @@
 // Widening int8 and e4m3 to f32 is exact; the multiply by a power-of-two
 // scale is exact unless it leaves the normal range, and is the same IEEE
 // product as the plain version's.
-#include <limits.h>
 
 #include "common.cuh"
+#include "flat.cuh"
 #include "narrow.cuh"
 
 REPRO_ERROR_STRING
@@ -77,23 +77,8 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
 
 // the gather's block: GATHER_THREADS threads with 1 or GATHER_UNROLL vectors
 // each (kernels/paged.py: GATHER_THREADS, GATHER_UNROLL)
-constexpr int GATHER_THREADS = 256;
+constexpr int GATHER_THREADS = FLAT_THREADS;
 constexpr int GATHER_UNROLL = 4;
-
-template <int VEC>
-struct Vec;
-template <>
-struct Vec<16> {
-  typedef uint4 type;
-};
-template <>
-struct Vec<4> {
-  typedef uint32_t type;
-};
-template <>
-struct Vec<1> {
-  typedef unsigned char type;
-};
 
 // out vector v (of n_vec, vpp per logical page) = vector v % vpp of page
 // table[v / vpp] (the table flattened (B*P)). Block x covers
@@ -313,10 +298,7 @@ extern "C" int repro_paged_gather(const void* pages, const void* table, void* ou
       bases % vec || N < 1 || (unroll != 1 && unroll != GATHER_UNROLL))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long vpp = page_bytes / vec, n_vec = (long long)B * P * vpp;
-  const long long per_block = (long long)GATHER_THREADS * unroll;
-  if (blocks != (n_vec + per_block - 1) / per_block || blocks < 1 || blocks > INT_MAX ||
-      wide != (blocks * per_block > (long long)UINT_MAX))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!flat_grid_ok(n_vec, unroll, blocks, wide)) return static_cast<int>(cudaErrorInvalidValue);
   switch (vec) {
     case 16: return static_cast<int>(launch_gather_u<16>(unroll, pages, table, out, N, vpp,
                                                          n_vec, blocks, wide, st));
@@ -340,10 +322,7 @@ extern "C" int repro_paged_scatter_rows(void* pages, const void* table, const vo
       N < 1 || P < 1 || p < 1 || B < 1 || (unroll != 1 && unroll != GATHER_UNROLL))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long vpr = row_bytes / vec, n_vec = (long long)B * vpr;
-  const long long per_block = (long long)GATHER_THREADS * unroll;
-  if (blocks != (n_vec + per_block - 1) / per_block || blocks > INT_MAX ||
-      wide != (blocks * per_block > (long long)UINT_MAX))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!flat_grid_ok(n_vec, unroll, blocks, wide)) return static_cast<int>(cudaErrorInvalidValue);
   const PagedTarget target{static_cast<const int*>(table), static_cast<const int*>(pos), N, P, p};
   switch (vec) {
     case 16: return static_cast<int>(launch_scatter_u<16>(unroll, pages, rows, target, vpr,
@@ -369,10 +348,7 @@ extern "C" int repro_ragged_paged_scatter_rows(void* pages, const void* pid, con
       N < 1 || p < 1 || W < 1 || (unroll != 1 && unroll != GATHER_UNROLL))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long vpr = row_bytes / vec, n_vec = (long long)W * vpr;
-  const long long per_block = (long long)GATHER_THREADS * unroll;
-  if (blocks != (n_vec + per_block - 1) / per_block || blocks > INT_MAX ||
-      wide != (blocks * per_block > (long long)UINT_MAX))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!flat_grid_ok(n_vec, unroll, blocks, wide)) return static_cast<int>(cudaErrorInvalidValue);
   const RaggedTarget target{static_cast<const int*>(pid), static_cast<const int*>(off), N, p};
   switch (vec) {
     case 16: return static_cast<int>(launch_scatter_u<16>(unroll, pages, rows, target, vpr,

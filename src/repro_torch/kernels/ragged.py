@@ -24,10 +24,13 @@ segment is shorter than its capacity.
   the pre-scatter stream again for the routing aux losses.
 
 On CUDA tensors each launches the kernel of ``csrc/routing.cu`` that the
-padded dispatch uses, with int32 indices, on the stream as one row of
-``T`` tokens with ``n_seg·k`` selections (an index outside ``[0, T)`` gives a zero row there
-and is dropped by the scatter); on CPU tensors each runs its plain version,
-bit for bit the same.
+padded dispatch uses (``routing.gather_launch`` / ``routing.scatter_launch``:
+one flat grid over the output's vectors, the scatter in one pass), with
+int32 indices, on the stream as one row of ``T`` tokens with ``n_seg·k``
+selections (an index outside ``[0, T)`` gives a zero row there and is
+dropped by the scatter); the counters record the plan by call, keyed as
+``routing``'s. On CPU tensors each runs its plain version, bit for bit the
+same.
 
 **Write-back**: :func:`ragged_page_targets` turns (slot, position, valid)
 per row into a (physical page, in-page offset) pair, in torch ops; invalid
@@ -77,6 +80,7 @@ from repro_torch.kernels.paged import (
     check_no_grad,
     flat_plan,
 )
+from repro_torch.kernels.routing import gather_launch, scatter_launch
 
 RAGGED_PAGED_FLASH_ATTENTION = build.counter("ragged_paged_flash_attention")
 RAGGED_PAGED_SCATTER_ROWS = build.counter("ragged_paged_scatter_rows")
@@ -139,17 +143,8 @@ def ragged_gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if check_device(x, idx) == "cpu":
         return ragged_gather_rows_plain(x, idx)
     x, idx = x.contiguous(), idx.contiguous()
-    T, D = x.shape
-    out = torch.empty(tuple(idx.shape) + (D,), dtype=x.dtype, device=x.device)
-    if out.numel() == 0:
-        return out
-    fn = build.bind("routing", "repro_gather_rows", (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P))
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x.data_ptr(), idx.data_ptr(), out.data_ptr(), 1, T, idx.numel(), D,
-             x.element_size(), 4, stream)
-    build.check("routing", "repro_gather_rows", err)
-    RAGGED_GATHER_ROWS.launches += 1
-    return out
+    out = gather_launch(x[None], idx.view(1, -1), RAGGED_GATHER_ROWS)
+    return out.view(tuple(idx.shape) + (x.shape[1],))
 
 
 def ragged_scatter_add_rows_plain(x: torch.Tensor, idx: torch.Tensor, delta: torch.Tensor,
@@ -181,17 +176,9 @@ def ragged_scatter_add_rows(x: torch.Tensor, idx: torch.Tensor, delta: torch.Ten
         return ragged_scatter_add_rows_plain(x, idx, delta, gate)
     x, idx, delta = x.contiguous(), idx.contiguous(), delta.contiguous()
     gate = gate.to(torch.float32).contiguous()
-    if idx.numel() == 0 or x.numel() == 0:
-        return x.clone()
-    out = torch.empty_like(x)
-    fn = build.bind("routing", "repro_scatter_add_rows",
-                    (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P))
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x.data_ptr(), idx.data_ptr(), delta.data_ptr(), gate.data_ptr(), out.data_ptr(),
-             1, x.shape[0], idx.numel(), D, _DTYPES[x.dtype], 4, stream)
-    build.check("routing", "repro_scatter_add_rows", err)
-    RAGGED_SCATTER_ADD_ROWS.launches += 1
-    return out
+    n = idx.numel()
+    return scatter_launch(x[None], idx.view(1, n), delta.view(1, n, D), gate.view(1, n),
+                          RAGGED_SCATTER_ADD_ROWS)[0]
 
 
 # ---------------------------------------------------------------------------

@@ -105,22 +105,88 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("B,S,D,k", [(1, 77, 96, 10), (3, 2048, 1792, 256), (2, 33, 5, 33)])
-def test_routing_kernels_bitwise(dev, dtype, B, S, D, k):
+def _offset(t, offset_bytes):
+    """A contiguous copy of ``t`` whose base sits ``offset_bytes`` past an
+    aligned allocation."""
+    n = offset_bytes // t.element_size()
+    buf = torch.empty(n + t.numel(), dtype=t.dtype, device=t.device)
+    return buf[n:].view(t.shape).copy_(t)
+
+
+def _dispatch_reference(x, idx, delta, gate):
+    """Gather, scatter-add and gather's VJP per batch row through the ragged
+    plain versions (a zero row for an index outside [0, S), dropped by the
+    scatter), which the public plain versions cannot take."""
+    rows = [(x[b], idx[b][None].int(), delta[b][None], gate[b][None])
+            for b in range(x.shape[0])]
+    gathered = torch.stack([KRG.ragged_gather_rows_plain(xb, ib)[0] for xb, ib, _, _ in rows])
+    scattered = torch.stack([KRG.ragged_scatter_add_rows_plain(*r) for r in rows])
+    vjp = torch.stack([KRG.ragged_scatter_add_rows_plain(torch.zeros_like(xb), ib, db,
+                                                         torch.ones_like(gb))
+                       for xb, ib, db, gb in rows])
+    return gathered, scattered, vjp
+
+
+# (B, S, D, k, base offset in bytes, index dtype, indices out of range)
+ROUTING_CASES = [
+    (1, 77, 96, 10, 0, torch.int64, False),
+    (3, 2048, 1792, 256, 0, torch.int64, False),
+    (4, 2048, 2048, 256, 0, torch.int64, False),  # mamba2-1.3b's training shape
+    (2, 33, 5, 33, 0, torch.int64, False),  # k = S, odd rows
+    (1, 1000, 1792, 1000, 0, torch.int64, False),  # capacity 1.0: k = S
+    (3, 100, 96, 20, 2, torch.int64, False),  # bases 2 bytes off 16: 1-/2-byte vectors
+    (3, 100, 96, 20, 4, torch.int64, False),  # 4 bytes off: 4-byte vectors
+    (3, 100, 96, 20, 8, torch.int64, False),
+    (4, 300, 64, 50, 0, torch.int64, True),  # B > 1, -1 and >= S selections
+    (4, 300, 64, 50, 0, torch.int32, True),
+    (2, 513, 1792, 64, 0, torch.int32, False),  # int32, as the flat stream
+    (2, 37, 6, 37, 4, torch.int32, True),  # k = S, narrow rows, 4 bytes off
+    (2, 50, 8192, 7, 0, torch.int64, True),  # the gather's rows in 2 or 4 chunks
+]
+
+
+@pytest.mark.parametrize("dtype,case", [
+    (dt, c) for c in ROUTING_CASES for dt in DTYPES
+    if c[4] % torch.empty(0, dtype=dt).element_size() == 0])
+def test_routing_kernels_bitwise(dev, dtype, case):
+    """Gather, scatter-add and gather's VJP (the zero target) at every
+    vector width, with int64 and int32 indices, k = S and indices out of
+    range, bitwise against their plain versions; each call one launch, on
+    the plan dispatch_plan makes for its bases."""
+    B, S, D, k, off, idx_dtype, oob = case
     g = torch.Generator(device=dev).manual_seed(0)
-    x = torch.randn(B, S, D, generator=g, device=dev).to(dtype)
+    x = _offset(torch.randn(B, S, D, generator=g, device=dev).to(dtype), off)
     idx = torch.stack([torch.sort(torch.randperm(S, generator=g, device=dev)[:k]).values
                        for _ in range(B)])
-    delta = torch.randn(B, k, D, generator=g, device=dev).to(dtype)
+    if oob:
+        idx[1:, ::7] = -1
+        idx[1:, 3::11] = S + torch.arange(idx[1:, 3::11].shape[1], device=dev)
+    idx = idx.to(idx_dtype)
+    delta = _offset(torch.randn(B, k, D, generator=g, device=dev).to(dtype), off)
     gate = torch.randn(B, k, generator=g, device=dev)
+    want_g, want_s, want_z = _dispatch_reference(x, idx, delta, gate)
     build.reset_counters()
-    assert torch.equal(KR.gather_rows(x, idx), KR.gather_rows_plain(x, idx))
-    assert torch.equal(KR.scatter_add_rows(x, idx, delta, gate),
-                       KR.scatter_add_rows_plain(x, idx, delta, gate))
+    if idx_dtype == torch.int64 and not oob:
+        assert torch.equal(KR.gather_rows_plain(x, idx), want_g)
+        assert torch.equal(KR.scatter_add_rows_plain(x, idx, delta, gate), want_s)
+        assert torch.equal(KR.gather_rows(x, idx), want_g)
+        assert torch.equal(KR.scatter_add_rows(x, idx, delta, gate), want_s)
+    else:
+        assert torch.equal(KR.gather_launch(x, idx, KR.GATHER_ROWS), want_g)
+        assert torch.equal(KR.scatter_launch(x, idx, delta, gate, KR.SCATTER_ADD_ROWS), want_s)
+    assert torch.equal(KR.gather_rows_vjp(idx, delta, x.shape), want_z)
     torch.cuda.synchronize()
-    counts = build.launch_counts()
-    assert counts["gather_rows"] == 1 and counts["scatter_add_rows"] == 1
+    es, ib = x.element_size(), idx.element_size()
+    plans = [KR.dispatch_plan("gather", B, S, k, D * es, es, ib, (x.data_ptr(), 0)),
+             KR.dispatch_plan("scatter", B, S, k, D * es, es, ib, (x.data_ptr(), delta.data_ptr())),
+             KR.dispatch_plan("scatter_zero", B, S, k, D * es, es, ib, (delta.data_ptr(),))]
+    if off % 16:
+        assert plans[0].vec == (4 if off % 4 == 0 else 1)
+        assert plans[1].vec == plans[2].vec == (4 if off % 4 == 0 else 2)
+    assert KR.GATHER_ROWS.by_call == {(p.kind, p.vec, p.unroll, B, S, k, D * es): 1
+                                      for p in plans[:1]}
+    assert KR.SCATTER_ADD_ROWS.by_call == {(p.kind, p.vec, p.unroll, B, S, k, D * es): 1
+                                           for p in plans[1:]}
 
 
 def _flash_inputs(dev, dtype, B, Sq, Skv, nq, nkv, hd, layout, seed=1):
@@ -533,11 +599,30 @@ def test_routing_gradients_match_plain(dev, dtype):
     got = _grads(lambda *t: KR.scatter_add_rows(t[0], idx, t[1], t[2]), [x, delta, gate], 1)
     want = _grads(lambda *t: KR.scatter_add_rows_plain(t[0], idx, t[1], t[2]), [x, delta, gate], 1)
     torch.cuda.synchronize()
-    # gather's backward is a scatter launch and scatter's a gather launch
+    # gather's backward is a scatter launch (the zero target) and scatter's
+    # a gather launch
     assert build.launch_counts()["gather_rows"] == 2
     assert build.launch_counts()["scatter_add_rows"] == 2
+    assert [key[0] for key in KR.SCATTER_ADD_ROWS.by_call] == ["scatter_zero", "scatter"]
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     torch.testing.assert_close(got[2], want[2], atol=1e-5, rtol=1e-5)
+    # gather's backward alone: one zero-target launch and no zero tensor of
+    # x's shape (its peak is the gradient it returns)
+    xr = x.detach().requires_grad_(True)
+    out = KR.gather_rows(xr, idx)
+    g_out = torch.randn(out.shape, generator=g, device=dev).to(dtype)
+    torch.cuda.synchronize()
+    build.reset_counters()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (dx,) = torch.autograd.grad(out, xr, g_out)
+    torch.cuda.synchronize()
+    nbytes = dx.numel() * dx.element_size()
+    assert torch.cuda.max_memory_allocated() - before <= -(-nbytes // 512) * 512
+    assert build.launch_counts()["gather_rows"] == 0
+    assert [(key[0], n) for key, n in KR.SCATTER_ADD_ROWS.by_call.items()] == [("scatter_zero", 1)]
+    ones = torch.ones(idx.shape, device=dev)
+    assert torch.equal(dx, KR.scatter_add_rows_plain(torch.zeros_like(x), idx, g_out, ones))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
