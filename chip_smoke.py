@@ -4,7 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --flash-timing [ROOT]   # flash alone, ROOT's port
     python3 chip_smoke.py --mlp-losses            # phase 5's losses per routed-kernel path
-    python3 chip_smoke.py --routed-paged-timing [ROOT]  # routed_attention, paged, dispatch alone
+    python3 chip_smoke.py --routed-paged-timing [ROOT]  # routed_attention, paged, dispatch, ragged attn
     python3 chip_smoke.py --train-runs [ROOT]     # phases 5 and 9c training alone, ROOT's port
     python3 chip_smoke.py --ssm-losses            # phase 9c's losses per SSD path and SiLU
 
@@ -24,7 +24,8 @@ failure raises and exits non-zero):
    the mod-paper-1b and mamba2-1.3b training shapes, f32 and bf16, with
    each call's plan, and one scatter, one gather backward and one ragged
    scatter listed by torch.profiler as one launch each (no memset, fill or
-   copy); flash attention at six bf16 shapes (prefill S=1000 and
+   copy), and ragged paged flash attention listed as one launch in one
+   key chunk and as its kernel and merge past it; flash attention at six bf16 shapes (prefill S=1000 and
    2048, decode B=8 ctx 1056, the training call with its lse, the routed
    layers' prefill and one-launch decode) against SDPA, and at cases that
    reach every plan (both wgmma key-split halves, a wrapped ring, a
@@ -116,7 +117,10 @@ failure raises and exits non-zero):
    f32 and its rows against the gather + flash path, timed beside its
    bound; (b) the same on phase 7b's int8/page and fp8/head pools (their
    scales expanded to (N, p, nkv)) against the dequantizing gather +
-   flash; (c) SwiGLU at mod-paper-1b's MLP (layer 0's weights), M = 1024
+   flash; every call's plan (``ragged.ragged_attention_plan``: the mma
+   path for bf16 queries, f32 for f32) printed (phase 2 asserts by
+   torch.profiler that a one-chunk call is one kernel and a split call the
+   kernel and its merge, nothing else); (c) SwiGLU at mod-paper-1b's MLP (layer 0's weights), M = 1024
    and 8192, bf16 and f32, and two odd shapes: the kernel against its plain
    version, the plain version against an f64 product rounded at JAX's
    points, timed beside its bound and the library's products, with HGMMA
@@ -134,7 +138,10 @@ turns (parent, this, this, parent) in one call to compare two kernels.
 paged_scatter_rows and paged_gather (phase 2's shapes on phase 6c's
 tables) and the MoD dispatch (gather and scatter at a served prompt's and
 both training shapes, gather's VJP at the training shapes, phase 8b's
-ragged pair; ``dispatch_timing``) of the port under ROOT beside their
+ragged pair; ``dispatch_timing``) and ragged paged flash attention
+(phase 10's decode and mixed steps, bf16 queries, on a bf16 and an int8
+pool of ``PAGED_1B``'s layout made from a seed, no engine run;
+``ragged_attention_timing``) of the port under ROOT beside their
 plain versions or library calls, three readings each in turns: run it on
 a parent tree and this one in one call to compare two versions of the
 kernels.
@@ -943,6 +950,7 @@ def routed_paged_timing(root: Path, reads: int = 3) -> None:
                 {"kernel": lambda: KP.paged_gather(pages, t),
                  "index_select": lambda: torch.index_select(pages, 0, t.flatten().long())}))
     dispatch_timing(name, readings, dev)
+    ragged_attention_timing(name, readings, cfg, dev)
     log(f"[routed-paged-timing] {name}: {smi_line()}")
 
 
@@ -1168,6 +1176,65 @@ def paged_1b_plan():
     ctx = w["prefix"] + w["max_suffix"] + w["gen"]
     n_chunks = int(sum(-(-(w["prefix"] + int(n)) // w["chunk"]) for n in suffix))
     return suffix, ctx, n_chunks
+
+
+def synthetic_pool(cfg, dev, kind: str, seed: int = 23) -> dict:
+    """Layer 0 of a pool of ``PAGED_1B``'s layout as phase 10 finds it after
+    the prefills, made from a seed with no engine run: B*P + 2 pages of 16
+    rows (NULL and scratch first), each slot holding positions [0, n_b)
+    with n_b = 512 + suffix_b + 1 (``paged_1b_plan``'s suffixes), its 32
+    prefix pages one shared run, its own pages shuffled, NULL past its
+    length; random bf16 K/V, or (``kind`` "int8") int8 K/V with pow2
+    per-row scales. A :func:`snapshot_pool` dict (without ``cols``)."""
+    w = PAGED_1B
+    suffix, ctx, _ = paged_1b_plan()
+    B, p, P = w["B"], w["page"], ctx // w["page"]
+    N, shared = B * P + 2, w["prefix"] // w["page"]
+    nkv, hd = cfg.attn.n_kv_heads, cfg.head_dim
+    g = torch.Generator(device=dev).manual_seed(seed)
+    i32 = dict(dtype=torch.int32, device=dev)
+    n = torch.tensor([w["prefix"] + int(x) + 1 for x in suffix], **i32)
+    free = (2 + torch.randperm(N - 2, generator=g, device=dev)).to(torch.int32)
+    table = torch.zeros(B, P, **i32)  # NULL
+    table[:, :shared] = free[:shared]
+    at = shared
+    pos = torch.full((N, p), -1, **i32)
+    for b in range(B):
+        used = -(-int(n[b]) // p)
+        table[b, shared:used] = free[at:at + used - shared]
+        at += used - shared
+        ids = torch.arange(int(n[b]), **i32)
+        pos[table[b, ids // p].long(), (ids % p).long()] = ids
+    snap = dict(pos=pos, table=table, n=n, cols=None, scales=None)
+    kv = [torch.randn(N, p, nkv, hd, generator=g, device=dev) for _ in range(2)]
+    if kind == "int8":
+        snap["k"], snap["v"] = ((t * 127 / 3).clamp(-127, 127).round().to(torch.int8) for t in kv)
+        snap["scales"] = tuple(
+            (2.0 ** torch.randint(-9, -5, (N, p, 1), generator=g, device=dev).float())
+            .expand(N, p, nkv).contiguous() for _ in range(2))
+    else:
+        snap["k"], snap["v"] = (t.to(torch.bfloat16) for t in kv)
+    return snap
+
+
+def ragged_attention_timing(name: str, readings, cfg, dev) -> None:
+    """``--routed-paged-timing``'s ragged attention rows: phase 10's decode
+    and mixed steps (bf16 queries) on a bf16 and an int8 :func:`synthetic_pool`,
+    through the public wrapper, each checked against the plain version
+    first."""
+    from repro_torch.kernels import ragged as KRG
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    for kind in ("bf16", "int8"):
+        snap = synthetic_pool(cfg, dev, kind)
+        for step, st in _ragged_steps(snap, g, cfg.attn.n_heads, torch.bfloat16).items():
+            args, kw = _ragged_args(snap, st, torch.bfloat16)
+            out = KRG.ragged_paged_flash_attention(*args, **kw)
+            want = KRG.ragged_paged_flash_attention_plain(*args, **kw)
+            torch.testing.assert_close(out.float(), want.float(), **TOL[torch.bfloat16])
+            log(f"[routed-paged-timing] {name}: ragged_paged_flash_attention {kind} pool {step} "
+                f"T={args[0].shape[0]} seg_cap={st['cap']}: " + readings(
+                    {"kernel": lambda: KRG.ragged_paged_flash_attention(*args, **kw)}))
 
 
 def _changed_rows(pages, before):
@@ -3442,6 +3509,25 @@ def _ragged_cost(snap, st, es, kv_es):
     return nbytes, 4.0 * hd * nq * pairs
 
 
+def ragged_plan(args, kw):
+    """:func:`ragged.ragged_attention_plan` of one call of the wrapper."""
+    from repro_torch.kernels import ragged as KRG
+
+    q, k, table = args[0], args[1], args[4]
+    return KRG.ragged_attention_plan(q.shape[0], q.shape[1], k.shape[2], q.shape[2], k.shape[0],
+                                     k.shape[1], *table.shape, args[6].shape[0], kw["seg_cap"],
+                                     q.dtype, k.dtype)
+
+
+def ragged_plan_note(plan) -> str:
+    """A ragged attention plan as logged."""
+    grid = "x".join(str(n) for n in plan.grid)
+    keys = (f"key tile {plan.key_tile}, {plan.n_chunks} chunk(s) of {plan.chunk}"
+            if plan.path == "mma" else f"{plan.key_tile} keys a warp step")
+    return (f"plan={plan.path} rows {plan.rows}, {keys}, grid {grid}, smem {plan.smem}, "
+            f"{plan.kernels} kernel(s)")
+
+
 def check_ragged_attention(snaps, cfg, dev, results):
     """10a/10b: the kernel against its plain version (bf16 and f32 queries
     on every pool) and its bf16 rows against the gather + flash path, on
@@ -3455,6 +3541,9 @@ def check_ragged_attention(snaps, cfg, dev, results):
         for step, st in steps.items():
             for dtype in (torch.bfloat16, torch.float32):
                 args, kw = _ragged_args(snap, st, dtype)
+                plan = ragged_plan(args, kw)
+                if plan.path != ("mma" if dtype == torch.bfloat16 else "f32"):
+                    raise AssertionError(f"ragged attention {pool} {step} {dtype}: plan {plan}")
                 out = KRG.ragged_paged_flash_attention(*args, **kw)
                 want = KRG.ragged_paged_flash_attention_plain(*args, **kw)
                 torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
@@ -3467,6 +3556,7 @@ def check_ragged_attention(snaps, cfg, dev, results):
                          plain_ms=graph_ms(
                              lambda: KRG.ragged_paged_flash_attention_plain(*args, **kw), reps=5),
                          library_ms=None, bound=bound_ms(nbytes, flops, dtype), max_abs_err=err,
+                         plan=plan._asdict(),
                          shape=f"{pool} {step} T={args[0].shape[0]} n_seg={st['slot'].numel()} "
                                f"seg_cap={st['cap']} {nq}x{args[0].shape[2]} "
                                f"{str(dtype)[6:]}")
@@ -3488,9 +3578,37 @@ def check_ragged_attention(snaps, cfg, dev, results):
                                         r["ms"])
                 log(f"[ragged-attn] {r['shape']:58s} max_abs_err={err:.3g} ms={r['ms']:.4f} "
                     f"plain_ms={r['plain_ms']:.4f}{extra} bound_ms={r['bound'][0]:.4f} "
-                    f"({r['bound'][1]}) (CUDA graph replay)")
+                    f"({r['bound'][1]}) (CUDA graph replay) {ragged_plan_note(plan)}")
                 results.setdefault("ragged_paged_flash_attention", {})[
                     (pool, step, dtype)] = r
+
+
+def check_ragged_launches(cfg, dev) -> None:
+    """By torch.profiler (in phase 2, where its records are complete): a
+    one-chunk call (10d's edge case, 64 keys a slot) is one launch of the
+    mma kernel and nothing else; a split call (the decode step on a
+    synthetic bf16 pool of phase 10's layout, 992 keys a slot) is the mma
+    kernel and its merge, and nothing else (the merge scratch is allocated,
+    not filled)."""
+    from repro_torch.kernels import ragged as KRG
+
+    args, kw = ragged_edge_case(dev, torch.bfloat16, None, 31)
+    if ragged_plan(args, kw).kernels != 1:
+        raise AssertionError("the edge case is not a one-chunk plan")
+    check_one_launch("ragged attention, one chunk", lambda: KRG.ragged_paged_flash_attention(
+        *args, **kw), "ragged_attn_mma_kernel")
+    g = torch.Generator(device=dev).manual_seed(14)
+    snap = synthetic_pool(cfg, dev, "bf16")
+    args, kw = _ragged_args(snap, _ragged_steps(snap, g, cfg.attn.n_heads,
+                                                torch.bfloat16)["decode"], torch.bfloat16)
+    plan = ragged_plan(args, kw)
+    names = device_kernels(lambda: KRG.ragged_paged_flash_attention(*args, **kw))
+    if (plan.kernels != 2 or len(names) != 2 or "ragged_attn_mma_kernel" not in names[0]
+            or "ragged_attn_merge_kernel" not in names[1]):
+        raise AssertionError(f"ragged attention, split: {ragged_plan_note(plan)}; torch.profiler "
+                             f"lists {names}")
+    log(f"[kernels] ragged attention, {plan.n_chunks} chunks: two launches, the kernel and its "
+        f"merge, nothing else on the card (torch.profiler: {names[0][:60]}; {names[1][:60]})")
 
 
 # 10d's (causal, window) modes
@@ -3675,6 +3793,11 @@ def ops_path(snaps, mlp, cfg, dev):
     want = {"ragged_paged_flash_attention": 2 * len(snaps), "swiglu": len(SWIGLU_M)}
     if {k: v for k, v in counts.items() if v} != want:
         raise AssertionError(f"phase 10's ops launched {counts}, want {want}")
+    by_plan = dict(build.COUNTERS["ragged_paged_flash_attention"].by_call)
+    if any(key[0] != "mma" for key in by_plan):
+        raise AssertionError(f"a bf16 ragged attention call left the mma path: {by_plan}")
+    log(f"[ops] ragged attention launches by call (path, T, n_seg, seg_cap, nq, nkv, hd, kv, "
+        f"chunks, kernels): {by_plan}")
     log(f"[ops] {len(calls)} op calls through repro_torch.kernels.ops: launches "
         f"{json.dumps({k: v for k, v in counts.items() if v})}")
     return counts
@@ -3738,7 +3861,8 @@ def main() -> int:
     cfg1b = get_config("mod-paper-1b")
     results: dict = {}
     timed("phase 2 kernels", lambda: (
-        check_routing(cfg1b, dev, results), check_flash(cfg1b, dev, results),
+        check_routing(cfg1b, dev, results), check_ragged_launches(cfg1b, dev),
+        check_flash(cfg1b, dev, results),
         check_fused(cfg1b, dev, results), check_paged(cfg1b, dev, results),
         check_quant_casts(dev), check_dequant(cfg1b, dev, results),
         check_ragged_dispatch(cfg1b, dev, results), check_grads(cfg1b, dev)))
@@ -3849,7 +3973,7 @@ def main() -> int:
     # line's numbers are the costliest counted shape's
     ra = results["ragged_paged_flash_attention"]
     shapes["ragged_paged_flash_attention"] = [
-        dict(shape=r["shape"], launches=int(key[2] == torch.bfloat16), ms=r["ms"],
+        dict(shape=r["shape"], plan=r["plan"], launches=int(key[2] == torch.bfloat16), ms=r["ms"],
              plain_ms=r["plain_ms"], library_ms=None, bound_ms=r["bound"][0],
              yardstick_ms=r.get("yardstick_ms")) for key, r in ra.items()]
     picks["ragged_paged_flash_attention"] = max(

@@ -1,5 +1,6 @@
 // Shared helpers of the port's CUDA sources: element conversions, the
-// tensor-core building blocks and the error string every library exports.
+// tensor-core building blocks, the once-per-device shared-memory limit and
+// the error string every library exports.
 // Each source compiles to its own shared library with a plain C interface
 // (kernels/build.py).
 #pragma once
@@ -7,6 +8,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 // dtype codes passed by the Python wrappers
 #define REPRO_F32 0
@@ -93,6 +96,23 @@ __device__ __forceinline__ float quad_sum(float v) {
 __device__ __forceinline__ bool key_candidate(int kp, int qmin, int qmax, int causal,
                                               int window) {
   return kp >= 0 && (!causal || kp <= qmax) && (window <= 0 || kp > qmin - window);
+}
+
+// Raises `kernel`'s dynamic shared-memory limit to `smem` once per device,
+// not on every launch: the attribute belongs to the device current when it
+// is set, so `done` (a static of the calling launcher, one per kernel
+// instance) holds a bit per device ordinal below 64; above that it is set
+// on every call. A failure is returned and not remembered.
+template <typename Kernel>
+cudaError_t smem_limit_once(std::atomic<unsigned long long>& done, Kernel* kernel, size_t smem) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
 }
 
 #define REPRO_ERROR_STRING                                              \

@@ -80,7 +80,6 @@
 #include <limits.h>
 #include <math.h>
 
-#include <atomic>
 #include <type_traits>
 
 #include "common.cuh"
@@ -89,23 +88,6 @@
 REPRO_ERROR_STRING
 
 namespace {
-
-// Raises `kernel`'s dynamic shared-memory limit to `smem` once per device,
-// not on every launch: the attribute belongs to the device current when it
-// is set, so `done` (a static of the calling launcher, one per kernel
-// instance) holds a bit per device ordinal below 64; above that it is set
-// on every call. A failure is returned and not remembered.
-template <typename Kernel>
-cudaError_t smem_limit_once(std::atomic<unsigned long long>& done, Kernel* kernel, size_t smem) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
-  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
-  return err;
-}
 
 constexpr float NEG_INF = -1e30f;  // the Pallas kernel's masked score
 

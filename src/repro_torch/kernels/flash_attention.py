@@ -184,7 +184,7 @@ def flash_attention_plain(
     return _flash_plain(q, k, v, q_pos, kv_pos, causal, window, scale)[0]
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
+def aligned16(t: torch.Tensor) -> torch.Tensor:
     """``t`` contiguous at a 16-byte aligned address (the kernels load rows
     as 16-byte vectors)."""
     t = t.contiguous()
@@ -200,7 +200,7 @@ def _flash_launch(q, k, v, q_pos, kv_pos, causal, window, scale, want_lse):
     plan = flash_plan(B, Sq, Skv, nq, nkv, hd, q.dtype)
     if len({t.device for t in (q, k, v, q_pos, kv_pos)}) != 1:
         raise ValueError("all inputs must be on one device")
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    q, k, v = aligned16(q), aligned16(k), aligned16(v)
     q_pos = q_pos.to(torch.int32).contiguous()
     kv_pos = kv_pos.to(torch.int32).contiguous()
     out = torch.empty_like(q)

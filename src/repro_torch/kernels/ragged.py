@@ -57,7 +57,11 @@ int8 / e4m3 pages with ``(N, p, nkv)`` f32 scales are widened and keep
 ``[row_offsets[0], row_offsets[-1])``, is 0. The CUDA kernel runs for CUDA
 tensors, the plain version (a dense masked softmax per segment) for CPU
 tensors; they agree up to f32 summation order and, in bf16, the rounding
-of ``p`` against another running maximum.
+of ``p`` against another running maximum. :func:`ragged_attention_plan`
+(pure) decides how the kernel runs a call: bf16 queries on tensor cores
+(``"mma"``: tiles of (query row, query head) pairs of one kv head, the
+slot's context split into fixed key chunks over blocks and merged by a
+second launch past one chunk), f32 queries on CUDA cores (``"f32"``).
 
 None of these has autograd (the JAX kernels have no VJP): a tensor that
 requires grad raises.
@@ -65,11 +69,12 @@ requires grad raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import aligned16
 from repro_torch.kernels.paged import (
     NARROW,
     FlatPlan,
@@ -94,8 +99,23 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 NEG_INF = -1e30  # the Pallas kernel's masked score
 _KV_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.float8_e4m3fn: 3}
+_KV_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8",
+             torch.float8_e4m3fn: "e4m3"}
 _ATTN_HEAD_DIMS = (32, 64, 128, 256)
-_ATTN_ARGTYPES = (_P,) * 11 + (_I,) * 12 + (_F, _I, _I, _P)
+# (q, k, v, k_scales, v_scales, pos_pages, table, row_offsets, seg_slot,
+# q_pos, out, part_m, part_l, part_acc, n_rows, nq, nkv, hd, N, p, B, P,
+# n_seg, seg_cap, q_dtype, kv_kind, path, rows, key_tile, chunk, n_chunks,
+# grid x, y, z, smem, scale, causal, window, stream)
+_ATTN_ARGTYPES = (_P,) * 14 + (_I,) * 21 + (_F, _I, _I, _P)
+# the kernel's path codes (csrc/ragged_attention.cu refuses a plan that is
+# not its own)
+_ATTN_PATHS = {"f32": 0, "mma": 1}
+ATTN_SPLIT_ROWS = 16  # one m16 tile: a tile this short splits its chunk's keys over 4 warps
+ATTN_TALL_ROWS = 64  # 16 rows a warp
+ATTN_F32_KEYS = 32  # keys per warp step of the f32 kernel: one a lane
+ATTN_MERGE_WARPS = 4  # (row, head) pairs a block of the merge kernel: a warp each
+_GRID_X = 2 ** 31 - 1  # CUDA's limits on gridDim.x and on gridDim.y, z
+_GRID_YZ = 65535
 
 
 # ---------------------------------------------------------------------------
@@ -296,6 +316,95 @@ def ragged_paged_scatter_rows_op(pages, pid: torch.Tensor, off: torch.Tensor, ro
 # ---------------------------------------------------------------------------
 
 
+class RaggedAttentionPlan(NamedTuple):
+    """How the CUDA kernel runs one call."""
+
+    path: str  # "mma" (bf16 queries, tensor cores) | "f32" (f32 queries, CUDA cores)
+    rows: int  # a block's rows: (query row, query head) pairs of one kv head (mma), query rows (f32)
+    key_tile: int  # keys per staged K/V tile (mma); per warp step (f32)
+    chunk: int  # keys per split of the slot's context, two key tiles (mma); 0 for f32
+    n_chunks: int  # ceil(P*p / chunk) (mma); 0 for f32
+    grid: Tuple[int, int, int]
+    smem: int  # dynamic shared memory of a block, bytes
+    scratch: Tuple[Tuple[int, ...], ...]  # f32 partial m, l, acc when the chunks merge, else ()
+
+    @property
+    def merge(self) -> bool:
+        """A second launch merges the chunks' partial states."""
+        return self.n_chunks > 1
+
+    @property
+    def kernels(self) -> int:
+        """Kernel launches of the call."""
+        return 2 if self.merge else 1
+
+
+def ragged_attention_plan(T: int, nq: int, nkv: int, hd: int, N: int, p: int, B: int, P: int,
+                          n_seg: int, seg_cap: int, q_dtype: torch.dtype,
+                          kv_dtype: torch.dtype) -> RaggedAttentionPlan:
+    """The kernel's path, tiling, key chunks, grid, shared memory and merge
+    scratch for ``T`` flat rows of ``nq`` query heads over ``N`` pages of
+    ``p`` rows of ``nkv`` kv heads (head dim ``hd``), ``B`` slots of ``P``
+    pages, ``n_seg`` segments of at most ``seg_cap`` rows; a pure function
+    of these. bf16 queries take the tensor cores (``"mma"``) on bf16, int8
+    or e4m3 pages: rows per tile 16 when ``seg_cap`` times the group
+    ``nq/nkv`` fits one m16 tile (a decode step), else 64; chunks of two key
+    tiles (128 keys, 64 at head dim 256), set by the head dim alone, so the
+    chunk boundaries fall at the same key indices whatever the grid; a
+    grid of (tile-list entries × chunks, kv heads), the list holding each
+    segment's row tiles in order (the kernel finds its entry from the row
+    offsets), so a decode segment of a call whose seg_cap is a prefill
+    chunk costs one tile, not seg_cap's; one launch when ``P*p`` fits one
+    chunk (plus a plane of blocks writing the zero rows), else a merge
+    launch and its f32 scratch ``(n_chunks, T, nq)`` twice and
+    ``(n_chunks, T, nq, hd)``. f32 queries take the CUDA-core kernel
+    (``"f32"``). Raises for what the kernel does not take."""
+    if hd not in _ATTN_HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {_ATTN_HEAD_DIMS}")
+    if nkv <= 0 or nq % nkv:
+        raise ValueError(f"n_heads {nq} is not a multiple of n_kv_heads {nkv}")
+    if min(T, N, p, B, P, n_seg, seg_cap) < 1:
+        raise ValueError(f"want T, N, p, B, P, n_seg, seg_cap >= 1; got {T}, {N}, {p}, {B}, {P}, "
+                         f"{n_seg}, {seg_cap}")
+    if max(N * p, P * p, seg_cap * (nq // nkv), T * (nq // nkv)) > _GRID_X:
+        raise ValueError(f"N*p={N * p}, P*p={P * p}, seg_cap*group and T*group must fit an "
+                         f"int32")
+    wide = {torch.float32: torch.float32, torch.bfloat16: torch.bfloat16}
+    if q_dtype not in wide:
+        raise TypeError(f"q must be float32 or bfloat16, got {q_dtype}")
+    if kv_dtype != wide[q_dtype] and kv_dtype not in NARROW:
+        raise TypeError(f"{q_dtype} queries take {wide[q_dtype]}, int8 or float8_e4m3fn pages, "
+                        f"got {kv_dtype}")
+    if q_dtype == torch.float32:
+        rows = 8 if hd >= 256 else 16
+        grid = (-(-seg_cap // rows), nq, n_seg + 1)
+        plan = RaggedAttentionPlan("f32", rows, ATTN_F32_KEYS, 0, 0, grid, 5 * rows * hd * 4, ())
+    else:
+        key_tile = 32 if hd == 256 else 64  # keys per staged K/V tile
+        chunk = 2 * key_tile
+        pairs = seg_cap * (nq // nkv)
+        rows = ATTN_SPLIT_ROWS if pairs <= ATTN_SPLIT_ROWS else ATTN_TALL_ROWS
+        n_chunks = -(-(P * p) // chunk)
+        merge = n_chunks > 1
+        # entries of the flat tile list (segment s: ceil(min(len_s, seg_cap)·group / rows)
+        # tiles): at most seg_cap's tiles a segment, and at most one partial tile a
+        # segment past T rows' worth; one launch adds the plane of zero rows
+        tiles = min(n_seg * -(-pairs // rows), (T * (nq // nkv) + n_seg * (rows - 1)) // rows)
+        grid = (tiles * n_chunks, nkv, 1 if merge else 2)
+        ld = hd + 8  # shared bf16 row stride
+        smem = (2 * 2 * key_tile * ld * 2 + (2 * chunk + rows) * 4
+                + (2 * chunk * 4 if kv_dtype in NARROW else 0))
+        part = (n_chunks, T, nq)
+        plan = RaggedAttentionPlan("mma", rows, key_tile, chunk, n_chunks, grid, smem,
+                                   (part, part, part + (hd,)) if merge else ())
+        if merge and -(-(T * nq) // ATTN_MERGE_WARPS) > _GRID_X:
+            raise ValueError(f"T={T} rows x {nq} heads exceed the merge kernel's grid")
+    x, y, z = plan.grid
+    if x > _GRID_X or max(y, z) > _GRID_YZ:
+        raise ValueError(f"grid {plan.grid} exceeds CUDA's ({_GRID_X}, {_GRID_YZ}, {_GRID_YZ})")
+    return plan
+
+
 def _check_attention(q, k_pages, v_pages, pos_pages, table, row_offsets, seg_slot, q_pos,
                      seg_cap, k_scales, v_scales) -> None:
     if q.dim() != 3 or k_pages.dim() != 4:
@@ -425,32 +534,45 @@ def ragged_paged_flash_attention(
     if check_device(*tensors) == "cpu":
         return ragged_paged_flash_attention_plain(q, k_pages, v_pages, pos_pages, table,
                                                   row_offsets, seg_slot, q_pos, **kw)
+    if q.shape[2] not in _ATTN_HEAD_DIMS:
+        raise ValueError(f"head_dim {q.shape[2]} not in {_ATTN_HEAD_DIMS}")
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    if out.numel() == 0:
+        return out
+    if seg_slot.shape[0] == 0 or table.numel() == 0:
+        return out.zero_()
+    return _attention_launch(q, k_pages, v_pages, pos_pages, table, row_offsets, seg_slot, q_pos,
+                             k_scales, v_scales, out, int(seg_cap), bool(causal), int(window),
+                             float(scale if scale is not None else 1.0 / q.shape[2] ** 0.5))
+
+
+def _attention_launch(q, k_pages, v_pages, pos_pages, table, row_offsets, seg_slot, q_pos,
+                      k_scales, v_scales, out, seg_cap, causal, window, scale):
+    """The kernel on :func:`ragged_attention_plan`'s plan, which C refuses if
+    it is not its own; the merge scratch comes from ``torch.empty``. The
+    launch counter records each call keyed (path, T, n_seg, seg_cap, nq,
+    nkv, hd, kv kind, chunks, kernel launches of the call)."""
     T, nq, hd = q.shape
     N, p, nkv, _ = k_pages.shape
     B, P = table.shape
     n_seg = seg_slot.shape[0]
-    if hd not in _ATTN_HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in {_ATTN_HEAD_DIMS}")
-    if n_seg + 1 > 65535 or nq > 65535:
-        raise ValueError(f"{n_seg} segments x {nq} heads exceed the kernel's grid")
-    scale = float(scale if scale is not None else 1.0 / hd ** 0.5)
-    args = [t.contiguous() for t in (q, k_pages, v_pages, pos_pages, table, row_offsets,
-                                     seg_slot, q_pos)]
-    ks, vs = (None, None) if k_scales is None else (k_scales.contiguous(), v_scales.contiguous())
-    out = torch.empty_like(args[0])
-    if out.numel() == 0:
-        return out
-    if n_seg == 0 or B * P == 0:
-        return out.zero_()
-    # the kernel reads K/V rows in 8-element vectors from 16-byte-aligned bases
-    args[1:3] = [t if t.data_ptr() % 16 == 0 else t.clone() for t in args[1:3]]
+    plan = ragged_attention_plan(T, nq, nkv, hd, N, p, B, P, n_seg, seg_cap, q.dtype,
+                                 k_pages.dtype)
+    q, k_pages, v_pages = aligned16(q), aligned16(k_pages), aligned16(v_pages)
+    ints = [t.contiguous() for t in (pos_pages, table, row_offsets, seg_slot, q_pos)]
+    scales = [None if t is None else t.contiguous() for t in (k_scales, v_scales)]
+    part = [torch.empty(shape, dtype=torch.float32, device=q.device) for shape in plan.scratch]
     fn = build.bind("ragged_attention", "repro_ragged_paged_attention", _ATTN_ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(*(t.data_ptr() for t in args[:3]), None if ks is None else ks.data_ptr(),
-             None if vs is None else vs.data_ptr(), *(t.data_ptr() for t in args[3:]),
-             out.data_ptr(), T, nq, nkv, hd, N, p, B, P, n_seg, int(seg_cap),
-             _DTYPES[q.dtype], _KV_KINDS[k_pages.dtype], scale, int(bool(causal)), int(window),
+    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+             *(None if t is None else t.data_ptr() for t in scales),
+             *(t.data_ptr() for t in ints), out.data_ptr(),
+             *([t.data_ptr() for t in part] or [None] * 3),
+             T, nq, nkv, hd, N, p, B, P, n_seg, seg_cap, _DTYPES[q.dtype],
+             _KV_KINDS[k_pages.dtype], _ATTN_PATHS[plan.path], plan.rows, plan.key_tile,
+             plan.chunk, plan.n_chunks, *plan.grid, plan.smem, scale, int(causal), window,
              stream)
     build.check("ragged_attention", "repro_ragged_paged_attention", err)
-    RAGGED_PAGED_FLASH_ATTENTION.launches += 1
+    RAGGED_PAGED_FLASH_ATTENTION.add((plan.path, T, n_seg, seg_cap, nq, nkv, hd,
+                                      _KV_NAMES[k_pages.dtype], plan.n_chunks, plan.kernels))
     return out

@@ -44,11 +44,15 @@ flash backward is the blocked torch-op backward from the kernel's lse,
 against autograd through the dense plain version (f32 1e-4; bf16: the
 plain version's autograd rounds at its bf16 casts, the Function does not).
 
-Ragged paged flash attention: the kernel sums its online softmax per
-32-key chunk and merges four warps' states, the plain version takes one
-dense softmax, and in bf16 they round p against different maxima: flash's
-TOL. Its edge cases are ``chip_smoke.py``'s phase 10(d), imported from
-there so that each case is kept in one place. SwiGLU: the kernel (tensor cores for bf16, CUDA cores for f32) and
+Ragged paged flash attention: the kernel sums its online softmax per key
+tile, merges warps' and key chunks' states, the plain version takes one
+dense softmax, and in bf16 they round p against different maxima (on
+int8/e4m3 pages p' = p * vs is kept to ~16 bits as two bf16 terms):
+flash's TOL on every path and head dim, at keys past bit 31 and 63 of a
+chunk, at page sizes 8, 16 and 32. A context split over chunks (the merge
+launch) gives the one-chunk call's bits, two calls and a CUDA-graph replay
+give the same bits. Its edge cases are ``chip_smoke.py``'s phase 10(d),
+imported from there so that each case is kept in one place. SwiGLU: the kernel (tensor cores for bf16, CUDA cores for f32) and
 the plain version (cuBLAS in f32) sum in their own order; in bf16 a sum
 on the other side of a rounding boundary moves an element of h by one ulp
 and y rounds once, so they agree within 2^-7 of max|y| (f32: 2e-5 of it).
@@ -78,7 +82,7 @@ torch = pytest.importorskip("torch")
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from chip_smoke import (  # noqa: E402
-    RAGGED_EDGE_MODES, check_ragged_edge_case, flash_call, ragged_edge_case)
+    RAGGED_EDGE_MODES, check_ragged_edge_case, flash_call, ragged_edge_case, ragged_plan)
 
 from repro_torch import config as TC  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
@@ -1183,6 +1187,134 @@ def test_ragged_paged_attention_head_dims_and_a_decode_step(dev, hd):
     out = KRG.ragged_paged_flash_attention(*args, seg_cap=1)
     want = KRG.ragged_paged_flash_attention_plain(*args, seg_cap=1)
     torch.testing.assert_close(out.float(), want.float(), **TOL[torch.bfloat16])
+
+
+def _mixed_step(dev, dtype, narrow, hd=64, p=16, P=12, nq=4, nkv=2, B=4, prefill=40,
+                null_pages=0, seed=0, keys=None):
+    """Phase 10's mixed step at a small size: ``B`` slots whose first two
+    pages are one shared prefix run, slot b holding positions [0, n_b); a
+    decode row per slot at n_b - 1, then (``prefill`` > 0) a segment
+    re-reading slot 0's last ``prefill`` positions, then 5 rows at
+    position -1. The table maps each slot's pages in a shuffled order,
+    NULL past its length, and ``null_pages`` more NULL entries. ``keys``:
+    only these key indices of each slot hold a position. Narrow pages
+    (int8 / e4m3) carry pow2 scales. Returns (args, keywords) of
+    ragged_paged_flash_attention."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    i32 = dict(dtype=torch.int32, device=dev)
+    N, shared = 2 + B * P, 2
+    n = torch.randint(max(prefill, shared * p) + 1, P * p + 1, (B,), generator=g, device=dev)
+    table = (2 + torch.randperm(B * P, generator=g, device=dev)).view(B, P).to(torch.int32)
+    table[:, :shared] = table[0, :shared]
+    table[torch.arange(P, device=dev)[None] * p >= n[:, None]] = 0
+    pos = torch.full((N, p), -1, **i32)
+    for b in range(B):
+        ids = torch.arange(int(n[b]), **i32)
+        if keys is not None:
+            ids = ids[torch.isin(ids, torch.as_tensor(keys, **i32))]
+        pos[table[b, ids // p].long(), (ids % p).long()] = ids
+    table = torch.cat([table, torch.zeros(B, null_pages, **i32)], 1)
+    q_pos = [(n - 1).to(torch.int32)]
+    offs = list(range(B + 1))
+    if prefill:
+        q_pos.append(torch.arange(int(n[0]) - prefill, int(n[0]), **i32))
+        offs.append(B + prefill)
+    q_pos = torch.cat(q_pos + [torch.full((5,), -1, **i32)])
+    slot = torch.cat([torch.arange(B, **i32), torch.zeros(len(offs) - 1 - B, **i32)])
+    q = torch.randn(q_pos.shape[0], nq, hd, generator=g, device=dev).to(dtype)
+    kv = [torch.randn(N, p, nkv, hd, generator=g, device=dev) for _ in range(2)]
+    kw = dict(seg_cap=max(prefill, 1))
+    if narrow is None:
+        kv = [t.to(dtype) for t in kv]
+    else:
+        qmax = 127.0 if narrow == torch.int8 else 448.0
+        kv = [(t * qmax / 3).clamp(-qmax, qmax).round().to(narrow) for t in kv]
+        for name in ("k_scales", "v_scales"):
+            kw[name] = 2.0 ** torch.randint(-9, -5, (N, p, nkv), generator=g, device=dev).float()
+    return (q, *kv, pos, table, torch.tensor(offs, **i32), slot, q_pos), kw
+
+
+def _ragged_call(args, kw):
+    """The kernel's output, its plan and the counter's record of the call."""
+    build.reset_counters()
+    out = KRG.ragged_paged_flash_attention(*args, **kw)
+    torch.cuda.synchronize()
+    return out, ragged_plan(args, kw), dict(build.COUNTERS["ragged_paged_flash_attention"].by_call)
+
+
+@pytest.mark.parametrize("step", ["decode", "mixed"])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("narrow", NARROW_KV, ids=["wide", "int8", "fp8"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ragged_attention_every_path_and_head_dim(dev, dtype, narrow, hd, step):
+    """bf16 queries on wide, int8 and e4m3 pages take the mma path, f32
+    queries the f32 one; 192 keys a slot are two chunks (three at head dim
+    256): the merge launch. Within TOL of the plain version, the flat tail
+    exactly 0, the plan counted by call."""
+    args, kw = _mixed_step(dev, dtype, narrow, hd=hd, prefill=0 if step == "decode" else 40,
+                           seed=hd)
+    out, plan, calls = _ragged_call(args, kw)
+    assert plan.path == ("mma" if dtype == torch.bfloat16 else "f32")
+    if plan.path == "mma":
+        assert plan.rows == (16 if step == "decode" else 64) and plan.merge
+    assert sum(calls.values()) == 1 and next(iter(calls))[-1] == plan.kernels
+    want = KRG.ragged_paged_flash_attention_plain(*args, **kw)
+    torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+    assert not out[int(args[5][-1]):].any()
+
+
+@pytest.mark.parametrize("prefill", [0, 40])
+@pytest.mark.parametrize("narrow", NARROW_KV, ids=["wide", "int8", "fp8"])
+def test_ragged_attention_keys_past_bits_31_and_63(dev, narrow, prefill):
+    """Only keys 33, 47, 63, 64, 97 and 127 of each slot's first chunk, and
+    99-127 of the second, hold positions: a mask narrower than the chunk
+    would drop them and the rows would differ from the plain version."""
+    keys = [33, 47, 63, 64, 97, 127] + list(range(227, 256))
+    args, kw = _mixed_step(dev, torch.bfloat16, narrow, P=16, prefill=prefill, keys=keys, seed=5)
+    out, plan, _ = _ragged_call(args, kw)
+    assert plan.chunk == 128 and plan.n_chunks == 2
+    want = KRG.ragged_paged_flash_attention_plain(*args, **kw)
+    torch.testing.assert_close(out.float(), want.float(), **TOL[torch.bfloat16])
+    assert want[:4].abs().amax() > 0.1  # the decode rows see those keys
+
+
+@pytest.mark.parametrize("narrow", [None, torch.int8], ids=["wide", "int8"])
+@pytest.mark.parametrize("p", [8, 16, 32])
+def test_ragged_attention_page_sizes(dev, p, narrow):
+    """Keys are looked up through the table one row at a time: pages of 8,
+    16 and 32 rows, chunks that start mid-page or span several pages."""
+    args, kw = _mixed_step(dev, torch.bfloat16, narrow, p=p, P=384 // p, seed=p)
+    out, _, _ = _ragged_call(args, kw)
+    want = KRG.ragged_paged_flash_attention_plain(*args, **kw)
+    torch.testing.assert_close(out.float(), want.float(), **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("prefill", [0, 40])
+@pytest.mark.parametrize("narrow", NARROW_KV, ids=["wide", "int8", "fp8"])
+def test_ragged_attention_split_context_equals_one_chunk(dev, narrow, prefill):
+    """The same 128-key contexts in one chunk (one launch, the output
+    written by the block) and with 16 NULL pages more in the table (three
+    chunks, two of them empty, and the merge launch): the same bits."""
+    one = _mixed_step(dev, torch.bfloat16, narrow, P=8, prefill=prefill, seed=9)
+    split = _mixed_step(dev, torch.bfloat16, narrow, P=8, prefill=prefill, seed=9,
+                        null_pages=16)
+    got_one, plan_one, _ = _ragged_call(*one)
+    got_split, plan_split, _ = _ragged_call(*split)
+    assert (plan_one.kernels, plan_split.kernels, plan_split.n_chunks) == (1, 2, 3)
+    assert torch.equal(got_one, got_split)
+
+
+@pytest.mark.parametrize("P", [8, 12])
+@pytest.mark.parametrize("narrow", [None, torch.float8_e4m3fn], ids=["wide", "fp8"])
+def test_ragged_attention_same_bits_twice_and_in_a_cuda_graph(dev, narrow, P):
+    """No atomics and a fixed merge order: two calls agree to the bit, and
+    the call (one launch at P=8, the merge at 12, its scratch allocated
+    inside the capture) replays in a CUDA graph with the eager call's bits."""
+    args, kw = _mixed_step(dev, torch.bfloat16, narrow, P=P, seed=P)
+    fn = lambda: KRG.ragged_paged_flash_attention(*args, **kw)  # noqa: E731
+    assert torch.equal(fn(), fn())
+    want, got = _eager_and_replayed(fn)
+    assert torch.equal(got, want)
 
 
 def _swiglu_inputs(dev, dtype, M, D, F):
