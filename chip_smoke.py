@@ -125,7 +125,22 @@ failure raises and exits non-zero):
    version, the plain version against an f64 product rounded at JAX's
    points, timed beside its bound and the library's products, with HGMMA
    asserted in its bf16 GEMM kernels' SASS and the GEMM path per row; (d)
-   the ragged kernel's edge cases at small shapes.
+   the ragged kernel's edge cases at small shapes;
+11. self-speculative serving (``EngineConfig.speculate``): (a)
+   ``mod-paper-60m`` f32, the same weights on the CPU and the card, the
+   paged engine drafting 3 tokens a round at draft ratio 0.0 (two passes)
+   and 0.125 (the model's ratio: one fused chain): identical streams on both
+   devices, equal to the card's non-speculative paged engine's; (b)
+   ``mod-paper-1b`` bf16 on phase 6c's workload and weights, ``speculate=3``,
+   through the paged engine at draft ratios 0.0 and 0.125, the prefix-cached
+   and the ragged engine at 0.0 and the int8/page prefix engine at 0.0:
+   streams equal phase 6c's (7b's for int8), the fused run above 3 tokens a
+   round; rounds, accept rate, tokens a round, wall and device-busy ms a
+   round and an accepted token (one profiled round with every slot
+   generating), peak memory and each kernel's launches a round, where only
+   the paged gathers, flash attention and the ragged write-back may launch
+   (by launch counter, and by torch.profiler against the ``__global__``
+   functions of ``csrc``).
 
 Each phase's wall time is printed on a ``[time]`` line.
 
@@ -2316,10 +2331,10 @@ def first_token_logits(eng):
     from}, filled as ``eng`` runs."""
     rows, real = {}, eng._sample
 
-    def sample(slot, row):
+    def sample(slot, row, index=None):
         if not slot.generated:
             rows[slot.req.uid] = np.array(row, dtype=np.float32)
-        return real(slot, row)
+        return real(slot, row, index)
 
     eng._sample = sample
     return rows
@@ -2586,7 +2601,7 @@ def serve_quant_1b(dev, params, base_streams, base_stats, base_first):
                for i, n in enumerate(suffix)]
     n_full = sum(1 for grp in params["groups"] if "full" in grp)
     base_kv = base_stats["kv_bytes"]
-    counts, stats, prof_line, deq_line, snaps = {}, {}, "", "", {}
+    counts, stats, prof_line, deq_line, snaps, quant_streams = {}, {}, "", "", {}, {}
     for name, kw, q in QUANT_1B:
         if "ragged" in kw:
             kw = dict(kw, ragged_segments=n_chunks)
@@ -2639,6 +2654,7 @@ def serve_quant_1b(dev, params, base_streams, base_stats, base_first):
         outs = _streams(eng.finished)
         if len(outs) != B or any(not o.ok or len(o.tokens) != gen for o in eng.finished):
             raise AssertionError(f"1b {name}: not every request finished with {gen} tokens")
+        quant_streams[name] = outs
         same = sum(sum(a == b for a, b in zip(outs[u], base_streams[u])) for u in outs)
         first = min((next((i for i, (a, b) in enumerate(zip(outs[u], base_streams[u])) if a != b),
                           gen), u) for u in outs)
@@ -2708,7 +2724,7 @@ def serve_quant_1b(dev, params, base_streams, base_stats, base_first):
     if set(snaps) != set(SNAP_RUNS[1:]):
         raise AssertionError(f"1b quantized runs: no step found every slot generating in "
                              f"{set(SNAP_RUNS[1:]) - set(snaps)}")
-    return counts, by_shape, snaps
+    return counts, by_shape, snaps, quant_streams
 
 
 # ---------------------------------------------------------------------------
@@ -3803,6 +3819,242 @@ def ops_path(snaps, mlp, cfg, dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: self-speculative serving
+# ---------------------------------------------------------------------------
+
+SPEC_N = 3  # tokens drafted a round
+SPEC_GEN = 16  # new tokens a request in 11b (phase 6c's first 16)
+# 11b's engines on PAGED_1B's workload: (name, engine settings, draft ratio,
+# QuantConfig fields or None, the phase 6c / 7b run whose streams it equals)
+SPEC_1B = (
+    ("paged r0", dict(), 0.0, None, "paged"),
+    ("paged r0.125 fused", dict(), 0.125, None, "paged"),
+    ("paged+prefix r0", dict(prefix_cache=True), 0.0, None, "paged"),
+    ("ragged r0", dict(ragged=True), 0.0, None, "paged"),
+    ("prefix int8/page r0", dict(prefix_cache=True), 0.0, dict(kv="int8", granularity="page"),
+     "prefix int8/page"),
+)
+# the kernels a round may launch (PERF.md §6 rows 7, 8, 3, 1, 2, 13), and
+# the sources that hold them
+SPEC_KERNELS = ("paged_gather", "paged_gather_dequant", "flash_attention", "gather_rows",
+                "scatter_add_rows", "ragged_paged_scatter_rows")
+SPEC_SOURCES = ("paged.cu", "flash_attention.cu", "routing.cu", "flat.cuh")
+
+
+def csrc_kernels() -> dict:
+    """{name of a ``__global__`` function: its file} for every kernel source
+    of the port."""
+    import re
+
+    pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\((?:[^()]|\([^()]*\))*\)\s*)?"
+                     r"(?://[^\n]*\s*)?(\w+)\s*\(")
+    out = {}
+    for f in sorted((ROOT / "src" / "repro_torch" / "kernels" / "csrc").glob("*.cu*")):
+        for name in pat.findall(f.read_text()):
+            out[name] = f.name
+    return out
+
+
+def port_kernel_of(event_name: str, kernels: dict):
+    """The port's ``__global__`` function a profiler kernel record names, or
+    None for a kernel of torch or a library."""
+    import re
+
+    for name in kernels:
+        if re.search(rf"\b{name}\b", event_name):
+            return name
+    return None
+
+
+def speculative_parity(dev):
+    """(a) mod-paper-60m in f32, phase 6b's weights and a shared 128-token
+    prefix, 4 requests upfront into 4 slots, 12 new tokens: the paged engine
+    (page 16, chunk 64) with ``speculate=3`` at draft ratio 0.0 (draft, then
+    verify) and 0.125 (the model's ratio: one fused chain) on the CPU (plain
+    versions) and the card (kernels). Streams must be identical across the
+    devices and equal to the card's non-speculative paged engine's."""
+    from repro_torch.config import get_config, with_mod_backend
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models import api
+    from repro_torch.serve import EngineConfig, Request, ServingEngine
+
+    cfg = with_mod_backend(dataclasses.replace(get_config("mod-paper-60m"), dtype="float32"),
+                           "pallas")
+    p_cpu = api.init_model(cfg, device="cpu", seed=3)
+    p_gpu = _to(p_cpu, dev)
+    toks = SyntheticLM(cfg.vocab, 228, seed=17).batch(0, 4)["tokens"]
+    rng = np.random.default_rng(5)
+    prompts = [np.concatenate([toks[0, :128], toks[i, 128:128 + int(n)]])
+               for i, n in enumerate(rng.integers(16, 101, 4))]
+    base = dict(batch_size=4, ctx=256, page_size=16, prefill_chunk=64)
+
+    def run(d, params, **kw):
+        eng = ServingEngine(params, cfg, EngineConfig(**base, **kw), device=d)
+        return _streams(eng.run_stream([Request(tokens=p, max_new_tokens=12) for p in prompts],
+                                       0)), eng.stats()
+
+    plain, _ = run(dev, p_gpu)
+    for ratio in (0.0, cfg.mod.capacity_ratio):
+        (sc, stc), (sg, stg) = (run(d, p, speculate=SPEC_N, draft_ratio=ratio)
+                                for d, p in (("cpu", p_cpu), (dev, p_gpu)))
+        if sc != sg:
+            diff = [u for u in sc if sc[u] != sg[u]]
+            raise AssertionError(f"60m speculative r{ratio}: CPU and card streams differ for {diff}")
+        if sg != plain:
+            diff = [u for u in sg if sg[u] != plain[u]]
+            raise AssertionError(f"60m speculative r{ratio}: card streams differ from the plain "
+                                 f"paged engine's for {diff}")
+        if (stc["speculative_rounds"], stc["speculative_tokens_per_round"]) != (
+                stg["speculative_rounds"], stg["speculative_tokens_per_round"]):
+            raise AssertionError(f"60m speculative r{ratio}: rounds differ across devices")
+        log(f"[spec] 60m f32 paged speculate={SPEC_N} draft ratio {ratio}"
+            f"{' (fused)' if ratio == cfg.mod.capacity_ratio else ''}: CPU and card greedy streams "
+            f"identical for all {len(sg)} requests ({sum(len(t) for t in sg.values())} tokens) and "
+            f"equal to the card's plain paged engine's; {stg['speculative_rounds']:.0f} rounds, "
+            f"accept rate {stg['speculative_accept_rate']:.3f}, "
+            f"{stg['speculative_tokens_per_round']:.3f} tokens a round on both")
+
+
+def serve_spec_1b(dev, params, base_streams, base_stats, quant_streams):
+    """(b) mod-paper-1b in bf16, phase 6c's workload and weights (8 requests
+    sharing a 512-token prefix, page 16, chunk 256), SPEC_GEN new tokens
+    (the first SPEC_GEN of phase 6c's 32: every slot runs to the end in
+    both), through SPEC_1B's engines at ``speculate=3``. Streams must equal
+    phase 6c's (7b's for the int8 pool) and the fused run must average more
+    than 3 tokens a round. Per engine: rounds, accept rate, tokens a round,
+    wall ms a round and an accepted token (engine steps advanced) over the
+    rounds whose step admitted nothing, device-busy ms of one profiled such
+    round, peak memory, and each kernel's launches in such a round. Every
+    round may launch only SPEC_KERNELS (launch counters), and the profiled
+    round's device records hold no other kernel of ``csrc``
+    (torch.profiler). Returns the launch counts of each run (prefills
+    included) and of a round with every slot generating."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.config import get_config, with_mod_backend
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import build
+    from repro_torch.serve import EngineConfig, Request, ServingEngine
+    from repro_torch.serve.quant import QuantConfig
+    from repro_torch.serve.scheduler import GENERATE
+
+    cfg = with_mod_backend(get_config("mod-paper-1b"), "pallas")
+    w = PAGED_1B
+    B, pre, page, C = w["B"], w["prefix"], w["page"], w["chunk"]
+    suffix, ctx, n_chunks = paged_1b_plan()
+    toks = SyntheticLM(cfg.vocab, pre + w["max_suffix"], seed=9).batch(0, B)["tokens"]
+    prompts = [np.concatenate([toks[0, :pre], toks[i, pre:pre + int(n)]])
+               for i, n in enumerate(suffix)]
+    n_full = sum(1 for grp in params["groups"] if "full" in grp)
+    n_mod = sum(1 for grp in params["groups"] if "mod" in grp)
+    kernels = csrc_kernels()
+    allowed = {k for k, f in kernels.items() if f in SPEC_SOURCES}
+    plain_ms = 1e3 * base_stats["decode_s"] / base_stats["decode_steps"]
+    want_streams = {"paged": base_streams, **quant_streams}
+    counts, per_round = {}, {}
+    for name, kw, ratio, q, ref in SPEC_1B:
+        if "ragged" in kw:
+            kw = dict(kw, ragged_segments=n_chunks)
+        ecfg = EngineConfig(batch_size=B, ctx=ctx, page_size=page, prefill_chunk=C,
+                            speculate=SPEC_N, draft_ratio=ratio,
+                            quant=QuantConfig(**q) if q else QuantConfig(), **kw)
+        eng = ServingEngine(params, cfg, ecfg, device=dev)
+        for pr in prompts:
+            eng.submit(Request(tokens=pr, max_new_tokens=SPEC_GEN))
+        build.reset_counters()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        walls, advanced, prof, full_round = [], [], None, None
+        while eng.has_work:
+            rounds, at, before = eng._spec_rounds, eng.step_count, build.launch_counts()
+            all_gen = not eng.scheduler.queue and all(s.state == GENERATE for s in eng.slots)
+            profiling = prof is None and all_gen
+            with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profiling
+                  else contextlib.nullcontext()) as pr_:
+                t0 = time.perf_counter()
+                eng.step()
+                torch.cuda.synchronize()
+                wall = 1e3 * (time.perf_counter() - t0)
+            if eng._spec_rounds == rounds:
+                continue  # a mixed (ragged) step, or nothing ran
+            delta = {k: v - before[k] for k, v in build.launch_counts().items() if v != before[k]}
+            if set(delta) - set(SPEC_KERNELS):
+                raise AssertionError(f"1b speculative {name}: a round launched {delta}")
+            if not all_gen:
+                continue  # the round's step also admitted (and prefilled)
+            walls.append(wall)
+            advanced.append(eng.step_count - at)
+            if full_round is None:
+                full_round = delta
+            if profiling:
+                events = [e for e in pr_.events() if e.device_type == DeviceType.CUDA]
+                busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
+                if busy > 0.0:
+                    ours = {port_kernel_of(e.name, kernels) for e in events} - {None}
+                    if ours - allowed:
+                        raise AssertionError(f"1b speculative {name}: the profiled round ran "
+                                             f"{sorted(ours - allowed)} of csrc")
+                    prof = dict(wall=wall, busy=busy, a=advanced[-1], kernels=sorted(ours),
+                                n_events=len(events))
+        torch.cuda.synchronize()
+        counts[name] = build.launch_counts()
+        s = eng.stats()
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        outs = _streams(eng.finished)
+        if len(outs) != B or any(not o.ok or len(o.tokens) != SPEC_GEN for o in eng.finished):
+            raise AssertionError(f"1b speculative {name}: not every request finished with "
+                                 f"{SPEC_GEN} tokens")
+        want_s = {u: t[:SPEC_GEN] for u, t in want_streams[ref].items()}
+        if outs != want_s:
+            diff = [u for u in outs if outs[u] != want_s[u]]
+            raise AssertionError(f"1b speculative {name}: streams differ from phase "
+                                 f"{'7b' if q else '6c'}'s {ref} run for requests {diff}")
+        fused = ratio == cfg.mod.capacity_ratio
+        if fused and not s["speculative_tokens_per_round"] > 3.0:
+            raise AssertionError(f"1b speculative {name}: {s['speculative_tokens_per_round']:.3f} "
+                                 f"tokens a round, want > 3.0 (the drafter is the verifier)")
+        if full_round is None:
+            raise AssertionError(f"1b speculative {name}: no round ran with every slot generating")
+        # a round: one materialize (3 gathers a full layer; on the int8
+        # pool 2 dequantizing + 1 plain), one window write (3 a full
+        # layer, + 2 scale tensors), flash in every step of every layer
+        # (routed layers only where the step's kb > 0)
+        draft = 0 if fused else SPEC_N * (n_full + (n_mod if ratio > 0 else 0))
+        want = {"flash_attention": (SPEC_N + 1) * (n_full + n_mod) + draft,
+                "ragged_paged_scatter_rows": 3 * n_full + (2 if q else 0)}
+        want.update({"paged_gather": n_full, "paged_gather_dequant": 2 * n_full} if q
+                    else {"paged_gather": 3 * n_full})
+        if full_round != want:
+            raise AssertionError(f"1b speculative {name}: a round with every slot generating "
+                                 f"launched {full_round}, want {want}")
+        per_round[name] = full_round
+        wall_round = sum(walls) / len(walls)
+        wall_tok = sum(walls) / sum(advanced)
+        busy_note = ("busy of one round: torch.profiler recorded no device time; not measured"
+                     if prof is None else
+                     f"profiled round (a={prof['a']}): wall {prof['wall']:.2f} ms, device busy "
+                     f"{prof['busy']:.2f} ms ({prof['busy'] / prof['a']:.2f} ms an accepted "
+                     f"token), idle share {1 - prof['busy'] / prof['wall']:.3f}, "
+                     f"{prof['n_events']} device records; kernels of csrc: "
+                     f"{', '.join(prof['kernels'])}")
+        log(f"[spec] 1b {name}: {s['speculative_rounds']:.0f} rounds, accept rate "
+            f"{s['speculative_accept_rate']:.3f}, {s['speculative_tokens_per_round']:.3f} tokens a "
+            f"round, {s['steps']:.0f} engine steps; over the {len(walls)} rounds that admitted "
+            f"nothing, wall {wall_round:.2f} ms a round, "
+            f"{wall_tok:.2f} ms an accepted token (phase 6c's plain paged decode step "
+            f"{plain_ms:.2f} ms); {s['generated_tokens']:.0f} tokens in {s['wall_s']:.2f}s = "
+            f"{s['tokens_per_s']:.1f} tok/s; peak memory {peak:.2f} GiB; streams equal phase "
+            f"{'7b' if q else '6c'}'s {ref} run")
+        log(f"[spec]   {busy_note}")
+        log(f"[spec]   launches a round: {json.dumps(per_round.get(name))}; the run's (prefills "
+            f"included): {json.dumps({k: v for k, v in counts[name].items() if v})}")
+    log(f"[spec] 1b: every round launched only {', '.join(SPEC_KERNELS)} (launch counters; "
+        f"gather_rows and scatter_add_rows 0: decode routes batch rows with torch index ops)")
+    return counts, per_round
+
+
 def dispatch_by_call() -> dict:
     """The padded dispatch kernels' launches by call since the last reset,
     keyed as the wrappers count them: (kind, vec, unroll, B, S, k, row
@@ -3879,8 +4131,9 @@ def main() -> int:
     params = api.init_model(with_mod_backend(cfg1b, "pallas"), device=dev, seed=0)
     paged_counts, paged_shapes, base_streams, base_stats, base_first, snap = timed(
         "phase 6c paged serve", serve_paged_1b, dev, params)
-    quant_counts, quant_shapes, snaps = timed("phase 7b quantized serve", serve_quant_1b, dev,
-                                              params, base_streams, base_stats, base_first)
+    quant_counts, quant_shapes, snaps, quant_streams = timed(
+        "phase 7b quantized serve", serve_quant_1b, dev, params, base_streams, base_stats,
+        base_first)
     snaps = {"bf16": snap, "int8/page": snaps["prefix int8/page"],
              "fp8/head": snaps["prefix fp8/head"]}
     ragged_counts = timed("phase 8b flat forward", forward_ragged_1b, dev, params)
@@ -3888,6 +4141,9 @@ def main() -> int:
     ops_counts = timed("phase 10 ops path", ops_path, snaps, mlp, cfg1b, dev)
     timed("phase 10 kernels", lambda: (check_ragged_attention(snaps, cfg1b, dev, results),
                                        check_ragged_small(dev), check_swiglu(mlp, dev, results)))
+    spec_counts, spec_rounds = timed("phase 11 speculative serve", lambda: (
+        speculative_parity(dev),
+        serve_spec_1b(dev, params, base_streams, base_stats, quant_streams))[1])
     del params, snaps, mlp
     torch.cuda.empty_cache()
     timed("phase 9a ssd kernel", check_ssd, dev, results)
@@ -3992,7 +4248,8 @@ def main() -> int:
     picks["swiglu"] = sw[(max(SWIGLU_M), torch.bfloat16)]
     model_runs = {"serve": serve_counts, "train": train_counts, **paged_counts, **quant_counts,
                   "forward_ragged": ragged_counts, "train_ssm": ssm_train_counts,
-                  "serve_ssm": ssm_serve_counts}
+                  "serve_ssm": ssm_serve_counts,
+                  **{f"serve_spec {n}": c for n, c in spec_counts.items()}}
     for run, c in model_runs.items():
         if any(c.get(k, 0) for k in OPS_KERNELS):
             raise AssertionError(f"{run} launched an op-entry-point kernel: {c}")
@@ -4020,7 +4277,8 @@ def main() -> int:
                        quant_counts["prefix int8/page + int8 weights"],
                    "forward_ragged": ragged_counts,
                    "train_ssm": ssm_train_counts, "serve_ssm": ssm_serve_counts,
-                   "ops": ops_counts}
+                   "ops": ops_counts,
+                   **{f"serve_spec {n}": c for n, c in spec_counts.items()}}
         path = {"routed_attention": "train", "routed_mlp_scatter": "train",
                 "paged_gather": "serve_paged", "paged_scatter_rows": "serve_paged",
                 "ragged_paged_scatter_rows": "serve_ragged",
@@ -4057,6 +4315,8 @@ def main() -> int:
                if name == "routed_attention" else {}),
             **({"plan": r["plan"]} if "plan" in r else {}),
             "launches_by_path": {k: v.get(name, 0) for k, v in by_path.items()},
+            **({"launches_per_spec_round": {run: c.get(name, 0) for run, c in spec_rounds.items()}}
+               if name in SPEC_KERNELS else {}),
             **({"shapes": shapes[name]} if name in shapes else {}),
         })
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.0f}s")

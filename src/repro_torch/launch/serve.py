@@ -3,7 +3,8 @@ request stream, on the GPU unless ``--device cpu``.
 
 Mirrors ``repro/launch/serve.py`` for the flags of the padded, paged
 (``--page-size``, ``--n-pages``, ``--prefix-cache``), ragged
-(``--ragged``, ``--ragged-segments``) and quantized (``--quant-kv``,
+(``--ragged``, ``--ragged-segments``), self-speculative (``--speculate``,
+``--draft-ratio``, ``--verify-budget``) and quantized (``--quant-kv``,
 ``--quant-scale``) engines, plus ``--device``. Weights
 are random, drawn from ``--seed``. Prompt lengths are mixed uniformly over
 ``[--min-prompt-len, --prompt-len]``.
@@ -11,6 +12,8 @@ are random, drawn from ``--seed``. Prompt lengths are mixed uniformly over
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mod-paper-1b \\
       --dtype bfloat16 --batch 8 --requests 16 \\
       --min-prompt-len 128 --prompt-len 1024 --gen 32 --page-size 16 --prefix-cache
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+      --page-size 16 --speculate 3 --draft-ratio 0.0
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \\
       --dtype bfloat16 --batch 8 --requests 16 --min-prompt-len 32 --prompt-len 128 --gen 16
 
@@ -106,6 +109,11 @@ def main() -> None:
         print(f"[serve] quantized KV: {engine.quant.kv}/{engine.quant.granularity} scales, "
               f"kv {s['kv_bytes'] / 2**20:.2f} MiB, {wide / s['kv_bytes']:.3f}x less than the "
               f"unquantized pool of the same shape ({wide / 2**20:.2f} MiB)")
+    if args.speculate:
+        print(f"[serve] speculative: speculate={args.speculate} draft_ratio={args.draft_ratio} "
+              f"rounds={s['speculative_rounds']:.0f} "
+              f"accept_rate={s['speculative_accept_rate']:.3f} "
+              f"tokens_per_round={s['speculative_tokens_per_round']:.2f}")
     if args.ragged:
         print(f"[serve] ragged mixed step: segments={args.ragged_segments} "
               f"padded_token_fraction={s['padded_token_fraction']:.3f}")

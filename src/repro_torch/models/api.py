@@ -8,7 +8,7 @@ raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -17,6 +17,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import ssm_lm as SL
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import cross_entropy
+from repro_torch.utils import tree_map
 
 Params = Dict[str, Any]
 Aux = Dict[str, torch.Tensor]
@@ -137,3 +138,105 @@ def model_decode(params: Params, caches: Params, cfg: ModelConfig, token: torch.
     if cfg.family == "ssm":
         return SL.decode_step(params, caches, cfg, token, active)
     return T.decode_step(params, caches, cfg, token, pos, active)
+
+
+# ---------------------------------------------------------------------------
+# Self-speculative windows
+# ---------------------------------------------------------------------------
+
+Collect = Callable[[Params, torch.Tensor], Any]
+PostStep = Callable[[Params, torch.Tensor], Any]
+
+
+def _stack(steps: List[Any]) -> Any:
+    """Per-step outputs (tensors in dicts, lists and tuples) stacked on a new
+    leading axis, as ``lax.scan`` stacks its ``ys``."""
+    first = steps[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(steps)
+    if isinstance(first, dict):
+        return {k: _stack([s[k] for s in steps]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(_stack([s[i] for s in steps]) for i in range(len(first)))
+    return first  # () and other constants
+
+
+def _window_step(params, cfg, caches, t, p, active, collect, post_step):
+    """One in-window decode step (caches in place), then the hooks."""
+    logits, caches, aux = model_decode(params, caches, cfg, t, p, active)
+    if post_step is not None:
+        post_step(caches, p)
+    extra = collect(caches, p) if collect is not None else ()
+    return logits, aux, extra
+
+
+def model_draft_window(params: Params, cfg: ModelConfig, caches: Params, token: torch.Tensor,
+                       pos: torch.Tensor, active: Optional[torch.Tensor], n: int
+                       ) -> torch.Tensor:
+    """Self-speculative draft pass: ``n`` chained greedy decode steps; step
+    ``j`` feeds the previous step's argmax at ``pos + j``. Returns the
+    (n, B) drafts ``d_1..d_n``. ``cfg`` is normally the serving config with
+    ``mod.capacity_ratio`` set to the draft ratio (0.0: ``batch_capacity_k``
+    is 0 and every routed block is a residual skip).
+
+    The port's decode step writes caches in place, so the drafter runs on a
+    clone of ``caches``: the caller's tree (which may hold the paged pool's
+    own residual tensors) is left bitwise unchanged, as JAX's scan leaves
+    its input untouched."""
+    c = tree_map(lambda t: t.clone(), caches)
+    t, drafts = token, []
+    for j in range(n):
+        logits, c, _ = model_decode(params, c, cfg, t, pos + j, active)
+        nxt = torch.argmax(logits, dim=-1)
+        drafts.append(nxt)
+        t = nxt[:, None]
+    return torch.stack(drafts)
+
+
+def model_verify_window(params: Params, cfg: ModelConfig, caches: Params, feed: torch.Tensor,
+                        pos: torch.Tensor, active: Optional[torch.Tensor],
+                        collect: Optional[Collect] = None, post_step: Optional[PostStep] = None
+                        ) -> Tuple[torch.Tensor, Aux, Any]:
+    """Full-capacity verify pass over a speculative window ``feed`` (n+1, B)
+    = [current token, d_1..d_n]: ``n+1`` chained decode steps (not one
+    chunk forward: MoD ``batch_capacity`` ranks batch rows per step, and
+    the capacity rings advance one conditional append per step, so only
+    the decode step itself reproduces the plain engine's computation).
+
+    ``caches`` is updated in place, as by :func:`model_decode`. After each
+    step ``post_step(caches, positions)`` may rewrite the caches in place
+    (the quantized engine round-trips the step's row), then
+    ``collect(caches, positions)`` extracts what the caller keeps of that
+    step. Returns per-step stacks: logits (n+1, B, V), aux (each leaf with a
+    leading n+1 axis) and the collected outputs."""
+    logits, aux, extra = [], [], []
+    for j in range(feed.shape[0]):
+        lg, a, e = _window_step(params, cfg, caches, feed[j][:, None], pos + j, active,
+                                collect, post_step)
+        logits.append(lg)
+        aux.append(a)
+        extra.append(e)
+    return torch.stack(logits), _stack(aux), _stack(extra)
+
+
+def model_fused_window(params: Params, cfg: ModelConfig, caches: Params, token: torch.Tensor,
+                       pos: torch.Tensor, active: Optional[torch.Tensor], n: int,
+                       collect: Optional[Collect] = None, post_step: Optional[PostStep] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor, Aux, Any]:
+    """Draft + verify in one chain of ``n+1`` decode steps, for the case
+    where the drafter is the verifier (MoD off, or draft ratio == capacity
+    ratio): each step feeds the previous step's argmax, so the argmaxes of
+    the first ``n`` steps are the drafts and the logits the verify stack,
+    equal to :func:`model_draft_window` + :func:`model_verify_window` by
+    construction. ``caches`` is updated in place. Returns (drafts (n, B),
+    logits (n+1, B, V), aux stacks, collected stacks)."""
+    t, logits, nxt, aux, extra = token, [], [], [], []
+    for j in range(n + 1):
+        lg, a, e = _window_step(params, cfg, caches, t, pos + j, active, collect, post_step)
+        d = torch.argmax(lg, dim=-1)
+        logits.append(lg)
+        nxt.append(d)
+        aux.append(a)
+        extra.append(e)
+        t = d[:, None]
+    return torch.stack(nxt[:n]), torch.stack(logits), _stack(aux), _stack(extra)

@@ -24,7 +24,11 @@ behaviour). The decode step reads the logical ``(B, ctx)`` caches
 through the paged gather kernel (:func:`paged_materialize`) and writes its
 one new row per slot back with the paged scatter kernel
 (:func:`paged_writeback`); the ragged mixed step writes its token rows with
-the ragged scatter kernel (:func:`paged_writeback_tokens`).
+the ragged scatter kernel (:func:`paged_writeback_tokens`), and the
+speculative round writes its whole window's rows, collected after each
+in-window step (:func:`paged_collect_rows`), with the same kernel
+(:func:`paged_scatter_rows_q`). :meth:`PagedCachePool.truncate` rolls a
+slot's mapping back to the accepted stream.
 
 **Quantized KV** (``quant``, :mod:`repro_torch.serve.quant`): the float
 ``k``/``v`` page tensors are int8 or e4m3, with f32 scales indexed by
@@ -46,8 +50,8 @@ The JAX pool is immutable; this one is updated in place. Where JAX copies
 implicitly, the port copies explicitly: residual snapshots (prefix entries,
 ragged segments) and the residual rows of :meth:`PagedCachePool.read_slot`
 are clones, and restoring a snapshot copies it into the working cache, so
-no later write can reach a stored entry. ``truncate`` and ``hold_pages`` /
-``release_held`` come with the speculative and overload slices.
+no later write can reach a stored entry. ``hold_pages`` / ``release_held``
+come with the overload slice.
 """
 from __future__ import annotations
 
@@ -296,29 +300,64 @@ def paged_writeback(spec: PoolSpec, caches: Params, pages: List[torch.Tensor],
                               scales=scales[m], quant=spec.quant)
 
 
+def _scatter_rows(spec: PoolSpec, row_of, pages: List[torch.Tensor],
+                  scales: List[torch.Tensor], table: torch.Tensor, slot: torch.Tensor,
+                  pos: torch.Tensor, valid: torch.Tensor) -> None:
+    """One ragged scatter per paged leaf j of ``row_of(j)`` (W,) + tail to
+    logical (``slot``, ``pos``), at targets computed once (narrow leaves:
+    quantized rows, and their scales once per scale tensor); invalid rows
+    land on SCRATCH_PAGE. ``row_of`` makes each leaf's rows as they are
+    scattered, so only one leaf's rows live at a time."""
+    pid, off = ragged_page_targets(table, slot, pos, valid, spec.page_size, SCRATCH_PAGE)
+    for j in spec.plain_ids():
+        ragged_paged_scatter_rows_op(pages[j], pid, off, row_of(j))
+    for m, ql in enumerate(spec.qleaves):
+        ragged_paged_scatter_rows_op([pages[j] for j in ql.js], pid, off,
+                                     [row_of(j) for j in ql.js], scales=scales[m],
+                                     quant=spec.quant)
+
+
+def paged_scatter_rows_q(spec: PoolSpec, rows: List[torch.Tensor], pages: List[torch.Tensor],
+                        scales: List[torch.Tensor], table: torch.Tensor, slot: torch.Tensor,
+                        pos: torch.Tensor, valid: torch.Tensor) -> None:
+    """Scatter row stacks into the pages, in place: ``rows[j]`` (W,) + tail
+    of paged leaf j goes to logical (``slot``, ``pos``); invalid rows land
+    on SCRATCH_PAGE. The speculative round calls it with the rows it
+    collected step by step (:func:`paged_collect_rows`)."""
+    _scatter_rows(spec, rows.__getitem__, pages, scales, table, slot, pos, valid)
+
+
 def paged_writeback_tokens(spec: PoolSpec, caches: Params, pages: List[torch.Tensor],
                            scales: List[torch.Tensor], table: torch.Tensor, slot: torch.Tensor,
                            pos: torch.Tensor, valid: torch.Tensor) -> None:
     """Ragged-step write-back: an arbitrary flat list of (slot, pos) token
     rows — the step's decode rows plus every prefill-segment token — goes
-    from the updated logical caches into the pages, one ragged scatter per
-    leaf at targets computed once (narrow leaves: quantized rows, and
-    their scales once per scale tensor). Invalid rows land on SCRATCH_PAGE."""
+    from the updated logical caches into the pages."""
     leaves = flatten(caches)
     ctx = table.shape[1] * spec.page_size
     pos_c = pos.long().clamp(0, ctx - 1)
     slot_c = slot.long().clamp(0, table.shape[0] - 1)
-    pid, off = ragged_page_targets(table, slot, pos, valid, spec.page_size, SCRATCH_PAGE)
 
     def rows(j):
         return leaves[spec.paged_ids[j]][slot_c, pos_c]
 
-    for j in spec.plain_ids():
-        ragged_paged_scatter_rows_op(pages[j], pid, off, rows(j))
-    for m, ql in enumerate(spec.qleaves):
-        ragged_paged_scatter_rows_op([pages[j] for j in ql.js], pid, off,
-                                     [rows(j) for j in ql.js], scales=scales[m],
-                                     quant=spec.quant)
+    _scatter_rows(spec, rows, pages, scales, table, slot, pos, valid)
+
+
+def paged_collect_rows(spec: PoolSpec, caches: Params, pos: torch.Tensor) -> List[torch.Tensor]:
+    """Each slot's row at ``pos[b]`` of every paged leaf of a logical cache
+    tree: a list of (B,) + tail tensors (copies). The speculative round
+    calls it after every in-window step, because a later step at ``pos + j
+    >= ctx`` wraps the ring and would overwrite the row before a collection
+    after the window could read it. Positions out of range clip to the
+    last row; the caller masks them out of the scatter."""
+    leaves = flatten(caches)
+    b = torch.arange(pos.shape[0], device=pos.device)
+    out = []
+    for i in spec.paged_ids:
+        ctx = leaves[i].shape[1]
+        out.append(leaves[i][b, pos.long().clamp(0, ctx - 1)])
+    return out
 
 
 def quant_roundtrip(spec: PoolSpec, caches: Params, mask: torch.Tensor) -> None:
@@ -451,6 +490,13 @@ class PagedCachePool:
         paged_writeback_tokens(self.spec, caches, self.pages, self.scales, table, slot, pos,
                                valid)
 
+    def collect_rows(self, caches: Params, pos: torch.Tensor) -> List[torch.Tensor]:
+        return paged_collect_rows(self.spec, caches, pos)
+
+    def scatter_rows(self, rows: List[torch.Tensor], table: torch.Tensor, slot: torch.Tensor,
+                     pos: torch.Tensor, valid: torch.Tensor) -> None:
+        paged_scatter_rows_q(self.spec, rows, self.pages, self.scales, table, slot, pos, valid)
+
     def quant_roundtrip(self, work: Params, mask: torch.Tensor) -> None:
         quant_roundtrip(self.spec, work, mask)
 
@@ -545,6 +591,29 @@ class PagedCachePool:
                 self.free.append(pid)
         self.table_np[slot, :] = SCRATCH_PAGE
         self.n_mapped[slot] = 0
+
+    def truncate(self, slot: int, upto_tokens: int) -> int:
+        """Speculative rollback: shrink the slot's mapping to the pages that
+        cover ``upto_tokens`` logical positions and release the tail pages
+        (decref: a page another slot or a prefix entry pins survives). Tail
+        table entries go back to NULL, so reads past the cut see the
+        pristine NULL page as if they had never been mapped. Stale rows
+        inside the last kept page (positions >= ``upto_tokens``) stay: the
+        causal mask hides them until the accepted stream overwrites them in
+        position order. Returns the number of pages released."""
+        keep = min(int(self.n_mapped[slot]), self.pages_needed(upto_tokens))
+        dropped = 0
+        for j in range(keep, int(self.n_mapped[slot])):
+            pid = int(self.table_np[slot, j])
+            self.table_np[slot, j] = NULL_PAGE
+            if pid < _RESERVED:
+                continue
+            self.ref[pid] -= 1
+            if self.ref[pid] == 0 and self.cache_cnt[pid] == 0:
+                self.free.append(pid)
+            dropped += 1
+        self.n_mapped[slot] = keep
+        return dropped
 
     def _evict_entry(self, key: bytes) -> None:
         entry = self.prefix.pop(key)

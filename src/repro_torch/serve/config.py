@@ -10,8 +10,12 @@ prefixes, ``paged_backend`` "xla" | "pallas", both of which run the CUDA
 paged kernels on the card), and ``ragged`` to the mixed prefill+decode
 step over that pool (``ragged_segments`` prefill chunks per step).
 ``quant`` (a :class:`repro_torch.serve.quant.QuantConfig`) stores the paged
-pool's K/V pages in int8 or fp8 and can serve from int8 weights. Checks
-and messages are the JAX package's. The settings of the JAX engine's
+pool's K/V pages in int8 or fp8 and can serve from int8 weights.
+``speculate`` runs self-speculative rounds over the paged pool: draft
+``speculate`` tokens at MoD capacity ``draft_ratio``, verify the window at
+full capacity, roll rejected tails back (``spec_verify_budget`` caps the
+verify positions a round may spend). Checks and messages are the JAX
+package's. The settings of the JAX engine's
 later paths are fields too, so that a caller who sets one learns at once
 that the port does not run it yet: each raises a ``ValueError`` naming it.
 """
@@ -26,7 +30,6 @@ __all__ = ["EngineConfig", "add_engine_args"]
 
 # setting -> the ROADMAP item that ports its engine path
 _LATER_PATHS = {
-    "speculate": "self-speculative decoding (ROADMAP Queue 1)",
     "mesh": "multi-device serving (ROADMAP Queue 1)",
     "adaptive_capacity": "overload control (ROADMAP Queue 1)",
     "fault_injector": "overload control and fault injection (ROADMAP Queue 1)",
@@ -48,8 +51,10 @@ class EngineConfig:
     ragged: bool = False  # mixed prefill+decode step over the paged pool
     ragged_segments: int = 4  # prefill segments per ragged step
     quant: QuantConfig = QuantConfig()  # KV/weight quantization policy
+    speculate: Optional[int] = None  # self-speculative: draft n tokens/round
+    draft_ratio: float = 0.0  # drafter's MoD capacity ratio (0 = pure skip)
+    spec_verify_budget: Optional[int] = None  # verify-token budget per round
     # later engine paths: not ported yet, each raises when set
-    speculate: Optional[int] = None
     mesh: Any = None
     adaptive_capacity: bool = False
     fault_injector: Any = None
@@ -73,6 +78,16 @@ class EngineConfig:
                 raise ValueError("ragged=True requires the paged pool (page_size)")
             if int(self.ragged_segments) < 1:
                 raise ValueError("ragged_segments must be >= 1")
+        if self.speculate is not None:
+            if int(self.speculate) < 1:
+                raise ValueError("speculate must be >= 1")
+            if not paged:
+                raise ValueError("speculate requires the paged pool (page_size): rollback "
+                                 "releases rejected tail pages via PagedCachePool.truncate")
+            if not (0.0 <= float(self.draft_ratio) <= 1.0):
+                raise ValueError(f"draft_ratio must be in [0, 1], got {self.draft_ratio}")
+        elif self.spec_verify_budget is not None:
+            raise ValueError("spec_verify_budget requires speculate")
         if self.paged_backend not in PAGED_BACKENDS:
             raise ValueError(f"unknown paged backend {self.paged_backend!r}")
         if not isinstance(self.quant, QuantConfig):
@@ -92,13 +107,15 @@ class EngineConfig:
             page_size=ns.page_size or None, n_pages=ns.n_pages or None,
             prefix_cache=ns.prefix_cache, ragged=ns.ragged,
             ragged_segments=ns.ragged_segments,
+            speculate=ns.speculate or None, draft_ratio=ns.draft_ratio,
+            spec_verify_budget=ns.verify_budget or None,
             quant=QuantConfig(kv=ns.quant_kv, granularity=ns.quant_scale),
         )
 
 
 def add_engine_args(parser) -> None:
     """The engine flags of the port's serving CLI (the padded, paged,
-    ragged and quantized engines' subset of the JAX ``add_engine_args``,
+    ragged, speculative and quantized engines' subset of the JAX ``add_engine_args``,
     same names)."""
     g = parser.add_argument_group("serving engine")
     g.add_argument("--policy", default="mod_aware", choices=["fcfs", "mod_aware"])
@@ -118,6 +135,17 @@ def add_engine_args(parser) -> None:
                         "free segments)")
     g.add_argument("--ragged-segments", type=int, default=4,
                    help="prefill segments per mixed step (--ragged)")
+    g.add_argument("--speculate", type=int, default=0,
+                   help="self-speculative decoding: draft N tokens per round with the model "
+                        "at --draft-ratio capacity, verify the window at full capacity, roll "
+                        "back rejected tails by paged truncation (requires --page-size; "
+                        "greedy streams stay identical to N=0)")
+    g.add_argument("--draft-ratio", type=float, default=0.0,
+                   help="MoD capacity ratio of the drafter (0.0 = pure residual-skip path; "
+                        "only meaningful with --speculate)")
+    g.add_argument("--verify-budget", type=int, default=0,
+                   help="verify-token budget per speculative round: admission stops while "
+                        "active slots x (speculate+1) would exceed it (0 = uncapped)")
     g.add_argument("--quant-kv", default="none", choices=list(KV_MODES),
                    help="paged KV page storage dtype: int8 / fp8 (e4m3) with per-page-row "
                         "pow2 scales, widened by the dequantizing gather kernel (requires "

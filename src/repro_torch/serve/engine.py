@@ -46,13 +46,28 @@ restore and the ragged step all see what the pool stores. With ``weights
 = "int8"`` the engine keeps only the narrow parameter tree and widens it
 at each model call.
 
+**Self-speculative rounds** (``EngineConfig.speculate = n``, paged): one
+round materializes the pool once, drafts ``n`` tokens with the same model
+at MoD capacity ``draft_ratio`` (on a clone of the caches), verifies the
+``n+1``-token window at full capacity (one chain of decode steps, or a
+single fused chain when the drafter is the verifier), collects each step's
+KV rows and residual state, and writes the window's rows with one ragged
+scatter per paged leaf. The host accepts the longest prefix on which its
+sampled tokens agree with the drafts, batch-globally (every slot advances
+by the same ``a``, capped at the first in-window termination), and rolls
+the rest back: the residual pool to its snapshot after step ``a``, each
+slot's page table by :meth:`PagedCachePool.truncate`. Streams equal the
+plain engine's token for token. The ragged engine runs its mixed step
+while any slot is mid-prompt, and rounds otherwise.
+
 Sampling runs on the host: greedy argmax, or a draw keyed by the
 request's seed and the token's index (see :mod:`repro_torch.serve.request`).
-The speculative, SPMD and overload paths of the JAX engine are later slices
+The SPMD and overload paths of the JAX engine are later slices
 (:class:`repro_torch.serve.config.EngineConfig` rejects their settings).
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -143,6 +158,24 @@ class ServingEngine:
         if (self._prefix_cache or self._ragged) and prefill_chunk is None:
             prefill_chunk = engine.page_size  # page-aligned boundaries by default
         self._prefill_chunk = prefill_chunk
+        self._speculate = None if engine.speculate is None else int(engine.speculate)
+        if self._speculate is not None:
+            if not self._batch_prefill:
+                raise ValueError("speculate needs a batched-prefill family (dense/MoE): "
+                                 "stepped prompt ingestion would draft prompt tokens")
+            if not cfg.attn.causal:
+                raise ValueError("speculate requires causal attention: rolled-back rows inside "
+                                 "the last kept page are hidden by the causal mask until the "
+                                 "accepted stream overwrites them")
+            ratio = float(engine.draft_ratio)
+            self._draft_cfg = dataclasses.replace(
+                cfg, mod=dataclasses.replace(cfg.mod, capacity_ratio=ratio))
+            # the drafter is the verifier (MoD off, or the engine's own
+            # ratio): one chain of n+1 steps drafts and verifies at once
+            self._fused = not cfg.mod.enabled or ratio == cfg.mod.capacity_ratio
+            # positions the round computes per batch row
+            # (padded_token_fraction accounting)
+            self._spec_grid = self._speculate + 1 if self._fused else 2 * self._speculate + 1
         if self._paged:
             self.pool: Any = PagedCachePool(
                 cfg, self.batch_size, self.ctx, engine.page_size, self.device,
@@ -153,7 +186,8 @@ class ServingEngine:
         else:
             self.pool = CachePool(cfg, self.batch_size, self.ctx, self.device)
         self.scheduler = Scheduler(self.batch_size, engine.policy,
-                                   routed_capacity(cfg, self.batch_size))
+                                   routed_capacity(cfg, self.batch_size),
+                                   verify_token_budget=engine.spec_verify_budget)
         self.slots = [Slot(i) for i in range(self.batch_size)]
         self.finished: List[RequestOutput] = []
         self.step_count = 0
@@ -173,6 +207,11 @@ class ServingEngine:
         self._prefill_s = 0.0
         self._decode_s = 0.0
         self._n_prefills = 0
+        # speculative telemetry: accepted drafts over drafted tokens
+        self._spec_rounds = 0
+        self._spec_drafted = 0
+        self._spec_accepted_drafts = 0
+        self._spec_emitted = 0
 
     @property
     def prefill_mode(self) -> str:
@@ -254,9 +293,10 @@ class ServingEngine:
         slot.routed_sum, slot.routed_steps = 0.0, 0
         slot.score, slot.score_sum, slot.score_steps = float("nan"), 0.0, 0
 
-    def _admit(self) -> None:
+    def _admit(self, max_admissions: Optional[int] = None) -> None:
         plans = self.scheduler.plan_admissions(self.slots, stepped_prefill=not self._batch_prefill,
-                                               page_gate=self._page_gate())
+                                               page_gate=self._page_gate(),
+                                               max_admissions=max_admissions)
         for slot, req in plans:
             self._start(slot, req)
             if not self._batch_prefill:
@@ -298,16 +338,18 @@ class ServingEngine:
                 slot.state = GENERATE
                 slot.next_token = tok
 
-    def _admit_ragged(self) -> None:
+    def _admit_ragged(self, max_admissions: Optional[int] = None) -> None:
         """Token-budget admission of the mixed step: a request enters only
         while the step has free prefill segments left after the slots
-        already mid-prompt. Admitted slots enter PREFILL with no compute;
-        their prompts drain through the mixed step."""
+        already mid-prompt (and within ``max_admissions``, the speculative
+        round's verify budget). Admitted slots enter PREFILL with no
+        compute; their prompts drain through the mixed step."""
         n_prefilling = sum(1 for s in self.slots if s.state == PREFILL)
+        cap = max(0, self._ragged_segments - n_prefilling)
+        if max_admissions is not None:
+            cap = min(cap, max_admissions)
         plans = self.scheduler.plan_admissions(
-            self.slots, stepped_prefill=False, page_gate=self._page_gate(),
-            max_admissions=max(0, self._ragged_segments - n_prefilling),
-        )
+            self.slots, stepped_prefill=False, page_gate=self._page_gate(), max_admissions=cap)
         for slot, req in plans:
             self._start(slot, req)
             slot.state = PREFILL
@@ -387,15 +429,15 @@ class ServingEngine:
     # Sampling / termination / preemption
     # ------------------------------------------------------------------
 
-    def _sample(self, slot: Slot, logits_row: np.ndarray) -> int:
-        """The slot's next token: argmax, or a draw from the generator of
-        (seed, index of the token in the request's output)."""
+    def _sample(self, slot: Slot, logits_row: np.ndarray, index: Optional[int] = None) -> int:
+        """The slot's token ``index`` of its output (default: the next one):
+        argmax, or a draw from the generator of (seed, index)."""
         req = slot.req
         if req.temperature <= 0.0:
             return int(np.argmax(logits_row))
         seed = req.seed if req.seed is not None else req.uid
         probs = torch.softmax(torch.as_tensor(logits_row, dtype=torch.float64) / req.temperature, -1)
-        gen = token_generator(seed, len(slot.generated))
+        gen = token_generator(seed, len(slot.generated) if index is None else index)
         return int(torch.multinomial(probs, 1, generator=gen))
 
     def _push_token(self, slot: Slot, tok: int) -> None:
@@ -453,16 +495,21 @@ class ServingEngine:
     def _youngest_active(self) -> Slot:
         return max((t for t in self.slots if t.active), key=lambda t: (t.admitted_step, t.idx))
 
-    def _grow_pages(self) -> None:
-        """Map each active slot's next write page before the step; on pool
+    def _grow_pages(self, lookahead: int = 1) -> None:
+        """Map each active slot's next ``lookahead`` write positions before
+        the step (a speculative round maps its whole window up front), never
+        past the slot's own budget (``total_len``) or ``ctx``; on pool
         exhaustion (free list empty, nothing evictable) preempt the
         youngest-admitted active slot and retry, so the oldest request
         always keeps making progress."""
+        def upto(s: Slot) -> int:
+            return min(s.pos + lookahead, s.req.total_len, self.ctx)
+
         while True:
             needy = [s for s in self.slots if s.active
-                     and self.pool.pages_needed(s.pos + 1) > int(self.pool.n_mapped[s.idx])]
+                     and self.pool.pages_needed(upto(s)) > int(self.pool.n_mapped[s.idx])]
             for s in needy:
-                if not self.pool.alloc_pages(s.idx, s.pos + 1):
+                if not self.pool.alloc_pages(s.idx, upto(s)):
                     self._preempt(self._youngest_active())
                     break  # re-scan: the victim may have been in `needy`
             else:
@@ -515,7 +562,10 @@ class ServingEngine:
         Returns the requests that finished during this call."""
         done_before = len(self.finished)
         t0 = time.perf_counter()
-        if self._ragged:
+        advance = 1
+        if self._speculate is not None:
+            advance = self._step_speculative()
+        elif self._ragged:
             self._step_ragged()
         else:
             self._admit()
@@ -524,7 +574,7 @@ class ServingEngine:
             active_slots = [s for s in self.slots if s.active]
             if active_slots:
                 self._decode(active_slots)
-        self.step_count += 1
+        self.step_count += advance
         self._wall_s += time.perf_counter() - t0
         self.scheduler.check_invariants(self.slots, len(self.finished))
         return self.finished[done_before:]
@@ -597,14 +647,16 @@ class ServingEngine:
                 s.state = GENERATE
                 s.next_token = tok
 
-    def _step_ragged(self) -> None:
+    def _step_ragged(self, admit: bool = True) -> None:
         """One mixed prefill+decode step. Each live segment replays the
         exact ``prefill_chunk`` call the padded path makes (same
         boundaries, same batch-1 cache state) on the slot's rows of the
         materialized caches; then decode runs on the updated caches, and one
         ragged write-back per paged leaf stores every produced row. Token
-        streams equal the padded engine's whenever the decode batches do."""
-        self._admit_ragged()
+        streams equal the padded engine's whenever the decode batches do.
+        ``admit=False``: the speculative round admitted already."""
+        if admit:
+            self._admit_ragged()
         segs = self._plan_segments()  # maps pages; may preempt mid-prefill
         active_slots = [s for s in self.slots if s.active]
         if not active_slots:
@@ -698,6 +750,173 @@ class ServingEngine:
             self._advance(decode_slots, logits_np, aux_np)
         self._decode_s += time.perf_counter() - t1
 
+    def _step_speculative(self) -> int:
+        """One self-speculative round; returns the engine steps it advanced.
+
+        Drafts ``n`` tokens per slot at the draft ratio, verifies the
+        ``n+1``-token window at full capacity, accepts the longest prefix on
+        which the host's sampled tokens agree with the drafts, and rolls the
+        rejected tail back (residual snapshot restore + page truncation).
+        Acceptance is batch-global: every slot advances by the same ``a`` =
+        min over the slots, capped at the first in-window termination (EOS
+        or token budget), so the batch's composition, and with it MoD
+        ``batch_capacity`` routing, stays step for step the plain engine's.
+        In ragged mode the round falls back to the mixed step while any
+        prompt is still draining, so no slot is mid-prefill in a round."""
+        n = self._speculate
+        cap = self.scheduler.speculative_admission_cap(
+            sum(1 for s in self.slots if s.active), n + 1)
+        if self._ragged:
+            self._admit_ragged(max_admissions=cap)
+            if any(s.state == PREFILL for s in self.slots):
+                self._step_ragged(admit=False)
+                return 1
+        else:
+            self._admit(max_admissions=cap)
+        # every verify position writes a KV row: map the window's pages up
+        # front (capped at each slot's own budget)
+        self._grow_pages(lookahead=n + 1)
+        active_slots = [s for s in self.slots if s.active]
+        if not active_slots:
+            return 1
+        t0 = time.perf_counter()
+        B, dev = self.batch_size, self.device
+        tokens, pos, active = self._decode_inputs(active_slots)
+        limit = np.zeros((B,), np.int32)
+        for s in active_slots:
+            limit[s.idx] = min(s.req.total_len, self.ctx)
+        tokens, pos, active, limit_t = (torch.as_tensor(a, device=dev)
+                                        for a in (tokens, pos, active, limit))
+        params = self._model_params()  # widened once a round
+        table = self.pool.device_table()
+        caches = self.pool.materialize(table)
+
+        post_step = None
+        if self.quant is not None:
+            # after each step's own attention, its row goes through the
+            # narrow dtype, so the next step attends to what a plain engine
+            # reads back from its pages; positions past ctx match nothing
+            ar = torch.arange(self.ctx, device=dev)
+
+            def post_step(c, p):
+                self.pool.quant_roundtrip(c, ar[None, :] == p[:, None])
+
+        resid_ids = self.pool.spec.resid_ids
+
+        def collect(c, p):
+            # each step's rows, and clones of the residual leaves (the next
+            # step overwrites them in place): the rollback's restore points
+            leaves = flatten(c)
+            return self.pool.collect_rows(c, p), [leaves[i].clone() for i in resid_ids]
+
+        if self._fused:
+            drafts, logits, aux, (rows, resids) = api.model_fused_window(
+                params, self.cfg, caches, tokens, pos, active, n,
+                collect=collect, post_step=post_step)
+        else:
+            drafts = api.model_draft_window(params, self._draft_cfg, caches, tokens, pos,
+                                            active, n)
+            feed = torch.cat([tokens[:, 0][None], drafts], dim=0)
+            logits, aux, (rows, resids) = api.model_verify_window(
+                params, self.cfg, caches, feed, pos, active,
+                collect=collect, post_step=post_step)
+        # one write of the whole window: row s*B + b is step s of slot b;
+        # positions past a slot's mapped extent (min(total_len, ctx)) go to
+        # the scratch page, and the accept cap discards their tokens
+        offs = torch.arange(n + 1, device=dev)
+        w_pos = (pos[None, :] + offs[:, None]).reshape(-1)
+        w_valid = (active[None, :] & (pos[None, :] + offs[:, None] < limit_t[None, :])).reshape(-1)
+        w_slot = torch.arange(B, device=dev).repeat(n + 1)
+        self.pool.scatter_rows([r.reshape((-1,) + tuple(r.shape[2:])) for r in rows], table,
+                               w_slot, w_pos, w_valid)
+        drafts_np = drafts.cpu().numpy()  # (n, B)
+        logits_np = logits.float().cpu().numpy()  # (n+1, B, V)
+        aux_np = {k: v.float().cpu().numpy() for k, v in aux.items()}
+        self._decode_s += time.perf_counter() - t0
+
+        # finiteness over the whole window: a poisoned row fails only its
+        # own request, before it can pull the batch's acceptance down
+        ok_slots = []
+        for s in active_slots:
+            if np.isfinite(logits_np[:, s.idx]).all():
+                ok_slots.append(s)
+            else:
+                self._finish(s, FINISH_ERROR,
+                             error=f"non-finite verify logits at step {self.step_count}")
+        active_slots = ok_slots
+        if not active_slots:
+            # nothing accepted, nothing to roll back: the failed slots'
+            # pages were released, and the pool's residual state is only
+            # read again after a new admission resets its rows
+            return 1
+
+        # emitted token k+1 samples from the verify logits L_k, valid while
+        # every earlier emitted token matched its draft; a sampled token k
+        # draws from (seed, len(generated) + k), so a token sampled past the
+        # cap is drawn again, identically, next round
+        emitted: Dict[int, List[int]] = {}
+        a = n + 1
+        for s in active_slots:
+            toks: List[int] = []
+            c_s = n + 1
+            for k in range(n + 1):
+                e = self._sample(s, logits_np[k, s.idx], len(s.generated) + k)
+                toks.append(e)
+                if e == s.req.eos_id or len(s.generated) + k + 1 >= s.req.max_new_tokens:
+                    c_s = k + 1  # in-window termination caps the batch
+                    break
+                if k < n and e != int(drafts_np[k, s.idx]):
+                    c_s = k + 1  # draft mismatch: L_{k+1}.. are invalid
+                    break
+            emitted[s.idx] = toks
+            a = min(a, c_s)
+
+        routed_np = aux_np.get("mod/decode_routed")  # (n+1, B)
+        scores_np = aux_np.get("mod/decode_scores")
+        if "mod/decode_routed_frac" in aux_np:
+            self._routed_frac_sum += float(aux_np["mod/decode_routed_frac"][:a].sum())
+            self._routed_frac_steps += a
+        self._occupancy_sum += len(active_slots) * a
+        # the round computes n+1 verify positions a row, plus the n-step
+        # draft when drafting is a separate pass; only the accepted tokens of
+        # active rows carried real work
+        self._positions_computed += self._spec_grid * B
+        self._positions_wasted += self._spec_grid * B - a * len(active_slots)
+        self.decode_steps += a
+
+        for s in active_slots:
+            for k in range(a):
+                if routed_np is not None:
+                    s.routed_sum += float(routed_np[k, s.idx])
+                    s.routed_steps += 1
+                if scores_np is not None:
+                    s.score = float(scores_np[k, s.idx])
+                    s.score_sum += s.score
+                    s.score_steps += 1
+                s.pos += 1
+                self._push_token(s, emitted[s.idx][k])
+                if s.req is None:
+                    # the global cap puts any termination at k == a - 1
+                    assert k == a - 1, (k, a)
+                    break
+                s.next_token = emitted[s.idx][k]
+
+        # rollback: the residual leaves (MoD rings, cursors) to their state
+        # after exactly a steps, and the rejected tail's pages released;
+        # stale rows inside the last kept page are causally masked until the
+        # accepted stream overwrites them
+        for dst, snap in zip(self.pool.resid, resids):
+            dst.copy_(snap[a - 1])
+        for s in active_slots:
+            if s.req is not None:  # finished slots are released already
+                self.pool.truncate(s.idx, s.pos)
+
+        self._spec_rounds += 1
+        self._spec_drafted += n * len(active_slots)
+        self._spec_accepted_drafts += (a - 1) * len(active_slots)
+        self._spec_emitted += a
+        return a
+
     def run(self, max_steps: Optional[int] = None) -> List[RequestOutput]:
         """Step until queue and slots drain; returns all finished outputs."""
         budget = max_steps if max_steps is not None else self._step_budget()
@@ -787,4 +1006,14 @@ class ServingEngine:
             out["preemptions"] = float(self.preemptions)
             out["admission_aborts"] = float(self.admission_aborts)
             out.update(self.pool.page_stats())
+        if self._speculate is not None:
+            out["speculative_rounds"] = float(self._spec_rounds)
+            # drafted tokens the verifier accepted
+            out["speculative_accept_rate"] = (
+                self._spec_accepted_drafts / self._spec_drafted
+                if self._spec_drafted else float("nan"))
+            # engine steps a slot advances per round (1.0 = no gain; at most
+            # speculate + 1)
+            out["speculative_tokens_per_round"] = (
+                self._spec_emitted / self._spec_rounds if self._spec_rounds else 0.0)
         return out

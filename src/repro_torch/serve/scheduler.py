@@ -1,7 +1,8 @@
 """Slot scheduler for the continuous-batching engine (pure host code).
 
-Port of ``repro/serve/scheduler.py`` for the padded, paged and ragged
-engines (no priority classes yet: they come with overload control). The
+Port of ``repro/serve/scheduler.py`` for the padded, paged, ragged and
+speculative engines (no priority classes yet: they come with overload
+control). The
 engine owns ``B`` slots (one per decode-batch row); at the start of each
 step the scheduler admits queued requests into free slots, oldest first (a
 monotone submission number breaks ties between equal arrivals). A slot
@@ -56,16 +57,32 @@ class Scheduler:
     """Admission queue + policy over a fixed slot array."""
 
     def __init__(self, n_slots: int, policy: str = "mod_aware",
-                 routed_capacity: Optional[int] = None):
+                 routed_capacity: Optional[int] = None,
+                 verify_token_budget: Optional[int] = None):
         if policy not in ("fcfs", "mod_aware"):
             raise ValueError(f"unknown scheduling policy {policy!r}")
         self.policy = policy
         self.n_slots = n_slots
         self.routed_capacity = routed_capacity  # kb; None when MoD is off
+        # speculative rounds: every active slot spends (speculate+1) verify
+        # positions a round; None = uncapped
+        self.verify_token_budget = verify_token_budget
         self.queue: Deque[Request] = deque()
         self.submitted = 0
         self.admitted = 0
         self._seq = 0
+
+    def speculative_admission_cap(self, n_active: int, verify_cost: int) -> Optional[int]:
+        """How many more slots may admit before a speculative round would
+        exceed the verify-token budget. Each active slot spends
+        ``verify_cost`` (speculate + 1) positions of the verify pass a round,
+        accepted or not, so the budget caps concurrency. None when no budget
+        is set."""
+        if self.verify_token_budget is None:
+            return None
+        if verify_cost <= 0:
+            raise ValueError(f"verify_cost must be positive, got {verify_cost}")
+        return max(0, self.verify_token_budget // verify_cost - n_active)
 
     def submit(self, req: Request) -> None:
         req._seq = self._seq  # type: ignore[attr-defined]

@@ -44,6 +44,10 @@ flash backward is the blocked torch-op backward from the kernel's lse,
 against autograd through the dense plain version (f32 1e-4; bf16: the
 plain version's autograd rounds at its bf16 casts, the Function does not).
 
+Self-speculative serving: rounds give the non-speculative engine's greedy
+streams on the card (paged, int8/page prefix, ragged), and truncation
+keeps the pool's books and pages consistent.
+
 Ragged paged flash attention: the kernel sums its online softmax per key
 tile, merges warps' and key chunks' states, the plain version takes one
 dense softmax, and in bf16 they round p against different maxima (on
@@ -995,6 +999,94 @@ def test_quantized_engines_launch_the_dequant_gather(dev, kv, gran):
             assert counts["paged_gather_dequant"] == 2 * n_full * (steps + len(prompts))
             assert counts["paged_gather"] == n_full * (steps + len(prompts))
     assert streams["paged"] == streams["ragged"]
+
+
+SPEC_ENGINES = {"paged": dict(page_size=16), "int8": dict(page_size=16, prefix_cache=True),
+                "ragged": dict(page_size=16, ragged=True, ragged_segments=9)}
+
+
+@pytest.mark.parametrize("ratio", [0.0, "capacity"])
+@pytest.mark.parametrize("engine", list(SPEC_ENGINES))
+def test_speculative_streams_equal_plain_on_the_card(dev, engine, ratio):
+    """Self-speculative rounds (3 drafts, at draft ratio 0.0: draft then
+    verify; at the model's ratio: one fused chain) give the card's
+    non-speculative streams on the paged, the int8/page prefix and the
+    ragged engine; a round launches only the paged gathers, flash and the
+    ragged write-back, and the pool ends with no page in use."""
+    import numpy as np
+
+    from repro_torch.models import api
+    from repro_torch.serve import EngineConfig, Request, ServingEngine
+    from repro_torch.serve.quant import QuantConfig
+
+    cfg = TC.with_mod_backend(TC.smoke_config(TC.get_config("mod-paper-60m")), "pallas")
+    ratio = cfg.mod.capacity_ratio if ratio == "capacity" else ratio
+    params = api.init_model(cfg, device=dev, seed=0)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=n) for n in (20, 33, 9, 41)]
+    q = QuantConfig(kv="int8") if engine == "int8" else QuantConfig()
+    streams = {}
+    for name, spec in (("plain", {}), ("spec", dict(speculate=3, draft_ratio=ratio))):
+        eng = ServingEngine(params, cfg, EngineConfig(batch_size=4, ctx=64, prefill_chunk=16,
+                                                      quant=q, **SPEC_ENGINES[engine], **spec),
+                            device=dev)
+        for p in prompts:
+            eng.submit(Request(tokens=p, max_new_tokens=10))
+        while eng.has_work:
+            rounds, before = eng._spec_rounds, build.launch_counts()
+            # a step that admits also prefills: check the pure rounds
+            quiet = not eng.scheduler.queue and all(s.state == "generate" for s in eng.slots)
+            eng.step()
+            delta = {k for k, v in build.launch_counts().items() if v != before[k]}
+            if spec and quiet and eng._spec_rounds > rounds:
+                assert delta <= {"paged_gather", "paged_gather_dequant", "flash_attention",
+                                 "ragged_paged_scatter_rows"}, delta
+                assert "ragged_paged_scatter_rows" in delta
+        streams[name] = {o.uid: o.tokens.tolist() for o in eng.finished}
+        assert eng.stats()["pages_in_use"] == 0.0
+        if spec:
+            assert eng.stats()["speculative_rounds"] > 0
+    assert streams["spec"] == streams["plain"]
+
+
+def test_truncate_keeps_the_card_pool_consistent(dev):
+    """Truncation drops the tail pages from the table (back to NULL) and the
+    refcounts, leaves the kept pages' bytes alone, and a page it freed
+    comes back scrubbed; reads past the cut see the template."""
+    import numpy as np
+
+    from repro_torch.serve.cache import _RESERVED, NULL_PAGE, PagedCachePool, flatten
+
+    cfg = TC.smoke_config(TC.get_config("mod-paper-60m"))
+    pool = PagedCachePool(cfg, 2, 64, 16, dev)
+    pool.acquire(0)
+    assert pool.alloc_pages(0, 64)
+    ids = [int(x) for x in pool.table_np[0, :4]]
+    g = torch.Generator(device=dev).manual_seed(5)
+    for pages in pool.pages:
+        fill = torch.randint(-100, 100, pages[ids].shape, generator=g, device=dev)
+        pages[ids] = fill.to(pages.dtype)
+    before = [pages.clone() for pages in pool.pages]
+    assert pool.truncate(0, 20) == 2
+    assert int(pool.n_mapped[0]) == 2 and (pool.table_np[0, 2:] == NULL_PAGE).all()
+    assert set(ids[2:]) <= set(pool.free)
+    assert all(torch.equal(a[ids], b[ids]) for a, b in zip(pool.pages, before))
+    ref = np.zeros_like(pool.ref)
+    np.add.at(ref, pool.table_np[0, :2], 1)
+    assert (pool.ref == ref).all() and pool.ref[:_RESERVED].sum() == 0
+    work = pool.read_slot(0)
+    for j, i in enumerate(pool._paged_ids):
+        leaf = flatten(work)[i][0]
+        assert torch.equal(leaf[:32], torch.cat([before[j][ids[0]], before[j][ids[1]]]))
+        tmpl = pool._tmpl_pages[j]
+        assert torch.equal(leaf[32:], tmpl.repeat((2,) + (1,) * (tmpl.dim() - 1)))
+    pool.acquire(1)
+    assert pool.alloc_pages(1, 64)  # the free list's front: never used pages
+    assert pool.alloc_pages(0, 64)  # then the two truncated ones, scrubbed
+    assert [int(x) for x in pool.table_np[0, 2:]] == ids[2:]
+    for j, pages in enumerate(pool.pages):
+        for pid in ids[2:]:
+            assert torch.equal(pages[pid], pool._tmpl_pages[j])
 
 
 def test_forward_ragged_launches_the_dispatch_kernels(dev):

@@ -6,8 +6,8 @@ identical, with whole-prompt and with chunked prefill. The JAX engine runs
 backend ``xla`` (its ``xla`` and ``pallas`` backends are bitwise equal,
 tests/test_routing_backends.py); the port runs ``pallas``, whose wrappers
 take their plain versions on the CPU. Also: the settings of the engine
-paths the port does not run yet (speculative, SPMD, overload) raise, with
-or without the paged pool they build on (the quantized path's checks are
+paths the port does not run yet (SPMD, overload) raise, as do invalid
+speculative settings (the quantized path's checks are
 in tests/test_torch_quant.py). Sampled tokens are keyed by (seed, token
 index), as JAX keys them by ``fold_in(key, i)``: a re-draw gives the same
 token. The pools' byte counts equal the JAX pools' at ``mod-paper-60m``
@@ -97,10 +97,13 @@ def test_generate_and_sampling_are_per_request():
 
 @pytest.mark.parametrize(
     "setting",
-    [dict(speculate=2, page_size=16), dict(speculate=2), dict(mesh="data"),
+    [dict(speculate=0, page_size=16), dict(speculate=2), dict(mesh="data"),
      dict(adaptive_capacity=True), dict(fault_injector=object())],
 )
 def test_later_engine_paths_raise(setting):
+    """The paths not ported yet raise whenever set; the speculative path
+    runs, and raises for its invalid settings (a window under 1, no paged
+    pool)."""
     name = next(iter(setting))
     with pytest.raises(ValueError, match=name):
         EngineConfig(batch_size=2, ctx=16, **setting)
