@@ -7,6 +7,7 @@
     python3 chip_smoke.py --routed-paged-timing [ROOT]  # routed_attention, paged, dispatch, ragged attn
     python3 chip_smoke.py --train-runs [ROOT]     # phases 5 and 9c training alone, ROOT's port
     python3 chip_smoke.py --ssm-losses            # phase 9c's losses per SSD path and SiLU
+    python3 chip_smoke.py --moe                   # phase 12 (the MoE family) alone
 
 Imports nothing of JAX or of the JAX package. Builds the port's CUDA
 kernels from ``src/repro_torch/kernels/csrc`` and runs, in order (any
@@ -103,8 +104,9 @@ failure raises and exits non-zero):
    streams; (c) training at full width and
    depth, bf16, B=4, S=2048, remat "full", 5 Trainer steps, profiled, with
    the SSD, gather and scatter launches of this phase alone; (d) stepped
-   serving, 8 slots, 16 greedy requests, prompts of 32-128 tokens, 16 new
-   tokens each;
+   serving at full width and 12 of the 48 layers (depth cut for the
+   script's time limit), 8 slots, 16 greedy requests, prompts of 32-128
+   tokens, 16 new tokens each;
 10. the op entry point (``repro_torch.kernels.ops``; run after phase 8b,
    while mod-paper-1b's weights are on the card): its counted run calls
    ``ragged_attention_op`` on three live pools and ``swiglu_op`` at two
@@ -140,7 +142,29 @@ failure raises and exits non-zero):
    generating), peak memory and each kernel's launches a round, where only
    the paged gathers, flash attention and the ragged write-back may launch
    (by launch counter, and by torch.profiler against the ``__global__``
-   functions of ``csrc``).
+   functions of ``csrc``);
+12. the MoE family (``[moe]`` lines; run last, phases 4-11's weights
+   freed): (a) ``olmoe-1b-7b`` (staged MoDE) and ``phi3.5-moe-imode``
+   (integrated MoDE) at smoke size, f32, the same weights on the CPU and
+   the card under the backends xla, pallas and pallas_fused: logits within
+   1e-5, the dropped and no-op fractions equal and the other aux within
+   1e-5, the launches of each backend's kernels; greedy streams of the
+   paged engine equal on both devices and in a second card run (the
+   deterministic combine); (b) ``olmoe-1b-7b`` bf16 at full width and
+   depth (64 experts top-8, random weights from seed 0) on phase 6c's
+   workload through the paged + prefix, ragged and fused speculative
+   engines (``speculate=3``, draft ratio 0.125, the first 16 new tokens):
+   streams equal; tok/s, prefill ms a prompt, decode wall and (one
+   profiled step or round with every slot generating) busy ms and idle
+   share, peak memory, ``kv_bytes``, the mean ``moe/drop_frac`` of the
+   prefill and decode MoE calls; the profiled step's launches held to its
+   layers by counter and to torch.profiler's ``__global__`` names; (c)
+   ``phi3.5-moe-imode`` bf16 at full width, 4 of its 32 layers: a padded
+   prefill of 4 prompts and 16 decode steps, ``moe/noop_frac`` and the
+   busy time a step; (d) ``olmoe-1b-7b`` bf16 at full width, 4 of its 16
+   layers (depth cut: the whole model's f32 AdamW moments do not fit),
+   pallas_fused, B=2, S=2048, 3 steps: finite losses, busy ms a step by
+   kernel group and of the MoE's own forward ops, peak memory.
 
 Each phase's wall time is printed on a ``[time]`` line.
 
@@ -168,6 +192,7 @@ to compare them on one card.
 runs it, with the SSD kernel forced onto its CUDA-core path, as its plain
 version, and on the CUDA-core path with ``F.silu`` in the SSM blocks, and
 prints the four loss trajectories.
+``--moe`` builds the kernels and runs phase 12 alone.
 ``--mlp-losses`` only runs phase 5's training four times, with
 routed_mlp_scatter on the wgmma GEMM, on the CUDA-core GEMM and as its
 plain version, and with routed_attention as its plain version, and prints
@@ -3348,9 +3373,16 @@ def train_ssm(dev):
                                dispatch_ms=dispatch_ms, copies_ms=copies_ms)
 
 
+# 9d serves mamba2-1.3b at full width, SSM_SERVE_LAYERS of its 48 layers:
+# stepped ingestion takes one engine step a prompt token, and the whole
+# depth took 288 s of the script's 1200 s limit on an H100 (700 W)
+SSM_SERVE_LAYERS = 12
+
+
 def serve_ssm(dev):
-    """9d: mamba2-1.3b in bf16 through the stepped engine: 8 slots, 16
-    greedy requests, prompts of 32-128 tokens, 16 new tokens each."""
+    """9d: mamba2-1.3b in bf16 at full width, SSM_SERVE_LAYERS of its 48
+    layers, through the stepped engine: 8 slots, 16 greedy requests,
+    prompts of 32-128 tokens, 16 new tokens each."""
     from repro_torch.config import get_config
     from repro_torch.core.routing import batch_capacity_k
     from repro_torch.data.synthetic import SyntheticLM
@@ -3358,7 +3390,7 @@ def serve_ssm(dev):
     from repro_torch.models import api
     from repro_torch.serve import EngineConfig, Request, ServingEngine
 
-    cfg = get_config("mamba2-1.3b")
+    cfg = dataclasses.replace(get_config("mamba2-1.3b"), n_layers=SSM_SERVE_LAYERS)
     params = api.init_model(cfg, device=dev, seed=0)
     B, n_req, gen, lo, hi = 8, 16, 16, 32, 128
     ecfg = EngineConfig(batch_size=B, ctx=hi + gen)
@@ -3377,7 +3409,7 @@ def serve_ssm(dev):
     if len(outs) != n_req or not all(o.ok and len(o.tokens) == gen for o in outs):
         raise AssertionError("ssm serving: a request did not finish with all its tokens")
     kb = batch_capacity_k(cfg, B)
-    log(f"[ssm-serve] {cfg.name} bf16, prefill mode {engine.prefill_mode}: {n_req} requests "
+    log(f"[ssm-serve] {cfg.name} bf16, {cfg.n_layers} of 48 layers, prefill mode {engine.prefill_mode}: {n_req} requests "
         f"(prompts {lens.min()}-{lens.max()} tokens, {gen} new each), {B} slots: "
         f"{s['generated_tokens']:.0f} tokens in {s['wall_s']:.2f}s = {s['tokens_per_s']:.1f} "
         f"tok/s; {s['steps']:.0f} engine steps, decode {1e3 * s['decode_s'] / s['decode_steps']:.2f} "
@@ -4055,6 +4087,468 @@ def serve_spec_1b(dev, params, base_streams, base_stats, quant_streams):
     return counts, per_round
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the MoE family (token-choice MoE, staged and integrated MoDE)
+# ---------------------------------------------------------------------------
+
+MOE_SMOKE = ("olmoe-1b-7b", "phi3.5-moe-imode")  # 12a: staged and integrated MoDE
+MOE_TOL = dict(atol=1e-5, rtol=1e-5)  # 12a: f32 logits, CPU against the card
+# 12c: phi3.5-moe-imode at full width, 4 of its 32 layers; a padded prefill
+# of 4 prompts, then 16 decode steps
+MOE_IMODE = dict(layers=4, prompts=(256, 200, 144, 96), decode=16)
+# 12d: olmoe-1b-7b at full width, 4 of its 16 layers (2 full, 2 routed)
+MOE_TRAIN = dict(layers=4, B=2, S=2048, steps=3)
+
+
+@contextlib.contextmanager
+def moe_calls(annotate: bool = False):
+    """Record every ``moe_mlp`` call inside: (S, aux as device tensors),
+    read after the run; ``annotate`` also wraps each call in a
+    ``torch.profiler.record_function("moe_mlp")`` range."""
+    from repro_torch.models import moe as MOE
+
+    real, seen = MOE.moe_mlp, []
+
+    def record(params, x, cfg):
+        with (torch.profiler.record_function("moe_mlp") if annotate
+              else contextlib.nullcontext()):
+            out, aux = real(params, x, cfg)
+        seen.append((x.shape[0], x.shape[1], {k: v.detach() for k, v in aux.items()}))
+        return out, aux
+
+    MOE.moe_mlp = record
+    try:
+        yield seen
+    finally:
+        MOE.moe_mlp = real
+
+
+def moe_mean(seen, key: str, prefill: bool) -> float:
+    """Mean of ``aux[key]`` over the recorded calls of prefill (S > 1) or
+    decode (S = 1) shape that had rows (a decode step at draft ratio 0
+    routes none), nan if there were none."""
+    vals = [a[key].float() for B, S, a in seen if B > 0 and (S > 1) == prefill and key in a]
+    return float(torch.stack(vals).mean()) if vals else float("nan")
+
+
+def profiled_step(eng):
+    """One engine step under torch.profiler: (wall ms, device-busy ms, the
+    port's ``__global__`` functions among its device records, the launch
+    counters' change, the number of device records, the device ms inside
+    ``moe_mlp`` ranges (:func:`moe_range_ms`))."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import build
+
+    before = build.launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    delta = {k: v - before[k] for k, v in build.launch_counts().items() if v != before[k]}
+    events = [e for e in prof.events()
+              if e.device_type == DeviceType.CUDA and e.name != "moe_mlp"]
+    busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    kernels = csrc_kernels()
+    ours = {port_kernel_of(e.name, kernels) for e in events} - {None}
+    return wall, busy, ours, delta, len(events), moe_range_ms(prof)
+
+
+def check_profiled_kernels(tag: str, ours: set, delta: dict) -> None:
+    """The port kernels torch.profiler saw in a step are those whose launch
+    counters moved in it, by source file (``gemm.cuh`` serves the fused
+    kernels' products)."""
+    kernels = csrc_kernels()
+    files = {Path(SOURCES[n][0]).name for n in delta}
+    allowed = files | ({"gemm.cuh"} if set(delta) & {"routed_attention", "routed_mlp_scatter",
+                                                      "swiglu"} else set())
+    seen = {kernels[k] for k in ours}
+    if seen - allowed:
+        raise AssertionError(f"{tag}: torch.profiler saw kernels of {sorted(seen - allowed)} "
+                             f"whose launch counters did not move ({delta})")
+    if files - seen:
+        raise AssertionError(f"{tag}: counted launches of {sorted(files - seen)} ({delta}) but "
+                             f"torch.profiler saw none of their kernels")
+
+
+def moe_parity(dev):
+    """(a) olmoe-1b-7b (staged MoDE) and phi3.5-moe-imode (integrated MoDE)
+    at smoke size, f32, the same weights on the CPU (plain versions) and
+    the card (kernels), under the backends xla, pallas and pallas_fused:
+    model_loss's logits within MOE_TOL, the dropped and no-op fractions
+    equal, the other aux within MOE_TOL; then greedy streams of the paged
+    engine (page 16, chunk 32, 6 requests into 4 slots sharing a 48-token
+    prefix, 12 new tokens) equal on both devices, and a second run on the
+    card bit-identical (the deterministic combine)."""
+    from repro_torch.config import get_config, smoke_config, with_mod_backend
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import build
+    from repro_torch.models import api
+    from repro_torch.serve import EngineConfig, Request, ServingEngine
+
+    for arch in MOE_SMOKE:
+        base = dataclasses.replace(smoke_config(get_config(arch)), dtype="float32")
+        p_cpu = api.init_model(base, device="cpu", seed=5)
+        p_gpu = _to(p_cpu, dev)
+        toks = torch.as_tensor(SyntheticLM(base.vocab, 65, seed=13).batch(0, 2)["tokens"]).long()
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        for backend in ("xla", "pallas", "pallas_fused"):
+            cfg = with_mod_backend(base, backend)
+            lc, ac = api.model_forward(p_cpu, cfg, batch)
+            _, lac = api.model_loss(p_cpu, cfg, batch)
+            build.reset_counters()
+            lg, ag = api.model_forward(p_gpu, cfg, {k: v.to(dev) for k, v in batch.items()})
+            _, lag = api.model_loss(p_gpu, cfg, {k: v.to(dev) for k, v in batch.items()})
+            counts = {k: v for k, v in build.launch_counts().items() if v}
+            diff = (lc - lg.cpu()).abs().max().item()
+            if not torch.allclose(lg.cpu(), lc, **MOE_TOL):
+                raise AssertionError(f"12a {arch} {backend}: logits differ by {diff}")
+            if sorted(lac) != sorted(lag):
+                raise AssertionError(f"12a {arch} {backend}: aux keys {sorted(lac)} vs {sorted(lag)}")
+            worst = 0.0
+            for key in lac:
+                a, b = lac[key].float(), lag[key].float().cpu()
+                if key.endswith(("drop_frac", "noop_frac")):
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"12a {arch} {backend}: {key} {a} vs {b}")
+                elif not torch.allclose(b, a, **MOE_TOL):
+                    raise AssertionError(f"12a {arch} {backend}: {key} {a} vs {b}")
+                worst = max(worst, (a - b).abs().max().item())
+            want = {"flash_attention"}
+            if base.mod.enabled:
+                want |= ({"routed_attention", "scatter_add_rows"} if backend == "pallas_fused"
+                         else {"gather_rows", "scatter_add_rows"})
+            if set(counts) != want:
+                raise AssertionError(f"12a {arch} {backend}: the card's forward and loss launched "
+                                     f"{counts}, want {sorted(want)}")
+            fr = {k: round(float(v), 6) for k, v in lag.items() if k.endswith(("frac",))}
+            log(f"[moe] 12a {arch} smoke f32 {backend}: CPU == card logits max|d|={diff:.3g} "
+                f"(limit {MOE_TOL}), aux max|d|={worst:.3g}, fractions equal {json.dumps(fr)}; "
+                f"loss {float(lag['loss']):.6f}; card launches {json.dumps(counts)}")
+        cfg = with_mod_backend(base, "pallas")
+        pt = SyntheticLM(cfg.vocab, 96, seed=19).batch(0, 6)["tokens"]
+        rng = np.random.default_rng(6)
+        prompts = [np.concatenate([pt[0, :48], pt[i, 48:48 + int(n)]])
+                   for i, n in enumerate(rng.integers(4, 41, 6))]
+
+        def run(d, params):
+            eng = ServingEngine(params, cfg, EngineConfig(batch_size=4, ctx=128, page_size=16,
+                                                          prefill_chunk=32), device=d)
+            return _streams(eng.run_stream([Request(tokens=p, max_new_tokens=12)
+                                            for p in prompts], 0))
+
+        sc, sg, sg2 = run("cpu", p_cpu), run(dev, p_gpu), run(dev, p_gpu)
+        if sc != sg:
+            raise AssertionError(f"12a {arch}: CPU and card streams differ for "
+                                 f"{[u for u in sc if sc[u] != sg[u]]}")
+        if sg2 != sg:
+            raise AssertionError(f"12a {arch}: two runs on the card differ for "
+                                 f"{[u for u in sg if sg[u] != sg2[u]]}")
+        log(f"[moe] 12a {arch} smoke f32 paged engine: CPU and card greedy streams identical for "
+            f"all {len(sg)} requests ({sum(len(t) for t in sg.values())} tokens); a second card "
+            f"run identical")
+
+
+def serve_moe_1b(dev):
+    """(b) olmoe-1b-7b (staged MoDE, 64 experts top-8) at full width and
+    depth, bf16, random weights from seed 0, backend pallas, on PAGED_1B's
+    workload: the paged + prefix engine, the ragged engine and the fused
+    speculative engine (speculate=SPEC_N at draft ratio 0.125, the model's
+    own, SPEC_GEN new tokens). Streams equal the paged + prefix engine's.
+    Per engine: tok/s, prefill ms a prompt, decode wall and (one profiled
+    step or round with every slot generating) busy ms, idle share, peak
+    memory, kv_bytes and the mean moe/drop_frac of the prefill and decode
+    MoE calls. The profiled step's launch counts are held to the step's
+    layers and to torch.profiler's ``__global__`` names. Returns the launch
+    counts of each run."""
+    from repro_torch.config import get_config, with_mod_backend
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import build
+    from repro_torch.models import api
+    from repro_torch.serve import EngineConfig, Request, ServingEngine
+    from repro_torch.serve.scheduler import GENERATE
+    from repro_torch.utils import tree_leaves
+
+    cfg = with_mod_backend(get_config("olmoe-1b-7b"), "pallas")
+    t0 = time.perf_counter()
+    params = api.init_model(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    w = PAGED_1B
+    B, gen, pre, page, C = w["B"], w["gen"], w["prefix"], w["page"], w["chunk"]
+    suffix, ctx, n_chunks = paged_1b_plan()
+    toks = SyntheticLM(cfg.vocab, pre + w["max_suffix"], seed=9).batch(0, B)["tokens"]
+    prompts = [np.concatenate([toks[0, :pre], toks[i, pre:pre + int(n)]])
+               for i, n in enumerate(suffix)]
+    n_full = sum(1 for grp in params["groups"] if "full" in grp)
+    n_mod = sum(1 for grp in params["groups"] if "mod" in grp)
+    log(f"[moe] 12b {cfg.name}: {n_params / 1e9:.3f}B params ({cfg.n_params() / 1e9:.3f}B by "
+        f"n_params, {cfg.active_params_per_token() / 1e9:.3f}B active a token) in {cfg.dtype}, "
+        f"{n_full} full + {n_mod} routed MoE layers, {cfg.moe.n_experts} experts top-"
+        f"{cfg.moe.top_k}, init {time.perf_counter() - t0:.1f}s")
+    paged = dict(page_size=page, prefill_chunk=C)
+    runs = {"paged+prefix": dict(paged, prefix_cache=True),
+            "ragged": dict(paged, ragged=True, ragged_segments=n_chunks),
+            "speculative fused": dict(paged, speculate=SPEC_N, draft_ratio=cfg.mod.capacity_ratio)}
+    warm = ServingEngine(params, cfg, EngineConfig(batch_size=B, ctx=ctx, **runs["ragged"]),
+                         device=dev)
+    warm.run_stream([Request(tokens=prompts[0][:300], max_new_tokens=2)], 0)
+    # a decode step with every slot generating: paged gathers and flash in
+    # each layer (the routed ones at kb = round(0.125 * 8) = 1), the write-
+    # back (paged, or ragged on the ragged engine); a fused round: SPEC_N + 1
+    # such steps, one materialize and one window write
+    step_want = {"paged_gather": 3 * n_full, "flash_attention": n_full + n_mod}
+    wants = {"paged+prefix": dict(step_want, paged_scatter_rows=3 * n_full),
+             "ragged": dict(step_want, ragged_paged_scatter_rows=3 * n_full),
+             "speculative fused": dict(step_want, flash_attention=(SPEC_N + 1) * (n_full + n_mod),
+                                       ragged_paged_scatter_rows=3 * n_full)}
+    out, counts = {}, {}
+    for name, kw in runs.items():
+        n_new = SPEC_GEN if "speculate" in kw else gen
+        eng = ServingEngine(params, cfg, EngineConfig(batch_size=B, ctx=ctx, **kw), device=dev)
+        for q in prompts:
+            eng.submit(Request(tokens=q, max_new_tokens=n_new))
+        build.reset_counters()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        prof = None
+        with moe_calls(annotate=True) as seen:
+            while eng.has_work:
+                all_gen = not eng.scheduler.queue and all(s.state == GENERATE for s in eng.slots)
+                if prof is None and all_gen and eng.step_count >= 2:
+                    wall, busy, ours, delta, n_ev, moe_ms = profiled_step(eng)
+                    if delta != wants[name]:
+                        raise AssertionError(f"12b {name}: a step with every slot generating "
+                                             f"launched {delta}, want {wants[name]}")
+                    if busy > 0.0:
+                        check_profiled_kernels(f"12b {name}", ours, delta)
+                        prof = dict(wall=wall, busy=busy, kernels=sorted(ours), n=n_ev,
+                                    delta=delta, step=eng.step_count, moe=moe_ms)
+                else:
+                    eng.step()
+            torch.cuda.synchronize()
+        counts[name] = build.launch_counts()
+        s = eng.stats()
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        out[name] = _streams(eng.finished)
+        if len(out[name]) != B or any(not o.ok or len(o.tokens) != n_new for o in eng.finished):
+            raise AssertionError(f"12b {name}: not every request finished with {n_new} tokens")
+        want_s = {u: t[:n_new] for u, t in out["paged+prefix"].items()}
+        if out[name] != want_s:
+            raise AssertionError(f"12b {name}: streams differ from the paged + prefix engine's "
+                                 f"for {[u for u in want_s if out[name][u] != want_s[u]]}")
+        drop_p, drop_d = moe_mean(seen, "moe/drop_frac", True), moe_mean(seen, "moe/drop_frac",
+                                                                          False)
+        unit = "round" if "speculate" in kw else "step"
+        spec = (f"; {s['speculative_rounds']:.0f} rounds, accept rate "
+                f"{s['speculative_accept_rate']:.3f}, {s['speculative_tokens_per_round']:.3f} "
+                f"tokens a round" if "speculate" in kw else "")
+        busy_note = ("busy: torch.profiler recorded no device time; not measured" if prof is None
+                     else f"profiled {unit} (engine step {prof['step']}): wall {prof['wall']:.2f} "
+                          f"ms, device busy {prof['busy']:.2f} ms (inside moe_mlp: GEMMs "
+                          f"{prof['moe']['gemm']:.2f}, other torch ops {prof['moe']['other']:.2f}),"
+                          f" idle share {1 - prof['busy'] / prof['wall']:.3f}, {prof['n']} device "
+                          f"records")
+        log(f"[moe] 12b {name}: {s['generated_tokens']:.0f} tokens in {s['wall_s']:.2f}s = "
+            f"{s['tokens_per_s']:.1f} tok/s; prefill "
+            f"{1e3 * s['prefill_s'] / max(1, s['prefills']):.1f} ms per prompt ({s['prefills']:.0f}), "
+            f"decode {1e3 * s['decode_s'] / max(1, s['decode_steps']):.2f} ms wall per {unit} "
+            f"({s['decode_steps']:.0f}){spec}; {busy_note}; peak memory {peak:.2f} GiB; kv_bytes "
+            f"{s['kv_bytes'] / 2**20:.1f} MiB; mean moe/drop_frac {drop_p:.4f} over "
+            f"{sum(1 for b, S, _ in seen if S > 1)} prefill MoE calls, {drop_d:.4f} over "
+            f"{sum(1 for b, S, _ in seen if S == 1 and b > 0)} decode ones; streams equal the "
+            f"paged + prefix engine's")
+        log(f"[moe]   launches: {json.dumps({k: v for k, v in counts[name].items() if v})}; a "
+            f"profiled {unit}: {json.dumps(wants[name])} by counter"
+            + ("" if prof is None else f", kernels of csrc by torch.profiler: "
+                                       f"{', '.join(prof['kernels'])}"))
+    del params, warm, eng
+    torch.cuda.empty_cache()
+    return counts
+
+
+def serve_imode(dev):
+    """(c) phi3.5-moe-imode (integrated MoDE: 16 experts top-2 plus 4 no-op
+    experts) at full width, MOE_IMODE's 4 of its 32 layers, bf16, seed 0:
+    the padded engine prefills 4 prompts and runs 16 decode steps (one
+    profiled with every slot generating). Prints the no-op fraction of the
+    prefill and decode MoE calls and the busy time a step."""
+    from repro_torch.config import get_config
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import build
+    from repro_torch.models import api
+    from repro_torch.serve import EngineConfig, Request, ServingEngine
+    from repro_torch.serve.scheduler import GENERATE
+
+    m = MOE_IMODE
+    cfg = dataclasses.replace(get_config("phi3.5-moe-imode"), n_layers=m["layers"])
+    params = api.init_model(cfg, device=dev, seed=0)
+    lens = m["prompts"]
+    toks = SyntheticLM(cfg.vocab, max(lens), seed=21).batch(0, len(lens))["tokens"]
+    eng = ServingEngine(params, cfg, EngineConfig(batch_size=len(lens),
+                                                  ctx=max(lens) + m["decode"] + 1), device=dev)
+    for i, n in enumerate(lens):
+        eng.submit(Request(tokens=toks[i, :n], max_new_tokens=m["decode"] + 1))
+    build.reset_counters()
+    torch.cuda.reset_peak_memory_stats(dev)
+    prof = None
+    with moe_calls(annotate=True) as seen:
+        while eng.has_work:
+            if prof is None and eng.step_count >= 2 and all(s.state == GENERATE
+                                                              for s in eng.slots):
+                wall, busy, ours, delta, n_ev, moe_ms = profiled_step(eng)
+                if delta != {"flash_attention": cfg.n_layers}:
+                    raise AssertionError(f"12c: a decode step launched {delta}, want "
+                                         f"{cfg.n_layers} flash_attention")
+                if busy > 0.0:
+                    check_profiled_kernels("12c", ours, delta)
+                    prof = dict(wall=wall, busy=busy, n=n_ev, moe=moe_ms)
+            else:
+                eng.step()
+        torch.cuda.synchronize()
+    s = eng.stats()
+    if any(not o.ok or len(o.tokens) != m["decode"] + 1 for o in eng.finished):
+        raise AssertionError("12c: not every request finished")
+    counts = build.launch_counts()
+    noop_p, noop_d = moe_mean(seen, "moe/noop_frac", True), moe_mean(seen, "moe/noop_frac", False)
+    drop_p = moe_mean(seen, "moe/drop_frac", True)
+    if not (0.0 < noop_p < 1.0 and 0.0 < noop_d < 1.0):
+        raise AssertionError(f"12c: no-op fractions {noop_p}, {noop_d}")
+    busy_note = ("busy: torch.profiler recorded no device time; not measured" if prof is None
+                 else f"profiled decode step: wall {prof['wall']:.2f} ms, device busy "
+                      f"{prof['busy']:.2f} ms (inside moe_mlp: GEMMs {prof['moe']['gemm']:.2f}, "
+                      f"other torch ops {prof['moe']['other']:.2f}), idle share "
+                      f"{1 - prof['busy'] / prof['wall']:.3f}")
+    log(f"[moe] 12c phi3.5-moe-imode integrated MoDE ({cfg.moe.n_experts} experts + "
+        f"{cfg.moe.n_noop_experts} no-op, top-{cfg.moe.top_k}), d_model {cfg.d_model}, "
+        f"{cfg.n_layers} of 32 layers, bf16: prompts {list(lens)}, {s['decode_steps']:.0f} decode "
+        f"steps; mean moe/noop_frac {noop_p:.4f} (prefill) / {noop_d:.4f} (decode), "
+        f"moe/drop_frac {drop_p:.4f} (prefill); prefill "
+        f"{1e3 * s['prefill_s'] / max(1, s['prefills']):.1f} ms per prompt, decode "
+        f"{1e3 * s['decode_s'] / max(1, s['decode_steps']):.2f} ms wall per step; {busy_note}; "
+        f"peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; launches "
+        f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    del params, eng
+    torch.cuda.empty_cache()
+    return counts
+
+
+def moe_range_ms(prof) -> dict:
+    """Device ms of the kernels launched inside the ``moe_mlp`` ranges of a
+    profile (the forward and its recompute; the backward runs on autograd's
+    thread, outside them), split into GEMMs and the rest."""
+    from torch.autograd import DeviceType
+
+    out = {"gemm": 0.0, "other": 0.0}
+
+    def walk(ev):
+        for k in ev.kernels:
+            grp = "gemm" if _kernel_group(k.name) == "library GEMM (cuBLAS)" else "other"
+            out[grp] += k.duration / 1e3
+        for ch in ev.cpu_children:
+            walk(ch)
+
+    for e in prof.events():
+        if e.name == "moe_mlp" and e.device_type == DeviceType.CPU:
+            walk(e)
+    return out
+
+
+def train_moe(dev):
+    """(d) olmoe-1b-7b at full width, MOE_TRAIN's 4 of its 16 layers (2 full
+    and 2 routed MoE layers; the whole depth's f32 AdamW moments do not fit
+    on one card), pallas_fused, B=2, S=2048, 3 steps from seed 0 (lr 1e-4
+    after 2 warmup steps): finite losses; per step the busy ms by kernel
+    group, of which the MoE's own forward ops, and the launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.config import OptimConfig, TrainConfig, get_config, with_mod_backend
+    from repro_torch.data.loader import SyntheticLoader
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import build
+    from repro_torch.models.moe import expert_capacity
+    from repro_torch.train import Trainer
+
+    m = MOE_TRAIN
+    B, S, steps = m["B"], m["S"], m["steps"]
+    cfg = with_mod_backend(dataclasses.replace(get_config("olmoe-1b-7b"), n_layers=m["layers"]),
+                           "pallas_fused")
+    tcfg = TrainConfig(global_batch=B, seq_len=S,
+                       optim=OptimConfig(lr=1e-4, warmup_steps=2, total_steps=steps),
+                       log_every=1, ckpt_every=10**9)
+    losses, busies = [], []
+    with tempfile.TemporaryDirectory() as ckdir:
+        trainer = Trainer(cfg, tcfg, SyntheticLoader(SyntheticLM(cfg.vocab, S, seed=0), B, dev),
+                          ckpt=CheckpointManager(ckdir), device=dev, log_fn=lambda msg: None)
+        state = trainer.init_or_resume()
+        torch.cuda.synchronize()
+        log(f"[moe] 12d {cfg.name} training: {cfg.n_params() / 1e9:.3f}B params, {cfg.n_layers} "
+            f"of 16 layers (depth cut: the full 16 layers' bf16 params and grads and f32 AdamW "
+            f"moments need ~83 GB), full width, {cfg.mod.backend}, B={B} S={S}, MoE capacity "
+            f"{cfg.moe.capacity_factor} x S x top_k / E (full layers C="
+            f"{expert_capacity(S, cfg)}, routed layers k={cfg.mod.capacity(S)} rows, C="
+            f"{expert_capacity(cfg.mod.capacity(S), cfg)})")
+        torch.cuda.reset_peak_memory_stats(dev)
+        build.reset_counters()
+        with moe_calls(annotate=True) as seen:
+            for i in range(steps):
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    state, mt = trainer.run(state, 1)
+                by_name: dict = {}
+                for e in prof.events():
+                    if e.device_type == DeviceType.CUDA and e.name != "moe_mlp":
+                        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+                busy = sum(by_name.values())
+                groups: dict = {}
+                for n, t in by_name.items():
+                    groups[_kernel_group(n)] = groups.get(_kernel_group(n), 0.0) + t
+                try:
+                    moe_ms = moe_range_ms(prof)
+                    moe_note = (f"of which inside moe_mlp's forward ranges (forward and remat "
+                                f"recompute): GEMMs {moe_ms['gemm']:.1f}, other torch ops "
+                                f"{moe_ms['other']:.1f} ms")
+                except AttributeError as err:
+                    moe_note = f"moe_mlp ranges: not measured ({err})"
+                wall = 1e3 * trainer.heartbeats[-1][1]
+                losses.append(mt["loss"])
+                busies.append(busy)
+                aux = {k: round(v, 4) for k, v in mt.items() if "moe/" in k}
+                log(f"[moe] 12d step {i + 1}: loss {mt['loss']:.4f} ce {mt['ce']:.4f} grad norm "
+                    f"{mt['grad_norm']:.3f}; wall {wall:.1f} ms, device busy {busy:.1f} ms, idle "
+                    f"share {1 - busy / wall:.3f}; moe aux {json.dumps(aux)}")
+                log("[moe]   device ms by group: " + "; ".join(
+                    f"{g} {t:.1f}" for g, t in sorted(groups.items(), key=lambda kv: -kv[1]))
+                    + f"; {moe_note}")
+        counts = build.launch_counts()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"12d: non-finite training loss: {losses}")
+    for name in ("routed_attention", "scatter_add_rows", "flash_attention"):
+        if counts.get(name, 0) <= 0:
+            raise AssertionError(f"12d: {name} was not launched on the MoE training path")
+    if counts.get("routed_mlp_scatter", 0):
+        raise AssertionError("12d: routed_mlp_scatter ran in an MoE model")
+    log(f"[moe] 12d losses {', '.join(f'{x:.4f}' for x in losses)}; device busy "
+        f"{', '.join(f'{b:.1f}' for b in busies)} ms; peak memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB; {len(seen)} moe_mlp calls; "
+        f"launches {json.dumps({k: v for k, v in counts.items() if v})}")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def moe_phase(dev) -> dict:
+    """Phase 12 in order; the launch counts by path."""
+    moe_parity(dev)
+    serve = serve_moe_1b(dev)
+    imode = serve_imode(dev)
+    train = train_moe(dev)
+    return {"moe_serve": serve["paged+prefix"], "moe_serve_ragged": serve["ragged"],
+            "moe_spec": serve["speculative fused"], "moe_imode": imode, "moe_train": train}
+
+
 def dispatch_by_call() -> dict:
     """The padded dispatch kernels' launches by call since the last reset,
     keyed as the wrappers count them: (kind, vec, unroll, B, S, k, row
@@ -4085,6 +4579,16 @@ def main() -> int:
         routed_paged_timing(Path(sys.argv[2]).resolve() if len(sys.argv) > 2 else ROOT)
         return 0
     sys.path.insert(0, str(ROOT / "src"))
+    if sys.argv[1:2] == ["--moe"]:
+        from repro_torch.kernels import build
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        build.build_all()
+        t = time.perf_counter()
+        moe_phase(torch.device("cuda", 0))
+        log(f"[time] phase 12 moe: {time.perf_counter() - t:.1f}s")
+        return 0
     from repro_torch.config import get_config
     from repro_torch.kernels import build
 
@@ -4152,6 +4656,8 @@ def main() -> int:
     dispatch_calls["train_ssm"] = dispatch_by_call()
     torch.cuda.empty_cache()
     ssm_serve_counts = timed("phase 9d ssm serve", serve_ssm, dev)
+    torch.cuda.empty_cache()
+    moe_counts = timed("phase 12 moe", moe_phase, dev)
 
     # flash: every shape of phase 2, each with the launches of exactly its
     # call (path and shape) in phases 4 and 5, as the wrapper counted them
@@ -4249,7 +4755,7 @@ def main() -> int:
     model_runs = {"serve": serve_counts, "train": train_counts, **paged_counts, **quant_counts,
                   "forward_ragged": ragged_counts, "train_ssm": ssm_train_counts,
                   "serve_ssm": ssm_serve_counts,
-                  **{f"serve_spec {n}": c for n, c in spec_counts.items()}}
+                  **{f"serve_spec {n}": c for n, c in spec_counts.items()}, **moe_counts}
     for run, c in model_runs.items():
         if any(c.get(k, 0) for k in OPS_KERNELS):
             raise AssertionError(f"{run} launched an op-entry-point kernel: {c}")
@@ -4278,7 +4784,7 @@ def main() -> int:
                    "forward_ragged": ragged_counts,
                    "train_ssm": ssm_train_counts, "serve_ssm": ssm_serve_counts,
                    "ops": ops_counts,
-                   **{f"serve_spec {n}": c for n, c in spec_counts.items()}}
+                   **{f"serve_spec {n}": c for n, c in spec_counts.items()}, **moe_counts}
         path = {"routed_attention": "train", "routed_mlp_scatter": "train",
                 "paged_gather": "serve_paged", "paged_scatter_rows": "serve_paged",
                 "ragged_paged_scatter_rows": "serve_ragged",

@@ -2,9 +2,9 @@
 
 The frozen dataclasses and registry of the JAX package's
 ``repro/config.py``, kept as this package's own copy so that the port
-imports nothing of ``repro``, and cut to the fields the dense family reads
-(the MoE/enc-dec sub-configs come with their slices), plus the
-optimizer and training configs. Every entry point resolves ``--arch <id>``
+imports nothing of ``repro``, and cut to the fields the ported families
+read (dense, MoE and ssm; the enc-dec/VLM/hybrid fields come with their
+slices), plus the optimizer and training configs. Every entry point resolves ``--arch <id>``
 through :func:`get_config`. The serving engine's settings are
 :class:`repro_torch.serve.config.EngineConfig`.
 """
@@ -59,6 +59,25 @@ class MoDConfig:
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    """Token-choice MoE (for the MoE archs and for MoDE composition)."""
+
+    enabled: bool = False
+    n_experts: int = 8
+    top_k: int = 2
+    d_ff_expert: int = 0  # expert hidden width (0 -> use model d_ff)
+    capacity_factor: float = 1.25
+    load_balance_weight: float = 0.01
+    router_z_weight: float = 1e-3
+    # MoDE: "none" | "staged" | "integrated"
+    mode_variant: str = "none"
+    n_noop_experts: int = 0  # for integrated MoDE
+    # dtype of the combine (the cross-expert reduction of a token's top_k
+    # expert outputs): "float32" | "bfloat16"
+    combine_dtype: str = "float32"
+
+
+@dataclass(frozen=True)
 class SSMConfig:
     """Mamba2 (SSD) block config."""
 
@@ -89,8 +108,8 @@ class AttentionConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
-    # the port runs "dense" and "ssm"; the JAX package's other families
-    # ("moe" | "hybrid" | "encdec" | "vlm") are later slices
+    # the port runs "dense", "moe" and "ssm"; the JAX package's other
+    # families ("hybrid" | "encdec" | "vlm") are later slices
     family: str = "dense"
     n_layers: int = 4
     d_model: int = 256
@@ -103,6 +122,7 @@ class ModelConfig:
     glu: bool = True
     attn: AttentionConfig = field(default_factory=AttentionConfig)
     mod: MoDConfig = field(default_factory=MoDConfig)
+    moe: MoEConfig = field(default_factory=MoEConfig)
     ssm: SSMConfig = field(default_factory=SSMConfig)
     dtype: str = "bfloat16"
     remat: str = "none"  # "none" | "full" (torch.utils.checkpoint per layer group)
@@ -111,9 +131,15 @@ class ModelConfig:
     def head_dim(self) -> int:
         return self.attn.head_dim or self.d_model // self.attn.n_heads
 
+    @property
+    def uses_moe(self) -> bool:
+        """Whether the blocks' MLP is the token-choice MoE."""
+        return self.family == "moe" or self.moe.enabled
+
     def n_params(self) -> int:
-        """Analytic parameter count (embeddings + blocks) of a dense decoder
-        or a Mamba2 LM."""
+        """Analytic parameter count (embeddings + blocks) of a dense or MoE
+        decoder or a Mamba2 LM. The MoE router counts as ``D·E`` (the JAX
+        formula; an integrated-MoDE router has ``E + n_noop`` columns)."""
         D, F, V, L = self.d_model, self.d_ff, self.vocab, self.n_layers
         hd = self.head_dim
         nq, nkv = self.attn.n_heads, self.attn.n_kv_heads
@@ -121,8 +147,26 @@ class ModelConfig:
         if self.family == "ssm":
             return emb + L * (self._ssm_block_params() + D)
         attn = D * nq * hd + 2 * D * nkv * hd + nq * hd * D
-        mlp = (3 if self.glu else 2) * D * F
+        mlp_mults = 3 if self.glu else 2
+        if self.uses_moe:
+            fe = self.moe.d_ff_expert or F
+            mlp = self.moe.n_experts * mlp_mults * D * fe + D * self.moe.n_experts
+        else:
+            mlp = mlp_mults * D * F
         return emb + L * (attn + mlp + 2 * D) + D
+
+    def active_params_per_token(self) -> int:
+        """Parameters a token passes through: the MoE's ``top_k`` experts
+        (no router) in place of all of them; == :meth:`n_params` otherwise."""
+        if not self.uses_moe:
+            return self.n_params()
+        D, L = self.d_model, self.n_layers
+        hd, nq, nkv = self.head_dim, self.attn.n_heads, self.attn.n_kv_heads
+        emb = self.vocab * D * (1 if self.tie_embeddings else 2)
+        attn = D * nq * hd + 2 * D * nkv * hd + nq * hd * D
+        fe = self.moe.d_ff_expert or self.d_ff
+        mlp_active = self.moe.top_k * (3 if self.glu else 2) * D * fe
+        return emb + L * (attn + mlp_active + 2 * D) + D
 
     def _ssm_block_params(self) -> int:
         D = self.d_model
@@ -220,6 +264,15 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
     )
     if cfg.mod.enabled:
         replace["mod"] = dataclasses.replace(cfg.mod, round_to=8, predictor_hidden=32)
+    if cfg.moe.enabled:
+        n_e = min(cfg.moe.n_experts, 4)
+        replace["moe"] = dataclasses.replace(
+            cfg.moe,
+            n_experts=n_e,
+            top_k=min(cfg.moe.top_k, n_e),
+            d_ff_expert=128,
+            n_noop_experts=min(cfg.moe.n_noop_experts, 2),
+        )
     if cfg.ssm.enabled:
         replace["ssm"] = dataclasses.replace(cfg.ssm, d_state=16, head_dim=32, chunk=16)
     return dataclasses.replace(cfg, **replace)

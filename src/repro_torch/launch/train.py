@@ -14,6 +14,10 @@ multi-device support.
       --backend pallas_fused --batch 4 --seq 2048 --steps 5
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --smoke --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b --batch 4 --seq 2048 --steps 5
+  PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b --smoke --device cpu --steps 3
+
+An MoE model's last step also prints its MoE aux terms (load-balance and
+router-z losses, dropped and no-op fractions, per block kind).
 """
 from __future__ import annotations
 
@@ -85,6 +89,9 @@ def main() -> None:
     trainer.save(state, wait=True)
     print(f"[train] {cfg.name} ({cfg.mod.backend}) on {device}: done at step {int(state['step'])}: "
           f"loss={metrics.get('loss', float('nan')):.4f} ce={metrics.get('ce', float('nan')):.4f}")
+    moe_aux = {k: v for k, v in metrics.items() if "moe/" in k}
+    if moe_aux:
+        print(f"[train] moe aux (last step): {json.dumps(moe_aux)}")
     print(f"[train] kernel launches: {json.dumps(counts)}")
 
 

@@ -2,7 +2,8 @@
 call.
 
 Port of ``repro/models/api.py`` for the ``dense`` family (the paper's
-``mod-paper-*`` models, :mod:`repro_torch.models.transformer`) and the
+``mod-paper-*`` models) and the ``moe`` family (token-choice MoE and both
+MoDE variants), both :mod:`repro_torch.models.transformer`, and the
 ``ssm`` family (Mamba2, :mod:`repro_torch.models.ssm_lm`). Other families
 raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
@@ -22,9 +23,10 @@ from repro_torch.utils import tree_map
 Params = Dict[str, Any]
 Aux = Dict[str, torch.Tensor]
 
-_FAMILIES = ("dense", "ssm")
+_FAMILIES = ("dense", "moe", "ssm")
+# families that run models/transformer.py
+_TRANSFORMER = ("dense", "moe")
 _LATER = {
-    "moe": "ROADMAP Queue 1, MoE + MoDE",
     "vlm": "ROADMAP Queue 1, enc-dec + VLM",
     "encdec": "ROADMAP Queue 1, enc-dec + VLM",
     "hybrid": "ROADMAP Queue 1, the Zamba2 hybrid",
@@ -64,13 +66,19 @@ def model_forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tenso
 
 
 def combine_losses(ce: torch.Tensor, aux: Aux, cfg: ModelConfig) -> torch.Tensor:
-    """CE plus the router BCE (weighted) and the predictor BCE."""
+    """CE plus the router BCE (weighted), the predictor BCE and every
+    block's weighted MoE load-balance and router-z losses."""
     loss = ce
     if cfg.mod.enabled:
         if "mod/router_bce" in aux:
             loss = loss + cfg.mod.aux_loss_weight * aux["mod/router_bce"]
         if "mod/predictor_bce" in aux:
             loss = loss + aux["mod/predictor_bce"]  # detached inputs: trains the predictor only
+    for k, v in aux.items():
+        if k.endswith("moe/lb_loss"):
+            loss = loss + cfg.moe.load_balance_weight * v
+        elif k.endswith("moe/z_loss"):
+            loss = loss + cfg.moe.router_z_weight * v
     return loss
 
 
@@ -93,10 +101,11 @@ def model_forward_ragged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                          generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, Aux]:
     """Flat-token ("ragged") forward: segments packed on one (T,) stream,
     delimited by ``row_offsets``, no per-sequence padding rows. For
-    equal-length segments the logits match :func:`model_forward`'s.
+    equal-length segments the dense logits match :func:`model_forward`'s
+    (MoE capacity buckets span the whole stream, as in JAX).
     Returns (logits (T, V), aux)."""
     _check_family(cfg)
-    if cfg.family != "dense":
+    if cfg.family not in _TRANSFORMER:
         raise NotImplementedError(
             f"ragged forward for family {cfg.family}: use the padded model_forward")
     return T.forward_ragged(params, cfg, tokens, row_offsets, seg_cap, generator=generator)
@@ -113,7 +122,7 @@ def model_prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tenso
                   ) -> Tuple[torch.Tensor, Params]:
     """Prompt pass that fills fresh (B, ctx) caches. Returns (logits, caches)."""
     _check_family(cfg)
-    if cfg.family != "dense":
+    if cfg.family not in _TRANSFORMER:
         raise NotImplementedError(f"prefill for family {cfg.family} uses forward+decode")
     return T.prefill(params, cfg, batch["tokens"], positions=batch.get("positions"), ctx=ctx)
 
@@ -123,7 +132,7 @@ def model_prefill_chunk(params: Params, cfg: ModelConfig, caches: Params,
                         ) -> Tuple[torch.Tensor, Params]:
     """One continuation-prefill chunk (B, C) against partly filled caches."""
     _check_family(cfg)
-    if cfg.family != "dense":
+    if cfg.family not in _TRANSFORMER:
         raise NotImplementedError(
             f"chunked prefill for family {cfg.family}: prompts ingest via decode steps")
     return T.prefill_chunk(params, cfg, caches, tokens, int(start), int(n_valid))

@@ -93,14 +93,31 @@ def _scale(cfg: ModelConfig) -> float:
     return cfg.attn.softmax_scale or 1.0 / cfg.head_dim**0.5
 
 
+# the JAX attend_auto's dense path takes problems up to this many scores
+_DENSE_LIMIT = 4 * 1024 * 1024
+
+
 def attend_auto(q, k, v, q_pos, kv_pos, cfg: ModelConfig) -> torch.Tensor:
-    """Position-masked attention through the flash kernel. (B, Sq, nq*hd)."""
+    """Position-masked attention through the flash kernel. (B, Sq, nq*hd).
+
+    A padded query row (position -1: no valid key under causal masking)
+    comes out of the kernel as 0. In an MoE model a padded row's hidden
+    state takes expert capacity beside the real rows (a chunk's padded
+    tail, a short segment's rows in the flat forward), so there it is set
+    to what the JAX ``attend_auto`` gives it: the mean of V over every key
+    slot from its dense path, 0 from its blocked path (past
+    ``_DENSE_LIMIT`` scores). A decode row (Sq = 1) is never padded."""
     B, Sq, nq, hd = q.shape
     out = flash_attention(
         q, k, v, q_pos, kv_pos,
         causal=bool(cfg.attn.causal), window=int(cfg.attn.window), scale=_scale(cfg),
-    )
-    return out.reshape(B, Sq, nq * hd)
+    ).reshape(B, Sq, nq * hd)
+    Skv, nkv = k.shape[1], k.shape[2]
+    if cfg.uses_moe and cfg.attn.causal and 1 < Sq and Sq * Skv <= _DENSE_LIMIT:
+        mean_v = v.float().mean(dim=1).repeat_interleave(nq // nkv, dim=1)  # (B, nq, hd)
+        out = torch.where((q_pos < 0)[..., None], mean_v.reshape(B, 1, nq * hd).to(out.dtype),
+                          out)
+    return out
 
 
 def self_attention(params: Params, x: torch.Tensor, positions: torch.Tensor,

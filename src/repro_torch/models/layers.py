@@ -116,7 +116,9 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return _Silu.apply(x)
 
 
-def _act(act: str, rounded_once: bool = False):
+def activation(act: str, rounded_once: bool = False):
+    """The MLP activation by name: the JAX-rounded ``silu`` (``F.silu``
+    with ``rounded_once``) or tanh ``gelu``."""
     if act == "silu":
         return F.silu if rounded_once else silu
     if act != "gelu":
@@ -135,7 +137,7 @@ def mlp_act(params: Params, x: torch.Tensor, act_name: str,
     """The (GLU) MLP. ``rounded_once``: the activation computed in f32 and
     rounded once (``F.silu``), as the fused kernels compute it, in place of
     the rounding points of ``jax.nn.silu``."""
-    act = _act(act_name, rounded_once)
+    act = activation(act_name, rounded_once)
     up = x @ params["w_up"]
     if "w_gate" in params:
         up = act(x @ params["w_gate"]) * up

@@ -1,5 +1,6 @@
-"""Decoder-only LM assembly with MoD routing: init, the training forward,
-the flat ragged forward, caches, prefill, chunked prefill and decode.
+"""Decoder-only LM assembly (dense and MoE backbones) with MoD routing:
+init, the training forward, the flat ragged forward, caches, prefill,
+chunked prefill and decode.
 
 Port of ``repro/models/transformer.py``. The JAX package stacks layers
 into groups for ``lax.scan``; here parameters and caches are per layer and
@@ -12,6 +13,11 @@ the scan is a Python loop over groups:
 ``params["groups"]`` and ``caches["groups"]`` are lists of such dicts (a
 routed entry is {"block", "router", "predictor"?}); an odd layer count adds
 ``params["tail"]``. MoD block KV caches are capacity-sized (``ratio·ctx``).
+With ``cfg.uses_moe`` every block's MLP is the MoE; a full block's MoE aux
+terms come back under ``full/`` (``tail/``), a routed block's unprefixed,
+as the JAX package names them (the loss sums every ``*moe/lb_loss`` and
+``*moe/z_loss``). Prefill, chunked prefill and decode drop them, as JAX's
+do.
 """
 from __future__ import annotations
 
@@ -54,7 +60,7 @@ def group_structure(cfg: ModelConfig) -> Tuple[int, bool, bool, int]:
 
 def init_mod_wrap(gen: torch.Generator, cfg: ModelConfig, device: torch.device) -> Params:
     p: Params = {
-        "block": BLK.init_block(gen, cfg, device),
+        "block": BLK.init_block(gen, cfg, device, cfg.uses_moe),
         "router": R.init_router(gen, cfg, device),
     }
     if cfg.mod.sampling == "predictor":
@@ -74,13 +80,13 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig, device: torch.device) -> Par
     for _ in range(n_groups):
         g: Params = {}
         if has_full:
-            g["full"] = BLK.init_block(gen, cfg, device)
+            g["full"] = BLK.init_block(gen, cfg, device, cfg.uses_moe)
         if has_mod:
             g["mod"] = init_mod_wrap(gen, cfg, device)
         groups.append(g)
     params["groups"] = groups
     if n_tail:
-        params["tail"] = BLK.init_block(gen, cfg, device)
+        params["tail"] = BLK.init_block(gen, cfg, device, cfg.uses_moe)
     return params
 
 

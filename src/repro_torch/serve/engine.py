@@ -4,7 +4,7 @@ Port of ``repro/serve/engine.py::ServingEngine``: one ``(B, 1)`` decode
 step against a pooled ``(B, ctx)`` cache, kept full by admitting queued
 requests into slots as others terminate (:mod:`repro_torch.serve.scheduler`).
 
-- **Batched prefill** (``prefill="auto"`` for the dense family;
+- **Batched prefill** (``prefill="auto"`` for the dense and MoE families;
   ``BATCH_PREFILL_FAMILIES``): each
   admitted prompt runs through ``model_prefill`` at batch 1 (token_topk
   MoD routing, capacity-sized cache writes) — or chunk by chunk through
@@ -94,8 +94,8 @@ from repro_torch.serve.scheduler import FREE, GENERATE, PREFILL, Scheduler, Slot
 
 
 # Families whose prompts run through model_prefill in one shot (the JAX
-# engine's list; the port runs "dense"). The others ingest prompts one
-# token per engine step through the shared decode step.
+# engine's list). The others ingest prompts one token per engine step
+# through the shared decode step.
 BATCH_PREFILL_FAMILIES = ("dense", "moe")
 
 

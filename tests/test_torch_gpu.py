@@ -67,6 +67,14 @@ counters record the path by call): the same tolerances hold there, at tile
 edges too, and the K order is fixed, so two calls and a CUDA-graph replay
 give the eager call's bits.
 
+MoE (torch ops, no kernel of its own): ``moe_mlp`` on the card picks the
+CPU's experts, slots and kept set, with f32 outputs within 1e-5 (cuBLAS
+sums the expert products in another order) and equal dropped and no-op
+fractions; its combine gathers each token's slots and sums them in
+ascending expert order, so two calls give the same bits; a staged-MoDE
+``pallas_fused`` forward launches routed_attention and the
+scatter_add_rows combine once per routed layer, and no gather.
+
 SSD intra-chunk: both sides compute in f32 from the same (widened)
 inputs (the tensor-core path splits each f32 operand into three bf16
 terms, so its products are exact too); the kernel takes the cumsum of
@@ -76,6 +84,7 @@ outputs agree within 1e-5 of their largest value plus 2·max|l|·2^-24 on
 either path; its backward is autograd through the plain version, so its
 gradients equal the plain version's.
 """
+import dataclasses
 import math
 import sys
 from pathlib import Path
@@ -96,6 +105,8 @@ from repro_torch.kernels import ragged as KRG  # noqa: E402
 from repro_torch.kernels import routing as KR  # noqa: E402
 from repro_torch.kernels import ssd as KSSD  # noqa: E402
 from repro_torch.kernels import swiglu as SW  # noqa: E402
+from repro_torch.models import api as TAPI  # noqa: E402
+from repro_torch.models import moe as TMOE  # noqa: E402
 
 TOL = {torch.float32: dict(atol=2e-5, rtol=0.0), torch.bfloat16: dict(atol=8e-3, rtol=8e-3)}
 ROUTED_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
@@ -1506,3 +1517,76 @@ def test_op_kernels_refuse_grads_and_bad_input(dev):
     w = torch.zeros(8, 6, device=dev)
     with pytest.raises(ValueError, match="gradient"):
         SW.swiglu(x, w, w, w.T.contiguous())
+
+
+# ---------------------------------------------------------------------------
+# MoE (models/moe.py: torch ops; the staged-MoDE fused block's kernels)
+# ---------------------------------------------------------------------------
+
+MOE_CASES = {  # (n_experts, top_k, capacity_factor, n_noop_experts, d_model, d_ff_expert, B, S)
+    "e4k2": (4, 2, 1.25, 0, 64, 32, 2, 64),
+    "e64k8-binding": (64, 8, 0.5, 0, 256, 128, 2, 256),
+    "noop2-binding": (8, 2, 0.5, 2, 128, 64, 3, 100),
+    "decode": (64, 8, 1.25, 0, 256, 128, 8, 1),
+}
+
+
+def _moe_case(case, dtype="float32"):
+    E, k, cf, noop, D, F, B, S = MOE_CASES[case]
+    cfg = TC.ModelConfig(family="moe", d_model=D, dtype=dtype, moe=TC.MoEConfig(
+        enabled=True, n_experts=E, top_k=k, capacity_factor=cf, n_noop_experts=noop,
+        d_ff_expert=F))
+    params = TMOE.init_moe(torch.Generator().manual_seed(0), cfg, torch.device("cpu"))
+    x = torch.randn(B, S, D, generator=torch.Generator().manual_seed(1)).to(params["w_up"].dtype)
+    return cfg, params, x
+
+
+@pytest.mark.parametrize("case", list(MOE_CASES))
+def test_moe_mlp_on_the_card_matches_the_cpu(dev, case):
+    cfg, params, x = _moe_case(case)
+    want, want_aux = TMOE.moe_mlp(params, x, cfg)
+    p_dev = {n: t.to(dev) for n, t in params.items()}
+    r_cpu, r_dev = TMOE.route(params, x, cfg), TMOE.route(p_dev, x.to(dev), cfg)
+    for name in ("sel", "pos", "keep", "disp"):
+        assert torch.equal(getattr(r_dev, name).cpu(), getattr(r_cpu, name)), name
+    got, aux = TMOE.moe_mlp(p_dev, x.to(dev), cfg)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+    assert sorted(aux) == sorted(want_aux)
+    for key in want_aux:
+        if key.endswith("frac"):
+            assert float(aux[key]) == float(want_aux[key]), key
+        else:
+            torch.testing.assert_close(aux[key].cpu(), want_aux[key], atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("combine", ["float32", "bfloat16"])
+def test_moe_combine_gives_the_same_bits_twice(dev, dtype, combine):
+    """No scatter-add (``index_add_`` adds with atomics in a run-dependent
+    order): two calls on the card agree to the bit."""
+    cfg, params, x = _moe_case("e64k8-binding", dtype)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, combine_dtype=combine))
+    p_dev = {n: t.to(dev) for n, t in params.items()}
+    xd = x.to(dev)
+    first, _ = TMOE.moe_mlp(p_dev, xd, cfg)
+    for _ in range(3):
+        assert torch.equal(TMOE.moe_mlp(p_dev, xd, cfg)[0], first)
+
+
+def test_staged_mode_fused_forward_launches_per_routed_layer(dev):
+    """olmoe-1b-7b smoke, pallas_fused: each routed layer's block runs
+    routed_attention (the gather in its prologue) and the expert combine
+    through scatter_add_rows, once each; the full layers' attention runs
+    flash; nothing runs gather_rows."""
+    cfg = TC.with_mod_backend(TC.smoke_config(TC.get_config("olmoe-1b-7b")), "pallas_fused")
+    params = TAPI.init_model(cfg, device=dev, seed=0)
+    toks = torch.randint(0, cfg.vocab, (2, 64), generator=torch.Generator().manual_seed(2))
+    n_mod = sum(1 for grp in params["groups"] if "mod" in grp)
+    build.reset_counters()
+    logits, aux = TAPI.model_forward(params, cfg, {"tokens": toks.to(dev)})
+    counts = build.launch_counts()
+    assert n_mod == 2 and bool(torch.isfinite(logits).all())
+    assert counts["routed_attention"] == n_mod and counts["scatter_add_rows"] == n_mod
+    assert counts["gather_rows"] == 0 and counts["routed_mlp_scatter"] == 0
+    assert counts["flash_attention"] == len(params["groups"])
+    assert "moe/lb_loss" in aux and "full/moe/lb_loss" in aux

@@ -60,7 +60,8 @@ DTYPES = ["float32", "bfloat16", "int32"]
 
 def port_cfg(jc):
     """The port's ModelConfig with the fields of a JAX ModelConfig."""
-    sub = {"attn": TC.AttentionConfig, "mod": TC.MoDConfig}
+    sub = {"attn": TC.AttentionConfig, "mod": TC.MoDConfig, "moe": TC.MoEConfig,
+           "ssm": TC.SSMConfig}
     kw = {}
     for f in dataclasses.fields(TC.ModelConfig):
         v = getattr(jc, f.name)

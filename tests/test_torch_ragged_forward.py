@@ -221,7 +221,7 @@ def test_forward_ragged_backends_equal(backend):
 
 def test_forward_ragged_other_families_raise():
     _, _, tc, tp = model_pair(True)
-    with pytest.raises(NotImplementedError, match="moe"):
-        TAPI.model_forward_ragged(tp, dataclasses.replace(tc, family="moe"),
+    with pytest.raises(NotImplementedError, match="ssm"):
+        TAPI.model_forward_ragged(tp, dataclasses.replace(tc, family="ssm"),
                                   torch.zeros(4, dtype=torch.long),
                                   torch.tensor([0, 4], dtype=torch.int32), 4)
