@@ -8,6 +8,7 @@
     python3 chip_smoke.py --train-runs [ROOT]     # phases 5 and 9c training alone, ROOT's port
     python3 chip_smoke.py --ssm-losses            # phase 9c's losses per SSD path and SiLU
     python3 chip_smoke.py --moe                   # phase 12 (the MoE family) alone
+    python3 chip_smoke.py --overload              # phase 13 (overload and faults) alone
 
 Imports nothing of JAX or of the JAX package. Builds the port's CUDA
 kernels from ``src/repro_torch/kernels/csrc`` and runs, in order (any
@@ -101,8 +102,9 @@ failure raises and exits non-zero):
    its backward's time at the full shape; (b) the port against itself
    across devices at full width and 4 layers in f32: forward (B=2,
    S=256), one Trainer step, 16 decode steps and the stepped engine's
-   streams; (c) training at full width and
-   depth, bf16, B=4, S=2048, remat "full", 5 Trainer steps, profiled, with
+   streams; (c) training at full width and 24 of the 48 layers (depth cut
+   for the script's time limit), bf16, B=4, S=2048, remat "full", 5 Trainer
+   steps, profiled, with
    the SSD, gather and scatter launches of this phase alone; (d) stepped
    serving at full width and 12 of the 48 layers (depth cut for the
    script's time limit), 8 slots, 16 greedy requests, prompts of 32-128
@@ -143,8 +145,8 @@ failure raises and exits non-zero):
    the paged gathers, flash attention and the ragged write-back may launch
    (by launch counter, and by torch.profiler against the ``__global__``
    functions of ``csrc``);
-12. the MoE family (``[moe]`` lines; run last, phases 4-11's weights
-   freed): (a) ``olmoe-1b-7b`` (staged MoDE) and ``phi3.5-moe-imode``
+12. the MoE family (``[moe]`` lines; run after phase 9, phases 4-11's
+   weights freed): (a) ``olmoe-1b-7b`` (staged MoDE) and ``phi3.5-moe-imode``
    (integrated MoDE) at smoke size, f32, the same weights on the CPU and
    the card under the backends xla, pallas and pallas_fused: logits within
    1e-5, the dropped and no-op fractions equal and the other aux within
@@ -164,7 +166,28 @@ failure raises and exits non-zero):
    busy time a step; (d) ``olmoe-1b-7b`` bf16 at full width, 4 of its 16
    layers (depth cut: the whole model's f32 AdamW moments do not fit),
    pallas_fused, B=2, S=2048, 3 steps: finite losses, busy ms a step by
-   kernel group and of the MoE's own forward ops, peak memory.
+   kernel group and of the MoE's own forward ops, peak memory;
+13. overload control and fault injection (``[overload]`` lines; run last,
+   on mod-paper-1b weights made anew from seed 0): (a) ``mod-paper-60m`` f32, the
+   same weights on the CPU and the card: the adaptive paged + prefix
+   engine under an explicit controller and a step clock (latency and batch
+   tiers, a deadline that expires queued and one mid-decode, a
+   cancellation, a ``max_queue`` rejection), and
+   ``FaultInjector.seeded(0, n_faults=6, horizon=30)`` on the paged, ragged
+   and speculative engines and on ``mod-paper-60m-vanilla``: levels,
+   streams, finish reasons, fired logs and counters equal on both devices,
+   the pool's books recounted after every step, the vanilla survivors'
+   streams equal a fault-free run's; (b) ``mod-paper-1b`` bf16, the paged
+   + prefix engine with 32 slots on ``PAGED_1B``'s prompt shape, 48
+   requests of 16 tokens at once: under ``OVERLOAD_CTRL_1B`` the walk
+   reaches level 2 and ends at 0, the routed layers' decode flash calls
+   run at kb = 4 / 2 / 1 as often as the steps at levels 0 / 1 / 2 by the
+   wrapper's counter, a profiled decode-only step at each level shows
+   torch.profiler as many flash kernels as the counter (its busy ms
+   printed); all latency-tier under the same controller, no step degrades
+   and the streams equal an uncontrolled run's bitwise; (c) the same
+   engine under the seeded matrix plus a hold of every page at step 4:
+   JAX's fault contract, and a preemption while the pages are held.
 
 Each phase's wall time is printed on a ``[time]`` line.
 
@@ -192,7 +215,8 @@ to compare them on one card.
 runs it, with the SSD kernel forced onto its CUDA-core path, as its plain
 version, and on the CUDA-core path with ``F.silu`` in the SSM blocks, and
 prints the four loss trajectories.
-``--moe`` builds the kernels and runs phase 12 alone.
+``--moe`` builds the kernels and runs phase 12 alone; ``--overload``
+phase 13 alone.
 ``--mlp-losses`` only runs phase 5's training four times, with
 routed_mlp_scatter on the wgmma GEMM, on the CUDA-core GEMM and as its
 plain version, and with routed_attention as its plain version, and prints
@@ -206,6 +230,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -442,7 +467,8 @@ def dispatch_shapes():
     """(label, B, S, D, k) of the padded dispatch kernels on the main paths:
     a served mod-paper-1b prompt of 2048 and 1000 tokens (B=1, 12 calls of
     each kernel a prefill), mod-paper-1b's training step under backend
-    ``pallas`` and mamba2-1.3b's (phase 9c: 72 calls of each a step)."""
+    ``pallas`` and mamba2-1.3b's (phase 9c: 3 calls of each a routed layer
+    and step)."""
     from repro_torch.config import get_config
 
     c1, cm = get_config("mod-paper-1b"), get_config("mamba2-1.3b")
@@ -2086,6 +2112,10 @@ def _kernel_group(name: str) -> str:
     several __global__ functions each), else the kind of library kernel."""
     if "flash_fwd" in name:
         return "flash_attention"
+    if "paged_gather" in name:
+        return "paged_gather"
+    if "PagedTarget" in name:  # the flat scatter grid with its page-table target
+        return "paged_scatter_rows"
     if "ssd_intra" in name:  # ssd_intra_kernel (CUDA cores), ssd_intra_tc_kernel
         return "ssd_intra_chunk"
     if any(t in name for t in ("routed_attn_", "rope_kernel", "EpiAttn")):
@@ -3272,20 +3302,24 @@ def ssd_launch_shapes():
         KSSD._launch = real
 
 
-TRAIN_SSM = dict(B=4, S=2048, steps=5)  # phase 9c's run
+# phase 9c's run: mamba2-1.3b at full width, 24 of its 48 layers (the
+# whole depth took 95-116 s of the script's 1200 s on an H100 (700 W), most
+# of it torch.profiler's records, and phase 13 needed the room)
+TRAIN_SSM = dict(B=4, S=2048, steps=5, layers=24)
 
 
 def trainer_ssm(dev, ckdir):
-    """Phase 9c's trainer: mamba2-1.3b in bf16, random weights from seed 0,
-    the config's remat="full", AdamW with a cosine schedule (lr 1e-4 after 2
-    warmup steps), synthetic data from seed 0."""
+    """Phase 9c's trainer: mamba2-1.3b in bf16 at full width and
+    TRAIN_SSM's depth, random weights from seed 0, the config's
+    remat="full", AdamW with a cosine schedule (lr 1e-4 after 2 warmup
+    steps), synthetic data from seed 0."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.config import OptimConfig, TrainConfig, get_config
     from repro_torch.data.loader import SyntheticLoader
     from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.train import Trainer
 
-    cfg = get_config("mamba2-1.3b")
+    cfg = dataclasses.replace(get_config("mamba2-1.3b"), n_layers=TRAIN_SSM["layers"])
     B, S, steps = TRAIN_SSM["B"], TRAIN_SSM["S"], TRAIN_SSM["steps"]
     tcfg = TrainConfig(global_batch=B, seq_len=S,
                        optim=OptimConfig(lr=1e-4, warmup_steps=2, total_steps=steps),
@@ -3310,7 +3344,8 @@ def train_ssm(dev):
         t0 = time.perf_counter()
         state = trainer.init_or_resume()
         torch.cuda.synchronize()
-        log(f"[ssm-train] {cfg.name}: {cfg.n_params() / 1e9:.2f}B params in {cfg.dtype}, "
+        log(f"[ssm-train] {cfg.name}, {cfg.n_layers} of 48 layers: {cfg.n_params() / 1e9:.2f}B "
+            f"params in {cfg.dtype}, "
             f"backend {cfg.mod.backend}, remat {cfg.remat}, B={B} S={S} (k={cfg.mod.capacity(S)} "
             f"routed rows per sequence, chunk {cfg.ssm.chunk}), init {time.perf_counter() - t0:.1f}s")
         torch.cuda.reset_peak_memory_stats()
@@ -3363,8 +3398,8 @@ def train_ssm(dev):
     for name in ("ssd_intra_chunk", "gather_rows", "scatter_add_rows"):
         if counts.get(name, 0) <= 0:
             raise AssertionError(f"kernel {name} was not launched on the ssm training path")
-    # 24 full SSD blocks (NC=16) and 24 routed ones (NC=2) per forward, each
-    # run twice a step under remat="full"
+    # n_grp full SSD blocks (NC=16) and n_grp routed ones (NC=2) per
+    # forward, each run twice a step under remat="full"
     if by_nc != {16: 2 * n_grp * steps, 2: 2 * n_grp * steps}:
         raise AssertionError(f"SSD launches by NC {by_nc}: want {2 * n_grp} a step at each")
     if ssd_calls and {k[0] for k in ssd_calls} != {"tensor"}:  # (a parent port counts no path)
@@ -4135,7 +4170,8 @@ def profiled_step(eng):
     """One engine step under torch.profiler: (wall ms, device-busy ms, the
     port's ``__global__`` functions among its device records, the launch
     counters' change, the number of device records, the device ms inside
-    ``moe_mlp`` ranges (:func:`moe_range_ms`))."""
+    ``moe_mlp`` ranges (:func:`moe_range_ms`), the number of the port's
+    records by source file, device ms by :func:`_kernel_group`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -4153,7 +4189,15 @@ def profiled_step(eng):
     busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
     kernels = csrc_kernels()
     ours = {port_kernel_of(e.name, kernels) for e in events} - {None}
-    return wall, busy, ours, delta, len(events), moe_range_ms(prof)
+    by_file: dict = {}
+    groups: dict = {}
+    for e in events:
+        k = port_kernel_of(e.name, kernels)
+        if k is not None:
+            by_file[kernels[k]] = by_file.get(kernels[k], 0) + 1
+        g = _kernel_group(e.name)
+        groups[g] = groups.get(g, 0.0) + e.time_range.elapsed_us() / 1e3
+    return wall, busy, ours, delta, len(events), moe_range_ms(prof), by_file, groups
 
 
 def check_profiled_kernels(tag: str, ours: set, delta: dict) -> None:
@@ -4318,7 +4362,7 @@ def serve_moe_1b(dev):
             while eng.has_work:
                 all_gen = not eng.scheduler.queue and all(s.state == GENERATE for s in eng.slots)
                 if prof is None and all_gen and eng.step_count >= 2:
-                    wall, busy, ours, delta, n_ev, moe_ms = profiled_step(eng)
+                    wall, busy, ours, delta, n_ev, moe_ms, _, _ = profiled_step(eng)
                     if delta != wants[name]:
                         raise AssertionError(f"12b {name}: a step with every slot generating "
                                              f"launched {delta}, want {wants[name]}")
@@ -4398,7 +4442,7 @@ def serve_imode(dev):
         while eng.has_work:
             if prof is None and eng.step_count >= 2 and all(s.state == GENERATE
                                                               for s in eng.slots):
-                wall, busy, ours, delta, n_ev, moe_ms = profiled_step(eng)
+                wall, busy, ours, delta, n_ev, moe_ms, _, _ = profiled_step(eng)
                 if delta != {"flash_attention": cfg.n_layers}:
                     raise AssertionError(f"12c: a decode step launched {delta}, want "
                                          f"{cfg.n_layers} flash_attention")
@@ -4549,6 +4593,446 @@ def moe_phase(dev) -> dict:
             "moe_spec": serve["speculative fused"], "moe_imode": imode, "moe_train": train}
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: overload control and fault injection
+# ---------------------------------------------------------------------------
+
+# 13a: mod-paper-60m and -vanilla in f32, the same weights on the CPU and the
+# card: 4 slots, page 16, chunk 16 (the prefix cache's granularity)
+OVERLOAD_60M = dict(B=4, ctx=128, page=16, chunk=16, prefix=32, requests=10, new=8)
+OVERLOAD_CTRL_60M = dict(n_levels=3, queue_high=4, queue_low=1, degrade_patience=1,
+                         restore_patience=3)
+# 13a's fault soaks: FaultInjector.seeded(0, n_faults=6, horizon=30) on each engine
+FAULT_ENGINES_60M = {"paged": {}, "ragged": dict(ragged=True),
+                     "speculative": dict(speculate=3)}
+# 13b-c: mod-paper-1b in bf16 at full width, 32 slots (at 8 kb is 1 at every
+# level), PAGED_1B's prompt shape (a shared 512-token prefix, suffixes of
+# 64-448), 48 requests of 16 new tokens; no p99 SLO, so the walk depends on
+# the queue depth alone and repeats run for run
+OVERLOAD_1B = dict(B=32, requests=48, gen=16)
+OVERLOAD_CTRL_1B = dict(n_levels=3, queue_high=8, queue_low=2, degrade_patience=1,
+                        restore_patience=4)
+# the kernels phase 13's engines launch (PERF.md §6 rows 1, 2, 3, 7, 9, 13)
+OVERLOAD_KERNELS = ("gather_rows", "scatter_add_rows", "flash_attention", "paged_gather",
+                    "paged_scatter_rows", "ragged_paged_scatter_rows")
+# the stats() counters 13a holds equal on both devices
+OVERLOAD_COUNTERS = ("steps", "generated_tokens", "finished_requests", "shed", "expired",
+                     "cancelled", "failed", "preemptions", "pages_held", "pages_in_use")
+CONTROLLER_COUNTERS = ("degraded_decode_steps", "capacity_level", "capacity_level_max",
+                       "capacity_level_changes", "degraded_steps")
+
+
+class StepClock:
+    """Phase 13's deadline clock: the engine's own step count, so deadlines
+    expire at the same step on both devices."""
+
+    def __init__(self):
+        self.engine = None
+
+    def __call__(self) -> float:
+        return float(self.engine.step_count)
+
+
+def _outcomes(eng) -> dict:
+    """{uid: (finish reason, error, tokens, submitted, admitted, first token
+    and finished step)} of every finished request."""
+    return {o.uid: (o.finish_reason, o.error, o.tokens.tolist(), o.submitted_step,
+                    o.admitted_step, o.first_token_step, o.finished_step) for o in eng.finished}
+
+
+def _counters(eng, keys) -> dict:
+    s = eng.stats()
+    return {k: s[k] for k in keys if k in s}
+
+
+def adaptive_lifecycle(d, params, cfg) -> dict:
+    """13a (i): the paged + prefix engine under OVERLOAD_CTRL_60M and a step
+    clock; 10 requests sharing a 32-token prefix, two of them latency-tier,
+    one deadline that expires while queued (uid 7), one mid-decode (uid 2,
+    latency-tier, admitted first), one cancellation (uid 4 at step 2) and
+    one ``max_queue`` rejection. Returns the run's trace: the level of every
+    step, the outcomes, the counters and the rejection's reason."""
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.serve import CapacityController, EngineConfig, EngineOverloaded, Request
+    from repro_torch.serve import ServingEngine
+
+    w = OVERLOAD_60M
+    clock = StepClock()
+    eng = ServingEngine(params, cfg, EngineConfig(
+        batch_size=w["B"], ctx=w["ctx"], page_size=w["page"], prefill_chunk=w["chunk"],
+        prefix_cache=True, max_queue=w["requests"], clock=clock,
+        capacity_controller=CapacityController(**OVERLOAD_CTRL_60M)), device=d)
+    clock.engine = eng
+    n = w["requests"]
+    toks = SyntheticLM(cfg.vocab, w["prefix"] + 40, seed=29).batch(0, n)["tokens"]
+    lens = np.random.default_rng(31).integers(4, 41, n)
+    uids = []
+    for i in range(n):
+        kw = dict(priority="latency" if i in (2, 6) else "batch")
+        if i in (2, 7):
+            kw["deadline_s"] = {2: 5.0, 7: 3.0}[i]
+        uids.append(eng.submit(Request(tokens=np.concatenate(
+            [toks[0, :w["prefix"]], toks[i, w["prefix"]:w["prefix"] + int(lens[i])]]),
+            max_new_tokens=w["new"], **kw)))
+    try:
+        eng.submit(Request(tokens=toks[0, :8], max_new_tokens=2))
+        raise AssertionError("13a: the request past max_queue was queued")
+    except EngineOverloaded as err:
+        reason = err.reason
+    levels = []
+    while eng.has_work:
+        if eng.step_count == 2:
+            eng.cancel(uids[4])
+        eng.step()
+        levels.append(eng.last_step_level)
+        eng.pool.check_invariants()
+    clock.engine = None  # no reference cycle keeps the engine's tensors alive
+    out = _outcomes(eng)
+    want = {uids[7]: "expired", uids[2]: "expired", uids[4]: "cancelled"}
+    for u, r in want.items():
+        if out[u][0] != r:
+            raise AssertionError(f"13a lifecycle: request {u} ended {out[u][0]}, want {r}")
+    if not (out[uids[7]][2] == [] and 0 < len(out[uids[2]][2]) < w["new"]):
+        raise AssertionError(f"13a lifecycle: expiries {out[uids[7]]} {out[uids[2]]}")
+    if sum(o[0] in ("eos", "length") for o in out.values()) != n - 3 or max(levels) < 1:
+        raise AssertionError(f"13a lifecycle: outcomes {out}, levels {levels}")
+    return dict(levels=levels, outcomes=out, reason=reason,
+                counters=_counters(eng, OVERLOAD_COUNTERS + CONTROLLER_COUNTERS))
+
+
+def _fault_requests(rng, n, vocab):
+    from repro_torch.serve import Request
+
+    return [Request(tokens=rng.integers(1, vocab, size=int(rng.integers(8, 41))),
+                    max_new_tokens=int(rng.integers(3, 8))) for _ in range(n)]
+
+
+def drive_faults(eng, inj, pending, filler, depth: int = 2, max_steps: int = 400) -> list:
+    """The soak loop of tests/test_faults.py: keep ``depth`` requests queued
+    while ``pending`` lasts (popped from its end), then submit a
+    ``filler()`` whenever the queue runs dry before every fault fired;
+    recount the pool's books after each step. Returns the requests
+    submitted and the engine's preemption count after each step."""
+    live, preempted = [], []
+    for _ in range(max_steps):
+        while pending and len(eng.scheduler.queue) < depth:
+            live.append(pending.pop())
+            eng.submit(live[-1])
+        if not pending and not inj.exhausted and not eng.scheduler.queue:
+            live.append(filler())
+            eng.submit(live[-1])
+        eng.step()
+        preempted.append(eng.preemptions)
+        eng.pool.check_invariants()
+        eng.scheduler.check_invariants(eng.slots, len(eng.finished))
+        if not eng.has_work and not pending and inj.exhausted:
+            return live, preempted
+    raise AssertionError(f"fault soak did not converge in {max_steps} steps: {inj.fired}")
+
+
+def assert_fault_contract(tag: str, eng, inj) -> None:
+    """JAX's fault contract (tests/test_faults.py:_assert_contract): one
+    FINISH_ERROR a corruption step, each saying non-finite; every other
+    request ends eos or length without an error; nothing held or mapped;
+    the failed counter equals the kills."""
+    kills = {f["step"] for f in inj.fired if f["kind"].endswith("_logits")}
+    failed = [o for o in eng.finished if o.finish_reason == "error"]
+    if len(failed) != len(kills) or any("non-finite" not in o.error for o in failed):
+        raise AssertionError(f"{tag}: {len(failed)} failed for {len(kills)} corruption steps: "
+                             f"{[o.error for o in failed]} {inj.fired}")
+    if any(not o.ok or o.error for o in eng.finished if o.finish_reason != "error"):
+        raise AssertionError(f"{tag}: a request the faults did not target failed")
+    if eng.pool.held or int(np.asarray(eng.pool.n_mapped).sum()):
+        raise AssertionError(f"{tag}: pages left held {eng.pool.held} or mapped")
+    s = eng.stats()
+    if s["failed"] != len(failed) or s["shed"] or s["expired"]:
+        raise AssertionError(f"{tag}: counters {s['failed']} {s['shed']} {s['expired']}")
+
+
+def fault_soak(d, params, cfg, seed: int, engine: dict) -> dict:
+    """13a (ii)-(iii): FaultInjector.seeded(seed, n_faults=6, horizon=30)
+    through one 60m engine (4 slots, ctx 64, page 16, chunk 16): 10
+    requests of 8-40 prompt and 3-7 new tokens, drawn from ``seed``, plus
+    fillers; the fired log, outcomes and counters."""
+    from repro_torch.serve import EngineConfig, FaultInjector, ServingEngine
+
+    rng = np.random.default_rng(seed)
+    inj = FaultInjector.seeded(seed, n_faults=6, horizon=30)
+    eng = ServingEngine(params, cfg, EngineConfig(batch_size=4, ctx=64, page_size=16,
+                                                  prefill_chunk=16, fault_injector=inj,
+                                                  **engine), device=d)
+    drive_faults(eng, inj, _fault_requests(rng, 10, cfg.vocab),
+                 lambda: _fault_requests(rng, 1, cfg.vocab)[0])
+    assert_fault_contract(f"13a {cfg.name} {engine}", eng, inj)
+    return dict(fired=inj.fired, outcomes=_outcomes(eng),
+                counters=_counters(eng, OVERLOAD_COUNTERS),
+                prompts={o.uid: o.prompt.tolist() for o in eng.finished})
+
+
+def overload_parity(dev):
+    """13a: mod-paper-60m (and -vanilla) in f32, the same weights on the CPU
+    (plain versions) and the card (kernels): the adaptive lifecycle run and
+    the seeded fault matrix on the paged, ragged and speculative engines
+    give equal levels, outcomes, fired logs and counters on both devices;
+    on the vanilla model every request the matrix did not kill decodes the
+    tokens of a fault-free run."""
+    from repro_torch.config import get_config, with_mod_backend
+    from repro_torch.models import api
+    from repro_torch.serve import EngineConfig, ServingEngine
+
+    cfg = with_mod_backend(dataclasses.replace(get_config("mod-paper-60m"), dtype="float32"),
+                           "pallas")
+    p_cpu = api.init_model(cfg, device="cpu", seed=3)
+    p_gpu = _to(p_cpu, dev)
+    runs = {"adaptive": lambda d, p: adaptive_lifecycle(d, p, cfg)}
+    for name, kw in FAULT_ENGINES_60M.items():
+        runs[f"faults {name}"] = lambda d, p, kw=kw: fault_soak(d, p, cfg, 0, kw)
+    for name, fn in runs.items():
+        c, g = fn("cpu", p_cpu), fn(dev, p_gpu)
+        for key in c:
+            if c[key] != g[key]:
+                raise AssertionError(f"13a 60m {name}: CPU and card differ in {key}: "
+                                     f"{c[key]} vs {g[key]}")
+        extra = (f"levels {''.join(map(str, g['levels']))}, rejection {g['reason']!r}"
+                 if "levels" in g else
+                 f"fired {', '.join(f['kind'] + '@' + str(f['step']) for f in g['fired'])}")
+        log(f"[overload] 13a 60m f32 {name}: CPU == card for {len(g['outcomes'])} requests "
+            f"(streams, finish reasons, lifecycle steps); {extra}; counters "
+            f"{json.dumps(g['counters'])}")
+    vcfg = dataclasses.replace(get_config("mod-paper-60m-vanilla"), dtype="float32")
+    v_cpu = api.init_model(vcfg, device="cpu", seed=3)
+    v_gpu = _to(v_cpu, dev)
+    c, g = fault_soak("cpu", v_cpu, vcfg, 0, {}), fault_soak(dev, v_gpu, vcfg, 0, {})
+    if c != g:
+        raise AssertionError("13a 60m-vanilla faults: CPU and card differ")
+    clean = ServingEngine(v_gpu, vcfg, EngineConfig(batch_size=4, ctx=64, page_size=16,
+                                                    prefill_chunk=16), device=dev)
+    for r in _fault_requests(np.random.default_rng(0), 10, vcfg.vocab):
+        clean.submit(r)
+    base = {tuple(o.prompt.tolist()): o.tokens.tolist() for o in clean.run()}
+    compared = 0
+    for u, o in g["outcomes"].items():
+        want = base.get(tuple(g["prompts"][u]))
+        if o[0] == "error" or want is None:
+            continue
+        compared += 1
+        if o[2] != want:
+            raise AssertionError(f"13a 60m-vanilla: request {u}'s stream moved under faults")
+    kills = sum(o[0] == "error" for o in g["outcomes"].values())
+    if compared < len(base) - kills:
+        raise AssertionError(f"13a 60m-vanilla: compared {compared} of {len(base)} streams")
+    log(f"[overload] 13a 60m-vanilla f32 faults paged: CPU == card; {compared} survivors' "
+        f"streams equal a fault-free run's ({kills} killed)")
+
+
+def overload_1b_requests(cfg, priority: str):
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.serve import Request
+
+    w, n = PAGED_1B, OVERLOAD_1B["requests"]
+    pre = w["prefix"]
+    suffix = np.random.default_rng(13).integers(64, w["max_suffix"] + 1, n)
+    toks = SyntheticLM(cfg.vocab, pre + w["max_suffix"], seed=9).batch(0, n)["tokens"]
+    return [Request(tokens=np.concatenate([toks[0, :pre], toks[i, pre:pre + int(s)]]),
+                    max_new_tokens=OVERLOAD_1B["gen"], priority=priority)
+            for i, s in enumerate(suffix)]
+
+
+def overload_1b_engine(params, cfg, dev, ctrl: bool, **kw):
+    from repro_torch.serve import CapacityController, EngineConfig, ServingEngine
+
+    w = PAGED_1B
+    ctx = -(-(w["prefix"] + w["max_suffix"] + OVERLOAD_1B["gen"]) // w["page"]) * w["page"]
+    return ServingEngine(params, cfg, EngineConfig(
+        batch_size=OVERLOAD_1B["B"], ctx=ctx, page_size=w["page"], prefill_chunk=w["chunk"],
+        prefix_cache=True, capacity_controller=CapacityController(**OVERLOAD_CTRL_1B) if ctrl
+        else None, **kw), device=dev)
+
+
+def serve_overload_1b(dev, params):
+    """13b: mod-paper-1b in bf16 at full width, the paged + prefix engine
+    with 32 slots: (i) 48 batch-tier requests at once under
+    OVERLOAD_CTRL_1B: the walk reaches level 2 and ends at 0, every request
+    ok; the routed layers' decode flash calls run at kb = 4 / 2 / 1, 12
+    calls a decode step at each level, by the wrapper's counter, and a
+    profiled decode-only step at each level shows torch.profiler as many
+    flash kernels as the counter; (ii) the same requests latency-tier under
+    the same controller: no step degraded, streams equal (iii), the same
+    requests with no controller. Per level: steps, decode wall ms a
+    decode-only step, the profiled step's device-busy ms."""
+    from repro_torch.config import get_config, with_mod_backend
+    from repro_torch.core.routing import batch_capacity_k, capacity_ladder
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.serve.overload import default_levels
+    from repro_torch.serve.scheduler import FREE, GENERATE
+
+    cfg = with_mod_backend(get_config("mod-paper-1b"), "pallas")
+    B = OVERLOAD_1B["B"]
+    n_mod = sum(1 for grp in params["groups"] if "mod" in grp)
+    kbs = [batch_capacity_k(c, B) for c in capacity_ladder(cfg, default_levels())]
+    if kbs != [4, 2, 1]:
+        raise AssertionError(f"13b: kb by level {kbs}, want [4, 2, 1]")
+    out = {}
+    eng = overload_1b_engine(params, cfg, dev, ctrl=True)
+    for r in overload_1b_requests(cfg, "batch"):
+        eng.submit(r)
+    torch.cuda.synchronize()
+    counts0, calls0 = build.launch_counts(), dict(FA.FLASH_ATTENTION.by_call)
+    steps = {lvl: 0 for lvl in range(3)}
+    walls = {lvl: [] for lvl in range(3)}
+    prof = {}
+    levels = []
+    while eng.has_work:
+        lvl = eng._controller.level  # every request is batch-tier
+        quiet = (all(s.state == GENERATE for s in eng.slots if s.active)
+                 and (not eng.scheduler.queue or not any(s.state == FREE for s in eng.slots)))
+        d0, p0 = eng.decode_steps, eng._n_prefills
+        if quiet and lvl not in prof and any(s.active for s in eng.slots):
+            c_before = dict(FA.FLASH_ATTENTION.by_call)
+            wall, busy, _, delta, _, _, by_file, groups = profiled_step(eng)
+            step_calls = {k: n - c_before.get(k, 0) for k, n in FA.FLASH_ATTENTION.by_call.items()
+                          if n != c_before.get(k, 0)}
+            routed = sum(n for k, n in step_calls.items()
+                         if k[0] == "decode" and k[2] == 1 and k[1] == kbs[lvl])
+            launches = sum(k[7] * n for k, n in step_calls.items())  # kernels, not calls
+            if routed != n_mod or sum(step_calls.values()) != delta.get("flash_attention", 0):
+                raise AssertionError(f"13b level {lvl}: a decode step made {routed} routed calls "
+                                     f"at kb={kbs[lvl]} ({step_calls})")
+            if busy > 0.0:
+                if by_file.get("flash_attention.cu", 0) != launches:
+                    raise AssertionError(f"13b level {lvl}: torch.profiler saw "
+                                         f"{by_file.get('flash_attention.cu', 0)} flash kernels, "
+                                         f"the counter {launches}")
+                prof[lvl] = dict(wall=wall, busy=busy, step=eng.step_count - 1,
+                                 kernels=by_file, groups=groups,
+                                 active=sum(s.active for s in eng.slots))
+        else:
+            n_active = sum(s.active for s in eng.slots)
+            t0 = time.perf_counter()
+            eng.step()
+            if eng._n_prefills == p0 and eng.decode_steps > d0:
+                walls[eng.last_step_level].append((1e3 * (time.perf_counter() - t0), n_active))
+        levels.append(eng.last_step_level)
+        if eng.decode_steps > d0:
+            steps[eng.last_step_level] += 1
+    torch.cuda.synchronize()
+    s = eng.stats()
+    delta = {k: v - counts0[k] for k, v in build.launch_counts().items()}
+    calls = {k: n - calls0.get(k, 0) for k, n in FA.FLASH_ATTENTION.by_call.items()}
+    by_kb = {kb: sum(n for k, n in calls.items() if k[0] == "decode" and k[2] == 1 and k[1] == kb)
+             for kb in kbs}
+    out["controlled"] = {o.uid: o.tokens.tolist() for o in eng.finished}
+    if any(not o.ok for o in eng.finished) or len(eng.finished) != OVERLOAD_1B["requests"]:
+        raise AssertionError("13b (i): not every request finished ok")
+    if s["capacity_level_max"] != 2.0 or s["capacity_level"] != 0.0 or levels[-1] != 0:
+        raise AssertionError(f"13b (i): levels {levels}, controller {s['capacity_level']}")
+    for lvl, kb in enumerate(kbs):
+        if by_kb[kb] != n_mod * steps[lvl]:
+            raise AssertionError(f"13b (i): {by_kb[kb]} routed decode calls at kb={kb}, want "
+                                 f"{n_mod} x {steps[lvl]} steps at level {lvl}")
+    log(f"[overload] 13b (i) {cfg.name} bf16, {B} slots, {len(eng.finished)} batch-tier requests "
+        f"of {OVERLOAD_1B['gen']} tokens at once: levels {''.join(map(str, levels))}; "
+        f"{s['generated_tokens']:.0f} tokens in {s['wall_s']:.2f}s = {s['tokens_per_s']:.1f} "
+        f"tok/s, {s['degraded_decode_steps']:.0f} degraded decode steps, {s['prefills']:.0f} "
+        f"prefills, prefix hit rate {s['prefix_hit_rate']:.3f}")
+    for lvl, kb in enumerate(kbs):
+        p = prof.get(lvl)
+        busy = ("busy: not measured (torch.profiler recorded no device time)" if p is None else
+                f"profiled step {p['step']} ({p['active']} slots active): wall {p['wall']:.2f} "
+                f"ms, device busy {p['busy']:.2f} ms, idle share "
+                f"{1 - p['busy'] / p['wall']:.3f}; by group: " + "; ".join(
+                    f"{g} {t:.2f}" for g, t in sorted(p["groups"].items(), key=lambda kv: -kv[1])))
+        w = walls[lvl]
+        log(f"[overload]   level {lvl} (kb={kb}): {steps[lvl]} decode steps, routed decode "
+            f"flash calls {by_kb[kb]} = {n_mod} x {steps[lvl]}; decode-only step wall "
+            f"{statistics.mean(x for x, _ in w) if w else float('nan'):.2f} ms mean over "
+            f"{len(w)} ({statistics.mean(n for _, n in w) if w else float('nan'):.1f} slots "
+            f"active on average); {busy}")
+    log(f"[overload]   launches: {json.dumps({k: v for k, v in delta.items() if v})}")
+    for name, prio, ctrl in (("latency", "latency", True), ("uncontrolled", "batch", False)):
+        e = overload_1b_engine(params, cfg, dev, ctrl=ctrl)
+        for r in overload_1b_requests(cfg, prio):
+            e.submit(r)
+        e.run()
+        out[name] = {o.uid: o.tokens.tolist() for o in e.finished}
+        st = e.stats()
+        if name == "latency" and (st["degraded_decode_steps"] != 0.0
+                                  or st["capacity_level_max"] < 1.0):
+            raise AssertionError(f"13b (ii): degraded decode steps {st['degraded_decode_steps']}, "
+                                 f"controller max {st['capacity_level_max']}")
+        log(f"[overload] 13b ({'ii' if ctrl else 'iii'}) {name}: {st['steps']:.0f} steps, "
+            f"{st['tokens_per_s']:.1f} tok/s"
+            + (f", controller max level {st['capacity_level_max']:.0f}, "
+               f"{st['degraded_decode_steps']:.0f} degraded decode steps" if ctrl else ""))
+    if out["latency"] != out["uncontrolled"]:
+        raise AssertionError("13b: latency-tier streams differ from the uncontrolled run's for "
+                             f"{[u for u in out['latency'] if out['latency'][u] != out['uncontrolled'][u]]}")
+    log(f"[overload] 13b: latency-tier streams under the controller equal the uncontrolled "
+        f"run's bitwise ({len(out['latency'])} requests)")
+    return {lvl: dict(steps=steps[lvl], kb=kbs[lvl], **({} if lvl not in prof else prof[lvl]))
+            for lvl in range(3)}
+
+
+def faults_1b(dev, params):
+    """13c: mod-paper-1b in bf16, 13b's engine and requests under
+    OVERLOAD_CTRL_1B, with FaultInjector.seeded(0, n_faults=6, horizon=30)
+    plus one page_exhaustion fault that holds every obtainable page for 6
+    steps at step 4 (every slot decoding; a slot crossing a page boundary
+    meanwhile preempts the youngest): JAX's fault contract, and at least one
+    preemption while those pages are held."""
+    from repro_torch.config import get_config, with_mod_backend
+    from repro_torch.serve import Fault, FaultInjector
+
+    cfg = with_mod_backend(get_config("mod-paper-1b"), "pallas")
+    # hold_pages takes what it can: every page obtainable at step 4
+    inj = FaultInjector(FaultInjector.seeded(0, n_faults=6, horizon=30).faults
+                        + [Fault("page_exhaustion", step=4, pages=1 << 30, duration=6)])
+    eng = overload_1b_engine(params, cfg, dev, ctrl=True, fault_injector=inj)
+    reqs = overload_1b_requests(cfg, "batch")
+    _, preempted = drive_faults(eng, inj, reqs[::-1],
+                                lambda: overload_1b_requests(cfg, "batch")[0], depth=len(reqs))
+    assert_fault_contract("13c", eng, inj)
+    s = eng.stats()
+    held = preempted[9] - preempted[3]  # in steps 4-9, while the pages were held
+    if held < 1:
+        raise AssertionError(f"13c: no preemption while every page was held ({inj.fired})")
+    log(f"[overload] 13c {cfg.name} bf16 fault matrix: fired "
+        f"{', '.join(f['kind'] + '@' + str(f['step']) for f in inj.fired)}; {len(eng.finished)} "
+        f"requests, failed {s['failed']:.0f} (one a corruption step), preemptions "
+        f"{s['preemptions']:.0f} ({held} in steps 4-9 under the full hold), {s['steps']:.0f} "
+        f"steps; nothing held or mapped at the end")
+
+
+def overload_phase(dev):
+    """Phase 13 in order, on mod-paper-1b weights made from seed 0; returns
+    (the launch counts of its card runs, 13b's levels)."""
+    from repro_torch.config import get_config, with_mod_backend
+    from repro_torch.kernels import build
+    from repro_torch.models import api
+
+    params = api.init_model(with_mod_backend(get_config("mod-paper-1b"), "pallas"),
+                            device=dev, seed=0)
+    build.reset_counters()
+    t = time.perf_counter()
+    overload_parity(dev)
+    t1 = time.perf_counter()
+    levels = serve_overload_1b(dev, params)
+    t2 = time.perf_counter()
+    faults_1b(dev, params)
+    torch.cuda.synchronize()
+    log(f"[time] 13a {t1 - t:.1f}s, 13b {t2 - t1:.1f}s, 13c {time.perf_counter() - t2:.1f}s")
+    counts = build.launch_counts()
+    missing = [k for k in OVERLOAD_KERNELS if counts.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"phase 13 never launched {missing}: {counts}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[overload] phase 13 launches: {json.dumps({k: v for k, v in counts.items() if v})}")
+    return counts, levels
+
+
 def dispatch_by_call() -> dict:
     """The padded dispatch kernels' launches by call since the last reset,
     keyed as the wrappers count them: (kind, vec, unroll, B, S, k, row
@@ -4588,6 +5072,17 @@ def main() -> int:
         t = time.perf_counter()
         moe_phase(torch.device("cuda", 0))
         log(f"[time] phase 12 moe: {time.perf_counter() - t:.1f}s")
+        return 0
+    if sys.argv[1:2] == ["--overload"]:
+        from repro_torch.kernels import build
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        log(f"[device] {smi_line()}")
+        build.build_all()
+        t = time.perf_counter()
+        overload_phase(torch.device("cuda", 0))
+        log(f"[time] phase 13 overload: {time.perf_counter() - t:.1f}s")
         return 0
     from repro_torch.config import get_config
     from repro_torch.kernels import build
@@ -4658,6 +5153,11 @@ def main() -> int:
     ssm_serve_counts = timed("phase 9d ssm serve", serve_ssm, dev)
     torch.cuda.empty_cache()
     moe_counts = timed("phase 12 moe", moe_phase, dev)
+    # last: its 32-slot pools would leave the allocator's cache in pieces
+    # that later phases' large tensors may not fit in
+    gc.collect()
+    torch.cuda.empty_cache()
+    overload_counts, _ = timed("phase 13 overload", overload_phase, dev)
 
     # flash: every shape of phase 2, each with the launches of exactly its
     # call (path and shape) in phases 4 and 5, as the wrapper counted them
@@ -4755,7 +5255,8 @@ def main() -> int:
     model_runs = {"serve": serve_counts, "train": train_counts, **paged_counts, **quant_counts,
                   "forward_ragged": ragged_counts, "train_ssm": ssm_train_counts,
                   "serve_ssm": ssm_serve_counts,
-                  **{f"serve_spec {n}": c for n, c in spec_counts.items()}, **moe_counts}
+                  **{f"serve_spec {n}": c for n, c in spec_counts.items()}, **moe_counts,
+                  "overload": overload_counts}
     for run, c in model_runs.items():
         if any(c.get(k, 0) for k in OPS_KERNELS):
             raise AssertionError(f"{run} launched an op-entry-point kernel: {c}")
@@ -4784,7 +5285,8 @@ def main() -> int:
                    "forward_ragged": ragged_counts,
                    "train_ssm": ssm_train_counts, "serve_ssm": ssm_serve_counts,
                    "ops": ops_counts,
-                   **{f"serve_spec {n}": c for n, c in spec_counts.items()}, **moe_counts}
+                   **{f"serve_spec {n}": c for n, c in spec_counts.items()}, **moe_counts,
+                   "overload": overload_counts}
         path = {"routed_attention": "train", "routed_mlp_scatter": "train",
                 "paged_gather": "serve_paged", "paged_scatter_rows": "serve_paged",
                 "ragged_paged_scatter_rows": "serve_ragged",

@@ -42,6 +42,7 @@ no counterpart yet: passing an SPMD context raises.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -149,6 +150,32 @@ def batch_capacity_k(cfg: ModelConfig, batch: int) -> int:
     if cfg.mod.capacity_ratio <= 0.0:
         return 0
     return max(1, int(round(cfg.mod.capacity_ratio * batch)))
+
+
+def capacity_ladder(cfg: ModelConfig, scales) -> Tuple[ModelConfig, ...]:
+    """The degraded-capacity configs of the serving engine's capacity
+    ladder (:class:`repro_torch.serve.overload.CapacityController`).
+
+    ``scales`` is a strictly descending ladder of multipliers on
+    ``cfg.mod.capacity_ratio`` starting at 1.0 (level 0). Each config
+    differs from ``cfg`` in the ratio only, which changes no decode shape:
+    the pool's caches are sized by the full config, a level only shrinks
+    ``kb`` (:func:`batch_capacity_k`). A MoD-less config gets an
+    all-identical ladder (only the engine's host-side budgets degrade)."""
+    scales = tuple(float(s) for s in scales)
+    if not scales or scales[0] != 1.0:
+        raise ValueError(f"capacity ladder must start at 1.0, got {scales!r}")
+    if any(not (0.0 < s <= 1.0) for s in scales):
+        raise ValueError(f"capacity scales must lie in (0, 1], got {scales!r}")
+    if any(b >= a for a, b in zip(scales, scales[1:])):
+        raise ValueError(f"capacity scales must strictly descend, got {scales!r}")
+    if not cfg.mod.enabled:
+        return (cfg,) * len(scales)
+    return tuple(
+        dataclasses.replace(cfg, mod=dataclasses.replace(
+            cfg.mod, capacity_ratio=cfg.mod.capacity_ratio * s))
+        for s in scales
+    )
 
 
 def decide_batch(

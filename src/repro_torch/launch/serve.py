@@ -5,7 +5,9 @@ Mirrors ``repro/launch/serve.py`` for the flags of the padded, paged
 (``--page-size``, ``--n-pages``, ``--prefix-cache``), ragged
 (``--ragged``, ``--ragged-segments``), self-speculative (``--speculate``,
 ``--draft-ratio``, ``--verify-budget``) and quantized (``--quant-kv``,
-``--quant-scale``) engines, plus ``--device``. Weights
+``--quant-scale``) engines, overload control (``--adaptive-capacity``,
+``--priority``, ``--deadline``) and fault injection (``--inject-faults``),
+plus ``--device``. Weights
 are random, drawn from ``--seed``. Prompt lengths are mixed uniformly over
 ``[--min-prompt-len, --prompt-len]``.
 
@@ -14,6 +16,8 @@ are random, drawn from ``--seed``. Prompt lengths are mixed uniformly over
       --min-prompt-len 128 --prompt-len 1024 --gen 32 --page-size 16 --prefix-cache
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
       --page-size 16 --speculate 3 --draft-ratio 0.0
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+      --page-size 16 --adaptive-capacity --inject-faults 0 --requests 24
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \\
       --dtype bfloat16 --batch 8 --requests 16 --min-prompt-len 32 --prompt-len 128 --gen 16
 
@@ -31,7 +35,7 @@ from repro_torch.config import get_config, smoke_config, with_mod_backend
 from repro_torch.data.synthetic import SyntheticLM
 from repro_torch.kernels import build
 from repro_torch.models import api
-from repro_torch.serve import EngineConfig, Request, ServingEngine, add_engine_args
+from repro_torch.serve import EngineConfig, FaultInjector, Request, ServingEngine, add_engine_args
 
 
 def main() -> None:
@@ -52,6 +56,16 @@ def main() -> None:
                          "same CUDA gather/scatter kernels (default: the arch's own)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--priority", default="batch", choices=["batch", "latency"],
+                    help="priority class of the submitted requests: latency-tier is admitted "
+                         "first and keeps full MoD capacity under overload")
+    ap.add_argument("--deadline", type=float, default=0.0,
+                    help="per-request deadline in seconds from submit; expired requests finish "
+                         "as 'expired' instead of occupying slots (0 = no deadline)")
+    ap.add_argument("--inject-faults", type=int, default=-1,
+                    help="thread a seeded FaultInjector through the engine (NaN/Inf logits, "
+                         "page exhaustion, stragglers, preemption storms) with this seed; "
+                         "-1 = off")
     add_engine_args(ap)
     args = ap.parse_args()
 
@@ -71,10 +85,12 @@ def main() -> None:
     ctx = args.prompt_len + args.gen
     if args.page_size:  # the paged pool needs whole pages
         ctx = -(-ctx // args.page_size) * args.page_size
-    engine = ServingEngine(params, cfg, EngineConfig.from_args(args, batch_size=args.batch,
-                                                               ctx=ctx), device=args.device)
+    injector = FaultInjector.seeded(args.inject_faults) if args.inject_faults >= 0 else None
+    engine = ServingEngine(params, cfg, EngineConfig.from_args(
+        args, batch_size=args.batch, ctx=ctx, fault_injector=injector), device=args.device)
     outputs = engine.run_stream(
-        [Request(tokens=prompts[i, : lens[i]], max_new_tokens=args.gen)
+        [Request(tokens=prompts[i, : lens[i]], max_new_tokens=args.gen, priority=args.priority,
+                 deadline_s=args.deadline or None)
          for i in range(n_requests)],
         args.arrival_every,
     )
@@ -117,6 +133,18 @@ def main() -> None:
     if args.ragged:
         print(f"[serve] ragged mixed step: segments={args.ragged_segments} "
               f"padded_token_fraction={s['padded_token_fraction']:.3f}")
+    if args.deadline or args.adaptive_capacity or injector is not None:
+        ok = sum(1 for o in outputs if o.ok)
+        print(f"[serve] lifecycle: ok={ok}/{len(outputs)} shed={s['shed']:.0f} "
+              f"expired={s['expired']:.0f} cancelled={s['cancelled']:.0f} "
+              f"failed={s['failed']:.0f}")
+    if args.adaptive_capacity:
+        print(f"[serve] capacity controller: level_max={s.get('capacity_level_max', 0.0):.0f} "
+              f"level_changes={s.get('capacity_level_changes', 0.0):.0f} "
+              f"degraded_decode_steps={s.get('degraded_decode_steps', 0.0):.0f}")
+    if injector is not None:
+        fired = ", ".join(f"{f['kind']}@{f['step']}" for f in injector.fired)
+        print(f"[serve] faults fired: {fired or 'none'}")
     print(f"[serve] kernel launches: {build.launch_counts()} (0 on the CPU: plain versions)")
     first = min(outputs, key=lambda o: o.uid)
     print(f"[serve] sample continuation: {first.tokens[-10:].tolist()}")

@@ -50,8 +50,13 @@ The JAX pool is immutable; this one is updated in place. Where JAX copies
 implicitly, the port copies explicitly: residual snapshots (prefix entries,
 ragged segments) and the residual rows of :meth:`PagedCachePool.read_slot`
 are clones, and restoring a snapshot copies it into the working cache, so
-no later write can reach a stored entry. ``hold_pages`` / ``release_held``
-come with the overload slice.
+no later write can reach a stored entry.
+
+:meth:`PagedCachePool.hold_pages` takes pages out of circulation and
+:meth:`PagedCachePool.release_held` returns them (the ``page_exhaustion``
+fault of :mod:`repro_torch.serve.faults`); held pages count in
+``page_stats()`` and in :meth:`PagedCachePool.check_invariants`, the
+recount of every book that the fault soaks run after each step.
 """
 from __future__ import annotations
 
@@ -466,6 +471,7 @@ class PagedCachePool:
         self.ref = np.zeros((self.n_pages,), np.int64)
         self.cache_cnt = np.zeros((self.n_pages,), np.int64)  # prefix entries per page
         self.free: deque = deque(range(_RESERVED, self.n_pages))
+        self.held: List[int] = []  # pages out of circulation (hold_pages)
         self.prefix: "OrderedDict[bytes, PrefixEntry]" = OrderedDict()
         # telemetry
         self.prefix_hit_tokens = 0
@@ -651,6 +657,30 @@ class PagedCachePool:
     def pages_needed(self, n_tokens: int) -> int:
         return -(-n_tokens // self.page_size)
 
+    def hold_pages(self, n: int) -> int:
+        """Take up to ``n`` allocatable pages out of circulation (fault
+        injection): popped off the free list, evicting prefix entries under
+        pressure like any allocation, into ``held``, where neither slots nor
+        the prefix cache reach them until :meth:`release_held`. Returns how
+        many were taken. ``allocatable_pages`` (the submit-time capacity
+        check) is unchanged while ``available_pages`` shrinks: the admission
+        gate closes and lazy growth reaches the preemption path."""
+        taken = 0
+        while taken < n:
+            pid = self._pop_free()
+            if pid is None:
+                break
+            self.held.append(pid)
+            taken += 1
+        return taken
+
+    def release_held(self) -> int:
+        """Return every held page to the free list; returns the count."""
+        n = len(self.held)
+        self.free.extend(self.held)
+        self.held.clear()
+        return n
+
     def _note_peak(self) -> None:
         self.peak_pages_in_use = max(self.peak_pages_in_use,
                                      int(np.sum(self.ref[_RESERVED:] > 0)))
@@ -759,6 +789,7 @@ class PagedCachePool:
             "pages_in_use": float(in_use),
             "pages_cached_only": float(cached_only),
             "pages_free": float(len(self.free)),
+            "pages_held": float(len(self.held)),
             "page_utilization": in_use / alloc if alloc else 0.0,
             "page_utilization_peak": self.peak_pages_in_use / alloc if alloc else 0.0,
             "peak_pages_in_use": float(self.peak_pages_in_use),
@@ -768,6 +799,49 @@ class PagedCachePool:
                                 if self.prefix_lookup_tokens else 0.0),
             "prefix_evictions": float(self.prefix_evictions),
         }
+
+    def check_invariants(self) -> None:
+        """Recount every book from the raw structures and raise
+        ``AssertionError`` where they disagree: reserved pages are never
+        owned, cached, free or held; the slot tables give the refcounts and
+        the prefix entries the cache counts; every allocatable page is
+        free, held, or referenced or cached, exactly one of them."""
+        def need(ok: bool, what: str) -> None:
+            if not ok:
+                raise AssertionError(what)
+
+        need(self.ref[:_RESERVED].sum() == 0, "NULL/SCRATCH page refcounted")
+        need(self.cache_cnt[:_RESERVED].sum() == 0, "NULL/SCRATCH page cached")
+        free, held = list(self.free), list(self.held)
+        need(all(p >= _RESERVED for p in free + held), "reserved page free or held")
+        need(len(free) == len(set(free)), "free-list duplicate (double free)")
+        need(len(held) == len(set(held)), "page held twice")
+        ref = np.zeros_like(self.ref)
+        for s in range(self.batch_size):
+            n, row = int(self.n_mapped[s]), self.table_np[s]
+            need(bool((row[:n] >= _RESERVED).all()), f"slot {s}: mapped entry is NULL/SCRATCH")
+            need(len(set(row[:n].tolist())) == n, f"slot {s}: page mapped twice")
+            need(bool(np.isin(row[n:], (NULL_PAGE, SCRATCH_PAGE)).all()),
+                 f"slot {s}: unmapped table entry points at a real page")
+            np.add.at(ref, row[:n], 1)
+        need(bool((ref == self.ref).all()), "refcounts differ from the slot tables")
+        cnt = np.zeros_like(self.cache_cnt)
+        for e in self.prefix.values():
+            for pid in e.pages:
+                cnt[pid] += 1
+        need(bool((cnt == self.cache_cnt).all()), "cache counts differ from the prefix entries")
+        need(len(self.prefix) <= PREFIX_MAX_ENTRIES, "prefix entries past their bound")
+        need(not (set(held) & set(free)), "held page still on the free list")
+        need(all(self.ref[p] == 0 and self.cache_cnt[p] == 0 for p in held),
+             "held page is referenced or cached")
+        idle = {p for p in range(_RESERVED, self.n_pages)
+                if self.ref[p] == 0 and self.cache_cnt[p] == 0}
+        need(set(free) | set(held) == idle, "free + held != idle pages (leak or early free)")
+        stats = self.page_stats()
+        need(0.0 <= stats["page_utilization"] <= 1.0, "page utilization outside [0, 1]")
+        need(stats["page_utilization_peak"] >= stats["page_utilization"] - 1e-9,
+             "peak utilization below the current one")
+        need(stats["pages_held"] == float(len(held)), "pages_held differs from held")
 
     def _prefix_resid_bytes(self) -> float:
         """Device bytes pinned by the prefix entries' residual snapshots."""

@@ -14,15 +14,22 @@ pool's K/V pages in int8 or fp8 and can serve from int8 weights.
 ``speculate`` runs self-speculative rounds over the paged pool: draft
 ``speculate`` tokens at MoD capacity ``draft_ratio``, verify the window at
 full capacity, roll rejected tails back (``spec_verify_budget`` caps the
-verify positions a round may spend). Checks and messages are the JAX
-package's. The settings of the JAX engine's
-later paths are fields too, so that a caller who sets one learns at once
-that the port does not run it yet: each raises a ``ValueError`` naming it.
+verify positions a round may spend). ``adaptive_capacity`` arms the
+overload controller (:mod:`repro_torch.serve.overload`; ``capacity_levels``
+sets the ladder's scales, ``capacity_controller`` replaces the default
+controller), ``max_queue`` bounds the queue, ``fault_injector`` threads a
+:class:`repro_torch.serve.faults.FaultInjector` through the step, ``clock``
+replaces the deadline clock (``time.monotonic``) and ``logit_tap`` is
+called with the host decode logits ``(B, V)`` after every padded or ragged
+step that decoded. Checks and messages are the JAX package's. ``mesh``,
+the setting of the JAX engine's multi-device path, is a field too, so that
+a caller who sets it learns at once that the port does not run it yet: it
+raises a ``ValueError`` naming it.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Callable, Optional, Tuple
 
 from repro_torch.serve.quant import GRANULARITIES, KV_MODES, QuantConfig
 
@@ -31,8 +38,6 @@ __all__ = ["EngineConfig", "add_engine_args"]
 # setting -> the ROADMAP item that ports its engine path
 _LATER_PATHS = {
     "mesh": "multi-device serving (ROADMAP Queue 1)",
-    "adaptive_capacity": "overload control (ROADMAP Queue 1)",
-    "fault_injector": "overload control and fault injection (ROADMAP Queue 1)",
 }
 PAGED_BACKENDS = ("xla", "pallas")
 
@@ -54,10 +59,15 @@ class EngineConfig:
     speculate: Optional[int] = None  # self-speculative: draft n tokens/round
     draft_ratio: float = 0.0  # drafter's MoD capacity ratio (0 = pure skip)
     spec_verify_budget: Optional[int] = None  # verify-token budget per round
-    # later engine paths: not ported yet, each raises when set
+    adaptive_capacity: bool = False  # load-adaptive MoD capacity ladder
+    capacity_levels: Optional[Tuple[float, ...]] = None  # ladder scales
+    capacity_controller: Any = None  # overload.CapacityController override
+    max_queue: Optional[int] = None  # bounded backpressure: reject at depth
+    fault_injector: Any = None  # faults.FaultInjector
+    clock: Optional[Callable[[], float]] = None  # deadline clock (monotonic)
+    logit_tap: Optional[Callable] = None  # decode-logits telemetry hook
+    # the multi-device path: not ported yet, raises when set
     mesh: Any = None
-    adaptive_capacity: bool = False
-    fault_injector: Any = None
 
     def __post_init__(self):
         if not isinstance(self.batch_size, int) or self.batch_size < 1:
@@ -88,6 +98,9 @@ class EngineConfig:
                 raise ValueError(f"draft_ratio must be in [0, 1], got {self.draft_ratio}")
         elif self.spec_verify_budget is not None:
             raise ValueError("spec_verify_budget requires speculate")
+        adaptive = self.adaptive_capacity or self.capacity_controller is not None
+        if self.capacity_levels is not None and not adaptive:
+            raise ValueError("capacity_levels requires adaptive_capacity")
         if self.paged_backend not in PAGED_BACKENDS:
             raise ValueError(f"unknown paged backend {self.paged_backend!r}")
         if not isinstance(self.quant, QuantConfig):
@@ -100,8 +113,10 @@ class EngineConfig:
                 raise ValueError(f"{name} selects the {path} path, which the port does not run yet")
 
     @classmethod
-    def from_args(cls, ns, *, batch_size: int, ctx: int) -> "EngineConfig":
-        return cls(
+    def from_args(cls, ns, *, batch_size: int, ctx: int, **overrides) -> "EngineConfig":
+        """The config of an :func:`add_engine_args` namespace; ``overrides``
+        replace any field after the flags are mapped (``fault_injector=...``)."""
+        fields = dict(
             batch_size=batch_size, ctx=ctx, policy=ns.policy,
             prefill_chunk=ns.prefill_chunk or None,
             page_size=ns.page_size or None, n_pages=ns.n_pages or None,
@@ -109,14 +124,16 @@ class EngineConfig:
             ragged_segments=ns.ragged_segments,
             speculate=ns.speculate or None, draft_ratio=ns.draft_ratio,
             spec_verify_budget=ns.verify_budget or None,
+            adaptive_capacity=ns.adaptive_capacity,
             quant=QuantConfig(kv=ns.quant_kv, granularity=ns.quant_scale),
         )
+        fields.update(overrides)
+        return cls(**fields)
 
 
 def add_engine_args(parser) -> None:
-    """The engine flags of the port's serving CLI (the padded, paged,
-    ragged, speculative and quantized engines' subset of the JAX ``add_engine_args``,
-    same names)."""
+    """The engine flags of the port's serving CLI (the JAX
+    ``add_engine_args`` flags, same names)."""
     g = parser.add_argument_group("serving engine")
     g.add_argument("--policy", default="mod_aware", choices=["fcfs", "mod_aware"])
     g.add_argument("--page-size", type=int, default=0,
@@ -146,6 +163,10 @@ def add_engine_args(parser) -> None:
     g.add_argument("--verify-budget", type=int, default=0,
                    help="verify-token budget per speculative round: admission stops while "
                         "active slots x (speculate+1) would exceed it (0 = uncapped)")
+    g.add_argument("--adaptive-capacity", action="store_true",
+                   help="enable the overload capacity controller: under queue/latency "
+                        "pressure it walks MoD capacity ratio and the batch-tier admission "
+                        "budget down a discrete ladder (latency-tier is exempt)")
     g.add_argument("--quant-kv", default="none", choices=list(KV_MODES),
                    help="paged KV page storage dtype: int8 / fp8 (e4m3) with per-page-row "
                         "pow2 scales, widened by the dequantizing gather kernel (requires "

@@ -60,31 +60,50 @@ slot's page table by :meth:`PagedCachePool.truncate`. Streams equal the
 plain engine's token for token. The ragged engine runs its mixed step
 while any slot is mid-prompt, and rounds otherwise.
 
+**Overload control and faults** (every path above): each engine step
+opens with the lifecycle sweep (:meth:`ServingEngine._police`: cancelled
+and deadline-expired requests leave, queued ones shed without prefill)
+and the fault injector's time-domain faults, and closes with one
+observation of the queue depth and the step's latency by the capacity
+controller (``adaptive_capacity``, :mod:`repro_torch.serve.overload`). The
+controller's level picks the decode step's config off the capacity ladder
+(:func:`repro_torch.core.routing.capacity_ladder`: MoD ``kb`` scaled by
+the level) and scales the batch-tier admission budget; a step with a
+latency-tier request active decodes at level 0. ``max_queue`` bounds the
+queue (``submit`` raises :class:`EngineOverloaded`). After each step and
+before sampling, ``logit_tap`` sees the host logits and the fault
+injector may poison a row (:mod:`repro_torch.serve.faults`); a non-finite
+row fails only its own request.
+
 Sampling runs on the host: greedy argmax, or a draw keyed by the
 request's seed and the token's index (see :mod:`repro_torch.serve.request`).
-The SPMD and overload paths of the JAX engine are later slices
-(:class:`repro_torch.serve.config.EngineConfig` rejects their settings).
+The SPMD path of the JAX engine is a later slice
+(:class:`repro_torch.serve.config.EngineConfig` rejects ``mesh``).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.core.routing import batch_capacity_k
+from repro_torch.core.routing import batch_capacity_k, capacity_ladder
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import api
 from repro_torch.serve.cache import CachePool, PagedCachePool, flatten, slot_slice
 from repro_torch.serve.config import EngineConfig
+from repro_torch.serve.overload import CapacityController, EngineOverloaded, default_levels
 from repro_torch.serve.quant import dequantize_params, quantize_params
 from repro_torch.serve.request import (
+    FINISH_CANCELLED,
     FINISH_EOS,
     FINISH_ERROR,
+    FINISH_EXPIRED,
     FINISH_LENGTH,
+    PRIORITY_LATENCY,
     Request,
     RequestOutput,
     pad_outputs,
@@ -187,7 +206,8 @@ class ServingEngine:
             self.pool = CachePool(cfg, self.batch_size, self.ctx, self.device)
         self.scheduler = Scheduler(self.batch_size, engine.policy,
                                    routed_capacity(cfg, self.batch_size),
-                                   verify_token_budget=engine.spec_verify_budget)
+                                   verify_token_budget=engine.spec_verify_budget,
+                                   max_queue=engine.max_queue)
         self.slots = [Slot(i) for i in range(self.batch_size)]
         self.finished: List[RequestOutput] = []
         self.step_count = 0
@@ -212,6 +232,37 @@ class ServingEngine:
         self._spec_drafted = 0
         self._spec_accepted_drafts = 0
         self._spec_emitted = 0
+
+        # -- overload control and faults ---------------------------------
+        self._clock = engine.clock if engine.clock is not None else time.monotonic
+        self._faults = engine.fault_injector
+        self._logit_tap = engine.logit_tap
+        adaptive = engine.adaptive_capacity or engine.capacity_controller is not None
+        if adaptive and self._speculate is not None:
+            raise NotImplementedError(
+                "adaptive_capacity + speculate: a speculative round already "
+                "runs two capacity ratios; composing the ladder with the "
+                "rollback machinery is future work"
+            )
+        scales = (tuple(float(x) for x in engine.capacity_levels)
+                  if engine.capacity_levels is not None else default_levels())
+        # validates the ladder even when MoD is off (a dense engine still
+        # scales its host-side admission budget by the levels)
+        self._level_cfgs = capacity_ladder(cfg, scales) if adaptive else (cfg,)
+        self._capacity_scales = scales if adaptive else (1.0,)
+        self._controller = (engine.capacity_controller or CapacityController(
+            n_levels=len(scales), queue_high=2 * self.batch_size,
+            queue_low=max(1, self.batch_size // 2))) if adaptive else None
+        # a level's decode step: the same step under that level's config,
+        # made on first use; nothing else is kept per level
+        self._level_fns: Dict[int, Callable] = {}
+        self._degraded_decode_steps = 0
+        self.last_step_level = 0  # ladder level of the most recent step
+        # monotone robustness counters (stats(), always present)
+        self._n_shed = 0
+        self._n_expired = 0
+        self._n_cancelled = 0
+        self._n_failed = 0
 
     @property
     def prefill_mode(self) -> str:
@@ -239,8 +290,54 @@ class ServingEngine:
     # Submission and admission
     # ------------------------------------------------------------------
 
+    def _level_fn(self, level: int) -> Callable:
+        """The decode step of one capacity-ladder level, ``(params, caches,
+        token, pos, active) -> (logits, caches, aux)``: ``model_decode``
+        under the level's config (only MoD's kb differs), made on first use."""
+        if level not in self._level_fns:
+            cfg = self._level_cfgs[level]
+            self._level_fns[level] = lambda p, c, t, pos, act: api.model_decode(
+                p, c, cfg, t, pos, act)
+        return self._level_fns[level]
+
+    def _capacity_level(self) -> int:
+        """The ladder level of this step's decode: 0 unless the controller
+        is degraded and no latency-tier request is active (latency-tier work
+        always decodes at full capacity), and always 0 for a MoD-less config
+        (its ladder scales only the admission budget)."""
+        if self._controller is None or self._controller.level == 0:
+            return 0
+        if not self.cfg.mod.enabled:
+            return 0
+        if any(s.active and s.req.priority == PRIORITY_LATENCY for s in self.slots):
+            return 0
+        return min(self._controller.level, len(self._level_cfgs) - 1)
+
+    def _step_level(self) -> int:
+        """The level of a step that runs: recorded in ``last_step_level``
+        and counted when degraded."""
+        lvl = self._capacity_level()
+        self.last_step_level = lvl
+        if lvl:
+            self._degraded_decode_steps += 1
+        return lvl
+
+    def _batch_admission_cap(self) -> Optional[int]:
+        """The degraded per-wave admission budget of batch-tier requests
+        (None = uncapped): the base (slots, or ragged segments) scaled by the
+        level's factor. Latency-tier admissions bypass it in the scheduler.
+        A per-wave budget, not a concurrency cap: the ladder makes steps
+        cheaper, not fewer."""
+        if self._controller is None or self._controller.level == 0:
+            return None
+        lvl = min(self._controller.level, len(self._capacity_scales) - 1)
+        base = self._ragged_segments if self._ragged else self.batch_size
+        return max(1, int(round(base * self._capacity_scales[lvl])))
+
     def submit(self, req: Request) -> int:
-        """Queue a request; returns its uid."""
+        """Queue a request; returns its uid. Raises ``ValueError`` for a
+        request that can never run and :class:`EngineOverloaded` when the
+        queue is at ``max_queue``."""
         if req.total_len > self.ctx:
             raise ValueError(f"request needs {req.total_len} positions but engine ctx is {self.ctx}")
         if self._paged and self.pool.pages_needed(req.total_len) > self.pool.allocatable_pages:
@@ -249,6 +346,20 @@ class ServingEngine:
                 f"request needs {self.pool.pages_needed(req.total_len)} pages worst-case but "
                 f"the pool has {self.pool.allocatable_pages}"
             )
+        if req.deadline_s is not None and req.deadline_s <= 0.0:
+            # never servable: the first lifecycle sweep would shed it
+            raise ValueError(
+                f"deadline_s must be positive, got {req.deadline_s}: the "
+                "deadline has already elapsed at submit"
+            )
+        if self.scheduler.queue_full:
+            # bounded backpressure: reject with a reason instead of growing
+            # the queue (and every queued request's wait) without bound
+            self._n_shed += 1
+            raise EngineOverloaded(
+                f"queue depth {len(self.scheduler.queue)} is at max_queue="
+                f"{self.scheduler.max_queue}; request rejected, retry later"
+            )
         if req.uid is None:
             req.uid = self._uid
         elif req.uid in self._used_uids:
@@ -256,8 +367,27 @@ class ServingEngine:
         self._used_uids.add(req.uid)
         self._uid = max(self._uid, req.uid) + 1
         req._submitted_step = self.step_count  # type: ignore[attr-defined]
+        if req.deadline_s is not None:
+            # absolute deadline on the engine clock, armed at submit: queue
+            # wait counts against it
+            req._deadline_t = self._clock() + req.deadline_s  # type: ignore[attr-defined]
         self.scheduler.submit(req)
         return req.uid
+
+    def cancel(self, uid: int) -> bool:
+        """Client cancellation by uid: marks the request, and the next
+        step's lifecycle sweep ends it with ``FINISH_CANCELLED`` (a queued
+        one without prefill, a running one with its partial output and its
+        pages released). False for an unknown or already finished uid."""
+        for r in self.scheduler.queue:
+            if r.uid == uid:
+                r.cancel()
+                return True
+        for s in self.slots:
+            if s.active and s.req.uid == uid:
+                s.req.cancel()
+                return True
+        return False
 
     def _page_gate(self):
         """Admission gate of the paged pool: a request enters only if its
@@ -296,7 +426,8 @@ class ServingEngine:
     def _admit(self, max_admissions: Optional[int] = None) -> None:
         plans = self.scheduler.plan_admissions(self.slots, stepped_prefill=not self._batch_prefill,
                                                page_gate=self._page_gate(),
-                                               max_admissions=max_admissions)
+                                               max_admissions=max_admissions,
+                                               batch_cap=self._batch_admission_cap())
         for slot, req in plans:
             self._start(slot, req)
             if not self._batch_prefill:
@@ -349,7 +480,8 @@ class ServingEngine:
         if max_admissions is not None:
             cap = min(cap, max_admissions)
         plans = self.scheduler.plan_admissions(
-            self.slots, stepped_prefill=False, page_gate=self._page_gate(), max_admissions=cap)
+            self.slots, stepped_prefill=False, page_gate=self._page_gate(), max_admissions=cap,
+            batch_cap=self._batch_admission_cap())
         for slot, req in plans:
             self._start(slot, req)
             slot.state = PREFILL
@@ -455,6 +587,8 @@ class ServingEngine:
             self._finish(slot, FINISH_LENGTH)
 
     def _finish(self, slot: Slot, reason: str, error: Optional[str] = None) -> None:
+        """The one terminal path of a running slot, whatever the reason: its
+        output (with the tokens so far), the slot freed, its pages released."""
         req = slot.req
         self.finished.append(RequestOutput(
             uid=req.uid,
@@ -469,19 +603,107 @@ class ServingEngine:
             mean_score=slot.score_sum / slot.score_steps if slot.score_steps else float("nan"),
             error=error,
         ))
+        self._tally(reason)
         slot.req = None
         slot.state = FREE
         slot.generated = []
         if self._paged:
             self.pool.release(slot.idx)
 
+    def _tally(self, reason: str) -> None:
+        if reason == FINISH_EXPIRED:
+            self._n_expired += 1
+        elif reason == FINISH_CANCELLED:
+            self._n_cancelled += 1
+        elif reason == FINISH_ERROR:
+            self._n_failed += 1
+
+    def _finish_queued(self, req: Request, reason: str, error: Optional[str]) -> None:
+        """The output of a request shed straight from the queue: never
+        admitted, no slot, no tokens (``admitted_step == finished_step``,
+        ``first_token_step == -1``)."""
+        self.scheduler.drop(req)
+        self.finished.append(RequestOutput(
+            uid=req.uid,
+            prompt=np.asarray(req.tokens),
+            tokens=np.asarray([], np.int64),
+            finish_reason=reason,
+            submitted_step=getattr(req, "_submitted_step", 0),
+            admitted_step=self.step_count,
+            first_token_step=-1,
+            finished_step=self.step_count,
+            routed_frac=float("nan"),
+            mean_score=float("nan"),
+            error=error,
+        ))
+        self._n_shed += 1
+        self._tally(reason)
+
+    def _police(self) -> None:
+        """The lifecycle sweep at the top of every step: cancelled and
+        deadline-expired requests leave now. Queued ones are shed without
+        prefill; running ones finish with their partial output through
+        :meth:`_finish`. The clock is read at most once a sweep, and only
+        when some request carries a deadline."""
+        now = None
+
+        def expired(r: Request) -> bool:
+            nonlocal now
+            t = getattr(r, "_deadline_t", None)
+            if t is None:
+                return False
+            if now is None:
+                now = self._clock()
+            return now >= t
+
+        for r in [r for r in self.scheduler.queue if r.cancelled or expired(r)]:
+            if r.cancelled:
+                self._finish_queued(r, FINISH_CANCELLED, None)
+            else:
+                self._finish_queued(r, FINISH_EXPIRED, "deadline expired while queued")
+        for s in self.slots:
+            if not s.active:
+                continue
+            if s.req.cancelled:
+                self._finish(s, FINISH_CANCELLED)
+            elif expired(s.req):
+                self._finish(s, FINISH_EXPIRED, error=f"deadline expired at step {self.step_count}")
+
+    def _step_prologue(self) -> None:
+        """The head of every step path: the lifecycle sweep, then the
+        scheduled faults (which fire against the swept state)."""
+        self._police()
+        if self._faults is not None:
+            self._faults.on_step_start(self)
+
+    def _step_epilogue(self, t0: float) -> None:
+        """The tail of every step path: wall time, and one controller
+        observation (queue depth and this step's latency) an engine step."""
+        dt = time.perf_counter() - t0
+        self._wall_s += dt
+        if self._controller is not None:
+            self._controller.observe(len(self.scheduler.queue), dt)
+
+    def _host_logits(self, logits_np: np.ndarray, tap: bool = True) -> np.ndarray:
+        """The hooks between a step's logits and sampling: ``logit_tap``
+        sees them (padded and ragged steps), then the fault injector may
+        poison a decoding slot's row."""
+        if tap and self._logit_tap is not None:
+            self._logit_tap(logits_np)
+        if self._faults is not None:
+            logits_np = self._faults.corrupt_logits(self, logits_np)
+        return logits_np
+
     def _preempt(self, slot: Slot) -> None:
         """Page-pool OOM backstop: the slot's request goes back to the
         *front* of the queue with its pages released and restarts from
         scratch on re-admission (a sampled request's draws are keyed by token
-        index, so its stream repeats; a ``stream`` callback sees the replay)."""
+        index, so its stream repeats; a ``stream`` callback sees the replay).
+        A contiguous pool has no pages to release (a fault's preemption
+        storm reaches it; the JAX engine raises there)."""
         req = slot.req
-        self.pool.release(slot.idx)
+        if self._paged:
+            self.pool.release(slot.idx)
         # modlint: disable=counter-decrement -- not a monotone counter here:
         # preemption restarts the request from scratch, so its tokens leave
         # the book and are re-counted on replay; net totals stay exact
@@ -558,10 +780,13 @@ class ServingEngine:
         return bool(self.scheduler.queue) or any(s.active for s in self.slots)
 
     def step(self) -> List[RequestOutput]:
-        """Admit + one decode (or mixed) step + per-slot host update.
-        Returns the requests that finished during this call."""
+        """Lifecycle sweep and faults + admit + one decode (or mixed) step +
+        per-slot host update + one controller observation. Returns the
+        requests that finished during this call."""
         done_before = len(self.finished)
         t0 = time.perf_counter()
+        self._step_prologue()
+        self.last_step_level = 0  # unless a step runs below
         advance = 1
         if self._speculate is not None:
             advance = self._step_speculative()
@@ -575,7 +800,7 @@ class ServingEngine:
             if active_slots:
                 self._decode(active_slots)
         self.step_count += advance
-        self._wall_s += time.perf_counter() - t0
+        self._step_epilogue(t0)
         self.scheduler.check_invariants(self.slots, len(self.finished))
         return self.finished[done_before:]
 
@@ -593,18 +818,18 @@ class ServingEngine:
 
     def _decode(self, active_slots: List[Slot]) -> None:
         t0 = time.perf_counter()
+        step_fn = self._level_fn(self._step_level())
         tokens, pos, active = (torch.as_tensor(a, device=self.device)
                                for a in self._decode_inputs(active_slots))
         params = self._model_params()
         if self._paged:
             table = self.pool.device_table()
             caches = self.pool.materialize(table)
-            logits, caches, aux = api.model_decode(params, caches, self.cfg, tokens, pos, active)
+            logits, caches, aux = step_fn(params, caches, tokens, pos, active)
             self.pool.writeback(caches, table, pos)
         else:
-            logits, self.pool.caches, aux = api.model_decode(
-                params, self.pool.caches, self.cfg, tokens, pos, active)
-        logits_np = logits.float().cpu().numpy()
+            logits, self.pool.caches, aux = step_fn(params, self.pool.caches, tokens, pos, active)
+        logits_np = self._host_logits(logits.float().cpu().numpy())
         aux_np = {k: v.float().cpu().numpy() for k, v in aux.items()}
         self._decode_s += time.perf_counter() - t0
         self.decode_steps += 1
@@ -661,6 +886,9 @@ class ServingEngine:
         active_slots = [s for s in self.slots if s.active]
         if not active_slots:
             return
+        # prefill segments always run the full config (their boundaries
+        # become cached, restorable state); only the decode rows degrade
+        step_fn = self._level_fn(self._step_level())
         B, C = self.batch_size, self._prefill_chunk
         decode_slots = [s for s in self.slots if s.state == GENERATE]
         dev = self.device
@@ -697,12 +925,12 @@ class ServingEngine:
             leaves = flatten(caches)
             idx = torch.as_tensor(keep, dtype=torch.int64, device=dev)
             saved = [leaf.index_select(0, idx) for leaf in leaves] if keep else []
-            logits, caches, aux = api.model_decode(
-                params, caches, self.cfg, *(torch.as_tensor(a, device=dev)
-                                            for a in (dec_tokens, dec_pos, dec_act)))
+            logits, caches, aux = step_fn(
+                params, caches, *(torch.as_tensor(a, device=dev)
+                                  for a in (dec_tokens, dec_pos, dec_act)))
             for leaf, rows in zip(leaves, saved):
                 leaf.index_copy_(0, idx, rows)
-            logits_np = logits.float().cpu().numpy()
+            logits_np = self._host_logits(logits.float().cpu().numpy())
             aux_np = {k: v.float().cpu().numpy() for k, v in aux.items()}
             self.decode_steps += 1
 
@@ -830,7 +1058,7 @@ class ServingEngine:
         self.pool.scatter_rows([r.reshape((-1,) + tuple(r.shape[2:])) for r in rows], table,
                                w_slot, w_pos, w_valid)
         drafts_np = drafts.cpu().numpy()  # (n, B)
-        logits_np = logits.float().cpu().numpy()  # (n+1, B, V)
+        logits_np = self._host_logits(logits.float().cpu().numpy(), tap=False)  # (n+1, B, V)
         aux_np = {k: v.float().cpu().numpy() for k, v in aux.items()}
         self._decode_s += time.perf_counter() - t0
 
@@ -1001,11 +1229,23 @@ class ServingEngine:
                 if self._positions_computed else 0.0
             ),
             "slot_scores": [s.score for s in self.slots],
+            # robustness counters (monotone, always present): shed counts
+            # requests that left without a slot (queue drops and
+            # backpressure rejections); the others count outputs by reason
+            "shed": float(self._n_shed),
+            "expired": float(self._n_expired),
+            "cancelled": float(self._n_cancelled),
+            "failed": float(self._n_failed),
         }
         if self._paged:
             out["preemptions"] = float(self.preemptions)
             out["admission_aborts"] = float(self.admission_aborts)
             out.update(self.pool.page_stats())
+        if self._controller is not None:
+            # steps that decoded degraded (the latency-tier exemption and
+            # MoD-less configs keep this below the controller's count)
+            out["degraded_decode_steps"] = float(self._degraded_decode_steps)
+            out.update(self._controller.stats())
         if self._speculate is not None:
             out["speculative_rounds"] = float(self._spec_rounds)
             # drafted tokens the verifier accepted

@@ -1,10 +1,21 @@
 """Request/response types for the continuous-batching serving engine.
 
-Port of ``repro/serve/request.py`` for the padded engine. A
-:class:`Request` is one generation job: a prompt, a token budget, and
-termination/sampling settings; the engine returns a :class:`RequestOutput`
-with the generated tokens and scheduling telemetry (admission wait, first
-token step, residency).
+Port of ``repro/serve/request.py``. A :class:`Request` is one generation
+job: a prompt, a token budget, and termination/sampling settings; the
+engine returns a :class:`RequestOutput` with the generated tokens and
+scheduling telemetry (admission wait, first token step, residency).
+
+Every submitted request ends in exactly one :class:`RequestOutput`, even
+one that never produced a token. Besides the success reasons (``eos`` /
+``length``) there are three failure reasons: ``FINISH_EXPIRED`` (its
+``deadline_s`` elapsed, while queued or mid-decode), ``FINISH_CANCELLED``
+(:meth:`Request.cancel` or ``ServingEngine.cancel(uid)``) and
+``FINISH_ERROR`` (the engine found a fault on this request, such as
+non-finite logits; ``RequestOutput.error`` says what). ``priority``
+selects the class: ``"latency"`` requests are admitted ahead of
+``"batch"`` ones and always decode at full MoD capacity; ``"batch"``
+requests absorb the capacity ladder's degradation under load
+(:mod:`repro_torch.serve.overload`).
 
 Sampling: temperature 0 is greedy argmax. A request with temperature > 0
 draws token ``i`` from a generator seeded from ``(seed, i)``
@@ -26,6 +37,12 @@ import torch
 FINISH_EOS = "eos"  # sampled the request's eos_id
 FINISH_LENGTH = "length"  # hit max_new_tokens
 FINISH_ERROR = "error"  # engine-detected fault (RequestOutput.error says what)
+FINISH_EXPIRED = "expired"  # deadline_s elapsed (queued or mid-decode)
+FINISH_CANCELLED = "cancelled"  # client cancellation
+
+# Priority classes (Request.priority).
+PRIORITY_LATENCY = "latency"  # admitted first; always full MoD capacity
+PRIORITY_BATCH = "batch"  # absorbs capacity degradation under overload
 
 
 @dataclasses.dataclass
@@ -33,7 +50,11 @@ class Request:
     """tokens: prompt ids (S0,), S0 >= 1; max_new_tokens: decode budget
     (an eos token, if sampled, counts); eos_id: stop token (None = run to
     budget); temperature: 0 = greedy; seed: sampling stream of this
-    request; stream: optional per-token callback ``(uid, token)``."""
+    request; stream: optional per-token callback ``(uid, token)``;
+    priority: ``"latency"`` or ``"batch"`` (default); deadline_s: optional
+    relative deadline in engine-clock seconds, counted from ``submit()``
+    (an expired request ends ``FINISH_EXPIRED``: shed without prefill if
+    still queued, with its partial output if running)."""
 
     tokens: np.ndarray
     max_new_tokens: int
@@ -42,6 +63,9 @@ class Request:
     seed: Optional[int] = None
     stream: Optional[Callable[[int, int], None]] = None
     uid: Optional[int] = None  # assigned by the engine at submit()
+    priority: str = PRIORITY_BATCH
+    deadline_s: Optional[float] = None
+    cancelled: bool = False  # set by cancel(); honoured at the next step
 
     def __post_init__(self):
         self.tokens = np.asarray(self.tokens, np.int64).reshape(-1)
@@ -49,6 +73,18 @@ class Request:
             raise ValueError("prompt must have at least one token")
         if self.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        if self.priority not in (PRIORITY_LATENCY, PRIORITY_BATCH):
+            raise ValueError(
+                f"priority must be {PRIORITY_LATENCY!r} or {PRIORITY_BATCH!r}, "
+                f"got {self.priority!r}"
+            )
+
+    def cancel(self) -> None:
+        """Client cancellation: the engine ends the request with
+        ``FINISH_CANCELLED`` at its next step (a queued request is shed
+        without prefill; a running one releases its pages and returns its
+        partial output). Idempotent; a no-op once the request finished."""
+        self.cancelled = True
 
     @property
     def prompt_len(self) -> int:
@@ -86,7 +122,10 @@ class RequestOutput:
 
     @property
     def ok(self) -> bool:
-        return self.finish_reason in (FINISH_EOS, FINISH_LENGTH)
+        """True iff the request ran to a normal termination: a success
+        reason and no ``error`` (the engine sets one with every failure
+        reason)."""
+        return self.finish_reason in (FINISH_EOS, FINISH_LENGTH) and self.error is None
 
     @property
     def full_sequence(self) -> np.ndarray:

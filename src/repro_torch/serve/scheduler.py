@@ -1,12 +1,20 @@
 """Slot scheduler for the continuous-batching engine (pure host code).
 
 Port of ``repro/serve/scheduler.py`` for the padded, paged, ragged and
-speculative engines (no priority classes yet: they come with overload
-control). The
-engine owns ``B`` slots (one per decode-batch row); at the start of each
-step the scheduler admits queued requests into free slots, oldest first (a
-monotone submission number breaks ties between equal arrivals). A slot
-frees the step its request terminates.
+speculative engines. The engine owns ``B`` slots (one per decode-batch
+row); at the start of each step the scheduler admits queued requests into
+free slots. A slot frees the step its request terminates.
+
+Admission order is ``(priority class, submission number)``: every
+``latency``-tier request is considered before any ``batch``-tier one, and
+within a class the oldest first (the number is assigned once at submit and
+kept across preemption, so a requeued request goes back ahead of every
+same-class request that arrived after it). ``max_queue`` bounds the queue
+(the engine rejects with a reason instead of queueing without bound),
+``batch_cap`` caps the batch-tier admissions of one wave (the capacity
+ladder's degraded budget; latency-tier requests bypass it), and
+:meth:`Scheduler.drop` sheds a queued request straight to finished
+(deadline expiry or cancellation before admission).
 
 Policies: ``"fcfs"`` fills every free slot. ``"mod_aware"`` (default) also
 caps *concurrently prefilling* slots at the MoD router's ``kb`` when
@@ -22,7 +30,7 @@ import dataclasses
 from collections import deque
 from typing import Callable, Deque, List, Optional, Tuple
 
-from repro_torch.serve.request import Request
+from repro_torch.serve.request import PRIORITY_LATENCY, Request
 
 FREE = "free"
 PREFILL = "prefill"  # slot is ingesting prompt tokens through the decode step
@@ -58,7 +66,8 @@ class Scheduler:
 
     def __init__(self, n_slots: int, policy: str = "mod_aware",
                  routed_capacity: Optional[int] = None,
-                 verify_token_budget: Optional[int] = None):
+                 verify_token_budget: Optional[int] = None,
+                 max_queue: Optional[int] = None):
         if policy not in ("fcfs", "mod_aware"):
             raise ValueError(f"unknown scheduling policy {policy!r}")
         self.policy = policy
@@ -67,6 +76,9 @@ class Scheduler:
         # speculative rounds: every active slot spends (speculate+1) verify
         # positions a round; None = uncapped
         self.verify_token_budget = verify_token_budget
+        # bounded backpressure: queue depth at which submission rejects
+        # (None = unbounded)
+        self.max_queue = max_queue
         self.queue: Deque[Request] = deque()
         self.submitted = 0
         self.admitted = 0
@@ -84,23 +96,37 @@ class Scheduler:
             raise ValueError(f"verify_cost must be positive, got {verify_cost}")
         return max(0, self.verify_token_budget // verify_cost - n_active)
 
+    @property
+    def queue_full(self) -> bool:
+        return self.max_queue is not None and len(self.queue) >= self.max_queue
+
     def submit(self, req: Request) -> None:
         req._seq = self._seq  # type: ignore[attr-defined]
         self._seq += 1
         self.queue.append(req)
         self.submitted += 1
 
+    @staticmethod
+    def _plan_key(req: Request) -> Tuple[int, int]:
+        """Admission order: latency class first, then FCFS seniority."""
+        return (0 if req.priority == PRIORITY_LATENCY else 1, getattr(req, "_seq", 0))
+
     def plan_admissions(self, slots: List[Slot], stepped_prefill: bool,
                         page_gate: Optional[Callable[[Request], bool]] = None,
                         max_admissions: Optional[int] = None,
+                        batch_cap: Optional[int] = None,
                         ) -> List[Tuple[Slot, Request]]:
-        """(slot, request) pairs to admit this step, in FCFS order.
+        """(slot, request) pairs to admit this step, latency class first,
+        then oldest first.
 
         ``page_gate`` is the paged pool's admission check (worst-case pages
         obtainable now). A gated request is *skipped, not a barrier*: it
         keeps its place and seniority while smaller requests behind it may
         admit. ``max_admissions`` caps the wave further (the ragged engine
-        budgets admissions by free prefill segments, not free slots)."""
+        budgets admissions by free prefill segments, not free slots).
+        ``batch_cap`` caps only the wave's batch-tier admissions (the
+        capacity controller's degraded budget); latency-tier requests
+        bypass it, and capped batch-tier ones keep their place."""
         free = [s for s in slots if s.state == FREE]
         # a zero routed budget (kb == 0) blocks stepped admission; None
         # (MoD off) disables the cap
@@ -112,11 +138,16 @@ class Scheduler:
             budget = min(budget, max_admissions)
         budget = min(budget, len(free))
         plans: List[Tuple[Slot, Request]] = []
-        for req in sorted(self.queue, key=lambda r: r._seq):  # type: ignore[attr-defined]
+        batch_taken = 0
+        for req in sorted(self.queue, key=self._plan_key):
             if len(plans) >= budget:
                 break
+            batch_tier = req.priority != PRIORITY_LATENCY
+            if batch_tier and batch_cap is not None and batch_taken >= batch_cap:
+                continue
             if page_gate is None or page_gate(req):
                 plans.append((free[len(plans)], req))
+                batch_taken += batch_tier
         taken = {id(r) for _, r in plans}
         self.queue = deque(r for r in self.queue if id(r) not in taken)
         self.admitted += len(plans)
@@ -124,16 +155,33 @@ class Scheduler:
 
     def requeue(self, req: Request) -> None:
         """Preemption / aborted admission: the request goes back to the
-        queue front with its admission unwound, keeping its original
-        ``_seq`` (and so its place ahead of later arrivals)."""
+        queue with its admission unwound, keeping its original ``_seq``:
+        admission sorts by (class, ``_seq``), so it re-enters ahead of every
+        same-class request that arrived after it (a preempted latency-tier
+        request ahead of all queued batch-tier work)."""
         self.queue.appendleft(req)
         # modlint: disable=counter-decrement -- `admitted` is a gauge of
         # currently-admitted requests (the invariant queue + admitted ==
         # submitted depends on it unwinding here), not a lifetime counter
         self.admitted -= 1
 
+    def drop(self, req: Request) -> None:
+        """Shed a queued request straight to finished (deadline expiry or
+        cancellation before admission: no slot, no prefill). It leaves the
+        queue and counts as admitted, because the engine appends its output
+        to ``finished`` at once, so the invariants keep balancing. Removal
+        is by identity (dataclass ``==`` would compare token arrays)."""
+        for i, r in enumerate(self.queue):
+            if r is req:
+                del self.queue[i]
+                break
+        else:
+            raise ValueError(f"request uid={req.uid} is not queued")
+        self.admitted += 1
+
     def check_invariants(self, slots: List[Slot], finished: int) -> None:
-        """Every submitted request is in exactly one place; no slot leaks."""
+        """Every submitted request is in exactly one place (queue, slot or
+        finished, shed requests among the finished); no slot leaks."""
         occupied = sum(1 for s in slots if s.active)
         if len(slots) != self.n_slots:
             raise AssertionError((len(slots), self.n_slots))

@@ -67,6 +67,13 @@ counters record the path by call): the same tolerances hold there, at tile
 edges too, and the K order is fixed, so two calls and a CUDA-graph replay
 give the eager call's bits.
 
+Overload control and faults (phase 13a of ``chip_smoke.py``, imported
+from there): mod-paper-60m in f32 with the same weights on the CPU and the
+card, the adaptive paged + prefix engine's lifecycle run and the seeded
+fault matrix on the paged, ragged and speculative engines (and on
+mod-paper-60m-vanilla) give equal levels, streams, finish reasons, fired
+logs and counters on both devices: exact, greedy streams.
+
 MoE (torch ops, no kernel of its own): ``moe_mlp`` on the card picks the
 CPU's experts, slots and kept set, with f32 outputs within 1e-5 (cuBLAS
 sums the expert products in another order) and equal dropped and no-op
@@ -95,7 +102,8 @@ torch = pytest.importorskip("torch")
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from chip_smoke import (  # noqa: E402
-    RAGGED_EDGE_MODES, check_ragged_edge_case, flash_call, ragged_edge_case, ragged_plan)
+    FAULT_ENGINES_60M, RAGGED_EDGE_MODES, adaptive_lifecycle, check_ragged_edge_case, fault_soak,
+    flash_call, ragged_edge_case, ragged_plan)
 
 from repro_torch import config as TC  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
@@ -1590,3 +1598,35 @@ def test_staged_mode_fused_forward_launches_per_routed_layer(dev):
     assert counts["gather_rows"] == 0 and counts["routed_mlp_scatter"] == 0
     assert counts["flash_attention"] == len(params["groups"])
     assert "moe/lb_loss" in aux and "full/moe/lb_loss" in aux
+
+
+def test_overload_adaptive_lifecycle_card_equals_cpu(dev):
+    """13a (i) on the card: levels, outcomes, counters and the rejection's
+    reason equal the CPU run's, and the launches include the paged gather
+    and scatter and flash."""
+    from chip_smoke import _to
+
+    cfg = TC.with_mod_backend(dataclasses.replace(TC.get_config("mod-paper-60m"),
+                                                  dtype="float32"), "pallas")
+    p_cpu = TAPI.init_model(cfg, device="cpu", seed=3)
+    want = adaptive_lifecycle("cpu", p_cpu, cfg)
+    build.reset_counters()
+    got = adaptive_lifecycle(dev, _to(p_cpu, dev), cfg)
+    assert got == want
+    counts = build.launch_counts()
+    assert all(counts[k] > 0 for k in ("paged_gather", "paged_scatter_rows", "flash_attention",
+                                      "gather_rows", "scatter_add_rows"))
+
+
+@pytest.mark.parametrize("engine", list(FAULT_ENGINES_60M) + ["vanilla"])
+def test_faults_soak_card_equals_cpu(dev, engine):
+    """13a (ii)-(iii) on the card: FaultInjector.seeded(0) gives the CPU's
+    fired log, outcomes and counters, and JAX's contract holds."""
+    from chip_smoke import _to
+
+    name = "mod-paper-60m-vanilla" if engine == "vanilla" else "mod-paper-60m"
+    cfg = TC.with_mod_backend(dataclasses.replace(TC.get_config(name), dtype="float32"), "pallas")
+    p_cpu = TAPI.init_model(cfg, device="cpu", seed=3)
+    kw = {} if engine == "vanilla" else FAULT_ENGINES_60M[engine]
+    assert fault_soak(dev, _to(p_cpu, dev), cfg, 0, kw) == fault_soak("cpu", p_cpu, cfg, 0, kw)
+

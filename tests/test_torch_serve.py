@@ -5,9 +5,9 @@ one every two engine steps into 4 slots: the token streams must be
 identical, with whole-prompt and with chunked prefill. The JAX engine runs
 backend ``xla`` (its ``xla`` and ``pallas`` backends are bitwise equal,
 tests/test_routing_backends.py); the port runs ``pallas``, whose wrappers
-take their plain versions on the CPU. Also: the settings of the engine
-paths the port does not run yet (SPMD, overload) raise, as do invalid
-speculative settings (the quantized path's checks are
+take their plain versions on the CPU. Also: the setting of the engine
+path the port does not run yet (SPMD) raises, as do invalid speculative
+and overload settings (the quantized path's checks are
 in tests/test_torch_quant.py). Sampled tokens are keyed by (seed, token
 index), as JAX keys them by ``fold_in(key, i)``: a re-draw gives the same
 token. The pools' byte counts equal the JAX pools' at ``mod-paper-60m``
@@ -98,12 +98,15 @@ def test_generate_and_sampling_are_per_request():
 @pytest.mark.parametrize(
     "setting",
     [dict(speculate=0, page_size=16), dict(speculate=2), dict(mesh="data"),
-     dict(adaptive_capacity=True), dict(fault_injector=object())],
+     dict(capacity_levels=(1.0, 0.5)), dict(spec_verify_budget=8)],
 )
 def test_later_engine_paths_raise(setting):
-    """The paths not ported yet raise whenever set; the speculative path
-    runs, and raises for its invalid settings (a window under 1, no paged
-    pool)."""
+    """The path not ported yet (``mesh``) raises whenever set; the
+    speculative and overload paths run, and raise for their invalid
+    settings (a window under 1, no paged pool, a ladder or a verify budget
+    without the path that reads it). ``adaptive_capacity`` and
+    ``fault_injector`` build working engines (tests/test_torch_overload.py,
+    tests/test_torch_faults.py)."""
     name = next(iter(setting))
     with pytest.raises(ValueError, match=name):
         EngineConfig(batch_size=2, ctx=16, **setting)

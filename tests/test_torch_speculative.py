@@ -531,10 +531,19 @@ def test_speculative_engine_errors_are_jaxs(case):
 
 
 def test_later_paths_still_raise_beside_speculation():
-    for setting in (dict(mesh="data"), dict(adaptive_capacity=True),
-                    dict(fault_injector=object())):
-        with pytest.raises(ValueError, match=next(iter(setting))):
-            EngineConfig(batch_size=2, ctx=16, page_size=4, speculate=2, **setting)
+    """``mesh`` (not ported) raises beside speculation; the capacity ladder
+    raises JAX's ``NotImplementedError`` at the engine (a round already runs
+    two capacity ratios); a fault injector rides a speculative engine
+    (tests/test_torch_faults.py)."""
+    with pytest.raises(ValueError, match="mesh"):
+        EngineConfig(batch_size=2, ctx=16, page_size=4, speculate=2, mesh="data")
+    jc, jp, tc, tp = model_pair(True)
+    kw = dict(batch_size=2, ctx=16, page_size=4, speculate=2, adaptive_capacity=True)
+    with pytest.raises(NotImplementedError, match="adaptive_capacity") as terr:
+        ServingEngine(tp, tc, EngineConfig(**kw), device="cpu")
+    with pytest.raises(NotImplementedError) as jerr:
+        JServingEngine(jp, jc, engine=JEngineConfig(**kw))
+    assert str(terr.value) == str(jerr.value)
 
 
 def test_cli_flags_build_the_speculative_config():
