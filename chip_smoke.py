@@ -9,6 +9,7 @@
     python3 chip_smoke.py --ssm-losses            # phase 9c's losses per SSD path and SiLU
     python3 chip_smoke.py --moe                   # phase 12 (the MoE family) alone
     python3 chip_smoke.py --overload              # phase 13 (overload and faults) alone
+    python3 chip_smoke.py --configs               # phase 14 (dense configs, hybrid) alone
 
 Imports nothing of JAX or of the JAX package. Builds the port's CUDA
 kernels from ``src/repro_torch/kernels/csrc`` and runs, in order (any
@@ -71,7 +72,7 @@ failure raises and exits non-zero):
    (identical greedy streams; run after phase 3), then ``mod-paper-1b``
    bf16, 8 requests sharing a 512-token prefix, through the contiguous,
    paged, prefix-cached and ragged engines: identical streams, the prefix
-   cache's saving, 36 paged gathers and scatters per decode step, the
+   cache's saving, 3 paged gathers and scatters a full layer per decode step, the
    ragged write-back's launches, and one profiled paged decode step;
 7. quantized paged-KV serving: ``mod-paper-60m`` f32 through the quantized
    paged + prefix and ragged engines (int8/page, fp8/head) and with int8
@@ -81,7 +82,7 @@ failure raises and exits non-zero):
    unquantized pool (at least 1.9x less), tokens equal to the unquantized
    streams, each request's first-token top-1/top-2 gap beside the change
    quantization made to those logits, launches, one profiled decode step
-   (24 dequantizing gathers and 12 plain ones) and the cost of widening
+   (2 dequantizing gathers and 1 plain one a full layer) and the cost of widening
    int8 weights;
 8. the flat ragged forward (``model_forward_ragged``): ``mod-paper-60m``
    f32 on unequal segments, CPU against the card (equal routed masks,
@@ -89,8 +90,8 @@ failure raises and exits non-zero):
    against the padded forward (f32 with the same weights, and bf16), the
    bf16 flat forward routed as the f32 one against it (logits and router
    scores within BF16_FLAT_LOGITS / BF16_FLAT_SCORES), and on 8 unequal
-   segments on T=4096, timed, with 12 ragged gathers and 12 ragged
-   scatters per forward;
+   segments on T=4096, timed, with one ragged gather and one ragged
+   scatter a routed layer per forward;
 9. the Mamba2 family (``mamba2-1.3b``): (a) the SSD intra-chunk kernel
    against its plain version at the training forward's shapes (full
    blocks NC=16, routed blocks NC=2, in the model's strided layout) and two
@@ -100,13 +101,13 @@ failure raises and exits non-zero):
    SASS; the rest on CUDA cores), with times and bound, an A/B of the two
    paths at the full shape in bf16, its gradient at the routed shape and
    its backward's time at the full shape; (b) the port against itself
-   across devices at full width and 4 layers in f32: forward (B=2,
+   across devices at full width and 2 layers in f32: forward (B=2,
    S=256), one Trainer step, 16 decode steps and the stepped engine's
-   streams; (c) training at full width and 24 of the 48 layers (depth cut
+   streams; (c) training at full width and 6 of the 48 layers (depth cut
    for the script's time limit), bf16, B=4, S=2048, remat "full", 5 Trainer
    steps, profiled, with
    the SSD, gather and scatter launches of this phase alone; (d) stepped
-   serving at full width and 12 of the 48 layers (depth cut for the
+   serving at full width and 2 of the 48 layers (depth cut for the
    script's time limit), 8 slots, 16 greedy requests, prompts of 32-128
    tokens, 16 new tokens each;
 10. the op entry point (``repro_torch.kernels.ops``; run after phase 8b,
@@ -153,7 +154,7 @@ failure raises and exits non-zero):
    1e-5, the launches of each backend's kernels; greedy streams of the
    paged engine equal on both devices and in a second card run (the
    deterministic combine); (b) ``olmoe-1b-7b`` bf16 at full width and
-   depth (64 experts top-8, random weights from seed 0) on phase 6c's
+   MOE_SERVE_LAYERS of its 16 layers (64 experts top-8, random weights from seed 0) on phase 6c's
    workload through the paged + prefix, ragged and fused speculative
    engines (``speculate=3``, draft ratio 0.125, the first 16 new tokens):
    streams equal; tok/s, prefill ms a prompt, decode wall and (one
@@ -188,8 +189,42 @@ failure raises and exits non-zero):
    and the streams equal an uncontrolled run's bitwise; (c) the same
    engine under the seeded matrix plus a hold of every page at step 4:
    JAX's fault contract, and a preemption while the pages are held.
+14. the further dense configs and the Zamba2 hybrid (``[configs]`` lines;
+   run after phase 12, before phase 13; each model freed before the next
+   is made): (a) reduced configs that keep what sets each model apart
+   (granite-8b GQA 8/2, granite-20b MQA 48/1, mistral-nemo d_model 160
+   against nq*hd 128, qwen2 group 7 with non-zero q/k/v biases, zamba2 at
+   head dims 32 and 80) in f32, the same weights on the CPU and the card:
+   logits within 1e-4 of their largest, routed masks equal, the card's
+   launches, greedy streams equal on both devices (paged + prefix and
+   ragged engines; the hybrid's stepped engine on both pools); (b) flash
+   attention at head dim 80 (f32 and bf16 prefill S=1000, bf16 S=2048,
+   decode B=8 over 9 chunks and in one) and at granite-20b's and qwen2's
+   decode shapes (B=8 ctx 1056; qwen2's 4-token window), routed_attention
+   and routed_mlp_scatter at mistral-nemo's, qwen2's and granite-20b's
+   widths (k=128 of S=1024), ssd_intra_chunk at zamba2's forward shape:
+   each against its plain version, its plan held, timed (CUDA-graph
+   replay) beside its bound and (flash) SDPA; (c) granite-8b, granite-20b,
+   mistral-nemo-12b and qwen2-7b at full width and depth, bf16, seed 0,
+   backend pallas, on phase 6c's workload through the paged + prefix and
+   ragged engines: streams equal, the prefix cache's saving, tok/s,
+   prefill ms a prompt, decode wall and (a profiled step) busy ms, idle
+   share, peak memory, ``kv_bytes`` and the launches (a step's held to its
+   layers by counter and torch.profiler); (d) zamba2-2.7b at full width
+   and depth, bf16: phase 9d's 16 prompts (35-124 tokens), 32 new tokens, 8
+   slots (policy fcfs), on the contiguous and the paged pool (streams
+   equal, a profiled step's launches held), then one teacher-forced
+   forward at B=1, S=2048 (its loss finite, flash on mma.sync tiles at head
+   dim 80 once per segment, the SSD kernel on tensor cores at d_state 64).
 
-Each phase's wall time is printed on a ``[time]`` line.
+To keep the script inside its 1200 s, depth is cut where an earlier
+phase does not need it: phases 4, 6c-11 and 13 serve ``mod-paper-1b`` at
+full width and SERVE_1B_LAYERS (8) of its 24 layers (phase 5 trains all
+24); phases 6b, 7a, 8a, 11a and 13a hold the CPU against the card on
+``mod-paper-60m`` at PARITY_60M_LAYERS (4) of its 8 (phase 3 keeps all 8);
+12b serves ``olmoe-1b-7b`` at MOE_SERVE_LAYERS (4) of its 16. Phase 14
+runs its models whole. Each phase's wall time is printed on a ``[time]``
+line.
 
 ``--flash-timing [ROOT]`` only times the flash kernel of the port under
 ROOT (default: this checkout) at phase 2's six FLASH_TIMED bf16 shapes
@@ -216,7 +251,7 @@ runs it, with the SSD kernel forced onto its CUDA-core path, as its plain
 version, and on the CUDA-core path with ``F.silu`` in the SSM blocks, and
 prints the four loss trajectories.
 ``--moe`` builds the kernels and runs phase 12 alone; ``--overload``
-phase 13 alone.
+phase 13 alone; ``--configs`` phase 14 alone.
 ``--mlp-losses`` only runs phase 5's training four times, with
 routed_mlp_scatter on the wgmma GEMM, on the CUDA-core GEMM and as its
 plain version, and with routed_attention as its plain version, and prints
@@ -232,6 +267,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -294,6 +330,18 @@ ROUTED_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
               torch.bfloat16: dict(atol=3e-2, rtol=3e-2)}
 
 
+def timed_parts(phase: str, parts) -> list:
+    """Runs each (label, function, *args) of ``parts`` in order and logs
+    their wall seconds on one ``[time]`` line; returns their results."""
+    out, times = [], []
+    for label, fn, *args in parts:
+        t = time.perf_counter()
+        out.append(fn(*args))
+        times.append(f"{phase}{label} {time.perf_counter() - t:.1f}s")
+    log(f"[time] {', '.join(times)}")
+    return out
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -332,12 +380,26 @@ def event_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+_SIDE: list = []
+
+
+def side_stream():
+    """The script's one side stream. cuBLAS keeps a 32 MiB workspace for
+    every stream it has run on for the life of the process: a new stream
+    per call (one of the 32 of PyTorch's pool, in turns) left 1.00 GiB of
+    them allocated by phase 14."""
+    if not _SIDE:
+        _SIDE.append(torch.cuda.Stream())
+    return _SIDE[0]
+
+
 def graph_ms(fn, reps: int = 20, iters: int = 5) -> float:
     """Device time of one call from CUDA events around replays of a CUDA
     graph holding ``reps`` back-to-back calls: no host gap counts, and no
     profiler record can be lost (torch.profiler drops some of this port's
-    kernel records). Raises where the calls cannot be captured."""
-    side = torch.cuda.Stream()
+    kernel records). Raises where the calls cannot be captured. The warm-up
+    runs on one side stream for the whole script (:func:`side_stream`)."""
+    side = side_stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm-up off the default stream, as capture wants
         fn()
@@ -392,29 +454,53 @@ class NoDeviceTime(RuntimeError):
     """torch.profiler recorded no device activity for a profiled call."""
 
 
+def device_spans(prof) -> list:
+    """(name, start µs, end µs) of every device record (kernel, memset,
+    copy, a range's annotation) of a finished torch.profiler ``prof``, read
+    from its raw CUPTI records: ``prof.events()`` builds a Python event for
+    every host op and runtime call as well, seconds of host time for a
+    model step. Names are demangled as ``prof.events()`` gives them."""
+    from torch.autograd import DeviceType
+
+    names: dict = {}
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        name = names.get(e.name())
+        if name is None:
+            name = names[e.name()] = torch._C._demangle(e.name())
+        out.append((name, e.start_ns() / 1e3, e.end_ns() / 1e3))
+    return out
+
+
+def device_records(prof, skip=()) -> list:
+    """(name, µs) of every device record of :func:`device_spans` whose name
+    is not in ``skip`` (a range's device annotation)."""
+    return [(name, end - start) for name, start, end in device_spans(prof) if name not in skip]
+
+
 def profile_call(fn, iters: int = 10, warmup: int = 2, tries: int = 3, top_n: int = 6):
     """(wall ms per call, device-busy ms per call, top kernels) from
     torch.profiler's CUDA activity (CUPTI): device time is the sum of the
     durations of every kernel and copy the calls ran on the card. CUPTI
     now and then hands back no device events for a whole profile; such a
     profile is taken again, up to ``tries`` times."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3 / iters
         by_name: dict = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
+        for name, us in device_records(prof):
+            by_name[name] = by_name.get(name, 0.0) + us / 1e3 / iters
         busy = sum(by_name.values())
         if busy > 0.0:
             top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top_n]
@@ -491,16 +577,15 @@ def device_kernels(fn, tries: int = 10) -> list:
     for one call of ``fn`` after a warm-up. CUPTI now and then hands back no
     device record for a whole profile (:func:`profile_call`); such a
     profile is taken again, up to ``tries`` times."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        names = [name for name, _ in device_records(prof)]
         if names:
             return names
     raise NoDeviceTime(f"torch.profiler recorded no device activity in {tries} profiles")
@@ -773,7 +858,6 @@ def flash_rows(FA, cfg, dev, labels=None, reads=1):
     (its lse within 1e-4 where the call needs a gradient), then the kernel
     (``reads`` readings, the best kept), the plain version and SDPA timed
     by CUDA-graph replay. Yields (label, dtype, row)."""
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     cases, g = flash_cases(cfg, dev)
     for c in cases:
         dtypes = c.dtypes
@@ -781,58 +865,68 @@ def flash_rows(FA, cfg, dev, labels=None, reads=1):
             if c.label not in labels:
                 continue
             dtypes = (torch.bfloat16,)
-        scale = c.hd ** -0.5
         for dtype in dtypes:
-            q = torch.randn(c.B, c.Sq, c.nq, c.hd, generator=g, device=dev).to(dtype)
-            k = torch.randn(c.B, c.Skv, c.nkv, c.hd, generator=g, device=dev).to(dtype)
-            v = torch.randn(c.B, c.Skv, c.nkv, c.hd, generator=g, device=dev).to(dtype)
-            qg, kg, vg = (t.detach().requires_grad_(c.lse) for t in (q, k, v))
-            call = lambda qg=qg, kg=kg, vg=vg, c=c: flash_call(  # noqa: E731
-                FA, qg, kg, vg, c.q_pos, c.kv_pos, c.window)
-            out, lse = call()
-            want, want_l = FA._flash_plain(q, k, v, c.q_pos, c.kv_pos, True, c.window, scale)
-            torch.testing.assert_close(out.detach().float(), want.float(), **TOL[dtype])
-            lse_err = None
-            if c.lse:
-                torch.testing.assert_close(lse, want_l, atol=1e-4, rtol=0.0)
-                lse_err = (lse - want_l).abs().max().item()
-            mask = FA.valid_mask(c.q_pos, c.kv_pos, True, c.window)[:, None]  # (B, 1, Sq, Skv)
-            qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-            if c.nkv != c.nq:
-                kh = kh.repeat_interleave(c.nq // c.nkv, dim=1)
-                vh = vh.repeat_interleave(c.nq // c.nkv, dim=1)
-            nbytes = _flash_bytes(q, k, c.q_pos, c.kv_pos, q.element_size(), c.lse)
-            flops = 4.0 * c.hd * c.nq * int(mask.sum().item())
-            how: dict = {}
-            readings = [replay_ms(call, how, "ms") for _ in range(reads)]
-            r = dict(
-                call_ms=event_ms(call), ms=min(readings), readings=readings,
-                plain_ms=replay_ms(lambda: FA._flash_plain(q, k, v, c.q_pos, c.kv_pos, True,
-                                                           c.window, scale),
-                                   how, "plain_ms", reps=5),
-                library_ms=replay_ms(lambda: sdpa(qh, kh, vh, attn_mask=mask), how, "library_ms"),
-                bound=bound_ms(nbytes, flops, dtype),
-                max_abs_err=(out.detach().float() - want.float()).abs().max().item(),
-                lse_err=lse_err, timed_by=how, call=(c.B, c.Sq, c.Skv, c.nq, c.nkv, c.hd),
-                shape=f"{c.label} {c.nq}x{c.hd} {str(dtype)[6:]}",
-            )
-            del out, want, lse, want_l, call
-            yield c.label, dtype, r
+            yield c.label, dtype, flash_row(FA, c, dtype, g, reads)
+
+
+def flash_row(FA, c: FlashCase, dtype, g, reads=1) -> dict:
+    """One flash case in one dtype on the port of module ``FA``: held to the
+    plain version within TOL (its lse within 1e-4 where the call needs a
+    gradient), then the kernel (``reads`` readings, the best kept), the
+    plain version and SDPA timed by CUDA-graph replay."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    scale = c.hd ** -0.5
+    q = torch.randn(c.B, c.Sq, c.nq, c.hd, generator=g, device=g.device).to(dtype)
+    k = torch.randn(c.B, c.Skv, c.nkv, c.hd, generator=g, device=g.device).to(dtype)
+    v = torch.randn(c.B, c.Skv, c.nkv, c.hd, generator=g, device=g.device).to(dtype)
+    qg, kg, vg = (t.detach().requires_grad_(c.lse) for t in (q, k, v))
+    call = lambda: flash_call(FA, qg, kg, vg, c.q_pos, c.kv_pos, c.window)  # noqa: E731
+    out, lse = call()
+    want, want_l = FA._flash_plain(q, k, v, c.q_pos, c.kv_pos, True, c.window, scale)
+    torch.testing.assert_close(out.detach().float(), want.float(), **TOL[dtype])
+    lse_err = None
+    if c.lse:
+        torch.testing.assert_close(lse, want_l, atol=1e-4, rtol=0.0)
+        lse_err = (lse - want_l).abs().max().item()
+    mask = FA.valid_mask(c.q_pos, c.kv_pos, True, c.window)[:, None]  # (B, 1, Sq, Skv)
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    if c.nkv != c.nq:
+        kh = kh.repeat_interleave(c.nq // c.nkv, dim=1)
+        vh = vh.repeat_interleave(c.nq // c.nkv, dim=1)
+    nbytes = _flash_bytes(q, k, c.q_pos, c.kv_pos, q.element_size(), c.lse)
+    flops = 4.0 * c.hd * c.nq * int(mask.sum().item())
+    how: dict = {}
+    readings = [replay_ms(call, how, "ms") for _ in range(reads)]
+    return dict(
+        call_ms=event_ms(call), ms=min(readings), readings=readings,
+        plain_ms=replay_ms(lambda: FA._flash_plain(q, k, v, c.q_pos, c.kv_pos, True, c.window,
+                                                   scale), how, "plain_ms", reps=5),
+        library_ms=replay_ms(lambda: sdpa(qh, kh, vh, attn_mask=mask), how, "library_ms"),
+        bound=bound_ms(nbytes, flops, dtype),
+        max_abs_err=(out.detach().float() - want.float()).abs().max().item(),
+        lse_err=lse_err, timed_by=how, call=(c.B, c.Sq, c.Skv, c.nq, c.nkv, c.hd),
+        shape=f"{c.label} {c.nq}x{c.hd} {str(dtype)[6:]}",
+    )
+
+
+_SASS: dict = {}
 
 
 def sass_counts(stem: str, kernel: str, opcode: str) -> dict:
     """Instructions of one opcode (HMMA: mma.sync; HGMMA: wgmma) per kernel
     whose name holds ``kernel``, in the SASS of the library built from
     ``csrc/<stem>.cu`` (``cuobjdump -sass``)."""
-    import os
     import shutil
 
     from repro_torch.kernels import build
 
-    tool = shutil.which("cuobjdump") or str(
-        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(build.build_all()[stem]["path"])],
-                          capture_output=True, text=True, check=True, timeout=300).stdout
+    path = str(build.build_all()[stem]["path"])
+    if path not in _SASS:  # one disassembly a library
+        tool = shutil.which("cuobjdump") or str(
+            Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
+        _SASS[path] = subprocess.run([tool, "-sass", path], capture_output=True, text=True,
+                                     check=True, timeout=300).stdout
+    sass = _SASS[path]
     counts: dict = {}
     name = None
     for line in sass.splitlines():
@@ -867,7 +961,10 @@ def check_flash_invariance(FA, dev) -> None:
     g = torch.Generator(device=dev).manual_seed(5)
     cases = (("wgmma", 2, 300, 300, 14, 14, 128), ("wgmma gqa hd=64", 2, 77, 333, 8, 2, 64),
              ("mma_sync hd=256", 2, 77, 333, 8, 2, 256), ("decode 1 chunk", 3, 1, 128, 14, 14, 128),
-             ("decode 9 chunks", 3, 1, 1056, 14, 14, 128), ("decode gqa", 3, 2, 100, 14, 2, 128))
+             ("decode 9 chunks", 3, 1, 1056, 14, 14, 128), ("decode gqa", 3, 2, 100, 14, 2, 128),
+             ("mma_sync hd=80", 2, 77, 333, 8, 2, 80),
+             ("decode hd=80 1 chunk", 3, 1, 128, 8, 8, 80),
+             ("decode hd=80 9 chunks", 3, 1, 1056, 8, 8, 80))
     for label, B, Sq, Skv, nq, nkv, hd in cases:
         q = torch.randn(B, Sq, nq, hd, generator=g, device=dev).to(torch.bfloat16)
         k = torch.randn(B, Skv, nkv, hd, generator=g, device=dev).to(torch.bfloat16)
@@ -901,8 +998,8 @@ def check_flash(cfg, dev, results):
     from repro_torch.kernels import flash_attention as FA
 
     check_sass("flash_attention", "flash_fwd_wg_kernel", "HGMMA", 2)  # head dims 64, 128
-    check_sass("flash_attention", "flash_fwd_tc_kernel", "HMMA", 2)  # head dims 32, 256
-    check_sass("flash_attention", "flash_fwd_decode_kernel", "HMMA", 4)  # every head dim
+    check_sass("flash_attention", "flash_fwd_tc_kernel", "HMMA", 3)  # head dims 32, 80, 256
+    check_sass("flash_attention", "flash_fwd_decode_kernel", "HMMA", 5)  # every head dim
     for label, dtype, r in flash_rows(FA, cfg, dev):
         plan = FA.flash_plan(*r["call"], dtype)
         r["path"], r["kernels"] = plan.path, plan.kernels
@@ -1233,6 +1330,34 @@ def check_fused(cfg, dev, results):
 # chunk 256. Phase 2 checks and times the paged kernels at the shapes this
 # workload gives them.
 PAGED_1B = dict(B=8, gen=32, prefix=512, max_suffix=448, page=16, chunk=256)
+# phases 4, 6c-11 and 13 serve mod-paper-1b at full width and this many of
+# its 24 layers, to keep the script inside its 1200 s (phase 5 trains all
+# 24 against its recorded losses; phase 14 serves its models whole)
+SERVE_1B_LAYERS = 8
+
+
+# phases 6b, 7a, 8a, 11a and 13a hold the CPU against the card on
+# mod-paper-60m in f32 at full width and this many of its 8 layers (the
+# CPU half runs the whole model on the host; phase 3 keeps all 8)
+PARITY_60M_LAYERS = 4
+
+
+def parity_60m_config():
+    """mod-paper-60m as phases 6b-13a compare it across devices: f32,
+    backend pallas, PARITY_60M_LAYERS of its layers."""
+    from repro_torch.config import get_config, with_mod_backend
+
+    return with_mod_backend(dataclasses.replace(get_config("mod-paper-60m"), dtype="float32",
+                                                n_layers=PARITY_60M_LAYERS), "pallas")
+
+
+def serve_1b_config():
+    """mod-paper-1b as phases 4, 6c-11 and 13 serve it: backend pallas,
+    SERVE_1B_LAYERS of its layers."""
+    from repro_torch.config import get_config, with_mod_backend
+
+    return with_mod_backend(dataclasses.replace(get_config("mod-paper-1b"),
+                                                n_layers=SERVE_1B_LAYERS), "pallas")
 
 
 def paged_1b_plan():
@@ -1641,7 +1766,7 @@ def check_dequant(cfg, dev, results):
 # then 8 unequal ones packed on the same T=4096 stream (45 padded rows)
 # The bf16 flat forward of mod-paper-1b against the f32 one on the same
 # routed rows, as fractions of the largest f32 value: bf16 rounding alone,
-# carried through 24 layers. Twice the readings on an H100 (logits 0.060,
+# carried through the layers. Twice the 24-layer readings on an H100 (logits 0.060,
 # router scores 0.079; PERF.md); a dropped routed row or attention across
 # segments moves both by more than half their scale.
 BF16_FLAT_LOGITS = 0.12
@@ -2018,14 +2143,13 @@ def log_flash_calls(run: str, calls: dict) -> None:
 
 
 def serve_1b(dev):
-    from repro_torch.config import get_config, with_mod_backend
     from repro_torch.core.routing import batch_capacity_k
     from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.kernels import build
     from repro_torch.models import api
     from repro_torch.serve import EngineConfig, Request, ServingEngine
 
-    cfg = with_mod_backend(get_config("mod-paper-1b"), "pallas")
+    cfg = serve_1b_config()
     t0 = time.perf_counter()
     params = api.init_model(cfg, device=dev, seed=0)
     torch.cuda.synchronize()
@@ -2176,19 +2300,17 @@ def train_1b(dev):
         log(f"[train] {cfg.name}: {cfg.n_params() / 1e9:.2f}B params in {cfg.dtype}, backend "
             f"{cfg.mod.backend}, B={B} S={S} (k={cfg.mod.capacity(S)} routed rows per sequence), "
             f"init {time.perf_counter() - t0:.1f}s")
-        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
         torch.cuda.reset_peak_memory_stats()
         build.reset_counters()
         losses, busies = [], []
         for i in range(steps):
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 state, m = trainer.run(state, 1)
             by_name: dict = {}
-            for e in prof.events():
-                if e.device_type == DeviceType.CUDA:
-                    by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            for kname, us in device_records(prof):
+                by_name[kname] = by_name.get(kname, 0.0) + us / 1e3
             busy = sum(by_name.values())
             wall = 1e3 * trainer.heartbeats[-1][1]
             groups: dict = {}
@@ -2401,13 +2523,11 @@ def paged_parity(dev):
     prefix cache (page 16, chunk 64) and the ragged engine must give the
     same greedy streams on both devices. 6 requests into 4 slots, a shared
     128-token prefix, suffixes of 16-100 tokens, 16 new tokens each."""
-    from repro_torch.config import get_config, with_mod_backend
     from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.models import api
     from repro_torch.serve import EngineConfig, Request, ServingEngine
 
-    cfg = with_mod_backend(dataclasses.replace(get_config("mod-paper-60m"), dtype="float32"),
-                           "pallas")
+    cfg = parity_60m_config()
     p_cpu = api.init_model(cfg, device="cpu", seed=3)
     p_gpu = _to(p_cpu, dev)
     toks = SyntheticLM(cfg.vocab, 228, seed=17).batch(0, 6)["tokens"]
@@ -2438,16 +2558,14 @@ def serve_paged_1b(dev, params):
     through four engines: contiguous, paged, paged with the prefix cache,
     and ragged (segments = every prompt chunk, so all prompts drain in the
     first step). Streams must be identical; launches are counted per run."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.config import get_config, with_mod_backend
     from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.kernels import build
     from repro_torch.serve import EngineConfig, Request, ServingEngine
     from repro_torch.serve.scheduler import GENERATE
 
-    cfg = with_mod_backend(get_config("mod-paper-1b"), "pallas")
+    cfg = serve_1b_config()
     w = PAGED_1B
     B, gen, pre, page, C = w["B"], w["gen"], w["prefix"], w["page"], w["chunk"]
     suffix, ctx, n_chunks = paged_1b_plan()
@@ -2481,15 +2599,14 @@ def serve_paged_1b(dev, params):
                 # one paged decode step, all 8 slots generating (the next
                 # one where CUPTI hands back no device events)
                 at = eng.step_count
-                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
                     t0 = time.perf_counter()
                     eng.step()
                     torch.cuda.synchronize()
                     wall = 1e3 * (time.perf_counter() - t0)
                 by_name: dict = {}
-                for e in prof.events():
-                    if e.device_type == DeviceType.CUDA:
-                        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+                for kname, us in device_records(prof):
+                    by_name[kname] = by_name.get(kname, 0.0) + us / 1e3
                 busy = sum(by_name.values())
                 if busy <= 0.0:
                     continue
@@ -2586,14 +2703,12 @@ def quant_parity(dev):
     KV, and the paged + prefix engine serving int8 weights. Streams and
     kv_bytes must be identical on the two devices: the card's int8/e4m3
     casts, pow2 scales and dequantizing gather against the CPU's."""
-    from repro_torch.config import get_config, with_mod_backend
     from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.models import api
     from repro_torch.serve import EngineConfig, Request, ServingEngine
     from repro_torch.serve.quant import QuantConfig
 
-    cfg = with_mod_backend(dataclasses.replace(get_config("mod-paper-60m"), dtype="float32"),
-                           "pallas")
+    cfg = parity_60m_config()
     p_cpu = api.init_model(cfg, device="cpu", seed=3)
     p_gpu = _to(p_cpu, dev)
     toks = SyntheticLM(cfg.vocab, 228, seed=17).batch(0, 6)["tokens"]
@@ -2636,10 +2751,8 @@ def serve_quant_1b(dev, params, base_streams, base_stats, base_first):
     logits' top-1/top-2 gap (``base_first``: phase 6c's paged run) beside
     the largest change that quantization made to those logits: a token
     flips only where the change reaches half the gap."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.config import get_config, with_mod_backend
     from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.kernels import build
     from repro_torch.serve import EngineConfig, Request, ServingEngine
@@ -2647,7 +2760,7 @@ def serve_quant_1b(dev, params, base_streams, base_stats, base_first):
     from repro_torch.serve.scheduler import GENERATE
     from repro_torch.utils import tree_leaves
 
-    cfg = with_mod_backend(get_config("mod-paper-1b"), "pallas")
+    cfg = serve_1b_config()
     w = PAGED_1B
     B, gen, pre, page, C = w["B"], w["gen"], w["prefix"], w["page"], w["chunk"]
     suffix, ctx, n_chunks = paged_1b_plan()
@@ -2674,16 +2787,15 @@ def serve_quant_1b(dev, params, base_streams, base_stats, base_first):
                 snaps[name] = snapshot_pool(eng)
             if name == "prefix int8/page" and 5 <= eng.step_count < 8 and not prof_line:
                 at, before = eng.step_count, build.launch_counts()
-                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
                     t0 = time.perf_counter()
                     eng.step()
                     torch.cuda.synchronize()
                     wall = 1e3 * (time.perf_counter() - t0)
                 after = build.launch_counts()
                 by_name: dict = {}
-                for e in prof.events():
-                    if e.device_type == DeviceType.CUDA:
-                        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+                for kname, us in device_records(prof):
+                    by_name[kname] = by_name.get(kname, 0.0) + us / 1e3
                 busy = sum(by_name.values())
                 if busy <= 0.0:
                     continue
@@ -2791,11 +2903,9 @@ def ragged_forward_parity(dev):
     """(a) mod-paper-60m in f32, the same weights on the CPU and the card:
     model_forward_ragged on 5 unequal segments (and a padded tail). Routed
     masks equal in every MoD layer; logits within 1e-4."""
-    from repro_torch.config import get_config, with_mod_backend
     from repro_torch.models import api
 
-    cfg = with_mod_backend(dataclasses.replace(get_config("mod-paper-60m"), dtype="float32"),
-                           "pallas")
+    cfg = parity_60m_config()
     p_cpu = api.init_model(cfg, device="cpu", seed=4)
     p_gpu = _to(p_cpu, dev)
     lens = (97, 256, 13, 180, 64)
@@ -2927,12 +3037,11 @@ def forward_ragged_1b(dev, params):
     (:func:`flat_bf16_vs_f32`): logits within BF16_FLAT_LOGITS and router
     scores within BF16_FLAT_SCORES of their largest, and each layer's own
     bf16 selection within its score difference of the f32 one."""
-    from repro_torch.config import get_config, with_mod_backend
     from repro_torch.kernels import build
     from repro_torch.models import api
     from repro_torch.utils import tree_map
 
-    cfg = with_mod_backend(get_config("mod-paper-1b"), "pallas")
+    cfg = serve_1b_config()
     T, cap = RAGGED_1B["T"], RAGGED_1B["seg_cap"]
     n_mod = sum(1 for grp in params["groups"] if "mod" in grp)
     g = torch.Generator(device=dev).manual_seed(11)
@@ -3178,7 +3287,8 @@ def check_ssd(dev, results):
 
 
 def ssm_parity(dev):
-    """9b: mamba2-1.3b at full width and 4 layers (2 groups), f32, the same
+    """9b: mamba2-1.3b at full width and 2 layers (one group; 4 until phase
+    14 needed the room), f32, the same
     weights on the CPU (plain versions) and the card (kernels): a forward
     on B=2, S=256 (logits within 1e-3 of their largest, phase 3's limit;
     loss within 1e-5; routed masks equal), one Trainer step (phase 3's
@@ -3192,7 +3302,7 @@ def ssm_parity(dev):
     from repro_torch.train import Trainer, make_train_state
     from repro_torch.utils import tree_leaves, tree_map
 
-    cfg = dataclasses.replace(get_config("mamba2-1.3b"), dtype="float32", n_layers=4)
+    cfg = dataclasses.replace(get_config("mamba2-1.3b"), dtype="float32", n_layers=2)
     cpu = torch.device("cpu")
     p_cpu = api.init_model(cfg, device=cpu, seed=3)
     p_gpu = tree_map(lambda t: t.to(dev, copy=True), p_cpu)
@@ -3210,7 +3320,7 @@ def ssm_parity(dev):
     dl = abs(loss_c - loss_g) / abs(loss_c)
     same = len(mc) == len(mg) == 2 * len(p_cpu["groups"]) and all(
         torch.equal(a, b) for a, b in zip(mc, mg))
-    log(f"[ssm] 4-layer full-width f32 forward B={B} S={S}: max|dlogit| {diff:.3g} (limit "
+    log(f"[ssm] {cfg.n_layers}-layer full-width f32 forward B={B} S={S}: max|dlogit| {diff:.3g} (limit "
         f"{lim:.3g}), loss cpu {loss_c:.7f} gpu {loss_g:.7f} (rel {dl:.3g}); routed masks "
         f"identical in {len(mc)} decisions: {same}")
     if not (diff <= lim and dl <= 1e-5 and same):
@@ -3302,10 +3412,11 @@ def ssd_launch_shapes():
         KSSD._launch = real
 
 
-# phase 9c's run: mamba2-1.3b at full width, 24 of its 48 layers (the
+# phase 9c's run: mamba2-1.3b at full width, 6 of its 48 layers (the
 # whole depth took 95-116 s of the script's 1200 s on an H100 (700 W), most
-# of it torch.profiler's records, and phase 13 needed the room)
-TRAIN_SSM = dict(B=4, S=2048, steps=5, layers=24)
+# of it torch.profiler's records; 24 layers since phase 13 needed the room,
+# 6 since phase 14 did: 24 took 54.0-62.6 s)
+TRAIN_SSM = dict(B=4, S=2048, steps=5, layers=6)
 
 
 def trainer_ssm(dev, ckdir):
@@ -3332,7 +3443,6 @@ def trainer_ssm(dev, ckdir):
 def train_ssm(dev):
     """9c: phase 9c's trainer (:func:`trainer_ssm`), B=4, S=2048, 5 Trainer
     steps, each profiled."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import build
@@ -3358,9 +3468,8 @@ def train_ssm(dev):
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
                     state, m = trainer.run(state, 1)
                 by_name: dict = {}
-                for e in prof.events():
-                    if e.device_type == DeviceType.CUDA:
-                        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+                for kname, us in device_records(prof):
+                    by_name[kname] = by_name.get(kname, 0.0) + us / 1e3
                 busy = sum(by_name.values())
                 wall = 1e3 * trainer.heartbeats[-1][1]
                 groups: dict = {}
@@ -3410,8 +3519,10 @@ def train_ssm(dev):
 
 # 9d serves mamba2-1.3b at full width, SSM_SERVE_LAYERS of its 48 layers:
 # stepped ingestion takes one engine step a prompt token, and the whole
-# depth took 288 s of the script's 1200 s limit on an H100 (700 W)
-SSM_SERVE_LAYERS = 12
+# depth took 288 s of the script's 1200 s limit on an H100 (700 W); 2 since
+# phase 14 (whose 14d serves an SSM family stepped at full depth) needed
+# the room: 12 layers took 60.9 s, 6 33.9-36.4 s
+SSM_SERVE_LAYERS = 2
 
 
 def serve_ssm(dev):
@@ -3941,13 +4052,11 @@ def speculative_parity(dev):
     verify) and 0.125 (the model's ratio: one fused chain) on the CPU (plain
     versions) and the card (kernels). Streams must be identical across the
     devices and equal to the card's non-speculative paged engine's."""
-    from repro_torch.config import get_config, with_mod_backend
     from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.models import api
     from repro_torch.serve import EngineConfig, Request, ServingEngine
 
-    cfg = with_mod_backend(dataclasses.replace(get_config("mod-paper-60m"), dtype="float32"),
-                           "pallas")
+    cfg = parity_60m_config()
     p_cpu = api.init_model(cfg, device="cpu", seed=3)
     p_gpu = _to(p_cpu, dev)
     toks = SyntheticLM(cfg.vocab, 228, seed=17).batch(0, 4)["tokens"]
@@ -3997,17 +4106,15 @@ def serve_spec_1b(dev, params, base_streams, base_stats, quant_streams):
     round's device records hold no other kernel of ``csrc``
     (torch.profiler). Returns the launch counts of each run (prefills
     included) and of a round with every slot generating."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.config import get_config, with_mod_backend
     from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.kernels import build
     from repro_torch.serve import EngineConfig, Request, ServingEngine
     from repro_torch.serve.quant import QuantConfig
     from repro_torch.serve.scheduler import GENERATE
 
-    cfg = with_mod_backend(get_config("mod-paper-1b"), "pallas")
+    cfg = serve_1b_config()
     w = PAGED_1B
     B, pre, page, C = w["B"], w["prefix"], w["page"], w["chunk"]
     suffix, ctx, n_chunks = paged_1b_plan()
@@ -4038,7 +4145,7 @@ def serve_spec_1b(dev, params, base_streams, base_stats, quant_streams):
             rounds, at, before = eng._spec_rounds, eng.step_count, build.launch_counts()
             all_gen = not eng.scheduler.queue and all(s.state == GENERATE for s in eng.slots)
             profiling = prof is None and all_gen
-            with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profiling
+            with (profile(activities=[ProfilerActivity.CUDA]) if profiling
                   else contextlib.nullcontext()) as pr_:
                 t0 = time.perf_counter()
                 eng.step()
@@ -4056,10 +4163,10 @@ def serve_spec_1b(dev, params, base_streams, base_stats, quant_streams):
             if full_round is None:
                 full_round = delta
             if profiling:
-                events = [e for e in pr_.events() if e.device_type == DeviceType.CUDA]
-                busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
+                events = device_records(pr_)
+                busy = sum(us for _, us in events) / 1e3
                 if busy > 0.0:
-                    ours = {port_kernel_of(e.name, kernels) for e in events} - {None}
+                    ours = {port_kernel_of(name, kernels) for name, _ in events} - {None}
                     if ours - allowed:
                         raise AssertionError(f"1b speculative {name}: the profiled round ran "
                                              f"{sorted(ours - allowed)} of csrc")
@@ -4130,6 +4237,9 @@ MOE_SMOKE = ("olmoe-1b-7b", "phi3.5-moe-imode")  # 12a: staged and integrated Mo
 MOE_TOL = dict(atol=1e-5, rtol=1e-5)  # 12a: f32 logits, CPU against the card
 # 12c: phi3.5-moe-imode at full width, 4 of its 32 layers; a padded prefill
 # of 4 prompts, then 16 decode steps
+# 12b serves olmoe-1b-7b at full width and this many of its 16 layers (the
+# script's 1200 s)
+MOE_SERVE_LAYERS = 4
 MOE_IMODE = dict(layers=4, prompts=(256, 200, 144, 96), decode=16)
 # 12d: olmoe-1b-7b at full width, 4 of its 16 layers (2 full, 2 routed)
 MOE_TRAIN = dict(layers=4, B=2, S=2048, steps=3)
@@ -4166,38 +4276,39 @@ def moe_mean(seen, key: str, prefill: bool) -> float:
     return float(torch.stack(vals).mean()) if vals else float("nan")
 
 
-def profiled_step(eng):
+def profiled_step(eng, moe: bool = False):
     """One engine step under torch.profiler: (wall ms, device-busy ms, the
     port's ``__global__`` functions among its device records, the launch
     counters' change, the number of device records, the device ms inside
-    ``moe_mlp`` ranges (:func:`moe_range_ms`), the number of the port's
-    records by source file, device ms by :func:`_kernel_group`)."""
-    from torch.autograd import DeviceType
+    ``moe_mlp`` ranges (:func:`moe_range_ms`; with ``moe`` only, which
+    records host ops too, else None), the number of the port's records by
+    source file, device ms by :func:`_kernel_group`)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import build
 
     before = build.launch_counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if moe else [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         eng.step()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
     delta = {k: v - before[k] for k, v in build.launch_counts().items() if v != before[k]}
-    events = [e for e in prof.events()
-              if e.device_type == DeviceType.CUDA and e.name != "moe_mlp"]
-    busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    events = device_records(prof, skip=("moe_mlp",))
+    busy = sum(us for _, us in events) / 1e3
     kernels = csrc_kernels()
-    ours = {port_kernel_of(e.name, kernels) for e in events} - {None}
+    ours = {port_kernel_of(name, kernels) for name, _ in events} - {None}
     by_file: dict = {}
     groups: dict = {}
-    for e in events:
-        k = port_kernel_of(e.name, kernels)
+    for name, us in events:
+        k = port_kernel_of(name, kernels)
         if k is not None:
             by_file[kernels[k]] = by_file.get(kernels[k], 0) + 1
-        g = _kernel_group(e.name)
-        groups[g] = groups.get(g, 0.0) + e.time_range.elapsed_us() / 1e3
-    return wall, busy, ours, delta, len(events), moe_range_ms(prof), by_file, groups
+        g = _kernel_group(name)
+        groups[g] = groups.get(g, 0.0) + us / 1e3
+    return (wall, busy, ours, delta, len(events), moe_range_ms(prof) if moe else None, by_file,
+            groups)
 
 
 def check_profiled_kernels(tag: str, ours: set, delta: dict) -> None:
@@ -4297,7 +4408,7 @@ def moe_parity(dev):
 
 def serve_moe_1b(dev):
     """(b) olmoe-1b-7b (staged MoDE, 64 experts top-8) at full width and
-    depth, bf16, random weights from seed 0, backend pallas, on PAGED_1B's
+    MOE_SERVE_LAYERS of its 16 layers, bf16, random weights from seed 0, backend pallas, on PAGED_1B's
     workload: the paged + prefix engine, the ragged engine and the fused
     speculative engine (speculate=SPEC_N at draft ratio 0.125, the model's
     own, SPEC_GEN new tokens). Streams equal the paged + prefix engine's.
@@ -4315,7 +4426,8 @@ def serve_moe_1b(dev):
     from repro_torch.serve.scheduler import GENERATE
     from repro_torch.utils import tree_leaves
 
-    cfg = with_mod_backend(get_config("olmoe-1b-7b"), "pallas")
+    cfg = with_mod_backend(dataclasses.replace(get_config("olmoe-1b-7b"),
+                                               n_layers=MOE_SERVE_LAYERS), "pallas")
     t0 = time.perf_counter()
     params = api.init_model(cfg, device=dev, seed=0)
     torch.cuda.synchronize()
@@ -4362,7 +4474,7 @@ def serve_moe_1b(dev):
             while eng.has_work:
                 all_gen = not eng.scheduler.queue and all(s.state == GENERATE for s in eng.slots)
                 if prof is None and all_gen and eng.step_count >= 2:
-                    wall, busy, ours, delta, n_ev, moe_ms, _, _ = profiled_step(eng)
+                    wall, busy, ours, delta, n_ev, moe_ms, _, _ = profiled_step(eng, moe=True)
                     if delta != wants[name]:
                         raise AssertionError(f"12b {name}: a step with every slot generating "
                                              f"launched {delta}, want {wants[name]}")
@@ -4442,7 +4554,7 @@ def serve_imode(dev):
         while eng.has_work:
             if prof is None and eng.step_count >= 2 and all(s.state == GENERATE
                                                               for s in eng.slots):
-                wall, busy, ours, delta, n_ev, moe_ms, _, _ = profiled_step(eng)
+                wall, busy, ours, delta, n_ev, moe_ms, _, _ = profiled_step(eng, moe=True)
                 if delta != {"flash_attention": cfg.n_layers}:
                     raise AssertionError(f"12c: a decode step launched {delta}, want "
                                          f"{cfg.n_layers} flash_attention")
@@ -4480,23 +4592,19 @@ def serve_imode(dev):
 
 
 def moe_range_ms(prof) -> dict:
-    """Device ms of the kernels launched inside the ``moe_mlp`` ranges of a
-    profile (the forward and its recompute; the backward runs on autograd's
-    thread, outside them), split into GEMMs and the rest."""
-    from torch.autograd import DeviceType
-
+    """Device ms of the kernels inside the ``moe_mlp`` ranges of a profile
+    taken with host activity (the forward and its recompute; the backward
+    runs on autograd's thread, outside them), split into GEMMs and the
+    rest. A range's device annotation spans the kernels launched inside it
+    on the card (one stream: in order), so a kernel counts where it lies
+    within one."""
+    spans = device_spans(prof)
+    ranges = [(start, end) for name, start, end in spans if name == "moe_mlp"]
     out = {"gemm": 0.0, "other": 0.0}
-
-    def walk(ev):
-        for k in ev.kernels:
-            grp = "gemm" if _kernel_group(k.name) == "library GEMM (cuBLAS)" else "other"
-            out[grp] += k.duration / 1e3
-        for ch in ev.cpu_children:
-            walk(ch)
-
-    for e in prof.events():
-        if e.name == "moe_mlp" and e.device_type == DeviceType.CPU:
-            walk(e)
+    for name, start, end in spans:
+        if name != "moe_mlp" and any(a <= start and end <= b for a, b in ranges):
+            grp = "gemm" if _kernel_group(name) == "library GEMM (cuBLAS)" else "other"
+            out[grp] += (end - start) / 1e3
     return out
 
 
@@ -4506,7 +4614,6 @@ def train_moe(dev):
     on one card), pallas_fused, B=2, S=2048, 3 steps from seed 0 (lr 1e-4
     after 2 warmup steps): finite losses; per step the busy ms by kernel
     group, of which the MoE's own forward ops, and the launches."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.checkpoint import CheckpointManager
@@ -4543,9 +4650,8 @@ def train_moe(dev):
                 with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                     state, mt = trainer.run(state, 1)
                 by_name: dict = {}
-                for e in prof.events():
-                    if e.device_type == DeviceType.CUDA and e.name != "moe_mlp":
-                        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+                for kname, us in device_records(prof, skip=("moe_mlp",)):
+                    by_name[kname] = by_name.get(kname, 0.0) + us / 1e3
                 busy = sum(by_name.values())
                 groups: dict = {}
                 for n, t in by_name.items():
@@ -4585,12 +4691,613 @@ def train_moe(dev):
 
 def moe_phase(dev) -> dict:
     """Phase 12 in order; the launch counts by path."""
-    moe_parity(dev)
-    serve = serve_moe_1b(dev)
-    imode = serve_imode(dev)
-    train = train_moe(dev)
+    serve, imode, train = timed_parts("12", (("a", moe_parity, dev), ("b", serve_moe_1b, dev),
+                                             ("c", serve_imode, dev), ("d", train_moe, dev)))[1:]
     return {"moe_serve": serve["paged+prefix"], "moe_serve_ragged": serve["ragged"],
             "moe_spec": serve["speculative fused"], "moe_imode": imode, "moe_train": train}
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the further dense configs and the Zamba2 hybrid
+# ---------------------------------------------------------------------------
+
+CONFIGS_DENSE = ("granite-8b", "granite-20b", "mistral-nemo-12b", "qwen2-7b")
+CONFIGS_HYBRID = "zamba2-2.7b"
+# 14a: each config's smoke size with what sets it apart kept (the CPU tests'
+# reduced configs): GQA with a group of 4, MQA with 48 query heads, d_model
+# 160 against nq*hd 128, a group of 7 with non-zero q/k/v biases, and the
+# hybrid at the smoke head dim and at its own 80; f32, CPU against the card
+CONFIGS_REDUCED = {
+    "granite-8b": ("granite-8b", dict(n_heads=8, n_kv_heads=2)),
+    "granite-20b": ("granite-20b", dict(n_heads=48, n_kv_heads=1)),
+    "mistral-nemo-12b": ("mistral-nemo-12b", dict(n_heads=4, n_kv_heads=2, d_model=160)),
+    "qwen2-7b": ("qwen2-7b", dict(n_heads=14, n_kv_heads=2)),
+    "zamba2-2.7b hd32": ("zamba2-2.7b", {}),
+    "zamba2-2.7b hd80": ("zamba2-2.7b", dict(head_dim=80)),
+}
+CONFIGS_TOL = 1e-4  # 14a: f32 logits, CPU against the card, of the largest |value|
+# 14b: the kernels at the shapes the new configs give them
+CONFIGS_ROUTED = {  # (D, nq, nkv, d_ff, biases), k = 128 routed rows of S = 1024
+    "mistral-nemo-12b": (5120, 32, 8, 14336, False),
+    "qwen2-7b": (3584, 28, 4, 18944, True),
+    "granite-20b": (6144, 48, 1, 24576, False),
+}
+ZAMBA2_SSD = (1, 80, 16, 128, 64, 64)  # B, H, NC, Q, hd, ds of the forward at S = 2048
+# 14d: zamba2-2.7b at full width and depth: phase 9d's prompts (16 of
+# 32-128 drawn tokens: 35-124), 8 slots, 32 new tokens, on the contiguous
+# and the paged pool; the fcfs policy admits every free slot (mod_aware
+# admits round(0.125 * 8) = 1 stepped prompt at a time: ~1400 steps of the
+# whole model where fcfs takes ~300); then one teacher-forced forward
+HYBRID_SERVE = dict(B=8, requests=16, lo=32, hi=128, gen=32, page=16)
+HYBRID_FWD = dict(B=1, S=2048)
+
+
+def release_device_memory(dev) -> None:
+    """What the allocator holds and no tensor uses goes back to the card,
+    cuBLAS's per-stream workspaces included (as PyTorch's own leak check
+    releases them); 14c and 14d's models need 15-56 GB each."""
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    if hasattr(torch._C, "_cuda_clearCublasWorkspaces"):
+        torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+
+
+def configs_reduced(label: str):
+    """The port's config of a CONFIGS_REDUCED entry, f32, backend pallas."""
+    from repro_torch.config import get_config, smoke_config, with_mod_backend
+
+    arch, kw = CONFIGS_REDUCED[label]
+    kw = dict(kw)
+    cfg = smoke_config(get_config(arch))
+    d_model = kw.pop("d_model", cfg.d_model)
+    return with_mod_backend(dataclasses.replace(
+        cfg, dtype="float32", d_model=d_model, attn=dataclasses.replace(cfg.attn, **kw)), "pallas")
+
+
+def draw_biases(tree, g) -> None:
+    """Every attention block's q/k/v biases drawn non-zero, in place (the
+    model's init zeroes them)."""
+    if isinstance(tree, dict):
+        for key, v in tree.items():
+            if key in ("bq", "bk", "bv"):
+                v.copy_(0.5 * torch.randn(v.shape, generator=g))
+            else:
+                draw_biases(v, g)
+    elif isinstance(tree, list):
+        for v in tree:
+            draw_biases(v, g)
+
+
+def distinct_prompts(vocab: int, n: int, prefix: int, lo: int, hi: int, seed: int):
+    """n prompts of a shared ``prefix`` and lo..hi more tokens, no token
+    twice in a prompt (a repeated token can tie a routed layer's top-k
+    within an ulp)."""
+    rng = np.random.default_rng(seed)
+    pool = rng.permutation(vocab)
+    shared, rest = pool[:prefix], pool[prefix:]
+    return [np.concatenate([shared, rng.choice(rest, int(m), replace=False)]).astype(np.int32)
+            for m in rng.integers(lo, hi + 1, n)]
+
+
+def configs_parity(dev):
+    """14a: CONFIGS_REDUCED in f32, the same weights on the CPU (plain
+    versions) and on the card (kernels): the forward's logits within
+    CONFIGS_TOL of their largest and its routed masks equal; greedy streams
+    equal on both devices, of the paged + prefix and ragged engines for the
+    dense configs (4 slots, page 16, chunk 32, 5 requests sharing a
+    48-token prefix, 8 new tokens), of the stepped engine on the
+    contiguous and the paged pool for the hybrid (4 slots, 5 prompts of
+    16-40 tokens, 6 new tokens)."""
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import build
+    from repro_torch.models import api
+    from repro_torch.serve import EngineConfig, Request, ServingEngine
+
+    for label in CONFIGS_REDUCED:
+        cfg = configs_reduced(label)
+        p_cpu = api.init_model(cfg, device="cpu", seed=3)
+        draw_biases(p_cpu, torch.Generator().manual_seed(4))
+        p_gpu = _to(p_cpu, dev)
+        toks = torch.as_tensor(SyntheticLM(cfg.vocab, 64, seed=13).batch(0, 2)["tokens"]).long()
+        out = {}
+        for name, params, d in (("cpu", p_cpu, "cpu"), ("gpu", p_gpu, dev)):
+            build.reset_counters()
+            with torch.no_grad(), recorded_decisions("decide_tokens") as decisions:
+                logits, _ = api.model_forward(params, cfg, {"tokens": toks.to(d)})
+            out[name] = (logits.cpu(), [x.mask.cpu() for x in decisions],
+                         {k: v for k, v in build.launch_counts().items() if v})
+        (lc, mc, _), (lg, mg, counts) = out["cpu"], out["gpu"]
+        diff, lim = (lc - lg).abs().max().item(), CONFIGS_TOL * lc.abs().max().item()
+        same = len(mc) == len(mg) > 0 and all(torch.equal(a, b) for a, b in zip(mc, mg))
+        want = {"flash_attention", "gather_rows", "scatter_add_rows"}
+        if cfg.family == "hybrid":
+            want.add("ssd_intra_chunk")
+        if not (diff <= lim and same) or set(counts) != want:
+            raise AssertionError(f"14a {label}: CPU and card differ (max|dlogit| {diff:.3g}, "
+                                 f"limit {lim:.3g}; masks equal {same}) or the card launched "
+                                 f"{counts}, want {sorted(want)}")
+        if cfg.family == "hybrid":
+            prompts = distinct_prompts(cfg.vocab, 5, 0, 16, 40, seed=9)
+            engines = {"contiguous": dict(ctx=48), "paged": dict(ctx=48, page_size=16)}
+            n_new = 6
+        else:
+            prompts = distinct_prompts(cfg.vocab, 5, 48, 4, 40, seed=6)
+            engines = {"paged+prefix": dict(ctx=128, page_size=16, prefill_chunk=32,
+                                            prefix_cache=True),
+                       "ragged": dict(ctx=128, page_size=16, prefill_chunk=32, ragged=True,
+                                      ragged_segments=4)}
+            n_new = 8
+        streams = {}
+        for name, kw in engines.items():
+            got = {}
+            for side, d, params in (("cpu", "cpu", p_cpu), ("gpu", dev, p_gpu)):
+                eng = ServingEngine(params, cfg, EngineConfig(batch_size=4, **kw), device=d)
+                got[side] = _streams(eng.run_stream(
+                    [Request(tokens=p, max_new_tokens=n_new) for p in prompts], 0))
+            sc, sg = got["cpu"], got["gpu"]
+            if sc != sg:
+                raise AssertionError(f"14a {label} {name}: CPU and card streams differ for "
+                                     f"{[u for u in sc if sc[u] != sg[u]]}")
+            streams[name] = sg
+        a = cfg.attn
+        log(f"[configs] 14a {label} f32 (d_model {cfg.d_model}, {a.n_heads}/{a.n_kv_heads} heads "
+            f"of {cfg.head_dim}, bias {a.qkv_bias}, rope θ {a.rope_theta:g}): CPU == card logits "
+            f"max|d| {diff:.3g} (limit {lim:.3g}), {len(mg)} routed masks equal; card launches "
+            f"{json.dumps(counts)}; greedy streams equal on both devices in "
+            + ", ".join(f"{n} ({sum(len(t) for t in s.values())} tokens)"
+                        for n, s in streams.items()))
+
+
+def configs_kernels(dev, results) -> None:
+    """14b: flash attention at head dim 80 (f32 and bf16 prefill S=1000 with
+    32 heads; decode B=8 over 9 key chunks and in one; bf16 B=1 S=2048, the
+    hybrid's forward) and at the dense configs' decode shapes (granite-20b's
+    MQA 48/1, qwen2's 28/4 and its 4-token speculative window, B=8 ctx
+    1056); routed_attention and routed_mlp_scatter at mistral-nemo's,
+    qwen2's (biases) and granite-20b's widths (k=128 of S=1024); the SSD
+    kernel at zamba2's forward shape. Each against its plain version, its
+    plan or GEMM path held, timed by CUDA-graph replay beside its bound and
+    (flash) SDPA."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd as KSSD
+    from repro_torch.kernels import swiglu as SW
+
+    g = torch.Generator(device=dev).manual_seed(41)
+    i32 = dict(dtype=torch.int32, device=dev)
+    both, bf = (torch.bfloat16, torch.float32), (torch.bfloat16,)
+
+    def decode_pos(B, ctx):
+        lens = torch.randint(128, ctx + 1, (B,), generator=g, device=dev)
+        kv = torch.arange(ctx, **i32)[None].repeat(B, 1)
+        kv = torch.where(kv < lens[:, None], kv, torch.full_like(kv, -1))
+        return (lens - 1)[:, None].int(), kv
+
+    cases = []
+    pos = torch.arange(1000, **i32)[None]
+    cases.append((FlashCase("hd80 prefill S=1000", 1, 1000, 1000, 32, 32, 80, pos, pos, both),
+                  "mma_sync"))
+    pos = torch.arange(2048, **i32)[None]
+    cases.append((FlashCase("hd80 forward S=2048", 1, 2048, 2048, 32, 32, 80, pos, pos, bf),
+                  "mma_sync"))
+    qp, kvp = decode_pos(8, 1056)
+    cases.append((FlashCase("hd80 decode B=8 ctx=1056", 8, 1, 1056, 32, 32, 80, qp, kvp, both),
+                  "decode"))
+    kvp = torch.arange(100, **i32)[None].repeat(8, 1)
+    cases.append((FlashCase("hd80 decode B=8 ctx=100", 8, 1, 100, 32, 32, 80,
+                            torch.full((8, 1), 99, **i32), kvp, bf), "decode"))
+    qp, kvp = decode_pos(8, 1056)
+    cases.append((FlashCase("mqa decode B=8 ctx=1056", 8, 1, 1056, 48, 1, 128, qp, kvp, bf),
+                  "wgmma"))
+    cases.append((FlashCase("group7 decode B=8 ctx=1056", 8, 1, 1056, 28, 4, 128, qp, kvp, bf),
+                  "decode"))
+    qw = torch.cat([qp - 3, qp - 2, qp - 1, qp], dim=1)  # the window's 4 positions
+    cases.append((FlashCase("group7 window=4 B=8 ctx=1056", 8, 4, 1056, 28, 4, 128, qw, kvp,
+                            bf), "wgmma"))
+    for c, path in cases:
+        for dtype in c.dtypes:
+            plan = FA.flash_plan(c.B, c.Sq, c.Skv, c.nq, c.nkv, c.hd, dtype)
+            want_path = "f32" if dtype == torch.float32 else path
+            build.reset_counters()
+            r = flash_row(FA, c, dtype, g)
+            calls = dict(FA.FLASH_ATTENTION.by_call)
+            key = (plan.path, c.B, c.Sq, c.Skv, c.nq, c.nkv, c.hd, plan.kernels)
+            if plan.path != want_path or key not in calls:
+                raise AssertionError(f"14b flash {c.label} {dtype}: plan {plan.path}, launched "
+                                     f"{calls}, want the {want_path} path")
+            r["path"], r["kernels"] = plan.path, plan.kernels
+            r["plan"] = dict(path=plan.path, key_tile=plan.key_tile, key_split=plan.key_split,
+                             chunk=plan.chunk, n_splits=plan.n_splits, merge=plan.merge)
+            log(f"[configs] 14b flash_attention {r['shape']:40s} {plan.path:8s} "
+                f"kernels={plan.kernels} max_abs_err={r['max_abs_err']:.3g} ms={r['ms']:.4f} "
+                f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} (SDPA) "
+                f"bound_ms={r['bound'][0]:.4f} ({r['bound'][1]})")
+            results.setdefault("flash_attention", {})[(c.label, dtype)] = r
+
+    B, S, k = 1, 1024, 128
+    for arch, (D, nq, nkv, F, bias) in CONFIGS_ROUTED.items():
+        hd = 128
+        spec = FA.RoutedAttnSpec(nq, nkv, hd, hd ** -0.5, True, 0, 1e6, "rope", 1e-5)
+        mspec = SW.RoutedMlpSpec("silu", 1e-5)
+        for dtype in (torch.bfloat16, torch.float32):
+            es = 2 if dtype == torch.bfloat16 else 4
+            x = torch.randn(B, S, D, generator=g, device=dev).to(dtype)
+            idx = torch.sort(torch.randperm(S, generator=g, device=dev)[:k]).values[None]
+            pos = idx.to(torch.int32)
+            ap = {"ln": (1 + 0.1 * torch.randn(D, generator=g, device=dev)).to(dtype),
+                  "wq": _w(g, dev, dtype, D, nq * hd), "wk": _w(g, dev, dtype, D, nkv * hd),
+                  "wv": _w(g, dev, dtype, D, nkv * hd), "wo": _w(g, dev, dtype, nq * hd, D)}
+            if bias:
+                for key, n in (("bq", nq), ("bk", nkv), ("bv", nkv)):
+                    ap[key] = (0.5 * torch.randn(n * hd, generator=g, device=dev)).to(dtype)
+            build.reset_counters()
+            a, h = FA.routed_attention(x, idx, pos, ap, spec)
+            attn_path = FA.routed_attention_path(dtype, B, k, D, nq, nkv, hd, True)
+            if build.COUNTERS["routed_attention"].by_call != {
+                    (attn_path, B, S, k, D, nq, nkv, hd): 1}:
+                raise AssertionError(f"14b routed_attention {arch} {dtype}: launched "
+                                     f"{build.COUNTERS['routed_attention'].by_call}")
+            wa, wh = FA.routed_attention_plain(x, idx, pos, ap, spec)
+            for got, want in ((a, wa), (h, wh)):
+                torch.testing.assert_close(got.float(), want.float(), **ROUTED_TOL[dtype])
+            mp = {"ln": (1 + 0.1 * torch.randn(D, generator=g, device=dev)).to(dtype),
+                  "w_up": _w(g, dev, dtype, D, F), "w_down": _w(g, dev, dtype, F, D),
+                  "w_gate": _w(g, dev, dtype, D, F)}
+            gate = torch.randn(B, k, generator=g, device=dev)
+            build.reset_counters()
+            out = SW.routed_mlp_scatter(x, h, a, idx, gate, mp, mspec)
+            mlp_path = SW.gemm_path(dtype, B * k, F, D, True)
+            if build.COUNTERS["routed_mlp_scatter"].by_call != {(mlp_path, B, S, k, D, F): 1}:
+                raise AssertionError(f"14b routed_mlp_scatter {arch} {dtype}: launched "
+                                     f"{build.COUNTERS['routed_mlp_scatter'].by_call}")
+            want = SW.routed_mlp_scatter_plain(x, h, a, idx, gate, mp, mspec)
+            torch.testing.assert_close(out.float(), want.float(), **ROUTED_TOL[dtype])
+            M = B * k
+            attn_flops = 2.0 * M * D * (nq + 2 * nkv) * hd + 2.0 * M * nq * hd * D \
+                + 4.0 * hd * nq * _causal_pairs(pos)
+            attn_bytes = (3 * M * D + (2 * nq + 2 * nkv) * hd * D + D
+                          + (nq + 2 * nkv) * hd * bias) * es + 12 * M
+            mlp_flops, mlp_bytes = 6.0 * M * D * F, (2 * B * S * D + 2 * M * D + 3 * D * F + D) \
+                * es + 12 * M
+            shape = f"{arch} B={B} S={S} k={k} D={D} {str(dtype)[6:]}"
+            ha, hm = {}, {}
+            rows = {
+                "routed_attention": dict(
+                    ms=replay_ms(lambda: FA.routed_attention(x, idx, pos, ap, spec), ha, "ms",
+                                 reps=5),
+                    plain_ms=replay_ms(lambda: FA.routed_attention_plain(x, idx, pos, ap, spec),
+                                       ha, "plain_ms", reps=5),
+                    library_ms=None, bound=bound_ms(attn_bytes, attn_flops, dtype),
+                    max_abs_err=max((a.float() - wa.float()).abs().max().item(),
+                                    (h.float() - wh.float()).abs().max().item()),
+                    shape=f"{shape} {nq}/{nkv}x{hd}{' bias' if bias else ''}", timed_by=ha,
+                    gemm_path=attn_path),
+                "routed_mlp_scatter": dict(
+                    ms=replay_ms(lambda: SW.routed_mlp_scatter(x, h, a, idx, gate, mp, mspec),
+                                 hm, "ms", reps=5),
+                    plain_ms=replay_ms(lambda: SW.routed_mlp_scatter_plain(
+                        x, h, a, idx, gate, mp, mspec), hm, "plain_ms", reps=5),
+                    library_ms=replay_ms(lambda: routed_mlp_library(x, h, a, idx, gate, mp,
+                                                                    mspec), hm, "library_ms",
+                                         reps=5),
+                    bound=bound_ms(mlp_bytes, mlp_flops, dtype),
+                    max_abs_err=(out.float() - want.float()).abs().max().item(),
+                    shape=f"{shape} F={F}", timed_by=hm, gemm_path=mlp_path),
+            }
+            for name, r in rows.items():
+                lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+                log(f"[configs] 14b {name} {r['shape']} gemm={r['gemm_path']} "
+                    f"max_abs_err={r['max_abs_err']:.3g} ms={r['ms']:.4f} "
+                    f"plain_ms={r['plain_ms']:.4f} library_ms={lib} bound_ms="
+                    f"{r['bound'][0]:.4f} ({r['bound'][1]}){timed_note(r['timed_by'])}")
+                results.setdefault(name, {})[(arch, dtype)] = r
+            del x, a, h, wa, wh, out, want, ap, mp
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    x, loglam, dt, Bm, Cm = _ssd_inputs(dev, torch.bfloat16, *ZAMBA2_SSD, 43, True)
+    plan = KSSD.ssd_plan(*ZAMBA2_SSD, torch.bfloat16, sms, KSSD.aligned_rows(x, Bm, Cm))
+    build.reset_counters()
+    y, inc = KSSD.ssd_intra_chunk(x, loglam, dt, Bm, Cm)
+    calls = dict(build.COUNTERS["ssd_intra_chunk"].by_call)
+    if plan.path != "tensor" or calls != {("tensor", *ZAMBA2_SSD): 1}:
+        raise AssertionError(f"14b ssd_intra_chunk zamba2: plan {plan.path}, launched {calls}")
+    wy, winc = KSSD.ssd_intra_chunk_plain(x, loglam, dt, Bm, Cm)
+    tol = SSD_TOL + 2 * torch.cumsum(loglam, -1).abs().max().item() * 2.0**-24
+    errs = [((p - q).abs().max() / q.abs().max()).item() for p, q in ((y, wy), (inc, winc))]
+    if max(errs) > tol or not bool(torch.isfinite(y).all() and torch.isfinite(inc).all()):
+        raise AssertionError(f"14b ssd_intra_chunk zamba2: {errs} beyond {tol:.3g}")
+    nbytes, flops = ssd_work(*ZAMBA2_SSD, x.element_size())
+    how: dict = {}
+    r = dict(ms=replay_ms(lambda: KSSD.ssd_intra_chunk(x, loglam, dt, Bm, Cm), how, "ms"),
+             plain_ms=replay_ms(lambda: KSSD.ssd_intra_chunk_plain(x, loglam, dt, Bm, Cm), how,
+                                "plain_ms", reps=5),
+             library_ms=None, bound=bound_ms(nbytes, flops, torch.bfloat16), timed_by=how,
+             max_abs_err=max((y - wy).abs().max().item(), (inc - winc).abs().max().item()),
+             plan=plan._asdict(), shape=f"zamba2 forward x{tuple(x.shape)} ds=64 bfloat16")
+    log(f"[configs] 14b ssd_intra_chunk {r['shape']}: path {plan.path}, G={plan.G}, grid "
+        f"{plan.grid}; y / inc within {errs[0]:.3g} / {errs[1]:.3g} of their largest (limit "
+        f"{tol:.3g}); ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} bound_ms={r['bound'][0]:.4f} "
+        f"({r['bound'][1]}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+    results.setdefault("ssd_intra_chunk", {})[("zamba2 forward", torch.bfloat16)] = r
+
+
+def serve_dense_config(dev, arch: str) -> dict:
+    """14c: one dense config at full width and depth, bf16, random weights
+    from seed 0, backend pallas, on PAGED_1B's workload through the paged +
+    prefix and the ragged engine: streams equal, every request done with
+    its 32 tokens, the prefix cache saving 7 x 512 prefill tokens; tok/s,
+    prefill ms a prompt, decode wall and (one profiled step with every slot
+    generating) busy ms, idle share, peak memory, ``kv_bytes``; the
+    profiled step's launches held to its layers by counter and to
+    torch.profiler's ``__global__`` names. Returns each run's launch counts
+    and flash launches by call."""
+    from repro_torch.config import get_config, with_mod_backend
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import build
+    from repro_torch.models import api
+    from repro_torch.serve import EngineConfig, Request, ServingEngine
+    from repro_torch.serve.scheduler import GENERATE
+    from repro_torch.utils import tree_leaves
+
+    cfg = with_mod_backend(get_config(arch), "pallas")
+    release_device_memory(dev)
+    t0 = time.perf_counter()
+    params = api.init_model(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    w = PAGED_1B
+    B, gen, pre, page, C = w["B"], w["gen"], w["prefix"], w["page"], w["chunk"]
+    suffix, ctx, n_chunks = paged_1b_plan()
+    toks = SyntheticLM(cfg.vocab, pre + w["max_suffix"], seed=9).batch(0, B)["tokens"]
+    prompts = [np.concatenate([toks[0, :pre], toks[i, pre:pre + int(n)]])
+               for i, n in enumerate(suffix)]
+    n_full = sum(1 for grp in params["groups"] if "full" in grp)
+    n_mod = sum(1 for grp in params["groups"] if "mod" in grp)
+    a = cfg.attn
+    log(f"[configs] 14c {arch}: {n_params / 1e9:.3f}B params in {cfg.dtype} ({n_full} full + "
+        f"{n_mod} routed layers, d_model {cfg.d_model}, {a.n_heads}/{a.n_kv_heads} heads of "
+        f"{cfg.head_dim}, bias {a.qkv_bias}, rope θ {a.rope_theta:g}, vocab {cfg.vocab}), init "
+        f"{init_s:.1f}s")
+    paged = dict(page_size=page, prefill_chunk=C)
+    runs = {"paged+prefix": dict(paged, prefix_cache=True),
+            "ragged": dict(paged, ragged=True, ragged_segments=n_chunks)}
+    ServingEngine(params, cfg, EngineConfig(batch_size=B, ctx=ctx, **runs["ragged"]),
+                  device=dev).run_stream([Request(tokens=prompts[0][:300], max_new_tokens=2)], 0)
+    # a decode step with every slot generating: the paged gathers of the full
+    # layers' K/V/pos, flash in every layer (the routed ones at kb = 1), the
+    # write-back (paged, or ragged on the ragged engine)
+    step_want = {"paged_gather": 3 * n_full, "flash_attention": n_full + n_mod}
+    wants = {"paged+prefix": dict(step_want, paged_scatter_rows=3 * n_full),
+             "ragged": dict(step_want, ragged_paged_scatter_rows=3 * n_full)}
+    out, counts, stats, flash = {}, {}, {}, {}
+    for name, kw in runs.items():
+        eng = ServingEngine(params, cfg, EngineConfig(batch_size=B, ctx=ctx, **kw), device=dev)
+        for q in prompts:
+            eng.submit(Request(tokens=q, max_new_tokens=gen))
+        build.reset_counters()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        prof = None
+        while eng.has_work:
+            all_gen = not eng.scheduler.queue and all(s.state == GENERATE for s in eng.slots)
+            if prof is None and all_gen and eng.step_count >= 2:
+                wall, busy, ours, delta, n_ev, _, _, groups = profiled_step(eng)
+                if delta != wants[name]:
+                    raise AssertionError(f"14c {arch} {name}: a step with every slot generating "
+                                         f"launched {delta}, want {wants[name]}")
+                if busy > 0.0:
+                    check_profiled_kernels(f"14c {arch} {name}", ours, delta)
+                    prof = dict(wall=wall, busy=busy, kernels=sorted(ours), step=eng.step_count,
+                                groups=groups)
+            else:
+                eng.step()
+        torch.cuda.synchronize()
+        counts[name] = build.launch_counts()
+        flash[name] = flash_calls()
+        s = stats[name] = eng.stats()
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        out[name] = _streams(eng.finished)
+        if len(out[name]) != B or any(not o.ok or len(o.tokens) != gen for o in eng.finished):
+            raise AssertionError(f"14c {arch} {name}: not every request finished with {gen} "
+                                 f"tokens")
+        busy_note = ("busy: torch.profiler recorded no device time; not measured" if prof is None
+                     else f"profiled step {prof['step']}: wall {prof['wall']:.2f} ms, device busy "
+                          f"{prof['busy']:.2f} ms, idle share {1 - prof['busy'] / prof['wall']:.3f}"
+                          f" (" + ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+                              prof["groups"].items(), key=lambda kv: -kv[1])[:4]) + ")")
+        log(f"[configs] 14c {arch} {name}: {s['generated_tokens']:.0f} tokens in "
+            f"{s['wall_s']:.2f}s = {s['tokens_per_s']:.1f} tok/s; prefill "
+            f"{1e3 * s['prefill_s'] / max(1, s['prefills']):.1f} ms per prompt "
+            f"({s['prefills']:.0f}), decode {1e3 * s['decode_s'] / max(1, s['decode_steps']):.2f} "
+            f"ms wall per step ({s['decode_steps']:.0f}); {busy_note}; peak memory {peak:.2f} GiB;"
+            f" kv_bytes {s['kv_bytes'] / 2**20:.1f} MiB")
+        log(f"[configs]   launches: {json.dumps({k: v for k, v in counts[name].items() if v})}")
+    if out["ragged"] != out["paged+prefix"]:
+        raise AssertionError(f"14c {arch}: the ragged engine's streams differ from the paged + "
+                             f"prefix engine's")
+    if stats["ragged"]["prefill_tokens_computed"] != sum(len(q) for q in prompts):
+        raise AssertionError(f"14c {arch}: the ragged engine computed "
+                             f"{stats['ragged']['prefill_tokens_computed']} prefill tokens")
+    saved = stats["ragged"]["prefill_tokens_computed"] - \
+        stats["paged+prefix"]["prefill_tokens_computed"]
+    if saved != (B - 1) * pre:
+        raise AssertionError(f"14c {arch}: the prefix cache saved {saved} prefill tokens, want "
+                             f"{(B - 1) * pre}")
+    log(f"[configs] 14c {arch}: both engines gave identical greedy streams ({B} requests x {gen} "
+        f"tokens); the prefix cache saved {saved:.0f} prefill tokens")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ({f"configs_serve {arch}": counts["paged+prefix"],
+             f"configs_serve_ragged {arch}": counts["ragged"]},
+            {f"configs_serve {arch}": flash["paged+prefix"],
+             f"configs_serve_ragged {arch}": flash["ragged"]})
+
+
+def serve_hybrid(dev) -> dict:
+    """14d: zamba2-2.7b at full width and depth, bf16, random weights from
+    seed 0: HYBRID_SERVE's requests through the stepped engine on the
+    contiguous and the paged pool (streams equal, every request done with
+    its tokens; a profiled decode step's launches held to the model's
+    layers), then one teacher-forced forward and its loss at B=1, S=2048
+    (flash at head dim 80 on mma.sync tiles, the SSD kernel at d_state 64).
+    Returns each run's launch counts, flash launches by call, and the
+    forward's SSD launches by call."""
+    from repro_torch.config import get_config
+    from repro_torch.core.routing import batch_capacity_k
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import build
+    from repro_torch.models import api
+    from repro_torch.serve import EngineConfig, Request, ServingEngine
+    from repro_torch.serve.scheduler import FREE
+    from repro_torch.utils import tree_leaves
+
+    cfg = get_config(CONFIGS_HYBRID)
+    release_device_memory(dev)
+    t0 = time.perf_counter()
+    params = api.init_model(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    n_seg = len(params["groups"])
+    n_pairs = len(params["groups"][0])
+    log(f"[configs] 14d {cfg.name}: {n_params / 1e9:.3f}B params in {cfg.dtype}, {n_seg} segments"
+        f" of {n_pairs} {{full, mod}} Mamba2 pairs, one shared attention block ({cfg.attn.n_heads}"
+        f" heads of {cfg.head_dim}), d_state {cfg.ssm.d_state}; init "
+        f"{time.perf_counter() - t0:.1f}s")
+    w = HYBRID_SERVE
+    B, n_req, gen, lo, hi = w["B"], w["requests"], w["gen"], w["lo"], w["hi"]
+    lens = np.random.default_rng(1).integers(lo, hi + 1, n_req)
+    toks = SyntheticLM(cfg.vocab, hi, seed=7).batch(0, n_req)["tokens"]
+    reqs = lambda: [Request(tokens=toks[i, :lens[i]], max_new_tokens=gen)  # noqa: E731
+                    for i in range(n_req)]
+    pools = {"contiguous": {}, "paged": dict(page_size=w["page"])}
+    ServingEngine(params, cfg, EngineConfig(batch_size=B, ctx=hi + gen, policy="fcfs"),
+                  device=dev).run_stream([Request(tokens=toks[i, :4], max_new_tokens=2)
+                                          for i in range(2)], 0)
+    # a decode step: flash at every segment's shared block, the routed SSD
+    # layers' batch rows by torch index ops (no dispatch kernel); on the
+    # paged pool the shared block's K/V/pos rings gathered and written back
+    step_want = {"contiguous": {"flash_attention": n_seg},
+                 "paged": {"flash_attention": n_seg, "paged_gather": 3 * n_seg,
+                           "paged_scatter_rows": 3 * n_seg}}
+    out, counts, flash = {}, {}, {}
+    for name, kw in pools.items():
+        eng = ServingEngine(params, cfg, EngineConfig(batch_size=B, ctx=hi + gen, policy="fcfs",
+                                                      **kw), device=dev)
+        for r in reqs():
+            eng.submit(r)
+        build.reset_counters()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        prof = None
+        while eng.has_work:
+            # a step of the first wave, every slot live (ingesting or generating)
+            if prof is None and eng.step_count >= 20 and all(s.state != FREE for s in eng.slots):
+                wall, busy, ours, delta, n_ev, _, _, groups = profiled_step(eng)
+                if delta != step_want[name]:
+                    raise AssertionError(f"14d {name}: a step launched {delta}, want "
+                                         f"{step_want[name]}")
+                if busy > 0.0:
+                    check_profiled_kernels(f"14d {name}", ours, delta)
+                    prof = dict(wall=wall, busy=busy, step=eng.step_count, groups=groups)
+            else:
+                eng.step()
+        torch.cuda.synchronize()
+        counts[name] = build.launch_counts()
+        flash[name] = flash_calls()
+        s = eng.stats()
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        out[name] = _streams(eng.finished)
+        if len(out[name]) != n_req or any(not o.ok or len(o.tokens) != gen for o in eng.finished):
+            raise AssertionError(f"14d {name}: not every request finished with {gen} tokens")
+        busy_note = ("busy: torch.profiler recorded no device time; not measured" if prof is None
+                     else f"profiled step {prof['step']} (8 live slots): wall "
+                          f"{prof['wall']:.2f} ms, device busy {prof['busy']:.2f} ms, idle share "
+                          f"{1 - prof['busy'] / prof['wall']:.3f} ("
+                          + ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+                              prof["groups"].items(), key=lambda kv: -kv[1])[:4]) + ")")
+        pool = eng.pool.cache_bytes()
+        log(f"[configs] 14d {name} pool: {n_req} requests (prompts {lens.min()}-{lens.max()} "
+            f"tokens, {gen} new each), {B} slots, policy fcfs: {s['generated_tokens']:.0f} tokens "
+            f"in {s['wall_s']:.2f}s = {s['tokens_per_s']:.1f} tok/s; {s['steps']:.0f} engine "
+            f"steps, {1e3 * s['decode_s'] / s['decode_steps']:.2f} ms wall a step; mean occupancy "
+            f"{s['mean_occupancy']:.2f}; routed fraction {s['mean_routed_frac']:.4f} (kb/B = "
+            f"{batch_capacity_k(cfg, B)}/{B}); {busy_note}; pool {pool['total'] / 2**20:.1f} MiB"
+            f" (kv_bytes {s['kv_bytes'] / 2**20:.1f}, residual {pool['resid_bytes'] / 2**20:.1f});"
+            f" peak memory {peak:.2f} GiB")
+        log(f"[configs]   launches: {json.dumps({k: v for k, v in counts[name].items() if v})}")
+    if out["paged"] != out["contiguous"]:
+        raise AssertionError("14d: the paged pool's streams differ from the contiguous pool's")
+    log(f"[configs] 14d: the contiguous and the paged pool gave identical greedy streams "
+        f"({n_req} requests x {gen} tokens)")
+    Bf, S = HYBRID_FWD["B"], HYBRID_FWD["S"]
+    batch = {k: torch.as_tensor(v).long().to(dev)
+             for k, v in SyntheticLM(cfg.vocab, S, seed=31).batch(0, Bf).items()}
+    build.reset_counters()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.no_grad():
+        loss, aux = api.model_loss(params, cfg, batch)
+        torch.cuda.synchronize()
+        fwd = build.launch_counts()
+        flash_fwd = flash_calls()
+        ssd_calls = dict(build.COUNTERS["ssd_intra_chunk"].by_call)
+        try:
+            wall, busy, top = profile_call(lambda: api.model_loss(params, cfg, batch), iters=2,
+                                           warmup=1)
+            timing = (f"wall {wall:.2f} ms, device busy {busy:.2f} ms; top kernels: "
+                      + "; ".join(f"{n[:50]} {t:.3f}" for n, t in top))
+        except NoDeviceTime:
+            timing = "torch.profiler recorded no device time; not measured"
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    want_flash = {("mma_sync", Bf, S, S, cfg.attn.n_heads, cfg.attn.n_kv_heads, 80, 1): n_seg}
+    if not torch.isfinite(loss) or flash_fwd != want_flash or not ssd_calls or any(
+            k[0] != "tensor" or k[6] != 64 for k in ssd_calls):
+        raise AssertionError(f"14d forward: loss {float(loss)}, flash {flash_fwd} (want "
+                             f"{want_flash}), ssd {ssd_calls}")
+    log(f"[configs] 14d teacher-forced forward B={Bf} S={S}: loss {float(loss):.6f} (ce "
+        f"{float(aux['ce']):.6f}, finite); flash calls "
+        f"{json.dumps([list(k) + [n] for k, n in flash_fwd.items()])}; "
+        f"ssd calls {json.dumps([list(k) + [n] for k, n in ssd_calls.items()])}; peak memory "
+        f"{peak:.2f} GiB; {timing}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ({"configs_hybrid_serve": counts["contiguous"],
+             "configs_hybrid_serve_paged": counts["paged"], "configs_hybrid_forward": fwd},
+            {"configs_hybrid_serve": flash["contiguous"], "configs_hybrid_serve_paged":
+             flash["paged"], "configs_hybrid_forward": flash_fwd}, ssd_calls)
+
+
+def configs_phase(dev, results):
+    """Phase 14 in order. Returns the launch counts by path, flash's
+    launches by call by path, and the hybrid forward's SSD launches by
+    call."""
+    t = time.perf_counter()
+    before = torch.cuda.memory_reserved(dev) / 2**30
+    release_device_memory(dev)
+    log(f"[configs] device memory at the start: {torch.cuda.memory_allocated(dev) / 2**30:.2f} "
+        f"GiB allocated, {torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB reserved "
+        f"({before:.2f} before the release; PYTORCH_CUDA_ALLOC_CONF="
+        f"{os.environ.get('PYTORCH_CUDA_ALLOC_CONF', '')})")
+    configs_parity(dev)
+    t14a = time.perf_counter() - t
+    configs_kernels(dev, results)
+    t14b = time.perf_counter() - t - t14a
+    counts: dict = {}
+    flash: dict = {}
+    for arch in CONFIGS_DENSE:
+        c, f = serve_dense_config(dev, arch)
+        counts.update(c)
+        flash.update(f)
+    t14c = time.perf_counter() - t - t14a - t14b
+    c, f, ssd_calls = serve_hybrid(dev)
+    counts.update(c)
+    flash.update(f)
+    log(f"[time] 14a {t14a:.1f}s, 14b {t14b:.1f}s, 14c {t14c:.1f}s, 14d "
+        f"{time.perf_counter() - t - t14a - t14b - t14c:.1f}s")
+    return counts, flash, ssd_calls
 
 
 # ---------------------------------------------------------------------------
@@ -4776,12 +5483,11 @@ def overload_parity(dev):
     give equal levels, outcomes, fired logs and counters on both devices;
     on the vanilla model every request the matrix did not kill decodes the
     tokens of a fault-free run."""
-    from repro_torch.config import get_config, with_mod_backend
+    from repro_torch.config import get_config
     from repro_torch.models import api
     from repro_torch.serve import EngineConfig, ServingEngine
 
-    cfg = with_mod_backend(dataclasses.replace(get_config("mod-paper-60m"), dtype="float32"),
-                           "pallas")
+    cfg = parity_60m_config()
     p_cpu = api.init_model(cfg, device="cpu", seed=3)
     p_gpu = _to(p_cpu, dev)
     runs = {"adaptive": lambda d, p: adaptive_lifecycle(d, p, cfg)}
@@ -4799,7 +5505,8 @@ def overload_parity(dev):
         log(f"[overload] 13a 60m f32 {name}: CPU == card for {len(g['outcomes'])} requests "
             f"(streams, finish reasons, lifecycle steps); {extra}; counters "
             f"{json.dumps(g['counters'])}")
-    vcfg = dataclasses.replace(get_config("mod-paper-60m-vanilla"), dtype="float32")
+    vcfg = dataclasses.replace(get_config("mod-paper-60m-vanilla"), dtype="float32",
+                               n_layers=PARITY_60M_LAYERS)
     v_cpu = api.init_model(vcfg, device="cpu", seed=3)
     v_gpu = _to(v_cpu, dev)
     c, g = fault_soak("cpu", v_cpu, vcfg, 0, {}), fault_soak(dev, v_gpu, vcfg, 0, {})
@@ -4860,14 +5567,13 @@ def serve_overload_1b(dev, params):
     the same controller: no step degraded, streams equal (iii), the same
     requests with no controller. Per level: steps, decode wall ms a
     decode-only step, the profiled step's device-busy ms."""
-    from repro_torch.config import get_config, with_mod_backend
     from repro_torch.core.routing import batch_capacity_k, capacity_ladder
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.serve.overload import default_levels
     from repro_torch.serve.scheduler import FREE, GENERATE
 
-    cfg = with_mod_backend(get_config("mod-paper-1b"), "pallas")
+    cfg = serve_1b_config()
     B = OVERLOAD_1B["B"]
     n_mod = sum(1 for grp in params["groups"] if "mod" in grp)
     kbs = [batch_capacity_k(c, B) for c in capacity_ladder(cfg, default_levels())]
@@ -4981,10 +5687,9 @@ def faults_1b(dev, params):
     steps at step 4 (every slot decoding; a slot crossing a page boundary
     meanwhile preempts the youngest): JAX's fault contract, and at least one
     preemption while those pages are held."""
-    from repro_torch.config import get_config, with_mod_backend
     from repro_torch.serve import Fault, FaultInjector
 
-    cfg = with_mod_backend(get_config("mod-paper-1b"), "pallas")
+    cfg = serve_1b_config()
     # hold_pages takes what it can: every page obtainable at step 4
     inj = FaultInjector(FaultInjector.seeded(0, n_faults=6, horizon=30).faults
                         + [Fault("page_exhaustion", step=4, pages=1 << 30, duration=6)])
@@ -5005,14 +5710,13 @@ def faults_1b(dev, params):
 
 
 def overload_phase(dev):
-    """Phase 13 in order, on mod-paper-1b weights made from seed 0; returns
+    """Phase 13 in order, on mod-paper-1b weights made from seed 0
+    (SERVE_1B_LAYERS of its layers); returns
     (the launch counts of its card runs, 13b's levels)."""
-    from repro_torch.config import get_config, with_mod_backend
     from repro_torch.kernels import build
     from repro_torch.models import api
 
-    params = api.init_model(with_mod_backend(get_config("mod-paper-1b"), "pallas"),
-                            device=dev, seed=0)
+    params = api.init_model(serve_1b_config(), device=dev, seed=0)
     build.reset_counters()
     t = time.perf_counter()
     overload_parity(dev)
@@ -5043,6 +5747,12 @@ def dispatch_by_call() -> dict:
 
 
 def main() -> int:
+    # read when the caching allocator starts (its first allocation): after
+    # phases 2-12, 45-57 GiB stayed reserved with 0.00-0.12 GiB allocated,
+    # even after the release below, and phase 14's 56 GB granite-20b init
+    # ran out of memory; expandable segments let the allocator map those
+    # pages again for new tensors
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing to run", file=sys.stderr)
         return 2
@@ -5072,6 +5782,17 @@ def main() -> int:
         t = time.perf_counter()
         moe_phase(torch.device("cuda", 0))
         log(f"[time] phase 12 moe: {time.perf_counter() - t:.1f}s")
+        return 0
+    if sys.argv[1:2] == ["--configs"]:
+        from repro_torch.kernels import build
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        log(f"[device] {smi_line()}")
+        build.build_all()
+        t = time.perf_counter()
+        configs_phase(torch.device("cuda", 0), {})
+        log(f"[time] phase 14 configs: {time.perf_counter() - t:.1f}s")
         return 0
     if sys.argv[1:2] == ["--overload"]:
         from repro_torch.kernels import build
@@ -5111,12 +5832,14 @@ def main() -> int:
 
     cfg1b = get_config("mod-paper-1b")
     results: dict = {}
-    timed("phase 2 kernels", lambda: (
-        check_routing(cfg1b, dev, results), check_ragged_launches(cfg1b, dev),
-        check_flash(cfg1b, dev, results),
-        check_fused(cfg1b, dev, results), check_paged(cfg1b, dev, results),
-        check_quant_casts(dev), check_dequant(cfg1b, dev, results),
-        check_ragged_dispatch(cfg1b, dev, results), check_grads(cfg1b, dev)))
+    timed("phase 2 kernels", timed_parts, "2", (
+        (" routing", check_routing, cfg1b, dev, results),
+        (" ragged launches", check_ragged_launches, cfg1b, dev),
+        (" flash", check_flash, cfg1b, dev, results), (" fused", check_fused, cfg1b, dev, results),
+        (" paged", check_paged, cfg1b, dev, results), (" quant casts", check_quant_casts, dev),
+        (" dequant", check_dequant, cfg1b, dev, results),
+        (" ragged dispatch", check_ragged_dispatch, cfg1b, dev, results),
+        (" grads", check_grads, cfg1b, dev)))
     timed("phase 3 parity", lambda: (cross_device_parity(dev), train_step_parity(dev)))
     timed("phase 6a-8a parity", lambda: (paged_parity(dev), quant_parity(dev),
                                          ragged_forward_parity(dev)))
@@ -5124,10 +5847,9 @@ def main() -> int:
     dispatch_calls = {"serve": serve_dispatch}
     train_counts, train_flash, train_mlp_calls, train_attn_calls, _ = timed("phase 5 train",
                                                                             train_1b, dev)
-    from repro_torch.config import with_mod_backend
     from repro_torch.models import api
 
-    params = api.init_model(with_mod_backend(cfg1b, "pallas"), device=dev, seed=0)
+    params = api.init_model(serve_1b_config(), device=dev, seed=0)
     paged_counts, paged_shapes, base_streams, base_stats, base_first, snap = timed(
         "phase 6c paged serve", serve_paged_1b, dev, params)
     quant_counts, quant_shapes, snaps, quant_streams = timed(
@@ -5140,10 +5862,10 @@ def main() -> int:
     ops_counts = timed("phase 10 ops path", ops_path, snaps, mlp, cfg1b, dev)
     timed("phase 10 kernels", lambda: (check_ragged_attention(snaps, cfg1b, dev, results),
                                        check_ragged_small(dev), check_swiglu(mlp, dev, results)))
-    spec_counts, spec_rounds = timed("phase 11 speculative serve", lambda: (
-        speculative_parity(dev),
-        serve_spec_1b(dev, params, base_streams, base_stats, quant_streams))[1])
-    del params, snaps, mlp
+    timed("phase 11a speculative parity", speculative_parity, dev)
+    spec_counts, spec_rounds = timed("phase 11b speculative serve", serve_spec_1b, dev, params,
+                                     base_streams, base_stats, quant_streams)
+    del params, snaps, snap, mlp
     torch.cuda.empty_cache()
     timed("phase 9a ssd kernel", check_ssd, dev, results)
     timed("phase 9b ssm parity", ssm_parity, dev)
@@ -5153,6 +5875,10 @@ def main() -> int:
     ssm_serve_counts = timed("phase 9d ssm serve", serve_ssm, dev)
     torch.cuda.empty_cache()
     moe_counts = timed("phase 12 moe", moe_phase, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    configs_counts, configs_flash, hybrid_ssd = timed("phase 14 configs", configs_phase, dev,
+                                                      results)
     # last: its 32-slot pools would leave the allocator's cache in pieces
     # that later phases' large tensors may not fit in
     gc.collect()
@@ -5163,7 +5889,7 @@ def main() -> int:
     # call (path and shape) in phases 4 and 5, as the wrapper counted them
     # (the serving prompts are 128-1024 tokens long, so a prefill row may
     # count none); every call shape of those runs rides on the kernel's entry
-    fl_runs = {"serve": serve_flash, "train": train_flash}
+    fl_runs = {"serve": serve_flash, "train": train_flash, **configs_flash}
     shapes = {"flash_attention": [
         dict(shape=r["shape"], path=r["path"], plan=r["plan"], ms=r["ms"],
              plain_ms=r["plain_ms"], library_ms=r["library_ms"], bound_ms=r["bound"][0],
@@ -5222,9 +5948,12 @@ def main() -> int:
     # full blocks' shape
     ssd_nc = {"train full": 16, "train routed": 2}
     ssd = {k: r for k, r in results["ssd_intra_chunk"].items() if k != "backward_ms"}
+    # (zamba2's forward shape: its launches in phase 14d's forward)
+    zamba2_ssd = sum(n for k, n in hybrid_ssd.items() if k[1:] == ZAMBA2_SSD)
     shapes["ssd_intra_chunk"] = [
-        dict(shape=r["shape"], launches=ssd_by_nc.get(ssd_nc.get(key[0]), 0)
-             if key[1] == torch.bfloat16 else 0, ms=r["ms"],
+        dict(shape=r["shape"], launches=zamba2_ssd if key[0] == "zamba2 forward"
+             else ssd_by_nc.get(ssd_nc.get(key[0]), 0) if key[1] == torch.bfloat16 else 0,
+             ms=r["ms"],
              plain_ms=r["plain_ms"], library_ms=None, bound_ms=r["bound"][0],
              bound_by=r["bound"][1], plan=r["plan"],
              **({"cuda_path_ms": r["cuda_path_ms"]} if "cuda_path_ms" in r else {}))
@@ -5256,7 +5985,7 @@ def main() -> int:
                   "forward_ragged": ragged_counts, "train_ssm": ssm_train_counts,
                   "serve_ssm": ssm_serve_counts,
                   **{f"serve_spec {n}": c for n, c in spec_counts.items()}, **moe_counts,
-                  "overload": overload_counts}
+                  **configs_counts, "overload": overload_counts}
     for run, c in model_runs.items():
         if any(c.get(k, 0) for k in OPS_KERNELS):
             raise AssertionError(f"{run} launched an op-entry-point kernel: {c}")
@@ -5286,7 +6015,7 @@ def main() -> int:
                    "train_ssm": ssm_train_counts, "serve_ssm": ssm_serve_counts,
                    "ops": ops_counts,
                    **{f"serve_spec {n}": c for n, c in spec_counts.items()}, **moe_counts,
-                   "overload": overload_counts}
+                   **configs_counts, "overload": overload_counts}
         path = {"routed_attention": "train", "routed_mlp_scatter": "train",
                 "paged_gather": "serve_paged", "paged_scatter_rows": "serve_paged",
                 "ragged_paged_scatter_rows": "serve_ragged",

@@ -3,8 +3,8 @@
 The frozen dataclasses and registry of the JAX package's
 ``repro/config.py``, kept as this package's own copy so that the port
 imports nothing of ``repro``, and cut to the fields the ported families
-read (dense, MoE and ssm; the enc-dec/VLM/hybrid fields come with their
-slices), plus the optimizer and training configs. Every entry point resolves ``--arch <id>``
+read (dense, MoE, ssm and the Zamba2 hybrid; the enc-dec/VLM fields come
+with their slices), plus the optimizer and training configs. Every entry point resolves ``--arch <id>``
 through :func:`get_config`. The serving engine's settings are
 :class:`repro_torch.serve.config.EngineConfig`.
 """
@@ -108,8 +108,8 @@ class AttentionConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
-    # the port runs "dense", "moe" and "ssm"; the JAX package's other
-    # families ("hybrid" | "encdec" | "vlm") are later slices
+    # the port runs "dense", "moe", "ssm" and "hybrid"; the JAX package's
+    # other families ("encdec" | "vlm") are later slices
     family: str = "dense"
     n_layers: int = 4
     d_model: int = 256
@@ -124,6 +124,9 @@ class ModelConfig:
     mod: MoDConfig = field(default_factory=MoDConfig)
     moe: MoEConfig = field(default_factory=MoEConfig)
     ssm: SSMConfig = field(default_factory=SSMConfig)
+    # hybrid (zamba2): one shared attention block applied every
+    # `hybrid_attn_every` SSM layers
+    hybrid_attn_every: int = 6
     dtype: str = "bfloat16"
     remat: str = "none"  # "none" | "full" (torch.utils.checkpoint per layer group)
 
@@ -138,16 +141,19 @@ class ModelConfig:
 
     def n_params(self) -> int:
         """Analytic parameter count (embeddings + blocks) of a dense or MoE
-        decoder or a Mamba2 LM. The MoE router counts as ``D·E`` (the JAX
-        formula; an integrated-MoDE router has ``E + n_noop`` columns)."""
+        decoder, a Mamba2 LM or the hybrid (its layers plus the one shared
+        block). The MoE router counts as ``D·E`` (the JAX formula; an
+        integrated-MoDE router has ``E + n_noop`` columns)."""
         D, F, V, L = self.d_model, self.d_ff, self.vocab, self.n_layers
         hd = self.head_dim
         nq, nkv = self.attn.n_heads, self.attn.n_kv_heads
         emb = V * D * (1 if self.tie_embeddings else 2)
-        if self.family == "ssm":
-            return emb + L * (self._ssm_block_params() + D)
         attn = D * nq * hd + 2 * D * nkv * hd + nq * hd * D
         mlp_mults = 3 if self.glu else 2
+        if self.family == "ssm":
+            return emb + L * (self._ssm_block_params() + D)
+        if self.family == "hybrid":  # the one shared attention + MLP block
+            return emb + L * (self._ssm_block_params() + D) + attn + mlp_mults * D * F + 2 * D
         if self.uses_moe:
             fe = self.moe.d_ff_expert or F
             mlp = self.moe.n_experts * mlp_mults * D * fe + D * self.moe.n_experts
@@ -275,4 +281,7 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
         )
     if cfg.ssm.enabled:
         replace["ssm"] = dataclasses.replace(cfg.ssm, d_state=16, head_dim=32, chunk=16)
+    if cfg.family == "hybrid":
+        replace["n_layers"] = 4
+        replace["hybrid_attn_every"] = 2
     return dataclasses.replace(cfg, **replace)

@@ -1,2 +1,12 @@
 """Registered architectures of the port (self-register on import)."""
-from repro_torch.configs import mamba2_1p3b, mod_paper, olmoe_1b_7b, phi35_moe  # noqa: F401
+from repro_torch.configs import (  # noqa: F401
+    granite_8b,
+    granite_20b,
+    mamba2_1p3b,
+    mistral_nemo_12b,
+    mod_paper,
+    olmoe_1b_7b,
+    phi35_moe,
+    qwen2_7b,
+    zamba2_2p7b,
+)

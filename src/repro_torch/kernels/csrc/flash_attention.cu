@@ -38,12 +38,14 @@
 //    walks (the critical path at B=1, where the grid is about one wave),
 //    and blocks run the query tiles with the most keys first. gemm.cuh's
 //    helpers (tensor maps, mbarriers, descriptors, setmaxnreg) are shared.
-// 2. bf16 on mma.sync tiles (head dims 32 and 256: a 64-byte row does not
-//    fill a 128-byte swizzle atom, and 256 columns of O do not fit a
-//    consumer's registers beside S): one block of 4 warps per (64 query
+// 2. bf16 on mma.sync tiles (head dims 32, 80 and 256: a 64- or 160-byte
+//    row is not whole 128-byte swizzle atoms, and 256 columns of O do not
+//    fit a consumer's registers beside S): one block of 4 warps per (64 query
 //    rows, head, batch row), 16 rows per warp. K/V tiles of 64 keys (32 at
 //    head_dim 256) stay bf16 in shared memory, double-buffered through
-//    cp.async (rows padded by 16 bytes so ldmatrix hits distinct banks).
+//    cp.async (rows padded by 16 bytes so ldmatrix hits distinct banks; at
+//    head dim 80 a row is 88 elements, 11 sixteen-byte chunks, and 8 rows'
+//    chunks still land in 8 distinct groups of 4 banks).
 //    S = Q K^T on mma.sync m16n8k16 (bf16 in, f32 sums) with Q's fragments
 //    in registers at head dim 32; the mask and the online softmax work on
 //    the accumulator fragments (quad shuffles for the row max and sum;
@@ -100,7 +102,8 @@ constexpr int PATH_F32 = 0, PATH_MMA = 1, PATH_DECODE = 2, PATH_WGMMA = 3;
 // in tiles of 32 keys staged in shared memory (K rows padded by one float so
 // 32 lanes reading 32 keys hit 32 banks). Each warp owns 4 query rows; for a
 // row, lane j scores key j of the tile, the warp reduces the tile's max and
-// sum, and every lane accumulates head_dim/32 output columns. A tile in
+// sum, and lane j accumulates output columns j, j + 32, ... below head_dim
+// (ceil(head_dim/32) of them; at 80 the third covers 16 lanes). A tile in
 // which no (query, key) pair of the block can be valid is skipped before
 // its K/V are loaded.
 // ===========================================================================
@@ -126,7 +129,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const int* __restrict__ qpos,
                  const int* __restrict__ kpos, float* __restrict__ out, float* __restrict__ lse,
                  int Sq, int Skv, int nq, int nkv, float scale, int causal, int window) {
-  constexpr int DPL = HD / 32;  // output columns per lane
+  constexpr int DPL = (HD + 31) / 32;  // output columns per lane, the last maybe partial
+  // whether column lane + 32*i exists (always, when 32 divides the head dim)
+  auto has_col = [](int i, int lane_) { return HD % 32 == 0 || lane_ + 32 * i < HD; };
   extern __shared__ float smem[];
   float* sQ = smem;                 // BQ x HD
   float* sK = sQ + BQ * HD;         // BKV x (HD + 1)
@@ -220,7 +225,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float pj = __shfl_sync(0xffffffffu, p, j);  // V is f32: p unrounded
           const float* vr = sV + j * HD + lane;
 #pragma unroll
-          for (int i = 0; i < DPL; ++i) acc[rr][i] = fmaf(pj, vr[32 * i], acc[rr][i]);
+          for (int i = 0; i < DPL; ++i)
+            if (has_col(i, lane)) acc[rr][i] = fmaf(pj, vr[32 * i], acc[rr][i]);
         }
         m[rr] = m_new;
       }
@@ -235,7 +241,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float lf = fmaxf(l[rr], 1e-30f);
     float* orow = out + (((long long)b * Sq + s) * nq + h) * HD;
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) orow[lane + 32 * i] = acc[rr][i] / lf;
+    for (int i = 0; i < DPL; ++i)
+      if (has_col(i, lane)) orow[lane + 32 * i] = acc[rr][i] / lf;
     if (lse != nullptr && lane == 0)  // a row with no valid key: m is -inf or NEG_INF
       lse[((long long)b * nq + h) * Sq + s] = (m[rr] > NEG_INF / 2 ? m[rr] : 0.f) + logf(lf);
   }
@@ -733,7 +740,6 @@ flash_fwd_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int NS = QW / 8;   // n8 tiles of S
   constexpr int NO = HD / 8;   // n8 tiles of O
   constexpr int KS = HD / 16;  // k16 steps of Q K^T
-  static_assert(NO % DECODE_WARPS == 0, "each warp finishes whole n8 tiles");
   static_assert((DECODE_WARPS * (NO * 4 + 4) * 32) * sizeof(float) <=
                     2 * DECODE_WARPS * QW * LD * sizeof(bf16),
                 "the merge's exchange fits the K/V tiles");
@@ -864,8 +870,8 @@ flash_fwd_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // the chunk's state: the warps' states merged in warp order,
   // M = max m_w, L = sum w_w l_w, acc = sum w_w acc_w, w_w = 2^(m_w - M)
-  // (0 for a warp with no valid key); warp w finishes n8 tiles
-  // [w*NO/4, (w+1)*NO/4) of both rows
+  // (0 for a warp with no valid key); warp w finishes n8 tiles w, w + 4,
+  // ... of both rows (3, 3, 2 and 2 of the 10 at head dim 80)
   const int col = (lane & 3) * 2;
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
@@ -885,8 +891,7 @@ flash_fwd_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float lf = fmaxf(L, 1e-30f);
     const long long idx = (((long long)b * nkv + hk) * n_splits + chunk) * R + r;
 #pragma unroll
-    for (int i = 0; i < NO / DECODE_WARPS; ++i) {
-      const int nt = warp * (NO / DECODE_WARPS) + i;
+    for (int nt = warp; nt < NO; nt += DECODE_WARPS) {
       float x[2] = {0.f, 0.f};
 #pragma unroll
       for (int w = 0; w < DECODE_WARPS; ++w)
@@ -913,7 +918,7 @@ flash_fwd_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// Path 2: mma.sync tiles (head dims 32 and 256), one block of TILE_WARPS
+// Path 2: mma.sync tiles (head dims 32, 80 and 256), one block of TILE_WARPS
 // warps per (64 query rows, head, batch row)
 // ---------------------------------------------------------------------------
 
@@ -1314,6 +1319,8 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
                                      causal, window, st);
       REPRO_FLASH_HD(64, launch_f32)(q, k, v, qp, kp, out, ls, B, Sq, Skv, nq, nkv, scale,
                                      causal, window, st);
+      REPRO_FLASH_HD(80, launch_f32)(q, k, v, qp, kp, out, ls, B, Sq, Skv, nq, nkv, scale,
+                                     causal, window, st);
       REPRO_FLASH_HD(128, launch_f32)(q, k, v, qp, kp, out, ls, B, Sq, Skv, nq, nkv, scale,
                                       causal, window, st);
       REPRO_FLASH_HD(256, launch_f32)(q, k, v, qp, kp, out, ls, B, Sq, Skv, nq, nkv, scale,
@@ -1325,6 +1332,9 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
                                       qp, kp, out, ls, pm, pl, pa, B, Sq, Skv, nq, nkv, scale,
                                       causal, window, st);
       REPRO_FLASH_HD(64, launch_bf16)(path, key_tile_, key_split, chunk, n_splits, merge, q, k, v,
+                                      qp, kp, out, ls, pm, pl, pa, B, Sq, Skv, nq, nkv, scale,
+                                      causal, window, st);
+      REPRO_FLASH_HD(80, launch_bf16)(path, key_tile_, key_split, chunk, n_splits, merge, q, k, v,
                                       qp, kp, out, ls, pm, pl, pa, B, Sq, Skv, nq, nkv, scale,
                                       causal, window, st);
       REPRO_FLASH_HD(128, launch_bf16)(path, key_tile_, key_split, chunk, n_splits, merge, q, k,

@@ -22,13 +22,13 @@ log-sum-exp when a gradient is needed. Semantics are the Pallas kernel's:
   this, and neither value reaches a valid row or a logit.)
 
 The kernel takes any ``Sq``/``Skv`` (the ragged edges are masked), head
-dims 32/64/128/256, f32 and bf16. :func:`flash_plan` picks its path from
-the dtype, ``Sq``, ``nq/nkv`` and the head dim alone: bf16 tiles of 64
-query rows on Hopper's wgmma + TMA (head dims 64 and 128; two warpgroups
-split a tile's keys by key-tile parity), on ``mma.sync`` tiles (head dims
-32 and 256), bf16 split-KV decode when ``Sq·nq/nkv`` rows fit one 16-row
-mma tile (one launch when the keys fit one chunk), or the f32 CUDA-core
-kernel.
+dims 32/64/80/128/256 (80: the Zamba2 hybrid's shared block), f32 and
+bf16. :func:`flash_plan` picks its path from the dtype, ``Sq``, ``nq/nkv``
+and the head dim alone: bf16 tiles of 64 query rows on Hopper's wgmma +
+TMA (head dims 64 and 128; two warpgroups split a tile's keys by key-tile
+parity), on ``mma.sync`` tiles (head dims 32, 80 and 256), bf16 split-KV
+decode when ``Sq·nq/nkv`` rows fit one 16-row mma tile (one launch when
+the keys fit one chunk), or the f32 CUDA-core kernel.
 
 ``routed_attention`` (the Pallas ``_routed_attn_kernel``) is described at
 its section below; :func:`routed_attention_path` picks the GEMM of its
@@ -52,7 +52,10 @@ FLASH_ATTENTION = build.counter("flash_attention")
 ROUTED_ATTENTION = build.counter("routed_attention")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128, 256)
+_HEAD_DIMS = (32, 64, 80, 128, 256)
+# routed_attention's head dims (csrc/routed_attention.cu): no model routes
+# an attention block of head dim 80 (the hybrid's shared block is dense)
+ROUTED_HEAD_DIMS = (32, 64, 128, 256)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -419,8 +422,8 @@ def routed_attention_path(dtype: torch.dtype, B: int, k: int, D: int, nq: int, n
     ``"cuda_cores"``. A pure function of its arguments, decided before
     launch. Raises for what the kernel does not take (a head dim, a head
     count, a grid, a dtype or a size), before anything is built."""
-    if hd not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in {_HEAD_DIMS}")
+    if hd not in ROUTED_HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {ROUTED_HEAD_DIMS}")
     if nkv <= 0 or nq % nkv:
         raise ValueError(f"n_heads {nq} is not a multiple of n_kv_heads {nkv}")
     if max(nq, B) > _GRID_YZ:

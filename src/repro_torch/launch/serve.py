@@ -21,8 +21,9 @@ are random, drawn from ``--seed``. Prompt lengths are mixed uniformly over
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \\
       --dtype bfloat16 --batch 8 --requests 16 --min-prompt-len 32 --prompt-len 128 --gen 16
 
-The ssm family (``mamba2-*``) ingests prompts one token per decode step,
-as the JAX engine serves it; the run prints which path it took.
+The ssm and hybrid families (``mamba2-*``, ``zamba2-*``) ingest prompts
+one token per decode step, as the JAX engine serves them; the run prints
+which path it took.
 """
 from __future__ import annotations
 

@@ -2,10 +2,12 @@
 call.
 
 Port of ``repro/models/api.py`` for the ``dense`` family (the paper's
-``mod-paper-*`` models) and the ``moe`` family (token-choice MoE and both
-MoDE variants), both :mod:`repro_torch.models.transformer`, and the
-``ssm`` family (Mamba2, :mod:`repro_torch.models.ssm_lm`). Other families
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+``mod-paper-*`` models and the granite / mistral-nemo / qwen2 decoders)
+and the ``moe`` family (token-choice MoE and both MoDE variants), both
+:mod:`repro_torch.models.transformer`, and the ``ssm`` (Mamba2) and
+``hybrid`` (Zamba2) families, :mod:`repro_torch.models.ssm_lm`. Other
+families raise ``NotImplementedError`` naming the ROADMAP item that ports
+them.
 """
 from __future__ import annotations
 
@@ -23,13 +25,12 @@ from repro_torch.utils import tree_map
 Params = Dict[str, Any]
 Aux = Dict[str, torch.Tensor]
 
-_FAMILIES = ("dense", "moe", "ssm")
+_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 # families that run models/transformer.py
 _TRANSFORMER = ("dense", "moe")
 _LATER = {
     "vlm": "ROADMAP Queue 1, enc-dec + VLM",
     "encdec": "ROADMAP Queue 1, enc-dec + VLM",
-    "hybrid": "ROADMAP Queue 1, the Zamba2 hybrid",
 }
 
 
@@ -50,6 +51,8 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         generator = torch.Generator(device=dev).manual_seed(seed)
     if cfg.family == "ssm":
         return SL.init_lm(generator, cfg, dev)
+    if cfg.family == "hybrid":
+        return SL.init_hybrid(generator, cfg, dev)
     return T.init_lm(generator, cfg, dev)
 
 
@@ -60,6 +63,9 @@ def model_forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tenso
     _check_family(cfg)
     if cfg.family == "ssm":
         return SL.forward(params, cfg, batch["tokens"], generator=generator, last_only=last_only)
+    if cfg.family == "hybrid":
+        return SL.forward_hybrid(params, cfg, batch["tokens"], generator=generator,
+                                 last_only=last_only)
     return T.forward(params, cfg, tokens=batch.get("tokens"), embeds=batch.get("embeds"),
                      positions=batch.get("positions"), generator=generator,
                      last_only=last_only)
@@ -115,6 +121,8 @@ def make_caches(cfg: ModelConfig, batch: int, ctx: int, device: DeviceLike = Non
     _check_family(cfg)
     if cfg.family == "ssm":
         return SL.make_cache(cfg, batch, resolve_device(device))
+    if cfg.family == "hybrid":
+        return SL.make_hybrid_cache(cfg, batch, ctx, resolve_device(device))
     return T.make_cache(cfg, batch, ctx, resolve_device(device))
 
 
@@ -146,6 +154,8 @@ def model_decode(params: Params, caches: Params, cfg: ModelConfig, token: torch.
     _check_family(cfg)
     if cfg.family == "ssm":
         return SL.decode_step(params, caches, cfg, token, active)
+    if cfg.family == "hybrid":
+        return SL.decode_step_hybrid(params, caches, cfg, token, pos, active)
     return T.decode_step(params, caches, cfg, token, pos, active)
 
 

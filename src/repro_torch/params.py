@@ -16,7 +16,11 @@ patterns and are reinterpreted (never rounded through float32), so every
 bit survives both ways. The router and predictor are f32 on both sides,
 as are the Mamba2 blocks' ``A_log``, ``skip_D`` and ``dt_bias`` in a bf16
 model; the ssm family's tree ({"full", "mod"} groups of {"ln", "ssm"}
-layers) carries the same way.
+layers) carries the same way. The hybrid's tree (a ``shared_attn`` block
+beside its groups) stacks its group leaves on two leading axes,
+``(n_seg, n_pairs)``; the port keeps a list of segments, each a list of
+group dicts (``repro_torch.models.ssm_lm``), and both functions unfold or
+fold the two axes.
 """
 from __future__ import annotations
 
@@ -50,23 +54,38 @@ def _map(tree: Any, fn) -> Any:
     return fn(tree)
 
 
-def from_jax_params(tree: Tree, device: DeviceLike = None) -> Tree:
-    """JAX parameter tree (numpy leaves) -> the port's parameters on
-    ``device``. Groups come out in order, each holding its ``full`` block
-    and then its ``mod`` routed block; ``tail`` stays a single block."""
-    dev = resolve_device(device)
-    conv = lambda a: _to_tensor(a, dev)  # noqa: E731
-    out: Tree = {k: _map(v, conv) for k, v in tree.items() if k != "groups"}
-    stacked = tree["groups"]
+def _group_depth(tree: Tree) -> int:
+    """Leading group axes of a JAX tree's group leaves: two for the hybrid
+    (segments, then the groups of a segment), one otherwise."""
+    return 2 if "shared_attn" in tree else 1
+
+
+def _unstack(stacked: Tree, depth: int, dev: torch.device) -> List[Any]:
+    """Group dicts of a stacked JAX subtree, as a list (nested ``depth``
+    deep) in the stacking order."""
     n_groups = {leaf.shape[0] for leaf in _leaves(stacked)}
     if len(n_groups) != 1:
         raise ValueError(f"group leaves disagree on the group count: {sorted(n_groups)}")
     (n,) = n_groups
-    groups: List[Tree] = []
+    out: List[Any] = []
     for i in range(n):
-        groups.append({kind: _map(stacked[kind], lambda a, i=i: _to_tensor(a[i], dev))
-                       for kind in stacked})
-    out["groups"] = groups
+        if depth == 1:
+            out.append({kind: _map(stacked[kind], lambda a, i=i: _to_tensor(a[i], dev))
+                        for kind in stacked})
+        else:
+            out.append(_unstack(_map(stacked, lambda a, i=i: a[i]), depth - 1, dev))
+    return out
+
+
+def from_jax_params(tree: Tree, device: DeviceLike = None) -> Tree:
+    """JAX parameter tree (numpy leaves) -> the port's parameters on
+    ``device``. Groups come out in order, each holding its ``full`` block
+    and then its ``mod`` routed block; ``tail`` and ``shared_attn`` stay
+    single blocks; the hybrid's groups come out as a list of segments."""
+    dev = resolve_device(device)
+    conv = lambda a: _to_tensor(a, dev)  # noqa: E731
+    out: Tree = {k: _map(v, conv) for k, v in tree.items() if k != "groups"}
+    out["groups"] = _unstack(tree["groups"], _group_depth(tree), dev)
     return out
 
 
@@ -88,10 +107,7 @@ def stack_groups(params: Tree) -> Tree:
     JAX tree layout, as detached CPU tensors of the same dtypes."""
     out: Tree = {k: _map(v, lambda t: t.detach().cpu()) for k, v in params.items()
                  if k != "groups"}
-    groups = params["groups"]
-    out["groups"] = {
-        kind: _stack([g[kind] for g in groups]) for kind in groups[0]
-    }
+    out["groups"] = _stack(params["groups"])
     return out
 
 
@@ -103,6 +119,10 @@ def to_numpy_tree(params: Tree) -> Tree:
 
 
 def _stack(trees: List[Any]) -> Any:
+    """Stack matching trees on a new leading axis; a list of lists (the
+    hybrid's segments) stacks its inner lists first."""
+    if isinstance(trees, list) and isinstance(trees[0], list):
+        return _stack([_stack(t) for t in trees])
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
     return torch.stack([t.detach().cpu() for t in trees])

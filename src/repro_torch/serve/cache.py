@@ -20,7 +20,8 @@ per-leaf-kind accounting. MoD rings and cursors stay slot-contiguous in a
 *residual* pool, as do all leaves of the ssm family (the SSD state and the
 conv windows have no context axis), so a paged ssm pool maps pages that
 hold nothing and serves exactly as the contiguous one (the JAX pool's
-behaviour). The decode step reads the logical ``(B, ctx)`` caches
+behaviour); the hybrid pages its shared block's one full-context ring per
+site and keeps its SSM states residual. The decode step reads the logical ``(B, ctx)`` caches
 through the paged gather kernel (:func:`paged_materialize`) and writes its
 one new row per slot back with the paged scatter kernel
 (:func:`paged_writeback`); the ragged mixed step writes its token rows with

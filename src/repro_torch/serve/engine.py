@@ -15,7 +15,9 @@ requests into slots as others terminate (:mod:`repro_torch.serve.scheduler`).
   family, whose ``prefill="batch"`` raises as in JAX): the slot feeds one
   prompt token per engine step through the shared decode step. Prefix
   cache, ragged step and chunked prefill need batched prefill and raise
-  otherwise; the paged pool serves ssm with every state leaf residual.
+  otherwise; the paged pool serves ssm with every state leaf residual, and
+  the hybrid with its shared block's KV rings paged and its SSM states
+  residual.
 - **Decode**: every step passes an ``active`` mask so padding rows never win
   ``batch_capacity`` routed rows, and reads back the per-sequence
   ``mod/decode_routed`` / ``mod/decode_scores`` telemetry.
@@ -147,6 +149,10 @@ class ServingEngine:
             )
         self.quant = engine.quant if engine.quant.enabled else None
         self._narrow_weights = engine.quant.weights == "int8"
+        if cfg.family == "hybrid" and (self.quant is not None or self._narrow_weights):
+            raise NotImplementedError(
+                "quantized KV pages and int8 weights for the hybrid family are not ported yet "
+                "(ROADMAP Queue 1, the hybrid's remaining paths)")
         # serve from int8 weights: only the narrow tree stays resident, and
         # each model call widens it (dequantize_params)
         self.params = quantize_params(params) if self._narrow_weights else params

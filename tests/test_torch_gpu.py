@@ -13,7 +13,7 @@ version (f32 atol 2e-5), and rounds p to bf16 against another running max
 before p@V (bf16 atol and rtol 8e-3: one bf16 ulp of the output is at most
 2^-7 of its value). That holds on every bf16 path (wgmma tiles at head
 dims 64 and 128, whose two warpgroups' even and odd key tiles merge in
-f32; mma.sync tiles at 32 and 256; split-KV decode, four warps a chunk,
+f32; mma.sync tiles at 32, 80 and 256; split-KV decode, four warps a chunk,
 one launch in one chunk, partials merged in f32 past it), on wrapped
 rings and rows with no valid key; a row's bf16 bits do not depend on
 empty slots appended to K/V or on the batch around it; its f32 lse is
@@ -267,6 +267,19 @@ def _flash_inputs(dev, dtype, B, Sq, Skv, nq, nkv, hd, layout, seed=1):
         (2, 1, 600, 4, 4, 128, True, 100),  # window, decode
         (2, 65, 600, 4, 4, 128, False, 0),  # non-causal, tile
         (2, 1, 600, 4, 4, 256, False, 0),  # non-causal, decode
+        # head dim 80 (zamba2's shared block): mma.sync tiles, split-KV
+        # decode over 9 chunks + the merge and in one chunk, a window
+        (1, 1000, 1000, 32, 32, 80, True, 0),
+        (8, 1, 1056, 32, 32, 80, True, 0),
+        (8, 1, 100, 32, 32, 80, True, 0),
+        (2, 65, 300, 4, 2, 80, True, 40),
+        (2, 4, 300, 8, 2, 80, False, 0),  # 16 (position, head) rows: decode
+        # the dense configs' decode shapes: granite-20b's MQA (48 rows of one
+        # kv head: the wgmma tiles), qwen2's group of 7 (7 rows: decode) and
+        # its 4-token speculative window (28 rows: wgmma)
+        (8, 1, 1056, 48, 1, 128, True, 0),
+        (8, 1, 1056, 28, 4, 128, True, 0),
+        (2, 4, 1056, 28, 4, 128, True, 0),
     ],
 )
 def test_flash_attention_matches_plain(dev, dtype, B, Sq, Skv, nq, nkv, hd, causal, window):
@@ -285,7 +298,7 @@ def test_flash_attention_matches_plain(dev, dtype, B, Sq, Skv, nq, nkv, hd, caus
 
 
 @pytest.mark.parametrize("layout", ["ring", "late"])
-@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("hd", [64, 80, 128, 256])
 @pytest.mark.parametrize("Sq,nq,nkv,window", [(1, 4, 4, 0), (16, 2, 2, 0), (2, 14, 2, 0),
                                               (17, 4, 4, 0), (65, 4, 2, 0), (65, 4, 4, 300)])
 def test_flash_attention_bf16_paths_on_rings_and_empty_rows(dev, layout, hd, Sq, nq, nkv,
@@ -304,7 +317,8 @@ def test_flash_attention_bf16_paths_on_rings_and_empty_rows(dev, layout, hd, Sq,
 
 @pytest.mark.parametrize("layout", ["tail", "ring"])
 @pytest.mark.parametrize("Sq,nq,nkv", [(1, 14, 14), (2, 14, 2), (65, 4, 4)])
-@pytest.mark.parametrize("hd,Skv", [(128, 700), (128, 100), (64, 300), (256, 700)])
+@pytest.mark.parametrize("hd,Skv", [(128, 700), (128, 100), (64, 300), (256, 700), (80, 700),
+                                    (80, 100)])
 def test_flash_attention_bf16_rows_do_not_depend_on_skv_or_batch(dev, layout, Sq, nq, nkv, hd,
                                                                  Skv):
     """Bitwise: a row's output is the same when empty (-1) slots are appended
@@ -356,7 +370,20 @@ def test_flash_attention_decode_chunk_warps_and_one_launch(dev, Skv, window, lay
     own launch. The counter records one kernel launch, and the bits (out
     and lse) equal those of the same keys with 333 empty (-1) slots
     appended, which run as chunks and the merge launch."""
-    hd, nq, nkv = 128, 14, 14
+    _decode_one_launch_equals_the_merge(dev, Skv, window, layout, 128)
+
+
+@pytest.mark.parametrize("Skv,window,layout", [(40, 0, "tail"), (128, 0, "ring"),
+                                               (100, 20, "late")])
+def test_flash_attention_decode_at_head_dim_80_one_launch_equals_the_merge(dev, Skv, window,
+                                                                           layout):
+    """The same at head dim 80, where the four warps finish 3, 3, 2 and 2
+    of the ten n8 column tiles of the chunk's merge."""
+    _decode_one_launch_equals_the_merge(dev, Skv, window, layout, 80)
+
+
+def _decode_one_launch_equals_the_merge(dev, Skv, window, layout, hd):
+    nq, nkv = 14, 14
     q, k, v, q_pos, kv_pos = _flash_inputs(dev, torch.bfloat16, 3, 1, Skv, nq, nkv, hd, layout,
                                            seed=8)
     scale = hd ** -0.5
@@ -500,6 +527,10 @@ ATTN_CASES = [
     (3, 64, 43, 200, 3, 1, 32, False, 0, "none"),
     (4, 512, 250, 264, 9, 3, 32, True, 0, "rope"),
     (2, 50, 21, 44, 2, 2, 32, True, 0, "rope"),  # D not a multiple of 8: the CUDA-core GEMM
+    # the dense configs' widths, k = 128 of S = 1024
+    (1, 1024, 128, 5120, 32, 8, 128, False, 0, "rope"),  # mistral-nemo: nq*hd 4096 != D
+    (1, 1024, 128, 3584, 28, 4, 128, True, 0, "rope"),  # qwen2: a group of 7, biases
+    (1, 1024, 128, 6144, 48, 1, 128, False, 0, "rope"),  # granite-20b: MQA, N = 128
 ]
 
 
@@ -1166,6 +1197,7 @@ def _ssd_tol(loglam):
     (4, 5, 16, 64, 32, 32, "model"),  # bf16: G = 3 heads per block, 5 heads
     (1, 3, 2, 16, 32, 16, "jax"),  # odd heads, the smoke chunk
     (2, 5, 3, 40, 8, 24, "jax"),  # widths that are not multiples of 16
+    (1, 80, 16, 128, 64, 64, "model"),  # zamba2-2.7b's forward (S = 2048, d_state 64)
 ])
 def test_ssd_intra_chunk_matches_plain(dev, dtype, B, H, NC, Q, hd, ds, layout):
     """Each path within SSD_TOL of the plain version: bf16 with Q, hd and

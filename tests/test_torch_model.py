@@ -181,7 +181,7 @@ def test_entry_points_refuse_a_missing_gpu():
 
 
 def test_other_families_raise_naming_the_roadmap():
-    cfg = dataclasses.replace(TC.smoke_config(TC.get_config("mod-paper-60m")), family="hybrid")
+    cfg = dataclasses.replace(TC.smoke_config(TC.get_config("mod-paper-60m")), family="encdec")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TAPI.init_model(cfg, device="cpu")
 
