@@ -10,6 +10,7 @@
     python3 chip_smoke.py --moe                   # phase 12 (the MoE family) alone
     python3 chip_smoke.py --overload              # phase 13 (overload and faults) alone
     python3 chip_smoke.py --configs               # phase 14 (dense configs, hybrid) alone
+    python3 chip_smoke.py --encdec-vlm            # phase 15 (whisper-tiny, qwen2-vl-7b) alone
 
 Imports nothing of JAX or of the JAX package. Builds the port's CUDA
 kernels from ``src/repro_torch/kernels/csrc`` and runs, in order (any
@@ -211,19 +212,40 @@ failure raises and exits non-zero):
    prefill ms a prompt, decode wall and (a profiled step) busy ms, idle
    share, peak memory, ``kv_bytes`` and the launches (a step's held to its
    layers by counter and torch.profiler); (d) zamba2-2.7b at full width
-   and depth, bf16: phase 9d's 16 prompts (35-124 tokens), 32 new tokens, 8
+   and HYBRID_LAYERS (18) of its 54 layers, bf16: phase 9d's 16 prompts (35-124 tokens), 32 new tokens, 8
    slots (policy fcfs), on the contiguous and the paged pool (streams
    equal, a profiled step's launches held), then one teacher-forced
    forward at B=1, S=2048 (its loss finite, flash on mma.sync tiles at head
    dim 80 once per segment, the SSD kernel on tensor cores at d_state 64).
+15. the enc-dec family and the VLM backbone (``[encdec-vlm]`` lines; after
+   phase 14, before phase 13): (a) whisper-tiny's and qwen2-vl-7b's smoke
+   configs in f32, the same weights on the CPU and the card: the forward's
+   logits (the VLM over embeddings with an image's M-RoPE layout) within
+   1e-4 of their largest, routed masks equal, one train step's loss and
+   gradient norm, 8 decode steps, greedy streams on the contiguous and the
+   paged pool; then flash attention at the shapes (b) and (c) give it
+   (non-causal over whisper's 1500 frames, cross-attention decode over 12
+   chunks + the merge, the decoder's training calls; qwen2-vl's S=2048
+   forward) and gather_rows / scatter_add_rows at whisper's B=8 S=448
+   D=384, each against its plain version and timed beside its bound and
+   library call; (b) whisper-tiny at full size, bf16, seed 0: 3 training
+   steps (B=8, decoder S=448, 1500 frames), then 8 slots serving 16
+   requests (4-token prompts, 64 new tokens, frames of their own encoded
+   once at admission) on both pools, streams equal, a profiled step's
+   launches held; (c) qwen2-vl-7b at full width and depth, bf16: one B=1
+   S=2048 forward over embeddings laid out as text, a 24 x 40 image and
+   text (loss finite, flash on the t stream, the routed blocks by
+   gather/scatter under pallas_fused), then 8 slots serving 8 text
+   requests of 16-48 tokens, 16 new, on both pools, streams equal.
 
 To keep the script inside its 1200 s, depth is cut where an earlier
 phase does not need it: phases 4, 6c-11 and 13 serve ``mod-paper-1b`` at
 full width and SERVE_1B_LAYERS (8) of its 24 layers (phase 5 trains all
 24); phases 6b, 7a, 8a, 11a and 13a hold the CPU against the card on
 ``mod-paper-60m`` at PARITY_60M_LAYERS (4) of its 8 (phase 3 keeps all 8);
-12b serves ``olmoe-1b-7b`` at MOE_SERVE_LAYERS (4) of its 16. Phase 14
-runs its models whole. Each phase's wall time is printed on a ``[time]``
+12b serves ``olmoe-1b-7b`` at MOE_SERVE_LAYERS (4) of its 16; 14d runs
+``zamba2-2.7b`` at HYBRID_LAYERS (18) of its 54. Phase 14's dense models
+and phase 15 run their models whole. Each phase's wall time is printed on a ``[time]``
 line.
 
 ``--flash-timing [ROOT]`` only times the flash kernel of the port under
@@ -251,7 +273,8 @@ runs it, with the SSD kernel forced onto its CUDA-core path, as its plain
 version, and on the CUDA-core path with ``F.silu`` in the SSM blocks, and
 prints the four loss trajectories.
 ``--moe`` builds the kernels and runs phase 12 alone; ``--overload``
-phase 13 alone; ``--configs`` phase 14 alone.
+phase 13 alone; ``--configs`` phase 14 alone; ``--encdec-vlm`` phase 15
+alone.
 ``--mlp-losses`` only runs phase 5's training four times, with
 routed_mlp_scatter on the wgmma GEMM, on the CUDA-core GEMM and as its
 plain version, and with routed_attention as its plain version, and prints
@@ -767,6 +790,7 @@ class FlashCase(NamedTuple):
     dtypes: tuple
     lse: bool = False
     window: int = 0
+    causal: bool = True
 
 
 def _ring_pos(Skv: int, n: int, dev) -> torch.Tensor:
@@ -843,12 +867,12 @@ def flash_cases(cfg, dev):
     return cases, g
 
 
-def flash_call(FA, q, k, v, q_pos, kv_pos, window=0):
+def flash_call(FA, q, k, v, q_pos, kv_pos, window=0, causal=True):
     """(out, lse) through the port's public flash wrapper. Where the inputs
     need a gradient (as in training), the wrapper's autograd Function has
     the kernel write the f32 row lse its backward reads, and lse is read
     from the Function's saved tensors; else lse is None."""
-    out = FA.flash_attention(q, k, v, q_pos, kv_pos, window=window)
+    out = FA.flash_attention(q, k, v, q_pos, kv_pos, window=window, causal=causal)
     return out, (out.grad_fn.saved_tensors[-1] if out.requires_grad else None)
 
 
@@ -880,15 +904,16 @@ def flash_row(FA, c: FlashCase, dtype, g, reads=1) -> dict:
     k = torch.randn(c.B, c.Skv, c.nkv, c.hd, generator=g, device=g.device).to(dtype)
     v = torch.randn(c.B, c.Skv, c.nkv, c.hd, generator=g, device=g.device).to(dtype)
     qg, kg, vg = (t.detach().requires_grad_(c.lse) for t in (q, k, v))
-    call = lambda: flash_call(FA, qg, kg, vg, c.q_pos, c.kv_pos, c.window)  # noqa: E731
+    call = lambda: flash_call(FA, qg, kg, vg, c.q_pos, c.kv_pos, c.window,  # noqa: E731
+                              c.causal)
     out, lse = call()
-    want, want_l = FA._flash_plain(q, k, v, c.q_pos, c.kv_pos, True, c.window, scale)
+    want, want_l = FA._flash_plain(q, k, v, c.q_pos, c.kv_pos, c.causal, c.window, scale)
     torch.testing.assert_close(out.detach().float(), want.float(), **TOL[dtype])
     lse_err = None
     if c.lse:
         torch.testing.assert_close(lse, want_l, atol=1e-4, rtol=0.0)
         lse_err = (lse - want_l).abs().max().item()
-    mask = FA.valid_mask(c.q_pos, c.kv_pos, True, c.window)[:, None]  # (B, 1, Sq, Skv)
+    mask = FA.valid_mask(c.q_pos, c.kv_pos, c.causal, c.window)[:, None]  # (B, 1, Sq, Skv)
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
     if c.nkv != c.nq:
         kh = kh.repeat_interleave(c.nq // c.nkv, dim=1)
@@ -899,8 +924,8 @@ def flash_row(FA, c: FlashCase, dtype, g, reads=1) -> dict:
     readings = [replay_ms(call, how, "ms") for _ in range(reads)]
     return dict(
         call_ms=event_ms(call), ms=min(readings), readings=readings,
-        plain_ms=replay_ms(lambda: FA._flash_plain(q, k, v, c.q_pos, c.kv_pos, True, c.window,
-                                                   scale), how, "plain_ms", reps=5),
+        plain_ms=replay_ms(lambda: FA._flash_plain(q, k, v, c.q_pos, c.kv_pos, c.causal,
+                                                   c.window, scale), how, "plain_ms", reps=5),
         library_ms=replay_ms(lambda: sdpa(qh, kh, vh, attn_mask=mask), how, "library_ms"),
         bound=bound_ms(nbytes, flops, dtype),
         max_abs_err=(out.detach().float() - want.float()).abs().max().item(),
@@ -3520,8 +3545,8 @@ def train_ssm(dev):
 # 9d serves mamba2-1.3b at full width, SSM_SERVE_LAYERS of its 48 layers:
 # stepped ingestion takes one engine step a prompt token, and the whole
 # depth took 288 s of the script's 1200 s limit on an H100 (700 W); 2 since
-# phase 14 (whose 14d serves an SSM family stepped at full depth) needed
-# the room: 12 layers took 60.9 s, 6 33.9-36.4 s
+# phase 14 (whose 14d serves an SSM family stepped) needed the room: 12
+# layers took 60.9 s, 6 33.9-36.4 s
 SSM_SERVE_LAYERS = 2
 
 
@@ -4723,11 +4748,14 @@ CONFIGS_ROUTED = {  # (D, nq, nkv, d_ff, biases), k = 128 routed rows of S = 102
     "granite-20b": (6144, 48, 1, 24576, False),
 }
 ZAMBA2_SSD = (1, 80, 16, 128, 64, 64)  # B, H, NC, Q, hd, ds of the forward at S = 2048
-# 14d: zamba2-2.7b at full width and depth: phase 9d's prompts (16 of
-# 32-128 drawn tokens: 35-124), 8 slots, 32 new tokens, on the contiguous
-# and the paged pool; the fcfs policy admits every free slot (mod_aware
-# admits round(0.125 * 8) = 1 stepped prompt at a time: ~1400 steps of the
-# whole model where fcfs takes ~300); then one teacher-forced forward
+# 14d: zamba2-2.7b at full width, HYBRID_LAYERS of its 54 layers (3 of its
+# 9 segments: the whole model took 134-180 s of the script's 1200, and
+# phase 15 came after it): phase 9d's prompts (16 of 32-128 drawn tokens:
+# 35-124), 8 slots, 32 new tokens, on the contiguous and the paged pool;
+# the fcfs policy admits every free slot (mod_aware admits round(0.125 *
+# 8) = 1 stepped prompt at a time: ~1400 steps of the whole model where
+# fcfs takes ~300); then one teacher-forced forward
+HYBRID_LAYERS = 18
 HYBRID_SERVE = dict(B=8, requests=16, lo=32, hi=128, gen=32, page=16)
 HYBRID_FWD = dict(B=1, S=2048)
 
@@ -5136,9 +5164,81 @@ def serve_dense_config(dev, arch: str) -> dict:
              f"configs_serve_ragged {arch}": flash["ragged"]})
 
 
+def serve_both_pools(prefix, tag, params, cfg, dev, reqs_fn, B, ctx, page, step_want,
+                     profile_after, note=""):
+    """The stepped engine over ``reqs_fn()``'s requests on the contiguous and
+    the paged pool: streams equal, every request done with its tokens; one
+    profiled step (every slot live, after ``profile_after`` steps) with its
+    launches held to ``step_want[pool]`` and to torch.profiler's names.
+    ``prefix`` starts each log line, ``tag`` names the run in logs and
+    errors, ``note`` describes the requests. Returns (launch counts, flash
+    by call, the paged kernels' launches by call, streams) by pool."""
+    from repro_torch.core.routing import batch_capacity_k
+    from repro_torch.kernels import build
+    from repro_torch.serve import EngineConfig, ServingEngine
+    from repro_torch.serve.scheduler import FREE
+
+    out, counts, flash, paged = {}, {}, {}, {}
+    for pool, kw in (("contiguous", {}), ("paged", dict(page_size=page))):
+        eng = ServingEngine(params, cfg, EngineConfig(batch_size=B, ctx=ctx, policy="fcfs",
+                                                      **kw), device=dev)
+        reqs = reqs_fn()
+        for r in reqs:
+            eng.submit(r)
+        build.reset_counters()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        prof = None
+        while eng.has_work:
+            # a step with every slot live (ingesting or generating)
+            if (prof is None and eng.step_count >= profile_after
+                    and all(s.state != FREE for s in eng.slots)):
+                wall, busy, ours, delta, _, _, _, groups = profiled_step(eng)
+                if delta != step_want[pool]:
+                    raise AssertionError(f"{tag} {pool}: a step launched {delta}, want "
+                                         f"{step_want[pool]}")
+                if busy > 0.0:
+                    check_profiled_kernels(f"{tag} {pool}", ours, delta)
+                    prof = dict(wall=wall, busy=busy, step=eng.step_count, groups=groups)
+            else:
+                eng.step()
+        torch.cuda.synchronize()
+        counts[pool] = build.launch_counts()
+        flash[pool] = flash_calls()
+        paged[pool] = {name: dict(build.COUNTERS[name].by_call)
+                       for name in ("paged_gather", "paged_scatter_rows")}
+        s = eng.stats()
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        out[pool] = _streams(eng.finished)
+        if len(out[pool]) != len(reqs) or any(
+                not o.ok or len(o.tokens) != r.max_new_tokens
+                for o, r in zip(sorted(eng.finished, key=lambda o: o.uid), reqs)):
+            raise AssertionError(f"{tag} {pool}: not every request finished with its tokens")
+        busy_note = ("busy: torch.profiler recorded no device time; not measured" if prof is None
+                     else f"profiled step {prof['step']} ({B} live slots): wall "
+                          f"{prof['wall']:.2f} ms, device busy {prof['busy']:.2f} ms, idle share "
+                          f"{1 - prof['busy'] / prof['wall']:.3f} ("
+                          + ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+                              prof["groups"].items(), key=lambda kv: -kv[1])[:4]) + ")")
+        pb = eng.pool.cache_bytes()
+        log(f"{prefix} {tag} {pool} pool: {len(reqs)} requests{note}, {B} slots, policy fcfs: "
+            f"{s['generated_tokens']:.0f} tokens in {s['wall_s']:.2f}s = {s['tokens_per_s']:.1f} "
+            f"tok/s; {s['steps']:.0f} engine steps, "
+            f"{1e3 * s['decode_s'] / max(1, s['decode_steps']):.2f} ms wall a step; mean "
+            f"occupancy {s['mean_occupancy']:.2f}; routed fraction {s['mean_routed_frac']:.4f} "
+            f"(kb/B = {batch_capacity_k(cfg, B)}/{B}); {busy_note}; pool "
+            f"{pb['total'] / 2**20:.1f} MiB (kv_bytes {s['kv_bytes'] / 2**20:.1f}, residual "
+            f"{pb['resid_bytes'] / 2**20:.1f}); peak memory {peak:.2f} GiB")
+        log(f"{prefix}   launches: {json.dumps({k: v for k, v in counts[pool].items() if v})}")
+    if out["paged"] != out["contiguous"]:
+        raise AssertionError(f"{tag}: the paged pool's streams differ from the contiguous pool's")
+    log(f"{prefix} {tag}: the contiguous and the paged pool gave identical greedy streams")
+    return counts, flash, paged, out
+
+
 def serve_hybrid(dev) -> dict:
-    """14d: zamba2-2.7b at full width and depth, bf16, random weights from
-    seed 0: HYBRID_SERVE's requests through the stepped engine on the
+    """14d: zamba2-2.7b at full width, HYBRID_LAYERS of its layers, bf16,
+    random weights from seed 0: HYBRID_SERVE's requests through the stepped engine on the
     contiguous and the paged pool (streams equal, every request done with
     its tokens; a profiled decode step's launches held to the model's
     layers), then one teacher-forced forward and its loss at B=1, S=2048
@@ -5146,15 +5246,13 @@ def serve_hybrid(dev) -> dict:
     Returns each run's launch counts, flash launches by call, and the
     forward's SSD launches by call."""
     from repro_torch.config import get_config
-    from repro_torch.core.routing import batch_capacity_k
     from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.kernels import build
     from repro_torch.models import api
     from repro_torch.serve import EngineConfig, Request, ServingEngine
-    from repro_torch.serve.scheduler import FREE
     from repro_torch.utils import tree_leaves
 
-    cfg = get_config(CONFIGS_HYBRID)
+    cfg = dataclasses.replace(get_config(CONFIGS_HYBRID), n_layers=HYBRID_LAYERS)
     release_device_memory(dev)
     t0 = time.perf_counter()
     params = api.init_model(cfg, device=dev, seed=0)
@@ -5162,7 +5260,8 @@ def serve_hybrid(dev) -> dict:
     n_params = sum(t.numel() for t in tree_leaves(params))
     n_seg = len(params["groups"])
     n_pairs = len(params["groups"][0])
-    log(f"[configs] 14d {cfg.name}: {n_params / 1e9:.3f}B params in {cfg.dtype}, {n_seg} segments"
+    log(f"[configs] 14d {cfg.name} at {cfg.n_layers} of 54 layers: {n_params / 1e9:.3f}B params "
+        f"in {cfg.dtype}, {n_seg} segments"
         f" of {n_pairs} {{full, mod}} Mamba2 pairs, one shared attention block ({cfg.attn.n_heads}"
         f" heads of {cfg.head_dim}), d_state {cfg.ssm.d_state}; init "
         f"{time.perf_counter() - t0:.1f}s")
@@ -5172,7 +5271,6 @@ def serve_hybrid(dev) -> dict:
     toks = SyntheticLM(cfg.vocab, hi, seed=7).batch(0, n_req)["tokens"]
     reqs = lambda: [Request(tokens=toks[i, :lens[i]], max_new_tokens=gen)  # noqa: E731
                     for i in range(n_req)]
-    pools = {"contiguous": {}, "paged": dict(page_size=w["page"])}
     ServingEngine(params, cfg, EngineConfig(batch_size=B, ctx=hi + gen, policy="fcfs"),
                   device=dev).run_stream([Request(tokens=toks[i, :4], max_new_tokens=2)
                                           for i in range(2)], 0)
@@ -5182,56 +5280,9 @@ def serve_hybrid(dev) -> dict:
     step_want = {"contiguous": {"flash_attention": n_seg},
                  "paged": {"flash_attention": n_seg, "paged_gather": 3 * n_seg,
                            "paged_scatter_rows": 3 * n_seg}}
-    out, counts, flash = {}, {}, {}
-    for name, kw in pools.items():
-        eng = ServingEngine(params, cfg, EngineConfig(batch_size=B, ctx=hi + gen, policy="fcfs",
-                                                      **kw), device=dev)
-        for r in reqs():
-            eng.submit(r)
-        build.reset_counters()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        prof = None
-        while eng.has_work:
-            # a step of the first wave, every slot live (ingesting or generating)
-            if prof is None and eng.step_count >= 20 and all(s.state != FREE for s in eng.slots):
-                wall, busy, ours, delta, n_ev, _, _, groups = profiled_step(eng)
-                if delta != step_want[name]:
-                    raise AssertionError(f"14d {name}: a step launched {delta}, want "
-                                         f"{step_want[name]}")
-                if busy > 0.0:
-                    check_profiled_kernels(f"14d {name}", ours, delta)
-                    prof = dict(wall=wall, busy=busy, step=eng.step_count, groups=groups)
-            else:
-                eng.step()
-        torch.cuda.synchronize()
-        counts[name] = build.launch_counts()
-        flash[name] = flash_calls()
-        s = eng.stats()
-        peak = torch.cuda.max_memory_allocated(dev) / 2**30
-        out[name] = _streams(eng.finished)
-        if len(out[name]) != n_req or any(not o.ok or len(o.tokens) != gen for o in eng.finished):
-            raise AssertionError(f"14d {name}: not every request finished with {gen} tokens")
-        busy_note = ("busy: torch.profiler recorded no device time; not measured" if prof is None
-                     else f"profiled step {prof['step']} (8 live slots): wall "
-                          f"{prof['wall']:.2f} ms, device busy {prof['busy']:.2f} ms, idle share "
-                          f"{1 - prof['busy'] / prof['wall']:.3f} ("
-                          + ", ".join(f"{k} {v:.2f}" for k, v in sorted(
-                              prof["groups"].items(), key=lambda kv: -kv[1])[:4]) + ")")
-        pool = eng.pool.cache_bytes()
-        log(f"[configs] 14d {name} pool: {n_req} requests (prompts {lens.min()}-{lens.max()} "
-            f"tokens, {gen} new each), {B} slots, policy fcfs: {s['generated_tokens']:.0f} tokens "
-            f"in {s['wall_s']:.2f}s = {s['tokens_per_s']:.1f} tok/s; {s['steps']:.0f} engine "
-            f"steps, {1e3 * s['decode_s'] / s['decode_steps']:.2f} ms wall a step; mean occupancy "
-            f"{s['mean_occupancy']:.2f}; routed fraction {s['mean_routed_frac']:.4f} (kb/B = "
-            f"{batch_capacity_k(cfg, B)}/{B}); {busy_note}; pool {pool['total'] / 2**20:.1f} MiB"
-            f" (kv_bytes {s['kv_bytes'] / 2**20:.1f}, residual {pool['resid_bytes'] / 2**20:.1f});"
-            f" peak memory {peak:.2f} GiB")
-        log(f"[configs]   launches: {json.dumps({k: v for k, v in counts[name].items() if v})}")
-    if out["paged"] != out["contiguous"]:
-        raise AssertionError("14d: the paged pool's streams differ from the contiguous pool's")
-    log(f"[configs] 14d: the contiguous and the paged pool gave identical greedy streams "
-        f"({n_req} requests x {gen} tokens)")
+    counts, flash, _, _ = serve_both_pools(
+        "[configs]", "14d", params, cfg, dev, reqs, B, hi + gen, w["page"], step_want,
+        profile_after=20, note=f" (prompts {lens.min()}-{lens.max()} tokens, {gen} new each)")
     Bf, S = HYBRID_FWD["B"], HYBRID_FWD["S"]
     batch = {k: torch.as_tensor(v).long().to(dev)
              for k, v in SyntheticLM(cfg.vocab, S, seed=31).batch(0, Bf).items()}
@@ -5298,6 +5349,550 @@ def configs_phase(dev, results):
     log(f"[time] 14a {t14a:.1f}s, 14b {t14b:.1f}s, 14c {t14c:.1f}s, 14d "
         f"{time.perf_counter() - t - t14a - t14b - t14c:.1f}s")
     return counts, flash, ssd_calls
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the enc-dec family (whisper-tiny) and the VLM backbone (qwen2-vl-7b)
+# ---------------------------------------------------------------------------
+
+ENCDEC_ARCH, VLM_ARCH = "whisper-tiny", "qwen2-vl-7b"
+ENCDEC_VLM_TOL = 1e-4  # 15a: f32 logits, CPU against the card, of the largest |value|
+# 15a: the smoke configs' image layout (text, 3 x 4 merged patches, text)
+VLM_SMOKE_LAYOUT = [("text", 5), ("image", (3, 4)), ("text", 7)]
+# 15b: whisper-tiny at full size: 3 training steps, then 8 slots serving 16
+# requests (a prompt of 4 tokens, 64 new, frames of their own) on both pools
+WHISPER_TRAIN = dict(B=8, S=448, steps=3)
+WHISPER_SERVE = dict(B=8, requests=16, prompt=4, gen=64, page=16)
+# 15c: qwen2-vl-7b at full width and depth: one B=1 S=2048 forward over
+# embeddings laid out as Qwen2-VL lays out an image of 24 x 40 merged
+# patches between text, then 8 slots serving 8 text requests of 16-48
+# tokens, 16 new, on both pools
+VLM_LAYOUT = [("text", 64), ("image", (24, 40)), ("text", 2048 - 64 - 960)]
+VLM_SERVE = dict(B=8, requests=8, lo=16, hi=48, gen=16, page=16)
+
+
+def encdec_vlm_smoke(arch: str):
+    """The port's smoke config of ``arch`` in f32, backend pallas."""
+    from repro_torch.config import get_config, smoke_config, with_mod_backend
+
+    return with_mod_backend(dataclasses.replace(smoke_config(get_config(arch)),
+                                                dtype="float32"), "pallas")
+
+
+def _family_batch(cfg, B: int, S: int, seed: int, dev, layout=None) -> dict:
+    """A training batch of ``cfg``'s family from ``seed``: labels, and the
+    stub frontend's inputs (``api.stub_inputs``: frames for the enc-dec
+    model beside its tokens, embeddings and M-RoPE positions for the VLM,
+    laid out by ``layout`` when given)."""
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models import api
+
+    b = {k: torch.as_tensor(v).long().to(dev)
+         for k, v in SyntheticLM(cfg.vocab, S, seed=seed).batch(0, B).items()}
+    b.update(api.stub_inputs(cfg, B, S, seed=seed, device=dev))
+    if cfg.family == "vlm":
+        del b["tokens"]
+        if layout is not None:
+            pos = api.mrope_positions(layout, device=dev)
+            b["positions"] = pos[:, None].expand(3, B, pos.shape[1]).contiguous()
+    return b
+
+
+def encdec_vlm_parity(dev) -> None:
+    """15a: whisper-tiny's and qwen2-vl-7b's smoke configs in f32, the same
+    weights and inputs on the CPU (plain versions, one torch thread) and on
+    the card (kernels): the forward's logits (the VLM over embeddings with
+    an image's M-RoPE layout) within ENCDEC_VLM_TOL of their largest and its
+    routed masks equal; one train step's loss within 1e-5 and gradient
+    norm within 1e-4 relative; 8 decode steps' logits within the limit
+    (whisper after ``prefill_cross``); greedy streams equal on both devices
+    on the contiguous and the paged pool (5 requests, 4 slots)."""
+    from repro_torch.config import OptimConfig, TrainConfig
+    from repro_torch.kernels import build
+    from repro_torch.models import api
+    from repro_torch.models import encdec as ED
+    from repro_torch.serve import EngineConfig, Request, ServingEngine
+    from repro_torch.train.loop import make_train_state, make_train_step
+    from repro_torch.utils import tree_map
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for arch in (ENCDEC_ARCH, VLM_ARCH):
+            cfg = encdec_vlm_smoke(arch)
+            p_cpu = api.init_model(cfg, device="cpu", seed=3)
+            draw_biases(p_cpu, torch.Generator().manual_seed(4))
+            p_gpu = _to(p_cpu, dev)
+            batch = _family_batch(cfg, 2, 24, 13, "cpu", VLM_SMOKE_LAYOUT)
+            out = {}
+            for name, params, d in (("cpu", p_cpu, "cpu"), ("gpu", p_gpu, dev)):
+                build.reset_counters()
+                b = {k: v.to(d) for k, v in batch.items()}
+                with torch.no_grad(), recorded_decisions("decide_tokens") as decisions:
+                    logits, _ = api.model_forward(params, cfg, b)
+                counts = {k: v for k, v in build.launch_counts().items() if v}
+                tcfg = TrainConfig(global_batch=2, seq_len=24,
+                                   optim=OptimConfig(lr=1e-3, warmup_steps=1, total_steps=10))
+                state = make_train_state(cfg, d, params=tree_map(
+                    lambda t: t.detach().clone(), params))
+                state["step"] = torch.ones((), dtype=torch.int32)
+                _, metrics = make_train_step(cfg, tcfg)(state, b)
+                out[name] = (logits.cpu(), [x.mask.cpu() for x in decisions], counts,
+                             float(metrics["loss"]), float(metrics["grad_norm"]))
+            (lc, mc, _, loss_c, gn_c), (lg, mg, counts, loss_g, gn_g) = out["cpu"], out["gpu"]
+            diff, lim = (lc - lg).abs().max().item(), ENCDEC_VLM_TOL * lc.abs().max().item()
+            same = len(mc) == len(mg) > 0 and all(torch.equal(a, b) for a, b in zip(mc, mg))
+            dl, dn = abs(loss_c - loss_g) / abs(loss_c), abs(gn_c - gn_g) / gn_c
+            want = {"flash_attention", "gather_rows", "scatter_add_rows"}
+            if not (diff <= lim and same and dl <= 1e-5 and dn <= 1e-4) or set(counts) != want:
+                raise AssertionError(f"15a {arch}: CPU and card differ (max|dlogit| {diff:.3g}, "
+                                     f"limit {lim:.3g}; masks equal {same}; loss rel {dl:.3g}, "
+                                     f"grad norm rel {dn:.3g}) or the card launched {counts}")
+            # 8 decode steps, the same tokens on both devices
+            B, ctx = 4, 32
+            toks = torch.as_tensor(np.random.default_rng(5).integers(0, cfg.vocab, (8, B)))
+            worst = 0.0
+            caches = {}
+            for name, params, d in (("cpu", p_cpu, "cpu"), ("gpu", p_gpu, dev)):
+                c = api.make_caches(cfg, B, ctx, device=d)
+                if cfg.family == "encdec":
+                    c = ED.prefill_cross(params, c, _family_batch(cfg, B, 4, 17, d)["enc_emb"],
+                                         cfg)
+                caches[name] = c
+            for i in range(8):
+                step = {}
+                for name, params, d in (("cpu", p_cpu, "cpu"), ("gpu", p_gpu, dev)):
+                    with torch.no_grad():
+                        lg_, caches[name], _ = api.model_decode(
+                            params, caches[name], cfg, toks[i][:, None].to(d),
+                            torch.full((B,), i, dtype=torch.int32, device=d),
+                            torch.ones(B, dtype=torch.bool, device=d))
+                    step[name] = lg_.cpu()
+                d_i = (step["cpu"] - step["gpu"]).abs().max().item()
+                if d_i > ENCDEC_VLM_TOL * step["cpu"].abs().max().item():
+                    raise AssertionError(f"15a {arch} decode step {i}: max|dlogit| {d_i:.3g}")
+                worst = max(worst, d_i)
+            streams = {}
+            rng = np.random.default_rng(9)
+            reqs = [(rng.choice(cfg.vocab, int(n), replace=False).astype(np.int32),
+                     _family_batch(cfg, 1, 4, 40 + i, "cpu").get("enc_emb"))
+                    for i, n in enumerate(rng.integers(6, 20, 5))]
+            for pool, kw in (("contiguous", {}), ("paged", dict(page_size=16))):
+                got = {}
+                for side, d, params in (("cpu", "cpu", p_cpu), ("gpu", dev, p_gpu)):
+                    eng = ServingEngine(params, cfg, EngineConfig(batch_size=4, ctx=32, **kw),
+                                        device=d)
+                    got[side] = _streams(eng.run_stream([
+                        Request(tokens=t, max_new_tokens=6,
+                                enc_emb=None if e is None else e[0]) for t, e in reqs], 0))
+                if got["cpu"] != got["gpu"]:
+                    raise AssertionError(f"15a {arch} {pool}: CPU and card streams differ for "
+                                         f"{[u for u in got['cpu'] if got['cpu'][u] != got['gpu'][u]]}")
+                streams[pool] = got["gpu"]
+            log(f"[encdec-vlm] 15a {arch} f32 smoke: CPU == card logits max|d| {diff:.3g} "
+                f"(limit {lim:.3g}), {len(mg)} routed masks equal; train step loss "
+                f"{loss_g:.6f} (rel {dl:.3g}), grad norm {gn_g:.5f} (rel {dn:.3g}); 8 decode "
+                f"steps max|dlogit| {worst:.3g}; card launches {json.dumps(counts)}; greedy "
+                f"streams equal on both devices on "
+                + ", ".join(f"{n} ({sum(len(t) for t in s.values())} tokens)"
+                            for n, s in streams.items()))
+    finally:
+        torch.set_num_threads(threads)
+
+
+def encdec_vlm_kernels(dev, results) -> None:
+    """15b-c's kernel shapes against their plain versions, timed by CUDA-graph
+    replay beside the bound and the library call: flash attention at
+    whisper-tiny's (6 heads of 64: the encoder over 1500 frames at B=1 as
+    admission runs it, non-causal on the wgmma tiles; cross-attention
+    decode of 8 slots over the 1500 frames, 12 chunks + the merge, every
+    position 0 as the model passes them; the decoder's training calls at
+    B=8, S=448: cross-attention of the full and the routed (k=128) rows,
+    causal self-attention of both; the decode steps' self-attention of 8
+    slots and a routed slot's cross-attention) and qwen2-vl-7b's (28/4
+    heads of 128: the S=2048 forward with the image layout's t stream, its
+    routed blocks' 256 rows, a decode step of 8 slots); gather_rows and
+    scatter_add_rows at whisper's routed decoder blocks (B=8, S=448,
+    D=384: 768-byte rows, k=128); paged_gather and paged_scatter_rows at
+    15b-c's paged pools (8 slots, page 16: whisper's K/V rows of 6 x 64
+    and its position rows, qwen2-vl's K/V rows of 4 x 128), bitwise equal
+    to their plain versions and writing no row outside their targets."""
+    from repro_torch.config import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged as KP
+    from repro_torch.kernels import routing as KR
+    from repro_torch.models import api
+
+    g = torch.Generator(device=dev).manual_seed(53)
+    i32 = dict(dtype=torch.int32, device=dev)
+    bf = (torch.bfloat16,)
+    zeros = lambda B, S: torch.zeros((B, S), **i32)  # noqa: E731
+    ar = lambda B, S: torch.arange(S, **i32)[None].repeat(B, 1)  # noqa: E731
+    t_vlm = api.mrope_positions(VLM_LAYOUT, device=dev)[0][None]
+
+    def routed(B, S, k):  # a routed block's rows: k of S, sorted
+        return torch.stack([torch.randperm(S, generator=g, device=dev)[:k].sort().values
+                            for _ in range(B)]).int()
+
+    def decode_pos(B, ctx, lo):  # each slot's cache filled to a length in [lo, ctx]
+        lens = torch.randint(lo, ctx + 1, (B,), generator=g, device=dev)
+        kv = torch.arange(ctx, **i32)[None].repeat(B, 1)
+        return (lens - 1)[:, None].int(), torch.where(kv < lens[:, None], kv, -1).int()
+
+    w_routed = routed(8, 448, 128)
+    t_routed = t_vlm.gather(1, routed(1, 2048, 256).long())  # the routed rows' t stream
+    cases = [
+        (FlashCase("whisper encoder B=1 S=1500", 1, 1500, 1500, 6, 6, 64, ar(1, 1500),
+                   ar(1, 1500), bf, causal=False), "wgmma"),
+        (FlashCase("whisper cross decode B=8 Skv=1500", 8, 1, 1500, 6, 6, 64, zeros(8, 1),
+                   zeros(8, 1500), bf, causal=False), "decode"),
+        (FlashCase("whisper cross train B=8 Sq=448 Skv=1500", 8, 448, 1500, 6, 6, 64,
+                   zeros(8, 448), zeros(8, 1500), bf, True, causal=False), "wgmma"),
+        (FlashCase("whisper cross routed B=8 Sq=128 Skv=1500", 8, 128, 1500, 6, 6, 64,
+                   zeros(8, 128), zeros(8, 1500), bf, True, causal=False), "wgmma"),
+        (FlashCase("whisper self train B=8 S=448", 8, 448, 448, 6, 6, 64, ar(8, 448),
+                   ar(8, 448), bf, True), "wgmma"),
+        (FlashCase("qwen2-vl forward S=2048 mrope t", 1, 2048, 2048, 28, 4, 128, t_vlm, t_vlm,
+                   bf), "wgmma"),
+        # the routed blocks' and the decode steps' calls of 15b-c
+        (FlashCase("whisper routed self train B=8 S=128", 8, 128, 128, 6, 6, 64, w_routed,
+                   w_routed, bf, True), "wgmma"),
+        (FlashCase("whisper self decode B=8 ctx=80", 8, 1, 80, 6, 6, 64, *decode_pos(8, 80, 4),
+                   bf), "decode"),
+        (FlashCase("whisper cross routed decode B=1 Skv=1500", 1, 1, 1500, 6, 6, 64, zeros(1, 1),
+                   zeros(1, 1500), bf, causal=False), "decode"),
+        (FlashCase("qwen2-vl routed forward S=256 mrope t", 1, 256, 256, 28, 4, 128, t_routed,
+                   t_routed, bf), "wgmma"),
+        (FlashCase("qwen2-vl decode B=8 ctx=64", 8, 1, 64, 28, 4, 128, *decode_pos(8, 64, 16),
+                   bf), "decode"),
+    ]
+    for c, path in cases:
+        dtype = torch.bfloat16
+        plan = FA.flash_plan(c.B, c.Sq, c.Skv, c.nq, c.nkv, c.hd, dtype)
+        build.reset_counters()
+        r = flash_row(FA, c, dtype, g)
+        key = (plan.path, c.B, c.Sq, c.Skv, c.nq, c.nkv, c.hd, plan.kernels)
+        if plan.path != path or key not in FA.FLASH_ATTENTION.by_call or (
+                c.label.startswith("whisper cross decode") and plan.n_splits != 12):
+            raise AssertionError(f"15 flash {c.label}: plan {plan}, launched "
+                                 f"{dict(FA.FLASH_ATTENTION.by_call)}, want the {path} path")
+        r["path"], r["kernels"] = plan.path, plan.kernels
+        r["plan"] = dict(path=plan.path, key_tile=plan.key_tile, key_split=plan.key_split,
+                         chunk=plan.chunk, n_splits=plan.n_splits, merge=plan.merge)
+        log(f"[encdec-vlm] 15 flash_attention {r['shape']:46s} {plan.path:6s} "
+            f"kernels={plan.kernels} causal={c.causal} max_abs_err={r['max_abs_err']:.3g} "
+            f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
+            f"(SDPA) bound_ms={r['bound'][0]:.4f} ({r['bound'][1]})")
+        results.setdefault("flash_attention", {})[(c.label, dtype)] = r
+    # the dispatch kernels at whisper's routed decoder blocks
+    cfg = get_config(ENCDEC_ARCH)
+    B, S, D = WHISPER_TRAIN["B"], WHISPER_TRAIN["S"], cfg.d_model
+    k = cfg.mod.capacity(S)
+    dtype = torch.bfloat16
+    x, idx, delta, gate, flat = dispatch_inputs(g, dev, dtype, B, S, D, k)
+    es = x.element_size()
+    out, want = KR.gather_rows(x, idx), KR.gather_rows_plain(x, idx)
+    out2 = KR.scatter_add_rows(x, idx, delta, gate)
+    want2 = KR.scatter_add_rows_plain(x, idx, delta, gate)
+    if not (torch.equal(out, want) and torch.equal(out2, want2)):
+        raise AssertionError("15 dispatch at whisper's shape: a kernel differs from its plain "
+                             "version")
+    xf = x.view(B * S, D)
+    upd = (gate[..., None] * delta.float()).to(dtype).view(B * k, D)
+    hg, hs = {}, {}
+    label = f"whisper B={B} S={S} D={D}"
+    rows = {
+        "gather_rows": dict(
+            ms=replay_ms(lambda: KR.gather_rows(x, idx), hg, "ms"),
+            plain_ms=replay_ms(lambda: KR.gather_rows_plain(x, idx), hg, "plain_ms"),
+            library_ms=replay_ms(lambda: torch.take_along_dim(x, idx[..., None], dim=1), hg,
+                                 "library_ms"),
+            index_select_ms=replay_ms(lambda: xf.index_select(0, flat), hg, "index_select_ms"),
+            bound=bound_ms(2 * B * k * D * es + 8 * B * k, 0, dtype),
+            plan=KR.dispatch_plan("gather", B, S, k, D * es, es, 8,
+                                  (x.data_ptr(), out.data_ptr()))._asdict(),
+            max_abs_err=0.0, timed_by=hg, call=("gather", B, S, k, D * es)),
+        "scatter_add_rows": dict(
+            ms=replay_ms(lambda: KR.scatter_add_rows(x, idx, delta, gate), hs, "ms"),
+            plain_ms=replay_ms(lambda: KR.scatter_add_rows_plain(x, idx, delta, gate), hs,
+                               "plain_ms"),
+            library_ms=replay_ms(lambda: xf.index_add(0, flat, upd), hs, "library_ms"),
+            bound=bound_ms(2 * B * S * D * es + B * k * D * es + 12 * B * k, 2 * B * k * D,
+                           dtype),
+            plan=KR.dispatch_plan("scatter", B, S, k, D * es, es, 8,
+                                  (x.data_ptr(), delta.data_ptr(), out2.data_ptr()))._asdict(),
+            max_abs_err=0.0, timed_by=hs, call=("scatter", B, S, k, D * es)),
+    }
+    for name, r in rows.items():
+        r["shape"] = f"{label} k={k} bfloat16"
+        extra = f" index_select_ms={r['index_select_ms']:.4f}" if "index_select_ms" in r else ""
+        log(f"[encdec-vlm] 15 {name:16s} {r['shape']} bitwise-equal ms={r['ms']:.4f} "
+            f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f}{extra} "
+            f"bound_ms={r['bound'][0]:.4f} ({r['bound'][1]}, {r['bound'][0] / r['ms']:.0%} of it) "
+            f"{plan_note(r['plan'])}{timed_note(r['timed_by'])}")
+        results.setdefault(name, {})[(label, dtype)] = r
+    # the paged kernels at the paged serving pools of 15b-c: each slot's
+    # table maps the pages its prompt and new tokens reach
+    vcfg = get_config(VLM_ARCH)
+    ws, vs = WHISPER_SERVE, VLM_SERVE
+    w_ctx = -(-(ws["prompt"] + ws["gen"]) // ws["page"]) * ws["page"]
+    v_ctx = -(-(vs["hi"] + vs["gen"]) // vs["page"]) * vs["page"]
+    v_lens = [int(n) for n in np.random.default_rng(2).integers(vs["lo"], vs["hi"] + 1, vs["B"])]
+    paged_cases = [  # label, dtype, F, prompt lengths, new tokens, P, page, run
+        ("whisper kv", torch.bfloat16, cfg.attn.n_kv_heads * cfg.head_dim,
+         [ws["prompt"]] * ws["B"], ws["gen"], w_ctx // ws["page"], ws["page"],
+         "encdec_vlm_whisper_serve_paged"),
+        ("whisper pos", torch.int32, 1, [ws["prompt"]] * ws["B"], ws["gen"],
+         w_ctx // ws["page"], ws["page"], "encdec_vlm_whisper_serve_paged"),
+        ("qwen2-vl kv", torch.bfloat16, vcfg.attn.n_kv_heads * vcfg.head_dim, v_lens, vs["gen"],
+         v_ctx // vs["page"], vs["page"], "encdec_vlm_vlm_serve_paged"),
+    ]
+    for label, dtype, F, lens, gen, P, p, run in paged_cases:
+        pages, table, prow, ppos, _ = _paged_inputs(g, dev, dtype, F, lens, gen, P, p, p)
+        N, Bp, es = pages.shape[0], table.shape[0], pages.element_size()
+        build.reset_counters()
+        if not torch.equal(KP.paged_gather(pages, table), KP.paged_gather_plain(pages, table)):
+            raise AssertionError(f"15 paged_gather differs from its plain version ({label})")
+        before = pages.clone()
+        want = KP.paged_scatter_rows_plain(before.clone(), table, prow, ppos)
+        KP.paged_scatter_rows(pages, table, prow, ppos)
+        tgt = (table.long()[torch.arange(Bp, device=dev), ppos.long() // p] * p
+               + ppos.long() % p)
+        if not torch.equal(pages, want) or not _changed_rows(pages, before) <= set(tgt.tolist()):
+            raise AssertionError(f"15 paged_scatter_rows wrong or wrote outside its rows ({label})")
+        gplan = KP.gather_plan(N, Bp, P, p * F * es, pages.data_ptr())
+        splan = KP.scatter_rows_plan(N, Bp, P, p, F * es, pages.data_ptr(), prow.data_ptr())
+        if ((gplan.vec, Bp, P, p * F * es) not in build.COUNTERS["paged_gather"].by_call
+                or (splan.vec, Bp, F * es) not in build.COUNTERS["paged_scatter_rows"].by_call):
+            raise AssertionError(f"15 paged kernels {label}: launched "
+                                 f"{dict(build.COUNTERS['paged_gather'].by_call)} and "
+                                 f"{dict(build.COUNTERS['paged_scatter_rows'].by_call)}, not "
+                                 f"{gplan} and {splan}")
+        flat, fi = pages.view(N * p, F), tgt.contiguous()
+        reads = torch.unique(table).numel()  # each distinct page mapped is read once
+        shape = f"{label} N={N} p={p} F={F} P={P} {str(dtype)[6:]} B={Bp}"
+        timed = {
+            # every logical page written, each mapped page read, the table
+            "paged_gather": dict(
+                fn=lambda: KP.paged_gather(pages, table),
+                plain=lambda: KP.paged_gather_plain(pages, table),
+                library=lambda t=table.flatten().long(): torch.index_select(pages, 0, t),
+                nbytes=(Bp * P + reads) * p * F * es + 4 * Bp * P, plan=gplan,
+                call=(Bp, P, p * F * es)),
+            # the rows read and written, the B positions and table entries
+            "paged_scatter_rows": dict(
+                fn=lambda: KP.paged_scatter_rows(pages, table, prow, ppos),
+                plain=lambda: KP.paged_scatter_rows_plain(pages, table, prow, ppos),
+                library=lambda: flat.index_copy_(0, fi, prow),
+                nbytes=2 * Bp * F * es + 4 * Bp + 4 * Bp, plan=splan, call=(Bp, F * es)),
+        }
+        for name, c in timed.items():
+            how: dict = {}
+            r = dict(ms=replay_ms(c["fn"], how, "ms"), plain_ms=replay_ms(c["plain"], how,
+                                                                          "plain_ms"),
+                     library_ms=replay_ms(c["library"], how, "library_ms"),
+                     bound=bound_ms(c["nbytes"], 0, dtype), timed_by=how, max_abs_err=0.0,
+                     shape=shape, off_path=False, plan=c["plan"]._asdict(), run=run,
+                     call=c["call"])
+            log(f"[encdec-vlm] 15 {name:18s} {shape} bitwise-equal ms={r['ms']:.4f} "
+                f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
+                f"({'index_select' if name == 'paged_gather' else 'index_copy_'}) "
+                f"bound_ms={r['bound'][0]:.6f} ({r['bound'][1]}) plan=vec{c['plan'].vec} "
+                f"unroll{c['plan'].unroll} x {c['plan'].blocks} blocks{timed_note(how)}")
+            results.setdefault(name, {})[f"15 {label} B={Bp}"] = r
+
+
+def train_whisper(dev, params, cfg) -> tuple:
+    """15b(i): WHISPER_TRAIN's steps of the Trainer's step (loss with the
+    router and predictor terms, clip, AdamW) on whisper-tiny at full size,
+    bf16: encoder over 1500 stub frames, decoder S=448, remat full. Returns
+    (launch counts, flash launches by call, dispatch launches by call)."""
+    from repro_torch.config import OptimConfig, TrainConfig
+    from repro_torch.kernels import build
+    from repro_torch.train.loop import make_train_state, make_train_step
+    from repro_torch.utils import tree_map
+
+    w = WHISPER_TRAIN
+    tcfg = TrainConfig(global_batch=w["B"], seq_len=w["S"],
+                       optim=OptimConfig(lr=3e-4, warmup_steps=1, total_steps=10))
+    state = make_train_state(cfg, dev, params=tree_map(lambda t: t.detach().clone(), params))
+    step_fn = make_train_step(cfg, tcfg)
+    batches = [_family_batch(cfg, w["B"], w["S"], 100 + i, dev) for i in range(w["steps"])]
+    build.reset_counters()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, walls = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, m = step_fn(state, b)
+        losses.append((float(m["loss"]), float(m["ce"]), float(m["grad_norm"])))
+        walls.append(1e3 * (time.perf_counter() - t0))
+    counts = build.launch_counts()
+    flash, dispatch = flash_calls(), dispatch_by_call()
+    try:
+        wall, busy, top = profile_call(lambda: step_fn(state, batches[-1]), iters=1, warmup=0)
+        timing = (f"profiled step: wall {wall:.1f} ms, device busy {busy:.1f} ms; top: "
+                  + "; ".join(f"{n[:40]} {t:.2f}" for n, t in top[:4]))
+    except NoDeviceTime:
+        timing = "torch.profiler recorded no device time; busy not measured"
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    enc_key = ("wgmma", w["B"], 1500, 1500, 6, 6, 64, 1)
+    if (not all(np.isfinite(v) for row in losses for v in row) or not counts["gather_rows"]
+            or not counts["scatter_add_rows"] or enc_key not in flash):
+        raise AssertionError(f"15b train: losses {losses}, launches {counts}, flash {flash}")
+    log(f"[encdec-vlm] 15b whisper-tiny train B={w['B']} S={w['S']} (1500 frames, remat "
+        f"{cfg.remat}, backend {cfg.mod.backend}): (loss, ce, grad norm) by step "
+        f"{[tuple(round(v, 6) for v in row) for row in losses]}; wall "
+        f"{', '.join(f'{t:.1f}' for t in walls)} ms; {timing}; peak memory {peak:.2f} GiB")
+    log(f"[encdec-vlm]   train launches: "
+        f"{json.dumps({k: v for k, v in counts.items() if v})}; flash by call "
+        f"{json.dumps([list(k) + [n] for k, n in sorted(flash.items())])}")
+    del state
+    return counts, flash, dispatch
+
+
+def serve_whisper(dev, params, cfg) -> tuple:
+    """15b(ii): WHISPER_SERVE on both pools; each request's frames drawn
+    from seed 1000 + its index, encoded once at admission (flash over 1500
+    frames at B=1, 4 encoder layers). A decode step: flash in every
+    decoder block's self- and cross-attention (the routed blocks at kb = 1),
+    paged gathers and scatters of the full blocks' self rings on the paged
+    pool. Returns (launch counts, flash by call, the paged kernels'
+    launches by call) by pool."""
+    from repro_torch.models import api
+    from repro_torch.serve import Request
+
+    w = WHISPER_SERVE
+    rng = np.random.default_rng(11)
+    prompts = [rng.choice(cfg.vocab, w["prompt"], replace=False) for _ in range(w["requests"])]
+    frames = [api.stub_inputs(cfg, 1, 0, seed=1000 + i, device=dev)["enc_emb"][0]
+              for i in range(w["requests"])]
+    reqs = lambda: [Request(tokens=p, max_new_tokens=w["gen"], enc_emb=e)  # noqa: E731
+                    for p, e in zip(prompts, frames)]
+    n_groups = cfg.n_layers // 2
+    step_flash = 2 * (2 * n_groups)  # self + cross in each full and routed block
+    want = {"contiguous": {"flash_attention": step_flash},
+            "paged": {"flash_attention": step_flash, "paged_gather": 3 * n_groups,
+                      "paged_scatter_rows": 3 * n_groups}}
+    ctx = -(-(w["prompt"] + w["gen"]) // w["page"]) * w["page"]
+    return serve_both_pools(
+        "[encdec-vlm]", "15b whisper-tiny", params, cfg, dev, reqs, w["B"], ctx, w["page"], want,
+        profile_after=2 * w["prompt"],
+        note=f" (prompts of {w['prompt']} tokens, {w['gen']} new each, frames of their own)")[:3]
+
+
+def vlm_phase(dev) -> tuple:
+    """15c: qwen2-vl-7b at full width and depth, bf16, random weights from
+    seed 0: one B=1 S=2048 forward and its loss over embeddings laid out as
+    VLM_LAYOUT (flash over the t stream on the wgmma tiles; routed blocks
+    by gather/scatter: M-RoPE is not fused), then VLM_SERVE on both pools
+    (text requests, stepped). Returns the launch counts by run, flash's
+    launches by call by run, and the paged serving run's paged kernels'
+    launches by call."""
+    from repro_torch.config import get_config, with_mod_backend
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import build
+    from repro_torch.models import api
+    from repro_torch.serve import Request
+    from repro_torch.utils import tree_leaves
+
+    # pallas_fused: M-RoPE's routed blocks fall back to gather/scatter
+    cfg = with_mod_backend(get_config(VLM_ARCH), "pallas_fused")
+    release_device_memory(dev)
+    t0 = time.perf_counter()
+    params = api.init_model(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"[encdec-vlm] 15c {cfg.name}: {n_params / 1e9:.3f}B params in {cfg.dtype} "
+        f"({len(params['groups'])} {{full, mod}} groups, {cfg.attn.n_heads}/{cfg.attn.n_kv_heads} "
+        f"heads of {cfg.head_dim}, M-RoPE sections {cfg.attn.mrope_sections}), init "
+        f"{time.perf_counter() - t0:.1f}s")
+    S = sum(n if k == "text" else n[0] * n[1] for k, n in VLM_LAYOUT)
+    batch = _family_batch(cfg, 1, S, 31, dev, VLM_LAYOUT)
+    build.reset_counters()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.no_grad():
+        loss, aux = api.model_loss(params, cfg, batch)
+        torch.cuda.synchronize()
+        fwd = build.launch_counts()
+        flash_fwd = flash_calls()
+        try:
+            wall, busy, top = profile_call(lambda: api.model_loss(params, cfg, batch), iters=2,
+                                           warmup=1)
+            timing = (f"wall {wall:.2f} ms, device busy {busy:.2f} ms; top kernels: "
+                      + "; ".join(f"{n[:50]} {t:.3f}" for n, t in top))
+        except NoDeviceTime:
+            timing = "torch.profiler recorded no device time; not measured"
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    n_groups = len(params["groups"])
+    k = cfg.mod.capacity(S)
+    want_flash = {("wgmma", 1, S, S, 28, 4, 128, 1): n_groups,
+                  ("wgmma", 1, k, k, 28, 4, 128, 1): n_groups}
+    if (not torch.isfinite(loss) or flash_fwd != want_flash
+            or fwd["gather_rows"] != n_groups or fwd["scatter_add_rows"] != n_groups
+            or fwd["routed_attention"] or fwd["routed_mlp_scatter"]):
+        raise AssertionError(f"15c forward: loss {float(loss)}, flash {flash_fwd} (want "
+                             f"{want_flash}), launches {fwd}")
+    log(f"[encdec-vlm] 15c forward B=1 S={S} over embeddings (text 64, image 24x40 sharing t=64,"
+        f" text from {int(batch['positions'][0, 0, 64 + 960])}; backend {cfg.mod.backend}): "
+        f"loss {float(loss):.6f} "
+        f"(ce {float(aux['ce']):.6f}, finite); flash calls "
+        f"{json.dumps([list(k_) + [n] for k_, n in flash_fwd.items()])}; gather/scatter "
+        f"{fwd['gather_rows']}/{fwd['scatter_add_rows']}; peak memory {peak:.2f} GiB; {timing}")
+    w = VLM_SERVE
+    lens = np.random.default_rng(2).integers(w["lo"], w["hi"] + 1, w["requests"])
+    toks = SyntheticLM(cfg.vocab, w["hi"], seed=8).batch(0, w["requests"])["tokens"]
+    reqs = lambda: [Request(tokens=toks[i, :lens[i]], max_new_tokens=w["gen"])  # noqa: E731
+                    for i in range(w["requests"])]
+    want = {"contiguous": {"flash_attention": 2 * n_groups},
+            "paged": {"flash_attention": 2 * n_groups, "paged_gather": 3 * n_groups,
+                      "paged_scatter_rows": 3 * n_groups}}
+    ctx = -(-(w["hi"] + w["gen"]) // w["page"]) * w["page"]
+    counts, flash, paged, _ = serve_both_pools(
+        "[encdec-vlm]", "15c qwen2-vl-7b", params, cfg, dev, reqs, w["B"], ctx, w["page"], want,
+        profile_after=4, note=f" (text prompts {lens.min()}-{lens.max()} tokens, {w['gen']} new "
+                              f"each)")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ({"encdec_vlm_vlm_forward": fwd, "encdec_vlm_vlm_serve": counts["contiguous"],
+             "encdec_vlm_vlm_serve_paged": counts["paged"]},
+            {"encdec_vlm_vlm_forward": flash_fwd, "encdec_vlm_vlm_serve": flash["contiguous"],
+             "encdec_vlm_vlm_serve_paged": flash["paged"]}, paged["paged"])
+
+
+def encdec_vlm_phase(dev, results) -> tuple:
+    """Phase 15 in order. Returns the launch counts by path, flash's launches
+    by call by path, the dispatch kernels' launches by call of 15b's
+    training run, and the paged kernels' launches by call of the paged
+    serving runs."""
+    from repro_torch.config import get_config
+    from repro_torch.models import api
+
+    t = time.perf_counter()
+    release_device_memory(dev)
+    encdec_vlm_parity(dev)
+    t15a = time.perf_counter() - t
+    encdec_vlm_kernels(dev, results)
+    t15k = time.perf_counter() - t - t15a
+    cfg = get_config(ENCDEC_ARCH)
+    params = api.init_model(cfg, device=dev, seed=0)
+    train_counts, train_flash, train_dispatch = train_whisper(dev, params, cfg)
+    serve_counts, serve_flash, serve_paged = serve_whisper(dev, params, cfg)
+    del params
+    t15b = time.perf_counter() - t - t15a - t15k
+    vlm_counts, vlm_flash, vlm_paged = vlm_phase(dev)
+    log(f"[time] 15a {t15a:.1f}s, 15 kernels {t15k:.1f}s, 15b {t15b:.1f}s, 15c "
+        f"{time.perf_counter() - t - t15a - t15k - t15b:.1f}s")
+    counts = {"encdec_vlm_whisper_train": train_counts,
+              "encdec_vlm_whisper_serve": serve_counts["contiguous"],
+              "encdec_vlm_whisper_serve_paged": serve_counts["paged"], **vlm_counts}
+    flash = {"encdec_vlm_whisper_train": train_flash,
+             "encdec_vlm_whisper_serve": serve_flash["contiguous"],
+             "encdec_vlm_whisper_serve_paged": serve_flash["paged"], **vlm_flash}
+    paged = {"encdec_vlm_whisper_serve_paged": serve_paged["paged"],
+             "encdec_vlm_vlm_serve_paged": vlm_paged}
+    return counts, flash, train_dispatch, paged
 
 
 # ---------------------------------------------------------------------------
@@ -5794,6 +6389,17 @@ def main() -> int:
         configs_phase(torch.device("cuda", 0), {})
         log(f"[time] phase 14 configs: {time.perf_counter() - t:.1f}s")
         return 0
+    if sys.argv[1:2] == ["--encdec-vlm"]:
+        from repro_torch.kernels import build
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        log(f"[device] {smi_line()}")
+        build.build_all()
+        t = time.perf_counter()
+        encdec_vlm_phase(torch.device("cuda", 0), {})
+        log(f"[time] phase 15 encdec-vlm: {time.perf_counter() - t:.1f}s")
+        return 0
     if sys.argv[1:2] == ["--overload"]:
         from repro_torch.kernels import build
 
@@ -5879,6 +6485,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     configs_counts, configs_flash, hybrid_ssd = timed("phase 14 configs", configs_phase, dev,
                                                       results)
+    gc.collect()
+    torch.cuda.empty_cache()
+    encdec_counts, encdec_flash, encdec_dispatch, encdec_paged = timed(
+        "phase 15 encdec-vlm", encdec_vlm_phase, dev, results)
+    dispatch_calls["encdec_vlm_whisper_train"] = encdec_dispatch
     # last: its 32-slot pools would leave the allocator's cache in pieces
     # that later phases' large tensors may not fit in
     gc.collect()
@@ -5889,7 +6500,7 @@ def main() -> int:
     # call (path and shape) in phases 4 and 5, as the wrapper counted them
     # (the serving prompts are 128-1024 tokens long, so a prefill row may
     # count none); every call shape of those runs rides on the kernel's entry
-    fl_runs = {"serve": serve_flash, "train": train_flash, **configs_flash}
+    fl_runs = {"serve": serve_flash, "train": train_flash, **configs_flash, **encdec_flash}
     shapes = {"flash_attention": [
         dict(shape=r["shape"], path=r["path"], plan=r["plan"], ms=r["ms"],
              plain_ms=r["plain_ms"], library_ms=r["library_ms"], bound_ms=r["bound"][0],
@@ -5922,14 +6533,19 @@ def main() -> int:
         # every shape phase 6c gives the kernel, with its launches there;
         # the line's numbers are those of the shape that took the most of
         # the kernel's device time on that path
-        # (a shape marked off the path, as the unaligned rows, has none)
+        # (a shape marked off the path, as the unaligned rows, has none);
+        # phase 15's shapes, with their launches in its paged serving runs
         on_path = {key: paged_shapes[name][key] for key, r in results[name].items()
-                   if not r["off_path"]}
+                   if not r["off_path"] and "run" not in r}
+        on_path.update({key: sum(n for call, n in encdec_paged[r["run"]][name].items()
+                                 if call[1:] == r["call"])
+                        for key, r in results[name].items() if "run" in r})
         shapes[name] = [dict(shape=r["shape"], launches=on_path.get(key, 0), ms=r["ms"],
                              plain_ms=r["plain_ms"], library_ms=r["library_ms"],
                              bound_ms=r["bound"][0], **({"plan": r["plan"]} if "plan" in r else {}))
                         for key, r in results[name].items()]
-        key = max(on_path, key=lambda k: on_path[k] * results[name][k]["ms"])
+        key = max((k for k in on_path if "run" not in results[name][k]),
+                  key=lambda k: on_path[k] * results[name][k]["ms"])
         picks[name] = results[name][key]
     # the dequant gather: every shape phase 7b gives it, with its launches
     # on the int8/page prefix run (fp8/head shapes: on the fp8/head run);
@@ -5985,7 +6601,7 @@ def main() -> int:
                   "forward_ragged": ragged_counts, "train_ssm": ssm_train_counts,
                   "serve_ssm": ssm_serve_counts,
                   **{f"serve_spec {n}": c for n, c in spec_counts.items()}, **moe_counts,
-                  **configs_counts, "overload": overload_counts}
+                  **configs_counts, **encdec_counts, "overload": overload_counts}
     for run, c in model_runs.items():
         if any(c.get(k, 0) for k in OPS_KERNELS):
             raise AssertionError(f"{run} launched an op-entry-point kernel: {c}")
@@ -6015,7 +6631,7 @@ def main() -> int:
                    "train_ssm": ssm_train_counts, "serve_ssm": ssm_serve_counts,
                    "ops": ops_counts,
                    **{f"serve_spec {n}": c for n, c in spec_counts.items()}, **moe_counts,
-                   **configs_counts, "overload": overload_counts}
+                   **configs_counts, **encdec_counts, "overload": overload_counts}
         path = {"routed_attention": "train", "routed_mlp_scatter": "train",
                 "paged_gather": "serve_paged", "paged_scatter_rows": "serve_paged",
                 "ragged_paged_scatter_rows": "serve_ragged",

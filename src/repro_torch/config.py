@@ -3,8 +3,8 @@
 The frozen dataclasses and registry of the JAX package's
 ``repro/config.py``, kept as this package's own copy so that the port
 imports nothing of ``repro``, and cut to the fields the ported families
-read (dense, MoE, ssm and the Zamba2 hybrid; the enc-dec/VLM fields come
-with their slices), plus the optimizer and training configs. Every entry point resolves ``--arch <id>``
+read (dense, MoE, ssm, the Zamba2 hybrid, enc-dec and the VLM backbone),
+plus the optimizer and training configs. Every entry point resolves ``--arch <id>``
 through :func:`get_config`. The serving engine's settings are
 :class:`repro_torch.serve.config.EngineConfig`.
 """
@@ -14,7 +14,7 @@ import dataclasses
 import os
 import tempfile
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Tuple
 
 # ---------------------------------------------------------------------------
 # Sub-configs
@@ -99,7 +99,9 @@ class AttentionConfig:
     head_dim: int = 0  # 0 -> d_model // n_heads
     qkv_bias: bool = False
     rope_theta: float = 10000.0
-    pos_emb: str = "rope"  # "rope" | "none"
+    # "rope" | "mrope" (Qwen2-VL 3D multimodal rope) | "none"
+    pos_emb: str = "rope"
+    mrope_sections: Tuple[int, int, int] = (16, 24, 24)
     causal: bool = True
     window: int = 0  # 0 = full; >0 = sliding window
     softmax_scale: float = 0.0  # 0 -> 1/sqrt(head_dim)
@@ -108,8 +110,7 @@ class AttentionConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
-    # the port runs "dense", "moe", "ssm" and "hybrid"; the JAX package's
-    # other families ("encdec" | "vlm") are later slices
+    # "dense" | "moe" | "ssm" | "hybrid" | "encdec" | "vlm"
     family: str = "dense"
     n_layers: int = 4
     d_model: int = 256
@@ -127,6 +128,11 @@ class ModelConfig:
     # hybrid (zamba2): one shared attention block applied every
     # `hybrid_attn_every` SSM layers
     hybrid_attn_every: int = 6
+    # encoder-decoder (whisper)
+    n_enc_layers: int = 0
+    enc_seq_len: int = 1500
+    # vlm: the backbone consumes precomputed patch embeddings (frontend stub)
+    vision_stub: bool = False
     dtype: str = "bfloat16"
     remat: str = "none"  # "none" | "full" (torch.utils.checkpoint per layer group)
 
@@ -141,9 +147,11 @@ class ModelConfig:
 
     def n_params(self) -> int:
         """Analytic parameter count (embeddings + blocks) of a dense or MoE
-        decoder, a Mamba2 LM or the hybrid (its layers plus the one shared
-        block). The MoE router counts as ``D·E`` (the JAX formula; an
-        integrated-MoDE router has ``E + n_noop`` columns)."""
+        decoder, a Mamba2 LM, the hybrid (its layers plus the one shared
+        block) or the enc-dec model (its encoder layers and each decoder
+        layer's cross-attention and norm on top). The MoE router counts as
+        ``D·E`` (the JAX formula; an integrated-MoDE router has
+        ``E + n_noop`` columns)."""
         D, F, V, L = self.d_model, self.d_ff, self.vocab, self.n_layers
         hd = self.head_dim
         nq, nkv = self.attn.n_heads, self.attn.n_kv_heads
@@ -159,7 +167,11 @@ class ModelConfig:
             mlp = self.moe.n_experts * mlp_mults * D * fe + D * self.moe.n_experts
         else:
             mlp = mlp_mults * D * F
-        return emb + L * (attn + mlp + 2 * D) + D
+        total = emb + L * (attn + mlp + 2 * D) + D
+        if self.family == "encdec":
+            total += self.n_enc_layers * (attn + mlp_mults * D * F + 2 * D)
+            total += L * (attn + D)  # cross-attention + its norm
+        return total
 
     def active_params_per_token(self) -> int:
         """Parameters a token passes through: the MoE's ``top_k`` experts
@@ -266,6 +278,7 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
             n_heads=4,
             n_kv_heads=max(1, min(4, cfg.attn.n_kv_heads)),
             head_dim=32,
+            mrope_sections=(4, 6, 6),
         ),
     )
     if cfg.mod.enabled:
@@ -281,6 +294,9 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
         )
     if cfg.ssm.enabled:
         replace["ssm"] = dataclasses.replace(cfg.ssm, d_state=16, head_dim=32, chunk=16)
+    if cfg.family == "encdec":
+        replace["n_enc_layers"] = 2
+        replace["enc_seq_len"] = 64
     if cfg.family == "hybrid":
         replace["n_layers"] = 4
         replace["hybrid_attn_every"] = 2

@@ -8,5 +8,7 @@ from repro_torch.configs import (  # noqa: F401
     olmoe_1b_7b,
     phi35_moe,
     qwen2_7b,
+    qwen2_vl_7b,
+    whisper_tiny,
     zamba2_2p7b,
 )

@@ -209,8 +209,16 @@ def decide_batch(
 
 
 def gather_positions(positions: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Token-axis position gather. positions: (B, S); idx: (B, k)."""
+    """Token-axis position gather. positions: (B, S) or M-RoPE's (3, B, S);
+    idx: (B, k)."""
+    if positions.dim() == 3:
+        return torch.take_along_dim(positions, idx[None].expand(3, -1, -1), dim=2)
     return torch.take_along_dim(positions, idx, dim=1)
+
+
+def take_batch_positions(positions: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Batch-axis position gather. positions: (B, 1) or (3, B, 1); idx: (kb,)."""
+    return positions.index_select(1 if positions.dim() == 3 else 0, idx)
 
 
 def gather_batch(decision: RouteDecision, tree: Params) -> Params:
@@ -250,7 +258,7 @@ def execute_routed(
     if decision.strategy != "batch_capacity":
         raise ValueError(f"unknown routing strategy {decision.strategy!r}")
     x_sub = x.index_select(0, decision.idx)
-    pos_sub = None if positions is None else positions.index_select(0, decision.idx)
+    pos_sub = None if positions is None else take_batch_positions(positions, decision.idx)
     delta, aux = block_delta_fn(x_sub, pos_sub)
     update = (decision.gate[:, None, None] * delta.float()).to(x.dtype)
     return x.index_put((decision.idx,), update, accumulate=True), aux
@@ -309,7 +317,7 @@ def routing_aux(decision: RouteDecision, params: Params, x: torch.Tensor, cfg: M
 def apply_mod(
     params: Params,  # {"router": ..., "predictor"?: ..., "block": ...}
     x: torch.Tensor,  # (B, S, D)
-    positions: torch.Tensor,  # (B, S)
+    positions: torch.Tensor,  # (B, S) or (3, B, S)
     block_delta_fn: BlockDeltaFn,
     cfg: ModelConfig,
     generator: Optional[torch.Generator] = None,
@@ -354,7 +362,7 @@ def _exec_batch_capacity(
     caches_sub = gather_batch(decision, caches)
     delta, new_caches_sub, inner = block_fn(
         x.index_select(0, decision.idx),
-        None if positions is None else positions.index_select(0, decision.idx),
+        None if positions is None else take_batch_positions(positions, decision.idx),
         caches_sub,
         decision,
     )

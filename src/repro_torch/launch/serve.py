@@ -21,9 +21,15 @@ are random, drawn from ``--seed``. Prompt lengths are mixed uniformly over
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \\
       --dtype bfloat16 --batch 8 --requests 16 --min-prompt-len 32 --prompt-len 128 --gen 16
 
-The ssm and hybrid families (``mamba2-*``, ``zamba2-*``) ingest prompts
-one token per decode step, as the JAX engine serves them; the run prints
-which path it took.
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny --smoke --device cpu \
+      --batch 4 --requests 6 --prompt-len 8 --gen 6 --page-size 16
+
+The ssm, hybrid, enc-dec and VLM families (``mamba2-*``, ``zamba2-*``,
+``whisper-*``, ``qwen2-vl-*``) ingest prompts one token per decode step,
+as the JAX engine serves them; the run prints which path it took. An
+enc-dec request carries stub encoder frames (``api.stub_inputs``, seeded
+by ``--seed`` and the request's index), which the engine encodes once at
+admission; the VLM engine decodes text tokens.
 """
 from __future__ import annotations
 
@@ -89,9 +95,14 @@ def main() -> None:
     injector = FaultInjector.seeded(args.inject_faults) if args.inject_faults >= 0 else None
     engine = ServingEngine(params, cfg, EngineConfig.from_args(
         args, batch_size=args.batch, ctx=ctx, fault_injector=injector), device=args.device)
+    def enc_emb(i):  # the enc-dec family's stub frontend: frames of its own a request
+        if cfg.family != "encdec":
+            return None
+        return api.stub_inputs(cfg, 1, 0, seed=args.seed + i, device=args.device)["enc_emb"][0]
+
     outputs = engine.run_stream(
         [Request(tokens=prompts[i, : lens[i]], max_new_tokens=args.gen, priority=args.priority,
-                 deadline_s=args.deadline or None)
+                 deadline_s=args.deadline or None, enc_emb=enc_emb(i))
          for i in range(n_requests)],
         args.arrival_every,
     )

@@ -16,8 +16,15 @@ multi-device support.
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b --batch 4 --seq 2048 --steps 5
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b --smoke --device cpu --steps 3
 
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-tiny --smoke --device cpu --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-vl-7b --smoke --device cpu --steps 3
+
 An MoE model's last step also prints its MoE aux terms (load-balance and
-router-z losses, dropped and no-op fractions, per block kind).
+router-z losses, dropped and no-op fractions, per block kind). The
+enc-dec and VLM families take their frontends' outputs as stubs
+(``api.stub_inputs``, seeded by ``--seed`` and the step): encoder frames
+beside the tokens (whisper), embeddings and M-RoPE positions in place of
+the tokens (qwen2-vl), as the JAX package's tests feed them.
 """
 from __future__ import annotations
 
@@ -39,7 +46,38 @@ from repro_torch.data.loader import SyntheticLoader
 from repro_torch.data.synthetic import SyntheticLM
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build
+from repro_torch.models import api
 from repro_torch.train import Trainer
+
+
+class _StubFrontend:
+    """The synthetic batches with the family's stub frontend inputs
+    (``api.stub_inputs``) drawn from ``seed`` and the batch's step; a VLM
+    batch drops its tokens for the embeddings."""
+
+    def __init__(self, loader: SyntheticLoader, cfg, seed: int):
+        self.loader, self.cfg, self.seed = loader, cfg, seed
+
+    @property
+    def step(self) -> int:
+        return self.loader.step
+
+    @step.setter
+    def step(self, value: int) -> None:
+        self.loader.step = value
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        step = self.loader.step
+        batch = next(self.loader)
+        B, S = batch["labels"].shape
+        batch.update(api.stub_inputs(self.cfg, B, S, seed=self.seed * 1_000_003 + step,
+                                     device=batch["labels"].device))
+        if self.cfg.family == "vlm":
+            del batch["tokens"]
+        return batch
 
 
 def main() -> None:
@@ -55,6 +93,7 @@ def main() -> None:
     ap.add_argument("--backend", default=None, choices=["xla", "pallas", "pallas_fused"],
                     help="MoD dispatch backend (default: the arch's own)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--seed", type=int, default=0, help="seed of the stub frontends' inputs")
     ap.add_argument("--ckpt-dir",
                     default=os.path.join(tempfile.gettempdir(), "repro_torch_ckpt"))
     args = ap.parse_args()
@@ -79,6 +118,8 @@ def main() -> None:
         ckpt_every=max(50, args.steps // 4),
     )
     loader = SyntheticLoader(SyntheticLM(cfg.vocab, args.seq, seed=tcfg.seed), args.batch, device)
+    if cfg.family in ("encdec", "vlm"):
+        loader = _StubFrontend(loader, cfg, args.seed)
     ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.keep_ckpts, async_save=tcfg.async_ckpt)
     trainer = Trainer(cfg, tcfg, loader, ckpt=ckpt, device=device)
     state = trainer.init_or_resume()

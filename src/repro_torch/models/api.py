@@ -1,13 +1,18 @@
 """Family dispatcher: the entry points the trainer and the serving engine
 call.
 
-Port of ``repro/models/api.py`` for the ``dense`` family (the paper's
-``mod-paper-*`` models and the granite / mistral-nemo / qwen2 decoders)
-and the ``moe`` family (token-choice MoE and both MoDE variants), both
-:mod:`repro_torch.models.transformer`, and the ``ssm`` (Mamba2) and
-``hybrid`` (Zamba2) families, :mod:`repro_torch.models.ssm_lm`. Other
-families raise ``NotImplementedError`` naming the ROADMAP item that ports
-them.
+Port of ``repro/models/api.py``. Each family maps onto (init, forward,
+loss, caches, decode):
+
+    dense / moe / vlm  -> models.transformer
+    ssm / hybrid       -> models.ssm_lm (mamba2 / zamba2)
+    encdec             -> models.encdec (whisper)
+
+An unknown family raises ``ValueError``, as in JAX. The ``vlm`` batch
+carries ``embeds`` (B, S, D) in the model's dtype and M-RoPE ``positions``
+(3, B, S) in place of ``tokens``; the ``encdec`` batch carries ``enc_emb``
+(B, S_enc, D) beside its ``tokens``. :func:`stub_inputs` makes both from a
+seed, as the JAX package's tests do.
 """
 from __future__ import annotations
 
@@ -16,7 +21,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, resolve_device, torch_dtype
+from repro_torch.models import encdec as ED
 from repro_torch.models import ssm_lm as SL
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import cross_entropy
@@ -25,20 +31,16 @@ from repro_torch.utils import tree_map
 Params = Dict[str, Any]
 Aux = Dict[str, torch.Tensor]
 
-_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
 # families that run models/transformer.py
-_TRANSFORMER = ("dense", "moe")
-_LATER = {
-    "vlm": "ROADMAP Queue 1, enc-dec + VLM",
-    "encdec": "ROADMAP Queue 1, enc-dec + VLM",
-}
+_TRANSFORMER = ("dense", "moe", "vlm")
+# families whose prompts run through model_prefill_chunk and the flat forward
+_BATCHED = ("dense", "moe")
 
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet ({_LATER.get(cfg.family, 'ROADMAP Queue 1')})"
-        )
+        raise ValueError(cfg.family)
 
 
 def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
@@ -53,6 +55,8 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         return SL.init_lm(generator, cfg, dev)
     if cfg.family == "hybrid":
         return SL.init_hybrid(generator, cfg, dev)
+    if cfg.family == "encdec":
+        return ED.init_encdec(generator, cfg, dev)
     return T.init_lm(generator, cfg, dev)
 
 
@@ -66,6 +70,9 @@ def model_forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tenso
     if cfg.family == "hybrid":
         return SL.forward_hybrid(params, cfg, batch["tokens"], generator=generator,
                                  last_only=last_only)
+    if cfg.family == "encdec":
+        return ED.forward(params, cfg, batch["tokens"], batch["enc_emb"], generator=generator,
+                          last_only=last_only)
     return T.forward(params, cfg, tokens=batch.get("tokens"), embeds=batch.get("embeds"),
                      positions=batch.get("positions"), generator=generator,
                      last_only=last_only)
@@ -92,7 +99,8 @@ def model_loss(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, Aux]:
     """CE + the weighted aux losses, and the aux dict with ``ce`` and
     ``loss``: :func:`model_forward` -> cross-entropy -> :func:`combine_losses`
-    for every family. batch: tokens, labels, optional loss_mask."""
+    for every family. batch: tokens (``vlm``: embeds and positions;
+    ``encdec``: and enc_emb), labels, optional loss_mask."""
     logits, aux = model_forward(params, cfg, batch, generator)
     ce = cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
     loss = combine_losses(ce, aux, cfg)
@@ -111,7 +119,7 @@ def model_forward_ragged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     (MoE capacity buckets span the whole stream, as in JAX).
     Returns (logits (T, V), aux)."""
     _check_family(cfg)
-    if cfg.family not in _TRANSFORMER:
+    if cfg.family not in _BATCHED:
         raise NotImplementedError(
             f"ragged forward for family {cfg.family}: use the padded model_forward")
     return T.forward_ragged(params, cfg, tokens, row_offsets, seg_cap, generator=generator)
@@ -123,16 +131,20 @@ def make_caches(cfg: ModelConfig, batch: int, ctx: int, device: DeviceLike = Non
         return SL.make_cache(cfg, batch, resolve_device(device))
     if cfg.family == "hybrid":
         return SL.make_hybrid_cache(cfg, batch, ctx, resolve_device(device))
+    if cfg.family == "encdec":
+        return ED.make_cache(cfg, batch, ctx, resolve_device(device))
     return T.make_cache(cfg, batch, ctx, resolve_device(device))
 
 
 def model_prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], ctx: int
                   ) -> Tuple[torch.Tensor, Params]:
-    """Prompt pass that fills fresh (B, ctx) caches. Returns (logits, caches)."""
+    """Prompt pass that fills fresh (B, ctx) caches (``vlm``: over the
+    batch's ``embeds`` and ``positions``). Returns (logits, caches)."""
     _check_family(cfg)
     if cfg.family not in _TRANSFORMER:
         raise NotImplementedError(f"prefill for family {cfg.family} uses forward+decode")
-    return T.prefill(params, cfg, batch["tokens"], positions=batch.get("positions"), ctx=ctx)
+    return T.prefill(params, cfg, tokens=batch.get("tokens"), embeds=batch.get("embeds"),
+                     positions=batch.get("positions"), ctx=ctx)
 
 
 def model_prefill_chunk(params: Params, cfg: ModelConfig, caches: Params,
@@ -140,7 +152,7 @@ def model_prefill_chunk(params: Params, cfg: ModelConfig, caches: Params,
                         ) -> Tuple[torch.Tensor, Params]:
     """One continuation-prefill chunk (B, C) against partly filled caches."""
     _check_family(cfg)
-    if cfg.family not in _TRANSFORMER:
+    if cfg.family not in _BATCHED:
         raise NotImplementedError(
             f"chunked prefill for family {cfg.family}: prompts ingest via decode steps")
     return T.prefill_chunk(params, cfg, caches, tokens, int(start), int(n_valid))
@@ -156,7 +168,64 @@ def model_decode(params: Params, caches: Params, cfg: ModelConfig, token: torch.
         return SL.decode_step(params, caches, cfg, token, active)
     if cfg.family == "hybrid":
         return SL.decode_step_hybrid(params, caches, cfg, token, pos, active)
+    if cfg.family == "encdec":
+        return ED.decode_step(params, caches, cfg, token, pos, active)
     return T.decode_step(params, caches, cfg, token, pos, active)
+
+
+# ---------------------------------------------------------------------------
+# Stub frontends (the reference feeds these families precomputed inputs)
+# ---------------------------------------------------------------------------
+
+
+def mrope_positions(segments: List[Tuple[str, Any]], device: DeviceLike = None
+                    ) -> torch.Tensor:
+    """Qwen2-VL's (3, S) M-RoPE position ids for one sequence laid out as
+    ``segments``, in order: ``("text", n)`` is n tokens whose three streams
+    all count up; ``("image", (h, w))`` is an image of h x w merged patches
+    that share one ``t`` and take ``h`` and ``w`` from their row and column.
+    Each segment starts at the largest position before it + 1."""
+    t_, h_, w_ = [], [], []
+    nxt = 0
+    for kind, size in segments:
+        if kind == "text":
+            ar = torch.arange(nxt, nxt + int(size), dtype=torch.int32)
+            t_.append(ar)
+            h_.append(ar)
+            w_.append(ar)
+            nxt += int(size)
+        elif kind == "image":
+            gh, gw = (int(v) for v in size)
+            rows = torch.arange(gh, dtype=torch.int32)[:, None].expand(gh, gw).flatten()
+            cols = torch.arange(gw, dtype=torch.int32)[None, :].expand(gh, gw).flatten()
+            t_.append(torch.full((gh * gw,), nxt, dtype=torch.int32))
+            h_.append(nxt + rows)
+            w_.append(nxt + cols)
+            nxt += max(gh, gw)
+        else:
+            raise ValueError(f"unknown segment kind {kind!r}")
+    pos = torch.stack([torch.cat(t_), torch.cat(h_), torch.cat(w_)])
+    return pos.to(resolve_device(device) if device is not None else pos.device)
+
+
+def stub_inputs(cfg: ModelConfig, batch: int, seq: int, seed: int = 0,
+                device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """The stub frontend's inputs of a ``vlm`` or ``encdec`` batch, drawn from
+    ``seed`` with the JAX tests' ``batch_for`` distributions: ``embeds`` (B, S,
+    D) ~ N(0, 0.02²) in the model's dtype and ``positions`` (3, B, S) with
+    the three streams equal (``vlm``); ``enc_emb`` (B, enc_seq_len, D) ~
+    N(0, 0.02²) in the model's dtype (``encdec``); {} for the others."""
+    dev = resolve_device(device)
+    dt = torch_dtype(cfg.dtype)
+    gen = torch.Generator().manual_seed(seed)
+    if cfg.family == "vlm":
+        pos = torch.arange(seq, dtype=torch.int32)[None, None].expand(3, batch, seq)
+        emb = torch.randn((batch, seq, cfg.d_model), generator=gen) * 0.02
+        return {"embeds": emb.to(dt).to(dev), "positions": pos.contiguous().to(dev)}
+    if cfg.family == "encdec":
+        emb = torch.randn((batch, cfg.enc_seq_len, cfg.d_model), generator=gen) * 0.02
+        return {"enc_emb": emb.to(dt).to(dev)}
+    return {}
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,13 @@ flat-token forward) is the JAX package's dense masked :func:`attend` in
 torch ops on both devices: the JAX package runs it without a Pallas
 kernel too.
 
+M-RoPE (``pos_emb="mrope"``, the VLM backbone) takes ``(3, B, S)``
+positions (t, h, w): they rotate q and k, and the ``t`` stream orders
+everything else (the mask, the cache's positions; :func:`t_pos`).
+:func:`cross_attention` (the enc-dec decoder) attends over every encoder
+key without rotation: the kernel gets ``causal=False`` and all-zero
+positions, JAX's ``kv_pos=None``.
+
 Unlike the JAX functions, which return new caches, these functions write
 the caches in place and return them.
 """
@@ -36,7 +43,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention,
     routed_attention,
 )
-from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.models.layers import apply_mrope, apply_rope, dense_init
 
 Params = Dict[str, torch.Tensor]
 
@@ -80,13 +87,22 @@ def _project_kv(params: Params, x: torch.Tensor, cfg: ModelConfig
 
 
 def _rope_qk(q, k, q_pos, kv_pos, cfg: ModelConfig):
+    # padded keys (pos -1) rotate as position 0; they are masked anyway
     if cfg.attn.pos_emb == "rope":
         q = apply_rope(q, q_pos, cfg.attn.rope_theta)
-        # padded keys (pos -1) rotate as position 0; they are masked anyway
         k = apply_rope(k, kv_pos.clamp_min(0), cfg.attn.rope_theta)
+    elif cfg.attn.pos_emb == "mrope":
+        q = apply_mrope(q, q_pos, cfg.attn.rope_theta, cfg.attn.mrope_sections)
+        k = apply_mrope(k, kv_pos.clamp_min(0), cfg.attn.rope_theta, cfg.attn.mrope_sections)
     elif cfg.attn.pos_emb != "none":
-        raise NotImplementedError(f"pos_emb {cfg.attn.pos_emb!r} (ROADMAP Queue 1, VLM)")
+        raise ValueError(f"unknown pos_emb {cfg.attn.pos_emb!r}")
     return q, k
+
+
+def t_pos(pos: torch.Tensor) -> torch.Tensor:
+    """The scalar ordering stream: the ``t`` stream of M-RoPE's (3, B, S)
+    positions, 2-D positions as they are."""
+    return pos[0] if pos.dim() == 3 else pos
 
 
 def _scale(cfg: ModelConfig) -> float:
@@ -126,7 +142,8 @@ def self_attention(params: Params, x: torch.Tensor, positions: torch.Tensor,
     q = _project_q(params, x, cfg)
     k, v = _project_kv(params, x, cfg)
     q, k = _rope_qk(q, k, positions, positions, cfg)
-    return attend_auto(q, k, v, positions, positions, cfg) @ params["wo"]
+    tp = t_pos(positions)
+    return attend_auto(q, k, v, tp, tp, cfg) @ params["wo"]
 
 
 def make_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, causal: bool, window: int = 0
@@ -168,7 +185,8 @@ def ragged_self_attention(params: Params, x: torch.Tensor, positions: torch.Tens
     q = _project_q(params, x, cfg)
     k, v = _project_kv(params, x, cfg)
     q, k = _rope_qk(q, k, positions, positions, cfg)
-    mask = make_mask(positions, positions, bool(cfg.attn.causal), int(cfg.attn.window))
+    tp = t_pos(positions)
+    mask = make_mask(tp, tp, bool(cfg.attn.causal), int(cfg.attn.window))
     mask &= (seg_id[:, None] == seg_id[None, :])[None]
     return attend(q, k, v, mask, cfg) @ params["wo"]
 
@@ -195,6 +213,29 @@ def routed_self_attention(
         rope_theta=float(cfg.attn.rope_theta), pos_emb=cfg.attn.pos_emb, eps=float(cfg.norm_eps),
     )
     return routed_attention(x, idx, pos_sub, p, spec)
+
+
+def cross_attention(params: Params, x: torch.Tensor, enc_k: torch.Tensor, enc_v: torch.Tensor,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """Encoder-decoder cross-attention: no rotation, every encoder key
+    valid (JAX's ``kv_pos=None``). The flash kernel gets ``causal=False``
+    and all-zero query and key positions: a position of -1 would mask a
+    key (a slot's unfilled cross-KV, which JAX attends to all the same)."""
+    q = _project_q(params, x, cfg)
+    B, Sq = x.shape[0], x.shape[1]
+    out = flash_attention(
+        q, enc_k, enc_v,
+        torch.zeros((B, Sq), dtype=torch.int32, device=x.device),
+        torch.zeros((B, enc_k.shape[1]), dtype=torch.int32, device=x.device),
+        causal=False, scale=_scale(cfg),
+    )
+    return out.reshape(B, Sq, -1) @ params["wo"]
+
+
+def encode_kv(params: Params, enc_out: torch.Tensor, cfg: ModelConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention K/V of the encoder output (the served cross-KV)."""
+    return _project_kv(params, enc_out, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -259,7 +300,7 @@ def cache_write(
 def decode_attention(
     params: Params,
     x: torch.Tensor,  # (B, 1, D)
-    positions: torch.Tensor,  # (B, 1) int32
+    positions: torch.Tensor,  # (B, 1) int32, or (3, B, 1) for M-RoPE
     cache: Params,
     cfg: ModelConfig,
 ) -> Tuple[torch.Tensor, Params]:
@@ -270,8 +311,9 @@ def decode_attention(
     q = _project_q(params, x, cfg)
     k_new, v_new = _project_kv(params, x, cfg)
     q, k_new = _rope_qk(q, k_new, positions, positions, cfg)
-    cache = cache_write(cache, k_new, v_new, positions)
-    out = attend_auto(q, cache["k"], cache["v"], positions, cache["pos"], cfg)
+    tp = t_pos(positions)
+    cache = cache_write(cache, k_new, v_new, tp)
+    out = attend_auto(q, cache["k"], cache["v"], tp, cache["pos"], cfg)
     return out @ params["wo"], cache
 
 
@@ -288,8 +330,9 @@ def chunk_self_attention(
     q = _project_q(params, x, cfg)
     k, v = _project_kv(params, x, cfg)
     q, k = _rope_qk(q, k, positions, positions, cfg)
-    cache = cache_write(cache, k, v, positions, write_mask)
-    out = attend_auto(q, cache["k"], cache["v"], positions, cache["pos"], cfg)
+    tp = t_pos(positions)
+    cache = cache_write(cache, k, v, tp, write_mask)
+    out = attend_auto(q, cache["k"], cache["v"], tp, cache["pos"], cfg)
     return out @ params["wo"], cache
 
 
@@ -305,6 +348,7 @@ def prefill_self_attention(
     q = _project_q(params, x, cfg)
     k, v = _project_kv(params, x, cfg)
     q, k = _rope_qk(q, k, positions, positions, cfg)
-    out = attend_auto(q, k, v, positions, positions, cfg) @ params["wo"]
-    cache = cache_write(cache, k, v, positions, write_mask)
+    tp = t_pos(positions)
+    out = attend_auto(q, k, v, tp, tp, cfg) @ params["wo"]
+    cache = cache_write(cache, k, v, tp, write_mask)
     return out, cache

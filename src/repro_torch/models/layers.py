@@ -1,5 +1,5 @@
-"""Core layers: RMSNorm, rotary embeddings, (Swi/Ge)GLU MLP, embeddings,
-cross-entropy.
+"""Core layers: RMSNorm, rotary embeddings (RoPE and M-RoPE), (Swi/Ge)GLU
+and plain MLPs, embeddings, cross-entropy.
 
 Port of ``repro/models/layers.py``. Parameters are plain dicts of tensors
 with the JAX package's names and layouts (``x @ w`` with ``w`` of shape
@@ -10,7 +10,7 @@ with the JAX package's names and layouts (``x @ w`` with ``w`` of shape
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -70,6 +70,26 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int]) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: three position streams (t, h, w).
+    x: (B, S, H, hd); positions: (3, B, S). ``sections`` gives the number
+    of frequency pairs each stream drives, in order (sum == hd/2)."""
+    hd = x.shape[-1]
+    if sum(sections) != hd // 2:
+        raise ValueError(f"mrope sections {tuple(sections)} must sum to head_dim/2 = {hd // 2}")
+    freqs = rope_freqs(hd, theta, x.device)
+    sel = torch.cat([torch.full((s,), i, dtype=torch.long, device=x.device)
+                     for i, s in enumerate(sections)])  # (hd/2,) stream of each pair
+    pos_per_freq = positions.float().index_select(0, sel)  # (hd/2, B, S)
+    angles = pos_per_freq.permute(1, 2, 0) * freqs  # (B, S, hd/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # MLP ((Swi/Ge)GLU or plain)
 # ---------------------------------------------------------------------------
@@ -116,16 +136,61 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return _Silu.apply(x)
 
 
+def _const(value: float, like: torch.Tensor) -> torch.Tensor:
+    """A constant of ``like``'s dtype (rounded once from f32, as numpy's
+    ``astype`` and a weakly typed JAX scalar are): a bf16 tensor times a
+    Python float would multiply by the unrounded f32 constant."""
+    return torch.tensor(value, dtype=torch.float32, device=like.device).to(like.dtype)
+
+
+_SQRT_2_OVER_PI = math.sqrt(2 / math.pi)
+_GELU_CUBIC = 0.044715
+
+
+class _Gelu(torch.autograd.Function):
+    """``jax.nn.gelu`` (its default tanh form) as XLA lowers it: the
+    constant ``sqrt(2/pi)`` cast to x's dtype, then ``x**3`` (two
+    multiplies), ``x + 0.044715·x**3``, the product with the constant,
+    ``tanh``, ``0.5·(1 + t)`` and ``x·cdf``, each rounded to x's dtype
+    (``F.gelu(approximate="tanh")`` rounds once, and at bf16 differs from
+    it in ~37% of elements). The gradient follows JAX's reverse pass of the
+    same ops: ``g·cdf + (1 + 3k·x²)·c·0.5·g·x·(1 - t)(1 + t)``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        c = _const(_SQRT_2_OVER_PI, x)
+        k = _const(_GELU_CUBIC, x)
+        t = torch.tanh(c * (x + k * (x * x * x)))
+        cdf = _const(0.5, x) * (_const(1.0, x) + t)
+        ctx.save_for_backward(x, t, cdf)
+        return x * cdf
+
+    @staticmethod
+    def backward(ctx, g):
+        x, t, cdf = ctx.saved_tensors
+        c = _const(_SQRT_2_OVER_PI, x)
+        k = _const(_GELU_CUBIC, x)
+        a = _const(0.5, x) * (g * x) * (_const(1.0, x) - t)
+        g_inner = c * (a + a * t)
+        return g * cdf + (g_inner + k * g_inner * (_const(3.0, x) * (x * x)))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """tanh GELU rounded at ``jax.nn.gelu``'s points: bit-equal to it at
+    bf16; at f32 within XLA's ``tanh`` (a few ulps; XLA saturates to ±1
+    a little earlier)."""
+    return _Gelu.apply(x)
+
+
 def activation(act: str, rounded_once: bool = False):
-    """The MLP activation by name: the JAX-rounded ``silu`` (``F.silu``
-    with ``rounded_once``) or tanh ``gelu``."""
+    """The MLP activation by name: the JAX-rounded ``silu`` or ``gelu``
+    (``F.silu`` / tanh ``F.gelu`` with ``rounded_once``, as the fused
+    kernels compute them)."""
     if act == "silu":
         return F.silu if rounded_once else silu
     if act != "gelu":
         raise ValueError(f"unknown activation {act!r}")
-    # jax.nn.gelu defaults to the tanh approximation (its rounding points
-    # are not mirrored: no gelu config is ported)
-    return lambda t: F.gelu(t, approximate="tanh")
+    return (lambda t: F.gelu(t, approximate="tanh")) if rounded_once else gelu
 
 
 def mlp(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

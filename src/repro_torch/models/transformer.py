@@ -1,4 +1,4 @@
-"""Decoder-only LM assembly (dense and MoE backbones) with MoD routing:
+"""Decoder-only LM assembly (dense, MoE and VLM backbones) with MoD routing:
 init, the training forward, the flat ragged forward, caches, prefill,
 chunked prefill and decode.
 
@@ -17,7 +17,10 @@ With ``cfg.uses_moe`` every block's MLP is the MoE; a full block's MoE aux
 terms come back under ``full/`` (``tail/``), a routed block's unprefixed,
 as the JAX package names them (the loss sums every ``*moe/lb_loss`` and
 ``*moe/z_loss``). Prefill, chunked prefill and decode drop them, as JAX's
-do.
+do. The VLM backbone (``pos_emb="mrope"``) takes ``embeds`` (pre-merged
+text and patch embeddings) and M-RoPE's ``(3, B, S)`` positions in
+place of tokens; its decode step feeds text tokens, the three streams
+equal.
 """
 from __future__ import annotations
 
@@ -174,7 +177,7 @@ def forward(
     x = embed(params["embed"], tokens) if embeds is None else embeds
     B, S = x.shape[0], x.shape[1]
     if positions is None:
-        positions = _default_positions(B, S, x.device)
+        positions = _default_positions(B, S, x.device, cfg)
     x, aux = run_groups(params["groups"], _train_group, x, positions, cfg, generator)
     if "tail" in params:
         x, a = BLK.block_apply(params["tail"], x, positions, cfg)
@@ -279,20 +282,25 @@ def _mod_prefill_group(gp, h, positions, cache, cfg):
     return h
 
 
-def _default_positions(B: int, S: int, device: torch.device) -> torch.Tensor:
-    return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
+def _default_positions(B: int, S: int, device: torch.device,
+                       cfg: Optional[ModelConfig] = None) -> torch.Tensor:
+    """0..S-1 per row: (B, S), or M-RoPE's three equal (3, B, S) streams."""
+    pos = torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
+    if cfg is not None and cfg.attn.pos_emb == "mrope":
+        return pos[None].expand(3, B, S)
+    return pos
 
 
-def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            positions: Optional[torch.Tensor] = None, ctx: Optional[int] = None
-            ) -> Tuple[torch.Tensor, Params]:
-    """Teacher-forced pass that also fills fresh caches. Returns
-    (logits (B, S, V), caches)."""
-    x = embed(params["embed"], tokens)
-    B, S = tokens.shape
+def prefill(params: Params, cfg: ModelConfig, tokens: Optional[torch.Tensor] = None,
+            embeds: Optional[torch.Tensor] = None, positions: Optional[torch.Tensor] = None,
+            ctx: Optional[int] = None) -> Tuple[torch.Tensor, Params]:
+    """Teacher-forced pass (over ``tokens`` or ``embeds``) that also fills
+    fresh caches. Returns (logits (B, S, V), caches)."""
+    x = embed(params["embed"], tokens) if embeds is None else embeds
+    B, S = x.shape[0], x.shape[1]
     ctx = ctx or cfg.max_seq_len
     if positions is None:
-        positions = _default_positions(B, S, x.device)
+        positions = _default_positions(B, S, x.device, cfg)
     caches = make_cache(cfg, B, ctx, x.device)
     for gp, gc in zip(params["groups"], caches["groups"]):
         if "full" in gp:
@@ -378,6 +386,8 @@ def decode_step(params: Params, caches: Params, cfg: ModelConfig, token: torch.T
     groups: scalars stay scalar, per-sequence entries keep their (B,)."""
     x = embed(params["embed"], token)  # (B, 1, D)
     positions = pos.to(torch.int32)[:, None]
+    if cfg.attn.pos_emb == "mrope":  # a text token: the three streams equal
+        positions = positions[None].expand(3, -1, -1)
     aux_steps: List[Aux] = []
     for gp, gc in zip(params["groups"], caches["groups"]):
         if "full" in gp:

@@ -20,7 +20,10 @@ layers) carries the same way. The hybrid's tree (a ``shared_attn`` block
 beside its groups) stacks its group leaves on two leading axes,
 ``(n_seg, n_pairs)``; the port keeps a list of segments, each a list of
 group dicts (``repro_torch.models.ssm_lm``), and both functions unfold or
-fold the two axes.
+fold the two axes. The enc-dec tree's ``enc_blocks`` (one block stacked
+over ``n_enc_layers``) is a list of blocks in the port; its groups carry
+decoder blocks (``xattn`` and ``lnx`` beside the rest) as any group does.
+The VLM tree is the dense one (with the q/k/v biases).
 """
 from __future__ import annotations
 
@@ -32,6 +35,8 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 
 Tree = Dict[str, Any]
+# subtrees whose leaves are stacked on leading axes in the JAX tree
+STACKED = ("groups", "enc_blocks")
 
 
 def _is_bf16(arr: np.ndarray) -> bool:
@@ -84,8 +89,12 @@ def from_jax_params(tree: Tree, device: DeviceLike = None) -> Tree:
     single blocks; the hybrid's groups come out as a list of segments."""
     dev = resolve_device(device)
     conv = lambda a: _to_tensor(a, dev)  # noqa: E731
-    out: Tree = {k: _map(v, conv) for k, v in tree.items() if k != "groups"}
+    out: Tree = {k: _map(v, conv) for k, v in tree.items() if k not in STACKED}
     out["groups"] = _unstack(tree["groups"], _group_depth(tree), dev)
+    if "enc_blocks" in tree:
+        n = _leaves(tree["enc_blocks"])[0].shape[0]
+        out["enc_blocks"] = [_map(tree["enc_blocks"], lambda a, i=i: _to_tensor(a[i], dev))
+                             for i in range(n)]
     return out
 
 
@@ -106,8 +115,10 @@ def stack_groups(params: Tree) -> Tree:
     """The port's parameters (or a tree of their shape) restacked into the
     JAX tree layout, as detached CPU tensors of the same dtypes."""
     out: Tree = {k: _map(v, lambda t: t.detach().cpu()) for k, v in params.items()
-                 if k != "groups"}
-    out["groups"] = _stack(params["groups"])
+                 if k not in STACKED}
+    for k in STACKED:
+        if k in params:
+            out[k] = _stack(params[k])
     return out
 
 

@@ -556,7 +556,8 @@ class PagedCachePool:
 
         for j in self.spec.plain_ids():
             self.pages[j].index_copy_(0, ids, written(j).to(self.pages[j].dtype))
-        for m, ql in enumerate(self.spec.qleaves):
+        # (an enc-dec admission writes its cross-KV before any page is mapped)
+        for m, ql in enumerate(self.spec.qleaves if n > start_page else ()):
             src = [canon_pages(written(j)) for j in ql.js]  # (n', p, F) each
             q, sc = quantize_rows(torch.cat(src, dim=-1), ql.groups, self.quant)
             for j, qj in zip(ql.js, q.split([t.shape[-1] for t in src], dim=-1)):

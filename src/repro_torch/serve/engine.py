@@ -11,13 +11,18 @@ requests into slots as others terminate (:mod:`repro_torch.serve.scheduler`).
   ``model_prefill_chunk`` with ``prefill_chunk`` — its cache is copied
   into the slot, and the first new token comes from the prefill's
   last-position logits (the last prompt token is not re-decoded).
-- **Stepped ingestion** (``prefill="step"``, and ``"auto"`` for the ssm
-  family, whose ``prefill="batch"`` raises as in JAX): the slot feeds one
-  prompt token per engine step through the shared decode step. Prefix
-  cache, ragged step and chunked prefill need batched prefill and raise
-  otherwise; the paged pool serves ssm with every state leaf residual, and
-  the hybrid with its shared block's KV rings paged and its SSM states
-  residual.
+- **Stepped ingestion** (``prefill="step"``, and ``"auto"`` for the ssm,
+  hybrid, enc-dec and VLM families, whose ``prefill="batch"`` raises as in
+  JAX): the slot feeds one prompt token per engine step through the
+  shared decode step. Prefix cache, ragged step, chunked prefill and
+  speculation need batched prefill and raise otherwise; the paged pool
+  serves ssm with every state leaf residual, the hybrid with its shared
+  block's KV rings paged and its SSM states residual, and enc-dec with its
+  full-context self rings paged and its cross-KV residual. An enc-dec
+  request's ``enc_emb`` runs through the encoder once at admission
+  (``encdec.prefill_cross``) and fills the slot's cross-KV; a preempted
+  request refills it on re-admission. The VLM engine decodes text tokens
+  (its three M-RoPE streams equal), as JAX's does.
 - **Decode**: every step passes an ``active`` mask so padding rows never win
   ``batch_capacity`` routed rows, and reads back the per-sequence
   ``mod/decode_routed`` / ``mod/decode_scores`` telemetry.
@@ -95,6 +100,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.core.routing import batch_capacity_k, capacity_ladder
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import api
+from repro_torch.models import encdec as ED
 from repro_torch.serve.cache import CachePool, PagedCachePool, flatten, slot_slice
 from repro_torch.serve.config import EngineConfig
 from repro_torch.serve.overload import CapacityController, EngineOverloaded, default_levels
@@ -428,6 +434,17 @@ class ServingEngine:
         slot.first_token_step = -1
         slot.routed_sum, slot.routed_steps = 0.0, 0
         slot.score, slot.score_sum, slot.score_steps = float("nan"), 0.0, 0
+        if self.cfg.family == "encdec" and req.enc_emb is not None:
+            self._fill_cross(slot.idx, req.enc_emb)
+
+    def _fill_cross(self, slot: int, enc_emb: Any) -> None:
+        """Run the encoder over a request's frames (S_enc, D), cast to the
+        model's dtype, and write the slot's cross-KV (with the template's
+        empty self rings, which the slot holds already)."""
+        params = self._model_params()
+        emb = torch.as_tensor(enc_emb).to(device=self.device,
+                                          dtype=params["embed"]["tok"].dtype)[None]
+        self.pool.write_slot(slot, ED.prefill_cross(params, self.pool._template, emb, self.cfg))
 
     def _admit(self, max_admissions: Optional[int] = None) -> None:
         plans = self.scheduler.plan_admissions(self.slots, stepped_prefill=not self._batch_prefill,

@@ -29,6 +29,7 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch.params import STACKED
 from repro_torch.utils import tree_map
 
 QMAX = {"int8": 127.0, "fp8": 448.0}
@@ -201,24 +202,25 @@ def quantize_params(params: Dict[str, Any]) -> Dict[str, Any]:
     """int8-quantize every float leaf with a per-tensor pow2 scale; each
     becomes ``{q, scale, dtype}``, other leaves pass through.
 
-    The JAX package stacks each group leaf over the layer groups into one
-    tensor, and so gives it one scale; the port keeps a tensor per group.
-    A group leaf's scale is therefore taken over that leaf in every group,
-    so the narrow values and their dequantization are the JAX package's
-    bits."""
+    The JAX package stacks each group leaf over the layer groups (and each
+    enc-dec encoder leaf over the encoder layers) into one tensor, and so
+    gives it one scale; the port keeps a tensor per group. Such a leaf's
+    scale is therefore taken over that leaf in every group, so the narrow
+    values and their dequantization are the JAX package's bits."""
 
     def one(p, s=None):
         if not torch.is_floating_point(p):
             return p
         return _qleaf(p, _absmax_scale(p) if s is None else s)
 
-    out = {k: tree_map(one, v) for k, v in params.items() if k != "groups"}
-    groups = params.get("groups")
-    if groups is not None:
-        scales = tree_map(
-            lambda *ts: _absmax_scale(*ts) if torch.is_floating_point(ts[0]) else None,
-            groups[0], *groups[1:])
-        out["groups"] = [tree_map(one, g, scales) for g in groups]
+    out = {k: tree_map(one, v) for k, v in params.items() if k not in STACKED}
+    for key in STACKED:
+        groups = params.get(key)
+        if groups:
+            scales = tree_map(
+                lambda *ts: _absmax_scale(*ts) if torch.is_floating_point(ts[0]) else None,
+                groups[0], *groups[1:])
+            out[key] = [tree_map(one, g, scales) for g in groups]
     return out
 
 

@@ -29,7 +29,7 @@ comparable across the two packages; greedy streams are.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional
+from typing import Any, Callable, List, Optional
 
 import numpy as np
 import torch
@@ -50,7 +50,10 @@ class Request:
     """tokens: prompt ids (S0,), S0 >= 1; max_new_tokens: decode budget
     (an eos token, if sampled, counts); eos_id: stop token (None = run to
     budget); temperature: 0 = greedy; seed: sampling stream of this
-    request; stream: optional per-token callback ``(uid, token)``;
+    request; enc_emb: encoder-decoder only, the request's precomputed
+    encoder frame embeddings (S_enc, D), a numpy array or a tensor, which
+    the engine runs through the encoder once at admission to fill the
+    slot's cross-KV; stream: optional per-token callback ``(uid, token)``;
     priority: ``"latency"`` or ``"batch"`` (default); deadline_s: optional
     relative deadline in engine-clock seconds, counted from ``submit()``
     (an expired request ends ``FINISH_EXPIRED``: shed without prefill if
@@ -61,6 +64,7 @@ class Request:
     eos_id: Optional[int] = None
     temperature: float = 0.0
     seed: Optional[int] = None
+    enc_emb: Optional[Any] = None
     stream: Optional[Callable[[int, int], None]] = None
     uid: Optional[int] = None  # assigned by the engine at submit()
     priority: str = PRIORITY_BATCH

@@ -169,6 +169,7 @@ ROUTING_CASES = [
     (2, 513, 1792, 64, 0, torch.int32, False),  # int32, as the flat stream
     (2, 37, 6, 37, 4, torch.int32, True),  # k = S, narrow rows, 4 bytes off
     (2, 50, 8192, 7, 0, torch.int64, True),  # the gather's rows in 2 or 4 chunks
+    (8, 448, 384, 128, 0, torch.int64, False),  # whisper-tiny's decoder (768-byte bf16 rows)
 ]
 
 
@@ -280,6 +281,12 @@ def _flash_inputs(dev, dtype, B, Sq, Skv, nq, nkv, hd, layout, seed=1):
         (8, 1, 1056, 48, 1, 128, True, 0),
         (8, 1, 1056, 28, 4, 128, True, 0),
         (2, 4, 1056, 28, 4, 128, True, 0),
+        # whisper-tiny (6 heads of 64): the encoder's 1500 frames (wgmma),
+        # cross-attention decode over 12 chunks + the merge, and the
+        # decoder's 448 training positions over the frames (wgmma)
+        (1, 1500, 1500, 6, 6, 64, False, 0),
+        (8, 1, 1500, 6, 6, 64, False, 0),
+        (2, 448, 1500, 6, 6, 64, False, 0),
     ],
 )
 def test_flash_attention_matches_plain(dev, dtype, B, Sq, Skv, nq, nkv, hd, causal, window):
@@ -295,6 +302,40 @@ def test_flash_attention_matches_plain(dev, dtype, B, Sq, Skv, nq, nkv, hd, caus
     plan = FA.flash_plan(B, Sq, Skv, nq, nkv, hd, dtype)
     assert FA.FLASH_ATTENTION.by_call == {(plan.path, B, Sq, Skv, nq, nkv, hd, plan.kernels): 1}
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,Sq,Skv,path,kernels", [(1, 1500, 1500, "wgmma", 1),
+                                                   (8, 1, 1500, "decode", 2),
+                                                   (2, 448, 1500, "wgmma", 1)])
+def test_flash_attention_at_whisper_cross_attention(dev, dtype, B, Sq, Skv, path, kernels):
+    """whisper-tiny's cross-attention calls as the model makes them: every
+    position 0 (JAX's ``kv_pos=None``: all keys valid, a slot's unfilled
+    cross-KV too), ``causal=False``; the decode call over 12 chunks of 128
+    keys plus the merge launch."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randn(B, Sq, 6, 64, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, Skv, 6, 64, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, Skv, 6, 64, generator=g, device=dev).to(dtype)
+    k[-1, Skv // 2:] = 0  # half a row of zero keys and values (an unfilled slot's)
+    v[-1, Skv // 2:] = 0
+    qp = torch.zeros((B, Sq), dtype=torch.int32, device=dev)
+    kp = torch.zeros((B, Skv), dtype=torch.int32, device=dev)
+    build.reset_counters()
+    got = FA.flash_attention(q, k, v, qp, kp, causal=False)
+    want = FA.flash_attention_plain(q, k, v, qp, kp, causal=False)
+    torch.cuda.synchronize()
+    plan = FA.flash_plan(B, Sq, Skv, 6, 6, 64, dtype)
+    assert (plan.path, plan.kernels) == ((path, kernels) if dtype == torch.bfloat16
+                                         else ("f32", 1))
+    if plan.path == "decode":
+        assert plan.n_splits == 12 and plan.merge
+    assert FA.FLASH_ATTENTION.by_call == {(plan.path, B, Sq, Skv, 6, 6, 64, plan.kernels): 1}
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    # the same as attending every key with no positions at all
+    sdpa = torch.nn.functional.scaled_dot_product_attention(
+        *(t.transpose(1, 2).float() for t in (q, k, v))).transpose(1, 2)
+    torch.testing.assert_close(got.float(), sdpa, **TOL[dtype])
 
 
 @pytest.mark.parametrize("layout", ["ring", "late"])

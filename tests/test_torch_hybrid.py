@@ -364,9 +364,8 @@ def test_what_the_family_does_not_take_raises():
         TAPI.model_prefill_chunk(params, tc, TAPI.make_caches(tc, 1, 32, "cpu"), toks, 0, 16)
     with pytest.raises(NotImplementedError, match="use the padded model_forward"):
         TAPI.model_forward_ragged(params, tc, toks[0], torch.tensor([0, 16]), 16)
-    for family in ("encdec", "vlm"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TAPI.init_model(dataclasses.replace(tc, family=family), device="cpu")
+    with pytest.raises(ValueError, match="^rnn$"):  # an unknown family, as in JAX
+        TAPI.init_model(dataclasses.replace(tc, family="rnn"), device="cpu")
     jp = _jax_params(jc)
     for setting, msg in ((dict(prefill="batch"), "has no batched prefill"),
                          (dict(prefill_chunk=4), "ingests prompts through decode steps"),

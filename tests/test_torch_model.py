@@ -181,9 +181,17 @@ def test_entry_points_refuse_a_missing_gpu():
 
 
 def test_other_families_raise_naming_the_roadmap():
-    cfg = dataclasses.replace(TC.smoke_config(TC.get_config("mod-paper-60m")), family="encdec")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TAPI.init_model(cfg, device="cpu")
+    """Every family of the JAX package is ported; an unknown one raises
+    ``ValueError(family)`` from every dispatcher, as JAX's ``api`` does."""
+    cfg = dataclasses.replace(TC.smoke_config(TC.get_config("mod-paper-60m")), family="rnn")
+    toks = torch.zeros((1, 8), dtype=torch.long)
+    for call in (lambda: TAPI.init_model(cfg, device="cpu"),
+                 lambda: TAPI.model_forward({}, cfg, {"tokens": toks}),
+                 lambda: TAPI.make_caches(cfg, 1, 8, device="cpu"),
+                 lambda: TAPI.model_prefill({}, cfg, {"tokens": toks}, 8),
+                 lambda: TAPI.model_decode({}, {}, cfg, toks[:, :1], torch.zeros(1))):
+        with pytest.raises(ValueError, match="^rnn$"):
+            call()
 
 
 def _imports(path):

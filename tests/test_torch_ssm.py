@@ -586,8 +586,8 @@ def test_family_dispatch():
         TAPI.model_prefill_chunk(params, tc, TAPI.make_caches(tc, 1, 32, "cpu"), toks, 0, 16)
     with pytest.raises(NotImplementedError, match="use the padded model_forward"):
         TAPI.model_forward_ragged(params, tc, toks[0], torch.tensor([0, 16]), 16)
-    with pytest.raises(NotImplementedError, match="enc-dec"):
-        TAPI.init_model(dataclasses.replace(tc, family="encdec"), device="cpu")
+    with pytest.raises(ValueError, match="^rnn$"):  # an unknown family, as in JAX
+        TAPI.init_model(dataclasses.replace(tc, family="rnn"), device="cpu")
     assert set(params["groups"][0]) == {"full", "mod"}
     assert params["groups"][0]["mod"]["block"]["ssm"]["A_log"].dtype == torch.float32
     bf = TAPI.init_model(TC.smoke_config(TC.get_config(ARCH)), device="cpu")
