@@ -4,7 +4,7 @@ The frozen dataclasses and registry of the JAX package's
 ``repro/config.py``, kept as this package's own copy so that the port
 imports nothing of ``repro``, and cut to the fields the ported families
 read (dense, MoE, ssm, the Zamba2 hybrid, enc-dec and the VLM backbone),
-plus the optimizer and training configs. Every entry point resolves ``--arch <id>``
+plus the optimizer, training and mesh configs. Every entry point resolves ``--arch <id>``
 through :func:`get_config`. The serving engine's settings are
 :class:`repro_torch.serve.config.EngineConfig`.
 """
@@ -229,6 +229,34 @@ class TrainConfig:
         default_factory=lambda: os.path.join(tempfile.gettempdir(), "repro_torch_ckpt"))
     keep_ckpts: int = 3
     async_ckpt: bool = True
+
+
+# ---------------------------------------------------------------------------
+# Mesh config
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """A device mesh's axis sizes (JAX's ``MeshConfig`` for one pod): the
+    batch over "data", tensor parallelism over "model". The JAX config's
+    ``pod``, ``fsdp`` and ``pp_stages`` belong to the mesh trainer, which
+    is not ported yet (ROADMAP Queue 1 item 6)."""
+
+    data: int = 16
+    model: int = 16
+
+    @property
+    def axis_names(self) -> Tuple[str, str]:
+        return ("data", "model")
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.data, self.model)
+
+    @property
+    def n_devices(self) -> int:
+        return self.data * self.model
 
 
 # ---------------------------------------------------------------------------

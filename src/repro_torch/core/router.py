@@ -92,10 +92,27 @@ def mod_select(
     return idx, gate, topk_mask
 
 
-def batch_select(scores: torch.Tensor, kb: int) -> torch.Tensor:
-    """Batch-capacity selection: the top ``kb`` of (B,) scores, as sorted
-    int64 row indices (ties to the lower row)."""
-    return torch.sort(stable_topk_indices(scores, kb)).values
+def batch_select(scores: torch.Tensor, kb_local: int, data_shards: int = 1) -> torch.Tensor:
+    """Partitioned batch-capacity selection: the top ``kb_local`` of (B,)
+    scores *within each of ``data_shards`` contiguous batch groups* (ties
+    to the lower row), as global int64 row indices sorted ascending.
+
+    With ``data_shards == 1`` this is the plain top-k over the batch. With
+    more, each group selects on its own, which is what each data rank of a
+    mesh computes over its own rows (no cross-rank information, and a
+    routed row's cache stays on its rank); the global budget is
+    ``data_shards · kb_local``. Groups are contiguous, so the per-group
+    sorted indices concatenate into a sorted vector."""
+    if data_shards <= 1:
+        return torch.sort(stable_topk_indices(scores, kb_local)).values
+    B = scores.shape[0]
+    if B % data_shards:
+        raise ValueError(f"batch {B} not divisible by data_shards={data_shards}")
+    bl = B // data_shards
+    local = torch.sort(stable_topk_indices(scores.reshape(data_shards, bl), kb_local),
+                       dim=-1).values  # (d, kb_local)
+    offsets = torch.arange(data_shards, device=scores.device)[:, None] * bl
+    return (local + offsets).reshape(-1)
 
 
 def apply_gate(gate_logits: torch.Tensor, mod_cfg: MoDConfig) -> torch.Tensor:

@@ -37,8 +37,18 @@ Port of ``repro/core/routing.py``, single-device paths only:
    statistics that the training loss weights in (:func:`apply_mod`).
 
 Indices are int64 throughout (torch's index type); their values equal
-the JAX package's int32 indices. The JAX SPMD (``shard_map``) branches have
-no counterpart yet: passing an SPMD context raises.
+the JAX package's int32 indices.
+
+SPMD (a :class:`~repro_torch.distributed.sharding.ShardCtx` as ``spmd``):
+``batch_capacity`` decode takes the *partitioned* semantics, the batch
+split into ``data_shards`` contiguous groups that each route their own top
+``round(ratio·B/d)`` rows (:func:`decide_batch`, :func:`route_decode`).
+Without a mesh the groups are cut from the whole batch on one device; over
+a mesh the model code holds this rank's rows only, which form one group,
+so the decision, the cache-row gather and both scatters are local to the
+shard (the JAX package's ``shard_map`` regions). ``token_topk`` is per
+sequence, so :func:`decide_tokens` and :func:`execute_routed` compute the
+single-device function on whatever rows they are given.
 """
 from __future__ import annotations
 
@@ -49,6 +59,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.core import router as R
+from repro_torch.distributed.sharding import ShardCtx
 from repro_torch.kernels import ragged as KRG
 from repro_torch.kernels import routing as KR
 
@@ -82,11 +93,10 @@ class RouteDecision(NamedTuple):
     scores: Optional[torch.Tensor] = None
 
 
-def _no_spmd(spmd: Any) -> None:
-    if spmd is not None:
-        raise NotImplementedError(
-            "SPMD routed execution is not ported yet (ROADMAP Queue 1, multi-device)"
-        )
+def _check_spmd(spmd: Any) -> None:
+    if spmd is not None and not isinstance(spmd, ShardCtx):
+        raise TypeError(f"spmd must be a repro_torch.distributed.sharding.ShardCtx, got "
+                        f"{type(spmd).__name__}")
 
 
 # ---------------------------------------------------------------------------
@@ -95,11 +105,13 @@ def _no_spmd(spmd: Any) -> None:
 
 
 def decide_tokens(params: Params, x: torch.Tensor, cfg: ModelConfig,
-                  generator: Optional[torch.Generator] = None, spmd: Any = None
-                  ) -> RouteDecision:
+                  generator: Optional[torch.Generator] = None,
+                  spmd: Optional[ShardCtx] = None) -> RouteDecision:
     """Train/prefill strategy: expert-choice top-k over the sequence axis
-    (``generator`` drives the stochastic-router control only)."""
-    _no_spmd(spmd)
+    (``generator`` drives the stochastic-router control only). Per
+    sequence, so under a ``spmd`` context each rank's decision over its own
+    rows is bitwise the single-device decision of those rows."""
+    _check_spmd(spmd)
     k = cfg.mod.capacity(x.shape[1])
     logits = R.router_logits(params["router"], x)  # (B, S) f32
     idx, gate_logits, topk_mask = R.mod_select(logits, k, cfg.mod, generator)
@@ -144,11 +156,21 @@ def decide_tokens_ragged(params: Params, x: torch.Tensor, row_offsets: torch.Ten
                          logits_flat)
 
 
-def batch_capacity_k(cfg: ModelConfig, batch: int) -> int:
-    """kb of the batch_capacity strategy: ``max(1, round(ratio·B))`` rows per
-    decode step (0 when the ratio is 0: the pure residual-skip path)."""
+def batch_capacity_k(cfg: ModelConfig, batch: int, data_shards: int = 1) -> int:
+    """kb of the batch_capacity strategy, the rows routed per decode step:
+    ``max(1, round(ratio·B))`` (0 when the ratio is 0: the pure
+    residual-skip path). With a partitioned batch every one of the
+    ``data_shards`` groups routes ``batch_capacity_k(cfg, B // d)`` of its
+    own rows, so the *global* budget is ``d · kb_local`` — Python's
+    ``round`` halves to even, so ratio 0.125 at ``B=8, d=2`` gives ``2 ·
+    max(1, round(0.5)) = 2``. The serving scheduler counts against this
+    same global number."""
     if cfg.mod.capacity_ratio <= 0.0:
         return 0
+    if data_shards > 1:
+        if batch % data_shards:
+            raise ValueError(f"batch {batch} not divisible by data_shards={data_shards}")
+        return data_shards * batch_capacity_k(cfg, batch // data_shards)
     return max(1, int(round(cfg.mod.capacity_ratio * batch)))
 
 
@@ -183,19 +205,23 @@ def decide_batch(
     x: torch.Tensor,  # (B, 1, D) — one decode token per sequence
     cfg: ModelConfig,
     active: Optional[torch.Tensor] = None,  # (B,) bool — live serving slots
+    data_shards: int = 1,
 ) -> RouteDecision:
     """Decode strategy: the top ``kb`` sequences by causal score (predictor,
     or the router itself) run the block this step. Inactive rows rank at
-    ``-inf``, below every live row, so padding never takes routed capacity."""
+    ``-inf``, below every live row of their group, so padding never takes
+    routed capacity. ``data_shards > 1`` is the partitioned selection: each
+    of ``d`` contiguous groups routes its top ``kb_local = round(ratio·B/d)``
+    rows (:func:`~repro_torch.core.router.batch_select`)."""
     B = x.shape[0]
-    kb = batch_capacity_k(cfg, B)
+    kb = batch_capacity_k(cfg, B // data_shards if data_shards > 1 else B)
     if cfg.mod.sampling == "predictor" and "predictor" in params:
         scores = R.predictor_logits(params["predictor"], x)[:, 0]  # (B,)
     else:
         scores = R.router_logits(params["router"], x)[:, 0]
     ranking = scores if active is None else torch.where(
         active, scores, torch.full_like(scores, float("-inf")))
-    idx = R.batch_select(ranking, kb)
+    idx = R.batch_select(ranking, kb, data_shards)
     gate_logits = R.router_logits(params["router"], x)[:, 0]  # causal gate
     gate = R.apply_gate(gate_logits[idx], cfg.mod)
     routed = torch.zeros((B,), dtype=torch.bool, device=x.device)
@@ -240,12 +266,14 @@ def execute_routed(
     cfg: ModelConfig,
     positions: Optional[torch.Tensor] = None,
     fused_block_fn: Optional[FusedBlockFn] = None,
-    spmd: Any = None,
+    spmd: Optional[ShardCtx] = None,
 ) -> Tuple[torch.Tensor, Aux]:
     """Gather routed rows -> block residual -> gated scatter-add (Eq. 1);
     under ``pallas_fused`` with a ``fused_block_fn``, the block's fused
-    kernels do all three."""
-    _no_spmd(spmd)
+    kernels do all three. Under ``spmd`` the rows are this rank's: the
+    dispatch is local to the shard as it stands (the caller passes a fused
+    fn only where ``blocks.fused_dispatch_supported`` allows one)."""
+    _check_spmd(spmd)
     if cfg.mod.backend not in BACKENDS:
         raise ValueError(f"unknown MoD backend {cfg.mod.backend!r} (want one of {BACKENDS})")
     if decision.strategy == "token_topk":
@@ -322,12 +350,13 @@ def apply_mod(
     cfg: ModelConfig,
     generator: Optional[torch.Generator] = None,
     fused_block_fn: Optional[FusedBlockFn] = None,
-    spmd: Any = None,
+    spmd: Optional[ShardCtx] = None,
 ) -> Tuple[torch.Tensor, Aux]:
     """Train-time routed block: token top-k decision + routed execution,
     with the routing aux losses."""
     decision = decide_tokens(params, x, cfg, generator, spmd)
-    out, inner_aux = execute_routed(decision, x, block_delta_fn, cfg, positions, fused_block_fn)
+    out, inner_aux = execute_routed(decision, x, block_delta_fn, cfg, positions, fused_block_fn,
+                                    spmd)
     aux: Aux = dict(inner_aux)
     aux.update(routing_aux(decision, params, x, cfg))
     return out, aux
@@ -379,12 +408,24 @@ def route_decode(
     cfg: ModelConfig,
     positions: Optional[torch.Tensor] = None,
     active: Optional[torch.Tensor] = None,
-    spmd: Any = None,
+    spmd: Optional[ShardCtx] = None,
 ) -> Tuple[torch.Tensor, Params, Aux]:
     """Decode-time routed block: batch-capacity decision + routed execution.
-    ``caches`` is updated in place (the routed rows only) and returned."""
-    _no_spmd(spmd)
-    decision = decide_batch(params, x, cfg, active)
+    ``caches`` is updated in place (the routed rows only) and returned.
+
+    ``spmd`` with no mesh (``ShardCtx(data_shards=d)``): the partitioned
+    decision over the whole batch, as on one device. Over a mesh
+    (``spmd.spmd``): ``x``, ``caches``, ``positions`` and ``active`` are this
+    rank's ``B/d`` rows, one group, so the rank routes its own top
+    ``kb_local`` and gathers and scatters only cache rows it holds — the
+    same function, row for row, as the single-device reference."""
+    _check_spmd(spmd)
+    shards = 1
+    if spmd is not None and not spmd.spmd:
+        # the clear ValueError, not batch_select's
+        spmd.check_batch(x.shape[0])
+        shards = spmd.data_shards
+    decision = decide_batch(params, x, cfg, active, data_shards=shards)
     out, new_caches, inner_aux = _exec_batch_capacity(decision, x, caches, block_fn, positions)
     aux: Aux = dict(inner_aux)
     aux.update(decode_aux(decision))

@@ -1,0 +1,485 @@
+"""Sharding rules and the SPMD routed-execution context of the port.
+
+Port of ``repro/distributed/sharding.py`` for serving. The JAX package
+places global arrays with ``NamedSharding`` and lets GSPMD insert the
+collectives; here every rank holds **plain local tensors** (its own
+shards) and the layer code makes the collective that each placement
+implies (:func:`reduce_model` after ``wo``, ``w_down`` and the expert
+combine; :func:`gather_model` of the D-sharded embedding rows and the
+vocab-sharded logits). The hand-written kernels take these ordinary
+tensors, so they stay on the path. Which leaves are cut is decided once,
+by :func:`shard_params`, and recorded on the :class:`ShardCtx`
+(``split``); the layers ask :func:`is_split` instead of comparing shapes.
+
+- :data:`_RULES` is the JAX rule table, copied: a path regex and the mesh
+  axis of each trailing dim ("F", the data axis under JAX's FSDP, is never
+  used: serving does not shard parameters over data, and the mesh trainer
+  is not ported). :func:`param_placement` gives a leaf's spec (a tuple of
+  axis names or None per dim); a dim that does not divide its axis falls
+  back to replication, as in JAX's ``_validated``.
+- :func:`cache_placement` follows JAX's ``cache_shardings``: the slot dim
+  over "data"; on the model axis the port splits **kv heads**, not
+  ``head_dim`` as JAX does, because the flash and paged kernels take whole
+  heads (a split head_dim would need a reduction inside every score).
+- :func:`shard_params` cuts one rank's shards out of a full parameter tree
+  by the rules. Attention leaves are cut on head boundaries only: GSPMD
+  may cut a head in two, the port's kernels may not, so tensor parallelism
+  needs whole query heads per rank (:func:`check_tensor_parallel`), and
+  K/V whose heads do not divide the model axis keep, on each rank, the kv
+  heads its query heads read (all of them under MQA).
+- :class:`ShardCtx` / :func:`shard_ctx` are JAX's: ``data_shards`` is the
+  partitioned ``batch_capacity`` semantics (each of ``d`` contiguous batch
+  groups routes its own top ``round(ratio·B/d)`` rows), ``mesh`` (a
+  ``torch.distributed.device_mesh.DeviceMesh`` with dims ``("data",
+  "model")``) the execution. With a mesh the model code receives this
+  rank's rows only, so its routing decision is local to the shard with no
+  cross-data collective; ``ShardCtx(data_shards=d)`` with no mesh runs the
+  same semantics over the whole batch on one device (the reference).
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import dataclasses
+import re
+from typing import Any, Dict, FrozenSet, Iterator, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.config import ModelConfig
+from repro_torch.distributed import collectives as C
+
+Spec = Tuple[Optional[str], ...]
+
+# trailing-dim templates; "F" is JAX's FSDP slot ("data" under fsdp), None here
+_RULES: Sequence[Tuple[str, Tuple[Optional[str], ...]]] = (
+    # tok: shard D over model (gather over a vocab-sharded table forces
+    # involuntary replication in SPMD); unemb: V over model so logits and
+    # the CE logsumexp stay vocab-sharded.
+    (r"embed/tok$", (None, "model")),
+    (r"embed/unemb$", ("F", "model")),
+    (r"x?attn/w[qkv]$", ("F", "model")),
+    (r"x?attn/b[qkv]$", ("model",)),
+    (r"x?attn/wo$", ("model", "F")),
+    (r"moe/w_(up|gate)$", ("model", "F", None)),
+    (r"moe/w_down$", ("model", None, "F")),
+    (r"moe/router_w$", (None, None)),
+    (r"mlp/w_(up|gate)$", ("F", "model")),
+    (r"mlp/w_down$", ("model", "F")),
+    (r"ssm/w_[zx]$", ("F", "model")),
+    (r"ssm/w_(B|C|dt)$", ("F", None)),
+    (r"ssm/conv_x$", (None, "model")),
+    (r"ssm/conv_(B|C)$", (None, None)),
+    (r"ssm/conv_bx$", ("model",)),
+    (r"ssm/conv_b[BC]$", (None,)),
+    (r"ssm/(A_log|skip_D|dt_bias)$", ("model",)),
+    (r"ssm/norm/scale$", ("model",)),
+    (r"ssm/out_proj$", ("model", "F")),
+    (r"(router|predictor)/", (None,)),  # routers: tiny, replicated
+)
+
+# families whose model axis (tensor parallelism) is ported
+TP_FAMILIES = ("dense", "vlm", "moe")
+_ATTN_KV = re.compile(r"x?attn/(w[kv]|b[kv])$")
+
+
+# ---------------------------------------------------------------------------
+# Meshes as axis sizes
+# ---------------------------------------------------------------------------
+
+
+def mesh_sizes(mesh: Any) -> Dict[str, int]:
+    """Axis name -> size of a ``DeviceMesh`` or of a mapping (a mesh shape
+    alone: the rules need no processes)."""
+    if mesh is None:
+        return {}
+    if isinstance(mesh, dict):
+        return {str(k): int(v) for k, v in mesh.items()}
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is None:
+        raise TypeError(f"not a mesh: {type(mesh).__name__}")
+    return dict(zip(names, (int(n) for n in mesh.mesh.shape)))
+
+
+def _axis_size(sizes: Dict[str, int], name: Optional[str]) -> int:
+    return 1 if name is None else sizes.get(name, 1)
+
+
+def _validated(spec: Sequence[Any], shape: Sequence[int], sizes: Dict[str, int]) -> Spec:
+    """Each dim's axis, or None where the dim does not divide it
+    (replication), one entry a dim."""
+    out = []
+    for dim, ax in zip(shape, spec):
+        if ax is not None and dim % _axis_size(sizes, ax) != 0:
+            ax = None
+        out.append(ax)
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# Placement rules
+# ---------------------------------------------------------------------------
+
+
+def param_placement(path: str, shape: Sequence[int], mesh: Any) -> Spec:
+    """The mesh axis of each dim of the parameter leaf at ``path`` (its
+    "/"-joined dict keys), JAX's ``param_pspec`` without FSDP: the first
+    matching rule's trailing dims (leading stack dims unsharded), a dim
+    that does not divide its axis replicated."""
+    sizes = mesh_sizes(mesh)
+    for pat, trailing in _RULES:
+        if re.search(pat, path):
+            t = tuple(None if a == "F" else a for a in trailing)
+            full = (None,) * max(0, len(shape) - len(t)) + t[: len(shape)]
+            return _validated(full, shape, sizes)
+    return (None,) * len(shape)
+
+
+def cache_placement(path: str, shape: Sequence[int], mesh: Any, batch: int) -> Spec:
+    """The mesh axis of each dim of a decode-cache leaf (slot on axis
+    ``ndim - 4`` of ``k``/``v``, as the port's and JAX's leaves have it).
+    Batched serving (``batch`` divisible by the data degree): slots over
+    "data"; otherwise the sequence dim of K/V over "data" (JAX's
+    sequence-parallel case; the port's engine always divides the batch).
+    On "model": kv heads of ``k``/``v`` (JAX: ``head_dim``; see the module
+    docstring), SSM state heads, conv channels."""
+    sizes = mesh_sizes(mesh)
+    bd = "data" if "data" in sizes else None
+    b_ok = batch % _axis_size(sizes, bd) == 0
+    m = _axis_size(sizes, "model")
+    leaf = path.rsplit("/", 1)[-1]
+    nd = len(shape)
+    spec: list = [None] * nd
+    if leaf in ("k", "v"):  # (..., B, C, nkv, hd)
+        if b_ok:
+            spec[nd - 4] = bd
+        else:
+            spec[nd - 3] = "data"
+        if shape[nd - 2] % m == 0:
+            spec[nd - 2] = "model"
+    elif leaf == "pos":  # (..., B, C)
+        if b_ok:
+            spec[nd - 2] = bd
+        else:
+            spec[nd - 1] = "data"
+    elif leaf == "cursor":  # (..., B)
+        if b_ok:
+            spec[nd - 1] = bd
+    elif leaf == "state":  # (..., B, H, hd, ds)
+        if b_ok:
+            spec[nd - 4] = bd
+        if shape[nd - 3] % m == 0:
+            spec[nd - 3] = "model"
+    elif leaf.startswith("conv_"):  # (..., B, W-1, C)
+        if b_ok:
+            spec[nd - 3] = bd
+        if shape[nd - 1] % m == 0:
+            spec[nd - 1] = "model"
+    return _validated(spec, shape, sizes)
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: whole heads, and one rank's shards
+# ---------------------------------------------------------------------------
+
+
+def check_tensor_parallel(cfg: ModelConfig, model_shards: int) -> None:
+    """Raise unless ``cfg`` can run with its model axis split
+    ``model_shards`` ways: a family whose tensor parallelism is ported
+    (dense, vlm, moe), an unembedding of its own (a tied table's D split
+    would need the logits summed over ranks), whole query heads per rank,
+    and kv heads that either divide the axis or serve each rank's query
+    heads uniformly."""
+    m = int(model_shards)
+    if m <= 1:
+        return
+    if cfg.family not in TP_FAMILIES:
+        raise NotImplementedError(
+            f"tensor parallelism (model axis {m}) for family {cfg.family!r} is not ported yet "
+            "(ROADMAP Queue 1 item 6: TP for ssm, hybrid and encdec)")
+    if cfg.tie_embeddings:
+        raise NotImplementedError("tensor parallelism with tied embeddings is not ported")
+    nq, nkv = cfg.attn.n_heads, cfg.attn.n_kv_heads
+    if nq % m:
+        raise NotImplementedError(
+            f"tensor parallelism needs whole query heads per rank: {nq} heads over a model "
+            f"axis of {m}")
+    if nkv % m:
+        g, nql = nq // nkv, nq // m
+        if nql % g and g % nql:
+            raise NotImplementedError(
+                f"{nq} query heads over {nkv} kv heads do not split evenly over a model axis "
+                f"of {m}")
+
+
+def kv_head_range(cfg: ModelConfig, model_shards: int, model_rank: int) -> Tuple[int, int]:
+    """The kv heads [lo, hi) that model rank ``model_rank`` holds: its share
+    when the kv heads divide the axis, else the heads its query heads read."""
+    m, r = int(model_shards), int(model_rank)
+    nq, nkv = cfg.attn.n_heads, cfg.attn.n_kv_heads
+    if m <= 1:
+        return 0, nkv
+    if nkv % m == 0:
+        return r * nkv // m, (r + 1) * nkv // m
+    g, nql = nq // nkv, nq // m
+    return (r * nql) // g, ((r + 1) * nql - 1) // g + 1
+
+
+def _path(keys: Tuple[Any, ...]) -> str:
+    """The "/"-joined dict keys of a leaf (list indices dropped: the port's
+    per-layer lists are the JAX tree's stacked axes)."""
+    return "/".join(str(k) for k in keys if not isinstance(k, int))
+
+
+def _leaves(tree: Any, keys: Tuple[Any, ...] = ()) -> Iterator[Tuple[Tuple[Any, ...], Any]]:
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, keys + (k,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, keys + (i,))
+    else:
+        yield keys, tree
+
+
+def _rebuild(tree: Any, fn, keys: Tuple[Any, ...] = ()) -> Any:
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, fn, keys + (k,)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_rebuild(v, fn, keys + (i,)) for i, v in enumerate(tree)]
+    return fn(keys, tree)
+
+
+def cut_leaf(path: str, leaf: Any, cfg: ModelConfig, sizes: Dict[str, int],
+             coords: Dict[str, int]) -> Any:
+    """One rank's shard of a parameter leaf (a tensor or a numpy array,
+    possibly stacked on leading axes): the chunk at the rank's coordinate
+    of every dim :func:`param_placement` puts on an axis, and K/V leaves on
+    the head range of :func:`kv_head_range`. A leaf left whole is returned
+    as it is (the same object)."""
+    spec = param_placement(path, leaf.shape, sizes)
+    m = sizes.get("model", 1)
+    if _ATTN_KV.search(path) and m > 1:
+        lo, hi = kv_head_range(cfg, m, coords.get("model", 0))
+        hd = cfg.head_dim
+        spec = spec[:-1] + (None,)
+        if (lo, hi) != (0, cfg.attn.n_kv_heads):
+            leaf = leaf[..., lo * hd: hi * hd]
+    index = []
+    for dim, ax in zip(leaf.shape, spec):
+        if ax is None:
+            index.append(slice(None))
+            continue
+        step = dim // sizes[ax]
+        c = coords.get(ax, 0)
+        index.append(slice(c * step, (c + 1) * step))
+    if all(s == slice(None) for s in index):
+        return leaf
+    return leaf[tuple(index)]
+
+
+def leaf_name(path: str) -> str:
+    """The name a layer asks :func:`is_split` about: a leaf's last two path
+    keys ("attn/wo", "mlp/w_down", "moe/w_up", "embed/tok"), the part of
+    the path the rule table matches on."""
+    return "/".join(path.split("/")[-2:])
+
+
+def cut_tree(tree: Any, cfg: ModelConfig, sizes: Dict[str, int], coords: Dict[str, int]
+             ) -> Tuple[Any, FrozenSet[str]]:
+    """Every leaf of ``tree`` cut by :func:`cut_leaf` (a cut tensor is
+    copied, so the full one can be freed; whole leaves are shared), and the
+    :func:`leaf_name` of the leaves it cut. A name is cut everywhere or
+    nowhere (every layer's leaf of a name has one shape), else
+    ``ValueError``."""
+    check_tensor_parallel(cfg, sizes.get("model", 1))
+    seen: Dict[str, bool] = {}
+
+    def one(keys, leaf):
+        path = _path(keys)
+        out = cut_leaf(path, leaf, cfg, sizes, coords)
+        name, was = leaf_name(path), out is not leaf
+        if was and isinstance(out, torch.Tensor):
+            out = out.contiguous().clone()
+        if seen.setdefault(name, was) != was:
+            raise ValueError(f"leaf {name!r} is cut in some layers and whole in others")
+        return out
+
+    out = _rebuild(tree, one)
+    return out, frozenset(k for k, v in seen.items() if v)
+
+
+def shard_params(params: Any, cfg: ModelConfig, spmd: "ShardCtx") -> Tuple[Any, "ShardCtx"]:
+    """This rank's shards of the port's full parameter tree under ``spmd``'s
+    mesh (:func:`cut_tree`), and ``spmd`` with ``split`` recording the
+    leaves it cut: run the shards under that context. Only the model axis
+    cuts parameters in serving, so a data-only mesh returns both as they
+    are."""
+    if spmd is None or spmd.mesh is None or spmd.model_shards <= 1:
+        return params, spmd
+    out, split = cut_tree(params, cfg, mesh_sizes(spmd.mesh), spmd.coords())
+    return out, dataclasses.replace(spmd, split=split)
+
+
+def local_cache_config(cfg: ModelConfig, spmd: Optional["ShardCtx"]) -> ModelConfig:
+    """The config whose caches hold one rank's share: ``cfg`` with the kv
+    heads of :func:`kv_head_range` when :func:`shard_params` cut K/V
+    (slots are cut by the pool)."""
+    if spmd is None or "attn/wk" not in spmd.split:
+        return cfg
+    lo, hi = kv_head_range(cfg, spmd.model_shards, spmd.coords()["model"])
+    return dataclasses.replace(cfg, attn=dataclasses.replace(cfg.attn, n_kv_heads=hi - lo))
+
+
+# ---------------------------------------------------------------------------
+# SPMD routed-execution context
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardCtx:
+    """Mesh context of SPMD routed execution (JAX's ``ShardCtx``).
+
+    - **semantics** (``data_shards``): ``batch_capacity`` decode splits the
+      batch into ``data_shards`` contiguous groups and routes the top
+      ``kb_local = round(ratio·B/d)`` sequences within each, a global
+      budget of ``d·kb_local`` with no cross-group communication.
+      ``token_topk`` is per sequence, so it never depends on the split.
+    - **execution** (``mesh``): with a ``DeviceMesh`` attached, each rank
+      runs the model on its own ``B/d`` rows (``data_axes``) with its
+      shards of the weights (``model_axis``, tensor parallel), so the
+      routed step's decision, cache gather and scatters are shard-local.
+
+    ``ShardCtx(mesh=None, data_shards=d)`` runs the same partitioned
+    semantics on one device: the reference the mesh is held against."""
+
+    mesh: Any = None
+    data_axes: Tuple[str, ...] = ()
+    model_axis: Optional[str] = None
+    data_shards: int = 1
+    # params sharded over the data axes too (JAX's ZeRO-3): fused dispatch
+    # must fall back. Only the mesh trainer sets it; it is not ported yet.
+    fsdp: bool = False
+    # the leaf_name()s of the leaves shard_params cut over the model axis
+    split: FrozenSet[str] = frozenset()
+
+    @property
+    def spmd(self) -> bool:
+        """True when the model runs on this rank's shard of the batch."""
+        return self.mesh is not None and bool(self.data_axes)
+
+    @property
+    def model_shards(self) -> int:
+        if self.mesh is None or self.model_axis is None:
+            return 1
+        return mesh_sizes(self.mesh).get(self.model_axis, 1)
+
+    def check_batch(self, batch: int) -> None:
+        if self.data_shards > 1 and batch % self.data_shards != 0:
+            raise ValueError(f"batch {batch} not divisible by data_shards={self.data_shards}")
+
+    def semantic_only(self) -> "ShardCtx":
+        """The same partitioned routing semantics with no mesh attached
+        (JAX: dispatch under GSPMD instead of ``shard_map``)."""
+        return dataclasses.replace(self, mesh=None)
+
+    # -- the rank's place on the mesh (the port's multi-controller view) --
+
+    def coords(self) -> Dict[str, int]:
+        """This rank's coordinate on every mesh dim (empty without a mesh)."""
+        if self.mesh is None:
+            return {}
+        return {name: int(self.mesh.get_local_rank(name)) for name in self.mesh.mesh_dim_names}
+
+    @property
+    def data_rank(self) -> int:
+        """This rank's data group: it holds batch rows
+        ``[data_rank·B/d, (data_rank+1)·B/d)``."""
+        return self.coords()["data"]
+
+    def data_group(self) -> Any:
+        """The process group of this rank's peers along the data axis."""
+        return self.mesh.get_group("data")
+
+    def data_peer(self, data_rank: int) -> int:
+        """The global rank at data index ``data_rank`` and this rank's model
+        index (the source of a broadcast over :meth:`data_group`)."""
+        return int(self.mesh.mesh[data_rank, self.coords()["model"]])
+
+
+def shard_ctx(mesh: Any, data_shards: Optional[int] = None) -> ShardCtx:
+    """A :class:`ShardCtx` from a ("data", "model") mesh (or a bare shard
+    count), as in JAX: ``shard_ctx(mesh)`` puts the batch over "data" and
+    "model" to tensor parallelism; ``shard_ctx(None, data_shards=d)`` is
+    the partitioned semantics alone. A given ``data_shards`` must equal
+    the mesh's data degree."""
+    if mesh is None:
+        return ShardCtx(data_shards=int(data_shards or 1))
+    d = mesh_sizes(mesh)["data"]
+    if data_shards is not None and int(data_shards) != d:
+        raise ValueError(f"data_shards={data_shards} != mesh data degree {d}")
+    return ShardCtx(mesh=mesh, data_axes=("data",), model_axis="model", data_shards=d)
+
+
+# ---------------------------------------------------------------------------
+# The running model call's model axis, for the layer code
+# ---------------------------------------------------------------------------
+
+
+_RUNNING: contextvars.ContextVar = contextvars.ContextVar("model_parallel", default=None)
+
+
+@contextlib.contextmanager
+def model_parallel(spmd: Optional[ShardCtx]):
+    """Make ``spmd`` the context the layer code asks :func:`is_split` and
+    reduces and gathers over for the duration of a model call (the port's
+    counterpart of JAX's ambient mesh). A no-op without a split model
+    axis."""
+    if spmd is None or spmd.mesh is None or spmd.model_shards <= 1:
+        yield
+        return
+    token = _RUNNING.set(spmd)
+    try:
+        yield
+    finally:
+        _RUNNING.reset(token)
+
+
+def is_split(name: str) -> bool:
+    """Whether the running model call's weights hold a rank's part of the
+    leaf ``name`` (a :func:`leaf_name`), as :func:`shard_params` recorded."""
+    spmd = _RUNNING.get()
+    return spmd is not None and name in spmd.split
+
+
+def model_rank() -> int:
+    """This rank's index on the running model call's model axis."""
+    return _RUNNING.get().coords()["model"]
+
+
+def running_cache_config(cfg: ModelConfig) -> ModelConfig:
+    """:func:`local_cache_config` of the running model call: the config a
+    prefill makes its caches with."""
+    return local_cache_config(cfg, _RUNNING.get())
+
+
+def reduce_model(x: torch.Tensor, name: str) -> torch.Tensor:
+    """The sum over the model axis of partial products (``wo``, ``w_down``
+    and the expert combine, whose contraction dim is split) when the leaf
+    ``name`` is split; ``x`` as it is otherwise. Gloo reduces CUDA tensors
+    itself, so this never stages through the host."""
+    if not is_split(name):
+        return x
+    x = x.contiguous()
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=_RUNNING.get().mesh.get_group("model"))
+    return x
+
+
+def gather_model(x: torch.Tensor, dim: int, name: str) -> torch.Tensor:
+    """Every model rank's slice of ``x`` along ``dim`` (the D-sharded
+    embedding rows, the vocab-sharded logits) when the leaf ``name`` is
+    split."""
+    if not is_split(name):
+        return x
+    return C.all_gather(x, dim, _RUNNING.get().mesh.get_group("model"))

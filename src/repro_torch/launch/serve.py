@@ -24,6 +24,15 @@ are random, drawn from ``--seed``. Prompt lengths are mixed uniformly over
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny --smoke --device cpu \
       --batch 4 --requests 6 --prompt-len 8 --gen 6 --page-size 16
 
+Multi-device (``--spmd``): one process a device under ``torchrun``, every
+rank running the same engine over a ("data", "model") mesh of all ranks
+(``--model-axis`` ranks of tensor parallelism, data takes the rest) over
+NCCL, or gloo with ``--device cpu``. ``--data-shards`` alone runs the same partitioned
+MoD routing on one device. Rank 0 prints.
+
+  torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve --spmd \
+      --model-axis 2 --device cpu --smoke --batch 4 --requests 6 --gen 4
+
 The ssm, hybrid, enc-dec and VLM families (``mamba2-*``, ``zamba2-*``,
 ``whisper-*``, ``qwen2-vl-*``) ingest prompts one token per decode step,
 as the JAX engine serves them; the run prints which path it took. An
@@ -37,6 +46,7 @@ import argparse
 import dataclasses
 
 import numpy as np
+from torch import distributed as dist
 
 from repro_torch.config import get_config, smoke_config, with_mod_backend
 from repro_torch.data.synthetic import SyntheticLM
@@ -69,6 +79,12 @@ def main() -> None:
     ap.add_argument("--deadline", type=float, default=0.0,
                     help="per-request deadline in seconds from submit; expired requests finish "
                          "as 'expired' instead of occupying slots (0 = no deadline)")
+    ap.add_argument("--spmd", action="store_true",
+                    help="serve over a ('data','model') mesh of every rank (run under torchrun, "
+                         "one process a device): batch-sharded cache pool, shard-local MoD "
+                         "routing, tensor parallelism over --model-axis")
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="tensor-parallel degree of the --spmd mesh")
     ap.add_argument("--inject-faults", type=int, default=-1,
                     help="thread a seeded FaultInjector through the engine (NaN/Inf logits, "
                          "page exhaustion, stragglers, preemption storms) with this seed; "
@@ -82,7 +98,17 @@ def main() -> None:
     cfg = dataclasses.replace(cfg, dtype=args.dtype)
     if args.backend:
         cfg = with_mod_backend(cfg, args.backend)
-    params = api.init_model(cfg, device=args.device, seed=args.seed)
+    device, mesh, say = args.device, None, print
+    if args.spmd:
+        from repro_torch.launch import mesh as M
+
+        device = M.init_process_group("gloo" if args.device == "cpu" else "nccl",
+                                      device=args.device)
+        mesh = M.auto_mesh(args.model_axis)
+        if dist.get_rank() != 0:
+            say = lambda *a, **k: None  # noqa: E731
+        say(f"[serve] SPMD mesh: {M.describe_mesh(mesh)}")
+    params = api.init_model(cfg, device=device, seed=args.seed)
 
     n_requests = args.requests or 2 * args.batch
     lo = args.min_prompt_len or args.prompt_len
@@ -94,11 +120,12 @@ def main() -> None:
         ctx = -(-ctx // args.page_size) * args.page_size
     injector = FaultInjector.seeded(args.inject_faults) if args.inject_faults >= 0 else None
     engine = ServingEngine(params, cfg, EngineConfig.from_args(
-        args, batch_size=args.batch, ctx=ctx, fault_injector=injector), device=args.device)
+        args, batch_size=args.batch, ctx=ctx, fault_injector=injector, mesh=mesh), device=device)
+
     def enc_emb(i):  # the enc-dec family's stub frontend: frames of its own a request
         if cfg.family != "encdec":
             return None
-        return api.stub_inputs(cfg, 1, 0, seed=args.seed + i, device=args.device)["enc_emb"][0]
+        return api.stub_inputs(cfg, 1, 0, seed=args.seed + i, device=device)["enc_emb"][0]
 
     outputs = engine.run_stream(
         [Request(tokens=prompts[i, : lens[i]], max_new_tokens=args.gen, priority=args.priority,
@@ -110,56 +137,62 @@ def main() -> None:
     s = engine.stats()
     lat = np.asarray([o.residency_steps for o in outputs], np.float64)
     kv = engine.pool.cache_bytes()
-    print(f"[serve] arch={cfg.name} device={engine.device} slots={args.batch} ctx={ctx} "
-          f"requests={len(outputs)} policy={args.policy}")
-    print(f"[serve] {s['steps']:.0f} engine steps in {s['wall_s']:.2f}s: "
+    say(f"[serve] arch={cfg.name} device={engine.device} slots={args.batch} ctx={ctx} "
+        f"requests={len(outputs)} policy={args.policy}")
+    if engine.spmd is not None and engine.scheduler.routed_capacity is not None:
+        say(f"[serve] shard-local routing: data_shards={engine.spmd.data_shards} "
+            f"global kb={engine.scheduler.routed_capacity} (= d * round(ratio * B/d)); "
+            f"model_shards={engine.spmd.model_shards}")
+    say(f"[serve] {s['steps']:.0f} engine steps in {s['wall_s']:.2f}s: "
           f"{s['tokens_per_s']:.1f} tok/s aggregate, mean occupancy "
           f"{s['mean_occupancy']:.2f}/{args.batch}; prefill {s['prefill_s']:.2f}s over "
           f"{s['prefills']:.0f} prompts, decode {s['decode_s']:.2f}s over "
           f"{s['decode_steps']:.0f} steps")
-    print(f"[serve] prompt ingestion: " + (
+    say(f"[serve] prompt ingestion: " + (
         "batched prefill (model_prefill)" if engine.prefill_mode == "batch"
         else f"stepped, one prompt token per decode step ({cfg.family} family)"))
-    print(f"[serve] latency (steps): p50={np.percentile(lat, 50):.0f} "
+    say(f"[serve] latency (steps): p50={np.percentile(lat, 50):.0f} "
           f"p95={np.percentile(lat, 95):.0f}")
     if np.isfinite(s["mean_routed_frac"]):
-        print(f"[serve] MoD decode routed fraction: {s['mean_routed_frac']:.3f} "
+        say(f"[serve] MoD decode routed fraction: {s['mean_routed_frac']:.3f} "
               f"(capacity_ratio={cfg.mod.capacity_ratio}); KV pool "
               f"{kv['total'] / 2**20:.1f} MiB (mod/full cache ratio "
               f"{kv['mod_vs_full_ratio']:.2f})")
     if args.page_size:
-        print(f"[serve] paged pool: page_size={args.page_size} pages={s['n_pages']:.0f} "
+        say(f"[serve] paged pool: page_size={args.page_size} pages={s['n_pages']:.0f} "
               f"peak_utilization={s['page_utilization_peak']:.2f} "
               f"prefix_hit_rate={s['prefix_hit_rate']:.2f} preemptions={s['preemptions']:.0f} "
               f"prefill_tokens_computed={s['prefill_tokens_computed']:.0f}")
     if engine.quant is not None:
         wide = engine.pool.unquantized_kv_bytes()
-        print(f"[serve] quantized KV: {engine.quant.kv}/{engine.quant.granularity} scales, "
+        say(f"[serve] quantized KV: {engine.quant.kv}/{engine.quant.granularity} scales, "
               f"kv {s['kv_bytes'] / 2**20:.2f} MiB, {wide / s['kv_bytes']:.3f}x less than the "
               f"unquantized pool of the same shape ({wide / 2**20:.2f} MiB)")
     if args.speculate:
-        print(f"[serve] speculative: speculate={args.speculate} draft_ratio={args.draft_ratio} "
+        say(f"[serve] speculative: speculate={args.speculate} draft_ratio={args.draft_ratio} "
               f"rounds={s['speculative_rounds']:.0f} "
               f"accept_rate={s['speculative_accept_rate']:.3f} "
               f"tokens_per_round={s['speculative_tokens_per_round']:.2f}")
     if args.ragged:
-        print(f"[serve] ragged mixed step: segments={args.ragged_segments} "
+        say(f"[serve] ragged mixed step: segments={args.ragged_segments} "
               f"padded_token_fraction={s['padded_token_fraction']:.3f}")
     if args.deadline or args.adaptive_capacity or injector is not None:
         ok = sum(1 for o in outputs if o.ok)
-        print(f"[serve] lifecycle: ok={ok}/{len(outputs)} shed={s['shed']:.0f} "
+        say(f"[serve] lifecycle: ok={ok}/{len(outputs)} shed={s['shed']:.0f} "
               f"expired={s['expired']:.0f} cancelled={s['cancelled']:.0f} "
               f"failed={s['failed']:.0f}")
     if args.adaptive_capacity:
-        print(f"[serve] capacity controller: level_max={s.get('capacity_level_max', 0.0):.0f} "
+        say(f"[serve] capacity controller: level_max={s.get('capacity_level_max', 0.0):.0f} "
               f"level_changes={s.get('capacity_level_changes', 0.0):.0f} "
               f"degraded_decode_steps={s.get('degraded_decode_steps', 0.0):.0f}")
     if injector is not None:
         fired = ", ".join(f"{f['kind']}@{f['step']}" for f in injector.fired)
-        print(f"[serve] faults fired: {fired or 'none'}")
-    print(f"[serve] kernel launches: {build.launch_counts()} (0 on the CPU: plain versions)")
+        say(f"[serve] faults fired: {fired or 'none'}")
+    say(f"[serve] kernel launches: {build.launch_counts()} (0 on the CPU: plain versions)")
     first = min(outputs, key=lambda o: o.uid)
-    print(f"[serve] sample continuation: {first.tokens[-10:].tolist()}")
+    say(f"[serve] sample continuation: {first.tokens[-10:].tolist()}")
+    if args.spmd:
+        M.destroy_process_group()
 
 
 if __name__ == "__main__":

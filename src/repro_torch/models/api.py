@@ -13,6 +13,15 @@ carries ``embeds`` (B, S, D) in the model's dtype and M-RoPE ``positions``
 (3, B, S) in place of ``tokens``; the ``encdec`` batch carries ``enc_emb``
 (B, S_enc, D) beside its ``tokens``. :func:`stub_inputs` makes both from a
 seed, as the JAX package's tests do.
+
+``spmd`` (a :class:`repro_torch.distributed.sharding.ShardCtx`) on
+:func:`model_decode` carries the partitioned ``batch_capacity`` routing
+into every family's decode step, as in JAX. Over a mesh the serving entry
+points (:func:`model_prefill`, :func:`model_prefill_chunk`,
+:func:`model_decode`) take one rank's rows and weight shards and make the
+mesh's model axis the group the layers reduce over; that tensor
+parallelism is ported for the dense, VLM and MoE families, and the others
+raise ``NotImplementedError`` with a split model axis.
 """
 from __future__ import annotations
 
@@ -22,6 +31,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device, torch_dtype
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import encdec as ED
 from repro_torch.models import ssm_lm as SL
 from repro_torch.models import transformer as T
@@ -136,41 +146,54 @@ def make_caches(cfg: ModelConfig, batch: int, ctx: int, device: DeviceLike = Non
     return T.make_cache(cfg, batch, ctx, resolve_device(device))
 
 
-def model_prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], ctx: int
-                  ) -> Tuple[torch.Tensor, Params]:
+def _check_spmd(cfg: ModelConfig, spmd: Optional[SH.ShardCtx]) -> None:
+    if spmd is not None:
+        SH.check_tensor_parallel(cfg, spmd.model_shards)
+
+
+def model_prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], ctx: int,
+                  spmd: Optional[SH.ShardCtx] = None) -> Tuple[torch.Tensor, Params]:
     """Prompt pass that fills fresh (B, ctx) caches (``vlm``: over the
     batch's ``embeds`` and ``positions``). Returns (logits, caches)."""
     _check_family(cfg)
     if cfg.family not in _TRANSFORMER:
         raise NotImplementedError(f"prefill for family {cfg.family} uses forward+decode")
-    return T.prefill(params, cfg, tokens=batch.get("tokens"), embeds=batch.get("embeds"),
-                     positions=batch.get("positions"), ctx=ctx)
+    _check_spmd(cfg, spmd)
+    with SH.model_parallel(spmd):
+        return T.prefill(params, cfg, tokens=batch.get("tokens"), embeds=batch.get("embeds"),
+                         positions=batch.get("positions"), ctx=ctx)
 
 
 def model_prefill_chunk(params: Params, cfg: ModelConfig, caches: Params,
-                        tokens: torch.Tensor, start: int, n_valid: int
-                        ) -> Tuple[torch.Tensor, Params]:
+                        tokens: torch.Tensor, start: int, n_valid: int,
+                        spmd: Optional[SH.ShardCtx] = None) -> Tuple[torch.Tensor, Params]:
     """One continuation-prefill chunk (B, C) against partly filled caches."""
     _check_family(cfg)
     if cfg.family not in _BATCHED:
         raise NotImplementedError(
             f"chunked prefill for family {cfg.family}: prompts ingest via decode steps")
-    return T.prefill_chunk(params, cfg, caches, tokens, int(start), int(n_valid))
+    _check_spmd(cfg, spmd)
+    with SH.model_parallel(spmd):
+        return T.prefill_chunk(params, cfg, caches, tokens, int(start), int(n_valid))
 
 
 def model_decode(params: Params, caches: Params, cfg: ModelConfig, token: torch.Tensor,
-                 pos: torch.Tensor, active: Optional[torch.Tensor] = None
-                 ) -> Tuple[torch.Tensor, Params, Aux]:
+                 pos: torch.Tensor, active: Optional[torch.Tensor] = None,
+                 spmd: Optional[SH.ShardCtx] = None) -> Tuple[torch.Tensor, Params, Aux]:
     """One decode step. ``active`` (B,) bool marks live rows so MoD
-    ``batch_capacity`` routing never spends routed slots on padding."""
+    ``batch_capacity`` routing never spends routed slots on padding.
+    ``spmd`` switches that routing to the partitioned semantics (over a
+    mesh: on this rank's rows, with its weight shards)."""
     _check_family(cfg)
-    if cfg.family == "ssm":
-        return SL.decode_step(params, caches, cfg, token, active)
-    if cfg.family == "hybrid":
-        return SL.decode_step_hybrid(params, caches, cfg, token, pos, active)
-    if cfg.family == "encdec":
-        return ED.decode_step(params, caches, cfg, token, pos, active)
-    return T.decode_step(params, caches, cfg, token, pos, active)
+    _check_spmd(cfg, spmd)
+    with SH.model_parallel(spmd):
+        if cfg.family == "ssm":
+            return SL.decode_step(params, caches, cfg, token, active, spmd)
+        if cfg.family == "hybrid":
+            return SL.decode_step_hybrid(params, caches, cfg, token, pos, active, spmd)
+        if cfg.family == "encdec":
+            return ED.decode_step(params, caches, cfg, token, pos, active, spmd)
+        return T.decode_step(params, caches, cfg, token, pos, active, spmd)
 
 
 # ---------------------------------------------------------------------------

@@ -28,6 +28,13 @@ positions, JAX's ``kv_pos=None``.
 
 Unlike the JAX functions, which return new caches, these functions write
 the caches in place and return them.
+
+Tensor parallelism (a rank's shards from
+:func:`repro_torch.distributed.sharding.shard_params`): the projections
+take their head counts from the weights, so a rank attends with its own
+query heads over its kv heads, and the output projection's partial sums
+(``wo`` split on its rows) are summed over the model axis
+(:func:`_project_out`).
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import torch_dtype
+from repro_torch.distributed import sharding as SH
 from repro_torch.kernels.flash_attention import (
     NEG_INF,
     RoutedAttnSpec,
@@ -67,11 +75,13 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, device: torch.device)
 
 
 def _project_q(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """(B, S, nq, hd): every query head, or a rank's share of them."""
     B, S, _ = x.shape
     q = x @ params["wq"]
     if "bq" in params:
         q = q + params["bq"]
-    return q.reshape(B, S, cfg.attn.n_heads, cfg.head_dim)
+    hd = cfg.head_dim
+    return q.reshape(B, S, params["wq"].shape[1] // hd, hd)
 
 
 def _project_kv(params: Params, x: torch.Tensor, cfg: ModelConfig
@@ -82,8 +92,15 @@ def _project_kv(params: Params, x: torch.Tensor, cfg: ModelConfig
     if "bk" in params:
         k = k + params["bk"]
         v = v + params["bv"]
-    nkv, hd = cfg.attn.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    nkv = params["wk"].shape[1] // hd
     return k.reshape(B, S, nkv, hd), v.reshape(B, S, nkv, hd)
+
+
+def _project_out(params: Params, out: torch.Tensor) -> torch.Tensor:
+    """``out @ wo``; summed over the model axis when ``wo`` holds a rank's
+    rows (its query heads) only."""
+    return SH.reduce_model(out @ params["wo"], "attn/wo")
 
 
 def _rope_qk(q, k, q_pos, kv_pos, cfg: ModelConfig):
@@ -143,7 +160,7 @@ def self_attention(params: Params, x: torch.Tensor, positions: torch.Tensor,
     k, v = _project_kv(params, x, cfg)
     q, k = _rope_qk(q, k, positions, positions, cfg)
     tp = t_pos(positions)
-    return attend_auto(q, k, v, tp, tp, cfg) @ params["wo"]
+    return _project_out(params, attend_auto(q, k, v, tp, tp, cfg))
 
 
 def make_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, causal: bool, window: int = 0
@@ -188,7 +205,7 @@ def ragged_self_attention(params: Params, x: torch.Tensor, positions: torch.Tens
     tp = t_pos(positions)
     mask = make_mask(tp, tp, bool(cfg.attn.causal), int(cfg.attn.window))
     mask &= (seg_id[:, None] == seg_id[None, :])[None]
-    return attend(q, k, v, mask, cfg) @ params["wo"]
+    return _project_out(params, attend(q, k, v, mask, cfg))
 
 
 def routed_self_attention(
@@ -229,7 +246,7 @@ def cross_attention(params: Params, x: torch.Tensor, enc_k: torch.Tensor, enc_v:
         torch.zeros((B, enc_k.shape[1]), dtype=torch.int32, device=x.device),
         causal=False, scale=_scale(cfg),
     )
-    return out.reshape(B, Sq, -1) @ params["wo"]
+    return _project_out(params, out.reshape(B, Sq, -1))
 
 
 def encode_kv(params: Params, enc_out: torch.Tensor, cfg: ModelConfig
@@ -306,15 +323,15 @@ def decode_attention(
 ) -> Tuple[torch.Tensor, Params]:
     """One decode step: write this token's rotated K/V, attend over the
     cache. The cache stores rotated K, so nothing is re-rotated at read
-    time. (The JAX version's decode TP constraint is a mesh hint with no
-    single-GPU counterpart.)"""
+    time. (The JAX version's decode TP constraint is a GSPMD hint; here a
+    rank's heads come with its weights and its cache.)"""
     q = _project_q(params, x, cfg)
     k_new, v_new = _project_kv(params, x, cfg)
     q, k_new = _rope_qk(q, k_new, positions, positions, cfg)
     tp = t_pos(positions)
     cache = cache_write(cache, k_new, v_new, tp)
     out = attend_auto(q, cache["k"], cache["v"], tp, cache["pos"], cfg)
-    return out @ params["wo"], cache
+    return _project_out(params, out), cache
 
 
 def chunk_self_attention(
@@ -333,7 +350,7 @@ def chunk_self_attention(
     tp = t_pos(positions)
     cache = cache_write(cache, k, v, tp, write_mask)
     out = attend_auto(q, cache["k"], cache["v"], tp, cache["pos"], cfg)
-    return out @ params["wo"], cache
+    return _project_out(params, out), cache
 
 
 def prefill_self_attention(
@@ -349,6 +366,6 @@ def prefill_self_attention(
     k, v = _project_kv(params, x, cfg)
     q, k = _rope_qk(q, k, positions, positions, cfg)
     tp = t_pos(positions)
-    out = attend_auto(q, k, v, tp, tp, cfg) @ params["wo"]
+    out = _project_out(params, attend_auto(q, k, v, tp, tp, cfg))
     cache = cache_write(cache, k, v, tp, write_mask)
     return out, cache

@@ -79,12 +79,25 @@ def block_delta(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelC
     return a + m, aux
 
 
-def fused_dispatch_supported(cfg: ModelConfig) -> bool:
+def fused_dispatch_supported(cfg: ModelConfig, spmd=None) -> bool:
     """Whether this config's routed blocks run the fused-dispatch mode:
     backend ``pallas_fused`` and 1-D positions (M-RoPE stays on the
-    gather/scatter path in the JAX package). The JAX version's mesh
-    conditions have no single-device counterpart."""
-    return cfg.mod.backend == "pallas_fused" and cfg.attn.pos_emb in ("rope", "none")
+    gather/scatter path in the JAX package).
+
+    Under a mesh (``spmd`` a ``ShardCtx`` with ``spmd.spmd``) the fused
+    kernels run on a rank's rows, which needs every dim they fuse over whole
+    on the rank, so they fall back to gather/scatter when the model axis
+    is split (heads and ``d_ff`` columns across ranks: the kernels have no
+    reduction epilogue), under FSDP (a rank sees a fragment of a weight),
+    and for MoE (its aux statistics are global over the batch)."""
+    if not (cfg.mod.backend == "pallas_fused" and cfg.attn.pos_emb in ("rope", "none")):
+        return False
+    if spmd is not None and spmd.spmd:
+        if spmd.model_shards > 1 or spmd.fsdp:
+            return False
+        if cfg.family == "moe" or cfg.moe.enabled:
+            return False
+    return True
 
 
 def block_delta_fused(

@@ -221,12 +221,14 @@ def _dec_block_decode(p: Params, x: torch.Tensor, positions: torch.Tensor, self_
 
 
 def decode_step(params: Params, caches: Params, cfg: ModelConfig, token: torch.Tensor,
-                pos: torch.Tensor, active: Optional[torch.Tensor] = None
+                pos: torch.Tensor, active: Optional[torch.Tensor] = None, spmd=None
                 ) -> Tuple[torch.Tensor, Params, Aux]:
     """One autoregressive step; the self rings are updated in place, the
     cross-KV only read. The routed block gathers its rows' cross-KV through
     the batch_capacity decision, so only the self ring is scattered back.
-    Returns (logits (B, V), caches, aux means over the routed groups)."""
+    Returns (logits (B, V), caches, aux means over the routed groups).
+    ``spmd``: partitioned MoD decode routing (JAX downgrades it to
+    ``semantic_only`` here; a rank's rows run the same function)."""
     x = embed(params["embed"], token)  # (B, 1, D)
     positions = pos.to(torch.int32)[:, None]
     aux_steps: List[Aux] = []
@@ -242,7 +244,8 @@ def decode_step(params: Params, caches: Params, cfg: ModelConfig, token: torch.T
                                           delta_only=True)
                 return d, sc, {}
 
-            x, _, a = ROUT.route_decode(mp, x, mc["self"], block_fn, cfg, positions, active)
+            x, _, a = ROUT.route_decode(mp, x, mc["self"], block_fn, cfg, positions, active,
+                                        spmd)
             aux_steps.append(a)
     aux = mean_aux(aux_steps)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)

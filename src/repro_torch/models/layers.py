@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import torch_dtype
+from repro_torch.distributed import sharding as SH
 
 Params = Dict[str, torch.Tensor]
 
@@ -194,7 +195,9 @@ def activation(act: str, rounded_once: bool = False):
 
 
 def mlp(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return mlp_act(params, x, cfg.act)
+    """The block's MLP; summed over the model axis when the weights hold a
+    rank's ``d_ff`` columns (``w_down``'s rows) only."""
+    return SH.reduce_model(mlp_act(params, x, cfg.act), "mlp/w_down")
 
 
 def mlp_act(params: Params, x: torch.Tensor, act_name: str,
@@ -225,13 +228,17 @@ def init_embedding(gen: torch.Generator, cfg: ModelConfig, device: torch.device)
 
 
 def embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["tok"][tokens]
+    """Token rows of the table; a table that holds a rank's D columns (the
+    rule table's ``embed/tok``) is gathered over the model axis."""
+    return SH.gather_model(params["tok"][tokens], -1, "embed/tok")
 
 
 def unembed(params: Params, x: torch.Tensor) -> torch.Tensor:
-    if "unemb" in params:
-        return x @ params["unemb"]
-    return x @ params["tok"].T
+    """Logits; a rank's vocab columns of ``unemb`` are gathered over the
+    model axis (tensor parallelism refuses tied tables)."""
+    if "unemb" not in params:
+        return x @ params["tok"].T
+    return SH.gather_model(x @ params["unemb"], -1, "embed/unemb")
 
 
 # ---------------------------------------------------------------------------

@@ -21,15 +21,22 @@ Integrated MoDE (paper §4.3): ``n_noop_experts`` extra router columns
 whose experts are no-ops: a token routed there gets no update, MoD's
 residual path inside the MoE router. Everything here is torch ops, as
 the JAX package computes the MoE outside any Pallas kernel.
+
+Expert parallelism (the rule table's ``moe/w_*`` over the model axis): a
+rank holds ``E / m`` consecutive experts. Routing (the replicated router)
+is computed whole on every rank; each rank runs its own experts on their
+slots, combines their gated outputs, and the partial sums are summed over
+the model axis before the final cast.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import torch_dtype
+from repro_torch.distributed import sharding as SH
 from repro_torch.models.layers import activation, dense_init
 
 Params = Dict[str, torch.Tensor]
@@ -128,18 +135,26 @@ def experts(params: Params, x: torch.Tensor, disp: torch.Tensor, cfg: ModelConfi
 
 
 def combine(ye: torch.Tensor, r: Routing, S: int, dtype: torch.dtype,
-            combine_dtype: torch.dtype) -> torch.Tensor:
+            combine_dtype: torch.dtype, expert_offset: int = 0,
+            reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> torch.Tensor:
     """Gated combine of ``ye`` (E, B·C, D) back to token order (B, S, D):
     each token's kept slots times their gates, summed from zero in
     ascending expert index with every partial sum in ``combine_dtype``,
     then cast to ``dtype``. Deterministic: a gather per choice, no
-    scatter-add."""
+    scatter-add. ``ye`` may hold the experts ``expert_offset ..
+    expert_offset + E`` only (a rank's share); a choice of another expert
+    then adds nothing, and ``reduce`` sums the ``combine_dtype`` partial
+    over the ranks before the cast."""
     E, BC, D = ye.shape
     B, C = r.disp.shape[0], r.disp.shape[2]
     k = r.sel.shape[1] // S
     bidx = torch.arange(B, device=ye.device)[:, None]
-    slot = torch.where(r.keep, r.sel * BC + bidx * C + r.pos, E * BC)  # E·BC: zero row
-    g = torch.where(r.keep, r.gate, 0.0)
+    keep = r.keep
+    if expert_offset or E != r.disp.shape[1]:
+        keep = keep & (r.sel >= expert_offset) & (r.sel < expert_offset + E)
+    slot = torch.where(keep, (r.sel - expert_offset) * BC + bidx * C + r.pos,
+                       E * BC)  # E·BC: zero row
+    g = torch.where(keep, r.gate, 0.0)
     # token-major (B, S, k), a token's choices by ascending expert
     sel, slot, g = (t.view(B, k, S).transpose(1, 2) for t in (r.sel, slot, g))
     asc = torch.argsort(sel, dim=-1)
@@ -150,6 +165,8 @@ def combine(ye: torch.Tensor, r: Routing, S: int, dtype: torch.dtype,
     for j in range(k):
         yj = ye_flat.index_select(0, slot[..., j].reshape(-1)).view(B, S, D)
         out = out + (yj.float() * g[..., j, None]).to(combine_dtype)
+    if reduce is not None:
+        out = reduce(out)
     return out.to(dtype)
 
 
@@ -161,8 +178,15 @@ def moe_mlp(params: Params, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Te
     E = cfg.moe.n_experts
     E_total = E + cfg.moe.n_noop_experts
     r = route(params, x, cfg)
-    ye = experts(params, x, r.disp, cfg)
-    out = combine(ye, r, S, x.dtype, torch_dtype(cfg.moe.combine_dtype))
+    if not SH.is_split("moe/w_up"):
+        ye = experts(params, x, r.disp, cfg)
+        out = combine(ye, r, S, x.dtype, torch_dtype(cfg.moe.combine_dtype))
+    else:  # this rank's experts (expert parallelism over the model axis)
+        E_local = params["w_up"].shape[0]
+        e0 = SH.model_rank() * E_local
+        ye = experts(params, x, r.disp[:, e0:e0 + E_local], cfg)
+        out = combine(ye, r, S, x.dtype, torch_dtype(cfg.moe.combine_dtype), e0,
+                      reduce=lambda t: SH.reduce_model(t, "moe/w_up"))
 
     lp = r.logits.reshape(-1, E_total)
     top1 = lp.argmax(dim=-1)  # the first maximum, as jnp.argmax

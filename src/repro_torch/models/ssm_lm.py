@@ -158,7 +158,8 @@ def _decode_delta(p: Params, h: torch.Tensor, cache: Params, cfg: ModelConfig):
 
 
 def _decode_group(gp: Params, gc: Params, x: torch.Tensor, cfg: ModelConfig,
-                  active: Optional[torch.Tensor]) -> Tuple[torch.Tensor, Optional[Aux]]:
+                  active: Optional[torch.Tensor], spmd=None
+                  ) -> Tuple[torch.Tensor, Optional[Aux]]:
     """One layer group's decode step (the JAX scan body), caches in place.
     Returns (h, the routed layer's aux or None)."""
     a = None
@@ -172,28 +173,31 @@ def _decode_group(gp: Params, gc: Params, x: torch.Tensor, cfg: ModelConfig,
             d, c = _decode_delta(p, h_sub, c_sub, cfg)
             return d, c, {}
 
-        x, _, a = ROUT.route_decode(gp["mod"], x, gc["mod"], block_fn, cfg, active=active)
+        x, _, a = ROUT.route_decode(gp["mod"], x, gc["mod"], block_fn, cfg, active=active,
+                                    spmd=spmd)
     return x, a
 
 
 def _decode_groups(groups: List[Params], caches: List[Params], x: torch.Tensor,
-                   cfg: ModelConfig, active: Optional[torch.Tensor]) -> Tuple[torch.Tensor, Aux]:
+                   cfg: ModelConfig, active: Optional[torch.Tensor], spmd=None
+                   ) -> Tuple[torch.Tensor, Aux]:
     """The decode step's loop over layer groups; aux means over the routed ones."""
     aux_steps: List[Aux] = []
     for gp, gc in zip(groups, caches):
-        x, a = _decode_group(gp, gc, x, cfg, active)
+        x, a = _decode_group(gp, gc, x, cfg, active, spmd)
         if a is not None:
             aux_steps.append(a)
     return x, T.mean_aux(aux_steps)
 
 
 def decode_step(params: Params, caches: Params, cfg: ModelConfig, token: torch.Tensor,
-                active: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Params, Aux]:
+                active: Optional[torch.Tensor] = None, spmd=None
+                ) -> Tuple[torch.Tensor, Params, Aux]:
     """One step; caches are updated in place. Returns (logits (B, V), caches,
     aux); aux leaves are means over the routed groups (per-sequence entries
-    keep their (B,))."""
+    keep their (B,)). ``spmd``: partitioned MoD decode routing."""
     x = embed(params["embed"], token)  # (B, 1, D)
-    x, aux = _decode_groups(params["groups"], caches["groups"], x, cfg, active)
+    x, aux = _decode_groups(params["groups"], caches["groups"], x, cfg, active, spmd)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return unembed(params["embed"], x)[:, 0], caches, aux
 
@@ -303,18 +307,18 @@ def make_hybrid_cache(cfg: ModelConfig, batch: int, ctx: int, device: torch.devi
 
 
 def decode_step_hybrid(params: Params, caches: Params, cfg: ModelConfig, token: torch.Tensor,
-                       pos: torch.Tensor, active: Optional[torch.Tensor] = None
+                       pos: torch.Tensor, active: Optional[torch.Tensor] = None, spmd=None
                        ) -> Tuple[torch.Tensor, Params, Aux]:
     """One step of the hybrid; caches are updated in place. Each segment
     runs the shared block against its site's KV cache at ``pos``, then its
     layer groups. Aux leaves are means over a segment's routed groups, then
-    over the segments."""
+    over the segments. ``spmd``: partitioned MoD decode routing."""
     x = embed(params["embed"], token)
     positions = pos.to(torch.int32)[:, None]
     aux_segs: List[Aux] = []
     for seg_p, seg_c, attn_c in zip(params["groups"], caches["groups"], caches["attn"]):
         x, _, _ = BLK.block_decode(params["shared_attn"], x, positions, attn_c, cfg)
-        x, a = _decode_groups(seg_p, seg_c, x, cfg, active)
+        x, a = _decode_groups(seg_p, seg_c, x, cfg, active, spmd)
         aux_segs.append(a)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return unembed(params["embed"], x)[:, 0], caches, T.mean_aux(aux_segs)

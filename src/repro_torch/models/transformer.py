@@ -21,6 +21,12 @@ do. The VLM backbone (``pos_emb="mrope"``) takes ``embeds`` (pre-merged
 text and patch embeddings) and M-RoPE's ``(3, B, S)`` positions in
 place of tokens; its decode step feeds text tokens, the three streams
 equal.
+
+Under a mesh (a ``spmd`` context, :mod:`repro_torch.distributed.sharding`)
+prefill, chunked prefill and decode run on one rank's rows with its shards
+of the weights: the embedding, attention, MLP, MoE and unembedding layers
+make the model-axis collectives their weights' placement implies, and a
+prefill sizes its caches to the rank's kv heads.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.core import router as R
 from repro_torch.core import routing as ROUT
 from repro_torch.device import torch_dtype
+from repro_torch.distributed import sharding as SH
 from repro_torch.kernels.ragged import flat_segment_ids
 from repro_torch.models import attention as A
 from repro_torch.models import blocks as BLK
@@ -301,7 +308,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: Optional[torch.Tensor] = N
     ctx = ctx or cfg.max_seq_len
     if positions is None:
         positions = _default_positions(B, S, x.device, cfg)
-    caches = make_cache(cfg, B, ctx, x.device)
+    caches = make_cache(SH.running_cache_config(cfg), B, ctx, x.device)
     for gp, gc in zip(params["groups"], caches["groups"]):
         if "full" in gp:
             x, _, _ = BLK.block_prefill(gp["full"], x, positions, gc["full"], cfg)
@@ -367,23 +374,31 @@ def prefill_chunk(params: Params, cfg: ModelConfig, caches: Params, tokens: torc
 # ---------------------------------------------------------------------------
 
 
-def _mod_decode_group(gp, h, positions, cache, cfg, active=None):
-    """Batch-capacity MoD decode: the top round(ratio·B) sequences route."""
+def _mod_decode_group(gp, h, positions, cache, cfg, active=None, spmd=None):
+    """Batch-capacity MoD decode: the top round(ratio·B) sequences route
+    (per data group under ``spmd``)."""
 
     def block_fn(h_sub, pos_sub, cache_sub, decision):
         delta, c, _ = BLK.block_decode(gp["block"], h_sub, pos_sub, cache_sub, cfg,
                                        delta_only=True)
         return delta, c, {}
 
-    return ROUT.route_decode(gp, h, cache, block_fn, cfg, positions, active)
+    return ROUT.route_decode(gp, h, cache, block_fn, cfg, positions, active, spmd)
 
 
 def decode_step(params: Params, caches: Params, cfg: ModelConfig, token: torch.Tensor,
-                pos: torch.Tensor, active: Optional[torch.Tensor] = None
+                pos: torch.Tensor, active: Optional[torch.Tensor] = None, spmd=None
                 ) -> Tuple[torch.Tensor, Params, Aux]:
     """One autoregressive step; caches are updated in place. Returns
     (logits (B, V), caches, aux). Aux leaves are means over the routed
-    groups: scalars stay scalar, per-sequence entries keep their (B,)."""
+    groups: scalars stay scalar, per-sequence entries keep their (B,).
+
+    ``spmd`` (a ``ShardCtx``) gives MoD decode the partitioned
+    ``batch_capacity`` semantics. The JAX step downgrades an MoE model's
+    context to ``semantic_only`` (its expert top-k cannot run inside a
+    ``shard_map`` region); here no region exists: the MoE's dispatch
+    groups are sequences, so a rank's rows run the same function either
+    way and the context passes as it is."""
     x = embed(params["embed"], token)  # (B, 1, D)
     positions = pos.to(torch.int32)[:, None]
     if cfg.attn.pos_emb == "mrope":  # a text token: the three streams equal
@@ -393,7 +408,7 @@ def decode_step(params: Params, caches: Params, cfg: ModelConfig, token: torch.T
         if "full" in gp:
             x, _, _ = BLK.block_decode(gp["full"], x, positions, gc["full"], cfg)
         if "mod" in gp:
-            x, _, a = _mod_decode_group(gp["mod"], x, positions, gc["mod"], cfg, active)
+            x, _, a = _mod_decode_group(gp["mod"], x, positions, gc["mod"], cfg, active, spmd)
             aux_steps.append(a)
     aux = mean_aux(aux_steps)
     if "tail" in params:

@@ -24,10 +24,14 @@ fold the two axes. The enc-dec tree's ``enc_blocks`` (one block stacked
 over ``n_enc_layers``) is a list of blocks in the port; its groups carry
 decoder blocks (``xattn`` and ``lnx`` beside the rest) as any group does.
 The VLM tree is the dense one (with the q/k/v biases).
+
+:func:`shard_jax_params` cuts one rank's shards out of a carried JAX tree
+by the sharding rule table (:mod:`repro_torch.distributed.sharding`) before
+the conversion, so a mesh rank never holds the whole tree as tensors.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, FrozenSet, List, Tuple
 
 import numpy as np
 import torch
@@ -137,3 +141,19 @@ def _stack(trees: List[Any]) -> Any:
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
     return torch.stack([t.detach().cpu() for t in trees])
+
+
+def shard_jax_params(tree: Tree, cfg: Any, mesh: Any, coords: Dict[str, int],
+                     device: DeviceLike = None) -> Tuple[Tree, FrozenSet[str]]:
+    """One rank's shards of a JAX parameter tree (numpy leaves, group leaves
+    stacked), as the port's parameters on ``device``, and the names of the
+    leaves that were cut (a :class:`~repro_torch.distributed.sharding.ShardCtx`'s
+    ``split``: run the shards under that context). Each leaf is cut by
+    :func:`repro_torch.distributed.sharding.cut_leaf` at the rank's
+    ``coords`` (its index on every axis of ``mesh``, a ``DeviceMesh`` or a
+    mapping of axis sizes), then converted as by :func:`from_jax_params`.
+    The stacked leading axes are never cut."""
+    from repro_torch.distributed.sharding import cut_tree, mesh_sizes
+
+    cut, split = cut_tree(tree, cfg, mesh_sizes(mesh), coords)
+    return from_jax_params(cut, device), split

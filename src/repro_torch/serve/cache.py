@@ -9,7 +9,10 @@ positions. MoD-block caches inside it are capacity-sized (``ratio·ctx``),
 so the pool's footprint already holds the paper's KV saving
 (:meth:`CachePool.cache_bytes`). :meth:`reset` returns a slot to the empty
 state (cursors 0, positions -1); :meth:`write_slot` copies a prefilled
-batch-1 cache into it.
+batch-1 cache into it. Under a mesh (``spmd`` over a ``DeviceMesh``) the
+pool is batch-sharded: a rank holds the ``B/d`` slots of its data group
+(:meth:`CachePool.owns`), with its kv heads on the model axis
+(:func:`repro_torch.distributed.sharding.cache_placement`).
 
 :class:`PagedCachePool`: the same logical pool with the full-attention KV
 rings (``k``/``v``/``pos`` leaves with a ``cursor`` sibling, at full ``ctx``
@@ -70,6 +73,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed import sharding as SH
 from repro_torch.kernels.paged import canon_pages, paged_gather_op, paged_scatter_rows_op
 from repro_torch.kernels.ragged import ragged_page_targets, ragged_paged_scatter_rows_op
 from repro_torch.models import api
@@ -116,28 +120,48 @@ def _bytes(t: torch.Tensor) -> torch.Tensor:
 
 
 class CachePool:
-    """Fixed-shape (B, ctx) cache pool with per-slot reset/write."""
+    """Fixed-shape (B, ctx) cache pool with per-slot reset/write; over a
+    mesh, this rank's (B/d, ctx) share of it."""
 
-    def __init__(self, cfg: ModelConfig, batch_size: int, ctx: int, device: torch.device):
+    def __init__(self, cfg: ModelConfig, batch_size: int, ctx: int, device: torch.device,
+                 spmd: Optional[SH.ShardCtx] = None):
         self.cfg = cfg
         self.batch_size = batch_size
         self.ctx = ctx
         self.device = device
-        self.caches = api.make_caches(cfg, batch_size, ctx, device)
-        self._template = api.make_caches(cfg, 1, ctx, device)
+        self.spmd = spmd if spmd is not None and spmd.spmd else None
+        # the slots this rank holds: [row0, row0 + rows) of the global batch
+        self.rows = batch_size // self.spmd.data_shards if self.spmd else batch_size
+        self.row0 = self.spmd.data_rank * self.rows if self.spmd else 0
+        self._cache_cfg = SH.local_cache_config(cfg, self.spmd)
+        self.caches = api.make_caches(self._cache_cfg, self.rows, ctx, device)
+        self._template = api.make_caches(self._cache_cfg, 1, ctx, device)
+
+    def owns(self, slot: int) -> bool:
+        """Whether this rank holds the slot's rows (always, off a mesh)."""
+        return self.row0 <= slot < self.row0 + self.rows
+
+    def owner(self, slot: int) -> int:
+        """The data rank that holds the slot."""
+        return slot // self.rows
 
     def fresh(self) -> Params:
         """An empty batch-1 cache tree (prefill writes into it in place)."""
-        return api.make_caches(self.cfg, 1, self.ctx, self.device)
+        return api.make_caches(self._cache_cfg, 1, self.ctx, self.device)
 
     def reset(self, slot: int) -> None:
-        """Return the slot's cache rows to their initial (empty) state."""
-        self.write_slot(slot, self._template)
+        """Return the slot's cache rows to their initial (empty) state (a
+        slot another rank holds: nothing to do here)."""
+        if self.owns(slot):
+            self.write_slot(slot, self._template)
 
     def write_slot(self, slot: int, sub_caches: Params) -> None:
         """Copy a batch-1 cache tree (same structure) into a slot's rows."""
+        if not self.owns(slot):
+            raise ValueError(f"slot {slot} is held by data rank {self.owner(slot)}, not this "
+                             f"rank (slots {self.row0}..{self.row0 + self.rows - 1})")
         for dst, src in zip(flatten(self.caches), flatten(sub_caches)):
-            dst[slot].copy_(src[0])
+            dst[slot - self.row0].copy_(src[0])
 
     def cache_bytes(self) -> Dict[str, float]:
         """Pool footprint, split by routed ("mod") vs full-capacity leaves,

@@ -21,10 +21,13 @@ controller), ``max_queue`` bounds the queue, ``fault_injector`` threads a
 :class:`repro_torch.serve.faults.FaultInjector` through the step, ``clock``
 replaces the deadline clock (``time.monotonic``) and ``logit_tap`` is
 called with the host decode logits ``(B, V)`` after every padded or ragged
-step that decoded. Checks and messages are the JAX package's. ``mesh``,
-the setting of the JAX engine's multi-device path, is a field too, so that
-a caller who sets it learns at once that the port does not run it yet: it
-raises a ``ValueError`` naming it.
+step that decoded. ``data_shards`` gives MoD decode the partitioned
+``batch_capacity`` routing on one device (each of ``d`` contiguous slot
+groups routes its own top ``round(ratio·B/d)``), and ``mesh`` (a
+``torch.distributed.device_mesh.DeviceMesh`` with dims ``("data",
+"model")``, every rank running the same engine) serves over ranks: slots
+over "data", tensor parallelism over "model". Checks and messages are the
+JAX package's, plus the port's own check that ``mesh`` is such a mesh.
 """
 from __future__ import annotations
 
@@ -35,10 +38,6 @@ from repro_torch.serve.quant import GRANULARITIES, KV_MODES, QuantConfig
 
 __all__ = ["EngineConfig", "add_engine_args"]
 
-# setting -> the ROADMAP item that ports its engine path
-_LATER_PATHS = {
-    "mesh": "multi-device serving (ROADMAP Queue 1)",
-}
 PAGED_BACKENDS = ("xla", "pallas")
 
 
@@ -66,8 +65,8 @@ class EngineConfig:
     fault_injector: Any = None  # faults.FaultInjector
     clock: Optional[Callable[[], float]] = None  # deadline clock (monotonic)
     logit_tap: Optional[Callable] = None  # decode-logits telemetry hook
-    # the multi-device path: not ported yet, raises when set
-    mesh: Any = None
+    mesh: Any = None  # DeviceMesh ("data", "model"): serving over ranks
+    data_shards: Optional[int] = None  # partitioned routing semantics
 
     def __post_init__(self):
         if not isinstance(self.batch_size, int) or self.batch_size < 1:
@@ -108,9 +107,15 @@ class EngineConfig:
         if self.quant.enabled and not paged:
             raise ValueError("quantized KV requires the paged pool (page_size): narrow pages "
                              "and their scales live behind the page tables")
-        for name, path in _LATER_PATHS.items():
-            if getattr(self, name) not in (None, False):
-                raise ValueError(f"{name} selects the {path} path, which the port does not run yet")
+        if self.mesh is not None:
+            names = tuple(getattr(self.mesh, "mesh_dim_names", None) or ())
+            if names != ("data", "model"):
+                raise ValueError(
+                    "mesh must be a torch.distributed DeviceMesh with dims ('data', 'model') "
+                    f"(repro_torch.launch.mesh.auto_mesh), got {self.mesh!r}")
+        if self.data_shards is not None and (
+                not isinstance(self.data_shards, int) or self.data_shards < 1):
+            raise ValueError(f"data_shards must be a positive int, got {self.data_shards!r}")
 
     @classmethod
     def from_args(cls, ns, *, batch_size: int, ctx: int, **overrides) -> "EngineConfig":
@@ -126,6 +131,7 @@ class EngineConfig:
             spec_verify_budget=ns.verify_budget or None,
             adaptive_capacity=ns.adaptive_capacity,
             quant=QuantConfig(kv=ns.quant_kv, granularity=ns.quant_scale),
+            data_shards=ns.data_shards or None,
         )
         fields.update(overrides)
         return cls(**fields)
@@ -174,3 +180,7 @@ def add_engine_args(parser) -> None:
     g.add_argument("--quant-scale", default="page", choices=list(GRANULARITIES),
                    help="quantization scale granularity: one scale per page row, or one per "
                         "row per kv head")
+    g.add_argument("--data-shards", type=int, default=0,
+                   help="partitioned MoD decode routing: each of N contiguous slot groups "
+                        "routes its own top round(ratio*B/N) (0 = off; under --spmd it must "
+                        "equal the mesh's data degree)")

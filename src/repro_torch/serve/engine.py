@@ -82,10 +82,26 @@ before sampling, ``logit_tap`` sees the host logits and the fault
 injector may poison a row (:mod:`repro_torch.serve.faults`); a non-finite
 row fails only its own request.
 
+**Partitioned routing and the mesh** (``EngineConfig.data_shards``,
+``EngineConfig.mesh``): ``data_shards=d`` gives MoD decode the partitioned
+``batch_capacity`` semantics on one device (each of ``d`` contiguous slot
+groups routes its own top ``round(ratio·B/d)`` rows; the scheduler counts
+against the global ``d·kb_local``), on the contiguous, paged, prefix and
+quantized-KV engines. ``mesh`` (a ``DeviceMesh`` ("data", "model")) is the
+multi-controller engine: every rank runs this same engine on the same
+requests, so host state (queue, slots, sampled tokens) stays identical.
+A rank holds the ``B/d`` slots of its data group and its shards of the
+weights (tensor parallelism over "model"), decodes its own rows with
+routing local to the shard and no cross-data collective, and the logits
+and routing telemetry are gathered over the data group so every rank
+samples every slot's token (``token_generator(seed, i)``, as always). A
+prompt's prefill runs on the data group that holds its slot, which
+broadcasts the first token's logits to its data peers. The mesh serves
+the contiguous pool only, and ``ragged``, ``speculate`` and
+``adaptive_capacity`` raise with either setting, as in JAX.
+
 Sampling runs on the host: greedy argmax, or a draw keyed by the
 request's seed and the token's index (see :mod:`repro_torch.serve.request`).
-The SPMD path of the JAX engine is a later slice
-(:class:`repro_torch.serve.config.EngineConfig` rejects ``mesh``).
 """
 from __future__ import annotations
 
@@ -95,10 +111,13 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.config import ModelConfig
 from repro_torch.core.routing import batch_capacity_k, capacity_ladder
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import collectives as COLL
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import api
 from repro_torch.models import encdec as ED
 from repro_torch.serve.cache import CachePool, PagedCachePool, flatten, slot_slice
@@ -126,11 +145,15 @@ from repro_torch.serve.scheduler import FREE, GENERATE, PREFILL, Scheduler, Slot
 BATCH_PREFILL_FAMILIES = ("dense", "moe")
 
 
-def routed_capacity(cfg: ModelConfig, batch_size: int) -> Optional[int]:
-    """kb of the batch_capacity router; None when MoD is off."""
+def routed_capacity(cfg: ModelConfig, batch_size: int, data_shards: int = 1) -> Optional[int]:
+    """The *global* kb of the batch_capacity router; None when MoD is off.
+    Under a partitioned batch each of the ``data_shards`` groups routes
+    ``round(ratio·B/d)`` of its own slots, so the scheduler counts against
+    the sum over groups, not ``round(ratio·B)`` (B=8, d=4, ratio 0.125
+    routes 4 slots a step, not 1: every group routes at least one)."""
     if not cfg.mod.enabled:
         return None
-    return batch_capacity_k(cfg, batch_size)
+    return batch_capacity_k(cfg, batch_size, data_shards)
 
 
 class _PoolExhausted(RuntimeError):
@@ -159,6 +182,21 @@ class ServingEngine:
             raise NotImplementedError(
                 "quantized KV pages and int8 weights for the hybrid family are not ported yet "
                 "(ROADMAP Queue 1, the hybrid's remaining paths)")
+        self.mesh = engine.mesh
+        self.spmd = (SH.shard_ctx(engine.mesh, engine.data_shards)
+                     if engine.mesh is not None or engine.data_shards else None)
+        if self.spmd is not None:
+            self.spmd.check_batch(engine.batch_size)
+        shards = self.spmd.data_shards if self.spmd is not None else 1
+        if self.mesh is not None:
+            if self._narrow_weights:
+                raise NotImplementedError(
+                    "weight quantization + SPMD mesh: the narrow tree "
+                    "needs its own sharding rules"
+                )
+            # this rank's shards of the weights (tensor parallelism), and
+            # the context that records which leaves were cut
+            params, self.spmd = SH.shard_params(params, cfg, self.spmd)
         # serve from int8 weights: only the narrow tree stays resident, and
         # each model call widens it (dequantize_params)
         self.params = quantize_params(params) if self._narrow_weights else params
@@ -186,6 +224,10 @@ class ServingEngine:
             raise ValueError("ragged=True needs batched prefill (a dense/MoE family, prefill "
                              "'auto' or 'batch'): prefill segments replay model_prefill_chunk "
                              "inside the step")
+        if self._paged and self.mesh is not None:
+            raise NotImplementedError("paged pool + SPMD mesh: shard the pages")
+        if self._ragged and (self.mesh is not None or engine.data_shards):
+            raise NotImplementedError("ragged mixed step + SPMD mesh/data_shards")
         if (self._prefix_cache or self._ragged) and prefill_chunk is None:
             prefill_chunk = engine.page_size  # page-aligned boundaries by default
         self._prefill_chunk = prefill_chunk
@@ -198,6 +240,8 @@ class ServingEngine:
                 raise ValueError("speculate requires causal attention: rolled-back rows inside "
                                  "the last kept page are hidden by the causal mask until the "
                                  "accepted stream overwrites them")
+            if self.mesh is not None or engine.data_shards:
+                raise NotImplementedError("speculative rounds + SPMD mesh/data_shards")
             ratio = float(engine.draft_ratio)
             self._draft_cfg = dataclasses.replace(
                 cfg, mod=dataclasses.replace(cfg.mod, capacity_ratio=ratio))
@@ -215,9 +259,9 @@ class ServingEngine:
                 quant=self.quant,
             )
         else:
-            self.pool = CachePool(cfg, self.batch_size, self.ctx, self.device)
+            self.pool = CachePool(cfg, self.batch_size, self.ctx, self.device, spmd=self.spmd)
         self.scheduler = Scheduler(self.batch_size, engine.policy,
-                                   routed_capacity(cfg, self.batch_size),
+                                   routed_capacity(cfg, self.batch_size, shards),
                                    verify_token_budget=engine.spec_verify_budget,
                                    max_queue=engine.max_queue)
         self.slots = [Slot(i) for i in range(self.batch_size)]
@@ -256,6 +300,8 @@ class ServingEngine:
                 "runs two capacity ratios; composing the ladder with the "
                 "rollback machinery is future work"
             )
+        if adaptive and (self.mesh is not None or engine.data_shards):
+            raise NotImplementedError("adaptive_capacity + SPMD mesh/data_shards")
         scales = (tuple(float(x) for x in engine.capacity_levels)
                   if engine.capacity_levels is not None else default_levels())
         # validates the ladder even when MoD is off (a dense engine still
@@ -292,7 +338,8 @@ class ServingEngine:
         on a quantized pool the rows it wrote then go through the narrow
         dtype (the chunk boundary is a quantization boundary)."""
         logits, work = api.model_prefill_chunk(
-            params, self.cfg, work, torch.as_tensor(tokens, device=self.device), start, nv)
+            params, self.cfg, work, torch.as_tensor(tokens, device=self.device), start, nv,
+            spmd=self._mesh_ctx())
         if self.quant is not None:
             j = torch.arange(self.ctx, device=self.device)
             self.pool.quant_roundtrip(work, ((j >= start) & (j < start + nv))[None])
@@ -307,9 +354,9 @@ class ServingEngine:
         token, pos, active) -> (logits, caches, aux)``: ``model_decode``
         under the level's config (only MoD's kb differs), made on first use."""
         if level not in self._level_fns:
-            cfg = self._level_cfgs[level]
+            cfg, spmd = self._level_cfgs[level], self.spmd
             self._level_fns[level] = lambda p, c, t, pos, act: api.model_decode(
-                p, c, cfg, t, pos, act)
+                p, c, cfg, t, pos, act, spmd=spmd)
         return self._level_fns[level]
 
     def _capacity_level(self) -> int:
@@ -434,7 +481,7 @@ class ServingEngine:
         slot.first_token_step = -1
         slot.routed_sum, slot.routed_steps = 0.0, 0
         slot.score, slot.score_sum, slot.score_steps = float("nan"), 0.0, 0
-        if self.cfg.family == "encdec" and req.enc_emb is not None:
+        if self.cfg.family == "encdec" and req.enc_emb is not None and self._holds(slot.idx):
             self._fill_cross(slot.idx, req.enc_emb)
 
     def _fill_cross(self, slot: int, enc_emb: Any) -> None:
@@ -463,22 +510,27 @@ class ServingEngine:
                 slot.next_token = int(req.tokens[0])
                 continue
             t0 = time.perf_counter()
+            owner = self._holds(slot.idx)
             try:
                 if self._prefill_chunk is not None:
-                    logits_row = self._chunked_prefill(slot, req)
+                    logits = self._chunked_prefill(slot, req, owner)
                 else:
-                    toks = torch.as_tensor(req.tokens, device=self.device)[None]
-                    logits, sub = api.model_prefill(self._model_params(), self.cfg,
-                                                    {"tokens": toks}, self.ctx)
-                    if self._paged and not self.pool.alloc_pages(slot.idx, req.prompt_len):
-                        raise _PoolExhausted
-                    self.pool.write_slot(slot.idx, sub)
-                    logits_row = logits[0, -1].float().cpu().numpy()
+                    logits = None
+                    if owner:
+                        toks = torch.as_tensor(req.tokens, device=self.device)[None]
+                        logits, sub = api.model_prefill(self._model_params(), self.cfg,
+                                                        {"tokens": toks}, self.ctx,
+                                                        spmd=self._mesh_ctx())
+                        if self._paged and not self.pool.alloc_pages(slot.idx, req.prompt_len):
+                            raise _PoolExhausted
+                        self.pool.write_slot(slot.idx, sub)
+                        logits = logits[0, -1]
                     self._prefill_tokens_computed += req.prompt_len
                     self._positions_computed += req.prompt_len
             except _PoolExhausted:
                 self._abort_admission(slot, req)
                 continue
+            logits_row = self._share_prefill_logits(slot, logits)
             self._prefill_s += time.perf_counter() - t0
             self._n_prefills += 1
             if not np.isfinite(logits_row).all():
@@ -530,9 +582,33 @@ class ServingEngine:
         self.scheduler.requeue(req)
         self.admission_aborts += 1
 
-    def _chunked_prefill(self, slot: Slot, req: Request) -> np.ndarray:
+    def _holds(self, slot: int) -> bool:
+        """Whether this rank holds the slot's cache rows (always, off a mesh)."""
+        return self.mesh is None or self.pool.owns(slot)
+
+    def _mesh_ctx(self) -> Optional[SH.ShardCtx]:
+        """The context of a model call on this rank's rows and weight
+        shards (None off a mesh)."""
+        return self.spmd if self.mesh is not None else None
+
+    def _share_prefill_logits(self, slot: Slot, logits: Optional[torch.Tensor]) -> np.ndarray:
+        """The first token's logits row (V,) as a host array. Over a mesh
+        only the data group holding the slot computed it (``logits`` is None
+        elsewhere): it is broadcast over the data axis, so every rank
+        samples the same token."""
+        if self.mesh is None:
+            return logits.float().cpu().numpy()
+        buf = (logits.float().contiguous() if logits is not None
+               else torch.empty((self.cfg.vocab,), dtype=torch.float32, device=self.device))
+        dist.broadcast(buf, src=self.spmd.data_peer(self.pool.owner(slot.idx)),
+                       group=self.spmd.data_group())
+        return buf.cpu().numpy()
+
+    def _chunked_prefill(self, slot: Slot, req: Request, owner: bool = True
+                         ) -> Optional[torch.Tensor]:
         """Ingest the prompt in fixed ``prefill_chunk`` pieces against the
-        slot's working cache; returns the last-position logits row.
+        slot's working cache; returns the last-position logits row (None on
+        a mesh rank that does not hold the slot: it only counts).
 
         With the prefix cache, the longest chunk-aligned cached prefix is
         restored first (shared pages attached, residual snapshot copied in)
@@ -556,16 +632,17 @@ class ServingEngine:
             if prefix is not None:
                 self.pool.overlay_resid(work, prefix)
         else:
-            work = self.pool.fresh()
+            work = self.pool.fresh() if owner else None
         boundary_resids: Dict[int, Any] = {}
         logits = None
         off = start_tok
         params = self._model_params()
         while off < L:
             nv = min(C, L - off)
-            chunk = np.zeros((1, C), np.int64)
-            chunk[0, :nv] = tokens[off : off + nv]
-            logits, work = self._chunk(params, work, chunk, off, nv)
+            if owner:
+                chunk = np.zeros((1, C), np.int64)
+                chunk[0, :nv] = tokens[off : off + nv]
+                logits, work = self._chunk(params, work, chunk, off, nv)
             off += nv
             self._prefill_tokens_computed += nv
             self._positions_computed += C
@@ -576,9 +653,9 @@ class ServingEngine:
             self.pool.write_slot(slot.idx, work, start_page=start_tok // self.pool.page_size)
             if self._prefix_cache:
                 self.pool.prefix_register(slot.idx, tokens, boundary_resids)
-        else:
+        elif owner:
             self.pool.write_slot(slot.idx, work)
-        return logits[0].float().cpu().numpy()
+        return logits[0] if owner else None
 
     # ------------------------------------------------------------------
     # Sampling / termination / preemption
@@ -842,8 +919,11 @@ class ServingEngine:
     def _decode(self, active_slots: List[Slot]) -> None:
         t0 = time.perf_counter()
         step_fn = self._level_fn(self._step_level())
-        tokens, pos, active = (torch.as_tensor(a, device=self.device)
-                               for a in self._decode_inputs(active_slots))
+        inputs = self._decode_inputs(active_slots)
+        if self.mesh is not None:  # this rank's rows
+            r0, r1 = self.pool.row0, self.pool.row0 + self.pool.rows
+            inputs = tuple(a[r0:r1] for a in inputs)
+        tokens, pos, active = (torch.as_tensor(a, device=self.device) for a in inputs)
         params = self._model_params()
         if self._paged:
             table = self.pool.device_table()
@@ -852,6 +932,8 @@ class ServingEngine:
             self.pool.writeback(caches, table, pos)
         else:
             logits, self.pool.caches, aux = step_fn(params, self.pool.caches, tokens, pos, active)
+        if self.mesh is not None:
+            logits, aux = self._gather_data(logits, aux)
         logits_np = self._host_logits(logits.float().cpu().numpy())
         aux_np = {k: v.float().cpu().numpy() for k, v in aux.items()}
         self._decode_s += time.perf_counter() - t0
@@ -861,6 +943,21 @@ class ServingEngine:
         self._positions_wasted += B - len(active_slots)
         self._occupancy_sum += len(active_slots)
         self._advance(active_slots, logits_np, aux_np)
+
+    def _gather_data(self, logits: torch.Tensor, aux: Dict[str, torch.Tensor]
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Every data rank's decode rows, in slot order: the logits (B, V)
+        and the per-sequence telemetry (B,) concatenated, scalar telemetry
+        averaged (the groups hold equal row counts, so the mean of means is
+        the batch mean)."""
+        group = self.spmd.data_group()
+        out = {}
+        for k, v in aux.items():
+            if v.dim() == 0:
+                out[k] = COLL.all_gather(v.float()[None], 0, group).mean()
+            else:
+                out[k] = COLL.all_gather(v, 0, group)
+        return COLL.all_gather(logits, 0, group), out
 
     def _advance(self, decode_slots: List[Slot], logits_np: np.ndarray,
                  aux_np: Dict[str, np.ndarray]) -> None:
@@ -1252,6 +1349,12 @@ class ServingEngine:
                 if self._positions_computed else 0.0
             ),
             "slot_scores": [s.score for s in self.slots],
+            # partitioned routing: the slot groups, the model axis's ranks
+            # and the global kb the scheduler counts against
+            "data_shards": float(self.spmd.data_shards if self.spmd is not None else 1),
+            "model_shards": float(self.spmd.model_shards if self.spmd is not None else 1),
+            "routed_kb": (float(self.scheduler.routed_capacity)
+                          if self.scheduler.routed_capacity is not None else float("nan")),
             # robustness counters (monotone, always present): shed counts
             # requests that left without a slot (queue drops and
             # backpressure rejections); the others count outputs by reason

@@ -74,6 +74,11 @@ fault matrix on the paged, ragged and speculative engines (and on
 mod-paper-60m-vanilla) give equal levels, streams, finish reasons, fired
 logs and counters on both devices: exact, greedy streams.
 
+Partitioned routing (phase 16 of ``chip_smoke.py``): ``batch_select``
+per slot group on the card equals the CPU's, and the contiguous engine
+over a one-rank NCCL mesh serves the unsharded engine's streams and
+decode logits bit for bit.
+
 MoE (torch ops, no kernel of its own): ``moe_mlp`` on the card picks the
 CPU's experts, slots and kept set, with f32 outputs within 1e-5 (cuBLAS
 sums the expert products in another order) and equal dropped and no-op
@@ -1703,3 +1708,46 @@ def test_faults_soak_card_equals_cpu(dev, engine):
     kw = {} if engine == "vanilla" else FAULT_ENGINES_60M[engine]
     assert fault_soak(dev, _to(p_cpu, dev), cfg, 0, kw) == fault_soak("cpu", p_cpu, cfg, 0, kw)
 
+
+
+# ---------------------------------------------------------------------------
+# Partitioned routing and the mesh engine (phase 16 of chip_smoke.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("d", [1, 2, 4, 8])
+def test_batch_select_on_the_card_matches_the_cpu(dev, d):
+    """The partitioned top-k per slot group, ties and -inf rows included."""
+    import numpy as np
+
+    from repro_torch.core import router as TR
+
+    rng = np.random.default_rng(d)
+    for _ in range(8):
+        s = rng.integers(0, 4, 32).astype(np.float32)
+        s[rng.random(32) < 0.3] = -np.inf
+        for kb in (0, 1, 2, 32 // d):
+            want = TR.batch_select(torch.as_tensor(s), kb, d)
+            got = TR.batch_select(torch.as_tensor(s, device=dev), kb, d)
+            assert torch.equal(got.cpu(), want)
+
+
+def test_mesh_one_rank_nccl_equals_data_shards_1(dev, tmp_path):
+    """16b at 60m (4 layers, f32): the contiguous engine over a one-rank
+    NCCL mesh gives the unsharded engine's streams and decode logits, bit
+    for bit."""
+    import numpy as np
+    from torch import distributed as dist
+
+    from chip_smoke import _mesh_60m_serve
+    from repro_torch.launch import mesh as M
+
+    ref_streams, ref_logits, ref_kb, _, _ = _mesh_60m_serve(dev)
+    M.init_process_group("nccl", rank=0, world_size=1,
+                         store=dist.FileStore(str(tmp_path / "store"), 1))
+    try:
+        streams, logits, kb, rows, _ = _mesh_60m_serve(dev, mesh=M.auto_mesh())
+    finally:
+        M.destroy_process_group()
+    assert streams == ref_streams and kb == ref_kb and rows == 8
+    np.testing.assert_array_equal(logits, ref_logits)

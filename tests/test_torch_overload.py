@@ -617,7 +617,7 @@ def test_adaptive_rejects_unsupported_combinations():
     with pytest.raises(ValueError, match="adaptive_capacity") as terr:
         T.EngineConfig(batch_size=2, ctx=32, capacity_levels=(1.0, 0.5))
     assert str(terr.value) == str(jerr.value)
-    with pytest.raises(ValueError, match="mesh"):  # the multi-device path is not ported
+    with pytest.raises(ValueError, match="mesh"):  # not a DeviceMesh
         T.EngineConfig(batch_size=2, ctx=32, mesh="data", adaptive_capacity=True)
     with pytest.raises(ValueError, match="descend"):
         T.ServingEngine(tp, tc, T.EngineConfig(batch_size=2, ctx=32, adaptive_capacity=True,

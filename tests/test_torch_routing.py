@@ -211,6 +211,8 @@ def test_route_decode_exact_and_writes_only_routed_rows():
 
 
 def test_spmd_context_raises():
+    """A context that is not a ``ShardCtx`` raises; the partitioned
+    semantics themselves are held against JAX in tests/test_torch_spmd.py."""
     _, tc = _cfgs()
-    with pytest.raises(NotImplementedError, match="SPMD"):
+    with pytest.raises(TypeError, match="ShardCtx"):
         TROUT.decide_tokens({}, torch.zeros(1, 4, tc.d_model), tc, spmd=object())

@@ -5,9 +5,8 @@ one every two engine steps into 4 slots: the token streams must be
 identical, with whole-prompt and with chunked prefill. The JAX engine runs
 backend ``xla`` (its ``xla`` and ``pallas`` backends are bitwise equal,
 tests/test_routing_backends.py); the port runs ``pallas``, whose wrappers
-take their plain versions on the CPU. Also: the setting of the engine
-path the port does not run yet (SPMD) raises, as do invalid speculative
-and overload settings (the quantized path's checks are
+take their plain versions on the CPU. Also: a ``mesh`` that is not a
+``DeviceMesh`` raises, as do invalid speculative and overload settings (the quantized path's checks are
 in tests/test_torch_quant.py). Sampled tokens are keyed by (seed, token
 index), as JAX keys them by ``fold_in(key, i)``: a re-draw gives the same
 token. The pools' byte counts equal the JAX pools' at ``mod-paper-60m``
@@ -101,10 +100,11 @@ def test_generate_and_sampling_are_per_request():
      dict(capacity_levels=(1.0, 0.5)), dict(spec_verify_budget=8)],
 )
 def test_later_engine_paths_raise(setting):
-    """The path not ported yet (``mesh``) raises whenever set; the
-    speculative and overload paths run, and raise for their invalid
-    settings (a window under 1, no paged pool, a ladder or a verify budget
-    without the path that reads it). ``adaptive_capacity`` and
+    """A ``mesh`` that is not a ``DeviceMesh`` over ("data", "model")
+    raises (the mesh engine: tests/test_torch_spmd.py,
+    tests/test_torch_mesh.py); the speculative and overload paths run, and
+    raise for their invalid settings (a window under 1, no paged pool, a
+    ladder or a verify budget without the path that reads it). ``adaptive_capacity`` and
     ``fault_injector`` build working engines (tests/test_torch_overload.py,
     tests/test_torch_faults.py)."""
     name = next(iter(setting))

@@ -531,9 +531,11 @@ def test_speculative_engine_errors_are_jaxs(case):
 
 
 def test_later_paths_still_raise_beside_speculation():
-    """``mesh`` (not ported) raises beside speculation; the capacity ladder
-    raises JAX's ``NotImplementedError`` at the engine (a round already runs
-    two capacity ratios); a fault injector rides a speculative engine
+    """A ``mesh`` that is not a ``DeviceMesh`` raises beside speculation
+    (a real one raises JAX's ``NotImplementedError``,
+    tests/test_torch_spmd.py); the capacity ladder raises JAX's
+    ``NotImplementedError`` at the engine (a round already runs two
+    capacity ratios); a fault injector rides a speculative engine
     (tests/test_torch_faults.py)."""
     with pytest.raises(ValueError, match="mesh"):
         EngineConfig(batch_size=2, ctx=16, page_size=4, speculate=2, mesh="data")
