@@ -12,6 +12,7 @@
     python3 chip_smoke.py --configs               # phase 14 (dense configs, hybrid) alone
     python3 chip_smoke.py --encdec-vlm            # phase 15 (whisper-tiny, qwen2-vl-7b) alone
     python3 chip_smoke.py --mesh                  # phase 16 (data_shards, the mesh engine) alone
+    python3 chip_smoke.py --mesh-train            # phase 17 (the mesh trainer) alone
 
 Imports nothing of JAX or of the JAX package. Builds the port's CUDA
 kernels from ``src/repro_torch/kernels/csrc`` and runs, in order (any
@@ -253,6 +254,23 @@ failure raises and exits non-zero):
    ``(2, 1)`` and ``(1, 2)``: streams equal to the single-process
    ``data_shards=2`` / ``data_shards=1`` runs, every decode step's logits
    within MESH_LOGITS_TOL.
+17. the mesh trainer (``[mesh-train]`` lines; after phase 16, before phase
+   13): (a) ``mod-paper-1b`` at SERVE_1B_LAYERS, bf16, ``pallas_fused``,
+   B=4, S=2048, 3 steps of the Trainer over a one-rank NCCL mesh ``(1,
+   1)``: pure DP's losses bitwise the single-process Trainer's on the same
+   weights and batches with the fused kernels launched, FSDP's (the
+   gather/scatter fallback) bitwise the single-process ``pallas`` run's; a
+   profiled step's wall and busy ms and idle share beside one process's;
+   the two mesh runs' launches are the kernels line's ``mesh_train`` path;
+   (b) two gloo processes on the card, ``mod-paper-60m`` f32 at
+   PARITY_60M_LAYERS, ``pallas_fused``, remat ``full``, B=8, S=128, 3
+   steps on each of the meshes ``(2, 1)``, ``(1, 2)`` and ``(2, 1)+fsdp``
+   in one spawn: losses within MESH_TRAIN_LOSS_RTOL and parameters within
+   the AdamW-aware tolerance of the single-process run (made by this
+   process while the ranks start), each rank's state bytes equal to its
+   placement, each run's peak device memory beside one process's; one ``compressed_all_reduce`` of CUDA gradients bitwise the
+   same call on CPU tensors; a two-stage ``pipeline_forward`` on CUDA
+   tensors within MESH_TRAIN_PIPE_TOL of the sequential stages.
 
 To keep the script inside its 1200 s, depth is cut where an earlier
 phase does not need it: phases 4, 6c-11 and 13 serve ``mod-paper-1b`` at
@@ -290,7 +308,7 @@ version, and on the CUDA-core path with ``F.silu`` in the SSM blocks, and
 prints the four loss trajectories.
 ``--moe`` builds the kernels and runs phase 12 alone; ``--overload``
 phase 13 alone; ``--configs`` phase 14 alone; ``--encdec-vlm`` phase 15
-alone; ``--mesh`` phase 16 alone.
+alone; ``--mesh`` phase 16 alone; ``--mesh-train`` phase 17 alone.
 ``--mlp-losses`` only runs phase 5's training four times, with
 routed_mlp_scatter on the wgmma GEMM, on the CUDA-core GEMM and as its
 plain version, and with routed_attention as its plain version, and prints
@@ -2314,7 +2332,7 @@ def trainer_1b(dev, ckdir):
     schedule (lr 1e-4 after 2 warmup steps), synthetic data from seed 0."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.config import OptimConfig, TrainConfig, get_config, with_mod_backend
-    from repro_torch.data.loader import SyntheticLoader
+    from repro_torch.data.loader import ShardedLoader
     from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.train import Trainer
 
@@ -2323,7 +2341,7 @@ def trainer_1b(dev, ckdir):
     tcfg = TrainConfig(global_batch=B, seq_len=S,
                        optim=OptimConfig(lr=1e-4, warmup_steps=2, total_steps=steps),
                        log_every=1, ckpt_every=10**9)
-    loader = SyntheticLoader(SyntheticLM(cfg.vocab, S, seed=0), B, dev)
+    loader = ShardedLoader(SyntheticLM(cfg.vocab, S, seed=0), B, dev)
     return Trainer(cfg, tcfg, loader, ckpt=CheckpointManager(ckdir), device=dev,
                    log_fn=lambda m: None)
 
@@ -3336,7 +3354,7 @@ def ssm_parity(dev):
     limits), 16 teacher-forced decode steps and the stepped engine's
     greedy streams (4 slots, 6 requests, prompts 16-48, 8 new tokens)."""
     from repro_torch.config import OptimConfig, TrainConfig, get_config
-    from repro_torch.data.loader import SyntheticLoader
+    from repro_torch.data.loader import ShardedLoader
     from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.models import api
     from repro_torch.serve import EngineConfig, Request, ServingEngine
@@ -3375,7 +3393,7 @@ def ssm_parity(dev):
         from repro_torch.checkpoint import CheckpointManager
 
         for name, params, d in (("cpu", p_cpu, cpu), ("gpu", p_gpu, dev)):
-            loader = SyntheticLoader(SyntheticLM(cfg.vocab, S, seed=37), B, d)
+            loader = ShardedLoader(SyntheticLM(cfg.vocab, S, seed=37), B, d)
             trainer = Trainer(cfg, tcfg, loader, ckpt=CheckpointManager(ckdir), device=d,
                               log_fn=lambda m: None)
             state = make_train_state(cfg, d, params=tree_map(lambda t: t.detach().clone(), params))
@@ -3467,7 +3485,7 @@ def trainer_ssm(dev, ckdir):
     steps), synthetic data from seed 0."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.config import OptimConfig, TrainConfig, get_config
-    from repro_torch.data.loader import SyntheticLoader
+    from repro_torch.data.loader import ShardedLoader
     from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.train import Trainer
 
@@ -3476,7 +3494,7 @@ def trainer_ssm(dev, ckdir):
     tcfg = TrainConfig(global_batch=B, seq_len=S,
                        optim=OptimConfig(lr=1e-4, warmup_steps=2, total_steps=steps),
                        log_every=1, ckpt_every=10**9)
-    loader = SyntheticLoader(SyntheticLM(cfg.vocab, S, seed=0), B, dev)
+    loader = ShardedLoader(SyntheticLM(cfg.vocab, S, seed=0), B, dev)
     return Trainer(cfg, tcfg, loader, ckpt=CheckpointManager(ckdir), device=dev,
                    log_fn=lambda m: None)
 
@@ -4667,7 +4685,7 @@ def train_moe(dev):
 
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.config import OptimConfig, TrainConfig, get_config, with_mod_backend
-    from repro_torch.data.loader import SyntheticLoader
+    from repro_torch.data.loader import ShardedLoader
     from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.kernels import build
     from repro_torch.models.moe import expert_capacity
@@ -4682,7 +4700,7 @@ def train_moe(dev):
                        log_every=1, ckpt_every=10**9)
     losses, busies = [], []
     with tempfile.TemporaryDirectory() as ckdir:
-        trainer = Trainer(cfg, tcfg, SyntheticLoader(SyntheticLM(cfg.vocab, S, seed=0), B, dev),
+        trainer = Trainer(cfg, tcfg, ShardedLoader(SyntheticLM(cfg.vocab, S, seed=0), B, dev),
                           ckpt=CheckpointManager(ckdir), device=dev, log_fn=lambda msg: None)
         state = trainer.init_or_resume()
         torch.cuda.synchronize()
@@ -6638,6 +6656,357 @@ def mesh_phase(dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the mesh trainer
+# ---------------------------------------------------------------------------
+
+# 17a: mod-paper-1b at SERVE_1B_LAYERS, bf16, pallas_fused, over a one-rank
+# NCCL mesh against one process (the same weights and batches)
+MESH_TRAIN_1B = dict(B=4, S=2048, steps=3)
+# 17b: two gloo ranks on the card, mod-paper-60m f32 at PARITY_60M_LAYERS,
+# remat "full": FSDP gathers a layer group's leaves inside its remat
+# boundary, so a rank holds one group's gathered weights at a time (the
+# peak memory lines show it beside DP's)
+MESH_TRAIN_60M = dict(B=8, S=128, steps=3, lr=1e-3)
+MESH_TRAIN_REMAT = "full"
+MESH_TRAIN_MESHES = ((2, 1, False), (1, 2, False), (2, 1, True))
+# 17b tolerances: losses relative; parameters as tests/test_torch_mesh_train.py
+# holds them (every element within AdamW's 2·lr a step, all but 0.1% of a
+# leaf within 1e-5 + 2e-6 of its largest |value|); the pipeline absolute
+MESH_TRAIN_LOSS_RTOL = 1e-5
+MESH_TRAIN_P_TOL, MESH_TRAIN_P_OUTLIERS = 2e-6, 1e-3
+MESH_TRAIN_PIPE_TOL = 1e-6
+MESH_TRAIN_KERNELS = {False: ("routed_attention", "routed_mlp_scatter", "flash_attention"),
+                      True: ("gather_rows", "scatter_add_rows", "flash_attention")}
+
+
+def _mesh_train_run(tag, cfg, dev, spmd=None):
+    """MESH_TRAIN_1B's steps of a Trainer (one process, or this rank of
+    ``spmd``'s mesh), the last one profiled. Returns (losses, launch
+    counts, (wall, busy) ms of the profiled step)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.config import OptimConfig, TrainConfig
+    from repro_torch.data.loader import ShardedLoader
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import build
+    from repro_torch.train import Trainer
+
+    w = MESH_TRAIN_1B
+    tcfg = TrainConfig(global_batch=w["B"], seq_len=w["S"],
+                       optim=OptimConfig(lr=1e-4, warmup_steps=2, total_steps=w["steps"]),
+                       log_every=10**9, ckpt_every=10**9)
+    source = SyntheticLM(cfg.vocab, w["S"], seed=0)
+    loader = ShardedLoader(source, w["B"], dev, spmd=spmd)
+    with tempfile.TemporaryDirectory() as ckdir:
+        trainer = Trainer(cfg, tcfg, loader, ckpt=CheckpointManager(ckdir), device=dev, spmd=spmd,
+                          log_fn=lambda m: None)
+        state = trainer.init_or_resume()
+        torch.cuda.synchronize()
+        build.reset_counters()
+        losses = []
+        for i in range(w["steps"]):
+            if i == w["steps"] - 1:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    state, m = trainer.run(state, 1)
+            else:
+                state, m = trainer.run(state, 1)
+            losses.append(m["loss"])
+        counts = build.launch_counts()
+    loader.close()
+    busy = sum(us for _, us in device_records(prof)) / 1e3
+    wall = 1e3 * trainer.heartbeats[-1][1]
+    del state, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"[mesh-train] 17a {tag}: non-finite losses {losses}")
+    return losses, counts, (wall, busy)
+
+
+def mesh_train_1b(dev):
+    """17a: DP and FSDP over a one-rank NCCL mesh, each against one
+    process on the same weights and batches: DP against the pallas_fused
+    Trainer (the fused kernels on both), FSDP against the pallas Trainer
+    (the gather/scatter fallback on both). Returns the mesh runs' summed
+    launch counts."""
+    from repro_torch.config import MeshConfig, with_mod_backend
+    from repro_torch.launch import mesh as M
+
+    fused = with_mod_backend(serve_1b_config(), "pallas_fused")
+    plain = with_mod_backend(serve_1b_config(), "pallas")
+    w = MESH_TRAIN_1B
+    refs = {False: _mesh_train_run("one process, pallas_fused", fused, dev),
+            True: _mesh_train_run("one process, pallas", plain, dev)}
+    store = tempfile.TemporaryDirectory()
+    M.init_process_group("nccl", rank=0, world_size=1,
+                         store=torch.distributed.FileStore(os.path.join(store.name, "store"), 1))
+    total: dict = {}
+    try:
+        for fsdp in (False, True):
+            spmd = M.mesh_ctx(MeshConfig(data=1, model=1, fsdp=fsdp))
+            losses, counts, (wall, busy) = _mesh_train_run(f"fsdp={fsdp}", fused, dev, spmd)
+            ref_losses, _, (ref_wall, ref_busy) = refs[fsdp]
+            tag = "FSDP" if fsdp else "DP"
+            if losses != ref_losses:
+                raise AssertionError(f"[mesh-train] 17a {tag}: losses {losses} differ from one "
+                                     f"process's {ref_losses}")
+            for name in MESH_TRAIN_KERNELS[fsdp]:
+                if counts.get(name, 0) <= 0:
+                    raise AssertionError(f"[mesh-train] 17a {tag}: {name} was not launched")
+            for name in MESH_TRAIN_KERNELS[not fsdp][:2]:
+                if counts.get(name, 0):
+                    raise AssertionError(f"[mesh-train] 17a {tag}: {name} launched {counts[name]}"
+                                         " times: the wrong dispatch path")
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            log(f"[mesh-train] 17a {tag} on {M.describe_mesh(spmd.mesh)}, mod-paper-1b at "
+                f"{SERVE_1B_LAYERS} layers, {fused.dtype}, B={w['B']} S={w['S']}: losses "
+                f"{', '.join(f'{x:.6f}' for x in losses)} bitwise equal to one process "
+                f"({'pallas' if fsdp else 'pallas_fused'}); step {w['steps']} wall {wall:.1f} ms, "
+                f"busy {busy:.1f} ms, idle share {1 - busy / wall:.3f} (one process: wall "
+                f"{ref_wall:.1f} ms, busy {ref_busy:.1f} ms, idle share "
+                f"{1 - ref_busy / ref_wall:.3f}); launches "
+                f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    finally:
+        M.destroy_process_group()
+        store.cleanup()
+    return total
+
+
+def _mesh_train_60m_config():
+    from repro_torch.config import with_mod_backend
+
+    return with_mod_backend(dataclasses.replace(parity_60m_config(), remat=MESH_TRAIN_REMAT),
+                            "pallas_fused")
+
+
+def _mesh_train_60m_batch(cfg, dev):
+    from repro_torch.data.synthetic import SyntheticLM
+
+    w = MESH_TRAIN_60M
+    b = SyntheticLM(cfg.vocab, w["S"], seed=0).batch(0, w["B"])
+    return {k: torch.as_tensor(v).long().to(dev) for k, v in b.items()}
+
+
+def _mesh_train_60m_tcfg():
+    from repro_torch.config import OptimConfig, TrainConfig
+
+    w = MESH_TRAIN_60M
+    return TrainConfig(global_batch=w["B"], seq_len=w["S"],
+                       optim=OptimConfig(lr=w["lr"], warmup_steps=1, total_steps=w["steps"]))
+
+
+def _mesh_train_60m_steps(dev, spmd=None, with_grads=False) -> dict:
+    """17b's run: MESH_TRAIN_60M's steps on one batch. Returns the losses,
+    the final parameters, the state bytes, the placed bytes (on a mesh),
+    the peak device memory the run allocated above what was allocated
+    before it, and the gradients of one more forward when ``with_grads``."""
+    from repro_torch.data.loader import rank_rows
+    from repro_torch.train import loop as L
+    from repro_torch.utils import tree_leaves
+
+    cfg = _mesh_train_60m_config()
+    tcfg = _mesh_train_60m_tcfg()
+    batch = _mesh_train_60m_batch(cfg, dev)
+    if spmd is not None:
+        rows = torch.as_tensor(rank_rows(tcfg.global_batch, spmd.data_shards, spmd.data_rank))
+        batch = {k: v[rows.to(dev)] for k, v in batch.items()}
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = L.make_train_state(cfg, dev, seed=0, spmd=spmd)
+    step = L.make_train_step(cfg, tcfg, spmd)
+    losses = []
+    for _ in range(MESH_TRAIN_60M["steps"]):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    out = dict(losses=losses, bytes=L.state_bytes(state), peak=peak, grads=None,
+               placed=L.MeshLayout(cfg, spmd).placed_bytes() if spmd is not None else None)
+    if with_grads:
+        _, _, out["grads"] = L.make_grads_fn(cfg, tcfg, spmd)(state["params"], batch,
+                                                             MESH_TRAIN_60M["steps"])
+    out["params"] = [t.detach() for t in tree_leaves(state["params"])]
+    return out
+
+
+def _mesh_train_against(ref, got, spmd) -> dict:
+    """One mesh run held against the single-process run, on the rank: the
+    largest loss error, the largest parameter error, the largest share of
+    a leaf past 1e-5 + MESH_TRAIN_P_TOL·max, whether every element is
+    within AdamW's 2·lr a step, the state bytes and the peak memory (the
+    parent checks and prints them)."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import api
+
+    cfg = _mesh_train_60m_config()
+    paths = [SH._path(k) for k, _ in SH._leaves(api.init_model(cfg, device="meta",
+                                                             generator=torch.Generator()))]
+    worst, far_max, bound_ok = 0.0, 0.0, True
+    for path, full, mine in zip(paths, ref["params"], got["params"]):
+        want = SH.cut_leaf(path, full, cfg, SH.mesh_sizes(spmd.mesh), spmd.coords(), spmd.fsdp)
+        err = (mine - want).abs()
+        far = float((err > 1e-5 + MESH_TRAIN_P_TOL * float(full.abs().max())).float().mean())
+        worst, far_max = max(worst, float(err.max())), max(far_max, far)
+        bound_ok &= float(err.max()) < 2 * MESH_TRAIN_60M["lr"] * MESH_TRAIN_60M["steps"]
+    return dict(loss_err=max(abs(a / b - 1) for a, b in zip(got["losses"], ref["losses"])),
+                worst=worst, far=far_max, bound_ok=bound_ok, bytes=got["bytes"],
+                placed=got["placed"], ref_bytes=ref["bytes"], peak=got["peak"],
+                ref_peak=ref["peak"])
+
+
+def _mesh_train_rank(rank, world, store, device, ref_path, queue):
+    """One gloo rank of 17b: the three meshes in turn, then one compressed
+    all-reduce of its CUDA gradients against the same call on CPU copies,
+    then a two-stage pipeline on CUDA tensors, then each mesh run held
+    against the single-process run the parent writes to ``ref_path``
+    meanwhile. Sends the parent summaries only."""
+    import traceback
+
+    t0 = time.perf_counter()
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.config import MeshConfig
+    from repro_torch.distributed.pipeline import pipeline_forward
+    from repro_torch.launch import mesh as M
+    from repro_torch.optim.compression import compressed_all_reduce, init_error_feedback
+
+    try:
+        dev = M.init_process_group("gloo", rank=rank, world_size=world, device=device,
+                                   store=torch.distributed.FileStore(store, world))
+        out: dict = {"start_s": time.perf_counter() - t0}
+        t = time.perf_counter()
+        runs = []
+        for d, m, fsdp in MESH_TRAIN_MESHES:
+            spmd = M.mesh_ctx(MeshConfig(data=d, model=m, fsdp=fsdp))
+            got = _mesh_train_60m_steps(dev, spmd, with_grads=(d, m, fsdp) == (2, 1, False))
+            runs.append(((d, m, fsdp), spmd, got))
+            if got["grads"] is not None:
+                grads = got.pop("grads")
+        out["train_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        group = torch.distributed.group.WORLD
+        err = init_error_feedback(grads)
+        got, got_e = compressed_all_reduce(grads, group, err)
+        want, want_e = compressed_all_reduce([g.cpu() for g in grads], group,
+                                             [e.cpu() for e in err])
+        out["compressed"] = (all(a.is_cuda for a in got + got_e)
+                             and all(torch.equal(a.cpu(), b)
+                                     for a, b in zip(got + got_e, want + want_e)),
+                             sum(a.numel() for a in got))
+        del grads, err, got, got_e, want, want_e
+        g = torch.Generator().manual_seed(5)
+        W = [(torch.randn((64, 64), generator=g) * 0.2).to(dev) for _ in range(world)]
+        bias = [(torch.randn((64,), generator=g) * 0.1).to(dev) for _ in range(world)]
+        x = torch.randn((8, 4, 64), generator=g).to(dev)
+        pipe = pipeline_forward(lambda p, h, i: torch.tanh(h @ p[0] + p[1]),
+                                (W[rank], bias[rank]), x, group)
+        seq = x
+        for i in range(world):
+            seq = torch.tanh(seq @ W[i] + bias[i])
+        out["pipeline"] = (pipe.is_cuda, float((pipe - seq).abs().max()))
+        out["collectives_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        deadline = time.monotonic() + 240
+        while not os.path.exists(ref_path):
+            if time.monotonic() > deadline:
+                raise TimeoutError("the parent wrote no single-process run")
+            time.sleep(0.05)
+        out["ref_wait_s"] = time.perf_counter() - t
+        ref = torch.load(ref_path, map_location=dev)
+        for key, spmd, got in runs:
+            out[key] = _mesh_train_against(ref, got, spmd)
+        queue.put((rank, out, None))
+    except Exception:  # noqa: BLE001 -- reported to the parent, which fails
+        queue.put((rank, None, traceback.format_exc()))
+    finally:
+        M.destroy_process_group()
+
+
+def mesh_train_gloo_60m(dev):
+    """17b: two processes on the one card over gloo, the meshes (2, 1),
+    (1, 2) and (2, 1)+fsdp in one spawn, each held against the
+    single-process run (the same weights from seed 0 and the same batch)
+    that this process makes while the ranks start."""
+    import torch.multiprocessing as mp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    t = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    store, ref_path = os.path.join(tmp.name, "store"), os.path.join(tmp.name, "reference.pt")
+    procs = [ctx.Process(target=_mesh_train_rank, args=(r, 2, store, dev.type, ref_path, queue))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        tr = time.perf_counter()
+        ref = _mesh_train_60m_steps(dev)
+        torch.save({"losses": ref["losses"], "params": [p.cpu() for p in ref["params"]],
+                    "bytes": ref["bytes"], "peak": ref["peak"]}, ref_path + ".part")
+        os.replace(ref_path + ".part", ref_path)
+        ref_s = time.perf_counter() - tr
+        del ref
+        got = sorted((queue.get(timeout=300) for _ in procs), key=lambda g: g[0])
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+        tmp.cleanup()
+    errors = [e for _, _, e in got if e is not None]
+    if errors:
+        raise AssertionError(f"[mesh-train] 17b: a rank failed:\n{errors[0]}")
+    mib = 2**20
+    for rank, out, _ in got:
+        for (d, m, fsdp) in MESH_TRAIN_MESHES:
+            r = out[(d, m, fsdp)]
+            tag = f"({d}, {m}){'+fsdp' if fsdp else ''} rank {rank}"
+            if r["loss_err"] > MESH_TRAIN_LOSS_RTOL:
+                raise AssertionError(f"[mesh-train] 17b {tag}: losses off by {r['loss_err']}")
+            if not r["bound_ok"] or r["far"] > MESH_TRAIN_P_OUTLIERS:
+                raise AssertionError(f"[mesh-train] 17b {tag}: parameters off by {r['worst']} "
+                                     f"({r['far']:.2e} of a leaf past the tolerance)")
+            if r["bytes"] != r["placed"]:
+                raise AssertionError(f"[mesh-train] 17b {tag}: {r['bytes']} state bytes, "
+                                     f"placement {r['placed']}")
+            log(f"[mesh-train] 17b {tag} (gloo, {dev.type}): losses within {r['loss_err']:.2e} of "
+                f"one process over {MESH_TRAIN_60M['steps']} steps; parameters within "
+                f"{r['worst']:.2e} ({r['far']:.2e} of a leaf past 1e-5 + {MESH_TRAIN_P_TOL:g}·max); "
+                f"state {r['bytes']} bytes = placement (one process {r['ref_bytes']}, "
+                f"{r['bytes'] / r['ref_bytes']:.3f} of it); peak memory of the run "
+                f"{r['peak'] / mib:.1f} MiB (one process {r['ref_peak'] / mib:.1f}, "
+                f"{r['peak'] / r['ref_peak']:.3f} of it; remat {MESH_TRAIN_REMAT})")
+        ok, n = out["compressed"]
+        if not ok:
+            raise AssertionError(f"[mesh-train] 17b rank {rank}: compressed_all_reduce of CUDA "
+                                 "gradients differs from the same call on CPU tensors")
+        on_dev, perr = out["pipeline"]
+        if not on_dev or perr > MESH_TRAIN_PIPE_TOL:
+            raise AssertionError(f"[mesh-train] 17b rank {rank}: pipeline off by {perr}")
+        log(f"[mesh-train] 17b rank {rank}: compressed_all_reduce of {n} CUDA gradient values "
+            f"bitwise equal to the CPU call; two-stage pipeline_forward on {dev.type} within "
+            f"{perr:.1e} of the sequential stages; start {out['start_s']:.1f}s, the three meshes "
+            f"{out['train_s']:.1f}s, the collectives {out['collectives_s']:.1f}s, then waited "
+            f"{out['ref_wait_s']:.1f}s for the single-process run")
+    log(f"[mesh-train] 17b: both ranks in {time.perf_counter() - t:.1f}s, their start included; "
+        f"the single-process run here {ref_s:.1f}s meanwhile")
+
+
+def mesh_train_phase(dev):
+    """Phase 17: returns the one-rank mesh runs' launch counts."""
+    counts = mesh_train_1b(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_train_gloo_60m(dev)
+    return counts
+
+
 def dispatch_by_call() -> dict:
     """The padded dispatch kernels' launches by call since the last reset,
     keyed as the wrappers count them: (kind, vec, unroll, B, S, k, row
@@ -6716,6 +7085,18 @@ def main() -> int:
         t = time.perf_counter()
         mesh_phase(torch.device("cuda", 0))
         log(f"[time] phase 16 mesh: {time.perf_counter() - t:.1f}s")
+        return 0
+    if sys.argv[1:2] == ["--mesh-train"]:
+        from repro_torch.kernels import build
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        log(f"[device] {smi_line()}")
+        build.build_all()
+        t = time.perf_counter()
+        counts = mesh_train_phase(torch.device("cuda", 0))
+        log(f"[time] phase 17 mesh-train: {time.perf_counter() - t:.1f}s; launches "
+            f"{json.dumps({k: v for k, v in counts.items() if v})}")
         return 0
     if sys.argv[1:2] == ["--overload"]:
         from repro_torch.kernels import build
@@ -6810,6 +7191,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mesh_counts = timed("phase 16 mesh", mesh_phase, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_train_counts = timed("phase 17 mesh-train", mesh_train_phase, dev)
     # last: its 32-slot pools would leave the allocator's cache in pieces
     # that later phases' large tensors may not fit in
     gc.collect()
@@ -6922,7 +7306,7 @@ def main() -> int:
                   "serve_ssm": ssm_serve_counts,
                   **{f"serve_spec {n}": c for n, c in spec_counts.items()}, **moe_counts,
                   **configs_counts, **encdec_counts, "overload": overload_counts,
-                  "mesh": mesh_counts}
+                  "mesh": mesh_counts, "mesh_train": mesh_train_counts}
     for run, c in model_runs.items():
         if any(c.get(k, 0) for k in OPS_KERNELS):
             raise AssertionError(f"{run} launched an op-entry-point kernel: {c}")
@@ -6953,7 +7337,7 @@ def main() -> int:
                    "ops": ops_counts,
                    **{f"serve_spec {n}": c for n, c in spec_counts.items()}, **moe_counts,
                    **configs_counts, **encdec_counts, "overload": overload_counts,
-                   "mesh": mesh_counts}
+                   "mesh": mesh_counts, "mesh_train": mesh_train_counts}
         path = {"routed_attention": "train", "routed_mlp_scatter": "train",
                 "paged_gather": "serve_paged", "paged_scatter_rows": "serve_paged",
                 "ragged_paged_scatter_rows": "serve_ragged",

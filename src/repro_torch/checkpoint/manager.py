@@ -22,7 +22,7 @@ import os
 import shutil
 import threading
 import zipfile
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -158,11 +158,16 @@ class CheckpointManager:
             # else is a bug and propagates.
             return None
 
-    def restore_latest(self) -> Optional[Tuple[int, Dict[str, Any]]]:
+    def restore_latest(self, place_fn: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None
+                       ) -> Optional[Tuple[int, Dict[str, Any]]]:
         """(step, tree of CPU tensors) of the newest readable checkpoint, or
-        None when there is none."""
+        None when there is none. ``place_fn(key, tensor)`` may replace each
+        leaf (its flat key) by this rank's part of it, as JAX's
+        ``sharding_fn`` re-lays a checkpoint onto the current mesh."""
         for step in reversed(self.available_steps()):
             flat = self._load_step(step)
             if flat is not None:
+                if place_fn is not None:
+                    flat = {k: place_fn(k, v) for k, v in flat.items()}
                 return step, unflatten_dict(flat)
         return None

@@ -213,6 +213,10 @@ class OptimConfig:
     eps: float = 1e-8
     weight_decay: float = 0.1
     clip_norm: float = 1.0
+    # gradient compression across the data axis: "none" | "int8" (JAX's
+    # field; its train loop never reads it, and the port's step refuses
+    # "int8": optim/compression.py holds the compressed all-reduce itself)
+    grad_compression: str = "none"
 
 
 @dataclass(frozen=True)
@@ -238,25 +242,31 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """A device mesh's axis sizes (JAX's ``MeshConfig`` for one pod): the
-    batch over "data", tensor parallelism over "model". The JAX config's
-    ``pod``, ``fsdp`` and ``pp_stages`` belong to the mesh trainer, which
-    is not ported yet (ROADMAP Queue 1 item 6)."""
+    """A device mesh's axis sizes (JAX's ``MeshConfig``): the batch over
+    "data" (and a leading "pod" axis when ``pod > 1``), tensor parallelism
+    over "model". ``fsdp`` shards parameters and optimizer moments over
+    "data" too (the rule table's "F" slots; ``launch.mesh.mesh_ctx`` reads
+    it). ``pp_stages`` maps pipeline stages onto the pod axis (0 = off:
+    data parallel over pod); JAX's ``launch/train.py`` never reads it, and the
+    port's ``launch.mesh.make_mesh`` refuses a value above 0."""
 
+    pod: int = 1
     data: int = 16
     model: int = 16
+    fsdp: bool = False
+    pp_stages: int = 0
 
     @property
-    def axis_names(self) -> Tuple[str, str]:
-        return ("data", "model")
+    def axis_names(self) -> Tuple[str, ...]:
+        return ("pod", "data", "model") if self.pod > 1 else ("data", "model")
 
     @property
-    def shape(self) -> Tuple[int, int]:
-        return (self.data, self.model)
+    def shape(self) -> Tuple[int, ...]:
+        return (self.pod, self.data, self.model) if self.pod > 1 else (self.data, self.model)
 
     @property
     def n_devices(self) -> int:
-        return self.data * self.model
+        return self.pod * self.data * self.model
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import MoDConfig, ModelConfig
+from repro_torch.distributed import sharding as SH
 from repro_torch.models.layers import dense_init
 
 Params = Dict[str, torch.Tensor]
@@ -73,14 +74,18 @@ def mod_select(
     ``router_type="stochastic"`` (the Gaussian control of the paper's
     Fig. 3) the selection ranks N(0, 1) draws from ``generator`` instead of
     the logits; the gates still come from the learned router. Its draws are
-    not JAX's: the two frameworks' generators differ."""
+    not JAX's: the two frameworks' generators differ. A rank of a training
+    call on a mesh draws the global batch's ``(B·d, S)`` noise and takes
+    its own rows, so its selection is the single process's."""
     B, S = logits.shape
     k = int(capacity)
     if mod_cfg.router_type == "stochastic":
         if generator is None:
             raise ValueError("stochastic routing needs a generator")
-        sel_scores = torch.randn(logits.shape, generator=generator, device=generator.device,
-                                 dtype=torch.float32).to(logits.device)
+        part, parts = SH.batch_rows()
+        noise = torch.randn((B * parts, S), generator=generator, device=generator.device,
+                            dtype=torch.float32)
+        sel_scores = noise[part * B:(part + 1) * B].to(logits.device)
     elif mod_cfg.router_type == "learned":
         sel_scores = logits
     else:
@@ -124,7 +129,7 @@ def apply_gate(gate_logits: torch.Tensor, mod_cfg: MoDConfig) -> torch.Tensor:
 
 def _bce(logits: torch.Tensor, topk_mask: torch.Tensor) -> torch.Tensor:
     targets = topk_mask.float()  # a bool mask carries no gradient
-    return -(targets * F.logsigmoid(logits) + (1.0 - targets) * F.logsigmoid(-logits)).mean()
+    return -SH.global_mean(targets * F.logsigmoid(logits) + (1.0 - targets) * F.logsigmoid(-logits))
 
 
 def router_aux_loss(router_logits_: torch.Tensor, topk_mask: torch.Tensor) -> torch.Tensor:
@@ -137,5 +142,5 @@ def predictor_loss_and_acc(
     pred_logits: torch.Tensor, topk_mask: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """BCE + accuracy of the causal predictor (paper §3.5, method 2)."""
-    acc = ((pred_logits > 0) == topk_mask).float().mean()
+    acc = SH.global_mean(((pred_logits > 0) == topk_mask).float())
     return _bce(pred_logits, topk_mask), acc

@@ -59,6 +59,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.core import router as R
+from repro_torch.distributed import sharding as SH
 from repro_torch.distributed.sharding import ShardCtx
 from repro_torch.kernels import ragged as KRG
 from repro_torch.kernels import routing as KR
@@ -328,11 +329,12 @@ def execute_routed_ragged(
 
 def routing_aux(decision: RouteDecision, params: Params, x: torch.Tensor, cfg: ModelConfig
                 ) -> Aux:
-    """Router BCE + stats (+ predictor BCE/acc) for a token_topk decision."""
+    """Router BCE + stats (+ predictor BCE/acc) for a token_topk decision;
+    means over the global batch in a training call on a mesh."""
     aux: Aux = {
         "mod/router_bce": R.router_aux_loss(decision.logits, decision.mask),
-        "mod/frac_above_half": (torch.sigmoid(decision.logits) > 0.5).float().mean(),
-        "mod/gate_mean": decision.gate.mean(),
+        "mod/frac_above_half": SH.global_mean((torch.sigmoid(decision.logits) > 0.5).float()),
+        "mod/gate_mean": SH.global_mean(decision.gate),
     }
     if "predictor" in params:
         plogits = R.predictor_logits(params["predictor"], x)

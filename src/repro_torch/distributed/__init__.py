@@ -1,3 +1,4 @@
-"""Multi-device serving of the port: sharding rules, the SPMD routing
-context and the collectives (port of ``repro/distributed/``; the mesh
-trainer's pipeline and compressed all-reduce are not ported yet)."""
+"""Multi-device serving and training of the port: sharding rules, the SPMD
+routing context, the collectives and their autograd forms, and the GPipe
+pipeline (port of ``repro/distributed/``; the int8 compressed all-reduce is
+``repro_torch.optim.compression``)."""

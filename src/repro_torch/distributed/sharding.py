@@ -1,22 +1,29 @@
-"""Sharding rules and the SPMD routed-execution context of the port.
+"""Sharding rules, the SPMD routed-execution context and the mesh's
+collective placement, for serving and for training.
 
-Port of ``repro/distributed/sharding.py`` for serving. The JAX package
-places global arrays with ``NamedSharding`` and lets GSPMD insert the
-collectives; here every rank holds **plain local tensors** (its own
-shards) and the layer code makes the collective that each placement
-implies (:func:`reduce_model` after ``wo``, ``w_down`` and the expert
-combine; :func:`gather_model` of the D-sharded embedding rows and the
-vocab-sharded logits). The hand-written kernels take these ordinary
-tensors, so they stay on the path. Which leaves are cut is decided once,
-by :func:`shard_params`, and recorded on the :class:`ShardCtx`
-(``split``); the layers ask :func:`is_split` instead of comparing shapes.
+Port of ``repro/distributed/sharding.py``. The JAX package places global
+arrays with ``NamedSharding`` and lets GSPMD insert the collectives; here
+every rank holds **plain local tensors** (its own shards) and the layer
+code makes the collective that each placement implies (:func:`copy_model`
+before a column-parallel product, :func:`reduce_model` after ``wo``,
+``w_down`` and the expert combine; :func:`gather_model` of the D-sharded
+embedding rows and the vocab-sharded logits). Under autograd these are the
+conjugate pairs of :mod:`repro_torch.distributed.collectives`; under
+``no_grad`` (serving) the in-place forms. The hand-written kernels take
+these ordinary tensors, so they stay on the path. Which leaves are cut is
+decided once, by :func:`shard_params`, and recorded on the
+:class:`ShardCtx` (``split`` over "model", ``data_split`` over "data");
+the layers ask :func:`is_split` instead of comparing shapes.
 
 - :data:`_RULES` is the JAX rule table, copied: a path regex and the mesh
-  axis of each trailing dim ("F", the data axis under JAX's FSDP, is never
-  used: serving does not shard parameters over data, and the mesh trainer
-  is not ported). :func:`param_placement` gives a leaf's spec (a tuple of
-  axis names or None per dim); a dim that does not divide its axis falls
-  back to replication, as in JAX's ``_validated``.
+  axis of each trailing dim; "F" is the data axis under FSDP (JAX's
+  ``param_pspec(..., fsdp)``) and unsharded otherwise.
+  :func:`param_placement` gives a leaf's spec (a tuple of axis names or
+  None per dim); a dim that does not divide its axis falls back to
+  replication, as in JAX's ``_validated``. :func:`state_placement` and
+  :func:`batch_placement` are JAX's ``state_shardings`` and
+  ``batch_shardings`` (the batch over ``("pod", "data")``, M-RoPE
+  positions on dim 1).
 - :func:`cache_placement` follows JAX's ``cache_shardings``: the slot dim
   over "data"; on the model axis the port splits **kv heads**, not
   ``head_dim`` as JAX does, because the flash and paged kernels take whole
@@ -26,21 +33,35 @@ by :func:`shard_params`, and recorded on the :class:`ShardCtx`
   may cut a head in two, the port's kernels may not, so tensor parallelism
   needs whole query heads per rank (:func:`check_tensor_parallel`), and
   K/V whose heads do not divide the model axis keep, on each rank, the kv
-  heads its query heads read (all of them under MQA).
+  heads its query heads read (all of them under MQA; serving only: the
+  trainer needs the kv heads to divide the axis).
+- FSDP (``ShardCtx.fsdp``): a rank keeps its "data" shard of each leaf the
+  rule cuts (and of its AdamW moments); :func:`gather_data` all-gathers
+  them where they are used (the gradient comes back reduce-scattered):
+  the leaves outside the layer groups at the start of a model call, each
+  group's inside its remat boundary (``models.transformer.run_groups``),
+  as JAX's scan gathers one layer group at a time. Under ``remat="full"``
+  the recomputation gathers again, so a rank holds one group's gathered
+  weights at a time; without remat autograd keeps every group's gathered
+  weights for the backward.
 - :class:`ShardCtx` / :func:`shard_ctx` are JAX's: ``data_shards`` is the
   partitioned ``batch_capacity`` semantics (each of ``d`` contiguous batch
   groups routes its own top ``round(ratio·B/d)`` rows), ``mesh`` (a
   ``torch.distributed.device_mesh.DeviceMesh`` with dims ``("data",
-  "model")``) the execution. With a mesh the model code receives this
-  rank's rows only, so its routing decision is local to the shard with no
-  cross-data collective; ``ShardCtx(data_shards=d)`` with no mesh runs the
-  same semantics over the whole batch on one device (the reference).
+  "model")``, or ``("pod", "data", "model")``) the execution. With a mesh
+  the model code receives this rank's rows only, so a routing decision is
+  local to the shard; a training call's batch statistics (the loss, the
+  MoE load balance, the router losses) are summed over the data axes
+  (:func:`batch_sum`), so every rank computes the global batch's values.
+  ``ShardCtx(data_shards=d)`` with no mesh runs the same partitioned
+  semantics over the whole batch on one device (the reference).
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
 import dataclasses
+import math
 import re
 from typing import Any, Dict, FrozenSet, Iterator, Optional, Sequence, Tuple
 
@@ -52,7 +73,7 @@ from repro_torch.distributed import collectives as C
 
 Spec = Tuple[Optional[str], ...]
 
-# trailing-dim templates; "F" is JAX's FSDP slot ("data" under fsdp), None here
+# trailing-dim templates; "F" is replaced by "data" under fsdp else None
 _RULES: Sequence[Tuple[str, Tuple[Optional[str], ...]]] = (
     # tok: shard D over model (gather over a vocab-sharded table forces
     # involuntary replication in SPMD); unemb: V over model so logits and
@@ -102,8 +123,20 @@ def mesh_sizes(mesh: Any) -> Dict[str, int]:
     return dict(zip(names, (int(n) for n in mesh.mesh.shape)))
 
 
-def _axis_size(sizes: Dict[str, int], name: Optional[str]) -> int:
-    return 1 if name is None else sizes.get(name, 1)
+def _axis_size(sizes: Dict[str, int], name: Any) -> int:
+    """The size of an axis, or of a tuple of axes (their product)."""
+    if name is None:
+        return 1
+    if isinstance(name, tuple):
+        return int(math.prod(sizes.get(a, 1) for a in name))
+    return sizes.get(name, 1)
+
+
+def batch_axes(mesh: Any) -> Tuple[str, ...]:
+    """The mesh axes the batch is cut over: ``("pod", "data")`` where
+    present (JAX's ``batch_axes``)."""
+    sizes = mesh_sizes(mesh)
+    return tuple(a for a in ("pod", "data") if a in sizes)
 
 
 def _validated(spec: Sequence[Any], shape: Sequence[int], sizes: Dict[str, int]) -> Spec:
@@ -122,18 +155,46 @@ def _validated(spec: Sequence[Any], shape: Sequence[int], sizes: Dict[str, int])
 # ---------------------------------------------------------------------------
 
 
-def param_placement(path: str, shape: Sequence[int], mesh: Any) -> Spec:
+def param_placement(path: str, shape: Sequence[int], mesh: Any, fsdp: bool = False) -> Spec:
     """The mesh axis of each dim of the parameter leaf at ``path`` (its
-    "/"-joined dict keys), JAX's ``param_pspec`` without FSDP: the first
-    matching rule's trailing dims (leading stack dims unsharded), a dim
-    that does not divide its axis replicated."""
+    "/"-joined dict keys), JAX's ``param_pspec``: the first matching rule's
+    trailing dims (leading stack dims unsharded), "F" the data axis under
+    ``fsdp``, a dim that does not divide its axis replicated."""
     sizes = mesh_sizes(mesh)
     for pat, trailing in _RULES:
         if re.search(pat, path):
-            t = tuple(None if a == "F" else a for a in trailing)
+            t = tuple(("data" if fsdp else None) if a == "F" else a for a in trailing)
             full = (None,) * max(0, len(shape) - len(t)) + t[: len(shape)]
             return _validated(full, shape, sizes)
     return (None,) * len(shape)
+
+
+def state_placement(state: Any, mesh: Any, fsdp: bool = False) -> Any:
+    """The spec of every leaf of a train state ``{"params", "opt": {"m",
+    "v", "count"}, "step"}`` (JAX's ``state_shardings``): the moments
+    mirror the parameters, ``count`` and ``step`` are replicated. The
+    parameter tree may be the port's (lists of groups) or JAX's (stacked
+    groups)."""
+    ps = _rebuild(state["params"],
+                  lambda keys, leaf: param_placement(_path(keys), leaf.shape, mesh, fsdp))
+    return {"params": ps, "opt": {"m": ps, "v": ps, "count": ()}, "step": ()}
+
+
+def batch_placement(batch: Any, mesh: Any) -> Any:
+    """The spec of every leaf of a batch (JAX's ``batch_shardings``): the
+    leading batch dim over ``batch_axes(mesh)`` when it divides their
+    degree; M-RoPE positions ``(3, B, S)`` cut on dim 1."""
+    sizes = mesh_sizes(mesh)
+    bd = batch_axes(mesh)
+    n = _axis_size(sizes, bd)
+    bd = bd[0] if len(bd) == 1 else bd  # one axis by its name, as a PartitionSpec has it
+
+    def one(keys, v):
+        if str(keys[-1]).endswith("positions") and v.ndim == 3 and v.shape[0] == 3:
+            return (None, bd, None) if v.shape[1] % n == 0 else (None, None, None)
+        return (bd if v.shape[0] % n == 0 else None,) + (None,) * (v.ndim - 1)
+
+    return _rebuild(batch, one)
 
 
 def cache_placement(path: str, shape: Sequence[int], mesh: Any, batch: int) -> Spec:
@@ -184,13 +245,14 @@ def cache_placement(path: str, shape: Sequence[int], mesh: Any, batch: int) -> S
 # ---------------------------------------------------------------------------
 
 
-def check_tensor_parallel(cfg: ModelConfig, model_shards: int) -> None:
+def check_tensor_parallel(cfg: ModelConfig, model_shards: int, train: bool = False) -> None:
     """Raise unless ``cfg`` can run with its model axis split
     ``model_shards`` ways: a family whose tensor parallelism is ported
     (dense, vlm, moe), an unembedding of its own (a tied table's D split
     would need the logits summed over ranks), whole query heads per rank,
     and kv heads that either divide the axis or serve each rank's query
-    heads uniformly."""
+    heads uniformly (``train``: that divide it, so each K/V gradient lies
+    on one rank)."""
     m = int(model_shards)
     if m <= 1:
         return
@@ -211,6 +273,10 @@ def check_tensor_parallel(cfg: ModelConfig, model_shards: int) -> None:
             raise NotImplementedError(
                 f"{nq} query heads over {nkv} kv heads do not split evenly over a model axis "
                 f"of {m}")
+        if train:
+            raise NotImplementedError(
+                f"tensor-parallel training needs the kv heads to divide the model axis: {nkv} "
+                f"kv heads over {m} (ROADMAP Queue 1 item 6)")
 
 
 def kv_head_range(cfg: ModelConfig, model_shards: int, model_rank: int) -> Tuple[int, int]:
@@ -251,14 +317,26 @@ def _rebuild(tree: Any, fn, keys: Tuple[Any, ...] = ()) -> Any:
     return fn(keys, tree)
 
 
+def fsdp_dim(path: str, ndim: int) -> Optional[int]:
+    """The dim of a leaf that FSDP cuts over "data" (its rule's "F" slot),
+    or None."""
+    for pat, trailing in _RULES:
+        if re.search(pat, path):
+            if "F" not in trailing or ndim < len(trailing):
+                return None
+            return ndim - len(trailing) + trailing.index("F")
+    return None
+
+
 def cut_leaf(path: str, leaf: Any, cfg: ModelConfig, sizes: Dict[str, int],
-             coords: Dict[str, int]) -> Any:
+             coords: Dict[str, int], fsdp: bool = False) -> Any:
     """One rank's shard of a parameter leaf (a tensor or a numpy array,
     possibly stacked on leading axes): the chunk at the rank's coordinate
-    of every dim :func:`param_placement` puts on an axis, and K/V leaves on
-    the head range of :func:`kv_head_range`. A leaf left whole is returned
-    as it is (the same object)."""
-    spec = param_placement(path, leaf.shape, sizes)
+    of every dim :func:`param_placement` puts on an axis (``fsdp``: the
+    "F" dims over "data" too), and K/V leaves on the head range of
+    :func:`kv_head_range`. A leaf left whole is returned as it is (the
+    same object)."""
+    spec = param_placement(path, leaf.shape, sizes, fsdp)
     m = sizes.get("model", 1)
     if _ATTN_KV.search(path) and m > 1:
         lo, hi = kv_head_range(cfg, m, coords.get("model", 0))
@@ -286,19 +364,21 @@ def leaf_name(path: str) -> str:
     return "/".join(path.split("/")[-2:])
 
 
-def cut_tree(tree: Any, cfg: ModelConfig, sizes: Dict[str, int], coords: Dict[str, int]
-             ) -> Tuple[Any, FrozenSet[str]]:
+def cut_tree(tree: Any, cfg: ModelConfig, sizes: Dict[str, int], coords: Dict[str, int],
+             fsdp: bool = False) -> Tuple[Any, FrozenSet[str]]:
     """Every leaf of ``tree`` cut by :func:`cut_leaf` (a cut tensor is
     copied, so the full one can be freed; whole leaves are shared), and the
-    :func:`leaf_name` of the leaves it cut. A name is cut everywhere or
-    nowhere (every layer's leaf of a name has one shape), else
-    ``ValueError``."""
+    :func:`leaf_name` of the leaves it cut over the model axis
+    (:func:`split_names` gives those cut over "data" under ``fsdp``). A
+    name is cut everywhere or nowhere (every layer's leaf of a name has one
+    shape), else ``ValueError``."""
     check_tensor_parallel(cfg, sizes.get("model", 1))
+    model_cut, _ = split_names(tree, cfg, sizes, fsdp)
     seen: Dict[str, bool] = {}
 
     def one(keys, leaf):
         path = _path(keys)
-        out = cut_leaf(path, leaf, cfg, sizes, coords)
+        out = cut_leaf(path, leaf, cfg, sizes, coords, fsdp)
         name, was = leaf_name(path), out is not leaf
         if was and isinstance(out, torch.Tensor):
             out = out.contiguous().clone()
@@ -307,19 +387,55 @@ def cut_tree(tree: Any, cfg: ModelConfig, sizes: Dict[str, int], coords: Dict[st
         return out
 
     out = _rebuild(tree, one)
-    return out, frozenset(k for k, v in seen.items() if v)
+    return out, model_cut
+
+
+def split_names(tree: Any, cfg: ModelConfig, sizes: Dict[str, int], fsdp: bool = False
+                ) -> Tuple[FrozenSet[str], FrozenSet[str]]:
+    """The :func:`leaf_name` of the leaves of ``tree`` (tensors, arrays or
+    meta tensors: shapes are enough) that :func:`cut_tree` cuts over the
+    model axis, and of those it cuts over "data" (``fsdp``)."""
+    m = sizes.get("model", 1)
+    # K/V are cut on head ranges (kv_head_range), whatever the rule says
+    kv_cut = m > 1 and any(kv_head_range(cfg, m, r) != (0, cfg.attn.n_kv_heads)
+                           for r in range(m))
+    model, data = set(), set()
+    for keys, leaf in _leaves(tree):
+        path = _path(keys)
+        spec = param_placement(path, leaf.shape, sizes, fsdp)
+        if (kv_cut if _ATTN_KV.search(path) and m > 1 else "model" in spec):
+            model.add(leaf_name(path))
+        if "data" in spec:
+            data.add(leaf_name(path))
+    return frozenset(model), frozenset(data)
 
 
 def shard_params(params: Any, cfg: ModelConfig, spmd: "ShardCtx") -> Tuple[Any, "ShardCtx"]:
     """This rank's shards of the port's full parameter tree under ``spmd``'s
-    mesh (:func:`cut_tree`), and ``spmd`` with ``split`` recording the
-    leaves it cut: run the shards under that context. Only the model axis
-    cuts parameters in serving, so a data-only mesh returns both as they
-    are."""
-    if spmd is None or spmd.mesh is None or spmd.model_shards <= 1:
+    mesh (:func:`cut_tree`), and ``spmd`` with ``split`` and
+    ``data_split`` recording the leaves it cut: run the shards under that
+    context. Without FSDP only the model axis cuts parameters, so a
+    data-only mesh returns both as they are."""
+    run = placed(spmd, cfg, params)
+    if run is spmd:  # nothing to cut
         return params, spmd
-    out, split = cut_tree(params, cfg, mesh_sizes(spmd.mesh), spmd.coords())
-    return out, dataclasses.replace(spmd, split=split)
+    out, _ = cut_tree(params, cfg, mesh_sizes(spmd.mesh), spmd.coords(), spmd.fsdp)
+    return out, run
+
+
+def placed(spmd: "ShardCtx", cfg: ModelConfig, shapes: Any) -> "ShardCtx":
+    """``spmd`` with ``split`` / ``data_split`` as :func:`shard_params`
+    records them for a tree of ``shapes`` (the full parameter tree, meta
+    tensors will do): the context a step on already cut shards runs under;
+    ``spmd`` itself when the mesh cuts nothing."""
+    if spmd is None or spmd.mesh is None:
+        return spmd
+    sizes = mesh_sizes(spmd.mesh)
+    check_tensor_parallel(cfg, spmd.model_shards)
+    if spmd.model_shards <= 1 and not (spmd.fsdp and sizes.get("data", 1) > 1):
+        return spmd
+    split, data_split = split_names(shapes, cfg, sizes, spmd.fsdp)
+    return dataclasses.replace(spmd, split=split, data_split=data_split)
 
 
 def local_cache_config(cfg: ModelConfig, spmd: Optional["ShardCtx"]) -> ModelConfig:
@@ -347,9 +463,11 @@ class ShardCtx:
       budget of ``d·kb_local`` with no cross-group communication.
       ``token_topk`` is per sequence, so it never depends on the split.
     - **execution** (``mesh``): with a ``DeviceMesh`` attached, each rank
-      runs the model on its own ``B/d`` rows (``data_axes``) with its
-      shards of the weights (``model_axis``, tensor parallel), so the
-      routed step's decision, cache gather and scatters are shard-local.
+      runs the model on its own ``B/d`` rows (``data_axes``: "data", and
+      "pod" in front where the mesh has one) with its shards of the
+      weights (``model_axis``, tensor parallel; ``fsdp``: parameters cut
+      over "data" too), so the routed step's decision, cache gather and
+      scatters are shard-local.
 
     ``ShardCtx(mesh=None, data_shards=d)`` runs the same partitioned
     semantics on one device: the reference the mesh is held against."""
@@ -358,11 +476,13 @@ class ShardCtx:
     data_axes: Tuple[str, ...] = ()
     model_axis: Optional[str] = None
     data_shards: int = 1
-    # params sharded over the data axes too (JAX's ZeRO-3): fused dispatch
-    # must fall back. Only the mesh trainer sets it; it is not ported yet.
+    # params and AdamW moments sharded over "data" too (JAX's ZeRO-3):
+    # fused dispatch falls back (blocks.fused_dispatch_supported)
     fsdp: bool = False
     # the leaf_name()s of the leaves shard_params cut over the model axis
     split: FrozenSet[str] = frozenset()
+    # ... and over "data" (fsdp), gathered at the start of a model call
+    data_split: FrozenSet[str] = frozenset()
 
     @property
     def spmd(self) -> bool:
@@ -379,11 +499,6 @@ class ShardCtx:
         if self.data_shards > 1 and batch % self.data_shards != 0:
             raise ValueError(f"batch {batch} not divisible by data_shards={self.data_shards}")
 
-    def semantic_only(self) -> "ShardCtx":
-        """The same partitioned routing semantics with no mesh attached
-        (JAX: dispatch under GSPMD instead of ``shard_map``)."""
-        return dataclasses.replace(self, mesh=None)
-
     # -- the rank's place on the mesh (the port's multi-controller view) --
 
     def coords(self) -> Dict[str, int]:
@@ -395,12 +510,27 @@ class ShardCtx:
     @property
     def data_rank(self) -> int:
         """This rank's data group: it holds batch rows
-        ``[data_rank·B/d, (data_rank+1)·B/d)``."""
-        return self.coords()["data"]
+        ``[data_rank·B/d, (data_rank+1)·B/d)`` (the index over
+        ``data_axes``, pod-major)."""
+        c, sizes = self.coords(), mesh_sizes(self.mesh)
+        rank = 0
+        for ax in self.data_axes:
+            rank = rank * sizes[ax] + c[ax]
+        return rank
+
+    def group(self, axis: str) -> Any:
+        """The process group of this rank's peers along mesh axis ``axis``."""
+        return self.mesh.get_group(axis)
 
     def data_group(self) -> Any:
         """The process group of this rank's peers along the data axis."""
         return self.mesh.get_group("data")
+
+    def data_groups(self) -> Tuple[Any, ...]:
+        """The process groups of ``data_axes`` whose size is over 1: a sum
+        over each in turn is the sum over the data-parallel ranks."""
+        sizes = mesh_sizes(self.mesh)
+        return tuple(self.mesh.get_group(a) for a in self.data_axes if sizes[a] > 1)
 
     def data_peer(self, data_rank: int) -> int:
         """The global rank at data index ``data_rank`` and this rank's model
@@ -408,78 +538,200 @@ class ShardCtx:
         return int(self.mesh.mesh[data_rank, self.coords()["model"]])
 
 
-def shard_ctx(mesh: Any, data_shards: Optional[int] = None) -> ShardCtx:
-    """A :class:`ShardCtx` from a ("data", "model") mesh (or a bare shard
-    count), as in JAX: ``shard_ctx(mesh)`` puts the batch over "data" and
-    "model" to tensor parallelism; ``shard_ctx(None, data_shards=d)`` is
-    the partitioned semantics alone. A given ``data_shards`` must equal
-    the mesh's data degree."""
+def shard_ctx(mesh: Any, data_shards: Optional[int] = None, fsdp: bool = False) -> ShardCtx:
+    """A :class:`ShardCtx` from a mesh (or a bare shard count), as in JAX:
+    ``shard_ctx(mesh)`` puts the batch over the mesh's ``("pod", "data")``
+    axes and "model" to tensor parallelism; ``shard_ctx(None,
+    data_shards=d)`` is the partitioned semantics alone. A given
+    ``data_shards`` must equal the mesh's data degree."""
     if mesh is None:
-        return ShardCtx(data_shards=int(data_shards or 1))
-    d = mesh_sizes(mesh)["data"]
+        return ShardCtx(data_shards=int(data_shards or 1), fsdp=fsdp)
+    sizes = mesh_sizes(mesh)
+    bd = batch_axes(mesh)
+    d = _axis_size(sizes, bd)
     if data_shards is not None and int(data_shards) != d:
         raise ValueError(f"data_shards={data_shards} != mesh data degree {d}")
-    return ShardCtx(mesh=mesh, data_axes=("data",), model_axis="model", data_shards=d)
+    model = "model" if "model" in sizes else None
+    return ShardCtx(mesh=mesh, data_axes=bd, model_axis=model, data_shards=d, fsdp=fsdp)
 
 
 # ---------------------------------------------------------------------------
-# The running model call's model axis, for the layer code
+# The running model call's mesh, for the layer code
 # ---------------------------------------------------------------------------
 
 
+# (ShardCtx, whether batch statistics are global) of the running model call
 _RUNNING: contextvars.ContextVar = contextvars.ContextVar("model_parallel", default=None)
 
 
 @contextlib.contextmanager
-def model_parallel(spmd: Optional[ShardCtx]):
-    """Make ``spmd`` the context the layer code asks :func:`is_split` and
-    reduces and gathers over for the duration of a model call (the port's
-    counterpart of JAX's ambient mesh). A no-op without a split model
-    axis."""
-    if spmd is None or spmd.mesh is None or spmd.model_shards <= 1:
+def model_parallel(spmd: Optional[ShardCtx], batch: bool = False):
+    """Make ``spmd``'s mesh the one the layer code asks :func:`is_split`
+    about and reduces and gathers over for the duration of a model call
+    (the port's counterpart of JAX's ambient mesh). ``batch``: the call
+    runs on this rank's rows of a global batch whose statistics (losses,
+    load balance) every rank computes (a training forward,
+    :func:`batch_sum`). A no-op without a mesh."""
+    if spmd is None or spmd.mesh is None:
         yield
         return
-    token = _RUNNING.set(spmd)
+    token = _RUNNING.set((spmd, batch))
     try:
         yield
     finally:
         _RUNNING.reset(token)
 
 
+@contextlib.contextmanager
+def resumed(run: Any):
+    """Re-enter a running model call's context captured by
+    :func:`current` (a recomputation in the backward runs on autograd's
+    threads, which do not see the caller's context)."""
+    token = _RUNNING.set(run)
+    try:
+        yield
+    finally:
+        _RUNNING.reset(token)
+
+
+def current() -> Any:
+    """The running model call's context, for :func:`resumed`."""
+    return _RUNNING.get()
+
+
+def running() -> Optional[ShardCtx]:
+    """The running model call's context (None outside one on a mesh)."""
+    run = _RUNNING.get()
+    return None if run is None else run[0]
+
+
 def is_split(name: str) -> bool:
     """Whether the running model call's weights hold a rank's part of the
     leaf ``name`` (a :func:`leaf_name`), as :func:`shard_params` recorded."""
-    spmd = _RUNNING.get()
+    spmd = running()
     return spmd is not None and name in spmd.split
 
 
 def model_rank() -> int:
     """This rank's index on the running model call's model axis."""
-    return _RUNNING.get().coords()["model"]
+    return running().coords()["model"]
 
 
 def running_cache_config(cfg: ModelConfig) -> ModelConfig:
     """:func:`local_cache_config` of the running model call: the config a
     prefill makes its caches with."""
-    return local_cache_config(cfg, _RUNNING.get())
+    return local_cache_config(cfg, running())
+
+
+def _model_group() -> Any:
+    return running().mesh.get_group("model")
+
+
+def copy_model(x: torch.Tensor, name: str) -> torch.Tensor:
+    """``x`` as it is; under autograd, when the leaf ``name`` is split, its
+    gradient is summed over the model axis (the input of a column-parallel
+    product: ``wq``/``wk``/``wv``, ``w_up``/``w_gate``, the experts,
+    ``unemb``; and the MoE combine's gates)."""
+    if not is_split(name) or not torch.is_grad_enabled():
+        return x
+    return C.copy_to(x, _model_group())
 
 
 def reduce_model(x: torch.Tensor, name: str) -> torch.Tensor:
     """The sum over the model axis of partial products (``wo``, ``w_down``
     and the expert combine, whose contraction dim is split) when the leaf
-    ``name`` is split; ``x`` as it is otherwise. Gloo reduces CUDA tensors
-    itself, so this never stages through the host."""
+    ``name`` is split (its gradient passed through under autograd);
+    ``x`` as it is otherwise. Gloo reduces CUDA tensors itself, so this
+    never stages through the host."""
     if not is_split(name):
         return x
+    if torch.is_grad_enabled():
+        return C.reduce_from(x, _model_group())
     x = x.contiguous()
-    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=_RUNNING.get().mesh.get_group("model"))
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=_model_group())
     return x
 
 
 def gather_model(x: torch.Tensor, dim: int, name: str) -> torch.Tensor:
     """Every model rank's slice of ``x`` along ``dim`` (the D-sharded
     embedding rows, the vocab-sharded logits) when the leaf ``name`` is
-    split."""
+    split (the gradient's own slice back under autograd)."""
     if not is_split(name):
         return x
-    return C.all_gather(x, dim, _RUNNING.get().mesh.get_group("model"))
+    if torch.is_grad_enabled():
+        return C.gather_from(x, dim, _model_group())
+    return C.all_gather(x, dim, _model_group())
+
+
+def gather_data(params: Any, spmd: Optional[ShardCtx], skip: Sequence[str] = ()) -> Any:
+    """FSDP: ``params`` (a parameter tree, or one layer group of it) with
+    every leaf ``spmd`` cut over "data" gathered whole on its
+    :func:`fsdp_dim` (reduce-scattered back under autograd); the subtrees
+    under the top-level keys in ``skip`` as they are; ``params`` itself
+    without such leaves."""
+    if spmd is None or not spmd.data_split:
+        return params
+    group = spmd.group("data")
+    grad = torch.is_grad_enabled()
+
+    def one(keys, leaf):
+        path = _path(keys)
+        if leaf_name(path) not in spmd.data_split:
+            return leaf
+        dim = fsdp_dim(path, leaf.dim())
+        return C.gather_params(leaf, dim, group) if grad else C.all_gather(leaf, dim, group)
+
+    if isinstance(params, dict) and skip:
+        return {k: v if k in skip else _rebuild(v, one, (k,)) for k, v in params.items()}
+    return _rebuild(params, one)
+
+
+# ---------------------------------------------------------------------------
+# Global batch statistics of a training call
+# ---------------------------------------------------------------------------
+
+
+def batch_degree() -> int:
+    """The number of data-parallel ranks whose rows make the running
+    call's global batch (1 outside a training call on a mesh)."""
+    run = _RUNNING.get()
+    if run is None or not run[1]:
+        return 1
+    return run[0].data_shards
+
+
+def batch_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the data-parallel ranks of the running training
+    call, with the sum's adjoint in the backward (every rank's upstream
+    gradient is the same, so each rank's rows get ``d`` times their share
+    and the data-axis mean of the ranks' gradients is the global one);
+    ``x`` itself off a mesh."""
+    if batch_degree() == 1:
+        return x
+    return C.sum_over(x, running().data_groups())
+
+
+def global_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean of ``x`` over every element of the global batch (each rank
+    holds ``x.numel()`` of them); ``x.mean()`` off a mesh."""
+    d = batch_degree()
+    if d == 1:
+        return x.mean()
+    return batch_sum(x.sum()) / (x.numel() * d)
+
+
+def global_mean_rows(x: torch.Tensor) -> torch.Tensor:
+    """The mean over dim 0 of ``x`` across the global batch; ``x.mean(0)``
+    off a mesh."""
+    d = batch_degree()
+    if d == 1:
+        return x.mean(dim=0)
+    return batch_sum(x.sum(dim=0)) / (x.shape[0] * d)
+
+
+def batch_rows() -> Tuple[int, int]:
+    """(this rank's index among the data-parallel ranks, their number) of
+    the running training call; (0, 1) off a mesh. A rank's rows of a
+    global batch are the index-th of that many equal parts."""
+    d = batch_degree()
+    return (0, 1) if d == 1 else (running().data_rank, d)

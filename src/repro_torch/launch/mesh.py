@@ -4,8 +4,9 @@ Port of ``repro/launch/mesh.py``. A JAX mesh spans the devices one
 controller sees; here every device is driven by a process of its own
 (``torch.distributed``, one rank a device), and a mesh is a
 ``torch.distributed.device_mesh.DeviceMesh`` over the ranks with dims
-``("data", "model")``. Functions only: importing this module touches no
-device and no process group.
+``("data", "model")``, or ``("pod", "data", "model")`` for the trainer
+(:func:`mesh_ctx` gives its ``ShardCtx``). Functions only: importing this
+module touches no device and no process group.
 
 The caller names the backend, which is never picked by trying one:
 ``"nccl"`` on CUDA (one rank a card, ``cuda:<local rank>``) or ``"gloo"``
@@ -25,6 +26,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.config import MeshConfig
+from repro_torch.distributed.sharding import ShardCtx, shard_ctx
 
 BACKENDS = ("nccl", "gloo")
 
@@ -72,7 +74,16 @@ def _world() -> int:
 def make_mesh(cfg: MeshConfig) -> DeviceMesh:
     """The mesh of an explicit :class:`MeshConfig` over every rank of the
     default group, ranks laid out row-major (rank = data · model_size +
-    model index on the two-axis mesh)."""
+    model index on the two-axis mesh; ``("pod", "data", "model")`` when
+    ``cfg.pod > 1``, the data-parallel ranks then pod × data). A mesh has
+    axes only: :func:`mesh_ctx` adds ``cfg.fsdp``. ``cfg.pp_stages > 0``
+    raises: pipeline stages over the pod axis train nowhere, in JAX either
+    (``distributed.pipeline`` is the forward schedule alone)."""
+    if cfg.pp_stages > 0:
+        raise NotImplementedError(
+            f"pp_stages={cfg.pp_stages}: no trainer runs pipeline stages over the pod axis (the "
+            "JAX launch/train.py never reads it); repro_torch.distributed.pipeline."
+            "pipeline_forward is the forward schedule")
     n = _world()
     if cfg.n_devices != n:
         raise ValueError(f"mesh {cfg.shape} needs {cfg.n_devices} ranks, the group has {n}")
@@ -81,8 +92,11 @@ def make_mesh(cfg: MeshConfig) -> DeviceMesh:
                       mesh_dim_names=cfg.axis_names)
 
 
-def single_device_mesh() -> DeviceMesh:
-    return make_mesh(MeshConfig(data=1, model=1))
+def mesh_ctx(cfg: MeshConfig) -> ShardCtx:
+    """The training context of ``cfg``: :func:`make_mesh`'s mesh with the
+    batch over its ("pod", "data") axes, "model" tensor parallel and
+    ``cfg.fsdp`` (``sharding.shard_ctx``)."""
+    return shard_ctx(make_mesh(cfg), fsdp=cfg.fsdp)
 
 
 def auto_mesh(model_axis: int = 1) -> DeviceMesh:

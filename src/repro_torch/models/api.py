@@ -16,12 +16,16 @@ seed, as the JAX package's tests do.
 
 ``spmd`` (a :class:`repro_torch.distributed.sharding.ShardCtx`) on
 :func:`model_decode` carries the partitioned ``batch_capacity`` routing
-into every family's decode step, as in JAX. Over a mesh the serving entry
-points (:func:`model_prefill`, :func:`model_prefill_chunk`,
-:func:`model_decode`) take one rank's rows and weight shards and make the
-mesh's model axis the group the layers reduce over; that tensor
-parallelism is ported for the dense, VLM and MoE families, and the others
-raise ``NotImplementedError`` with a split model axis.
+into every family's decode step, as in JAX. Over a mesh every entry point
+takes one rank's rows and weight shards and makes the mesh's model axis
+the group the layers reduce over; that tensor parallelism is ported for
+the dense, VLM and MoE families, and the others raise
+``NotImplementedError`` with a split model axis. The training entry points
+(:func:`model_forward`, :func:`model_loss`) take ``spmd`` as JAX's do: the
+rank's FSDP shards are gathered where they are used (each layer group's
+inside its remat boundary), and the loss and aux terms
+are the global batch's (sums over the data-parallel ranks), so the
+data-axis mean of the ranks' gradients is the global batch's gradient.
 """
 from __future__ import annotations
 
@@ -71,10 +75,20 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
 
 def model_forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-                  generator: Optional[torch.Generator] = None, last_only: bool = False
-                  ) -> Tuple[torch.Tensor, Aux]:
-    """Teacher-forced forward. Returns (logits, aux)."""
+                  generator: Optional[torch.Generator] = None, last_only: bool = False,
+                  spmd: Optional[SH.ShardCtx] = None) -> Tuple[torch.Tensor, Aux]:
+    """Teacher-forced forward. Returns (logits, aux); over a mesh
+    (``spmd``) the logits of this rank's rows and the global batch's aux."""
     _check_family(cfg)
+    _check_spmd(cfg, spmd, train=True)
+    with SH.model_parallel(spmd, batch=True):
+        # FSDP: the leaves outside the layer groups gathered here, each
+        # group's where it runs (transformer.run_groups)
+        return _forward(SH.gather_data(params, spmd, skip=("groups",)), cfg, batch, generator,
+                        last_only)
+
+
+def _forward(params, cfg, batch, generator, last_only):
     if cfg.family == "ssm":
         return SL.forward(params, cfg, batch["tokens"], generator=generator, last_only=last_only)
     if cfg.family == "hybrid":
@@ -106,13 +120,17 @@ def combine_losses(ce: torch.Tensor, aux: Aux, cfg: ModelConfig) -> torch.Tensor
 
 
 def model_loss(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-               generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, Aux]:
+               generator: Optional[torch.Generator] = None,
+               spmd: Optional[SH.ShardCtx] = None) -> Tuple[torch.Tensor, Aux]:
     """CE + the weighted aux losses, and the aux dict with ``ce`` and
     ``loss``: :func:`model_forward` -> cross-entropy -> :func:`combine_losses`
     for every family. batch: tokens (``vlm``: embeds and positions;
-    ``encdec``: and enc_emb), labels, optional loss_mask."""
-    logits, aux = model_forward(params, cfg, batch, generator)
-    ce = cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+    ``encdec``: and enc_emb), labels, optional loss_mask. Over a mesh
+    (``spmd``) the batch holds this rank's rows and the loss is the global
+    batch's on every rank."""
+    logits, aux = model_forward(params, cfg, batch, generator, spmd=spmd)
+    with SH.model_parallel(spmd, batch=True):
+        ce = cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
     loss = combine_losses(ce, aux, cfg)
     aux = dict(aux)
     aux["ce"] = ce
@@ -146,9 +164,9 @@ def make_caches(cfg: ModelConfig, batch: int, ctx: int, device: DeviceLike = Non
     return T.make_cache(cfg, batch, ctx, resolve_device(device))
 
 
-def _check_spmd(cfg: ModelConfig, spmd: Optional[SH.ShardCtx]) -> None:
+def _check_spmd(cfg: ModelConfig, spmd: Optional[SH.ShardCtx], train: bool = False) -> None:
     if spmd is not None:
-        SH.check_tensor_parallel(cfg, spmd.model_shards)
+        SH.check_tensor_parallel(cfg, spmd.model_shards, train=train)
 
 
 def model_prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], ctx: int,

@@ -34,7 +34,8 @@ Tensor parallelism (a rank's shards from
 take their head counts from the weights, so a rank attends with its own
 query heads over its kv heads, and the output projection's partial sums
 (``wo`` split on its rows) are summed over the model axis
-(:func:`_project_out`).
+(:func:`_project_out`); under autograd the projections' input gradient
+is summed over it too (``sharding.copy_model``).
 """
 from __future__ import annotations
 
@@ -77,7 +78,7 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, device: torch.device)
 def _project_q(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """(B, S, nq, hd): every query head, or a rank's share of them."""
     B, S, _ = x.shape
-    q = x @ params["wq"]
+    q = SH.copy_model(x, "attn/wo") @ params["wq"]
     if "bq" in params:
         q = q + params["bq"]
     hd = cfg.head_dim
@@ -87,6 +88,7 @@ def _project_q(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tenso
 def _project_kv(params: Params, x: torch.Tensor, cfg: ModelConfig
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     B, S, _ = x.shape
+    x = SH.copy_model(x, "attn/wo")
     k = x @ params["wk"]
     v = x @ params["wv"]
     if "bk" in params:

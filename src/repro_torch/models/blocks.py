@@ -84,12 +84,13 @@ def fused_dispatch_supported(cfg: ModelConfig, spmd=None) -> bool:
     backend ``pallas_fused`` and 1-D positions (M-RoPE stays on the
     gather/scatter path in the JAX package).
 
-    Under a mesh (``spmd`` a ``ShardCtx`` with ``spmd.spmd``) the fused
-    kernels run on a rank's rows, which needs every dim they fuse over whole
-    on the rank, so they fall back to gather/scatter when the model axis
-    is split (heads and ``d_ff`` columns across ranks: the kernels have no
-    reduction epilogue), under FSDP (a rank sees a fragment of a weight),
-    and for MoE (its aux statistics are global over the batch)."""
+    Under a mesh (``spmd`` a ``ShardCtx`` with ``spmd.spmd``: the training
+    forward passes the running call's) the fused kernels run on a rank's
+    rows, which needs every dim they fuse over whole on the rank, so they
+    fall back to gather/scatter when the model axis is split (heads and
+    ``d_ff`` columns across ranks: the kernels have no reduction epilogue),
+    under FSDP (JAX's rule: a rank's weights are fragments), and for MoE
+    (its aux statistics are global over the batch), as in JAX."""
     if not (cfg.mod.backend == "pallas_fused" and cfg.attn.pos_emb in ("rope", "none")):
         return False
     if spmd is not None and spmd.spmd:

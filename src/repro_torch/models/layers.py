@@ -197,6 +197,7 @@ def activation(act: str, rounded_once: bool = False):
 def mlp(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The block's MLP; summed over the model axis when the weights hold a
     rank's ``d_ff`` columns (``w_down``'s rows) only."""
+    x = SH.copy_model(x, "mlp/w_up")
     return SH.reduce_model(mlp_act(params, x, cfg.act), "mlp/w_down")
 
 
@@ -238,6 +239,7 @@ def unembed(params: Params, x: torch.Tensor) -> torch.Tensor:
     model axis (tensor parallelism refuses tied tables)."""
     if "unemb" not in params:
         return x @ params["tok"].T
+    x = SH.copy_model(x, "embed/unemb")
     return SH.gather_model(x @ params["unemb"], -1, "embed/unemb")
 
 
@@ -250,12 +252,13 @@ def cross_entropy(
     logits: torch.Tensor, labels: torch.Tensor, mask: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
     """Mean CE over valid positions; logits (..., V) in any float dtype,
-    computed in f32."""
+    computed in f32. In a training call on a mesh the mean is the global
+    batch's (the sums over the data-parallel ranks)."""
     logits32 = logits.float()
     lse = torch.logsumexp(logits32, dim=-1)
     gold = torch.take_along_dim(logits32, labels[..., None].long(), dim=-1)[..., 0]
     nll = lse - gold
     if mask is not None:
         m = mask.float()
-        return (nll * m).sum() / m.sum().clamp_min(1.0)
-    return nll.mean()
+        return SH.batch_sum((nll * m).sum()) / SH.batch_sum(m.sum()).clamp_min(1.0)
+    return SH.global_mean(nll)

@@ -184,20 +184,25 @@ def moe_mlp(params: Params, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Te
     else:  # this rank's experts (expert parallelism over the model axis)
         E_local = params["w_up"].shape[0]
         e0 = SH.model_rank() * E_local
-        ye = experts(params, x, r.disp[:, e0:e0 + E_local], cfg)
+        # the experts' input and the gates are replicated, their uses partial
+        xe = SH.copy_model(x, "moe/w_up")
+        r = r._replace(gate=SH.copy_model(r.gate, "moe/w_up"))
+        ye = experts(params, xe, r.disp[:, e0:e0 + E_local], cfg)
         out = combine(ye, r, S, x.dtype, torch_dtype(cfg.moe.combine_dtype), e0,
                       reduce=lambda t: SH.reduce_model(t, "moe/w_up"))
 
+    # global batch statistics in a training call on a mesh (sharding.batch_sum)
     lp = r.logits.reshape(-1, E_total)
     top1 = lp.argmax(dim=-1)  # the first maximum, as jnp.argmax
-    f_e = (top1[:, None] == torch.arange(E_total, device=x.device)).float().mean(dim=0)
-    P_e = r.probs.reshape(-1, E_total).mean(dim=0)
+    f_e = SH.global_mean_rows((top1[:, None] == torch.arange(E_total, device=x.device)).float())
+    P_e = SH.global_mean_rows(r.probs.reshape(-1, E_total))
     is_real = r.sel < E
     aux: Aux = {
         "moe/lb_loss": E_total * (f_e * P_e).sum(),
-        "moe/z_loss": torch.logsumexp(lp, dim=-1).square().mean(),
-        "moe/drop_frac": 1.0 - r.keep.float().sum() / is_real.float().sum().clamp_min(1.0),
+        "moe/z_loss": SH.global_mean(torch.logsumexp(lp, dim=-1).square()),
+        "moe/drop_frac": 1.0 - SH.batch_sum(r.keep.float().sum())
+        / SH.batch_sum(is_real.float().sum()).clamp_min(1.0),
     }
     if cfg.moe.n_noop_experts > 0:
-        aux["moe/noop_frac"] = (~is_real).float().mean()
+        aux["moe/noop_frac"] = SH.global_mean((~is_real).float())
     return out, aux

@@ -126,13 +126,23 @@ def _train_group(gp: Params, positions: torch.Tensor, cfg: ModelConfig, seed: Op
             return BLK.block_delta(mp["block"], xs, ps, cfg)
 
         fused_fn = None
-        if BLK.fused_dispatch_supported(cfg):
+        if BLK.fused_dispatch_supported(cfg, SH.running()):
             def fused_fn(xf, decision, pf):
                 return BLK.block_delta_fused(mp["block"], xf, pf, decision, cfg)
 
         h, a = ROUT.apply_mod(mp, h, positions, delta_fn, cfg, gen, fused_block_fn=fused_fn)
         aux.update(a)
     return h, aux
+
+
+def _group_body(run, group_fn, gp, positions, cfg, seed, x):
+    """One layer group under the running model call's mesh context
+    (re-entered: a recomputation runs on autograd's threads), the group's
+    FSDP leaves gathered here, inside the remat boundary: under
+    ``remat="full"`` the recomputation gathers them again, and a rank
+    holds one group's gathered weights at a time."""
+    with SH.resumed(run):
+        return group_fn(SH.gather_data(gp, SH.running()), positions, cfg, seed, x)
 
 
 def mean_aux(aux_steps: List[Aux]) -> Aux:
@@ -150,16 +160,19 @@ def run_groups(groups: List[Params], group_fn, x: torch.Tensor, positions: torch
     ``group_fn(gp, positions, cfg, seed, h) -> (h, aux)`` per group, with
     one stochastic-router seed per group drawn from ``generator`` (a CPU
     generator), recomputed in the backward (``torch.utils.checkpoint``)
-    under ``cfg.remat="full"``. Returns (h, aux means over the groups)."""
+    under ``cfg.remat="full"``. On an FSDP mesh each group's leaves are
+    gathered as the group runs (:func:`_group_body`). Returns (h, aux
+    means over the groups)."""
     if cfg.remat not in ("none", "full"):
         raise NotImplementedError(
             f"remat {cfg.remat!r}: only 'none' and 'full' are ported (ROADMAP Queue 1)")
     stochastic = cfg.mod.enabled and cfg.mod.router_type == "stochastic"
     root = generator if generator is not None else torch.Generator().manual_seed(0)
     aux_steps: List[Aux] = []
+    run = SH.current()  # the mesh context, re-entered by the recomputation
     for gp in groups:
         seed = int(torch.randint(0, 2**62, (1,), generator=root)) if stochastic else None
-        body = partial(group_fn, gp, positions, cfg, seed)
+        body = partial(_group_body, run, group_fn, gp, positions, cfg, seed)
         if cfg.remat == "full":
             x, a = torch.utils.checkpoint.checkpoint(body, x, use_reentrant=False)
         else:

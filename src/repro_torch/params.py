@@ -143,6 +143,28 @@ def _stack(trees: List[Any]) -> Any:
     return torch.stack([t.detach().cpu() for t in trees])
 
 
+def jax_ndims(params: Tree) -> List[int]:
+    """Each leaf's rank in the JAX tree, in ``tree_leaves`` order of the
+    port's ``params``: a group leaf carries the stacking axes (two for the
+    hybrid's groups, one for the others and the enc-dec ``enc_blocks``)."""
+    depth = {"groups": _group_depth(params), "enc_blocks": 1}
+    out: List[int] = []
+
+    def walk(tree: Any, extra: int) -> None:
+        if isinstance(tree, dict):
+            for v in tree.values():
+                walk(v, extra)
+        elif isinstance(tree, list):
+            for v in tree:
+                walk(v, extra)
+        else:
+            out.append(tree.dim() + extra)
+
+    for k, v in params.items():
+        walk(v, depth.get(k, 0))
+    return out
+
+
 def shard_jax_params(tree: Tree, cfg: Any, mesh: Any, coords: Dict[str, int],
                      device: DeviceLike = None) -> Tuple[Tree, FrozenSet[str]]:
     """One rank's shards of a JAX parameter tree (numpy leaves, group leaves

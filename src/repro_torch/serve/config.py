@@ -109,6 +109,10 @@ class EngineConfig:
                              "and their scales live behind the page tables")
         if self.mesh is not None:
             names = tuple(getattr(self.mesh, "mesh_dim_names", None) or ())
+            if names == ("pod", "data", "model"):
+                raise NotImplementedError(
+                    "serving over a mesh with a 'pod' axis is not ported yet (a later slice: "
+                    "ROADMAP Queue 1 item 6); serve over ('data', 'model')")
             if names != ("data", "model"):
                 raise ValueError(
                     "mesh must be a torch.distributed DeviceMesh with dims ('data', 'model') "

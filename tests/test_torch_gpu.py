@@ -95,7 +95,16 @@ exp(l_i - l_j) carries that rounding (up to |l|·2^-24 relative), so the
 outputs agree within 1e-5 of their largest value plus 2·max|l|·2^-24 on
 either path; its backward is autograd through the plain version, so its
 gradients equal the plain version's.
+
+The mesh trainer (phase 17 of ``chip_smoke.py``): the autograd collectives
+over a one-rank NCCL group pass values and gradients through unchanged;
+the int8 compressed all-reduce of CUDA gradients is bitwise the same call
+on CPU tensors (its quantization is exact per element); a train step on a
+(1, 1) NCCL mesh has the single-process step's loss bit for bit and
+launches the fused routed kernels under pure DP and the gather/scatter
+kernels under FSDP.
 """
+import contextlib
 import dataclasses
 import math
 import sys
@@ -1751,3 +1760,95 @@ def test_mesh_one_rank_nccl_equals_data_shards_1(dev, tmp_path):
         M.destroy_process_group()
     assert streams == ref_streams and kb == ref_kb and rows == 8
     np.testing.assert_array_equal(logits, ref_logits)
+
+
+@contextlib.contextmanager
+def _one_rank_nccl(tmp_path):
+    from torch import distributed as dist
+
+    from repro_torch.launch import mesh as M
+
+    M.init_process_group("nccl", rank=0, world_size=1,
+                         store=dist.FileStore(str(tmp_path / "store"), 1))
+    try:
+        yield M
+    finally:
+        M.destroy_process_group()
+
+
+def test_autograd_collectives_one_rank_nccl(dev, tmp_path):
+    from torch import distributed as dist
+
+    from repro_torch.distributed import collectives as C
+
+    g = torch.Generator(device="cpu").manual_seed(0)
+    x = torch.randn((4, 6), generator=g).to(dev).requires_grad_(True)
+    w = torch.randn((4, 6), generator=g).to(dev)
+    with _one_rank_nccl(tmp_path):
+        group = dist.group.WORLD
+        outs = [C.copy_to(x, group), C.reduce_from(x, group), C.gather_from(x, 1, group),
+                C.gather_params(x, 0, group), C.sum_over(x, (group,))]
+        for y in outs:
+            assert y.is_cuda
+            torch.testing.assert_close(y, x, rtol=0, atol=0)
+            (gx,) = torch.autograd.grad((y * w).sum(), x)
+            torch.testing.assert_close(gx, w, rtol=0, atol=0)
+        assert torch.equal(C.reduce_scatter(w, 1, group), w)
+        assert torch.equal(C.all_gather(w, 0, group), w)
+
+
+def test_compressed_all_reduce_cuda_equals_cpu(dev, tmp_path):
+    from torch import distributed as dist
+
+    from repro_torch.optim.compression import compressed_all_reduce, init_error_feedback
+
+    g = torch.Generator(device="cpu").manual_seed(1)
+    # leaves at many scales: a reciprocal multiply in place of the divide
+    # by 127 is an ulp off for a share of them
+    grads = [torch.randn((1000,), generator=g), torch.randn((33, 7), generator=g) * 1e-3]
+    grads += [torch.randn((64,), generator=g) * float(torch.rand((), generator=g)) * 10.0 ** e
+              for e in range(-4, 4) for _ in range(8)]
+    err = [torch.randn(t.shape, generator=g) * 1e-2 for t in grads]
+    with _one_rank_nccl(tmp_path):
+        cpu_group = dist.new_group(backend="gloo")
+        want, want_e = compressed_all_reduce(grads, cpu_group, err)
+        got, got_e = compressed_all_reduce([t.to(dev) for t in grads], dist.group.WORLD,
+                                           [t.to(dev) for t in err])
+        zeros = init_error_feedback([t.to(dev) for t in grads])
+    for a, b in zip(got + got_e, want + want_e):
+        assert torch.equal(a.cpu(), b)
+    assert all(z.is_cuda and not z.any() for z in zeros)
+
+
+@pytest.mark.parametrize("fsdp", [False, True])
+def test_mesh_train_step_one_rank_launches(dev, tmp_path, fsdp):
+    """60m at 4 layers, f32, pallas_fused: the (1, 1) mesh step's loss is
+    the single-process step's (of the gather/scatter backend under FSDP)
+    bit for bit; DP launches the fused kernels, FSDP the fallback."""
+    from chip_smoke import parity_60m_config
+    from repro_torch.config import MeshConfig, OptimConfig, TrainConfig, with_mod_backend
+    from repro_torch.kernels import build
+    from repro_torch.models import api
+    from repro_torch.train.loop import make_train_state, make_train_step
+
+    cfg = with_mod_backend(parity_60m_config(), "pallas_fused")
+    tcfg = TrainConfig(global_batch=4, seq_len=64, optim=OptimConfig(lr=1e-3, warmup_steps=1))
+    toks = torch.randint(0, cfg.vocab, (4, 65), generator=torch.Generator().manual_seed(2))
+    batch = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+    ref_cfg = with_mod_backend(cfg, "pallas") if fsdp else cfg
+    ref_state = make_train_state(ref_cfg, dev, params=api.init_model(cfg, device=dev, seed=0))
+    _, m_ref = make_train_step(ref_cfg, tcfg)(ref_state, batch)
+    with _one_rank_nccl(tmp_path) as M:
+        spmd = M.mesh_ctx(MeshConfig(data=1, model=1, fsdp=fsdp))
+        state = make_train_state(cfg, dev, params=api.init_model(cfg, device=dev, seed=0),
+                                 spmd=spmd)
+        step = make_train_step(cfg, tcfg, spmd)
+        build.reset_counters()
+        _, m = step(state, batch)
+        counts = build.launch_counts()
+    assert float(m["loss"]) == float(m_ref["loss"])
+    fused = ("routed_attention", "routed_mlp_scatter")
+    dispatch = ("gather_rows", "scatter_add_rows")
+    on, off = (dispatch, fused) if fsdp else (fused, dispatch)
+    assert all(counts[k] > 0 for k in on + ("flash_attention",)), counts
+    assert not any(counts[k] for k in off), counts

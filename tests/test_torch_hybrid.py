@@ -51,7 +51,7 @@ from repro.train import loop as JLOOP  # noqa: E402
 from repro_torch import config as TC  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.core import routing as TROUT  # noqa: E402
-from repro_torch.data.loader import SyntheticLoader  # noqa: E402
+from repro_torch.data.loader import ShardedLoader  # noqa: E402
 from repro_torch.data.synthetic import SyntheticLM  # noqa: E402
 from repro_torch.kernels import flash_attention as TFA  # noqa: E402
 from repro_torch.kernels import ragged as KRG  # noqa: E402
@@ -254,7 +254,7 @@ def test_trainer_losses_match_jax_3_steps(tmp_path):
     for i in range(steps):
         jstate, m = jstep(jstate, jax.tree.map(jnp.asarray, src.batch(i, 4)))
         jlosses.append(float(m["loss"]))
-    loader = SyntheticLoader(SyntheticLM(tc.vocab, 32, seed=0), 4, torch.device("cpu"))
+    loader = ShardedLoader(SyntheticLM(tc.vocab, 32, seed=0), 4, torch.device("cpu"))
     trainer = Trainer(tc, tt, loader, device="cpu", log_fn=lambda m: None)
     state = make_train_state(tc, "cpu", params=from_jax_params(jax.tree.map(np.asarray, jp),
                                                                "cpu"))

@@ -517,3 +517,84 @@ def test_tensor_parallel_refusals():
     gqa = dataclasses.replace(tc, attn=dataclasses.replace(tc.attn, n_heads=8, n_kv_heads=2))
     assert [TSH.kv_head_range(gqa, 4, r) for r in range(4)] == [(0, 1), (0, 1), (1, 2), (1, 2)]
     assert [TSH.kv_head_range(gqa, 2, r) for r in range(2)] == [(0, 1), (1, 2)]
+
+
+# ---------------------------------------------------------------------------
+# The mesh trainer's placements: FSDP params, the train state, the batch
+# ---------------------------------------------------------------------------
+
+# one architecture of every config module, at full size (the divisibility
+# fallbacks depend on the real widths)
+CONFIG_ARCHS = ("mod-paper-1b", "olmoe-1b-7b", "phi3.5-moe-42b-a6.6b", "mamba2-1.3b",
+                "zamba2-2.7b", "whisper-tiny", "qwen2-vl-7b", "granite-8b", "granite-20b",
+                "mistral-nemo-12b", "qwen2-7b")
+TRAIN_MESHES = ({"data": 2, "model": 2}, {"data": 4, "model": 16},
+                {"pod": 2, "data": 2, "model": 4}, {"data": 3, "model": 1})
+
+
+def _abstract_mesh(sizes):
+    return jax.sharding.AbstractMesh(tuple(sizes.values()), tuple(sizes))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_state_shapes(arch):
+    jc = JC.get_config(arch)
+    params = jax.eval_shape(lambda: JAPI.init_model(jax.random.PRNGKey(0), jc))
+    zeros = jax.ShapeDtypeStruct((), jnp.int32)
+    return {"params": params, "opt": {"m": params, "v": params, "count": zeros}, "step": zeros}
+
+
+def _specs(shardings):
+    return {k: tuple(v.spec) for k, v in flatten_dict(shardings).items()}
+
+
+@pytest.mark.parametrize("arch", CONFIG_ARCHS)
+def test_fsdp_param_and_state_placement_match_jax(arch):
+    """``param_placement(..., fsdp=True)`` and ``state_placement`` against
+    JAX's ``param_pspec`` / ``state_shardings`` on every leaf, with and
+    without FSDP, on 2- and 3-axis meshes."""
+    state = _jax_state_shapes(arch)
+    n_data = 0
+    for sizes in TRAIN_MESHES:
+        mesh = _abstract_mesh(sizes)
+        for fsdp in (False, True):
+            mcfg = JC.MeshConfig(pod=sizes.get("pod", 1), data=sizes["data"],
+                                 model=sizes["model"], fsdp=fsdp)
+            want = _specs(JSH.state_shardings(state, mesh, mcfg))
+            got = flatten_dict(TSH.state_placement(state, sizes, fsdp=fsdp))
+            assert got == want, (sizes, fsdp)
+            for path, leaf in flatten_dict(state["params"]).items():
+                spec = TSH.param_placement(path, leaf.shape, sizes, fsdp=fsdp)
+                assert spec == tuple(JSH.param_pspec(path, leaf.shape, mesh, mcfg))
+                n_data += "data" in spec
+                dim = TSH.fsdp_dim(path, len(leaf.shape))
+                if "data" in spec:  # the "F" slot is the dim FSDP gathers
+                    assert spec[dim] == "data"
+    assert n_data  # FSDP cut something
+
+
+@pytest.mark.parametrize("sizes", TRAIN_MESHES, ids=lambda s: "x".join(map(str, s.values())))
+def test_batch_placement_matches_jax(sizes):
+    """``batch_placement`` against JAX's ``batch_shardings``: the batch dim
+    over ("pod", "data"), M-RoPE positions on dim 1, replicated where the
+    batch does not divide."""
+    mesh = _abstract_mesh(sizes)
+    for B in (12, 7):
+        batch = {"tokens": np.zeros((B, 16), np.int32), "labels": np.zeros((B, 16), np.int32),
+                 "loss_mask": np.zeros((B, 16), np.float32),
+                 "embeds": np.zeros((B, 16, 8), np.float32),
+                 "positions": np.zeros((3, B, 16), np.int32),
+                 "enc_emb": np.zeros((B, 30, 8), np.float32)}
+        want = _specs(JSH.batch_shardings(batch, mesh))
+        assert flatten_dict(TSH.batch_placement(batch, sizes)) == want, (sizes, B)
+
+
+def test_shard_ctx_data_axes_match_jax():
+    """``shard_ctx(mesh, fsdp=...)``: the batch over the mesh's ("pod",
+    "data") axes and its degree, as JAX's ``shard_ctx``; ``batch_axes``."""
+    for sizes in TRAIN_MESHES:
+        mesh = _abstract_mesh(sizes)
+        assert TSH.batch_axes(sizes) == JSH.batch_axes(mesh)
+    ctx = JSH.shard_ctx(None, data_shards=4, fsdp=True)
+    tctx = TSH.shard_ctx(None, data_shards=4, fsdp=True)
+    assert (tctx.data_shards, tctx.fsdp, tctx.mesh) == (ctx.data_shards, ctx.fsdp, None)

@@ -44,7 +44,7 @@ from repro.train import loop as JLOOP  # noqa: E402
 from repro_torch import config as TC  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.core import routing as TROUT  # noqa: E402
-from repro_torch.data.loader import SyntheticLoader  # noqa: E402
+from repro_torch.data.loader import ShardedLoader  # noqa: E402
 from repro_torch.data.synthetic import SyntheticLM  # noqa: E402
 from repro_torch.models import api as TAPI  # noqa: E402
 from repro_torch.models import blocks as TBLK  # noqa: E402
@@ -240,7 +240,7 @@ def test_trainer_trajectory_matches_jax_20_steps(tmp_path, masks_of):
     for i in range(steps):
         jstate, m = jstep(jstate, jax.tree.map(jnp.asarray, src.batch(i, 4)))
         jlosses.append(float(m["loss"]))
-    loader = SyntheticLoader(SyntheticLM(tc.vocab, 32, seed=0), 4, torch.device("cpu"))
+    loader = ShardedLoader(SyntheticLM(tc.vocab, 32, seed=0), 4, torch.device("cpu"))
     trainer = Trainer(tc, tt, loader, device="cpu", log_fn=lambda m: None)
     state = make_train_state(tc, "cpu", params=from_jax_params(jax.tree.map(np.asarray, jp), "cpu"))
     tlosses = []
@@ -280,7 +280,7 @@ def test_resume_continues_the_same_run(tmp_path):
         losses = []
         for n in chunks:
             _, tt = _tcfg(6, ckpt_dir=str(directory), ckpt_every=2)
-            loader = SyntheticLoader(SyntheticLM(tc.vocab, 32, seed=0), 4, torch.device("cpu"))
+            loader = ShardedLoader(SyntheticLM(tc.vocab, 32, seed=0), 4, torch.device("cpu"))
             trainer = Trainer(tc, tt, loader, device="cpu", log_fn=lambda m: None)
             state = trainer.init_or_resume()
             state, m = trainer.run(state, n)
@@ -298,7 +298,7 @@ def test_resume_continues_the_same_run(tmp_path):
 def test_nan_loss_trips_the_circuit_breaker(tmp_path):
     _, tc = _cfgs()
     _, tt = _tcfg(3, ckpt_dir=str(tmp_path))
-    loader = SyntheticLoader(SyntheticLM(tc.vocab, 32, seed=0), 4, torch.device("cpu"))
+    loader = ShardedLoader(SyntheticLM(tc.vocab, 32, seed=0), 4, torch.device("cpu"))
     trainer = Trainer(tc, tt, loader, ckpt=CheckpointManager(str(tmp_path)), device="cpu",
                       log_fn=lambda m: None)
     state = make_train_state(tc, "cpu", seed=0)
