@@ -13,6 +13,7 @@
     python3 chip_smoke.py --encdec-vlm            # phase 15 (whisper-tiny, qwen2-vl-7b) alone
     python3 chip_smoke.py --mesh                  # phase 16 (data_shards, the mesh engine) alone
     python3 chip_smoke.py --mesh-train            # phase 17 (the mesh trainer) alone
+    python3 chip_smoke.py --hybrid-remat          # phase 18 (narrow hybrid, remat, packing) alone
 
 Imports nothing of JAX or of the JAX package. Builds the port's CUDA
 kernels from ``src/repro_torch/kernels/csrc`` and runs, in order (any
@@ -208,14 +209,15 @@ failure raises and exits non-zero):
    widths (k=128 of S=1024), ssd_intra_chunk at zamba2's forward shape:
    each against its plain version, its plan held, timed (CUDA-graph
    replay) beside its bound and (flash) SDPA; (c) granite-8b, granite-20b,
-   mistral-nemo-12b and qwen2-7b at full width and depth, bf16, seed 0,
-   backend pallas, on phase 6c's workload through the paged + prefix and
-   ragged engines: streams equal, the prefix cache's saving, tok/s,
+   mistral-nemo-12b and qwen2-7b at full width and CONFIGS_DENSE_LAYERS (8)
+   of their layers, bf16, seed 0, backend pallas, on phase 6c's workload
+   through the paged + prefix and ragged engines: streams equal, the prefix cache's saving, tok/s,
    prefill ms a prompt, decode wall and (a profiled step) busy ms, idle
    share, peak memory, ``kv_bytes`` and the launches (a step's held to its
    layers by counter and torch.profiler); (d) zamba2-2.7b at full width
-   and HYBRID_LAYERS (18) of its 54 layers, bf16: phase 9d's 16 prompts (35-124 tokens), 32 new tokens, 8
-   slots (policy fcfs), on the contiguous and the paged pool (streams
+   and HYBRID_LAYERS (6) of its 54 layers, bf16: phase 9d's 16 prompts
+   (35-124 tokens), 32 new tokens, 8 slots (policy fcfs), on the
+   contiguous and the paged pool (streams
    equal, a profiled step's launches held), then one teacher-forced
    forward at B=1, S=2048 (its loss finite, flash on mma.sync tiles at head
    dim 80 once per segment, the SSD kernel on tensor cores at d_state 64).
@@ -271,6 +273,37 @@ failure raises and exits non-zero):
    placement, each run's peak device memory beside one process's; one ``compressed_all_reduce`` of CUDA gradients bitwise the
    same call on CPU tensors; a two-stage ``pipeline_forward`` on CUDA
    tensors within MESH_TRAIN_PIPE_TOL of the sequential stages.
+18. the hybrid from narrow pages and int8 weights, remat "selective", packed
+   documents (``[hybrid-remat]`` lines; after phase 17, before phase 13):
+   (a) ``zamba2-2.7b`` at full width and HYBRID_QUANT_LAYERS (18) of its 54
+   layers, bf16, seed 0, 14d's paged engine (8 slots, page 16, fcfs) over 14d's
+   first 2 requests in bf16 and under int8/page KV, fp8/head KV and int8
+   weights: every request done with its tokens, tokens equal to the bf16
+   run's and each first token's top-1/top-2 gap beside the logit change
+   (reported), ``kv_bytes`` and its ratio to the bf16 pool's, wall a step,
+   a profiled step's busy ms with its launches held to the sites by
+   counter (2 dequantizing gathers, 1 plain gather and 3 + 2/3 scatters a
+   site) and the dequantizing gathers torch.profiler lists (printed), the
+   run's launches held to its steps, the cost of widening the int8
+   weights; then bf16 on the int8 tree widened once, whose streams and
+   first-token logits must be the int8-weights run's bits; then the
+   kernels at phase 18's shapes against their plain versions, timed beside
+   bound and library call: the dequantizing gather on every site's K and V
+   ring of those pools as their profiled step left them (bitwise), the paged
+   gather and decode-row scatter at those pools' rows, flash attention's
+   training call at the shared block (32 heads of 80, B=2, S=2048), the
+   MoD dispatch of the routed Mamba2 layers (B=2, S=2048, D=2560, k=256)
+   and the SSD kernel at their full and routed shapes; (b) remat on the
+   card: ``zamba2-2.7b`` at all 54 layers, bf16, B=2, S=2048, 3 Trainer
+   steps under "selective" and then "full" ("none" does not fit), and
+   ``mod-paper-1b`` at SERVE_1B_LAYERS, pallas_fused, B=4, S=2048, 2 steps
+   under "none", "selective" and "full", from the same weights and
+   batches: losses of steps 1-2 within REMAT_LOSS_RTOL across modes, busy
+   and wall ms a step, the state's bytes, peak allocated and reserved
+   memory, each run's launches; (c) one Trainer step of ``mod-paper-60m``
+   (f32, PARITY_60M_LAYERS) with two microbatches on rows packed from
+   documents (``data.packing.pack_documents``, its ``loss_mask``), CPU
+   against the card within PACKED_TOL.
 
 To keep the script inside its 1200 s, depth is cut where an earlier
 phase does not need it: phases 4, 6c-11 and 13 serve ``mod-paper-1b`` at
@@ -278,8 +311,10 @@ full width and SERVE_1B_LAYERS (8) of its 24 layers (phase 5 trains all
 24); phases 6b, 7a, 8a, 11a and 13a hold the CPU against the card on
 ``mod-paper-60m`` at PARITY_60M_LAYERS (4) of its 8 (phase 3 keeps all 8);
 12b serves ``olmoe-1b-7b`` at MOE_SERVE_LAYERS (4) of its 16; 14d runs
-``zamba2-2.7b`` at HYBRID_LAYERS (18) of its 54. Phase 14's dense models
-and phase 15 run their models whole. Each phase's wall time is printed on a ``[time]``
+``zamba2-2.7b`` at HYBRID_LAYERS (6) of its 54 (18a at 18, 18b trains
+all 54); 14c serves the four dense models at CONFIGS_DENSE_LAYERS (8) of
+theirs. Phase 15
+runs its models whole. Each phase's wall time is printed on a ``[time]``
 line.
 
 ``--flash-timing [ROOT]`` only times the flash kernel of the port under
@@ -308,7 +343,8 @@ version, and on the CUDA-core path with ``F.silu`` in the SSM blocks, and
 prints the four loss trajectories.
 ``--moe`` builds the kernels and runs phase 12 alone; ``--overload``
 phase 13 alone; ``--configs`` phase 14 alone; ``--encdec-vlm`` phase 15
-alone; ``--mesh`` phase 16 alone; ``--mesh-train`` phase 17 alone.
+alone; ``--mesh`` phase 16 alone; ``--mesh-train`` phase 17 alone;
+``--hybrid-remat`` phase 18 alone.
 ``--mlp-losses`` only runs phase 5's training four times, with
 routed_mlp_scatter on the wgmma GEMM, on the CUDA-core GEMM and as its
 plain version, and with routed_attention as its plain version, and prints
@@ -330,6 +366,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from functools import partial
 from pathlib import Path
 from typing import NamedTuple
 
@@ -4769,6 +4806,10 @@ def moe_phase(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 CONFIGS_DENSE = ("granite-8b", "granite-20b", "mistral-nemo-12b", "qwen2-7b")
+# 14c serves each at full width and CONFIGS_DENSE_LAYERS of its layers
+# (whole, they took 82-127 s of a script that then ran 802-938 s on slow
+# H100 hosts with phase 18; half their layers took 54-59 s)
+CONFIGS_DENSE_LAYERS = 8
 CONFIGS_HYBRID = "zamba2-2.7b"
 # 14a: each config's smoke size with what sets it apart kept (the CPU tests'
 # reduced configs): GQA with a group of 4, MQA with 48 query heads, d_model
@@ -4790,14 +4831,16 @@ CONFIGS_ROUTED = {  # (D, nq, nkv, d_ff, biases), k = 128 routed rows of S = 102
     "granite-20b": (6144, 48, 1, 24576, False),
 }
 ZAMBA2_SSD = (1, 80, 16, 128, 64, 64)  # B, H, NC, Q, hd, ds of the forward at S = 2048
-# 14d: zamba2-2.7b at full width, HYBRID_LAYERS of its 54 layers (3 of its
-# 9 segments: the whole model took 134-180 s of the script's 1200, and
-# phase 15 came after it): phase 9d's prompts (16 of 32-128 drawn tokens:
-# 35-124), 8 slots, 32 new tokens, on the contiguous and the paged pool;
-# the fcfs policy admits every free slot (mod_aware admits round(0.125 *
-# 8) = 1 stepped prompt at a time: ~1400 steps of the whole model where
-# fcfs takes ~300); then one teacher-forced forward
-HYBRID_LAYERS = 18
+# 14d: zamba2-2.7b at full width, HYBRID_LAYERS of its 54 layers (1 of its
+# 9 segments, one shared-block site: the whole model took 134-180 s of the
+# script's 1200, and phases 15-18 come after it; 18 layers took 42-82 s
+# and 12 layers 40-45 s, the script 802-938 s on slow hosts once phase 18
+# was added; 18a serves 3 sites, 18b trains all 54 layers): phase 9d's prompts (16 of 32-128
+# drawn tokens: 35-124), 8 slots, 32 new tokens, on the contiguous and the
+# paged pool; the fcfs policy admits every free slot (mod_aware admits
+# round(0.125 * 8) = 1 stepped prompt at a time: ~1400 steps of the whole
+# model where fcfs takes ~300); then one teacher-forced forward
+HYBRID_LAYERS = 6
 HYBRID_SERVE = dict(B=8, requests=16, lo=32, hi=128, gen=32, page=16)
 HYBRID_FWD = dict(B=1, S=2048)
 
@@ -4931,7 +4974,6 @@ def configs_kernels(dev, results) -> None:
     (flash) SDPA."""
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import ssd as KSSD
     from repro_torch.kernels import swiglu as SW
 
     g = torch.Generator(device=dev).manual_seed(41)
@@ -5064,36 +5106,14 @@ def configs_kernels(dev, results) -> None:
                 results.setdefault(name, {})[(arch, dtype)] = r
             del x, a, h, wa, wh, out, want, ap, mp
 
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    x, loglam, dt, Bm, Cm = _ssd_inputs(dev, torch.bfloat16, *ZAMBA2_SSD, 43, True)
-    plan = KSSD.ssd_plan(*ZAMBA2_SSD, torch.bfloat16, sms, KSSD.aligned_rows(x, Bm, Cm))
-    build.reset_counters()
-    y, inc = KSSD.ssd_intra_chunk(x, loglam, dt, Bm, Cm)
-    calls = dict(build.COUNTERS["ssd_intra_chunk"].by_call)
-    if plan.path != "tensor" or calls != {("tensor", *ZAMBA2_SSD): 1}:
-        raise AssertionError(f"14b ssd_intra_chunk zamba2: plan {plan.path}, launched {calls}")
-    wy, winc = KSSD.ssd_intra_chunk_plain(x, loglam, dt, Bm, Cm)
-    tol = SSD_TOL + 2 * torch.cumsum(loglam, -1).abs().max().item() * 2.0**-24
-    errs = [((p - q).abs().max() / q.abs().max()).item() for p, q in ((y, wy), (inc, winc))]
-    if max(errs) > tol or not bool(torch.isfinite(y).all() and torch.isfinite(inc).all()):
-        raise AssertionError(f"14b ssd_intra_chunk zamba2: {errs} beyond {tol:.3g}")
-    nbytes, flops = ssd_work(*ZAMBA2_SSD, x.element_size())
-    how: dict = {}
-    r = dict(ms=replay_ms(lambda: KSSD.ssd_intra_chunk(x, loglam, dt, Bm, Cm), how, "ms"),
-             plain_ms=replay_ms(lambda: KSSD.ssd_intra_chunk_plain(x, loglam, dt, Bm, Cm), how,
-                                "plain_ms", reps=5),
-             library_ms=None, bound=bound_ms(nbytes, flops, torch.bfloat16), timed_by=how,
-             max_abs_err=max((y - wy).abs().max().item(), (inc - winc).abs().max().item()),
-             plan=plan._asdict(), shape=f"zamba2 forward x{tuple(x.shape)} ds=64 bfloat16")
-    log(f"[configs] 14b ssd_intra_chunk {r['shape']}: path {plan.path}, G={plan.G}, grid "
-        f"{plan.grid}; y / inc within {errs[0]:.3g} / {errs[1]:.3g} of their largest (limit "
-        f"{tol:.3g}); ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} bound_ms={r['bound'][0]:.4f} "
-        f"({r['bound'][1]}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+    r = ssd_row("[configs] 14b", "zamba2 forward", dev, ZAMBA2_SSD, 43)
+    del r["call"]  # (its launches: phase 14d's forward, read by key)
     results.setdefault("ssd_intra_chunk", {})[("zamba2 forward", torch.bfloat16)] = r
 
 
 def serve_dense_config(dev, arch: str) -> dict:
-    """14c: one dense config at full width and depth, bf16, random weights
+    """14c: one dense config at full width and CONFIGS_DENSE_LAYERS of its
+    layers, bf16, random weights
     from seed 0, backend pallas, on PAGED_1B's workload through the paged +
     prefix and the ragged engine: streams equal, every request done with
     its 32 tokens, the prefix cache saving 7 x 512 prefill tokens; tok/s,
@@ -5110,7 +5130,8 @@ def serve_dense_config(dev, arch: str) -> dict:
     from repro_torch.serve.scheduler import GENERATE
     from repro_torch.utils import tree_leaves
 
-    cfg = with_mod_backend(get_config(arch), "pallas")
+    cfg = with_mod_backend(dataclasses.replace(get_config(arch), n_layers=CONFIGS_DENSE_LAYERS),
+                           "pallas")
     release_device_memory(dev)
     t0 = time.perf_counter()
     params = api.init_model(cfg, device=dev, seed=0)
@@ -5278,6 +5299,19 @@ def serve_both_pools(prefix, tag, params, cfg, dev, reqs_fn, B, ctx, page, step_
     return counts, flash, paged, out
 
 
+def hybrid_requests(cfg, n: int) -> list:
+    """The first ``n`` of 14d's HYBRID_SERVE requests: prompt lengths drawn
+    from seed 1, tokens from the synthetic corpus at seed 7, ``gen`` new
+    tokens each."""
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.serve import Request
+
+    w = HYBRID_SERVE
+    lens = np.random.default_rng(1).integers(w["lo"], w["hi"] + 1, w["requests"])
+    toks = SyntheticLM(cfg.vocab, w["hi"], seed=7).batch(0, w["requests"])["tokens"]
+    return [Request(tokens=toks[i, :lens[i]], max_new_tokens=w["gen"]) for i in range(n)]
+
+
 def serve_hybrid(dev) -> dict:
     """14d: zamba2-2.7b at full width, HYBRID_LAYERS of its layers, bf16,
     random weights from seed 0: HYBRID_SERVE's requests through the stepped engine on the
@@ -5308,14 +5342,12 @@ def serve_hybrid(dev) -> dict:
         f" heads of {cfg.head_dim}), d_state {cfg.ssm.d_state}; init "
         f"{time.perf_counter() - t0:.1f}s")
     w = HYBRID_SERVE
-    B, n_req, gen, lo, hi = w["B"], w["requests"], w["gen"], w["lo"], w["hi"]
-    lens = np.random.default_rng(1).integers(lo, hi + 1, n_req)
-    toks = SyntheticLM(cfg.vocab, hi, seed=7).batch(0, n_req)["tokens"]
-    reqs = lambda: [Request(tokens=toks[i, :lens[i]], max_new_tokens=gen)  # noqa: E731
-                    for i in range(n_req)]
+    B, n_req, gen, hi = w["B"], w["requests"], w["gen"], w["hi"]
+    reqs = partial(hybrid_requests, cfg, n_req)
+    lens = np.asarray([len(r.tokens) for r in reqs()])
     ServingEngine(params, cfg, EngineConfig(batch_size=B, ctx=hi + gen, policy="fcfs"),
-                  device=dev).run_stream([Request(tokens=toks[i, :4], max_new_tokens=2)
-                                          for i in range(2)], 0)
+                  device=dev).run_stream([Request(tokens=r.tokens[:4], max_new_tokens=2)
+                                          for r in reqs()[:2]], 0)
     # a decode step: flash at every segment's shared block, the routed SSD
     # layers' batch rows by torch index ops (no dispatch kernel); on the
     # paged pool the shared block's K/V/pos rings gathered and written back
@@ -5542,6 +5574,191 @@ def encdec_vlm_parity(dev) -> None:
         torch.set_num_threads(threads)
 
 
+def dispatch_rows(g, dev, dtype, B: int, S: int, D: int, k: int, zero: bool = False) -> dict:
+    """gather_rows, scatter_add_rows and (with ``zero``) gather's VJP, the
+    scatter's zero target, at (B, S, D, k): each bitwise against its plain
+    version, then timed by CUDA-graph replay beside it, a library call
+    (``take_along_dim`` and ``index_select`` on the flattened rows; the
+    ``index_add`` of the gated update; ``zeros`` + ``index_add_``) and the
+    byte bound. Returns {name: row}; a row's ``call`` keys it as the
+    wrappers count their launches."""
+    from repro_torch.kernels import routing as KR
+
+    x, idx, delta, gate, flat = dispatch_inputs(g, dev, dtype, B, S, D, k)
+    es = x.element_size()
+    out, out2 = KR.gather_rows(x, idx), KR.scatter_add_rows(x, idx, delta, gate)
+    if not (torch.equal(out, KR.gather_rows_plain(x, idx))
+            and torch.equal(out2, KR.scatter_add_rows_plain(x, idx, delta, gate))):
+        raise AssertionError(f"dispatch at B={B} S={S} D={D} k={k}: a kernel differs from its "
+                             "plain version")
+    xf = x.view(B * S, D)
+    upd = (gate[..., None] * delta.float()).to(dtype).view(B * k, D)
+    hg, hs = {}, {}
+    rows = {
+        "gather_rows": dict(
+            ms=replay_ms(lambda: KR.gather_rows(x, idx), hg, "ms"),
+            plain_ms=replay_ms(lambda: KR.gather_rows_plain(x, idx), hg, "plain_ms"),
+            library_ms=replay_ms(lambda: torch.take_along_dim(x, idx[..., None], dim=1), hg,
+                                 "library_ms"),
+            index_select_ms=replay_ms(lambda: xf.index_select(0, flat), hg, "index_select_ms"),
+            bound=bound_ms(2 * B * k * D * es + 8 * B * k, 0, dtype),
+            plan=KR.dispatch_plan("gather", B, S, k, D * es, es, 8,
+                                  (x.data_ptr(), out.data_ptr()))._asdict(),
+            max_abs_err=0.0, timed_by=hg, call=("gather", B, S, k, D * es)),
+        "scatter_add_rows": dict(
+            ms=replay_ms(lambda: KR.scatter_add_rows(x, idx, delta, gate), hs, "ms"),
+            plain_ms=replay_ms(lambda: KR.scatter_add_rows_plain(x, idx, delta, gate), hs,
+                               "plain_ms"),
+            library_ms=replay_ms(lambda: xf.index_add(0, flat, upd), hs, "library_ms"),
+            bound=bound_ms(2 * B * S * D * es + B * k * D * es + 12 * B * k, 2 * B * k * D,
+                           dtype),
+            plan=KR.dispatch_plan("scatter", B, S, k, D * es, es, 8,
+                                  (x.data_ptr(), delta.data_ptr(), out2.data_ptr()))._asdict(),
+            max_abs_err=0.0, timed_by=hs, call=("scatter", B, S, k, D * es)),
+    }
+    if zero:
+        ones = torch.ones(B, k, device=dev)
+        z = KR.gather_rows_vjp(idx, delta, x.shape)
+        if not torch.equal(z, KR.scatter_add_rows_plain(torch.zeros_like(x), idx, delta, ones)):
+            raise AssertionError(f"gather_rows_vjp (the zero target) at B={B} S={S} D={D} k={k} "
+                                 "differs from the plain scatter into zeros")
+        hz: dict = {}
+        rows["scatter_add_rows zero"] = dict(
+            ms=replay_ms(lambda: KR.gather_rows_vjp(idx, delta, x.shape), hz, "ms"),
+            plain_ms=replay_ms(lambda: KR.scatter_add_rows_plain(
+                torch.zeros_like(x), idx, delta, ones), hz, "plain_ms"),
+            library_ms=replay_ms(lambda: torch.zeros_like(xf).index_add_(
+                0, flat, delta.view(B * k, D)), hz, "library_ms"),
+            library="zeros + index_add_ (two calls)",
+            bound=bound_ms(B * S * D * es + B * k * D * es + 8 * B * k, 2 * B * k * D, dtype),
+            plan=KR.dispatch_plan("scatter_zero", B, S, k, D * es, es, 8,
+                                  (delta.data_ptr(), z.data_ptr()))._asdict(),
+            max_abs_err=0.0, timed_by=hz, call=("scatter_zero", B, S, k, D * es))
+    return rows
+
+
+def log_dispatch_rows(prefix: str, label: str, rows: dict, dtype, results) -> None:
+    """Logs :func:`dispatch_rows`'s rows and files them in ``results`` under
+    (label, dtype) (a zero-target row under ("zero " + label, dtype))."""
+    for name, r in rows.items():
+        kernel, _, zero = name.partition(" ")
+        r["shape"] = f"{zero} {label} k={r['call'][3]} {str(dtype)[6:]}".strip()
+        extra = f" index_select_ms={r['index_select_ms']:.4f}" if "index_select_ms" in r else ""
+        log(f"{prefix} {name:22s} {r['shape']} bitwise-equal ms={r['ms']:.4f} "
+            f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f}{extra} "
+            f"bound_ms={r['bound'][0]:.4f} ({r['bound'][1]}, {r['bound'][0] / r['ms']:.0%} of it) "
+            f"{plan_note(r['plan'])}{timed_note(r['timed_by'])}")
+        results.setdefault(kernel, {})[(f"{zero} {label}".strip(), dtype)] = r
+
+
+def paged_rows(prefix: str, label: str, g, dev, dtype, F: int, lens, gen: int, P: int, p: int,
+               gather: bool = True) -> dict:
+    """paged_gather (with ``gather``) and paged_scatter_rows on a pool as an
+    engine's decode step over prompts of ``lens`` tokens gives them
+    (:func:`_paged_inputs`): bitwise against their plain versions, the
+    scatter writing no row outside its targets, the plans launched; each
+    timed by CUDA-graph replay beside its plain version, the library call
+    (``index_select``; ``index_copy_``) and the byte bound, and logged
+    under ``prefix``. Returns {name: row}; a row's ``call`` keys it as the
+    wrapper counts its launches."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import paged as KP
+
+    pages, table, prow, ppos, _ = _paged_inputs(g, dev, dtype, F, lens, gen, P, p, p)
+    N, Bp, es = pages.shape[0], table.shape[0], pages.element_size()
+    build.reset_counters()
+    if not torch.equal(KP.paged_gather(pages, table), KP.paged_gather_plain(pages, table)):
+        raise AssertionError(f"{prefix} paged_gather differs from its plain version ({label})")
+    before = pages.clone()
+    want = KP.paged_scatter_rows_plain(before.clone(), table, prow, ppos)
+    KP.paged_scatter_rows(pages, table, prow, ppos)
+    tgt = (table.long()[torch.arange(Bp, device=dev), ppos.long() // p] * p + ppos.long() % p)
+    if not torch.equal(pages, want) or not _changed_rows(pages, before) <= set(tgt.tolist()):
+        raise AssertionError(f"{prefix} paged_scatter_rows wrong or wrote outside its rows "
+                             f"({label})")
+    gplan = KP.gather_plan(N, Bp, P, p * F * es, pages.data_ptr())
+    splan = KP.scatter_rows_plan(N, Bp, P, p, F * es, pages.data_ptr(), prow.data_ptr())
+    if ((gplan.vec, Bp, P, p * F * es) not in build.COUNTERS["paged_gather"].by_call
+            or (splan.vec, Bp, F * es) not in build.COUNTERS["paged_scatter_rows"].by_call):
+        raise AssertionError(f"{prefix} paged kernels {label}: launched "
+                             f"{dict(build.COUNTERS['paged_gather'].by_call)} and "
+                             f"{dict(build.COUNTERS['paged_scatter_rows'].by_call)}, not "
+                             f"{gplan} and {splan}")
+    flat, fi = pages.view(N * p, F), tgt.contiguous()
+    reads = torch.unique(table).numel()  # each distinct page mapped is read once
+    shape = f"{label} N={N} p={p} F={F} P={P} {str(dtype)[6:]} B={Bp}"
+    timed = {
+        # every logical page written, each mapped page read, the table
+        "paged_gather": dict(
+            fn=lambda: KP.paged_gather(pages, table),
+            plain=lambda: KP.paged_gather_plain(pages, table),
+            library=lambda t=table.flatten().long(): torch.index_select(pages, 0, t),
+            nbytes=(Bp * P + reads) * p * F * es + 4 * Bp * P, plan=gplan,
+            call=(Bp, P, p * F * es)),
+        # the rows read and written, the B positions and table entries
+        "paged_scatter_rows": dict(
+            fn=lambda: KP.paged_scatter_rows(pages, table, prow, ppos),
+            plain=lambda: KP.paged_scatter_rows_plain(pages, table, prow, ppos),
+            library=lambda: flat.index_copy_(0, fi, prow),
+            nbytes=2 * Bp * F * es + 4 * Bp + 4 * Bp, plan=splan, call=(Bp, F * es)),
+    }
+    rows = {}
+    for name, c in timed.items():
+        if name == "paged_gather" and not gather:
+            continue
+        how: dict = {}
+        r = rows[name] = dict(
+            ms=replay_ms(c["fn"], how, "ms"), plain_ms=replay_ms(c["plain"], how, "plain_ms"),
+            library_ms=replay_ms(c["library"], how, "library_ms"),
+            bound=bound_ms(c["nbytes"], 0, torch.bfloat16), timed_by=how, max_abs_err=0.0,
+            shape=shape, off_path=False, plan=c["plan"]._asdict(), call=c["call"])
+        log(f"{prefix} {name:18s} {shape} bitwise-equal ms={r['ms']:.4f} "
+            f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
+            f"({'index_select' if name == 'paged_gather' else 'index_copy_'}) "
+            f"bound_ms={r['bound'][0]:.6f} ({r['bound'][1]}) plan=vec{c['plan'].vec} "
+            f"unroll{c['plan'].unroll} x {c['plan'].blocks} blocks{timed_note(how)}")
+    return rows
+
+
+def ssd_row(prefix: str, label: str, dev, shape: tuple, seed: int) -> dict:
+    """The SSD kernel at ``shape`` (B, H, NC, Q, hd, ds), bf16 in the model's
+    strided layout: on the tensor-core path and launched there, within
+    SSD_TOL (plus the cumsum's rounding) of its plain version, then timed
+    by CUDA-graph replay beside it and the bound, and logged under
+    ``prefix``. Returns the row (its ``call`` is ``shape``)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import ssd as KSSD
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    x, loglam, dt, Bm, Cm = _ssd_inputs(dev, torch.bfloat16, *shape, seed, True)
+    plan = KSSD.ssd_plan(*shape, torch.bfloat16, sms, KSSD.aligned_rows(x, Bm, Cm))
+    build.reset_counters()
+    y, inc = KSSD.ssd_intra_chunk(x, loglam, dt, Bm, Cm)
+    calls = dict(build.COUNTERS["ssd_intra_chunk"].by_call)
+    if plan.path != "tensor" or calls != {("tensor", *shape): 1}:
+        raise AssertionError(f"{prefix} ssd_intra_chunk {label}: plan {plan.path}, launched "
+                             f"{calls}")
+    wy, winc = KSSD.ssd_intra_chunk_plain(x, loglam, dt, Bm, Cm)
+    tol = SSD_TOL + 2 * torch.cumsum(loglam, -1).abs().max().item() * 2.0**-24
+    errs = [((a - b).abs().max() / b.abs().max()).item() for a, b in ((y, wy), (inc, winc))]
+    if max(errs) > tol or not bool(torch.isfinite(y).all() and torch.isfinite(inc).all()):
+        raise AssertionError(f"{prefix} ssd_intra_chunk {label}: {errs} beyond {tol:.3g}")
+    nbytes, flops = ssd_work(*shape, x.element_size())
+    how: dict = {}
+    r = dict(ms=replay_ms(lambda: KSSD.ssd_intra_chunk(x, loglam, dt, Bm, Cm), how, "ms"),
+             plain_ms=replay_ms(lambda: KSSD.ssd_intra_chunk_plain(x, loglam, dt, Bm, Cm), how,
+                                "plain_ms", reps=5),
+             library_ms=None, bound=bound_ms(nbytes, flops, torch.bfloat16), timed_by=how,
+             max_abs_err=max((y - wy).abs().max().item(), (inc - winc).abs().max().item()),
+             plan=plan._asdict(), call=shape,
+             shape=f"{label} x{tuple(x.shape)} ds={shape[5]} bfloat16")
+    log(f"{prefix} ssd_intra_chunk {r['shape']}: path {plan.path}, G={plan.G}, grid "
+        f"{plan.grid}; y / inc within {errs[0]:.3g} / {errs[1]:.3g} of their largest (limit "
+        f"{tol:.3g}); ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} bound_ms={r['bound'][0]:.4f} "
+        f"({r['bound'][1]}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+    return r
+
+
 def encdec_vlm_kernels(dev, results) -> None:
     """15b-c's kernel shapes against their plain versions, timed by CUDA-graph
     replay beside the bound and the library call: flash attention at
@@ -5562,8 +5779,6 @@ def encdec_vlm_kernels(dev, results) -> None:
     from repro_torch.config import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import paged as KP
-    from repro_torch.kernels import routing as KR
     from repro_torch.models import api
 
     g = torch.Generator(device=dev).manual_seed(53)
@@ -5630,50 +5845,9 @@ def encdec_vlm_kernels(dev, results) -> None:
     # the dispatch kernels at whisper's routed decoder blocks
     cfg = get_config(ENCDEC_ARCH)
     B, S, D = WHISPER_TRAIN["B"], WHISPER_TRAIN["S"], cfg.d_model
-    k = cfg.mod.capacity(S)
-    dtype = torch.bfloat16
-    x, idx, delta, gate, flat = dispatch_inputs(g, dev, dtype, B, S, D, k)
-    es = x.element_size()
-    out, want = KR.gather_rows(x, idx), KR.gather_rows_plain(x, idx)
-    out2 = KR.scatter_add_rows(x, idx, delta, gate)
-    want2 = KR.scatter_add_rows_plain(x, idx, delta, gate)
-    if not (torch.equal(out, want) and torch.equal(out2, want2)):
-        raise AssertionError("15 dispatch at whisper's shape: a kernel differs from its plain "
-                             "version")
-    xf = x.view(B * S, D)
-    upd = (gate[..., None] * delta.float()).to(dtype).view(B * k, D)
-    hg, hs = {}, {}
-    label = f"whisper B={B} S={S} D={D}"
-    rows = {
-        "gather_rows": dict(
-            ms=replay_ms(lambda: KR.gather_rows(x, idx), hg, "ms"),
-            plain_ms=replay_ms(lambda: KR.gather_rows_plain(x, idx), hg, "plain_ms"),
-            library_ms=replay_ms(lambda: torch.take_along_dim(x, idx[..., None], dim=1), hg,
-                                 "library_ms"),
-            index_select_ms=replay_ms(lambda: xf.index_select(0, flat), hg, "index_select_ms"),
-            bound=bound_ms(2 * B * k * D * es + 8 * B * k, 0, dtype),
-            plan=KR.dispatch_plan("gather", B, S, k, D * es, es, 8,
-                                  (x.data_ptr(), out.data_ptr()))._asdict(),
-            max_abs_err=0.0, timed_by=hg, call=("gather", B, S, k, D * es)),
-        "scatter_add_rows": dict(
-            ms=replay_ms(lambda: KR.scatter_add_rows(x, idx, delta, gate), hs, "ms"),
-            plain_ms=replay_ms(lambda: KR.scatter_add_rows_plain(x, idx, delta, gate), hs,
-                               "plain_ms"),
-            library_ms=replay_ms(lambda: xf.index_add(0, flat, upd), hs, "library_ms"),
-            bound=bound_ms(2 * B * S * D * es + B * k * D * es + 12 * B * k, 2 * B * k * D,
-                           dtype),
-            plan=KR.dispatch_plan("scatter", B, S, k, D * es, es, 8,
-                                  (x.data_ptr(), delta.data_ptr(), out2.data_ptr()))._asdict(),
-            max_abs_err=0.0, timed_by=hs, call=("scatter", B, S, k, D * es)),
-    }
-    for name, r in rows.items():
-        r["shape"] = f"{label} k={k} bfloat16"
-        extra = f" index_select_ms={r['index_select_ms']:.4f}" if "index_select_ms" in r else ""
-        log(f"[encdec-vlm] 15 {name:16s} {r['shape']} bitwise-equal ms={r['ms']:.4f} "
-            f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f}{extra} "
-            f"bound_ms={r['bound'][0]:.4f} ({r['bound'][1]}, {r['bound'][0] / r['ms']:.0%} of it) "
-            f"{plan_note(r['plan'])}{timed_note(r['timed_by'])}")
-        results.setdefault(name, {})[(label, dtype)] = r
+    log_dispatch_rows("[encdec-vlm] 15", f"whisper B={B} S={S} D={D}",
+                      dispatch_rows(g, dev, torch.bfloat16, B, S, D, cfg.mod.capacity(S)),
+                      torch.bfloat16, results)
     # the paged kernels at the paged serving pools of 15b-c: each slot's
     # table maps the pages its prompt and new tokens reach
     vcfg = get_config(VLM_ARCH)
@@ -5691,58 +5865,9 @@ def encdec_vlm_kernels(dev, results) -> None:
          v_ctx // vs["page"], vs["page"], "encdec_vlm_vlm_serve_paged"),
     ]
     for label, dtype, F, lens, gen, P, p, run in paged_cases:
-        pages, table, prow, ppos, _ = _paged_inputs(g, dev, dtype, F, lens, gen, P, p, p)
-        N, Bp, es = pages.shape[0], table.shape[0], pages.element_size()
-        build.reset_counters()
-        if not torch.equal(KP.paged_gather(pages, table), KP.paged_gather_plain(pages, table)):
-            raise AssertionError(f"15 paged_gather differs from its plain version ({label})")
-        before = pages.clone()
-        want = KP.paged_scatter_rows_plain(before.clone(), table, prow, ppos)
-        KP.paged_scatter_rows(pages, table, prow, ppos)
-        tgt = (table.long()[torch.arange(Bp, device=dev), ppos.long() // p] * p
-               + ppos.long() % p)
-        if not torch.equal(pages, want) or not _changed_rows(pages, before) <= set(tgt.tolist()):
-            raise AssertionError(f"15 paged_scatter_rows wrong or wrote outside its rows ({label})")
-        gplan = KP.gather_plan(N, Bp, P, p * F * es, pages.data_ptr())
-        splan = KP.scatter_rows_plan(N, Bp, P, p, F * es, pages.data_ptr(), prow.data_ptr())
-        if ((gplan.vec, Bp, P, p * F * es) not in build.COUNTERS["paged_gather"].by_call
-                or (splan.vec, Bp, F * es) not in build.COUNTERS["paged_scatter_rows"].by_call):
-            raise AssertionError(f"15 paged kernels {label}: launched "
-                                 f"{dict(build.COUNTERS['paged_gather'].by_call)} and "
-                                 f"{dict(build.COUNTERS['paged_scatter_rows'].by_call)}, not "
-                                 f"{gplan} and {splan}")
-        flat, fi = pages.view(N * p, F), tgt.contiguous()
-        reads = torch.unique(table).numel()  # each distinct page mapped is read once
-        shape = f"{label} N={N} p={p} F={F} P={P} {str(dtype)[6:]} B={Bp}"
-        timed = {
-            # every logical page written, each mapped page read, the table
-            "paged_gather": dict(
-                fn=lambda: KP.paged_gather(pages, table),
-                plain=lambda: KP.paged_gather_plain(pages, table),
-                library=lambda t=table.flatten().long(): torch.index_select(pages, 0, t),
-                nbytes=(Bp * P + reads) * p * F * es + 4 * Bp * P, plan=gplan,
-                call=(Bp, P, p * F * es)),
-            # the rows read and written, the B positions and table entries
-            "paged_scatter_rows": dict(
-                fn=lambda: KP.paged_scatter_rows(pages, table, prow, ppos),
-                plain=lambda: KP.paged_scatter_rows_plain(pages, table, prow, ppos),
-                library=lambda: flat.index_copy_(0, fi, prow),
-                nbytes=2 * Bp * F * es + 4 * Bp + 4 * Bp, plan=splan, call=(Bp, F * es)),
-        }
-        for name, c in timed.items():
-            how: dict = {}
-            r = dict(ms=replay_ms(c["fn"], how, "ms"), plain_ms=replay_ms(c["plain"], how,
-                                                                          "plain_ms"),
-                     library_ms=replay_ms(c["library"], how, "library_ms"),
-                     bound=bound_ms(c["nbytes"], 0, dtype), timed_by=how, max_abs_err=0.0,
-                     shape=shape, off_path=False, plan=c["plan"]._asdict(), run=run,
-                     call=c["call"])
-            log(f"[encdec-vlm] 15 {name:18s} {shape} bitwise-equal ms={r['ms']:.4f} "
-                f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
-                f"({'index_select' if name == 'paged_gather' else 'index_copy_'}) "
-                f"bound_ms={r['bound'][0]:.6f} ({r['bound'][1]}) plan=vec{c['plan'].vec} "
-                f"unroll{c['plan'].unroll} x {c['plan'].blocks} blocks{timed_note(how)}")
-            results.setdefault(name, {})[f"15 {label} B={Bp}"] = r
+        for name, r in paged_rows("[encdec-vlm] 15", label, g, dev, dtype, F, lens, gen, P,
+                                  p).items():
+            results.setdefault(name, {})[f"15 {label} B={len(lens)}"] = dict(r, run=run)
 
 
 def train_whisper(dev, params, cfg) -> tuple:
@@ -7007,6 +7132,578 @@ def mesh_train_phase(dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the hybrid served from int8 / fp8 pages and int8 weights, remat
+# "selective" on the card, a training step on packed documents
+# ---------------------------------------------------------------------------
+
+# 18a: zamba2-2.7b at HYBRID_QUANT_LAYERS, bf16, seed 0, on 14d's paged
+# engine (8 slots, page 16, policy fcfs) over 14d's first
+# HYBRID_QUANT_REQUESTS requests: in bf16 (the streams the narrow runs are
+# set beside) and under each quantization. A step is host-bound (72-102 ms wall, 6 ms busy) and a run
+# takes the longest prompt's tokens plus the new ones in steps: 8 requests
+# (prompts up to 124 tokens) took 71 s of phase 18's 131 s on an H100; the
+# first 2 (77 and 81 tokens) take 113 steps a run. The last run serves
+# the int8 tree widened once, in bf16: its streams and first-token logits
+# must be the int8-weights run's bits (that run widens the same tree at
+# each model call), so how far that run moves from the bf16 one is the
+# model's answer to the weights' rounding, not the narrow path's
+HYBRID_QUANT_LAYERS = 18
+HYBRID_QUANT_REQUESTS = 2
+WIDENED = "widened int8 tree"
+HYBRID_QUANT_RUNS = (("bf16", {}), ("int8/page", dict(kv="int8")),
+                     ("fp8/head", dict(kv="fp8", granularity="head")),
+                     ("int8 weights", dict(weights="int8")), (WIDENED, {}))
+# 18b: zamba2-2.7b at all 54 layers, B=2, S=2048 (remat "none" does not fit
+# one card there: PERF.md's reckoning), and mod-paper-1b at
+# SERVE_1B_LAYERS, B=4, S=2048, pallas_fused, under every mode
+REMAT_HYBRID = dict(B=2, S=2048, steps=3, modes=("selective", "full"))
+REMAT_1B = dict(B=4, S=2048, steps=2, modes=("none", "selective", "full"))
+REMAT_LOSS_RTOL = 5e-4  # steps 1-2's losses, each mode against the first
+# 18c: mod-paper-60m at PARITY_60M_LAYERS, f32, one Trainer step of two
+# microbatches on packed rows, CPU against the card
+PACKED_60M = dict(B=4, S=128, microbatches=2)
+PACKED_TOL = 1e-5  # relative
+
+
+def _path_tag(label: str) -> str:
+    return label.replace("/", "_").replace(" ", "_")
+
+
+def profiled_kernel_step(eng):
+    """One engine step under torch.profiler (device activity only): (wall
+    ms, device-busy ms, the launch counters' change, the device records of
+    each of the port's ``__global__`` functions, device ms by
+    :func:`_kernel_group`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import build
+
+    before = build.launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    delta = {k: v - before[k] for k, v in build.launch_counts().items() if v != before[k]}
+    kernels = csrc_kernels()
+    records: dict = {}
+    groups: dict = {}
+    busy = 0.0
+    for name, us in device_records(prof):
+        busy += us / 1e3
+        k = port_kernel_of(name, kernels)
+        if k is not None:
+            records[k] = records.get(k, 0) + 1
+        g = _kernel_group(name)
+        groups[g] = groups.get(g, 0.0) + us / 1e3
+    return wall, busy, delta, records, groups
+
+
+def _agreement(got: dict, want: dict):
+    """(share of tokens equal position by position, requests equal whole)."""
+    same = total = whole = 0
+    for uid, toks in want.items():
+        other = got[uid]
+        same += sum(int(a == b) for a, b in zip(toks, other))
+        total += len(toks)
+        whole += int(toks == other)
+    return same / total, whole
+
+
+def serve_hybrid_quant(dev):
+    """18a: zamba2-2.7b at full width and HYBRID_QUANT_LAYERS, bf16, seed 0,
+    on 14d's paged engine over 14d's first HYBRID_QUANT_REQUESTS requests,
+    once in bf16 and once under each of int8/page KV, fp8/head KV and int8
+    weights: every request done with its tokens, the streams' agreement
+    with the bf16 run's and each first token's bf16 top-1/top-2 gap beside
+    the logit change (reported, not held), ``kv_bytes`` and its ratio to
+    the bf16 pool's, wall a decode step, one profiled step (every request
+    live) with its launches held to the model's sites by counter and the
+    dequantizing gathers torch.profiler lists printed beside them (late in
+    the whole script it lists none: printed, not held), the whole run's
+    launches held to its steps, and the cost of widening the int8 weights
+    at each model call; then WIDENED, whose streams and first-token logits
+    must equal the int8-weights run's bitwise. Returns (launch counts by
+    path, the paged kernels' launches by call by path, the dequantizing
+    gathers' launches by run, and each quantized pool as its profiled step
+    left it: the page table and, for every site's K and V ring, its narrow
+    pages, its leaf's scales and the site's scale columns)."""
+    from repro_torch.config import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels.paged import canon_pages
+    from repro_torch.models import api
+    from repro_torch.serve import EngineConfig, ServingEngine
+    from repro_torch.serve.quant import QuantConfig, dequantize_params, quantize_params
+    from repro_torch.serve.scheduler import FREE
+    from repro_torch.utils import tree_leaves
+
+    cfg = dataclasses.replace(get_config(CONFIGS_HYBRID), n_layers=HYBRID_QUANT_LAYERS)
+    release_device_memory(dev)
+    t0 = time.perf_counter()
+    params = api.init_model(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    n_seg = len(params["groups"])
+    w = HYBRID_SERVE
+    B, ctx, n = w["B"], w["hi"] + w["gen"], HYBRID_QUANT_REQUESTS
+    lens = [len(r.tokens) for r in hybrid_requests(cfg, n)]
+    log(f"[hybrid-remat] 18a {cfg.name} at {cfg.n_layers} of 54 layers, bf16, {n_seg} shared-block "
+        f"sites of {cfg.attn.n_kv_heads}x{cfg.head_dim} kv heads; init "
+        f"{time.perf_counter() - t0:.1f}s; {n} requests (prompts {min(lens)}-{max(lens)} tokens, "
+        f"{w['gen']} new each), {B} slots, page {w['page']}, ctx {ctx}, policy fcfs")
+    plain_step = {"flash_attention": n_seg, "paged_gather": 3 * n_seg,
+                  "paged_scatter_rows": 3 * n_seg}
+    narrow_step = {"flash_attention": n_seg, "paged_gather": n_seg,
+                   "paged_gather_dequant": 2 * n_seg, "paged_scatter_rows": 3 * n_seg + 2}
+    streams, counts, paged, dequant, snaps, kv, firsts = {}, {}, {}, {}, {}, {}, {}
+    for label, q in HYBRID_QUANT_RUNS:
+        qc = QuantConfig(**q)
+        if label == WIDENED:
+            params = dequantize_params(quantize_params(params))
+        eng = ServingEngine(params, cfg, EngineConfig(batch_size=B, ctx=ctx, policy="fcfs",
+                                                      page_size=w["page"], quant=qc), device=dev)
+        reqs = hybrid_requests(cfg, n)
+        firsts[label] = first_token_logits(eng)
+        for r in reqs:
+            eng.submit(r)
+        build.reset_counters()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        step_want = narrow_step if qc.enabled else plain_step
+        prof = None
+        while eng.has_work:
+            if (prof is None and eng.step_count >= 20
+                    and sum(s.state != FREE for s in eng.slots) == n):
+                # one profiled step, every request live: its launches by
+                # counter held to the sites, torch.profiler's printed (it
+                # drops the records of paged.cu's kernels late in the whole
+                # script, so they are not held, and its busy time then
+                # leaves them out)
+                wall, busy, delta, records, groups = profiled_kernel_step(eng)
+                if delta != step_want:
+                    raise AssertionError(f"18a {label}: a step launched {delta}, want {step_want}")
+                prof = dict(wall=wall, busy=busy, step=eng.step_count, groups=groups,
+                            deq=records.get("paged_gather_dequant_kernel", 0))
+                if qc.enabled:  # every site's K and V ring as this step read it
+                    snaps[label] = dict(table=eng.pool.device_table(), rings=[
+                        (f"{'kv'[qi]} site {site}", canon_pages(eng.pool.pages[j]).clone(),
+                         eng.pool.scales[qi].clone(), ql.columns(site, qc.granularity))
+                        for qi, ql in enumerate(eng.pool.spec.qleaves)
+                        for site, j in enumerate(ql.js)])
+            else:
+                eng.step()
+        torch.cuda.synchronize()
+        counts[label] = build.launch_counts()
+        paged[label] = {name: dict(build.COUNTERS[name].by_call)
+                        for name in ("paged_gather", "paged_scatter_rows")}
+        s = eng.stats()
+        streams[label] = _streams(eng.finished)
+        if len(eng.finished) != n or any(not o.ok or len(o.tokens) != r.max_new_tokens for o, r in
+                                         zip(sorted(eng.finished, key=lambda o: o.uid), reqs)):
+            raise AssertionError(f"18a {label}: not every request finished with its tokens")
+        steps = s["decode_steps"]
+        want = {k: v * steps for k, v in step_want.items()}
+        got = {k: counts[label].get(k, 0) for k in want}
+        if got != want:
+            raise AssertionError(f"18a {label}: the run launched {got}, want {want} "
+                                 f"({steps:.0f} steps)")
+        dequant[label] = got.get("paged_gather_dequant", 0)
+        kv[label] = s["kv_bytes"]
+        line = (f"[hybrid-remat] 18a {label}: {s['generated_tokens']:.0f} tokens in "
+                f"{s['wall_s']:.2f}s = {s['tokens_per_s']:.1f} tok/s; {s['steps']:.0f} steps, "
+                f"{1e3 * s['decode_s'] / max(1, steps):.2f} ms wall a step; kv_bytes "
+                f"{s['kv_bytes'] / 2**20:.2f} MiB (x{s['kv_bytes'] / kv['bf16']:.4f} of the bf16 "
+                f"pool's; unquantized {eng.pool.unquantized_kv_bytes() / 2**20:.2f}), residual "
+                f"{s['resid_bytes'] / 2**20:.2f} MiB; peak memory "
+                f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+        if label != "bf16":
+            share, whole = _agreement(streams[label], streams["bf16"])
+            line += (f"; tokens equal to the bf16 run's {share:.4f} ({whole} of {n} requests "
+                     f"whole)")
+        log(line)
+        if label != "bf16":  # each request's first token: the bf16 top-1/top-2 gap
+            base = firsts["bf16"]  # beside the change this run made to those logits
+            gaps = {u: float(np.diff(np.sort(row)[-2:])[0]) for u, row in base.items()}
+            moved = {u: float(np.abs(firsts[label][u] - row).max()) for u, row in base.items()}
+            same = sum(int(np.argmax(firsts[label][u]) == np.argmax(r)) for u, r in base.items())
+            log(f"[hybrid-remat] 18a {label} first tokens: bf16 top-1/top-2 gap "
+                f"{min(gaps.values()):.4f}-{max(gaps.values()):.4f}, this run's largest logit "
+                f"change {min(moved.values()):.4f}-{max(moved.values()):.4f} (logits up to "
+                f"{max(float(np.abs(r).max()) for r in base.values()):.2f}); first tokens equal "
+                f"in {same} of {n} requests")
+        if prof is None:
+            raise AssertionError(f"18a {label}: no step had every request live")
+        if prof["busy"] <= 0.0:
+            log(f"[hybrid-remat] 18a {label}: torch.profiler recorded no device time; busy not "
+                "measured")
+        else:
+            log(f"[hybrid-remat] 18a {label} profiled step {prof['step']} ({n} of {B} slots "
+                f"live): wall "
+                f"{prof['wall']:.2f} ms, device busy {prof['busy']:.2f} ms, idle share "
+                f"{1 - prof['busy'] / prof['wall']:.3f}; launches {json.dumps(step_want)} by "
+                f"counter; paged_gather_dequant_kernel records by torch.profiler {prof['deq']} "
+                f"(printed, not held) ("
+                + ", ".join(f"{k} {v:.2f}" for k, v in sorted(prof["groups"].items(),
+                                                               key=lambda kv: -kv[1])[:5]) + ")")
+        if label == WIDENED:
+            same_logits = all(np.array_equal(firsts[label][u], r)
+                              for u, r in firsts["int8 weights"].items())
+            if streams[label] != streams["int8 weights"] or not same_logits:
+                raise AssertionError(f"18a {label}: the streams or first-token logits differ "
+                                     f"from the int8-weights run's")
+            log(f"[hybrid-remat] 18a {label}: streams and first-token logits bitwise equal to "
+                f"the int8-weights run's")
+        log(f"[hybrid-remat]   launches: "
+            f"{json.dumps({k: v for k, v in counts[label].items() if v})}")
+        if q.get("weights") == "int8":
+            wall_ms = event_ms(lambda: dequantize_params(eng.params), iters=5, warmup=1)
+            dev_ms = time_ms(lambda: dequantize_params(eng.params), iters=5)
+            narrow = sum(t.numel() for t in tree_leaves(eng.params)
+                         if isinstance(t, torch.Tensor) and t.dtype == torch.int8)
+            log(f"[hybrid-remat] 18a int8 weights: dequantize_params widens {narrow / 1e6:.1f}M "
+                f"int8 weights to bf16 at each of the run's {steps:.0f} model calls: "
+                f"{dev_ms:.2f} ms of device time ({wall_ms:.2f} ms between CUDA events), bound "
+                f"{bound_ms(narrow * 3, 0, torch.bfloat16)[0]:.3f} ms (bytes)")
+        del eng
+    del params
+    release_device_memory(dev)
+    tags = {label: "hybrid_paged_" + _path_tag(label) for label, _ in HYBRID_QUANT_RUNS}
+    return ({tags[k]: v for k, v in counts.items()}, {tags[k]: v for k, v in paged.items()},
+            dequant, snaps)
+
+
+def hybrid_remat_kernels(dev, results, snaps) -> None:
+    """18's kernel shapes against their plain versions, timed by CUDA-graph
+    replay beside the bound and a library call where one computes the
+    same: the dequantizing gather on 18a's pools as their profiled step
+    left them (every site's K and V ring bitwise; site 0's K ring timed:
+    int8 pages with a (N, p, 1) scale, e4m3 pages with the site's 32 of
+    the leaf's n_seg x 32 scale columns; 80-byte groups); paged_gather and
+    paged_scatter_rows at 18a's pools (the position rings and the bf16 K/V
+    rows of the bf16, int8-weights and widened runs, the narrow K/V rows of the quantized runs and the fp8/head scale
+    rows; an int8/page scale row is a 4-byte row, the position rows' call),
+    bitwise and writing no row outside their targets; flash
+    attention's training call at zamba2's shared block (32 heads of 80,
+    B=2, S=2048, with its lse) against SDPA; gather_rows, scatter_add_rows
+    and gather's VJP (the zero target) at the routed Mamba2 layers' B=2,
+    S=2048, D=2560, k=256; ssd_intra_chunk at 18b's full (NC=16) and routed
+    (NC=2) layers (B=2, H=80, ds 64)."""
+    from repro_torch.config import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged as KP
+
+    cfg = get_config(CONFIGS_HYBRID)
+    g = torch.Generator(device=dev).manual_seed(61)
+    i32 = dict(dtype=torch.int32, device=dev)
+    # the dequantizing gather on 18a's pools: every site's K and V ring
+    # bitwise, site 0's K ring timed
+    for label, snap in snaps.items():
+        table = snap["table"]
+        for ring, q, sc, cols in snap["rings"]:
+            scales = sc[:, :, cols]
+            got = KP.paged_gather_dequant(q, scales, table, torch.bfloat16)
+            if not torch.equal(got, KP.paged_gather_dequant_plain(q, scales, table,
+                                                                  torch.bfloat16)):
+                raise AssertionError(f"18 paged_gather_dequant differs from its plain version "
+                                     f"({label}, {ring})")
+        log(f"[hybrid-remat] 18 paged_gather_dequant zamba2 {label}: all "
+            f"{len(snap['rings'])} rings (K and V of every site) bitwise-equal to the plain "
+            f"version")
+        _, q, sc, cols = snap["rings"][0]
+        scales = sc[:, :, cols]
+        (N, p, F), (Bg, P), G = q.shape, table.shape, scales.shape[2]
+        reads = torch.unique(table).numel()
+        nbytes = reads * p * (F + 4 * G) + 4 * Bg * P + Bg * P * p * F * 2
+        fn = (lambda: KP.paged_gather_dequant(q, scales, table, torch.bfloat16))
+        how: dict = {}
+        r = dict(ms=replay_ms(fn, how, "ms"),
+                 plain_ms=replay_ms(lambda: KP.paged_gather_dequant_plain(
+                     q, scales, table, torch.bfloat16), how, "plain_ms"),
+                 library_ms=None, bound=bound_ms(nbytes, 0, torch.bfloat16), max_abs_err=0.0,
+                 shape=f"zamba2 {label} N={N} p={p} F={F} G={G} B={Bg} P={P} -> bf16",
+                 timed_by=how, run=label)
+        log(f"[hybrid-remat] 18 paged_gather_dequant {r['shape']:56s} bitwise-equal "
+            f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms=none "
+            f"bound_ms={r['bound'][0]:.6f} ({r['bound'][1]}, {r['bound'][0] / r['ms']:.0%} of "
+            f"it){timed_note(how)}")
+        results.setdefault("paged_gather_dequant", {})[f"hybrid {label} B={Bg}"] = r
+    # paged_gather / paged_scatter_rows at 18a's pools: 8 slots of P pages
+    w = HYBRID_SERVE
+    lens = [len(r.tokens) for r in hybrid_requests(cfg, HYBRID_QUANT_REQUESTS)]
+    lens += [w["hi"]] * (w["B"] - len(lens))  # every slot's pages mapped
+    P = (w["hi"] + w["gen"]) // w["page"]
+    F_kv = cfg.attn.n_kv_heads * cfg.head_dim
+    n_seg = HYBRID_QUANT_LAYERS // cfg.hybrid_attn_every
+    paged_cases = [  # label, dtype, F, the runs that launch the shape
+        ("kv bf16", torch.bfloat16, F_kv, ("bf16", "int8 weights", WIDENED)),
+        # (an int8/page pool's scale rows are 4 bytes too: the same call)
+        ("pos", torch.int32, 1, tuple(lb for lb, _ in HYBRID_QUANT_RUNS)),
+        ("kv narrow", torch.int8, F_kv, ("int8/page", "fp8/head")),
+        ("scales head", torch.float32, n_seg * cfg.attn.n_kv_heads, ("fp8/head",)),
+    ]
+    for label, dtype, F, runs in paged_cases:
+        # narrow pages and scales are read by the dequantizing gather
+        gather = not label.startswith(("kv narrow", "scales"))
+        for name, r in paged_rows("[hybrid-remat] 18", f"zamba2 {label}", g, dev, dtype, F,
+                                  lens, w["gen"], P, w["page"], gather).items():
+            results.setdefault(name, {})[f"18 {label} B={w['B']}"] = dict(
+                r, runs=["hybrid_paged_" + _path_tag(rn) for rn in runs])
+    # flash attention's training call at the shared block
+    B, S = REMAT_HYBRID["B"], REMAT_HYBRID["S"]
+    nq, nkv, hd = cfg.attn.n_heads, cfg.attn.n_kv_heads, cfg.head_dim
+    pos = torch.arange(S, **i32)[None].repeat(B, 1)
+    c = FlashCase(f"hd80 train B={B} S={S} lse", B, S, S, nq, nkv, hd, pos, pos,
+                  (torch.bfloat16,), True)
+    plan = FA.flash_plan(c.B, c.Sq, c.Skv, c.nq, c.nkv, c.hd, torch.bfloat16)
+    build.reset_counters()
+    r = flash_row(FA, c, torch.bfloat16, g)
+    key = (plan.path, c.B, c.Sq, c.Skv, c.nq, c.nkv, c.hd, plan.kernels)
+    if plan.path != "mma_sync" or key not in FA.FLASH_ATTENTION.by_call:
+        raise AssertionError(f"18 flash {c.label}: plan {plan}, launched "
+                             f"{dict(FA.FLASH_ATTENTION.by_call)}, want the mma_sync tiles")
+    r["path"], r["kernels"] = plan.path, plan.kernels
+    r["plan"] = dict(path=plan.path, key_tile=plan.key_tile, key_split=plan.key_split,
+                     chunk=plan.chunk, n_splits=plan.n_splits, merge=plan.merge)
+    log(f"[hybrid-remat] 18 flash_attention {r['shape']:36s} {plan.path} kernels={plan.kernels} "
+        f"max_abs_err={r['max_abs_err']:.3g} lse_err={r['lse_err']:.3g} ms={r['ms']:.4f} "
+        f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} (SDPA) "
+        f"bound_ms={r['bound'][0]:.4f} ({r['bound'][1]})")
+    results.setdefault("flash_attention", {})[(c.label, torch.bfloat16)] = r
+    # the MoD dispatch of the routed Mamba2 layers, with gather's VJP
+    D, k = cfg.d_model, cfg.mod.capacity(S)
+    log_dispatch_rows("[hybrid-remat] 18", f"zamba2 B={B} S={S} D={D}",
+                      dispatch_rows(g, dev, torch.bfloat16, B, S, D, k, zero=True),
+                      torch.bfloat16, results)
+    # the SSD kernel at the training forward's full and routed shapes
+    ssm = cfg.ssm
+    for kind, NC in (("full", S // ssm.chunk), ("routed", k // ssm.chunk)):
+        shape = (B, ssm.n_heads(cfg.d_model), NC, ssm.chunk, ssm.head_dim, ssm.d_state)
+        results.setdefault("ssd_intra_chunk", {})[(f"zamba2 train {kind}", torch.bfloat16)] = \
+            ssd_row("[hybrid-remat] 18", f"zamba2 train {kind}", dev, shape, 62)
+
+
+def remat_run(tag: str, cfg, B: int, S: int, steps: int, dev) -> dict:
+    """``steps`` Trainer steps of ``cfg`` (its remat mode) from the Trainer's
+    seed, B x S rows of the synthetic corpus at seed 0, AdamW with a cosine
+    schedule (lr 1e-4 after 2 warmup steps), the last step profiled (device
+    activity only). Returns the losses, wall ms a step, the last step's busy
+    ms, the state's
+    device bytes, the peak allocated and reserved bytes above nothing, the
+    launches and flash's, the dispatch kernels' and the SSD kernel's
+    launches by call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.config import OptimConfig, TrainConfig
+    from repro_torch.data.loader import ShardedLoader
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import build
+    from repro_torch.train import Trainer
+
+    release_device_memory(dev)
+    tcfg = TrainConfig(global_batch=B, seq_len=S,
+                       optim=OptimConfig(lr=1e-4, warmup_steps=2, total_steps=steps),
+                       log_every=1, ckpt_every=10**9)
+    loader = ShardedLoader(SyntheticLM(cfg.vocab, S, seed=0), B, dev)
+    out = dict(losses=[], wall=[])
+    with tempfile.TemporaryDirectory() as ckdir:
+        trainer = Trainer(cfg, tcfg, loader, ckpt=CheckpointManager(ckdir), device=dev,
+                          log_fn=lambda m: None)
+        t0 = time.perf_counter()
+        state = trainer.init_or_resume()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        out["state_gib"] = torch.cuda.memory_allocated(dev) / 2**30
+        torch.cuda.reset_peak_memory_stats(dev)
+        build.reset_counters()
+        for i in range(steps):
+            # the last step profiled (device activity only): its records
+            # take seconds to read at 54 layers, and recording them slows
+            # the host
+            last = i == steps - 1
+            with (profile(activities=[ProfilerActivity.CUDA]) if last
+                  else contextlib.nullcontext()) as prof:
+                state, m = trainer.run(state, 1)
+            wall = 1e3 * trainer.heartbeats[-1][1]
+            out["losses"].append(m["loss"])
+            out["wall"].append(wall)
+            line = (f"[hybrid-remat] 18b {tag} step {i + 1}: loss {m['loss']:.6f} grad norm "
+                    f"{m['grad_norm']:.4f}; wall {wall:.1f} ms")
+            if last:
+                groups: dict = {}
+                for name, us in device_records(prof):
+                    groups[_kernel_group(name)] = groups.get(_kernel_group(name), 0.0) + us / 1e3
+                out["busy"] = sum(groups.values())
+                line += (f" (profiled), device busy {out['busy']:.1f} ms, idle share "
+                         f"{1 - out['busy'] / wall:.3f} (" + ", ".join(
+                             f"{g} {t:.1f}" for g, t in sorted(groups.items(),
+                                                               key=lambda kv: -kv[1])[:4]) + ")")
+            log(line)
+        torch.cuda.synchronize()
+        out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        out["reserved_gib"] = torch.cuda.max_memory_reserved(dev) / 2**30
+        out["counts"] = build.launch_counts()
+        out["flash"] = flash_calls()
+        out["dispatch"] = dispatch_by_call()
+        out["ssd"] = dict(build.COUNTERS["ssd_intra_chunk"].by_call)
+        loader.close()
+        del trainer, state
+    release_device_memory(dev)
+    if not all(np.isfinite(out["losses"])):
+        raise AssertionError(f"18b {tag}: non-finite loss {out['losses']}")
+    log(f"[hybrid-remat] 18b {tag}: init {init_s:.1f}s; state (weights, AdamW moments) "
+        f"{out['state_gib']:.2f} GiB; peak allocated {out['peak_gib']:.2f} GiB "
+        f"({out['peak_gib'] - out['state_gib']:.2f} above the state), peak reserved "
+        f"{out['reserved_gib']:.2f} GiB; launches "
+        f"{json.dumps({k: v for k, v in out['counts'].items() if v})}")
+    return out
+
+
+def train_remat(dev) -> dict:
+    """18b: zamba2-2.7b at full width and all 54 layers, bf16, B=2,
+    S=2048, REMAT_HYBRID's steps under remat "selective" and then "full";
+    mod-paper-1b at full width and SERVE_1B_LAYERS of its 24 layers, bf16,
+    pallas_fused, B=4, S=2048, REMAT_1B's steps under "none", "selective"
+    and "full"; each run from the same weights and batches. Steps 1-2's
+    losses within REMAT_LOSS_RTOL of the first mode's (the modes compute
+    one function: selective keeps the products full recomputes); the
+    kernels launched in every run (flash, the SSD kernel and the dispatch
+    kernels for zamba2; the fused routed kernels for 1b, recomputed under
+    both remat modes, unseen by the selective policy). Returns the runs."""
+    from repro_torch.config import get_config, with_mod_backend
+
+    runs: dict = {}
+    zcfg = get_config(CONFIGS_HYBRID)
+    c1b = with_mod_backend(dataclasses.replace(get_config("mod-paper-1b"),
+                                               n_layers=SERVE_1B_LAYERS), "pallas_fused")
+    log(f"[hybrid-remat] 18b {zcfg.name}: all {zcfg.n_layers} layers, {zcfg.n_params() / 1e9:.3f}B "
+        f"params in {zcfg.dtype}, B={REMAT_HYBRID['B']} S={REMAT_HYBRID['S']}; "
+        f"{c1b.name} at {c1b.n_layers} of 24 layers, pallas_fused, B={REMAT_1B['B']} "
+        f"S={REMAT_1B['S']}")
+    for name, cfg, w, want in (("zamba2", zcfg, REMAT_HYBRID,
+                                ("flash_attention", "ssd_intra_chunk", "gather_rows",
+                                 "scatter_add_rows")),
+                               ("1b", c1b, REMAT_1B, TRAIN_KERNELS)):
+        first = None
+        for mode in w["modes"]:
+            tag = f"{name} {mode}"
+            r = runs[tag] = remat_run(tag, dataclasses.replace(cfg, remat=mode), w["B"], w["S"],
+                                      w["steps"], dev)
+            missing = [k for k in want if r["counts"].get(k, 0) <= 0]
+            if missing:
+                raise AssertionError(f"18b {tag}: {missing} not launched")
+            if first is None:
+                first = r
+                continue
+            for i, (a, b) in enumerate(zip(r["losses"][:2], first["losses"][:2])):
+                if abs(a / b - 1) > REMAT_LOSS_RTOL:
+                    raise AssertionError(f"18b {tag}: step {i + 1}'s loss {a} is not within "
+                                         f"{REMAT_LOSS_RTOL} of {w['modes'][0]}'s {b}")
+        log(f"[hybrid-remat] 18b {name}: losses " + "; ".join(
+            f"{m} {', '.join(f'{x:.6f}' for x in runs[f'{name} {m}']['losses'])}"
+            for m in w["modes"]) + "; bitwise across modes: " + str(all(
+                runs[f"{name} {m}"]["losses"] == runs[f"{name} {w['modes'][0]}"]["losses"]
+                for m in w["modes"])) + "; busy ms of the last step " + "; ".join(
+            f"{m} {runs[f'{name} {m}']['busy']:.1f}" for m in w["modes"])
+            + "; wall ms of the steps after the first " + "; ".join(
+            f"{m} {', '.join(f'{x:.1f}' for x in runs[f'{name} {m}']['wall'][1:])}"
+            for m in w["modes"])
+            + "; peak GiB " + "; ".join(
+            f"{m} {runs[f'{name} {m}']['peak_gib']:.2f}" for m in w["modes"]))
+    return runs
+
+
+class PackedRows:
+    """A source of global batches packed from a seeded stream of documents of
+    3-100 tokens (``repro_torch.data.packing.pack_documents``)."""
+
+    def __init__(self, vocab: int, seq_len: int, n_docs: int, seed: int = 0):
+        from repro_torch.data.packing import pack_documents
+
+        rng = np.random.default_rng(seed)
+        docs = [rng.integers(1, vocab, int(n)) for n in rng.integers(3, 101, n_docs)]
+        self.rows = list(pack_documents(docs, seq_len))
+
+    def batch(self, step: int, batch_size: int) -> dict:
+        rows = self.rows[step * batch_size:(step + 1) * batch_size]
+        return {k: np.stack([r[k] for r in rows]) for k in rows[0]}
+
+
+def packed_parity(dev) -> dict:
+    """18c: one Trainer step of mod-paper-60m at PARITY_60M_LAYERS, f32,
+    backend pallas, on rows packed from documents (``loss_mask`` drops the
+    targets across documents), two microbatches, the same weights on the
+    CPU (plain versions) and on the card (kernels): losses within
+    PACKED_TOL. Returns the card step's launches."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.config import OptimConfig, TrainConfig
+    from repro_torch.data.loader import ShardedLoader
+    from repro_torch.kernels import build
+    from repro_torch.models import api
+    from repro_torch.train import Trainer, make_train_state
+
+    cfg = parity_60m_config()
+    w = PACKED_60M
+    source = PackedRows(cfg.vocab, w["S"], 32)
+    mask = source.batch(0, w["B"])["loss_mask"]
+    if not 0 < mask.mean() < 1:
+        raise AssertionError(f"18c: the packed rows' mask keeps {mask.mean()} of the targets")
+    params = api.init_model(cfg, device="cpu", seed=0)
+    losses, counts = {}, {}
+    for d in ("cpu", dev):
+        tcfg = TrainConfig(global_batch=w["B"], seq_len=w["S"], microbatches=w["microbatches"],
+                           optim=OptimConfig(lr=1e-3, warmup_steps=1, total_steps=2),
+                           log_every=1, ckpt_every=10**9)
+        loader = ShardedLoader(source, w["B"], torch.device(d), microbatches=w["microbatches"])
+        with tempfile.TemporaryDirectory() as ckdir:
+            trainer = Trainer(cfg, tcfg, loader, ckpt=CheckpointManager(ckdir), device=d,
+                              log_fn=lambda m: None)
+            state = make_train_state(cfg, d, params=_to(params, d))
+            build.reset_counters()
+            state, m = trainer.run(state, 1)
+            if d != "cpu":
+                torch.cuda.synchronize()
+            counts[str(d)] = build.launch_counts()
+            losses[str(d)] = m["loss"]
+        loader.close()
+    cpu, card = losses["cpu"], losses[str(dev)]
+    if abs(card / cpu - 1) > PACKED_TOL:
+        raise AssertionError(f"18c packed step: loss {card} on the card, {cpu} on the CPU")
+    for k in ("gather_rows", "scatter_add_rows", "flash_attention"):
+        if counts[str(dev)].get(k, 0) <= 0:
+            raise AssertionError(f"18c packed step: {k} not launched")
+    log(f"[hybrid-remat] 18c packed rows ({w['B']} x {w['S']} from {len(source.rows)} rows of "
+        f"documents, {float(mask.mean()):.4f} of the targets kept), {w['microbatches']} "
+        f"microbatches, one Trainer step of {cfg.name} at {cfg.n_layers} layers, f32: loss "
+        f"{card:.8f} on the card, {cpu:.8f} on the CPU ({abs(card / cpu - 1):.2e} apart, limit "
+        f"{PACKED_TOL:g}); launches "
+        f"{json.dumps({k: v for k, v in counts[str(dev)].items() if v})}")
+    return counts[str(dev)]
+
+
+def hybrid_remat_phase(dev, results) -> tuple:
+    """Phase 18 in order. Returns (launch counts by path, flash's launches by
+    call by path, the dispatch kernels' by path, the paged kernels' by path,
+    the SSD kernel's by path, the dequantizing gathers' by 18a run)."""
+    t = time.perf_counter()
+    counts, paged, dequant, snaps = serve_hybrid_quant(dev)
+    t18a = time.perf_counter() - t
+    hybrid_remat_kernels(dev, results, snaps)
+    del snaps
+    t18k = time.perf_counter() - t - t18a
+    runs = train_remat(dev)
+    t18b = time.perf_counter() - t - t18a - t18k
+    counts["packed"] = packed_parity(dev)
+    log(f"[time] 18a {t18a:.1f}s, 18 kernels {t18k:.1f}s, 18b {t18b:.1f}s, 18c "
+        f"{time.perf_counter() - t - t18a - t18k - t18b:.1f}s")
+    tags = {tag: "train_remat_" + _path_tag(tag) for tag in runs}
+    counts.update({tags[k]: r["counts"] for k, r in runs.items()})
+    return (counts, {tags[k]: r["flash"] for k, r in runs.items()},
+            {tags[k]: r["dispatch"] for k, r in runs.items()}, paged,
+            {tags[k]: r["ssd"] for k, r in runs.items()}, dequant)
+
+
 def dispatch_by_call() -> dict:
     """The padded dispatch kernels' launches by call since the last reset,
     keyed as the wrappers count them: (kind, vec, unroll, B, S, k, row
@@ -7097,6 +7794,18 @@ def main() -> int:
         counts = mesh_train_phase(torch.device("cuda", 0))
         log(f"[time] phase 17 mesh-train: {time.perf_counter() - t:.1f}s; launches "
             f"{json.dumps({k: v for k, v in counts.items() if v})}")
+        return 0
+    if sys.argv[1:2] == ["--hybrid-remat"]:
+        from repro_torch.kernels import build
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        log(f"[device] {smi_line()}")
+        build.build_all()
+        t = time.perf_counter()
+        counts = hybrid_remat_phase(torch.device("cuda", 0), {})[0]
+        log(f"[time] phase 18 hybrid-remat: {time.perf_counter() - t:.1f}s; launches by path "
+            f"{json.dumps({p: {k: v for k, v in c.items() if v} for p, c in counts.items()})}")
         return 0
     if sys.argv[1:2] == ["--overload"]:
         from repro_torch.kernels import build
@@ -7194,6 +7903,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mesh_train_counts = timed("phase 17 mesh-train", mesh_train_phase, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    (hybrid_counts, hybrid_flash, hybrid_dispatch, hybrid_paged, remat_ssd,
+     hybrid_dequant) = timed("phase 18 hybrid-remat", hybrid_remat_phase, dev, results)
+    dispatch_calls.update(hybrid_dispatch)
     # last: its 32-slot pools would leave the allocator's cache in pieces
     # that later phases' large tensors may not fit in
     gc.collect()
@@ -7204,7 +7918,8 @@ def main() -> int:
     # call (path and shape) in phases 4 and 5, as the wrapper counted them
     # (the serving prompts are 128-1024 tokens long, so a prefill row may
     # count none); every call shape of those runs rides on the kernel's entry
-    fl_runs = {"serve": serve_flash, "train": train_flash, **configs_flash, **encdec_flash}
+    fl_runs = {"serve": serve_flash, "train": train_flash, **configs_flash, **encdec_flash,
+               **hybrid_flash}
     shapes = {"flash_attention": [
         dict(shape=r["shape"], path=r["path"], plan=r["plan"], ms=r["ms"],
              plain_ms=r["plain_ms"], library_ms=r["library_ms"], bound_ms=r["bound"][0],
@@ -7240,15 +7955,20 @@ def main() -> int:
         # (a shape marked off the path, as the unaligned rows, has none);
         # phase 15's shapes, with their launches in its paged serving runs
         on_path = {key: paged_shapes[name][key] for key, r in results[name].items()
-                   if not r["off_path"] and "run" not in r}
+                   if not r["off_path"] and "run" not in r and "runs" not in r}
         on_path.update({key: sum(n for call, n in encdec_paged[r["run"]][name].items()
                                  if call[1:] == r["call"])
                         for key, r in results[name].items() if "run" in r})
+        # phase 18's shapes, with their launches in 18a's paged runs
+        on_path.update({key: sum(n for run in r["runs"] for call, n in
+                                 hybrid_paged[run][name].items() if call[1:] == r["call"])
+                        for key, r in results[name].items() if "runs" in r})
         shapes[name] = [dict(shape=r["shape"], launches=on_path.get(key, 0), ms=r["ms"],
                              plain_ms=r["plain_ms"], library_ms=r["library_ms"],
                              bound_ms=r["bound"][0], **({"plan": r["plan"]} if "plan" in r else {}))
                         for key, r in results[name].items()]
-        key = max((k for k in on_path if "run" not in results[name][k]),
+        key = max((k for k in on_path if "run" not in results[name][k]
+                   and "runs" not in results[name][k]),
                   key=lambda k: on_path[k] * results[name][k]["ms"])
         picks[name] = results[name][key]
     # the dequant gather: every shape phase 7b gives it, with its launches
@@ -7257,7 +7977,10 @@ def main() -> int:
     quant_path = {f"{q['kv']}/{q.get('granularity', 'page')}": name
                   for name, kw, q in QUANT_1B if "weights" not in q and "ragged" not in kw}
     dq = results["paged_gather_dequant"]
-    dq_launch = {key: quant_shapes[quant_path[key.split()[0]]].get(key, 0) for key in dq}
+    # (phase 18's shapes: their launches in 18a's run of the same pool)
+    dq_launch = {key: hybrid_dequant[r["run"]] if "run" in r
+                 else quant_shapes[quant_path[key.split()[0]]].get(key, 0)
+                 for key, r in dq.items()}
     shapes["paged_gather_dequant"] = [
         dict(shape=r["shape"], launches=dq_launch[key], ms=r["ms"], plain_ms=r["plain_ms"],
              library_ms=None, bound_ms=r["bound"][0]) for key, r in dq.items()]
@@ -7270,14 +7993,22 @@ def main() -> int:
     ssd = {k: r for k, r in results["ssd_intra_chunk"].items() if k != "backward_ms"}
     # (zamba2's forward shape: its launches in phase 14d's forward)
     zamba2_ssd = sum(n for k, n in hybrid_ssd.items() if k[1:] == ZAMBA2_SSD)
+    # (phase 18's training shapes: their launches in 18b's zamba2 runs)
     shapes["ssd_intra_chunk"] = [
         dict(shape=r["shape"], launches=zamba2_ssd if key[0] == "zamba2 forward"
+             else sum(n for c in remat_ssd.values() for k, n in c.items()
+                      if k[1:] == r["call"]) if "call" in r
              else ssd_by_nc.get(ssd_nc.get(key[0]), 0) if key[1] == torch.bfloat16 else 0,
              ms=r["ms"],
              plain_ms=r["plain_ms"], library_ms=None, bound_ms=r["bound"][0],
              bound_by=r["bound"][1], plan=r["plan"],
              **({"cuda_path_ms": r["cuda_path_ms"]} if "cuda_path_ms" in r else {}))
         for key, r in ssd.items()]
+    # every bf16 shape but the odd ones is on a path: none may count 0
+    idle = [row["shape"] for (name, dtype), row in zip(ssd, shapes["ssd_intra_chunk"])
+            if dtype == torch.bfloat16 and not name.startswith("odd") and row["launches"] <= 0]
+    if idle:
+        raise AssertionError(f"ssd_intra_chunk: no launch on the path of {idle}")
     picks["ssd_intra_chunk"] = results["ssd_intra_chunk"][("train full", torch.bfloat16)]
     # the op entry point's kernels: every shape of 10a-c, launched once each
     # by phase 10's counted run in bf16 (f32 shapes are checks only); the
@@ -7306,7 +8037,7 @@ def main() -> int:
                   "serve_ssm": ssm_serve_counts,
                   **{f"serve_spec {n}": c for n, c in spec_counts.items()}, **moe_counts,
                   **configs_counts, **encdec_counts, "overload": overload_counts,
-                  "mesh": mesh_counts, "mesh_train": mesh_train_counts}
+                  "mesh": mesh_counts, "mesh_train": mesh_train_counts, **hybrid_counts}
     for run, c in model_runs.items():
         if any(c.get(k, 0) for k in OPS_KERNELS):
             raise AssertionError(f"{run} launched an op-entry-point kernel: {c}")
@@ -7337,7 +8068,7 @@ def main() -> int:
                    "ops": ops_counts,
                    **{f"serve_spec {n}": c for n, c in spec_counts.items()}, **moe_counts,
                    **configs_counts, **encdec_counts, "overload": overload_counts,
-                   "mesh": mesh_counts, "mesh_train": mesh_train_counts}
+                   "mesh": mesh_counts, "mesh_train": mesh_train_counts, **hybrid_counts}
         path = {"routed_attention": "train", "routed_mlp_scatter": "train",
                 "paged_gather": "serve_paged", "paged_scatter_rows": "serve_paged",
                 "ragged_paged_scatter_rows": "serve_ragged",

@@ -134,7 +134,10 @@ class ModelConfig:
     # vlm: the backbone consumes precomputed patch embeddings (frontend stub)
     vision_stub: bool = False
     dtype: str = "bfloat16"
-    remat: str = "none"  # "none" | "full" (torch.utils.checkpoint per layer group)
+    # "none" | "full" | "selective": torch.utils.checkpoint per layer group
+    # (a hybrid segment); selective keeps the outputs of the products with
+    # no batch dims (models.transformer.save_dots), as JAX's policy
+    remat: str = "none"
 
     @property
     def head_dim(self) -> int:

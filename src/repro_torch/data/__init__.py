@@ -1,1 +1,1 @@
-"""Synthetic data (numpy only)."""
+"""Synthetic data and document packing (numpy only), and the host loader."""

@@ -43,8 +43,17 @@ def rank_rows(batch_size: int, data_shards: int, data_rank: int, microbatches: i
                            for i in range(n)])
 
 
+def _host_tensor(v: Any) -> torch.Tensor:
+    """A source's batch leaf as a CPU tensor: integer leaves (tokens,
+    labels, segment ids) as int64, float leaves (a packed row's
+    ``loss_mask``) as they are."""
+    v = np.asarray(v)
+    return torch.as_tensor(v).long() if v.dtype.kind in "iub" else torch.as_tensor(v)
+
+
 class ShardedLoader:
-    """A rank's rows of the synthetic global batches, prefetched.
+    """A rank's rows of a source's global batches (the synthetic corpus's,
+    or any ``source.batch(step, batch_size)``), prefetched.
 
     ``spmd`` (a ``ShardCtx`` with a mesh) picks the rank's rows; without
     one the rank is the whole batch. ``transform(step, batch)`` may add to
@@ -68,8 +77,7 @@ class ShardedLoader:
 
     def host_batch(self, step: int) -> Batch:
         """This rank's rows of global batch ``step``, as CPU tensors."""
-        b: Batch = {k: torch.as_tensor(v).long()
-                    for k, v in self.source.batch(step, self.batch_size).items()}
+        b: Batch = {k: _host_tensor(v) for k, v in self.source.batch(step, self.batch_size).items()}
         if self.transform is not None:
             b = self.transform(step, b)
         if self.mesh is None:

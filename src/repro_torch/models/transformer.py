@@ -153,19 +153,49 @@ def mean_aux(aux_steps: List[Aux]) -> Aux:
     return {key: torch.stack([a[key] for a in aux_steps]).mean(dim=0) for key in aux_steps[0]}
 
 
+_aten = torch.ops.aten
+# products whose output the selective policy may keep; a product of batch
+# extent 1 (the only batch an einsum over no batch dims lowers to) has no
+# batch dims in JAX's sense
+_MATMULS = (_aten.mm.default, _aten.addmm.default)
+_BATCHED_MATMULS = (_aten.bmm.default, _aten.baddbmm.default)
+
+
+def save_dots(ctx, func, *args, **kwargs):
+    """The ``remat="selective"`` policy, JAX's
+    ``dots_with_no_batch_dims_saveable``: keep the output of every matrix
+    product with no batch dimension (``mm`` / ``addmm``, and ``bmm`` /
+    ``baddbmm`` of batch 1: ``x @ w``, ``F.linear`` and an einsum such as
+    ``bsd,df->bsf``), recompute everything else (attention's and the SSD's
+    batched products, MoE's expert ``bmm`` over E, elementwise ops). A
+    CUDA kernel of the port is a call the dispatcher never sees, so it is
+    recomputed, as JAX recomputes a ``pallas_call``."""
+    if func in _MATMULS or (func in _BATCHED_MATMULS and args[0].shape[0] == 1):
+        return torch.utils.checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch.utils.checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _selective_contexts():
+    return torch.utils.checkpoint.create_selective_checkpoint_contexts(save_dots)
+
+
+REMAT_MODES = ("none", "full", "selective")
+
+
 def run_groups(groups: List[Params], group_fn, x: torch.Tensor, positions: torch.Tensor,
                cfg: ModelConfig, generator: Optional[torch.Generator]
                ) -> Tuple[torch.Tensor, Aux]:
     """The training forward's loop over layer groups (the JAX scan):
     ``group_fn(gp, positions, cfg, seed, h) -> (h, aux)`` per group, with
     one stochastic-router seed per group drawn from ``generator`` (a CPU
-    generator), recomputed in the backward (``torch.utils.checkpoint``)
-    under ``cfg.remat="full"``. On an FSDP mesh each group's leaves are
-    gathered as the group runs (:func:`_group_body`). Returns (h, aux
-    means over the groups)."""
-    if cfg.remat not in ("none", "full"):
-        raise NotImplementedError(
-            f"remat {cfg.remat!r}: only 'none' and 'full' are ported (ROADMAP Queue 1)")
+    generator). Under ``cfg.remat="full"`` each group is recomputed in the
+    backward (``torch.utils.checkpoint``); under ``"selective"`` the
+    recomputation keeps the products :func:`save_dots` saves. On an FSDP
+    mesh each group's leaves are gathered as the group runs
+    (:func:`_group_body`), so both recomputations gather them again.
+    Returns (h, aux means over the groups)."""
+    if cfg.remat not in REMAT_MODES:
+        raise ValueError(f"remat {cfg.remat!r}: one of {REMAT_MODES}")
     stochastic = cfg.mod.enabled and cfg.mod.router_type == "stochastic"
     root = generator if generator is not None else torch.Generator().manual_seed(0)
     aux_steps: List[Aux] = []
@@ -175,6 +205,9 @@ def run_groups(groups: List[Params], group_fn, x: torch.Tensor, positions: torch
         body = partial(_group_body, run, group_fn, gp, positions, cfg, seed)
         if cfg.remat == "full":
             x, a = torch.utils.checkpoint.checkpoint(body, x, use_reentrant=False)
+        elif cfg.remat == "selective":
+            x, a = torch.utils.checkpoint.checkpoint(body, x, use_reentrant=False,
+                                                     context_fn=_selective_contexts)
         else:
             x, a = body(x)
         aux_steps.append(a)
@@ -192,8 +225,9 @@ def forward(
 ) -> Tuple[torch.Tensor, Aux]:
     """Full-sequence forward. Returns (logits (B, S, V), aux); aux leaves are
     means over the layer groups. ``generator`` (a CPU generator) seeds the
-    stochastic router's draws, one seed per group; ``cfg.remat="full"``
-    recomputes each group in the backward (``torch.utils.checkpoint``)."""
+    stochastic router's draws, one seed per group; ``cfg.remat`` ("full",
+    "selective") recomputes each group in the backward
+    (:func:`run_groups`)."""
     x = embed(params["embed"], tokens) if embeds is None else embeds
     B, S = x.shape[0], x.shape[1]
     if positions is None:

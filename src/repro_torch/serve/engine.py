@@ -178,10 +178,6 @@ class ServingEngine:
             )
         self.quant = engine.quant if engine.quant.enabled else None
         self._narrow_weights = engine.quant.weights == "int8"
-        if cfg.family == "hybrid" and (self.quant is not None or self._narrow_weights):
-            raise NotImplementedError(
-                "quantized KV pages and int8 weights for the hybrid family are not ported yet "
-                "(ROADMAP Queue 1, the hybrid's remaining paths)")
         self.mesh = engine.mesh
         self.spmd = (SH.shard_ctx(engine.mesh, engine.data_shards)
                      if engine.mesh is not None or engine.data_shards else None)

@@ -202,11 +202,12 @@ def quantize_params(params: Dict[str, Any]) -> Dict[str, Any]:
     """int8-quantize every float leaf with a per-tensor pow2 scale; each
     becomes ``{q, scale, dtype}``, other leaves pass through.
 
-    The JAX package stacks each group leaf over the layer groups (and each
-    enc-dec encoder leaf over the encoder layers) into one tensor, and so
-    gives it one scale; the port keeps a tensor per group. Such a leaf's
-    scale is therefore taken over that leaf in every group, so the narrow
-    values and their dequantization are the JAX package's bits."""
+    The JAX package stacks each group leaf over the layer groups (over the
+    segments and the groups of a segment for the hybrid; each enc-dec
+    encoder leaf over the encoder layers) into one tensor, and so gives it
+    one scale; the port keeps a tensor per group. Such a leaf's scale is
+    therefore taken over that leaf in every group of every segment, so the
+    narrow values and their dequantization are the JAX package's bits."""
 
     def one(p, s=None):
         if not torch.is_floating_point(p):
@@ -216,11 +217,13 @@ def quantize_params(params: Dict[str, Any]) -> Dict[str, Any]:
     out = {k: tree_map(one, v) for k, v in params.items() if k not in STACKED}
     for key in STACKED:
         groups = params.get(key)
-        if groups:
+        if groups:  # (a hybrid segment is a list of groups)
+            blocks = [g for t in groups for g in (t if isinstance(t, list) else [t])]
             scales = tree_map(
                 lambda *ts: _absmax_scale(*ts) if torch.is_floating_point(ts[0]) else None,
-                groups[0], *groups[1:])
-            out[key] = [tree_map(one, g, scales) for g in groups]
+                blocks[0], *blocks[1:])
+            out[key] = tree_map(one, groups, [[scales] * len(t) if isinstance(t, list)
+                                              else scales for t in groups])
     return out
 
 

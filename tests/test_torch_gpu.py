@@ -1852,3 +1852,102 @@ def test_mesh_train_step_one_rank_launches(dev, tmp_path, fsdp):
     on, off = (dispatch, fused) if fsdp else (fused, dispatch)
     assert all(counts[k] > 0 for k in on + ("flash_attention",)), counts
     assert not any(counts[k] for k in off), counts
+
+
+# ---------------------------------------------------------------------------
+# The hybrid from quantized pages; remat "selective" on the card
+# ---------------------------------------------------------------------------
+
+# zamba2-2.7b's shared block: 32 kv heads of 80, one ring per site; 18 layers
+# in 3 segments (chip_smoke.py's HYBRID_QUANT_LAYERS), 8 slots of 16-token pages
+HYBRID_SITES, HYBRID_NKV, HYBRID_HD = 3, 32, 80
+
+
+@pytest.mark.parametrize("narrow,gran", [(torch.int8, "page"), (torch.float8_e4m3fn, "head")])
+@pytest.mark.parametrize("site", range(HYBRID_SITES))
+def test_paged_gather_dequant_at_the_hybrid_shapes(dev, narrow, gran, site):
+    """A site's K or V ring widened from narrow pages: G 1 (page) or the
+    site's 32 of the leaf's 3·32 scale columns (head), 80-byte groups."""
+    F = HYBRID_NKV * HYBRID_HD
+    G = 1 if gran == "page" else HYBRID_SITES * HYBRID_NKV
+    pages, _ = _narrow_pages(dev, narrow, 130, 16, F, 1, 31 + site)
+    g = torch.Generator(device=dev).manual_seed(32)
+    scales = 2.0 ** torch.randint(-8, 4, (130, 16, G), generator=g, device=dev).float()
+    cols = slice(0, 1) if gran == "page" else slice(site * HYBRID_NKV, (site + 1) * HYBRID_NKV)
+    _, _, table = _paged_inputs(dev, torch.float32, 130, 1, 1, 8, 16, 33)
+    table[0, -1] = 0  # an unmapped (NULL) logical page
+    build.reset_counters()
+    out = KP.paged_gather_dequant(pages, scales[:, :, cols], table, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert out.shape == (8, 16 * 16, F)
+    assert torch.equal(out, KP.paged_gather_dequant_plain(pages, scales[:, :, cols], table,
+                                                          torch.bfloat16))
+    assert build.launch_counts()["paged_gather_dequant"] == 1
+
+
+@pytest.mark.parametrize("quant", [dict(kv="int8"), dict(kv="fp8", granularity="head"),
+                                   dict(weights="int8")], ids=["int8-page", "fp8-head", "w8"])
+def test_hybrid_quantized_paged_engine_on_the_card(dev, quant):
+    """Smoke zamba2 (hd 80, f32) through the stepped paged engine on the
+    card: the CPU engine's greedy streams; narrow KV widened by the
+    dequantizing gather (k and v of every site a step) beside the plain
+    gather of the positions."""
+    import numpy as np
+
+    from repro_torch.serve import EngineConfig, Request, ServingEngine
+    from repro_torch.serve.quant import QuantConfig
+    from repro_torch.utils import tree_map
+
+    cfg = TC.smoke_config(TC.get_config("zamba2-2.7b"))
+    cfg = dataclasses.replace(cfg, dtype="float32", attn=dataclasses.replace(cfg.attn,
+                                                                             head_dim=80))
+    n_seg = cfg.n_layers // cfg.hybrid_attn_every
+    rng = np.random.default_rng(0)
+    prompts = [rng.choice(cfg.vocab, n, replace=False) for n in (3, 10, 6, 13)]
+    streams = {}
+    weights = TAPI.init_model(cfg, device="cpu", seed=0)
+    for d in ("cpu", dev):
+        params = tree_map(lambda t: t.to(d), weights)
+        eng = ServingEngine(params, cfg, EngineConfig(batch_size=2, ctx=24, page_size=4,
+                                                      quant=QuantConfig(**quant)), device=d)
+        build.reset_counters()
+        outs = eng.run_stream([Request(tokens=p, max_new_tokens=5) for p in prompts], 1)
+        streams[str(d)] = {o.uid: o.tokens.tolist() for o in outs}
+    torch.cuda.synchronize()
+    counts = build.launch_counts()
+    assert streams["cpu"] == streams[str(dev)]
+    steps = eng.stats()["steps"]
+    if "kv" in quant:
+        assert counts["paged_gather_dequant"] == 2 * n_seg * steps
+        assert counts["paged_gather"] == n_seg * steps
+    else:
+        assert counts["paged_gather_dequant"] == 0
+        assert counts["paged_gather"] == 3 * n_seg * steps
+
+
+def test_selective_remat_step_equals_full_on_the_card(dev):
+    """Two 60m pallas_fused steps (f32): "selective" keeps the products that
+    "full" recomputes; losses and grad norms equal bit for bit."""
+    from chip_smoke import parity_60m_config
+    from repro_torch.config import OptimConfig, TrainConfig, with_mod_backend
+    from repro_torch.train.loop import make_train_state, make_train_step
+
+    cfg = with_mod_backend(parity_60m_config(), "pallas_fused")
+    tcfg = TrainConfig(global_batch=4, seq_len=64, optim=OptimConfig(lr=1e-3, warmup_steps=1))
+    toks = torch.randint(0, cfg.vocab, (4, 65), generator=torch.Generator().manual_seed(2))
+    batch = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+    out = {}
+    for remat in ("full", "selective"):
+        c = dataclasses.replace(cfg, remat=remat)
+        state = make_train_state(c, dev, params=TAPI.init_model(c, device=dev, seed=0))
+        step = make_train_step(c, tcfg)
+        build.reset_counters()
+        metrics = []
+        for _ in range(2):
+            state, m = step(state, batch)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        out[remat] = (metrics, build.launch_counts())
+    assert out["selective"][0] == out["full"][0]
+    # the fused kernels are no products the policy sees: recomputed as under full
+    for k in ("routed_attention", "routed_mlp_scatter", "flash_attention"):
+        assert out["selective"][1][k] == out["full"][1][k] > 0, k

@@ -21,7 +21,7 @@ the smoke head dim 32 and with zamba2's own 80, and the MoD-off twin:
   JAX engine's; the paged pool pages the shared block's KV rings only;
 - what the family does not take raises as in JAX (batched prefill,
   chunked prefill, the prefix cache, the ragged step, speculation), and
-  the port's own refusal of quantized pools for it;
+  both engines take quantized pools and int8 weights for it;
 - flash attention at head dim 80: the plan (mma.sync tiles for prefill,
   split-KV decode, CUDA cores in f32; never wgmma), the plain version
   against the Pallas kernel in interpret mode (1e-5); ``routed_attention``
@@ -47,6 +47,7 @@ from repro.models import api as JAPI  # noqa: E402
 from repro.serve import EngineConfig as JEngineConfig  # noqa: E402
 from repro.serve import Request as JRequest  # noqa: E402
 from repro.serve import ServingEngine as JServingEngine  # noqa: E402
+from repro.serve.quant import QuantConfig as JQuantConfig  # noqa: E402
 from repro.train import loop as JLOOP  # noqa: E402
 from repro_torch import config as TC  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
@@ -377,10 +378,14 @@ def test_what_the_family_does_not_take_raises():
         with pytest.raises(ValueError, match=msg):
             ServingEngine(params, tc, EngineConfig(batch_size=2, ctx=16, **setting),
                           device="cpu")
-    for quant in (QuantConfig(kv="int8"), QuantConfig(weights="int8")):
-        with pytest.raises(NotImplementedError, match="hybrid"):
-            ServingEngine(params, tc, EngineConfig(batch_size=2, ctx=16, page_size=4,
-                                                   quant=quant), device="cpu")
+    # quantized pools and int8 weights: both engines take them
+    # (tests/test_torch_hybrid_quant.py holds their streams against JAX's)
+    for kw in (dict(kv="int8"), dict(kv="fp8", granularity="head"), dict(weights="int8")):
+        JServingEngine(jp, jc, engine=JEngineConfig(batch_size=2, ctx=16, page_size=4,
+                                                    quant=JQuantConfig(**kw)))
+        eng = ServingEngine(params, tc, EngineConfig(batch_size=2, ctx=16, page_size=4,
+                                                     quant=QuantConfig(**kw)), device="cpu")
+        assert eng.prefill_mode == "step"
 
 
 # ---------------------------------------------------------------------------

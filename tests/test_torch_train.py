@@ -185,7 +185,8 @@ def _loss_and_grads(params, cfg, batch, generator=None):
 @pytest.mark.parametrize("router_type", ["learned", "stochastic"])
 def test_full_remat_gives_the_same_loss_and_grads(router_type):
     """remat="full" recomputes each group in the backward; the stochastic
-    router redraws the same selection there (its seed is per group)."""
+    router redraws the same selection there (its seed is per group). So
+    does remat="selective", which keeps the products' outputs."""
     _, tc = _cfgs(backend="pallas_fused")
     tc = dataclasses.replace(tc, mod=dataclasses.replace(tc.mod, router_type=router_type))
     params = TAPI.init_model(tc, device="cpu", seed=2)
@@ -196,8 +197,11 @@ def test_full_remat_gives_the_same_loss_and_grads(router_type):
     assert l0 == l1
     for a, b in zip(g0, g1):
         torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="selective"):
-        TAPI.model_forward(params, dataclasses.replace(tc, remat="selective"), batch)
+    l2, g2 = _loss_and_grads(params, dataclasses.replace(tc, remat="selective"), batch,
+                             torch.Generator().manual_seed(7))
+    assert l0 == l2
+    for a, b in zip(g0, g2):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-5)
 
 
 def test_stochastic_router_selects_from_the_generator():
