@@ -14,6 +14,7 @@
     python3 chip_smoke.py --mesh                  # phase 16 (data_shards, the mesh engine) alone
     python3 chip_smoke.py --mesh-train            # phase 17 (the mesh trainer) alone
     python3 chip_smoke.py --hybrid-remat          # phase 18 (narrow hybrid, remat, packing) alone
+    python3 chip_smoke.py --tp-families           # phase 19 (TP of every family) alone
 
 Imports nothing of JAX or of the JAX package. Builds the port's CUDA
 kernels from ``src/repro_torch/kernels/csrc`` and runs, in order (any
@@ -253,9 +254,9 @@ failure raises and exits non-zero):
    ``data_shards=1``, its launches counted (the kernels line's ``mesh``
    path); (c) two processes on the card over gloo (NCCL refuses two ranks
    on one device), ``mod-paper-60m`` f32 at PARITY_60M_LAYERS, meshes
-   ``(2, 1)`` and ``(1, 2)``: streams equal to the single-process
-   ``data_shards=2`` / ``data_shards=1`` runs, every decode step's logits
-   within MESH_LOGITS_TOL.
+   ``(2, 1)``, ``(1, 2)`` and ``("pod", "data", "model") = (2, 1, 1)``:
+   streams equal to the single-process ``data_shards`` runs at the data
+   degree (2, 1, 2), every decode step's logits within MESH_LOGITS_TOL.
 17. the mesh trainer (``[mesh-train]`` lines; after phase 16, before phase
    13): (a) ``mod-paper-1b`` at SERVE_1B_LAYERS, bf16, ``pallas_fused``,
    B=4, S=2048, 3 steps of the Trainer over a one-rank NCCL mesh ``(1,
@@ -304,6 +305,25 @@ failure raises and exits non-zero):
    (f32, PARITY_60M_LAYERS) with two microbatches on rows packed from
    documents (``data.packing.pack_documents``, its ``loss_mask``), CPU
    against the card within PACKED_TOL.
+19. tensor parallelism of every family (``[tp-families]`` lines; after
+   phase 18, before phase 13): granite-20b (MQA: its one kv head on both
+   ranks) at full width and 2 of its 52 layers, f32, 3 Trainer steps
+   (B=2, S=256) in this process first (its ~26 GB state freed before the
+   ranks start); then two gloo processes on the card, mesh ``(1, 2)``,
+   while this process makes the single-process runs: ``mamba2-1.3b`` at 4
+   of 48 layers, ``zamba2-2.7b`` at 6 of 54 and ``whisper-tiny`` whole,
+   f32, 3 Trainer steps each (losses within MESH_TRAIN_LOSS_RTOL) and 4
+   greedy requests through the mesh engine (streams equal to one
+   process), granite-20b's 3 steps, then one bf16 step of mamba2 and
+   zamba2 (B=2, S=1024); each run's wall and busy ms of its last step,
+   state bytes, peak and reserved memory beside one process's; the ranks'
+   launches are the kernels line's ``tp_families`` and ``tp_train_kv``
+   paths; then the kernels at the ranks' local shapes, each held to its
+   plain version and timed beside its bound and library call: the SSD
+   kernel on tensor cores at 32 (mamba2) and 40 (zamba2) heads, full and
+   routed; flash at the shared block's 16 heads of 80 (bf16) and at
+   granite-20b's 24 query heads over its one kv head (f32); gather /
+   scatter at the bf16 steps' routed rows.
 
 To keep the script inside its 1200 s, depth is cut where an earlier
 phase does not need it: phases 4, 6c-11 and 13 serve ``mod-paper-1b`` at
@@ -344,7 +364,7 @@ prints the four loss trajectories.
 ``--moe`` builds the kernels and runs phase 12 alone; ``--overload``
 phase 13 alone; ``--configs`` phase 14 alone; ``--encdec-vlm`` phase 15
 alone; ``--mesh`` phase 16 alone; ``--mesh-train`` phase 17 alone;
-``--hybrid-remat`` phase 18 alone.
+``--hybrid-remat`` phase 18 alone; ``--tp-families`` phase 19 alone.
 ``--mlp-losses`` only runs phase 5's training four times, with
 routed_mlp_scatter on the wgmma GEMM, on the CUDA-core GEMM and as its
 plain version, and with routed_attention as its plain version, and prints
@@ -6507,9 +6527,10 @@ def overload_phase(dev):
 # the paged engines with phase 6c's page and chunk
 MESH_1B = dict(B=8, requests=16, gen=32, lo=128, hi=1024, page=16, chunk=256)
 MESH_SHARDS = (1, 2, 4)
-# 16c: two gloo ranks on the card, mod-paper-60m f32 at PARITY_60M_LAYERS
+# 16c: two gloo ranks on the card, mod-paper-60m f32 at PARITY_60M_LAYERS,
+# on the meshes (pod, data, model) below: the data degree is pod x data
 MESH_60M = dict(B=8, requests=12, prompt=16, gen=8, ctx=32)
-MESH_60M_MESHES = ((2, 1), (1, 2))
+MESH_60M_MESHES = ((1, 2, 1), (1, 1, 2), (2, 1, 1))
 MESH_LOGITS_TOL = 1e-5  # 16c: f32 logits of a mesh run against one process
 
 
@@ -6697,7 +6718,7 @@ def _mesh_60m_serve(dev, **kw):
             eng.scheduler.routed_capacity, eng.pool.rows, 1e3 * s["decode_s"] / s["decode_steps"])
 
 
-def _mesh_rank(rank, world, store, model_axis, device, queue):
+def _mesh_rank(rank, world, store, model_axis, pod, device, queue):
     """One gloo rank of 16c (a process of its own, on ``device``)."""
     import traceback
 
@@ -6709,7 +6730,7 @@ def _mesh_rank(rank, world, store, model_axis, device, queue):
     try:
         dev = M.init_process_group("gloo", rank=rank, world_size=world, device=device,
                                    store=torch.distributed.FileStore(store, world))
-        queue.put((rank, _mesh_60m_serve(dev, mesh=M.auto_mesh(model_axis)), None))
+        queue.put((rank, _mesh_60m_serve(dev, mesh=M.auto_mesh(model_axis, pod=pod)), None))
     except Exception:  # noqa: BLE001 -- reported to the parent, which fails
         queue.put((rank, None, traceback.format_exc()))
     finally:
@@ -6718,23 +6739,24 @@ def _mesh_rank(rank, world, store, model_axis, device, queue):
 
 def mesh_gloo_60m(dev):
     """16c: two processes on the one card over gloo (NCCL refuses two ranks
-    on one device), mod-paper-60m f32 at 4 of 8 layers, on the meshes (2, 1)
-    and (1, 2) at once (two groups of two ranks), against the
-    single-process runs."""
+    on one device), mod-paper-60m f32 at 4 of 8 layers, on the meshes
+    (data, model) = (2, 1) and (1, 2) and (pod, data, model) = (2, 1, 1) at
+    once (three groups of two ranks), against the single-process runs at
+    the data degree."""
     import torch.multiprocessing as mp
 
     ctx = mp.get_context("spawn")
     groups = {}
     t = time.perf_counter()
     stores = tempfile.TemporaryDirectory()
-    for data, model in MESH_60M_MESHES:
+    for pod, data, model in MESH_60M_MESHES:
         queue = ctx.Queue()
-        store = os.path.join(stores.name, f"store-{data}x{model}")
-        procs = [ctx.Process(target=_mesh_rank, args=(r, 2, store, model, dev.type, queue))
+        store = os.path.join(stores.name, f"store-{pod}x{data}x{model}")
+        procs = [ctx.Process(target=_mesh_rank, args=(r, 2, store, model, pod, dev.type, queue))
                  for r in range(2)]
         for p in procs:
             p.start()
-        groups[(data, model)] = (queue, procs)
+        groups[(pod, data, model)] = (queue, procs)
     # the references run while the ranks start
     refs = {d: _mesh_60m_serve(dev, data_shards=d if d > 1 else None) for d in (1, 2)}
     results = {}
@@ -6748,27 +6770,30 @@ def mesh_gloo_60m(dev):
                 if p.is_alive():
                     p.kill()
         stores.cleanup()
-    for (data, model), got in results.items():
+    for (pod, data, model), got in results.items():
+        name = (f"({data}, {model})" if pod == 1
+                else f"(pod, data, model) = ({pod}, {data}, {model})")
+        d = pod * data
         errors = [e for _, _, e in got if e is not None]
         if errors:
-            raise AssertionError(f"[mesh] 16c ({data}, {model}): a rank failed:\n{errors[0]}")
-        ref_streams, ref_logits, ref_kb, _, ref_ms = refs[data]
+            raise AssertionError(f"[mesh] 16c {name}: a rank failed:\n{errors[0]}")
+        ref_streams, ref_logits, ref_kb, _, ref_ms = refs[d]
         for rank, (streams, logits, kb, rows, ms), _ in got:
             if streams != ref_streams:
-                raise AssertionError(f"[mesh] 16c ({data}, {model}) rank {rank}: streams differ "
-                                     f"from the single-process data_shards={data} run")
+                raise AssertionError(f"[mesh] 16c {name} rank {rank}: streams differ "
+                                     f"from the single-process data_shards={d} run")
             if logits.shape != ref_logits.shape:
                 raise AssertionError(f"[mesh] 16c: {logits.shape} logits, not {ref_logits.shape}")
             err = float(np.abs(logits - ref_logits).max())
-            if err > MESH_LOGITS_TOL or kb != ref_kb or rows != MESH_60M["B"] // data:
-                raise AssertionError(f"[mesh] 16c ({data}, {model}) rank {rank}: logits off by "
+            if err > MESH_LOGITS_TOL or kb != ref_kb or rows != MESH_60M["B"] // d:
+                raise AssertionError(f"[mesh] 16c {name} rank {rank}: logits off by "
                                      f"{err}, kb {kb} / {ref_kb}, {rows} pool rows")
-            log(f"[mesh] 16c mesh ({data}, {model}) rank {rank} (gloo, {dev.type}): streams equal "
-                f"to one process at data_shards={data} ({sum(len(s) for s in streams.values())} "
+            log(f"[mesh] 16c mesh {name} rank {rank} (gloo, {dev.type}): streams equal "
+                f"to one process at data_shards={d} ({sum(len(s) for s in streams.values())} "
                 f"tokens), decode logits within {err:.2e} over {len(logits)} steps, global kb "
                 f"{kb}, {rows} pool rows; engine mean {ms:.2f} ms wall a decode step (one "
                 f"process: {ref_ms:.2f})")
-    log(f"[mesh] 16c: both meshes' four ranks and the references in "
+    log(f"[mesh] 16c: the three meshes' six ranks and the references in "
         f"{time.perf_counter() - t:.1f}s, the ranks' start included")
 
 
@@ -7704,6 +7729,364 @@ def hybrid_remat_phase(dev, results) -> tuple:
             {tags[k]: r["ssd"] for k, r in runs.items()}, dequant)
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: tensor parallelism for the ssm, hybrid and enc-dec families, and
+# tensor-parallel training with kv heads shared by ranks
+# ---------------------------------------------------------------------------
+
+# two gloo ranks on the card, mesh (1, 2), f32, backend "pallas" (the routed
+# blocks gather and scatter in both runs), each against one process on the
+# same weights and batches: the families at full width (layers: the depth
+# they are cut to, None = whole), trained and served
+TP_ARCHS = (("mamba2-1.3b", 4), ("zamba2-2.7b", 6), ("whisper-tiny", None))
+# granite-20b (MQA: its one kv head on both ranks) at full width, trained;
+# its single-process state is ~26 GB, so that run goes first and is freed
+# before the ranks start
+TP_KV = ("granite-20b", 2)
+# three steps: the first step's learning rate is 0 (warmup), so the third
+# step's loss is the first that the ranks' updates move
+TP_TRAIN = dict(B=2, S=256, steps=3, lr=1e-4)
+TP_SERVE = dict(B=4, requests=4, prompt=8, gen=8, ctx=32)
+# then one bf16 training step of the ssm and hybrid families on the ranks:
+# the SSD kernel on its tensor-core path at a rank's 32 / 40 heads, flash at
+# the shared block's 16 heads of 80
+TP_BF16 = dict(B=2, S=1024)
+TP_CALLS = ("ssd_intra_chunk", "flash_attention", "gather_rows", "scatter_add_rows")
+
+
+def tp_config(arch: str, layers, dtype: str = "float32"):
+    from repro_torch.config import get_config, with_mod_backend
+
+    cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return with_mod_backend(cfg, "pallas")
+
+
+def tp_requests(cfg) -> list:
+    """TP_SERVE's greedy requests: prompts of distinct tokens; a whisper
+    request carries stub frames of its own seed."""
+    from repro_torch.models import api
+    from repro_torch.serve import Request
+
+    w = TP_SERVE
+    rng = np.random.default_rng(5)
+    out = []
+    for i in range(w["requests"]):
+        kw = {}
+        if cfg.family == "encdec":
+            kw["enc_emb"] = api.stub_inputs(cfg, 1, 1, seed=100 + i,
+                                            device="cpu")["enc_emb"][0].float().numpy()
+        out.append(Request(tokens=rng.permutation(cfg.vocab)[: w["prompt"]],
+                           max_new_tokens=w["gen"], **kw))
+    return out
+
+
+def _memory(dev, base: int) -> dict:
+    return dict(peak=torch.cuda.max_memory_allocated(dev) - base,
+                reserved=torch.cuda.memory_reserved(dev))
+
+
+def tp_train(cfg, dev, spmd=None) -> dict:
+    """TP_TRAIN's Trainer steps (one process, or this rank of ``spmd``'s
+    mesh), the last one profiled: losses, (wall, busy) ms of that step, the
+    state bytes, the run's peak memory above what was allocated before it
+    and the allocator's reserved bytes after it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.config import OptimConfig, TrainConfig
+    from repro_torch.data.loader import ShardedLoader
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.launch.train import stub_frontend
+    from repro_torch.train import Trainer
+    from repro_torch.train import loop as L
+
+    w = TP_TRAIN
+    tcfg = TrainConfig(global_batch=w["B"], seq_len=w["S"],
+                       optim=OptimConfig(lr=w["lr"], warmup_steps=1, total_steps=w["steps"]),
+                       log_every=10**9, ckpt_every=10**9)
+    transform = stub_frontend(cfg, 0) if cfg.family == "encdec" else None
+    loader = ShardedLoader(SyntheticLM(cfg.vocab, w["S"], seed=0), w["B"], dev, spmd=spmd,
+                           transform=transform)
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses = []
+    with tempfile.TemporaryDirectory() as ckdir:
+        trainer = Trainer(cfg, tcfg, loader, ckpt=CheckpointManager(ckdir), device=dev, spmd=spmd,
+                          log_fn=lambda m: None)
+        state = trainer.init_or_resume()
+        for i in range(w["steps"]):
+            if i == w["steps"] - 1:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    state, m = trainer.run(state, 1)
+            else:
+                state, m = trainer.run(state, 1)
+            losses.append(m["loss"])
+    loader.close()
+    out = dict(losses=losses, wall=1e3 * trainer.heartbeats[-1][1],
+               busy=sum(us for _, us in device_records(prof)) / 1e3,
+               state_bytes=L.state_bytes(state), **_memory(dev, base))
+    del state, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"[tp-families] 19 {cfg.name}: non-finite losses {losses}")
+    return out
+
+
+def tp_serve(cfg, dev, mesh=None) -> dict:
+    """TP_SERVE's requests through the contiguous engine (one process, or
+    this rank of ``mesh``): streams, mean wall ms a decode step, the pool's
+    bytes on this process, the run's peak and reserved memory."""
+    from repro_torch.models import api
+    from repro_torch.serve import EngineConfig, ServingEngine
+
+    w = TP_SERVE
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = ServingEngine(api.init_model(cfg, device=dev, seed=0), cfg,
+                        EngineConfig(batch_size=w["B"], ctx=w["ctx"], mesh=mesh), device=dev)
+    outs = eng.run_stream(tp_requests(cfg), 2)
+    s = eng.stats()
+    out = dict(streams={o.uid: o.tokens.tolist() for o in outs},
+               decode_ms=1e3 * s["decode_s"] / max(s["decode_steps"], 1),
+               pool_bytes=eng.pool.cache_bytes()["total"], **_memory(dev, base))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_bf16_step(cfg, dev, spmd) -> float:
+    """One bf16 training step of ``cfg`` on this rank (TP_BF16's batch);
+    its loss."""
+    from repro_torch.config import OptimConfig, TrainConfig
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.train import loop as L
+
+    w = TP_BF16
+    tcfg = TrainConfig(global_batch=w["B"], seq_len=w["S"], optim=OptimConfig(lr=1e-4))
+    batch = {k: torch.as_tensor(v).long().to(dev)
+             for k, v in SyntheticLM(cfg.vocab, w["S"], seed=0).batch(0, w["B"]).items()}
+    state = L.make_train_state(cfg, dev, seed=0, spmd=spmd)
+    state, m = L.make_train_step(cfg, tcfg, spmd)(state, batch)
+    loss = float(m["loss"])
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not np.isfinite(loss):
+        raise AssertionError(f"[tp-families] 19 bf16 {cfg.name}: non-finite loss {loss}")
+    return loss
+
+
+def _tp_calls() -> dict:
+    from repro_torch.kernels import build
+
+    return {name: dict(build.COUNTERS[name].by_call) for name in TP_CALLS}
+
+
+def _tp_rank(rank, world, store, device, queue):
+    """One gloo rank of phase 19: the families trained and served, their
+    bf16 steps, then granite-20b trained; the launch counts of each path
+    (reset just before it, read just after). Sends the parent summaries."""
+    import traceback
+
+    t0 = time.perf_counter()
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.config import MeshConfig
+    from repro_torch.kernels import build
+    from repro_torch.launch import mesh as M
+
+    try:
+        dev = M.init_process_group("gloo", rank=rank, world_size=world, device=device,
+                                   store=torch.distributed.FileStore(store, world))
+        spmd = M.mesh_ctx(MeshConfig(data=1, model=world))
+        out: dict = {"start_s": time.perf_counter() - t0}
+        t = time.perf_counter()
+        build.reset_counters()
+        for arch, layers in TP_ARCHS:
+            cfg = tp_config(arch, layers)
+            out[arch] = dict(train=tp_train(cfg, dev, spmd), serve=tp_serve(cfg, dev, spmd.mesh))
+        out["bf16"] = {arch: tp_bf16_step(tp_config(arch, layers, "bfloat16"), dev, spmd)
+                       for arch, layers in TP_ARCHS[:2]}
+        out["families"] = (build.launch_counts(), _tp_calls())
+        out["families_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        build.reset_counters()
+        arch, layers = TP_KV
+        out[arch] = dict(train=tp_train(tp_config(arch, layers), dev, spmd))
+        out["kv"] = (build.launch_counts(), _tp_calls())
+        out["kv_s"] = time.perf_counter() - t
+        queue.put((rank, out, None))
+    except Exception:  # noqa: BLE001 -- reported to the parent, which fails
+        queue.put((rank, None, traceback.format_exc()))
+    finally:
+        M.destroy_process_group()
+
+
+def _tp_note(run: dict) -> str:
+    gib = 2**30
+    return (f"peak {run['peak'] / gib:.2f} GiB, reserved {run['reserved'] / gib:.2f} GiB")
+
+
+def _tp_check_run(tag: str, rank: int, got: dict, ref: dict) -> None:
+    """One rank's training (and serving) run held against one process's,
+    and logged beside it."""
+    tr, rtr = got["train"], ref["train"]
+    err = max(abs(a / b - 1) for a, b in zip(tr["losses"], rtr["losses"]))
+    if err > MESH_TRAIN_LOSS_RTOL:
+        raise AssertionError(f"[tp-families] 19 {tag} rank {rank}: losses {tr['losses']} off "
+                             f"one process's {rtr['losses']} by {err:.2e}")
+    log(f"[tp-families] 19 {tag} rank {rank}: {TP_TRAIN['steps']} Trainer steps, losses "
+        f"{', '.join(f'{x:.6f}' for x in tr['losses'])} within {err:.2e} of one process; step "
+        f"{TP_TRAIN['steps']} wall {tr['wall']:.1f} ms, busy {tr['busy']:.1f} ms (one process: "
+        f"wall {rtr['wall']:.1f} ms, busy {rtr['busy']:.1f} ms); state {tr['state_bytes']} bytes "
+        f"({tr['state_bytes'] / rtr['state_bytes']:.3f} of one process's); {_tp_note(tr)} (one "
+        f"process: {_tp_note(rtr)})")
+    if "serve" not in got:
+        return
+    sv, rsv = got["serve"], ref["serve"]
+    if sv["streams"] != rsv["streams"]:
+        raise AssertionError(f"[tp-families] 19 {tag} rank {rank}: streams {sv['streams']} "
+                             f"differ from one process's {rsv['streams']}")
+    log(f"[tp-families] 19 {tag} rank {rank}: {len(sv['streams'])} greedy requests, streams "
+        f"equal to one process ({sum(len(s) for s in sv['streams'].values())} tokens); decode "
+        f"step {sv['decode_ms']:.2f} ms wall (one process {rsv['decode_ms']:.2f}); pool "
+        f"{sv['pool_bytes'] / 2**20:.1f} MiB (one process {rsv['pool_bytes'] / 2**20:.1f}); "
+        f"{_tp_note(sv)}")
+
+
+def tp_kernels(dev, results, calls: dict) -> None:
+    """The kernels at phase 19's local shapes, held against their plain
+    versions and timed beside the bound and a library call: the SSD kernel
+    at a rank's 32 (mamba2) and 40 (zamba2) heads, the full and routed
+    layers of the bf16 step; flash at the shared block's 16 heads of 80
+    (bf16, with lse) and at granite-20b's 24 query heads over its one kv
+    head (f32, with lse); gather / scatter at the bf16 step's routed rows.
+    ``calls``: the ranks' launches by call, which every shape must have."""
+    from repro_torch.kernels import flash_attention as FA
+
+    g = torch.Generator(device=dev).manual_seed(71)
+    B, S = TP_BF16["B"], TP_BF16["S"]
+    for arch, _ in TP_ARCHS[:2]:
+        cfg = tp_config(arch, None, "bfloat16")
+        ssm, k = cfg.ssm, cfg.mod.capacity(S)
+        H = ssm.n_heads(cfg.d_model) // 2
+        short = arch.split("-")[0]
+        for kind, n in (("full", S), ("routed", k)):
+            Q = min(ssm.chunk, n)
+            shape = (B, H, n // Q, Q, ssm.head_dim, ssm.d_state)
+            if calls["ssd_intra_chunk"].get(("tensor", *shape), 0) <= 0:
+                raise AssertionError(f"[tp-families] 19 ssd_intra_chunk {shape}: no tensor-core "
+                                     f"launch on the ranks ({calls['ssd_intra_chunk']})")
+            r = ssd_row("[tp-families] 19", f"{short} tp rank {kind}", dev, shape, 72)
+            results.setdefault("ssd_intra_chunk", {})[(f"{short} tp {kind}", torch.bfloat16)] = \
+                dict(r, run="tp_families")
+        log_dispatch_rows("[tp-families] 19", f"{short} tp B={B} S={S} D={cfg.d_model}",
+                          dispatch_rows(g, dev, torch.bfloat16, B, S, cfg.d_model, k),
+                          torch.bfloat16, results)
+    i32 = dict(dtype=torch.int32, device=dev)
+    zamba2 = tp_config("zamba2-2.7b", None, "bfloat16")
+    granite = tp_config(*TP_KV)
+    wt = TP_TRAIN
+    for cfg, dtype, Bc, Sc, run in ((zamba2, torch.bfloat16, B, S, "tp_families"),
+                                    (granite, torch.float32, wt["B"], wt["S"], "tp_train_kv")):
+        nq, nkv, hd = cfg.attn.n_heads // 2, max(1, cfg.attn.n_kv_heads // 2), cfg.head_dim
+        pos = torch.arange(Sc, **i32)[None].repeat(Bc, 1)
+        c = FlashCase(f"{cfg.name.split('-')[0]} tp rank train B={Bc} S={Sc} lse", Bc, Sc, Sc,
+                      nq, nkv, hd, pos, pos, (dtype,), True)
+        plan = FA.flash_plan(c.B, c.Sq, c.Skv, c.nq, c.nkv, c.hd, dtype)
+        key = (plan.path, c.B, c.Sq, c.Skv, c.nq, c.nkv, c.hd, plan.kernels)
+        launched = calls["flash_attention"] if run == "tp_families" else calls["kv_flash"]
+        if launched.get(key, 0) <= 0:
+            raise AssertionError(f"[tp-families] 19 flash {c.label}: {key} not launched on the "
+                                 f"ranks ({launched})")
+        r = flash_row(FA, c, dtype, g)
+        r.update(path=plan.path, kernels=plan.kernels, run=run,
+                 plan=dict(path=plan.path, key_tile=plan.key_tile, key_split=plan.key_split,
+                           chunk=plan.chunk, n_splits=plan.n_splits, merge=plan.merge))
+        log(f"[tp-families] 19 flash_attention {r['shape']:40s} {plan.path} "
+            f"kernels={plan.kernels} max_abs_err={r['max_abs_err']:.3g} "
+            f"lse_err={r['lse_err']:.3g} ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"library_ms={r['library_ms']:.4f} (SDPA) bound_ms={r['bound'][0]:.4f} "
+            f"({r['bound'][1]})")
+        results.setdefault("flash_attention", {})[(c.label, dtype)] = r
+
+
+def tp_families_phase(dev, results) -> tuple:
+    """Phase 19: granite-20b's single-process run, then two gloo ranks on
+    the card (mesh (1, 2)) while this process makes the families'
+    single-process runs; each rank's runs held against them; then the
+    kernels at the ranks' local shapes. Returns ({path: launch counts},
+    {path: {kernel: launches by call}}) of rank 0."""
+    import torch.multiprocessing as mp
+
+    t = time.perf_counter()
+    arch, layers = TP_KV
+    kv_ref = dict(train=tp_train(tp_config(arch, layers), dev))
+    kv_ref_s = time.perf_counter() - t
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    tmp = tempfile.TemporaryDirectory()
+    store = os.path.join(tmp.name, "store")
+    procs = [ctx.Process(target=_tp_rank, args=(r, 2, store, dev.type, queue)) for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        tr = time.perf_counter()
+        refs = {}
+        for a, n in TP_ARCHS:
+            cfg = tp_config(a, n)
+            refs[a] = dict(train=tp_train(cfg, dev), serve=tp_serve(cfg, dev))
+        refs[arch] = kv_ref
+        bf16_ref = {a: tp_bf16_step(tp_config(a, n, "bfloat16"), dev, None)
+                    for a, n in TP_ARCHS[:2]}
+        ref_s = time.perf_counter() - tr
+        got = sorted((queue.get(timeout=600) for _ in procs), key=lambda x: x[0])
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+        tmp.cleanup()
+    errors = [e for _, _, e in got if e is not None]
+    if errors:
+        raise AssertionError(f"[tp-families] 19: a rank failed:\n{errors[0]}")
+    ranks_s = time.perf_counter() - t - kv_ref_s
+    for rank, out, _ in got:
+        for a, n in TP_ARCHS + (TP_KV,):
+            _tp_check_run(f"{a} ({'whole' if n is None else f'{n} layers'}, f32, mesh (1, 2))",
+                          rank, out[a], refs[a])
+        drift = ", ".join(f"{a} {x:.6f} (one process {bf16_ref[a]:.6f}, drift "
+                          f"{abs(x / bf16_ref[a] - 1):.2e})" for a, x in out["bf16"].items())
+        log(f"[tp-families] 19 rank {rank}: bf16 step losses (finite; not held) {drift}; start "
+            f"{out['start_s']:.1f}s, the families {out['families_s']:.1f}s, granite-20b "
+            f"{out['kv_s']:.1f}s")
+    counts = {"tp_families": got[0][1]["families"][0], "tp_train_kv": got[0][1]["kv"][0]}
+    calls = dict(got[0][1]["families"][1], kv_flash=got[0][1]["kv"][1]["flash_attention"])
+    want = {"tp_families": ("ssd_intra_chunk", "flash_attention", "gather_rows",
+                            "scatter_add_rows"),
+            "tp_train_kv": ("flash_attention", "gather_rows", "scatter_add_rows")}
+    for path, c in counts.items():
+        idle = [k for k in want[path] if c.get(k, 0) <= 0]
+        if idle:
+            raise AssertionError(f"[tp-families] 19 {path}: {idle} not launched on rank 0")
+        log(f"[tp-families] 19 {path} launches (rank 0): "
+            f"{json.dumps({k: v for k, v in c.items() if v})}")
+    tk = time.perf_counter()
+    tp_kernels(dev, results, calls)
+    log(f"[time] 19 granite-20b one process {kv_ref_s:.1f}s, the ranks {ranks_s:.1f}s (the "
+        f"families' single-process runs {ref_s:.1f}s meanwhile), kernels "
+        f"{time.perf_counter() - tk:.1f}s; phase 19 {time.perf_counter() - t:.1f}s")
+    by_call = {"tp_families": got[0][1]["families"][1], "tp_train_kv": got[0][1]["kv"][1]}
+    return counts, by_call
+
+
 def dispatch_by_call() -> dict:
     """The padded dispatch kernels' launches by call since the last reset,
     keyed as the wrappers count them: (kind, vec, unroll, B, S, k, row
@@ -7807,6 +8190,18 @@ def main() -> int:
         log(f"[time] phase 18 hybrid-remat: {time.perf_counter() - t:.1f}s; launches by path "
             f"{json.dumps({p: {k: v for k, v in c.items() if v} for p, c in counts.items()})}")
         return 0
+    if sys.argv[1:2] == ["--tp-families"]:
+        from repro_torch.kernels import build
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        log(f"[device] {smi_line()}")
+        build.build_all()
+        t = time.perf_counter()
+        counts = tp_families_phase(torch.device("cuda", 0), {})[0]
+        log(f"[time] phase 19 tp-families: {time.perf_counter() - t:.1f}s; launches by path "
+            f"{json.dumps({p: {k: v for k, v in c.items() if v} for p, c in counts.items()})}")
+        return 0
     if sys.argv[1:2] == ["--overload"]:
         from repro_torch.kernels import build
 
@@ -7908,6 +8303,11 @@ def main() -> int:
     (hybrid_counts, hybrid_flash, hybrid_dispatch, hybrid_paged, remat_ssd,
      hybrid_dequant) = timed("phase 18 hybrid-remat", hybrid_remat_phase, dev, results)
     dispatch_calls.update(hybrid_dispatch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_counts, tp_calls = timed("phase 19 tp-families", tp_families_phase, dev, results)
+    dispatch_calls["tp_families"] = {name: tp_calls["tp_families"][name]
+                                     for name in ("gather_rows", "scatter_add_rows")}
     # last: its 32-slot pools would leave the allocator's cache in pieces
     # that later phases' large tensors may not fit in
     gc.collect()
@@ -7919,7 +8319,7 @@ def main() -> int:
     # (the serving prompts are 128-1024 tokens long, so a prefill row may
     # count none); every call shape of those runs rides on the kernel's entry
     fl_runs = {"serve": serve_flash, "train": train_flash, **configs_flash, **encdec_flash,
-               **hybrid_flash}
+               **hybrid_flash, **{p: c["flash_attention"] for p, c in tp_calls.items()}}
     shapes = {"flash_attention": [
         dict(shape=r["shape"], path=r["path"], plan=r["plan"], ms=r["ms"],
              plain_ms=r["plain_ms"], library_ms=r["library_ms"], bound_ms=r["bound"][0],
@@ -7993,9 +8393,14 @@ def main() -> int:
     ssd = {k: r for k, r in results["ssd_intra_chunk"].items() if k != "backward_ms"}
     # (zamba2's forward shape: its launches in phase 14d's forward)
     zamba2_ssd = sum(n for k, n in hybrid_ssd.items() if k[1:] == ZAMBA2_SSD)
-    # (phase 18's training shapes: their launches in 18b's zamba2 runs)
+    # (phase 18's training shapes: their launches in 18b's zamba2 runs;
+    # phase 19's local shapes: in the ranks' bf16 steps, on the row's path:
+    # the f32 runs launch the routed shapes on the CUDA-core path)
+    tp_ssd = tp_calls["tp_families"]["ssd_intra_chunk"]
     shapes["ssd_intra_chunk"] = [
         dict(shape=r["shape"], launches=zamba2_ssd if key[0] == "zamba2 forward"
+             else sum(n for k, n in tp_ssd.items() if k == (r["plan"]["path"], *r["call"]))
+             if r.get("run") == "tp_families"
              else sum(n for c in remat_ssd.values() for k, n in c.items()
                       if k[1:] == r["call"]) if "call" in r
              else ssd_by_nc.get(ssd_nc.get(key[0]), 0) if key[1] == torch.bfloat16 else 0,
@@ -8037,7 +8442,8 @@ def main() -> int:
                   "serve_ssm": ssm_serve_counts,
                   **{f"serve_spec {n}": c for n, c in spec_counts.items()}, **moe_counts,
                   **configs_counts, **encdec_counts, "overload": overload_counts,
-                  "mesh": mesh_counts, "mesh_train": mesh_train_counts, **hybrid_counts}
+                  "mesh": mesh_counts, "mesh_train": mesh_train_counts, **hybrid_counts,
+                  **tp_counts}
     for run, c in model_runs.items():
         if any(c.get(k, 0) for k in OPS_KERNELS):
             raise AssertionError(f"{run} launched an op-entry-point kernel: {c}")
@@ -8068,7 +8474,8 @@ def main() -> int:
                    "ops": ops_counts,
                    **{f"serve_spec {n}": c for n, c in spec_counts.items()}, **moe_counts,
                    **configs_counts, **encdec_counts, "overload": overload_counts,
-                   "mesh": mesh_counts, "mesh_train": mesh_train_counts, **hybrid_counts}
+                   "mesh": mesh_counts, "mesh_train": mesh_train_counts, **hybrid_counts,
+                   **tp_counts}
         path = {"routed_attention": "train", "routed_mlp_scatter": "train",
                 "paged_gather": "serve_paged", "paged_scatter_rows": "serve_paged",
                 "ragged_paged_scatter_rows": "serve_ragged",

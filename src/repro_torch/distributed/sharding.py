@@ -25,16 +25,26 @@ the layers ask :func:`is_split` instead of comparing shapes.
   ``batch_shardings`` (the batch over ``("pod", "data")``, M-RoPE
   positions on dim 1).
 - :func:`cache_placement` follows JAX's ``cache_shardings``: the slot dim
-  over "data"; on the model axis the port splits **kv heads**, not
-  ``head_dim`` as JAX does, because the flash and paged kernels take whole
-  heads (a split head_dim would need a reduction inside every score).
+  over ``("pod", "data")``; on the model axis the port splits **kv heads**,
+  not ``head_dim`` as JAX does, because the flash and paged kernels take
+  whole heads (a split head_dim would need a reduction inside every
+  score), and keeps the SSM's ``conv_B`` / ``conv_C`` windows whole (every
+  rank's heads read the whole B and C).
 - :func:`shard_params` cuts one rank's shards out of a full parameter tree
   by the rules. Attention leaves are cut on head boundaries only: GSPMD
   may cut a head in two, the port's kernels may not, so tensor parallelism
-  needs whole query heads per rank (:func:`check_tensor_parallel`), and
-  K/V whose heads do not divide the model axis keep, on each rank, the kv
-  heads its query heads read (all of them under MQA; serving only: the
-  trainer needs the kv heads to divide the axis).
+  needs whole query heads per rank (:func:`check_tensor_parallel`; whole
+  SSM heads for the Mamba2 blocks, whose ``d_inner`` leaves the rules cut
+  on head boundaries then), and K/V whose heads do not divide the model
+  axis keep, on each rank, the kv heads its query heads read (all of them
+  under MQA; :func:`kv_copies` ranks hold each head, and the trainer sums
+  a head's gradient over them: ``train.loop.MeshLayout``).
+- A leaf the rules leave whole inside a block whose other leaves are cut
+  (the SSM's ``w_B``, ``w_C``, ``w_dt`` and their conv taps) gets a
+  partial gradient on each rank, from that rank's heads only:
+  :func:`whole_in_split` passes it through :func:`copy_model`, so the
+  gradient that comes out is the sum over the model axis and the leaf
+  stays replicated.
 - FSDP (``ShardCtx.fsdp``): a rank keeps its "data" shard of each leaf the
   rule cuts (and of its AdamW moments); :func:`gather_data` all-gathers
   them where they are used (the gradient comes back reduce-scattered):
@@ -100,8 +110,6 @@ _RULES: Sequence[Tuple[str, Tuple[Optional[str], ...]]] = (
     (r"(router|predictor)/", (None,)),  # routers: tiny, replicated
 )
 
-# families whose model axis (tensor parallelism) is ported
-TP_FAMILIES = ("dense", "vlm", "moe")
 _ATTN_KV = re.compile(r"x?attn/(w[kv]|b[kv])$")
 
 
@@ -201,13 +209,15 @@ def cache_placement(path: str, shape: Sequence[int], mesh: Any, batch: int) -> S
     """The mesh axis of each dim of a decode-cache leaf (slot on axis
     ``ndim - 4`` of ``k``/``v``, as the port's and JAX's leaves have it).
     Batched serving (``batch`` divisible by the data degree): slots over
-    "data"; otherwise the sequence dim of K/V over "data" (JAX's
-    sequence-parallel case; the port's engine always divides the batch).
-    On "model": kv heads of ``k``/``v`` (JAX: ``head_dim``; see the module
-    docstring), SSM state heads, conv channels."""
+    ``batch_axes(mesh)``, ``("pod", "data")``; otherwise the sequence dim
+    of K/V over "data" (JAX's sequence-parallel case; the port's engine
+    always divides the batch). On "model": kv heads of ``k``/``v`` (JAX:
+    ``head_dim``), SSM state heads, ``conv_x`` channels (JAX cuts
+    ``conv_B`` / ``conv_C`` too; see the module docstring)."""
     sizes = mesh_sizes(mesh)
-    bd = "data" if "data" in sizes else None
+    bd = batch_axes(sizes)
     b_ok = batch % _axis_size(sizes, bd) == 0
+    bd = (bd[0] if len(bd) == 1 else bd) if bd else None  # one axis by its name
     m = _axis_size(sizes, "model")
     leaf = path.rsplit("/", 1)[-1]
     nd = len(shape)
@@ -235,7 +245,7 @@ def cache_placement(path: str, shape: Sequence[int], mesh: Any, batch: int) -> S
     elif leaf.startswith("conv_"):  # (..., B, W-1, C)
         if b_ok:
             spec[nd - 3] = bd
-        if shape[nd - 1] % m == 0:
+        if leaf == "conv_x" and shape[nd - 1] % m == 0:
             spec[nd - 1] = "model"
     return _validated(spec, shape, sizes)
 
@@ -245,23 +255,25 @@ def cache_placement(path: str, shape: Sequence[int], mesh: Any, batch: int) -> S
 # ---------------------------------------------------------------------------
 
 
-def check_tensor_parallel(cfg: ModelConfig, model_shards: int, train: bool = False) -> None:
+def check_tensor_parallel(cfg: ModelConfig, model_shards: int) -> None:
     """Raise unless ``cfg`` can run with its model axis split
-    ``model_shards`` ways: a family whose tensor parallelism is ported
-    (dense, vlm, moe), an unembedding of its own (a tied table's D split
-    would need the logits summed over ranks), whole query heads per rank,
-    and kv heads that either divide the axis or serve each rank's query
-    heads uniformly (``train``: that divide it, so each K/V gradient lies
-    on one rank)."""
+    ``model_shards`` ways: whole SSM heads per rank (the ssm and hybrid
+    families: the rules then cut ``d_inner`` on head boundaries), whole
+    query heads per rank (every family with attention: the hybrid's
+    shared block, the enc-dec's three attentions; the ssm family's
+    ``cfg.attn`` is unused), and kv heads that either divide the axis or
+    serve each rank's query heads uniformly (:func:`kv_head_range`)."""
     m = int(model_shards)
     if m <= 1:
         return
-    if cfg.family not in TP_FAMILIES:
-        raise NotImplementedError(
-            f"tensor parallelism (model axis {m}) for family {cfg.family!r} is not ported yet "
-            "(ROADMAP Queue 1 item 6: TP for ssm, hybrid and encdec)")
-    if cfg.tie_embeddings:
-        raise NotImplementedError("tensor parallelism with tied embeddings is not ported")
+    if cfg.family in ("ssm", "hybrid"):
+        h = cfg.ssm.n_heads(cfg.d_model)
+        if h % m:
+            raise NotImplementedError(
+                f"tensor parallelism needs whole SSM heads per rank: {h} heads over a model "
+                f"axis of {m}")
+    if cfg.family == "ssm":
+        return
     nq, nkv = cfg.attn.n_heads, cfg.attn.n_kv_heads
     if nq % m:
         raise NotImplementedError(
@@ -273,10 +285,6 @@ def check_tensor_parallel(cfg: ModelConfig, model_shards: int, train: bool = Fal
             raise NotImplementedError(
                 f"{nq} query heads over {nkv} kv heads do not split evenly over a model axis "
                 f"of {m}")
-        if train:
-            raise NotImplementedError(
-                f"tensor-parallel training needs the kv heads to divide the model axis: {nkv} "
-                f"kv heads over {m} (ROADMAP Queue 1 item 6)")
 
 
 def kv_head_range(cfg: ModelConfig, model_shards: int, model_rank: int) -> Tuple[int, int]:
@@ -290,6 +298,28 @@ def kv_head_range(cfg: ModelConfig, model_shards: int, model_rank: int) -> Tuple
         return r * nkv // m, (r + 1) * nkv // m
     g, nql = nq // nkv, nq // m
     return (r * nql) // g, ((r + 1) * nql - 1) // g + 1
+
+
+def kv_copies(cfg: ModelConfig, model_shards: int) -> int:
+    """How many model ranks hold each kv head: 1 when the kv heads divide
+    the axis, else ``m / nkv`` (each rank then holds one head, read by its
+    query heads: a head's group spans whole ranks; every rank under MQA)."""
+    m, nkv = int(model_shards), cfg.attn.n_kv_heads
+    return 1 if m <= 1 or nkv % m == 0 else m // nkv
+
+
+def rank_placement(path: str, shape: Sequence[int], cfg: ModelConfig, sizes: Dict[str, int],
+                   fsdp: bool = False) -> Spec:
+    """The spec of the shard a rank holds of a parameter leaf:
+    :func:`param_placement`'s, but K/V leaves cut on "model" exactly when
+    the kv heads divide the axis (by :func:`kv_head_range`, which then
+    agrees with the rule's column chunks), else held whole over it (each
+    rank its heads; :func:`kv_copies`)."""
+    spec = param_placement(path, shape, sizes, fsdp)
+    m = sizes.get("model", 1)
+    if _ATTN_KV.search(path) and m > 1:
+        spec = spec[:-1] + (("model",) if kv_copies(cfg, m) == 1 else (None,))
+    return spec
 
 
 def _path(keys: Tuple[Any, ...]) -> str:
@@ -441,11 +471,21 @@ def placed(spmd: "ShardCtx", cfg: ModelConfig, shapes: Any) -> "ShardCtx":
 def local_cache_config(cfg: ModelConfig, spmd: Optional["ShardCtx"]) -> ModelConfig:
     """The config whose caches hold one rank's share: ``cfg`` with the kv
     heads of :func:`kv_head_range` when :func:`shard_params` cut K/V
-    (slots are cut by the pool)."""
+    (slots are cut by the pool; SSM heads by :func:`local_ssm_heads`:
+    ``d_model`` fixes every D-wide leaf, so the config keeps it)."""
     if spmd is None or "attn/wk" not in spmd.split:
         return cfg
     lo, hi = kv_head_range(cfg, spmd.model_shards, spmd.coords()["model"])
     return dataclasses.replace(cfg, attn=dataclasses.replace(cfg.attn, n_kv_heads=hi - lo))
+
+
+def local_ssm_heads(cfg: ModelConfig, spmd: Optional["ShardCtx"]) -> Optional[int]:
+    """The SSM heads one rank's decode states hold when :func:`shard_params`
+    cut the Mamba2 blocks (its share of ``cfg.ssm.n_heads``), else None
+    (all of them)."""
+    if spmd is None or "ssm/w_x" not in spmd.split:
+        return None
+    return cfg.ssm.n_heads(cfg.d_model) // spmd.model_shards
 
 
 # ---------------------------------------------------------------------------
@@ -522,20 +562,30 @@ class ShardCtx:
         """The process group of this rank's peers along mesh axis ``axis``."""
         return self.mesh.get_group(axis)
 
-    def data_group(self) -> Any:
-        """The process group of this rank's peers along the data axis."""
-        return self.mesh.get_group("data")
-
     def data_groups(self) -> Tuple[Any, ...]:
         """The process groups of ``data_axes`` whose size is over 1: a sum
         over each in turn is the sum over the data-parallel ranks."""
         sizes = mesh_sizes(self.mesh)
         return tuple(self.mesh.get_group(a) for a in self.data_axes if sizes[a] > 1)
 
-    def data_peer(self, data_rank: int) -> int:
-        """The global rank at data index ``data_rank`` and this rank's model
-        index (the source of a broadcast over :meth:`data_group`)."""
-        return int(self.mesh.mesh[data_rank, self.coords()["model"]])
+    def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """Every data rank's ``t`` (equal shapes) concatenated on dim 0 in
+        data-rank order (pod-major): gathered over the inner data axis
+        first, then over "pod"."""
+        for ax in reversed(self.data_axes):
+            t = C.all_gather(t, 0, self.group(ax))
+        return t
+
+    def broadcast_rows(self, t: torch.Tensor, data_rank: int) -> torch.Tensor:
+        """``t`` of the ranks at data index ``data_rank`` (and this rank's
+        model index) to every rank, in place: over the inner data axis from
+        the holder's coordinate there (every pod's rank at it sends), then
+        over "pod" from the holder's pod."""
+        sizes, idx = mesh_sizes(self.mesh), int(data_rank)
+        for ax in reversed(self.data_axes):
+            C.broadcast(t, idx % sizes[ax], self.group(ax))
+            idx //= sizes[ax]
+        return t
 
 
 def shard_ctx(mesh: Any, data_shards: Optional[int] = None, fsdp: bool = False) -> ShardCtx:
@@ -650,6 +700,29 @@ def reduce_model(x: torch.Tensor, name: str) -> torch.Tensor:
     x = x.contiguous()
     dist.all_reduce(x, op=dist.ReduceOp.SUM, group=_model_group())
     return x
+
+
+def sum_model(x: torch.Tensor, name: str) -> torch.Tensor:
+    """The sum over the model axis of a per-rank partial statistic (the
+    SSM's gated-norm sum of squares over a rank's ``d_inner`` channels)
+    when the leaf ``name`` is split, summed over it in the backward too
+    (every rank's part of the statistic feeds every rank's output)."""
+    if not is_split(name):
+        return x
+    if torch.is_grad_enabled():
+        return C.sum_over(x, (_model_group(),))
+    return C.all_reduce(x.contiguous(), _model_group())
+
+
+def whole_in_split(leaf: torch.Tensor, name: str, block: str) -> torch.Tensor:
+    """A leaf ``name`` the rules leave whole, as a rank uses it inside a
+    block whose leaf ``block`` is split: under autograd its gradient,
+    partial on each rank (from the rank's own part of the block), comes
+    out summed over the model axis, so the leaf stays replicated. The leaf
+    as it is otherwise."""
+    if not torch.is_grad_enabled() or is_split(name) or not is_split(block):
+        return leaf
+    return C.copy_to(leaf, _model_group())
 
 
 def gather_model(x: torch.Tensor, dim: int, name: str) -> torch.Tensor:

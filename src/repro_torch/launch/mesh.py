@@ -4,9 +4,10 @@ Port of ``repro/launch/mesh.py``. A JAX mesh spans the devices one
 controller sees; here every device is driven by a process of its own
 (``torch.distributed``, one rank a device), and a mesh is a
 ``torch.distributed.device_mesh.DeviceMesh`` over the ranks with dims
-``("data", "model")``, or ``("pod", "data", "model")`` for the trainer
-(:func:`mesh_ctx` gives its ``ShardCtx``). Functions only: importing this
-module touches no device and no process group.
+``("data", "model")``, or ``("pod", "data", "model")`` (:func:`mesh_ctx`
+gives the trainer's ``ShardCtx``; the engine takes either mesh).
+Functions only: importing this module touches no device and no process
+group.
 
 The caller names the backend, which is never picked by trying one:
 ``"nccl"`` on CUDA (one rank a card, ``cuda:<local rank>``) or ``"gloo"``
@@ -99,14 +100,15 @@ def mesh_ctx(cfg: MeshConfig) -> ShardCtx:
     return shard_ctx(make_mesh(cfg), fsdp=cfg.fsdp)
 
 
-def auto_mesh(model_axis: int = 1) -> DeviceMesh:
-    """A ("data", "model") mesh over every rank: data takes what the model
-    axis does not. On one rank it is (1, 1) and drives the same code path
-    as a larger mesh."""
+def auto_mesh(model_axis: int = 1, pod: int = 1) -> DeviceMesh:
+    """A ("data", "model") mesh over every rank, or ("pod", "data",
+    "model") with ``pod`` > 1: data takes what the model and pod axes do
+    not. On one rank it is (1, 1) and drives the same code path as a
+    larger mesh."""
     n = _world()
-    if model_axis < 1 or n % model_axis != 0:
-        raise ValueError(f"model_axis {model_axis} must divide device count {n}")
-    return make_mesh(MeshConfig(data=n // model_axis, model=model_axis))
+    if model_axis < 1 or pod < 1 or n % (model_axis * pod) != 0:
+        raise ValueError(f"model_axis {model_axis} x pod {pod} must divide device count {n}")
+    return make_mesh(MeshConfig(pod=pod, data=n // (model_axis * pod), model=model_axis))
 
 
 def describe_mesh(mesh: DeviceMesh) -> str:

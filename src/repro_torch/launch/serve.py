@@ -26,9 +26,11 @@ are random, drawn from ``--seed``. Prompt lengths are mixed uniformly over
 
 Multi-device (``--spmd``): one process a device under ``torchrun``, every
 rank running the same engine over a ("data", "model") mesh of all ranks
-(``--model-axis`` ranks of tensor parallelism, data takes the rest) over
-NCCL, or gloo with ``--device cpu``. ``--data-shards`` alone runs the same partitioned
-MoD routing on one device. Rank 0 prints.
+(``--model-axis`` ranks of tensor parallelism, any family; data takes the
+rest; ``--pod-axis`` > 1 makes it ("pod", "data", "model"), the slots cut
+over pod × data) over NCCL, or gloo with ``--device cpu``.
+``--data-shards`` alone runs the same partitioned MoD routing on one
+device. Rank 0 prints.
 
   torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve --spmd \
       --model-axis 2 --device cpu --smoke --batch 4 --requests 6 --gen 4
@@ -85,6 +87,8 @@ def main() -> None:
                          "routing, tensor parallelism over --model-axis")
     ap.add_argument("--model-axis", type=int, default=1,
                     help="tensor-parallel degree of the --spmd mesh")
+    ap.add_argument("--pod-axis", type=int, default=1,
+                    help="pod degree of the --spmd mesh (> 1: a ('pod','data','model') mesh)")
     ap.add_argument("--inject-faults", type=int, default=-1,
                     help="thread a seeded FaultInjector through the engine (NaN/Inf logits, "
                          "page exhaustion, stragglers, preemption storms) with this seed; "
@@ -104,7 +108,7 @@ def main() -> None:
 
         device = M.init_process_group("gloo" if args.device == "cpu" else "nccl",
                                       device=args.device)
-        mesh = M.auto_mesh(args.model_axis)
+        mesh = M.auto_mesh(args.model_axis, pod=args.pod_axis)
         if dist.get_rank() != 0:
             say = lambda *a, **k: None  # noqa: E731
         say(f"[serve] SPMD mesh: {M.describe_mesh(mesh)}")

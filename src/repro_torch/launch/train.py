@@ -11,8 +11,9 @@ routed blocks through the fused routed-attention and routed-MLP kernels.
 Multi-device (``--spmd``): one process a device under ``torchrun`` (NCCL on
 CUDA, gloo with ``--device cpu``), every rank training on its rows of each
 global batch over a ("data", "model") mesh of all ranks: ``--data-axis``
-(0 = all ranks the model axis leaves), ``--model-axis`` (tensor parallel:
-dense, vlm and moe; other families raise), ``--fsdp`` (parameters and
+(0 = all ranks the model and pod axes leave), ``--model-axis`` (tensor
+parallel, any family), ``--pod-axis`` (> 1: a ("pod", "data", "model")
+mesh, the batch over pod × data), ``--fsdp`` (parameters and
 moments cut over "data" too), ``--microbatches`` (rank r's microbatch i is
 its slice of global microbatch i). Rank 0 prints one ``[train] mesh:`` line
 and writes the checkpoints (the JAX layout, gathered from every rank).
@@ -93,6 +94,7 @@ def main() -> None:
                     help="train over a ('data','model') mesh of every rank (run under torchrun)")
     ap.add_argument("--data-axis", type=int, default=0, help="0 = all ranks")
     ap.add_argument("--model-axis", type=int, default=1)
+    ap.add_argument("--pod-axis", type=int, default=1)
     ap.add_argument("--fsdp", action="store_true")
     ap.add_argument("--dtype", default=None, help="override model dtype (e.g. float32)")
     ap.add_argument("--backend", default=None, choices=["xla", "pallas", "pallas_fused"],
@@ -118,8 +120,8 @@ def main() -> None:
         device = M.init_process_group("gloo" if args.device == "cpu" else "nccl",
                                       device=args.device)
         n = dist.get_world_size()
-        data_ax = args.data_axis or max(1, n // max(args.model_axis, 1))
-        spmd = M.mesh_ctx(MeshConfig(pod=1, data=data_ax, model=args.model_axis,
+        data_ax = args.data_axis or max(1, n // max(args.model_axis * args.pod_axis, 1))
+        spmd = M.mesh_ctx(MeshConfig(pod=args.pod_axis, data=data_ax, model=args.model_axis,
                                      fsdp=args.fsdp))
         if dist.get_rank() != 0:
             say = lambda *a, **k: None  # noqa: E731

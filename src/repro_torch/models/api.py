@@ -18,12 +18,11 @@ seed, as the JAX package's tests do.
 :func:`model_decode` carries the partitioned ``batch_capacity`` routing
 into every family's decode step, as in JAX. Over a mesh every entry point
 takes one rank's rows and weight shards and makes the mesh's model axis
-the group the layers reduce over; that tensor parallelism is ported for
-the dense, VLM and MoE families, and the others raise
-``NotImplementedError`` with a split model axis. The training entry points
-(:func:`model_forward`, :func:`model_loss`) take ``spmd`` as JAX's do: the
-rank's FSDP shards are gathered where they are used (each layer group's
-inside its remat boundary), and the loss and aux terms
+the group the layers reduce over, for every family (whole query heads and
+whole SSM heads a rank: ``sharding.check_tensor_parallel``). The training
+entry points (:func:`model_forward`, :func:`model_loss`) take ``spmd`` as
+JAX's do: the rank's FSDP shards are gathered where they are used (each
+layer group's inside its remat boundary), and the loss and aux terms
 are the global batch's (sums over the data-parallel ranks), so the
 data-axis mean of the ranks' gradients is the global batch's gradient.
 """
@@ -80,7 +79,7 @@ def model_forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tenso
     """Teacher-forced forward. Returns (logits, aux); over a mesh
     (``spmd``) the logits of this rank's rows and the global batch's aux."""
     _check_family(cfg)
-    _check_spmd(cfg, spmd, train=True)
+    _check_spmd(cfg, spmd)
     with SH.model_parallel(spmd, batch=True):
         # FSDP: the leaves outside the layer groups gathered here, each
         # group's where it runs (transformer.run_groups)
@@ -153,20 +152,24 @@ def model_forward_ragged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     return T.forward_ragged(params, cfg, tokens, row_offsets, seg_cap, generator=generator)
 
 
-def make_caches(cfg: ModelConfig, batch: int, ctx: int, device: DeviceLike = None) -> Params:
+def make_caches(cfg: ModelConfig, batch: int, ctx: int, device: DeviceLike = None,
+                ssm_heads: Optional[int] = None) -> Params:
+    """Empty decode caches of ``batch`` rows; ``ssm_heads``: the SSM heads
+    a tensor-parallel rank's states hold (``sharding.local_ssm_heads``;
+    None: all of them)."""
     _check_family(cfg)
     if cfg.family == "ssm":
-        return SL.make_cache(cfg, batch, resolve_device(device))
+        return SL.make_cache(cfg, batch, resolve_device(device), ssm_heads)
     if cfg.family == "hybrid":
-        return SL.make_hybrid_cache(cfg, batch, ctx, resolve_device(device))
+        return SL.make_hybrid_cache(cfg, batch, ctx, resolve_device(device), ssm_heads)
     if cfg.family == "encdec":
         return ED.make_cache(cfg, batch, ctx, resolve_device(device))
     return T.make_cache(cfg, batch, ctx, resolve_device(device))
 
 
-def _check_spmd(cfg: ModelConfig, spmd: Optional[SH.ShardCtx], train: bool = False) -> None:
+def _check_spmd(cfg: ModelConfig, spmd: Optional[SH.ShardCtx]) -> None:
     if spmd is not None:
-        SH.check_tensor_parallel(cfg, spmd.model_shards, train=train)
+        SH.check_tensor_parallel(cfg, spmd.model_shards)
 
 
 def model_prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], ctx: int,

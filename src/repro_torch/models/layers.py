@@ -236,9 +236,17 @@ def embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
 
 def unembed(params: Params, x: torch.Tensor) -> torch.Tensor:
     """Logits; a rank's vocab columns of ``unemb`` are gathered over the
-    model axis (tensor parallelism refuses tied tables)."""
+    model axis. A tied table that holds a rank's D columns (JAX's ``x @
+    tok.T`` on the D-sharded ``embed/tok``) multiplies the same columns of
+    ``x``, and the partial logits are summed over the axis: whole logits on
+    every rank."""
     if "unemb" not in params:
-        return x @ params["tok"].T
+        tok = params["tok"]
+        if not SH.is_split("embed/tok"):
+            return x @ tok.T
+        n, r = tok.shape[1], SH.model_rank()
+        x = SH.copy_model(x, "embed/tok")[..., r * n:(r + 1) * n]
+        return SH.reduce_model(x @ tok.T, "embed/tok")
     x = SH.copy_model(x, "embed/unemb")
     return SH.gather_model(x @ params["unemb"], -1, "embed/unemb")
 

@@ -19,6 +19,20 @@ Projections are separate tensors (w_z/w_x/w_B/w_C/w_dt) and the
 depthwise conv applies to x/B/C independently, as in the JAX package.
 Parameters are plain dicts with its names and layouts; ``A_log``,
 ``skip_D`` and ``dt_bias`` stay f32 in a bf16 model.
+
+Tensor parallelism (a rank's shards from ``sharding.shard_params``, whole
+SSD heads a rank) writes out by hand what GSPMD derives for the JAX
+package: the block takes its head count and ``d_inner`` width from the
+weights; the input is ``copy_model``'d once, so its gradient is summed
+over the model axis; ``z``, ``x``, the conv over ``x``, ``A``, ``D`` and
+``dt`` (the rank's columns of the whole ``w_dt``, so ``dt`` is contiguous
+at the local head count, as the SSD kernel's tensor-core path needs) run
+at the rank's heads; ``B`` and ``C`` are whole on every rank, and their
+leaves' partial gradients are summed over the axis where they are used
+(``sharding.whole_in_split``); the gated RMSNorm normalizes over the
+whole ``d_inner``, so its per-row sum of squares is summed over the axis
+in both directions (``sharding.sum_model``), and ``out_proj`` is
+row-parallel (``reduce_model``).
 """
 from __future__ import annotations
 
@@ -30,6 +44,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import torch_dtype
+from repro_torch.distributed import sharding as SH
 from repro_torch.kernels.ssd import ssd_intra_chunk
 from repro_torch.models.layers import dense_init, rmsnorm, silu
 
@@ -154,25 +169,60 @@ def ssd_step(
     return y.to(x.dtype), state
 
 
+def _leaf(params: Params, name: str) -> torch.Tensor:
+    """A leaf of the block as this rank uses it: a leaf the model axis
+    leaves whole in a split block gets its partial gradient summed over
+    the axis."""
+    return SH.whole_in_split(params[name], "ssm/" + name, "ssm/w_x")
+
+
 def _project(params: Params, x: torch.Tensor):
-    return (x @ params["w_z"], x @ params["w_x"], x @ params["w_B"], x @ params["w_C"],
-            x @ params["w_dt"])
+    """(z, x) at this rank's ``d_inner`` channels, (B, C) whole, ``dt`` at
+    its heads."""
+    x = SH.copy_model(x, "ssm/w_x")
+    w_dt = _leaf(params, "w_dt")
+    h = params["A_log"].shape[0]
+    if w_dt.shape[1] != h:  # a rank's heads: its columns of the whole leaf
+        r = SH.model_rank()
+        w_dt = w_dt[:, r * h:(r + 1) * h]
+    return (x @ params["w_z"], x @ params["w_x"], x @ _leaf(params, "w_B"),
+            x @ _leaf(params, "w_C"), x @ w_dt)
+
+
+def _gated_norm(params: Params, g: torch.Tensor, width: int, eps: float) -> torch.Tensor:
+    """RMSNorm over the whole ``d_inner`` (``width``) of which a rank may
+    hold a part: the per-row sum of squares is summed over the model axis
+    when ``norm/scale`` is split (a local ``rmsnorm`` would normalize each
+    rank's channels by their own scale)."""
+    if not SH.is_split("norm/scale"):
+        return rmsnorm(params, g, eps)
+    x32 = g.float()
+    ss = SH.sum_model(x32.square().sum(dim=-1, keepdim=True), "norm/scale")
+    y = x32 * torch.rsqrt(ss / width + eps)
+    return (y * params["scale"].float()).to(g.dtype)
 
 
 def _post(params: Params, y: torch.Tensor, z: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     g = y * silu(z)
-    g = rmsnorm(params["norm"], g, cfg.norm_eps)
-    return g @ params["out_proj"]
+    g = _gated_norm(params["norm"], g, dims(cfg)[1], cfg.norm_eps)
+    return SH.reduce_model(g @ params["out_proj"], "ssm/out_proj")
+
+
+def _conv_leaves(params: Params, name: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The conv taps and bias of input ``name`` (x, B or C)."""
+    return _leaf(params, "conv_" + name), _leaf(params, "conv_b" + name)
 
 
 def ssm_block(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Full-sequence Mamba2 block (training). x: (B, S, D) -> (B, S, D)."""
+    """Full-sequence Mamba2 block (training). x: (B, S, D) -> (B, S, D);
+    the heads and ``d_inner`` channels are the weights' (a rank's share
+    under tensor parallelism)."""
     B, S, _ = x.shape
-    D, d_inner, H, ds = dims(cfg)
+    H, d_inner = params["A_log"].shape[0], params["w_x"].shape[1]
     z, xs, Bm, Cm, dt_raw = _project(params, x)
-    xs = silu(_causal_conv(xs, params["conv_x"], params["conv_bx"]))
-    Bm = silu(_causal_conv(Bm, params["conv_B"], params["conv_bB"]))
-    Cm = silu(_causal_conv(Cm, params["conv_C"], params["conv_bC"]))
+    xs = silu(_causal_conv(xs, *_conv_leaves(params, "x")))
+    Bm = silu(_causal_conv(Bm, *_conv_leaves(params, "B")))
+    Cm = silu(_causal_conv(Cm, *_conv_leaves(params, "C")))
     dt = F.softplus(dt_raw.float() + params["dt_bias"])  # (B, S, H)
     A = -torch.exp(params["A_log"])
     xh = xs.reshape(B, S, H, cfg.ssm.head_dim)
@@ -182,10 +232,15 @@ def ssm_block(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor
     return _post(params, y, z, cfg)
 
 
-def init_ssm_cache(batch: int, cfg: ModelConfig, device: torch.device) -> Params:
+def init_ssm_cache(batch: int, cfg: ModelConfig, device: torch.device,
+                   heads: Optional[int] = None) -> Params:
     """Decode state: the SSD state (f32) and the last W-1 conv inputs of
-    x, B and C. No leaf has a context axis."""
+    x, B and C. No leaf has a context axis. ``heads``: the SSM heads a
+    tensor-parallel rank holds (its state heads and ``conv_x`` channels;
+    B and C stay whole), all of them by default."""
     D, d_inner, H, ds = dims(cfg)
+    if heads is not None:
+        H, d_inner = heads, heads * cfg.ssm.head_dim
     W = cfg.ssm.d_conv
     dt = torch_dtype(cfg.dtype)
     return {
@@ -200,16 +255,17 @@ def init_ssm_cache(batch: int, cfg: ModelConfig, device: torch.device) -> Params
 def ssm_block_decode(params: Params, x: torch.Tensor, cache: Params, cfg: ModelConfig
                      ) -> Tuple[torch.Tensor, Params]:
     """One-token decode. x: (B, 1, D). Returns (out (B, 1, D), new cache);
-    ``cache`` itself is not written."""
+    ``cache`` itself is not written (a rank's heads: its state and
+    ``conv_x`` window)."""
     B = x.shape[0]
-    D, d_inner, H, ds = dims(cfg)
+    H, d_inner = params["A_log"].shape[0], params["w_x"].shape[1]
     z, xs, Bm, Cm, dt_raw = _project(params, x)  # (B, 1, ·)
     win_x = torch.cat([cache["conv_x"], xs], dim=1)
     win_B = torch.cat([cache["conv_B"], Bm], dim=1)
     win_C = torch.cat([cache["conv_C"], Cm], dim=1)
-    xs_t = silu(_conv_step(win_x, params["conv_x"], params["conv_bx"])).to(x.dtype)
-    Bm_t = silu(_conv_step(win_B, params["conv_B"], params["conv_bB"]))
-    Cm_t = silu(_conv_step(win_C, params["conv_C"], params["conv_bC"]))
+    xs_t = silu(_conv_step(win_x, *_conv_leaves(params, "x"))).to(x.dtype)
+    Bm_t = silu(_conv_step(win_B, *_conv_leaves(params, "B")))
+    Cm_t = silu(_conv_step(win_C, *_conv_leaves(params, "C")))
     dt = F.softplus(dt_raw[:, 0].float() + params["dt_bias"])  # (B, H)
     A = -torch.exp(params["A_log"])
     xh = xs_t.reshape(B, H, cfg.ssm.head_dim)

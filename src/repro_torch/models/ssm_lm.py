@@ -138,17 +138,19 @@ def forward(
     return unembed(params["embed"], x), aux
 
 
-def make_cache(cfg: ModelConfig, batch: int, device: torch.device) -> Params:
+def make_cache(cfg: ModelConfig, batch: int, device: torch.device,
+               heads: Optional[int] = None) -> Params:
     """Per-group decode states; routed layers keep a full-batch state too
-    (a sequence's state advances only on the steps it is routed)."""
+    (a sequence's state advances only on the steps it is routed).
+    ``heads``: a tensor-parallel rank's SSM heads (all by default)."""
     n_groups, has_full, has_mod = group_structure(cfg)
     groups: List[Params] = []
     for _ in range(n_groups):
         g: Params = {}
         if has_full:
-            g["full"] = SSM.init_ssm_cache(batch, cfg, device)
+            g["full"] = SSM.init_ssm_cache(batch, cfg, device, heads)
         if has_mod:
-            g["mod"] = SSM.init_ssm_cache(batch, cfg, device)
+            g["mod"] = SSM.init_ssm_cache(batch, cfg, device, heads)
         groups.append(g)
     return {"groups": groups}
 
@@ -289,17 +291,19 @@ def forward_hybrid(
     return unembed(params["embed"], x), aux
 
 
-def make_hybrid_cache(cfg: ModelConfig, batch: int, ctx: int, device: torch.device) -> Params:
-    """One full-context KV cache per shared-block site (``attn``) and the
-    segments' SSM states (``groups``, laid out as the parameters)."""
+def make_hybrid_cache(cfg: ModelConfig, batch: int, ctx: int, device: torch.device,
+                      heads: Optional[int] = None) -> Params:
+    """One full-context KV cache per shared-block site (``attn``, at
+    ``cfg``'s kv heads) and the segments' SSM states (``groups``, laid out
+    as the parameters; ``heads``: a tensor-parallel rank's SSM heads)."""
     n_seg, n_groups, has_mod = _hybrid_layout(cfg)
     groups: List[List[Params]] = []
     for _ in range(n_seg):
         seg: List[Params] = []
         for _ in range(n_groups):
-            g: Params = {"full": SSM.init_ssm_cache(batch, cfg, device)}
+            g: Params = {"full": SSM.init_ssm_cache(batch, cfg, device, heads)}
             if has_mod:
-                g["mod"] = SSM.init_ssm_cache(batch, cfg, device)
+                g["mod"] = SSM.init_ssm_cache(batch, cfg, device, heads)
             seg.append(g)
         groups.append(seg)
     return {"attn": [A.init_kv_cache(batch, ctx, cfg, device) for _ in range(n_seg)],

@@ -134,8 +134,9 @@ class CachePool:
         self.rows = batch_size // self.spmd.data_shards if self.spmd else batch_size
         self.row0 = self.spmd.data_rank * self.rows if self.spmd else 0
         self._cache_cfg = SH.local_cache_config(cfg, self.spmd)
-        self.caches = api.make_caches(self._cache_cfg, self.rows, ctx, device)
-        self._template = api.make_caches(self._cache_cfg, 1, ctx, device)
+        self._ssm_heads = SH.local_ssm_heads(cfg, self.spmd)
+        self.caches = self.fresh(self.rows)
+        self._template = self.fresh()
 
     def owns(self, slot: int) -> bool:
         """Whether this rank holds the slot's rows (always, off a mesh)."""
@@ -145,9 +146,11 @@ class CachePool:
         """The data rank that holds the slot."""
         return slot // self.rows
 
-    def fresh(self) -> Params:
-        """An empty batch-1 cache tree (prefill writes into it in place)."""
-        return api.make_caches(self._cache_cfg, 1, self.ctx, self.device)
+    def fresh(self, rows: int = 1) -> Params:
+        """An empty cache tree of ``rows`` rows at this rank's heads
+        (prefill writes a batch-1 tree in place)."""
+        return api.make_caches(self._cache_cfg, rows, self.ctx, self.device,
+                               ssm_heads=self._ssm_heads)
 
     def reset(self, slot: int) -> None:
         """Return the slot's cache rows to their initial (empty) state (a

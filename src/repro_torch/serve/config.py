@@ -65,7 +65,7 @@ class EngineConfig:
     fault_injector: Any = None  # faults.FaultInjector
     clock: Optional[Callable[[], float]] = None  # deadline clock (monotonic)
     logit_tap: Optional[Callable] = None  # decode-logits telemetry hook
-    mesh: Any = None  # DeviceMesh ("data", "model"): serving over ranks
+    mesh: Any = None  # DeviceMesh ([pod,] data, model): serving over ranks
     data_shards: Optional[int] = None  # partitioned routing semantics
 
     def __post_init__(self):
@@ -109,14 +109,11 @@ class EngineConfig:
                              "and their scales live behind the page tables")
         if self.mesh is not None:
             names = tuple(getattr(self.mesh, "mesh_dim_names", None) or ())
-            if names == ("pod", "data", "model"):
-                raise NotImplementedError(
-                    "serving over a mesh with a 'pod' axis is not ported yet (a later slice: "
-                    "ROADMAP Queue 1 item 6); serve over ('data', 'model')")
-            if names != ("data", "model"):
+            if names not in (("data", "model"), ("pod", "data", "model")):
                 raise ValueError(
-                    "mesh must be a torch.distributed DeviceMesh with dims ('data', 'model') "
-                    f"(repro_torch.launch.mesh.auto_mesh), got {self.mesh!r}")
+                    "mesh must be a torch.distributed DeviceMesh with dims ('data', 'model') or "
+                    "('pod', 'data', 'model') (repro_torch.launch.mesh.auto_mesh), got "
+                    f"{self.mesh!r}")
         if self.data_shards is not None and (
                 not isinstance(self.data_shards, int) or self.data_shards < 1):
             raise ValueError(f"data_shards must be a positive int, got {self.data_shards!r}")

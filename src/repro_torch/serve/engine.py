@@ -87,9 +87,11 @@ row fails only its own request.
 ``batch_capacity`` semantics on one device (each of ``d`` contiguous slot
 groups routes its own top ``round(ratio·B/d)`` rows; the scheduler counts
 against the global ``d·kb_local``), on the contiguous, paged, prefix and
-quantized-KV engines. ``mesh`` (a ``DeviceMesh`` ("data", "model")) is the
-multi-controller engine: every rank runs this same engine on the same
-requests, so host state (queue, slots, sampled tokens) stays identical.
+quantized-KV engines. ``mesh`` (a ``DeviceMesh`` ("data", "model") or
+("pod", "data", "model"); the data degree is pod × data, slot groups
+pod-major) is the multi-controller engine, for every family: every rank
+runs this same engine on the same requests, so host state (queue, slots,
+sampled tokens) stays identical.
 A rank holds the ``B/d`` slots of its data group and its shards of the
 weights (tensor parallelism over "model"), decodes its own rows with
 routing local to the shard and no cross-data collective, and the logits
@@ -111,12 +113,10 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from repro_torch.config import ModelConfig
 from repro_torch.core.routing import batch_capacity_k, capacity_ladder
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.distributed import collectives as COLL
 from repro_torch.distributed import sharding as SH
 from repro_torch.models import api
 from repro_torch.models import encdec as ED
@@ -487,7 +487,9 @@ class ServingEngine:
         params = self._model_params()
         emb = torch.as_tensor(enc_emb).to(device=self.device,
                                           dtype=params["embed"]["tok"].dtype)[None]
-        self.pool.write_slot(slot, ED.prefill_cross(params, self.pool._template, emb, self.cfg))
+        with SH.model_parallel(self._mesh_ctx()):  # a rank's heads of the cross-KV
+            cross = ED.prefill_cross(params, self.pool._template, emb, self.cfg)
+        self.pool.write_slot(slot, cross)
 
     def _admit(self, max_admissions: Optional[int] = None) -> None:
         plans = self.scheduler.plan_admissions(self.slots, stepped_prefill=not self._batch_prefill,
@@ -596,9 +598,7 @@ class ServingEngine:
             return logits.float().cpu().numpy()
         buf = (logits.float().contiguous() if logits is not None
                else torch.empty((self.cfg.vocab,), dtype=torch.float32, device=self.device))
-        dist.broadcast(buf, src=self.spmd.data_peer(self.pool.owner(slot.idx)),
-                       group=self.spmd.data_group())
-        return buf.cpu().numpy()
+        return self.spmd.broadcast_rows(buf, self.pool.owner(slot.idx)).cpu().numpy()
 
     def _chunked_prefill(self, slot: Slot, req: Request, owner: bool = True
                          ) -> Optional[torch.Tensor]:
@@ -946,14 +946,11 @@ class ServingEngine:
         and the per-sequence telemetry (B,) concatenated, scalar telemetry
         averaged (the groups hold equal row counts, so the mean of means is
         the batch mean)."""
-        group = self.spmd.data_group()
+        sp = self.spmd
         out = {}
         for k, v in aux.items():
-            if v.dim() == 0:
-                out[k] = COLL.all_gather(v.float()[None], 0, group).mean()
-            else:
-                out[k] = COLL.all_gather(v, 0, group)
-        return COLL.all_gather(logits, 0, group), out
+            out[k] = sp.gather_rows(v.float()[None]).mean() if v.dim() == 0 else sp.gather_rows(v)
+        return sp.gather_rows(logits), out
 
     def _advance(self, decode_slots: List[Slot], logits_np: np.ndarray,
                  aux_np: Dict[str, np.ndarray]) -> None:

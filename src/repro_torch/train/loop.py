@@ -60,10 +60,18 @@ def _on_mesh(spmd: Optional[SH.ShardCtx]) -> bool:
 
 class MeshLayout:
     """Where a mesh trainer's parameter leaves lie: each leaf's spec by its
-    path (:func:`~repro_torch.distributed.sharding.state_placement`: "F"
-    over "data" under FSDP, the AdamW moments mirroring it), and the
-    collectives of a step over them. ``spmd`` is the context with the cut
-    leaves recorded (:func:`~repro_torch.distributed.sharding.placed`)."""
+    path (:func:`~repro_torch.distributed.sharding.rank_placement`: JAX's
+    rule, "F" over "data" under FSDP, the AdamW moments mirroring it; K/V
+    on head ranges), and the collectives of a step over them. ``spmd`` is
+    the context with the cut leaves recorded
+    (:func:`~repro_torch.distributed.sharding.placed`).
+
+    K/V whose heads do not divide the model axis are held whole over it:
+    each rank holds the heads of ``kv_head_range``, and ``kv_copies``
+    ranks hold each (every rank under MQA). Each of those ranks computes
+    its head's gradient from its own query heads only, so the step sums it
+    over them (:meth:`sum_shared_kv`), counts it once in the clip's norm
+    and takes one copy of each head for a checkpoint."""
 
     def __init__(self, cfg: ModelConfig, spmd: SH.ShardCtx):
         full = api.init_model(cfg, device="meta", generator=torch.Generator())
@@ -71,24 +79,57 @@ class MeshLayout:
         self.spmd = SH.placed(spmd, cfg, full)
         self.sizes = SH.mesh_sizes(spmd.mesh)
         self.full = [(SH._path(keys), leaf) for keys, leaf in SH._leaves(full)]
-        # the parameters' specs (the moments mirror them); every layer's
-        # leaf of a path has one shape, so one spec a path
-        placement = SH.state_placement({"params": full}, self.sizes, spmd.fsdp)
-        self.specs = {SH._path(keys): spec for keys, spec in SH._leaves(placement["params"])}
+        # the specs of a rank's shards (the moments mirror them); every
+        # layer's leaf of a path has one shape, so one spec a path
+        self.specs = {p: SH.rank_placement(p, leaf.shape, cfg, self.sizes, spmd.fsdp)
+                      for p, leaf in self.full}
+        m = self.sizes.get("model", 1)
+        # K/V paths held by several model ranks a head, and this rank's heads
+        self.copies = SH.kv_copies(cfg, m)
+        self.shared = frozenset(p for p, _ in self.full
+                                if self.copies > 1 and SH._ATTN_KV.search(p))
+        self.heads = SH.kv_head_range(cfg, m, self.spmd.coords().get("model", 0))
         # one rank: every collective is the identity, and the step is the
         # single-process step's arithmetic
         self.trivial = math.prod(self.sizes.values()) == 1
 
-    def specs_of(self, params: Any) -> List[SH.Spec]:
-        """The spec of every leaf of ``params`` (the port's tree), in
+    def paths_of(self, params: Any) -> List[str]:
+        """The path of every leaf of ``params`` (the port's tree), in
         ``tree_leaves`` order."""
-        return [self.specs[SH._path(keys)] for keys, _ in SH._leaves(params)]
+        return [SH._path(keys) for keys, _ in SH._leaves(params)]
+
+    def specs_of(self, params: Any) -> List[SH.Spec]:
+        """The spec of every leaf of ``params``, in ``tree_leaves`` order."""
+        return [self.specs[p] for p in self.paths_of(params)]
+
+    def sum_shared_kv(self, params: Any, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Each shared K/V leaf's gradient summed over the model ranks that
+        hold the same heads: written at its heads' columns of a zero
+        full-width buffer, all-reduced over "model" (the other ranks add
+        zeros there) and cut back."""
+        if not self.shared:
+            return grads
+        hd, nkv = self.cfg.head_dim, self.cfg.attn.n_kv_heads
+        lo, hi = self.heads[0] * hd, self.heads[1] * hd
+        out = list(grads)
+        idx = [i for i, p in enumerate(self.paths_of(params)) if p in self.shared]
+        wide = []
+        for i in idx:
+            g = grads[i]
+            buf = torch.zeros(g.shape[:-1] + (nkv * hd,), dtype=g.dtype, device=g.device)
+            buf[..., lo:hi] = g
+            wide.append(buf)
+        for i, buf in zip(idx, _bucket_sum(wide, (self.spmd.group("model"),))):
+            out[i] = buf[..., lo:hi].contiguous()
+        return out
 
     def mean_grads(self, params: Any, grads: List[torch.Tensor]) -> List[torch.Tensor]:
-        """The data-axis mean of this rank's gradients: summed over the
-        data-parallel ranks (one bucketed all-reduce a dtype; a leaf cut
+        """The gradients of the step: shared K/V summed over their model
+        ranks (:meth:`sum_shared_kv`), then the data-axis mean: summed over
+        the data-parallel ranks (one bucketed all-reduce a dtype; a leaf cut
         over "data" was summed over it by its gather's reduce-scatter, and
         is summed over "pod" only), divided by their number."""
+        grads = self.sum_shared_kv(params, grads)
         sp = self.spmd
         if sp.data_shards == 1:
             return grads
@@ -103,14 +144,18 @@ class MeshLayout:
 
     def total_square(self, params: Any) -> Callable[[List[torch.Tensor]], torch.Tensor]:
         """The clip's sum of the leaves' square-sums: each leaf's summed over
-        the mesh axes it is cut on (a replicated leaf counted once)."""
-        specs = self.specs_of(params)
+        the mesh axes it is cut on (a replicated leaf counted once; a shared
+        K/V head summed over "model" and divided by its copies, so once)."""
+        paths = self.paths_of(params)
         sp = self.spmd
 
         def total(sq: List[torch.Tensor]) -> torch.Tensor:
             by_axes: Dict[Tuple[str, ...], List[torch.Tensor]] = {}
-            for s, spec in zip(sq, specs):
-                by_axes.setdefault(tuple(sorted({a for a in spec if a is not None})), []).append(s)
+            for s, p in zip(sq, paths):
+                axes = {a for a in self.specs[p] if a is not None}
+                if p in self.shared:
+                    s, axes = s / self.copies, axes | {"model"}
+                by_axes.setdefault(tuple(sorted(axes)), []).append(s)
             parts = []
             for axes, vals in sorted(by_axes.items()):
                 part = torch.sum(torch.stack([v.to(sq[0].device) for v in vals]))
@@ -123,12 +168,19 @@ class MeshLayout:
 
     def gather(self, tree: Any) -> Any:
         """A tree of the params' structure (params or a moment) with every
-        leaf gathered whole over the axes it is cut on."""
+        leaf gathered whole over the axes it is cut on (a shared K/V leaf:
+        gathered over "model" and one copy of each head kept)."""
         def one(keys, leaf):
+            path = SH._path(keys)
             t = leaf.detach()
-            for dim, ax in enumerate(self.specs[SH._path(keys)]):
+            for dim, ax in enumerate(self.specs[path]):
                 if ax is not None and self.sizes[ax] > 1:
                     t = C.all_gather(t, dim, self.spmd.group(ax))
+            if path in self.shared:
+                m, width = self.sizes["model"], t.shape[-1]
+                t = C.all_gather(t, t.dim() - 1, self.spmd.group("model"))
+                t = t.reshape(t.shape[:-1] + (m, width))[..., ::self.copies, :]
+                t = t.reshape(t.shape[:-2] + (-1,))
             return t
 
         return SH._rebuild(tree, one)
@@ -147,10 +199,14 @@ class MeshLayout:
     def placed_bytes(self) -> int:
         """The bytes of this rank's parameters and AdamW moments that the
         placement gives (each leaf's full size over the product of its
-        axes' sizes; moments f32)."""
+        axes' sizes, a shared K/V leaf's at its heads' share; moments
+        f32)."""
         total = 0
+        nkv = self.cfg.attn.n_kv_heads
         for p, leaf in self.full:
             n = leaf.numel() // math.prod(self.sizes[a] for a in self.specs[p] if a is not None)
+            if p in self.shared:
+                n = n * (self.heads[1] - self.heads[0]) // nkv
             total += n * (leaf.element_size() + 8)
         return total
 

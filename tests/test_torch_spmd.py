@@ -499,24 +499,29 @@ def test_fused_dispatch_matches_jax_under_mesh_contexts():
 
 
 def test_tensor_parallel_refusals():
-    """Families whose model axis is not ported, and head counts a model axis
-    cannot split into whole heads, raise NotImplementedError."""
+    """What a split model axis accepts: every family at whole heads (the
+    ssm, hybrid and enc-dec families at m = 2), tied embeddings, training
+    with MQA and with kv heads shared by ranks; and what still raises:
+    query heads or SSM heads that do not divide the axis."""
     for arch in ("mamba2-1.3b", "zamba2-2.7b", "whisper-tiny"):
         _, tc = _cfgs(arch)
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-            TSH.check_tensor_parallel(tc, 2)
+        TSH.check_tensor_parallel(tc, 2)
         TSH.check_tensor_parallel(tc, 1)
     _, tc = _cfgs("mod-paper-60m")
     with pytest.raises(NotImplementedError, match="whole query heads"):
         TSH.check_tensor_parallel(tc, 3)
-    with pytest.raises(NotImplementedError, match="tied embeddings"):
-        TSH.check_tensor_parallel(dataclasses.replace(tc, tie_embeddings=True), 2)
+    _, ssm = _cfgs("mamba2-1.3b")  # 8 SSM heads at smoke size
+    with pytest.raises(NotImplementedError, match="whole SSM heads"):
+        TSH.check_tensor_parallel(ssm, 3)
+    TSH.check_tensor_parallel(dataclasses.replace(tc, tie_embeddings=True), 2)
     mqa = dataclasses.replace(tc, attn=dataclasses.replace(tc.attn, n_heads=8, n_kv_heads=1))
-    TSH.check_tensor_parallel(mqa, 4)  # the one kv head on every rank
+    TSH.check_tensor_parallel(mqa, 4)  # the one kv head on every rank, training too
     assert [TSH.kv_head_range(mqa, 4, r) for r in range(4)] == [(0, 1)] * 4
+    assert TSH.kv_copies(mqa, 4) == 4
     gqa = dataclasses.replace(tc, attn=dataclasses.replace(tc.attn, n_heads=8, n_kv_heads=2))
     assert [TSH.kv_head_range(gqa, 4, r) for r in range(4)] == [(0, 1), (0, 1), (1, 2), (1, 2)]
     assert [TSH.kv_head_range(gqa, 2, r) for r in range(2)] == [(0, 1), (1, 2)]
+    assert (TSH.kv_copies(gqa, 4), TSH.kv_copies(gqa, 2)) == (2, 1)
 
 
 # ---------------------------------------------------------------------------
